@@ -3,18 +3,26 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is swallowed):
-  1. build   — nvcc-build every kernel of the serving path from
-               skypilot_tpu_torch/csrc/ for sm_90a;
-  2. flash   — kernel A vs its plain version at llama-1b shapes;
-  3. paged   — kernel B vs its plain version at llama-1b decode shapes;
-  4. timing  — kernel, plain-version and library-call times (CUDA
-               events, medians) beside each kernel's bound;
-  5. model   — llama-1b (full width, random bf16 weights) prefill + 8
-               paged decode steps through the kernels vs the plain path;
-  6. serve   — the port's engine on llama-1b, 4 concurrent /generate
-               requests over HTTP; both kernels' launch counts must grow;
-               then the same burst under torch.profiler for the card's
-               idle share and its time by kernel.
+  1. build     — nvcc-build every kernel from skypilot_tpu_torch/csrc/
+                 for sm_90a, one nvcc per source, all at once;
+  2. flash     — kernel A vs its plain version at llama-1b shapes;
+  3. paged     — kernel B vs its plain version at llama-1b decode shapes;
+  4. flash_bwd — kernels C (dq) and D (dk, dv) vs the plain backward:
+                 GQA groups 1, 2, 4, both causal settings, ragged S,
+                 D=64, an lse cotangent, llama-1b heads at S=2048;
+  5. timing    — kernel, plain-version and library-call times (CUDA
+                 events, medians) beside each kernel's bound;
+  6. model     — llama-1b (full width, random bf16 weights) prefill + 8
+                 paged decode steps through the kernels vs the plain path;
+  7. serve     — the port's engine on llama-1b, 4 concurrent /generate
+                 requests over HTTP; kernels A and B must launch; then
+                 the same burst under torch.profiler for the card's idle
+                 share and its time by kernel;
+  8. train     — the port's trainer on llama-1b at full width, 6 steps
+                 of 4 x 2048 tokens: A twice and C, D once per layer per
+                 step; grads against the plain and fp32 paths, the loss
+                 against the plain-attention trainer, a resume at step
+                 3; one step under torch.profiler.
 Then it prints the card's name and power limit, one {"kernels": [...]}
 line, and as its last line {"ok": true, "device": {...}}.
 
@@ -63,7 +71,39 @@ TOL_MODEL = 1.25
 
 FLASH_CASES = [(16, True), (100, True), (512, True), (2048, True),
                (512, False)]
+# Backward kernels: each grad's max|err| / max|ref| against the plain
+# backward in fp32 on the same bf16 inputs, the JAX package's own bound
+# for its backward kernels (tests/unit_tests/test_flash_attention.py).
+# The kernels round p and ds to bf16 before their products (2^-9
+# relative each), as the TPU kernels do.
+TOL_BWD = 2e-2
+# (B, S=T, H, KH, D, causal, nonzero lse cotangent): GQA groups 1, 2, 4;
+# ragged S; both causal settings; D=64; llama-1b heads at S=2048.
+BWD_CASES = [(1, 100, 4, 4, 128, True, False),
+             (2, 130, 4, 2, 128, False, False),
+             (1, 256, 8, 2, 128, True, True),
+             (1, 200, 4, 1, 64, True, False),
+             (1, 300, 4, 2, 64, False, True),
+             (1, 2048, 16, 8, 128, True, False)]
 PAGED_STEPS = (1, 4)
+# The kernels each main path must launch.
+SERVE_KERNELS = ('flash_fwd', 'paged_decode')
+TRAIN_KERNELS = ('flash_fwd', 'flash_dq', 'flash_dkv')
+# Train phase: llama-1b at full width, batch 4 x 2048, 6 steps.
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP = 4, 2048, 6, 2
+# Grads: per leaf, the kernel bf16 path's relative error (Frobenius)
+# against an fp32 plain-attention run of the same weights and batch,
+# over the plain bf16 path's: bf16 rounding through 16 layers dominates
+# both; the kernels may add at most a quarter to it (as TOL_MODEL).
+TOL_GRAD = 1.25
+# Loss trajectory, kernel path vs the plain-attention path, both bf16:
+# |loss difference| per step, absolute, on a loss of ~10.4 (ln 32768):
+# 1e-3 relative, the bf16 rounding of the logits' inputs.
+TOL_LOSS = 1e-2
+# Resume at step 3 vs the uninterrupted run, steps 4-6: the same
+# arithmetic but for the embedding backward's atomics on the card, whose
+# order changes from run to run; the trainer logs losses to 4 decimals.
+TOL_RESUME = 1e-3
 
 
 def log(msg: str) -> None:
@@ -166,6 +206,51 @@ def phase_flash(torch, fa) -> dict:
     return {'max_abs_err': worst}
 
 
+def bwd_inputs(torch, fa, b, s, h, kh, d, causal, with_dlse, seed):
+    """The backward kernels' inputs: q pre-scaled and rounded to bf16,
+    k, v, do random bf16, o and lse from kernel A, dlse random or None."""
+    q, k, v = flash_inputs(torch, b, s, h, kh, d, seed)
+    qs = (q * d ** -0.5).bfloat16()
+    o, lse = fa._fwd(qs, k, v, causal)
+    g = torch.Generator(device='cuda').manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=g, device='cuda').bfloat16()
+    dlse = (torch.randn(lse.shape, generator=g, device='cuda')
+            if with_dlse else None)
+    return qs, k, v, o, lse, do, dlse
+
+
+def phase_flash_bwd(torch, fa) -> dict:
+    """Kernels C (dq) and D (dk, dv) vs the plain backward computed in
+    fp32 on the same bf16 inputs: max|err| / max|ref| < TOL_BWD for each
+    grad."""
+    worst = {'flash_dq': 0.0, 'flash_dkv': 0.0}
+    for i, (b, s, h, kh, d, causal, with_dlse) in enumerate(BWD_CASES):
+        qs, k, v, o, lse, do, dlse = bwd_inputs(torch, fa, b, s, h, kh, d,
+                                                causal, with_dlse,
+                                                seed=200 + i)
+        got = fa._bwd(qs, k, v, o, lse, do, dlse, causal)
+        ref = fa.flash_attention_bwd_ref(qs.float(), k.float(), v.float(),
+                                         o.float(), lse, do.float(), dlse,
+                                         causal=causal)
+        torch.cuda.synchronize()
+        rel = []
+        for name, a, r in zip(('dq', 'dk', 'dv'), got, ref):
+            if not bool(a.isfinite().all()):
+                fail(f'flash backward: non-finite {name} in case {i}')
+            rel.append(max_err(a, r) / float(r.abs().max()))
+        ok = max(rel) < TOL_BWD
+        log(f'[flash_bwd] B={b} S=T={s} H={h} KH={kh} D={d} causal={causal}'
+            f' dlse={with_dlse}: max|err|/max|ref| dq {rel[0]:.3e} dk '
+            f'{rel[1]:.3e} dv {rel[2]:.3e} (tol {TOL_BWD}) '
+            f'{"ok" if ok else "MISMATCH"}')
+        if not ok:
+            fail(f'flash backward kernels disagree in case {i}')
+        worst['flash_dq'] = max(worst['flash_dq'], max_err(got[0], ref[0]))
+        worst['flash_dkv'] = max(worst['flash_dkv'], max_err(got[1], ref[1]),
+                                 max_err(got[2], ref[2]))
+    return worst
+
+
 def paged_inputs(torch, pa, paging, s, seed):
     """llama-1b decode shapes: ragged lengths (one row of length 0),
     shuffled page ids, table tails 0, the step's K/V written first."""
@@ -226,7 +311,7 @@ def sdpa_gqa(torch, q, k, v, **kw):
 
 
 def phase_timing(torch, fa, pa, paging) -> dict:
-    """Times at the largest main-path shapes of phases 2 and 3."""
+    """Times at the largest main-path shapes of phases 2, 3 and 4."""
     res = {}
     # Kernel A: S=T=2048 causal, B=2, H=16, KH=8, D=128.
     b, s, h, kh, d = 2, 2048, 16, 8, 128
@@ -269,11 +354,53 @@ def phase_timing(torch, fa, pa, paging) -> dict:
                                shape=f'B={b8} S={s1} H={h8} KH={kh8} '
                                      f'hd={hd} psz=64 max_pages=32 '
                                      f'ragged ({toks} K/V tokens) bf16')
+    res.update(time_flash_bwd(torch, fa))
     for name, r in res.items():
         log(f'[timing] {name} {r["shape"]}: kernel {r["ms"]:.4f} ms, '
             f'plain {r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} '
             f'ms, bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})')
     return res
+
+
+def time_flash_bwd(torch, fa) -> dict:
+    """Kernels C and D at llama-1b training shapes (B=4, S=T=2048,
+    H=16, KH=8, D=128, causal, bf16), each launched alone on inputs
+    that kernel A and the delta op made. The plain backward and SDPA's
+    backward compute dq, dk and dv in one call: their times are the
+    pair's and stand on both rows."""
+    import torch.nn.functional as F
+    b, s, h, kh, d = 4, 2048, 16, 8, 128
+    qs, k, v, o, lse, do, _ = bwd_inputs(torch, fa, b, s, h, kh, d, True,
+                                         False, seed=2)
+    delta = fa._delta(o, do, None)
+    dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
+    ptrs = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    dims = (b, s, s, h, kh, d, 1, torch.cuda.current_stream().cuda_stream)
+    ms_dq = time_ms(lambda: fa.DQ_KERNEL.launch(*ptrs, dq.data_ptr(), *dims))
+    ms_dkv = time_ms(lambda: fa.DKV_KERNEL.launch(*ptrs, dk.data_ptr(),
+                                                  dv.data_ptr(), *dims))
+    plain = time_ms(lambda: fa.flash_attention_bwd_ref(qs, k, v, o, lse, do,
+                                                       causal=True), iters=3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (qs, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                         is_causal=True, scale=1.0)
+    go = do.transpose(1, 2).contiguous()
+    lib = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), go,
+                                              retain_graph=True))
+    # Matrix-product FLOPs, halved for causal: dq 3 products (s, dp,
+    # ds k), dkv 4 (s, dp, p^T do, ds^T q), each 2*B*H*S*T*D.
+    prod = 2 * b * h * s * s * d / 2
+    n_in = 2 * (2 * b * s * h * d + 2 * b * s * kh * d) + 4 * 2 * b * h * s
+    shape = f'B={b} S=T={s} H={h} KH={kh} D={d} causal bf16'
+    return {
+        'flash_dq': dict(ms=ms_dq, plain_ms=plain, library_ms=lib,
+                         shape=shape, **bound(3 * prod,
+                                              n_in + 2 * b * s * h * d)),
+        'flash_dkv': dict(ms=ms_dkv, plain_ms=plain, library_ms=lib,
+                          shape=shape, **bound(4 * prod,
+                                               n_in + 4 * b * s * kh * d))}
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -423,8 +550,8 @@ def phase_serve(torch, cfg, params, engine_lib, build) -> dict:
         log(f'[serve] 4 concurrent requests (17/130/300/700 tokens, '
             f'{max_new} new each) answered in {wall:.3f}s; launches '
             f'{launches}')
-        for name, n in launches.items():
-            if n == 0:
+        for name in SERVE_KERNELS:
+            if launches[name] == 0:
                 fail(f'kernel {name} was never launched while serving')
         timings = list(eng.timings)
         ttft = [t[0] for t in timings]
@@ -446,6 +573,127 @@ def phase_serve(torch, cfg, params, engine_lib, build) -> dict:
         server.shutdown()
         server.server_close()
         eng.stop()
+
+
+def phase_train(torch, build) -> dict:
+    """The port's trainer on llama-1b at full width (16 layers, dim
+    2048, vocab 32768, tied embeddings, remat 'full'): TRAIN_STEPS steps
+    of batch TRAIN_B x TRAIN_S on the synthetic corpus, through the
+    kernels. Checks the launch counts per step, finite losses and grad
+    norms, one step's grads against the plain bf16 and fp32 paths
+    (TOL_GRAD), the loss trajectory against the plain-attention trainer
+    (TOL_LOSS), and a resume at step 3 (TOL_RESUME); then profiles one
+    step. Returns the main run's launch counts."""
+    import dataclasses
+    import shutil
+    from skypilot_tpu_torch import config
+    from skypilot_tpu_torch.data import loader
+    from skypilot_tpu_torch.data_service import spec as spec_lib
+    from skypilot_tpu_torch.models import llama, weights
+    from skypilot_tpu_torch.train import train_lib, trainer
+    cfg = config.get_config('llama-1b')
+    tcfg = trainer.TrainerConfig(
+        model='llama-1b', batch_size=TRAIN_B, seq_len=TRAIN_S,
+        total_steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP, log_every=1,
+        device='cuda')
+
+    # The main path: every launch count from 0.
+    build.reset_launches()
+    hist = trainer.train(tcfg)
+    launches = {n: k.launches for n, k in build.kernels().items()}
+    want = {'flash_fwd': 2 * cfg.n_layers * TRAIN_STEPS,
+            'flash_dq': cfg.n_layers * TRAIN_STEPS,
+            'flash_dkv': cfg.n_layers * TRAIN_STEPS, 'paged_decode': 0}
+    log(f'[train] llama-1b, {cfg.n_layers} layers, remat {cfg.remat}, '
+        f'batch {TRAIN_B}x{TRAIN_S}, {TRAIN_STEPS} steps: launches '
+        f'{launches} (want {want})')
+    if launches != want:
+        fail(f'train launches {launches} != {want}')
+    for r in hist:
+        log(f'[train] {json.dumps(r)}')
+        if not (np.isfinite(r['loss']) and np.isfinite(r['grad_norm'])):
+            fail(f'train step {r["step"]}: non-finite loss or grad norm')
+    sec = statistics.median(r['sec_per_step'] for r in hist[1:])
+    log(f'[train] {sec * 1e3:.1f} ms/step (median of steps 2-'
+        f'{TRAIN_STEPS}), {TRAIN_B * TRAIN_S / sec:.0f} tokens/s')
+
+    plain = trainer.train(dataclasses.replace(
+        tcfg, model_overrides={'attention_impl': 'xla'}))
+    diff = max(abs(a['loss'] - b['loss']) for a, b in zip(hist, plain))
+    log(f'[train] loss, kernels vs plain attention: '
+        f'{[r["loss"] for r in hist]} vs {[r["loss"] for r in plain]}, '
+        f'max |diff| {diff:.4f} (tol {TOL_LOSS})')
+    if diff > TOL_LOSS:
+        fail(f'train loss departs from the plain path by {diff}')
+
+    ck = os.path.join(HERE, '.smoke_ckpt')
+    shutil.rmtree(ck, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        trainer.train(dataclasses.replace(tcfg, total_steps=3, ckpt_dir=ck,
+                                          ckpt_every=3))
+        resumed = trainer.train(dataclasses.replace(tcfg, ckpt_dir=ck,
+                                                    ckpt_every=3))
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    if [r['step'] for r in resumed] != list(range(4, TRAIN_STEPS + 1)):
+        fail(f'resume ran steps {[r["step"] for r in resumed]}')
+    diff = max(abs(a['loss'] - b['loss']) for a, b in zip(hist[3:], resumed))
+    log(f'[train] resume at step 3 (save, restore, 3 more steps: '
+        f'{secs:.1f}s): losses {[r["loss"] for r in resumed]}, max |diff| '
+        f'vs uninterrupted {diff:.4f} (tol {TOL_RESUME})')
+    if diff > TOL_RESUME:
+        fail(f'resumed run departs from the uninterrupted one by {diff}')
+
+    # One step's grads three ways on the trainer's initial weights and
+    # first batch: kernels (bf16), plain attention (bf16), plain fp32.
+    params = llama.init_params(cfg, torch.Generator(device='cuda')
+                               .manual_seed(0), 'cuda')
+    leaves = train_lib.leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    source = spec_lib.load_source(spec_lib.DatasetSpec(
+        TRAIN_B, TRAIN_S, cfg.vocab_size))
+    batch = loader.to_device(source.batch_at_step(0), 'cuda')
+
+    def grads(cfg_run):
+        tokens = batch['tokens']
+        logits = llama.forward(params, tokens[:, :-1], cfg_run)
+        loss, _ = train_lib.cross_entropy_loss(logits, tokens[:, 1:])
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    g_kern = grads(cfg)
+    g_plain = grads(dataclasses.replace(cfg, attention_impl='xla'))
+    g_ref = grads(dataclasses.replace(cfg, attention_impl='xla',
+                                      dtype=torch.float32))
+    names = [p for p, _ in weights.tree_paths(params)]
+    worst = 0.0
+    for name, gk, gp, gr in zip(names, g_kern, g_plain, g_ref):
+        if gk is None or not bool(gk.isfinite().all()):
+            fail(f'grad of {name}: missing or non-finite on the kernel path')
+        ref_norm = float(gr.norm())
+        e_k = float((gk - gr).norm()) / ref_norm
+        e_p = float((gp - gr).norm()) / ref_norm
+        worst = max(worst, e_k / e_p)
+        log(f'[train] grad {name}: |err|/|fp32| kernel {e_k:.3e}, plain '
+            f'{e_p:.3e}, ratio {e_k / e_p:.3f}')
+    if worst > TOL_GRAD:
+        fail(f'grads: kernel error {worst:.2f}x the plain bf16 error > '
+             f'{TOL_GRAD}x')
+    log(f'[train] grads of all {len(names)} leaves: kernel/plain error '
+        f'ratio worst {worst:.3f} (tol {TOL_GRAD}) ok')
+    del g_kern, g_plain, g_ref
+
+    # One step under the profiler: the card's idle share and where its
+    # time goes.
+    tx = train_lib.default_optimizer(warmup_steps=TRAIN_WARMUP,
+                                     total_steps=TRAIN_STEPS)
+    state = train_lib.init_train_state(cfg, tx, 'cuda', params=params)
+    step_fn = train_lib.make_train_step(cfg, tx)
+    step_fn(state, batch)
+    profile_device(torch, lambda: step_fn(state, batch))
+    return launches
 
 
 def profile_device(torch, fn) -> None:
@@ -483,8 +731,9 @@ def gpu_line() -> str:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument('--phases', default='build,flash,paged,timing,'
-                        'model,serve', help='comma-separated subset (for '
+    parser.add_argument('--phases', default='build,flash,paged,flash_bwd,'
+                        'timing,model,serve,train', help='comma-separated '
+                        'subset (for '
                         'debugging; the full run is the check)')
     args = parser.parse_args()
     phases = set(args.phases.split(','))
@@ -510,13 +759,15 @@ def main() -> None:
     log(f'[device] {torch.cuda.get_device_name(0)} | {card} | torch '
         f'{torch.__version__} cuda {torch.version.cuda}')
 
-    errs, times, launches = {}, {}, {}
+    errs, times, by_path = {}, {}, {}
     if 'build' in phases:
         phase_build(build)
     if 'flash' in phases:
         errs['flash_fwd'] = phase_flash(torch, fa)['max_abs_err']
     if 'paged' in phases:
         errs['paged_decode'] = phase_paged(torch, pa, paging)['max_abs_err']
+    if 'flash_bwd' in phases:
+        errs.update(phase_flash_bwd(torch, fa))
     if 'timing' in phases:
         times = phase_timing(torch, fa, pa, paging)
     if 'model' in phases or 'serve' in phases:
@@ -527,19 +778,31 @@ def main() -> None:
         if 'model' in phases:
             phase_model(torch, cfg, params, decode, paging, pa)
         if 'serve' in phases:
-            launches = phase_serve(torch, cfg, params, engine_lib, build)
+            by_path['serve'] = phase_serve(torch, cfg, params, engine_lib,
+                                           build)
+        del params
+        torch.cuda.empty_cache()
+    if 'train' in phases:
+        by_path['train'] = phase_train(torch, build)
 
     replaces = {
         'flash_fwd': 'skypilot_tpu/ops/pallas/flash_attention.py:63',
+        'flash_dq': 'skypilot_tpu/ops/pallas/flash_attention.py:159',
+        'flash_dkv': 'skypilot_tpu/ops/pallas/flash_attention.py:196',
         'paged_decode': 'skypilot_tpu/ops/pallas/paged_attention.py:48'}
+    # Launches: each kernel's count on the main paths it belongs to
+    # (serving: SERVE_KERNELS, training: TRAIN_KERNELS), summed.
+    paths = {'serve': SERVE_KERNELS, 'train': TRAIN_KERNELS}
     rows = []
     for name, kern in build.kernels().items():
         t = times.get(name, {})
+        mine = {p: n[name] for p, n in by_path.items() if name in paths[p]}
         rows.append({
             'name': name, 'route': 'cuda',
             'source': f'skypilot_tpu_torch/csrc/{kern.source}',
             'replaces': replaces[name],
-            'launches': launches.get(name),
+            'launches': sum(mine.values()) if mine else None,
+            'launches_by_path': mine,
             'max_abs_err': errs.get(name),
             'ms': t.get('ms'), 'plain_ms': t.get('plain_ms'),
             'bound_ms': t.get('bound_ms'), 'bound_by': t.get('bound_by'),

@@ -179,7 +179,13 @@ _UNSUPPORTED = (
 
 
 def check_supported(cfg: LlamaConfig) -> None:
-    """Raise NotImplementedError for a switch this slice does not port."""
+    """Raise NotImplementedError for a switch the port does not have."""
+    if cfg.remat not in ('none', 'full'):
+        raise NotImplementedError(
+            f'remat={cfg.remat!r} is not ported yet: the port has the '
+            f"'none' and 'full' layer recompute; 'dots' (save the matrix "
+            f'products, recompute the rest) waits for ROADMAP Queue 1 item '
+            f'4 (training slice)')
     for name, default in _UNSUPPORTED:
         if getattr(cfg, name) != default:
             raise NotImplementedError(

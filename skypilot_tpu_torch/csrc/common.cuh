@@ -38,6 +38,27 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Shared-memory row pitch of a tile of D bf16 columns: 16-byte rows and
+// conflict-free ldmatrix.
+template <int D>
+__host__ __device__ constexpr int row_pitch() { return D + 8; }
+
+// Stage `rows` rows of D bf16 (global row pitch `pitch` elements) into
+// shared memory (row pitch row_pitch<D>()) with cp.async, THREADS
+// threads sharing the copy; rows at or past `valid` are zero-filled. The
+// caller commits the group.
+template <int D, int THREADS>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           long pitch, int rows, int valid) {
+  constexpr int CHUNKS = D / 8;          // 16-byte chunks per row
+  for (int c = threadIdx.x; c < rows * CHUNKS; c += THREADS) {
+    const int r = c / CHUNKS, cc = c % CHUNKS;
+    const bool ok = r < valid;
+    cp_async16_zfill(dst + r * row_pitch<D>() + cc * 8,
+                     src + (ok ? r * pitch + cc * 8 : 0), ok ? 16 : 0);
+  }
+}
+
 // Four 8x8 b16 matrices from shared memory; lane l gives the address of
 // row l % 8 of matrix l / 8 and receives r[m] from matrix m.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {

@@ -43,26 +43,15 @@ constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Layout {
-  static constexpr int LD = D + 8;      // bf16 row pitch: 16-byte rows,
-                                        // conflict-free ldmatrix
+  static constexpr int LD = port::row_pitch<D>();  // bf16 row pitch
   static constexpr int TILE = BK * LD;  // elements of one K or V tile
   static constexpr size_t BYTES = sizeof(bf16) * (BQ * LD + 4 * TILE);
 };
 
-// Stage `rows` rows of D bf16 (global row pitch `pitch` elements) into
-// shared memory (row pitch LD) with cp.async; rows at or past `valid`
-// are zero-filled. The caller commits the group.
 template <int D>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
                                            long pitch, int rows, int valid) {
-  constexpr int CHUNKS = D / 8;          // 16-byte chunks per row
-  constexpr int LD = Layout<D>::LD;
-  for (int c = threadIdx.x; c < rows * CHUNKS; c += NTHREADS) {
-    const int r = c / CHUNKS, cc = c % CHUNKS;
-    const bool ok = r < valid;
-    port::cp_async16_zfill(dst + r * LD + cc * 8,
-                           src + (ok ? r * pitch + cc * 8 : 0), ok ? 16 : 0);
-  }
+  port::stage_rows<D, NTHREADS>(dst, src, pitch, rows, valid);
 }
 
 template <int D>

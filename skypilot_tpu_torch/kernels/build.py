@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
 Each source compiles with nvcc, by hand, into its own shared library
+(one source may hold several kernels' entry points)
 with a plain C interface, loaded with ctypes: no PyTorch headers, so a
 build takes seconds. Libraries land in ``skypilot_tpu_torch/_build/``
 (git-ignored) under a name keyed by a hash of the source and the
@@ -78,14 +79,16 @@ def _finish_build(proc: subprocess.Popen) -> str:
 
 def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
     """Build every registered kernel's library that is missing, one nvcc
-    per source started together; load them all. Returns the compiler's
-    log (registers, shared memory, spills) per kernel name."""
+    per source (several kernels may share one) started together; load
+    them all. Returns the compiler's log (registers, shared memory,
+    spills) per source built."""
     with _lock:
         kernels = [k for n, k in _KERNELS.items()
                    if names is None or n in names]
-        procs = {k.name: _start_build(k.source, _lib_path(k.source))
-                 for k in kernels if not os.path.exists(_lib_path(k.source))}
-        logs = {name: _finish_build(p) for name, p in procs.items()}
+        missing = sorted({k.source for k in kernels
+                          if not os.path.exists(_lib_path(k.source))})
+        procs = {src: _start_build(src, _lib_path(src)) for src in missing}
+        logs = {src: _finish_build(p) for src, p in procs.items()}
         for k in kernels:
             k._load()
     return logs

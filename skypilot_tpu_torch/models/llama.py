@@ -4,7 +4,12 @@
 Params are a plain dict of tensors in the JAX tree's layout: layer
 leaves stacked on a leading [L] axis, projections kept [in, out] so the
 products read as the JAX einsums do (``h @ wq[l]``). The layer scan is a
-Python loop. No pipeline, ring or remat.
+Python loop. Training keeps fp32 master params (cfg.param_dtype) and
+computes in cfg.dtype; ``cfg.remat`` picks the layer recompute as the
+JAX ``_REMAT_POLICIES`` do: 'none' saves every activation, 'full'
+(``nothing_saveable``) recomputes each layer in the backward through
+``torch.utils.checkpoint``; 'dots' is refused by
+:func:`config.check_supported`. No pipeline or ring.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from skypilot_tpu_torch.config import LlamaConfig, check_supported
 from skypilot_tpu_torch.ops import norms, rotary
@@ -120,21 +126,38 @@ def embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig
     return params['embed'][tokens.long()].to(cfg.dtype)
 
 
+def layer(x: torch.Tensor, lp, cfg: LlamaConfig, sin, cos) -> torch.Tensor:
+    """One decoder layer over a whole sequence (positions from 0):
+    attention by ``cfg.attention_impl``, then the SwiGLU block."""
+    q, k, v = qkv(x, lp, cfg, sin, cos)
+    out = _attention(q, k, v, impl=cfg.attention_impl, causal=True)
+    x = x + wo_project(out, lp, cfg)
+    return x + ffn(x, lp, cfg)
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
             return_hidden: bool = False) -> torch.Tensor:
     """tokens [B, S] → logits [B, S, vocab] (fp32), or the final-norm
-    hidden states [B, S, D] fp32 with ``return_hidden``."""
+    hidden states [B, S, D] fp32 with ``return_hidden``. Under autograd
+    with ``cfg.remat == 'full'`` each layer is recomputed in the
+    backward (its attention forward runs twice a step)."""
     check_supported(cfg)
     x = embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     sin, cos = rotary.rope_frequencies(cfg.hd, positions, cfg.rope_theta,
                                        cfg.rope_scaling)
+    remat = cfg.remat == 'full' and torch.is_grad_enabled()
+    # One unbind per stacked leaf, not an index per layer: the backward
+    # of unbind stacks the L layer grads once, where indexing would
+    # zero-fill and add a full [L, ...] grad for every layer.
+    layers = {k: v.unbind(0) for k, v in params['layers'].items()}
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        q, k, v = qkv(x, lp, cfg, sin, cos)
-        out = _attention(q, k, v, causal=True)
-        x = x + wo_project(out, lp, cfg)
-        x = x + ffn(x, lp, cfg)
+        lp = {k: v[i] for k, v in layers.items()}
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                layer, x, lp, cfg, sin, cos, use_reentrant=False)
+        else:
+            x = layer(x, lp, cfg, sin, cos)
     if return_hidden:
         return norms.rms_norm(x, params['final_norm'], cfg.rms_eps).float()
     return unembed(x, params, cfg)

@@ -4,12 +4,13 @@
 Layouts: q [B, S, H, D]; k, v [B, T, KH, D] with H = KH * G. Scores
 accumulate in fp32; the output comes back in q.dtype.
 
-``impl='auto'`` sends a CUDA tensor to the hand-written flash kernel
-(ops/flash_attention.py, kernel A), which serves prefill at every
-prompt bucket and raises on what it does not take (dtypes other than
-bf16, head dims other than 64 and 128); a CPU tensor takes the plain
-version.
-``impl='xla'`` asks for the plain version on any device.
+``impl='auto'`` sends a CUDA tensor through the flash autograd function
+(ops/flash_attention.py: kernel A forward, kernels C and D backward),
+which serves prefill at every prompt bucket and training at every
+length, and raises on what it does not take (dtypes other than bf16,
+head dims other than 64 and 128); a CPU tensor takes the plain version.
+``impl='xla'`` asks for the plain version on any device, differentiable
+by autograd.
 """
 from __future__ import annotations
 

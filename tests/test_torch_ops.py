@@ -190,8 +190,8 @@ def test_gather_and_write_pages_match_jax():
 
 
 def test_wrappers_take_plain_version_on_cpu_and_launch_nothing():
-    """On CPU tensors both wrappers give exactly their plain version,
-    build nothing and leave their launch counts at 0."""
+    """On CPU tensors the wrappers give exactly their plain versions,
+    build nothing and leave every kernel's launch count at 0."""
     build.reset_launches()
     rng, kp, vp, table, length = _pool(30, 1)
     q = torch.from_numpy(_np(rng, len(length), 1, 4, 16))
@@ -208,7 +208,8 @@ def test_wrappers_take_plain_version_on_cpu_and_launch_nothing():
     assert torch.equal(attention.attention(fq, fk, fv),
                        attention.xla_attention(fq, fk, fv))
     kernels = build.kernels()
-    assert set(kernels) == {'flash_fwd', 'paged_decode'}
+    assert set(kernels) == {'flash_fwd', 'flash_dq', 'flash_dkv',
+                            'paged_decode'}
     for k in kernels.values():
         assert k.launches == 0
         assert k._fn is None                 # never built or loaded
