@@ -10,8 +10,10 @@ Phases (any failure exits non-zero; nothing is swallowed):
   4. flash_bwd — kernels C (dq) and D (dk, dv) vs the plain backward:
                  GQA groups 1, 2, 4, both causal settings, ragged S,
                  D=64, an lse cotangent, llama-1b heads at S=2048;
-  5. timing    — kernel, plain-version and library-call times (CUDA
-                 events, medians) beside each kernel's bound;
+  5. timing    — each kernel's launch alone, its plain version's and
+                 one library call's times (CUDA events, medians) beside
+                 the kernel's bound and its share of it; kernel A at the
+                 serve (B=2) and train (B=4) shapes, with its wrapper;
   6. model     — llama-1b (full width, random bf16 weights) prefill + 8
                  paged decode steps through the kernels vs the plain path;
   7. serve     — the port's engine on llama-1b, 4 concurrent /generate
@@ -310,23 +312,85 @@ def sdpa_gqa(torch, q, k, v, **kw):
     return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
 
 
-def phase_timing(torch, fa, pa, paging) -> dict:
-    """Times at the largest main-path shapes of phases 2, 3 and 4."""
-    res = {}
-    # Kernel A: S=T=2048 causal, B=2, H=16, KH=8, D=128.
-    b, s, h, kh, d = 2, 2048, 16, 8, 128
+# Kernel A is timed at the serve shape (B=2) and at the train shape
+# (B=4); C and D at the train shape. All S=T=2048, H=16, KH=8, D=128,
+# causal, bf16 (llama-1b's heads).
+FWD_TIMING_B = (2, 4)
+BWD_TIMING_B = 4
+TIMING_SHAPE = dict(s=2048, h=16, kh=8, d=128)
+
+
+def fwd_launch(torch, fa, b):
+    """Kernel A's inputs at batch ``b`` and a callable that launches the
+    kernel alone on pre-scaled q, as C and D are launched."""
+    s, h, kh, d = (TIMING_SHAPE[x] for x in ('s', 'h', 'kh', 'd'))
     q, k, v = flash_inputs(torch, b, s, h, kh, d, seed=1)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    ms = time_ms(lambda: fa.flash_attention_lse(q, k, v, causal=True))
-    plain = time_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True),
-                    iters=3)
-    lib = time_ms(lambda: sdpa_gqa(torch, qt, kt, vt, is_causal=True))
-    flops = 4 * b * h * s * s * d / 2
-    nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kh * d) + 4 * b * h * s
-    res['flash_fwd'] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                            **bound(flops, nbytes),
-                            shape=f'B={b} S=T={s} H={h} KH={kh} D={d} '
-                                  f'causal bf16')
+    qs = (q * d ** -0.5).bfloat16()
+    o = torch.empty_like(qs)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device='cuda')
+    args = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, s, s, h, kh, d, 1,
+            torch.cuda.current_stream().cuda_stream)
+    return (q, k, v), lambda: fa.KERNEL.launch(*args)
+
+
+def bwd_launches(torch, fa):
+    """Kernels C and D's inputs at the train shape (o and lse from kernel
+    A, delta from the delta op) and a callable launching each alone."""
+    b = BWD_TIMING_B
+    s, h, kh, d = (TIMING_SHAPE[x] for x in ('s', 'h', 'kh', 'd'))
+    qs, k, v, o, lse, do, _ = bwd_inputs(torch, fa, b, s, h, kh, d, True,
+                                         False, seed=2)
+    delta = fa._delta(o, do, None)
+    dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
+    ptrs = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    dims = (b, s, s, h, kh, d, 1, torch.cuda.current_stream().cuda_stream)
+    return ((qs, k, v, o, lse, do),
+            lambda: fa.DQ_KERNEL.launch(*ptrs, dq.data_ptr(), *dims),
+            lambda: fa.DKV_KERNEL.launch(*ptrs, dk.data_ptr(), dv.data_ptr(),
+                                         *dims))
+
+
+def kernel_ms(torch, fa) -> dict:
+    """Each flash kernel's launch alone, in ms (kernel_ab.py compares two
+    checkouts with it)."""
+    out = {f'flash_fwd B={b}': time_ms(fwd_launch(torch, fa, b)[1])
+           for b in FWD_TIMING_B}
+    _, dq, dkv = bwd_launches(torch, fa)
+    out[f'flash_dq B={BWD_TIMING_B}'] = time_ms(dq)
+    out[f'flash_dkv B={BWD_TIMING_B}'] = time_ms(dkv)
+    return out
+
+
+def fwd_flops_bytes(b, s, h, kh, d):
+    """Causal forward: 2 products of 2*B*H*S*T*D/2 FLOPs; q, k, v in,
+    o and lse out, each once."""
+    return (4 * b * h * s * s * d / 2,
+            2 * (2 * b * s * h * d + 2 * b * s * kh * d) + 4 * b * h * s)
+
+
+def phase_timing(torch, fa, pa, paging) -> dict:
+    """Times at the largest main-path shapes of phases 2, 3 and 4, each
+    kernel by its launch alone."""
+    res = {}
+    s, h, kh, d = (TIMING_SHAPE[x] for x in ('s', 'h', 'kh', 'd'))
+    for b in FWD_TIMING_B:
+        (q, k, v), launch = fwd_launch(torch, fa, b)
+        ms = time_ms(launch)
+        wrapper = time_ms(lambda: fa.flash_attention_lse(q, k, v, causal=True))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = time_ms(lambda: sdpa_gqa(torch, qt, kt, vt, is_causal=True))
+        plain = time_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True),
+                        iters=3)
+        row = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                   **bound(*fwd_flops_bytes(b, s, h, kh, d)),
+                   shape=f'B={b} S=T={s} H={h} KH={kh} D={d} causal bf16')
+        log(f'[timing] flash_fwd {row["shape"]}: wrapper '
+            f'flash_attention_lse (q pre-scale pass + kernel) {wrapper:.4f} '
+            f'ms')
+        # The serve-shape row is the kernel's row in the kernels line.
+        res['flash_fwd' if b == FWD_TIMING_B[0] else f'flash_fwd B={b}'] = row
     # Kernel B: B=8, S=1, ragged lengths, psz=64, max_pages=32.
     s1 = 1
     q, kp, vp, table, length, lengths = paged_inputs(torch, pa, paging, s1,
@@ -358,7 +422,8 @@ def phase_timing(torch, fa, pa, paging) -> dict:
     for name, r in res.items():
         log(f'[timing] {name} {r["shape"]}: kernel {r["ms"]:.4f} ms, '
             f'plain {r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} '
-            f'ms, bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})')
+            f'ms, bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}), '
+            f'{r["bound_ms"] / r["ms"]:.1%} of bound')
     return res
 
 
@@ -369,17 +434,11 @@ def time_flash_bwd(torch, fa) -> dict:
     backward compute dq, dk and dv in one call: their times are the
     pair's and stand on both rows."""
     import torch.nn.functional as F
-    b, s, h, kh, d = 4, 2048, 16, 8, 128
-    qs, k, v, o, lse, do, _ = bwd_inputs(torch, fa, b, s, h, kh, d, True,
-                                         False, seed=2)
-    delta = fa._delta(o, do, None)
-    dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
-    ptrs = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr())
-    dims = (b, s, s, h, kh, d, 1, torch.cuda.current_stream().cuda_stream)
-    ms_dq = time_ms(lambda: fa.DQ_KERNEL.launch(*ptrs, dq.data_ptr(), *dims))
-    ms_dkv = time_ms(lambda: fa.DKV_KERNEL.launch(*ptrs, dk.data_ptr(),
-                                                  dv.data_ptr(), *dims))
+    b = BWD_TIMING_B
+    s, h, kh, d = (TIMING_SHAPE[x] for x in ('s', 'h', 'kh', 'd'))
+    (qs, k, v, o, lse, do), launch_dq, launch_dkv = bwd_launches(torch, fa)
+    ms_dq = time_ms(launch_dq)
+    ms_dkv = time_ms(launch_dkv)
     plain = time_ms(lambda: fa.flash_attention_bwd_ref(qs, k, v, o, lse, do,
                                                        causal=True), iters=3)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
@@ -805,6 +864,8 @@ def main() -> None:
             'launches_by_path': mine,
             'max_abs_err': errs.get(name),
             'ms': t.get('ms'), 'plain_ms': t.get('plain_ms'),
+            **({'train_shape_ms': times['flash_fwd B=4']['ms']}
+               if name == 'flash_fwd' and 'flash_fwd B=4' in times else {}),
             'bound_ms': t.get('bound_ms'), 'bound_by': t.get('bound_by'),
             'library_ms': t.get('library_ms')})
     log(f'[device] {card}')

@@ -21,37 +21,44 @@
 // far below the ~295 FLOP/byte ridge at training lengths, so the floor
 // is FLOPs / 989 TFLOP/s (dense bf16).
 //
-// Design, shared with kernel A (flash_fwd.cu): 4 warps a block, each
-// warp owning 16 rows of the block's own tile; every product on the
-// tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate) and
-// ldmatrix fragment loads; a C fragment of s or ds, rounded to bf16, is
-// directly the A fragment of the next product, so p and ds never leave
-// registers; the streamed operand is double-buffered through shared
-// memory with zero-filling cp.async; the ragged edge (rows past S, keys
-// past T) and the causal diagonal are masked in registers, so any S and
-// T run. Probabilities and ds round to bf16 before their products, as
-// the TPU kernels do.
+// Kernel C: one block (4 warps) per (64-row q tile, q head, batch row),
+// heaviest causal tiles first, each warp owning 16 rows. Q and dO stay
+// in shared memory; a loop over 64-key tiles up to the causal diagonal
+// (the TPU's sequential kv grid axis) streams K and V, double-buffered
+// with zero-filling cp.async, and accumulates dq (16 x D a warp) in
+// fp32 registers. Every product runs on the tensor cores with mma.sync
+// m16n8k16 (bf16 in, fp32 accumulate) and ldmatrix fragment loads; the
+// C fragment of ds, rounded to bf16, is directly the A fragment of
+// ds k, so p and ds never leave registers. What this leaves for later:
+// kernel D's wgmma/TMA design.
 //
-// Kernel C: one block per (64-row q tile, q head, batch row), heaviest
-// causal tiles first. Q and dO stay in shared memory; a loop over 64-key
-// tiles up to the causal diagonal streams K and V (the TPU's sequential
-// kv grid axis) and accumulates dq (16 x D a warp) in fp32 registers.
-//
-// Kernel D: one block per (64-key kv tile, kv head, batch row). K and V
-// stay in shared memory; a loop over the H/KH q heads of the kv head and
-// over 32-row q tiles from the diagonal on streams Q, dO and their rows'
-// lse and delta, and accumulates dk and dv (16 x D each a warp) in fp32
-// registers. So the group sum happens inside the kernel, in fp32, with
-// no [B,H,T,D] intermediate, and no block writes another's output: no
-// atomics, a step is deterministic. Recomputing s^T = k q^T (keys as
-// rows) makes p^T and ds^T C fragments whose bf16 packing is the A
-// fragment of p^T do and ds^T q, with do and q loaded transposed by
-// ldmatrix.trans. The q tile is 32 rows, not 64, to keep the two fp32
-// accumulators (128 floats a thread at D=128) and the score fragments
-// within 255 registers without spilling.
-//
-// What this leaves for later: wgmma, TMA loads, a producer/consumer warp
-// split, and 8-warp blocks over wider tiles.
+// Kernel D (Hopper: wgmma, TMA, warp specialisation): one block per
+// (128-key tile, kv head, batch row) of three warpgroups. A producer (40
+// registers, setmaxnreg) loads K and V once by TMA, then streams, over
+// the H/KH q heads of the kv head and the 64-row q tiles from the
+// diagonal on, each tile's Q and dO by TMA into a three-stage ring; its
+// first warp stores the tile's lse (base 2) and delta rows into the same
+// stage with plain loads (a TMA box cannot start at an odd fp32 offset)
+// and arrives on the stage's one mbarrier, so no consumer waits on a
+// global load. Two consumers (232 registers) own 64 keys each and take a
+// q tile in two halves of 32 rows: s^T = k q^T and dp^T = v do^T by
+// wgmma m64n32k16 (K and V the A operands, Q and dO the B operands, all
+// from shared memory, K-major); p^T and ds^T, masked and rounded to bf16
+// in registers, are the register A operands of dv += p^T do and
+// dk += ds^T q, whose B operands are the same Q and dO tiles read
+// MN-major (the transpose bit); the second half's first products run
+// with the first half's second ones. The halves keep the two fp32 64 x D
+// accumulators (128 registers a thread at D=128) beside 32 of scores: a
+// 64-row tile at once spilled 272-300 bytes at D=128 and ran slower on
+// an H100. So
+// the group sum over the q heads happens inside the block, in fp32
+// registers, with no [B,H,T,D] intermediate, and no block writes
+// another's output: no atomics, a step is deterministic. Tiles are
+// 128-byte swizzled; 4-D tensor maps over [B, S, H, D] keep a box inside
+// one head and batch row and zero-fill rows past S or T. The ragged edge
+// and the causal diagonal are masked in registers, so any S and T run.
+// Probabilities and ds round to bf16 before their products, as the TPU
+// kernels do.
 #include "common.cuh"
 
 using port::bf16;
@@ -59,9 +66,8 @@ using port::bf16;
 namespace {
 
 constexpr int BQ = 64;           // kernel C: q rows a block
-constexpr int BK = 64;           // kernel C: keys a tile; kernel D: keys a block
-constexpr int BQ2 = 32;          // kernel D: q rows a tile
-constexpr int NWARPS = 4;        // each warp owns 16 rows
+constexpr int BK = 64;           // kernel C: keys a tile
+constexpr int NWARPS = 4;        // kernel C: each warp owns 16 rows
 constexpr int NTHREADS = NWARPS * 32;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -271,176 +277,256 @@ flash_dq_kernel(const bf16* __restrict__ q,      // [B,S,H,D] pre-scaled
 
 // ---------------------------------------------------------------- kernel D
 
+constexpr int DK_BK = 128;       // keys a block: two consumers of 64
+constexpr int DK_BQ = 64;        // q rows a tile
+constexpr int DK_STAGES = 3;     // q-tile ring depth
+constexpr int DK_THREADS = 384;  // producer + two consumer warpgroups
+constexpr int DK_CONSUMER_WARPS = 8;
+
+// Shared memory, every tile 1024-byte aligned: K and V (resident), the
+// Q and dO ring, then each stage's lse (base 2) and delta rows and the
+// barriers.
+// A tile of D columns is D/64 swizzled boxes of 64 columns (128 B a row).
 template <int D>
-struct DkvLayout {
-  static constexpr int LD = port::row_pitch<D>();
-  static constexpr int KTILE = BK * LD;   // K or V, resident
-  static constexpr int QTILE = BQ2 * LD;  // one Q or dO tile
-  static constexpr size_t BYTES =
-      sizeof(bf16) * (2 * KTILE + 4 * QTILE) + sizeof(float) * 4 * BQ2;
+struct DkvSmem {
+  static constexpr int BOXES = D / 64;
+  static constexpr int KV_BOX = DK_BK * 128;
+  static constexpr int Q_BOX = DK_BQ * 128;
+  static constexpr int KV_TILE = BOXES * KV_BOX;
+  static constexpr int Q_TILE = BOXES * Q_BOX;
+  static constexpr int ROWS_BYTES = DK_BQ * 4;            // lse or delta
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = KV_TILE;
+  static constexpr int Q_OFF = 2 * KV_TILE;               // [stage] Q tiles
+  static constexpr int DO_OFF = Q_OFF + DK_STAGES * Q_TILE;
+  static constexpr int LSE_OFF = DO_OFF + DK_STAGES * Q_TILE;
+  static constexpr int DELTA_OFF = LSE_OFF + DK_STAGES * ROWS_BYTES;
+  static constexpr int BAR_OFF = DELTA_OFF + DK_STAGES * ROWS_BYTES;
+  static constexpr int STAGE_TX = 2 * Q_TILE;             // TMA bytes
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * DK_STAGES) + 1024;
 };
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS, 2)
-flash_dkv_kernel(const bf16* __restrict__ q,      // [B,S,H,D] pre-scaled
-                 const bf16* __restrict__ k,      // [B,T,KH,D]
-                 const bf16* __restrict__ v,      // [B,T,KH,D]
-                 const bf16* __restrict__ dout,   // [B,S,H,D]
-                 const float* __restrict__ lse,   // [B,H,S]
-                 const float* __restrict__ delta, // [B,H,S]
-                 bf16* __restrict__ dk,           // [B,T,KH,D]
-                 bf16* __restrict__ dv,           // [B,T,KH,D]
+__global__ void __launch_bounds__(DK_THREADS, 1)
+flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,D] pre-scaled
+                 const __grid_constant__ CUtensorMap tm_k,    // [B,T,KH,D]
+                 const __grid_constant__ CUtensorMap tm_v,    // [B,T,KH,D]
+                 const __grid_constant__ CUtensorMap tm_do,   // [B,S,H,D]
+                 const float* __restrict__ lse,               // [B,H,S]
+                 const float* __restrict__ delta,             // [B,H,S]
+                 bf16* __restrict__ dk,                        // [B,T,KH,D]
+                 bf16* __restrict__ dv,                        // [B,T,KH,D]
                  int S, int T, int H, int KH, int causal) {
-  constexpr int LD = DkvLayout<D>::LD;
-  constexpr int KTILE = DkvLayout<D>::KTILE, QTILE = DkvLayout<D>::QTILE;
-  constexpr int NT = BQ2 / 8;            // 8-row q tiles of s^T and dp^T
-  constexpr int DT = D / 8;              // 8-column tiles of dk and dv
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + KTILE;
-  bf16* sQ = sV + KTILE;                 // two Q tiles, then two dO tiles
-  bf16* sdO = sQ + 2 * QTILE;
-  float* sL = reinterpret_cast<float*>(sdO + 2 * QTILE);   // [2][BQ2]
-  float* sDl = sL + 2 * BQ2;                               // [2][BQ2]
+  using L = DkvSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = port::align1024(smem_raw);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + DK_STAGES;
 
   // Causal work shrinks as the key tile moves right: the lowest tiles,
   // launched first, are the heaviest.
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * DK_BK;
   const int kh = blockIdx.y;
   const int b = blockIdx.z;
   const int G = H / KH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const Lanes ln(lane);
-
-  const long q_pitch = (long)H * D;
-  const long kv_pitch = (long)KH * D;
-  const long kv_off = ((long)b * T + k0) * kv_pitch + (long)kh * D;
-
   // q rows below the block's first key see none of its keys when causal.
   const int q_start = causal ? k0 : 0;
-  const int n_qt = q_start < S ? (S - q_start + BQ2 - 1) / BQ2 : 0;
+  const int n_qt = q_start < S ? (S - q_start + DK_BQ - 1) / DK_BQ : 0;
   const int n_it = G * n_qt;             // (q head, q tile) pairs
 
-  // Stage iteration `it`'s Q and dO tiles (cp.async) and its rows' lse
-  // (base 2) and delta (plain loads; rows past S read 0) into buffer buf.
-  auto stage_q = [&](int it, int buf) {
-    const int hq = kh * G + it / n_qt;
-    const int q0 = q_start + (it % n_qt) * BQ2;
-    const long off = ((long)b * S + q0) * q_pitch + (long)hq * D;
-    stage_rows<D>(sQ + buf * QTILE, q + off, q_pitch, BQ2, S - q0);
-    stage_rows<D>(sdO + buf * QTILE, dout + off, q_pitch, BQ2, S - q0);
-    if (threadIdx.x < BQ2) {
-      const int row = q0 + threadIdx.x;
-      const long idx = ((long)b * H + hq) * S + row;
-      sL[buf * BQ2 + threadIdx.x] = row < S ? lse[idx] * LOG2E : 0.f;
-      sDl[buf * BQ2 + threadIdx.x] = row < S ? delta[idx] : 0.f;
+  if (threadIdx.x == 0) {
+    port::mbar_init(bar_kv, 1);
+    for (int s = 0; s < DK_STAGES; ++s) {
+      // Lane 0's arrival with the TMA bytes, then one from each lane of
+      // the producer warp once its lse and delta values are stored.
+      port::mbar_init(&full[s], 1 + 32);
+      port::mbar_init(&empty[s], DK_CONSUMER_WARPS);
     }
-  };
+    port::fence_barrier_init();
+  }
+  __syncthreads();
 
-  stage_rows<D>(sK, k + kv_off, kv_pitch, BK, T - k0);
-  stage_rows<D>(sV, v + kv_off, kv_pitch, BK, T - k0);
-  if (n_it > 0) stage_q(0, 0);
-  port::cp_async_commit();
-
-  float dka[DT][4], dva[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
-
-  const bf16* k_frag = sK + (warp * 16 + ln.a_row) * LD + ln.a_col;
-  const bf16* v_frag = sV + (warp * 16 + ln.a_row) * LD + ln.a_col;
-  const int key0 = k0 + warp * 16 + g;   // this lane's keys: key0, key0 + 8
-
-  for (int it = 0; it < n_it; ++it) {
-    const int buf = it & 1;
-    port::cp_async_wait<0>();   // tile `it` (and K, V) landed
-    __syncthreads();            // ... for every thread; tile it-1 is free
-    if (it + 1 < n_it) {        // the next tile loads while this one runs
-      stage_q(it + 1, buf ^ 1);
-      port::cp_async_commit();
-    }
-    const int q0 = q_start + (it % n_qt) * BQ2;
-    const bf16* tQ = sQ + buf * QTILE;
-    const bf16* tdO = sdO + buf * QTILE;
-    const float* L = sL + buf * BQ2;
-    const float* Dl = sDl + buf * BQ2;
-
-    // s^T = k q^T and dp^T = v do^T: 16 keys x 32 q rows a warp, fp32.
-    float st[NT][4], dpt[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      port::ldmatrix_x4(ak, k_frag + kk * 16);
-      port::ldmatrix_x4(av, v_frag + kk * 16);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        const int off = (np * 16 + ln.b_row) * LD + kk * 16 + ln.b_col;
-        uint32_t bq[4], bo[4];
-        port::ldmatrix_x4(bq, tQ + off);
-        port::mma_bf16_16816(st[2 * np], ak, bq[0], bq[1]);
-        port::mma_bf16_16816(st[2 * np + 1], ak, bq[2], bq[3]);
-        port::ldmatrix_x4(bo, tdO + off);
-        port::mma_bf16_16816(dpt[2 * np], av, bo[0], bo[1]);
-        port::mma_bf16_16816(dpt[2 * np + 1], av, bo[2], bo[3]);
-      }
-    }
-
-    // p^T = exp(s^T - lse), 0 where masked, into st; ds^T = p^T (dp^T -
-    // delta), into dpt. Element e of tile j: key key0 + 8*(e/2), q row
-    // q0 + 8*j + 2*t + e%2.
-    const bool edge = k0 + BK > T || q0 + BQ2 > S ||
-                      (causal && k0 + BK - 1 > q0);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1);
-        float p = exp2f(st[j][e] * LOG2E - L[col]);
-        if (edge) {
-          const int key = key0 + 8 * (e >> 1), row = q0 + col;
-          if (key >= T || row >= S || (causal && key > row)) p = 0.f;
+  // The warpgroup index, broadcast from lane 0 so that the compiler
+  // sees it warp-uniform: each role's registers are then its own.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---- producer warpgroup: its first warp fills the ring. Each stage
+    // holds one (q head, q tile)'s Q and dO tiles (TMA; rows past S land
+    // as zeros) and its rows' lse (base 2) and delta (two rows a lane,
+    // plain loads; rows past S read 0), all under one barrier.
+    port::setmaxnreg_dec<40>();
+    const int lane = threadIdx.x;
+    if (lane < 32) {
+      if (lane == 0) {
+        port::mbar_expect_tx(bar_kv, 2 * L::KV_TILE);
+        for (int bx = 0; bx < L::BOXES; ++bx) {
+          port::tma_load_4d(smem + L::K_OFF + bx * L::KV_BOX, &tm_k, bar_kv,
+                            64 * bx, kh, k0, b);
+          port::tma_load_4d(smem + L::V_OFF + bx * L::KV_BOX, &tm_v, bar_kv,
+                            64 * bx, kh, k0, b);
         }
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - Dl[col]);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % DK_STAGES;
+        port::mbar_wait(&empty[s], ((it / DK_STAGES) & 1) ^ 1);
+        const int hq = kh * G + it / n_qt;
+        const int q0 = q_start + (it % n_qt) * DK_BQ;
+        if (lane == 0) {
+          port::mbar_expect_tx(&full[s], L::STAGE_TX);
+          for (int bx = 0; bx < L::BOXES; ++bx) {
+            port::tma_load_4d(smem + L::Q_OFF + s * L::Q_TILE + bx * L::Q_BOX,
+                              &tm_q, &full[s], 64 * bx, hq, q0, b);
+            port::tma_load_4d(smem + L::DO_OFF + s * L::Q_TILE + bx * L::Q_BOX,
+                              &tm_do, &full[s], 64 * bx, hq, q0, b);
+          }
+        }
+        float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF +
+                                                s * L::ROWS_BYTES);
+        float* dl_s = reinterpret_cast<float*>(smem + L::DELTA_OFF +
+                                               s * L::ROWS_BYTES);
+        const long base = ((long)b * H + hq) * S;
+#pragma unroll
+        for (int r = lane; r < DK_BQ; r += 32) {
+          const bool in = q0 + r < S;
+          lse_s[r] = in ? lse[base + q0 + r] * LOG2E : 0.f;
+          dl_s[r] = in ? delta[base + q0 + r] : 0.f;
+        }
+        port::mbar_arrive(&full[s]);
       }
     }
+  } else {
+    // ---- consumer warpgroups: 64 keys each.
+    port::setmaxnreg_inc<232>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int t = lane % 4;
+    const int kc0 = k0 + 64 * c;          // the warpgroup's first key
+    const int key0 = kc0 + warp * 16 + lane / 4;   // keys key0, key0 + 8
 
-    // dv += p^T do and dk += ds^T q, over the tile's 32 q rows in two
-    // 16-row steps; do and q read transposed ([q row][d] is [k][n]).
+    // Accumulator element i of a 64 x N wgmma tile: key key0 + 8 *
+    // ((i / 2) % 2), column 8 * (i / 4) + 2 * t + i % 2 (a q row of s^T
+    // and dp^T, a d column of dk and dv).
+    float dka[D / 2], dva[D / 2];
 #pragma unroll
-    for (int c = 0; c < BQ2 / 16; ++c) {
-      uint32_t ap[4], ads[4];
-      c_to_a(ap, st[2 * c], st[2 * c + 1]);
-      c_to_a(ads, dpt[2 * c], dpt[2 * c + 1]);
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+    const uint32_t k_addr = port::smem_u32(smem + L::K_OFF) + 64 * c * 128;
+    const uint32_t v_addr = port::smem_u32(smem + L::V_OFF) + 64 * c * 128;
+    const uint32_t q_addr = port::smem_u32(smem + L::Q_OFF);
+    const uint32_t do_addr = port::smem_u32(smem + L::DO_OFF);
+    port::mbar_wait(bar_kv, 0);
+
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % DK_STAGES;
+      const int q0 = q_start + (it % n_qt) * DK_BQ;
+      port::mbar_wait(&full[s], (it / DK_STAGES) & 1);
+      // Every key of the warpgroup past T, or (causal) past every row of
+      // the tile: p and ds are 0, nothing to add.
+      const bool skip = kc0 >= T || (causal && kc0 > q0 + DK_BQ - 1);
+      if (!skip) {
+        // The tile's 64 q rows in two halves of 32, to keep registers
+        // low: s^T = k q^T and dp^T = v do^T (64 keys x 32 rows, K and V
+        // the A operands, Q and dO the B operands, all K-major), then p^T
+        // and ds^T in bf16 as the register A operands of dv += p^T do
+        // and dk += ds^T q (do and q read MN-major). The second half's
+        // s^T and dp^T are issued with the first half's dv and dk.
+        const uint32_t qs = q_addr + s * L::Q_TILE;
+        const uint32_t dos = do_addr + s * L::Q_TILE;
+        const float* lse_s = reinterpret_cast<const float*>(
+            smem + L::LSE_OFF + s * L::ROWS_BYTES);
+        const float* dl_s = reinterpret_cast<const float*>(
+            smem + L::DELTA_OFF + s * L::ROWS_BYTES);
+        const bool edge = kc0 + 64 > T || q0 + DK_BQ > S ||
+                          (causal && kc0 + 63 > q0);
 #pragma unroll
-      for (int dp2 = 0; dp2 < DT / 2; ++dp2) {
-        const int off = (c * 16 + ln.a_row) * LD + dp2 * 16 + ln.a_col;
-        uint32_t bo[4], bq[4];
-        port::ldmatrix_x4_trans(bo, tdO + off);
-        port::mma_bf16_16816(dva[2 * dp2], ap, bo[0], bo[1]);
-        port::mma_bf16_16816(dva[2 * dp2 + 1], ap, bo[2], bo[3]);
-        port::ldmatrix_x4_trans(bq, tQ + off);
-        port::mma_bf16_16816(dka[2 * dp2], ads, bq[0], bq[1]);
-        port::mma_bf16_16816(dka[2 * dp2 + 1], ads, bq[2], bq[3]);
+        float st[16], dpt[16];
+        // s^T and dp^T of one 32-row half, issued, not waited on.
+        auto issue_sdp = [&](uint32_t rows) {
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t off = (kk % 4) * 32;   // 16 columns a step
+            port::wgmma_ss(st, port::sw128_desc(k_addr + (kk / 4) * L::KV_BOX + off, 16),
+                           port::sw128_desc(qs + (kk / 4) * L::Q_BOX + rows + off, 16),
+                           kk > 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t off = (kk % 4) * 32;
+            port::wgmma_ss(dpt, port::sw128_desc(v_addr + (kk / 4) * L::KV_BOX + off, 16),
+                           port::sw128_desc(dos + (kk / 4) * L::Q_BOX + rows + off, 16),
+                           kk > 0);
+          }
+        };
+        port::wgmma_fence();
+        issue_sdp(0);
+        port::wgmma_commit();
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const uint32_t rows = hh * 32 * 128;     // 32 rows down the tile
+          port::wgmma_wait<0>();
+          port::fence_regs(st);
+          port::fence_regs(dpt);
+          uint32_t ap[2][4], ads[2][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = 32 * hh + 8 * j + 2 * t;
+            const float2 lv = *reinterpret_cast<const float2*>(lse_s + col);
+            const float2 dl = *reinterpret_cast<const float2*>(dl_s + col);
+            float p[4], ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * j + e;
+              p[e] = exp2f(st[i] * LOG2E - ((e & 1) ? lv.y : lv.x));
+              if (edge) {
+                const int key = key0 + 8 * (e >> 1), row = q0 + col + (e & 1);
+                if (key >= T || row >= S || (causal && key > row)) p[e] = 0.f;
+              }
+              ds[e] = p[e] * (dpt[i] - ((e & 1) ? dl.y : dl.x));
+            }
+            ap[j / 2][2 * (j & 1)] = port::pack_bf16x2(p[0], p[1]);
+            ap[j / 2][2 * (j & 1) + 1] = port::pack_bf16x2(p[2], p[3]);
+            ads[j / 2][2 * (j & 1)] = port::pack_bf16x2(ds[0], ds[1]);
+            ads[j / 2][2 * (j & 1) + 1] = port::pack_bf16x2(ds[2], ds[3]);
+          }
+          port::wgmma_fence();
+#pragma unroll
+          for (int kc = 0; kc < 2; ++kc)
+            port::wgmma_rs_mn(dva, ap[kc],
+                              port::sw128_desc(dos + rows + kc * 16 * 128, L::Q_BOX));
+#pragma unroll
+          for (int kc = 0; kc < 2; ++kc)
+            port::wgmma_rs_mn(dka, ads[kc],
+                              port::sw128_desc(qs + rows + kc * 16 * 128, L::Q_BOX));
+          if (hh == 0) issue_sdp(32 * 128);   // the second half, meanwhile
+          port::wgmma_commit();
+        }
+        port::wgmma_wait<0>();
+        port::fence_regs(dka);
+        port::fence_regs(dva);
+      }
+      __syncwarp();
+      if (lane == 0) port::mbar_arrive(&empty[s]);
+    }
+
+    // dk and dv in bf16, this lane's two keys, 4 bytes a store.
+    const long kv_pitch = (long)KH * D;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int key = key0 + 8 * hr;
+      if (key < T) {
+        const long off = ((long)b * T + key) * kv_pitch + (long)kh * D + 2 * t;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
+              port::pack_bf16x2(dka[4 * i + 2 * hr], dka[4 * i + 2 * hr + 1]);
+          *reinterpret_cast<uint32_t*>(dv + off + 8 * i) =
+              port::pack_bf16x2(dva[4 * i + 2 * hr], dva[4 * i + 2 * hr + 1]);
+        }
       }
     }
   }
-
-  // Every copy has landed (a block with no q tile still has K and V in
-  // flight) before the warps' own rows of sK and sV stage dk and dv.
-  port::cp_async_wait<0>();
-  __syncthreads();
-  const long out_base = (long)b * T * kv_pitch + (long)kh * D;
-  store_rows<D>(sK + warp * 16 * LD, dka, dk + out_base, kv_pitch,
-                k0 + warp * 16, T, lane);
-  store_rows<D>(sV + warp * 16 * LD, dva, dv + out_base, kv_pitch,
-                k0 + warp * 16, T, lane);
 }
 
 template <typename Kernel>
@@ -469,15 +555,21 @@ template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                int S, int T, int H, int KH, int causal, cudaStream_t stream) {
-  const size_t smem = DkvLayout<D>::BYTES;
-  cudaError_t err = allow_smem(flash_dkv_kernel<D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + BK - 1) / BK, KH, B);
-  flash_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, T, H, KH, causal);
+  // Tensor maps carry the pointers: encoded anew at every launch.
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int err = port::map_rows_bf16(&tm_q, q, B, S, H, D, DK_BQ);
+  if (!err) err = port::map_rows_bf16(&tm_do, dout, B, S, H, D, DK_BQ);
+  if (!err) err = port::map_rows_bf16(&tm_k, k, B, T, KH, D, DK_BK);
+  if (!err) err = port::map_rows_bf16(&tm_v, v, B, T, KH, D, DK_BK);
+  if (err) return err;
+  const size_t smem = DkvSmem<D>::BYTES;
+  cudaError_t e = allow_smem(flash_dkv_kernel<D>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((T + DK_BK - 1) / DK_BK, KH, B);
+  flash_dkv_kernel<D><<<grid, DK_THREADS, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), S, T, H, KH, causal);
   return (int)cudaGetLastError();
 }
 

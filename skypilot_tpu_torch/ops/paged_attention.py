@@ -123,16 +123,16 @@ def paged_attention_step_ref(q: torch.Tensor, kp: torch.Tensor,
     positions [length, length+S) of every row, attend with the plain
     reduction, then write the pool in place."""
     b, s = q.shape[0], q.shape[1]
-    rows = torch.arange(b, device=q.device)[:, None]
-    # Positions past the view are dropped by the JAX scatter; no row the
-    # engine keeps reaches them, so clamping only touches garbage rows.
-    positions = torch.clamp(
-        length[:, None].long() + torch.arange(s, device=q.device),
-        max=max_len - 1)
+    rows = torch.arange(b, device=q.device)[:, None].expand(b, s)
+    positions = length[:, None].long() + torch.arange(s, device=q.device)
+    # Positions at or past the view are dropped, as the JAX scatter
+    # drops them: no two kept writes share a slot.
+    keep = positions < max_len
+    rows, positions = rows[keep], positions[keep]
     k_l = gather_pages(kp, table, max_len)     # a fresh gather: safe to
     v_l = gather_pages(vp, table, max_len)     # overlay in place
-    k_l[rows, positions] = k_new
-    v_l[rows, positions] = v_new
+    k_l[rows, positions] = k_new[keep]
+    v_l[rows, positions] = v_new[keep]
     out = xla_attention(q, k_l, v_l, causal=True, q_offset=length)
     write_pages(kp, k_new, pid, off)
     write_pages(vp, v_new, pid, off)

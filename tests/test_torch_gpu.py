@@ -59,14 +59,21 @@ def _assert_o_close(o, ref):
     assert (err <= TOL_O + ULP_O * ref.abs()).all(), float(err.max())
 
 
-@pytest.mark.parametrize('b,s,h,kh,d,causal', [
-    (1, 16, 4, 2, 128, True), (2, 100, 4, 2, 128, True),
-    (1, 130, 4, 4, 128, False), (1, 70, 4, 1, 64, True),
-    (1, 300, 2, 2, 64, False)])
-def test_flash_kernel_matches_plain(cuda, b, s, h, kh, d, causal):
-    gen = torch.Generator(device=cuda).manual_seed(s)
-    q, k, v = _rand(gen, b, s, h, d), _rand(gen, b, s, kh, d), \
-        _rand(gen, b, s, kh, d)
+# (B, S, T, H, KH, D, causal): one partial tile (S=16, 70), exact
+# multiples of the 128-row tile (128, 2048), tiles past the edge (130,
+# 300), T != S (non-causal), D=64 and 128, GQA groups 1, 2 and 4.
+FLASH_CASES = [(1, 16, 16, 4, 2, 128, True), (2, 100, 100, 4, 2, 128, True),
+               (1, 130, 130, 4, 4, 128, False), (1, 70, 70, 4, 1, 64, True),
+               (1, 300, 300, 2, 2, 64, False), (1, 128, 128, 4, 4, 128, True),
+               (1, 2048, 2048, 4, 2, 128, True), (1, 2048, 2048, 4, 1, 64, True),
+               (2, 100, 260, 4, 2, 128, False), (1, 300, 77, 4, 1, 64, False)]
+
+
+@pytest.mark.parametrize('b,s,t,h,kh,d,causal', FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, b, s, t, h, kh, d, causal):
+    gen = torch.Generator(device=cuda).manual_seed(s + t)
+    q, k, v = _rand(gen, b, s, h, d), _rand(gen, b, t, kh, d), \
+        _rand(gen, b, t, kh, d)
     before = fa.KERNEL.launches
     o, lse = fa.flash_attention_lse(q, k, v, causal=causal)
     assert fa.KERNEL.launches == before + 1
@@ -166,21 +173,43 @@ def test_model_step_runs_both_kernels(cuda):
         assert float((a - b).abs().max()) <= 5e-2 * float(b.std())
 
 
-@pytest.mark.parametrize('b,s,h,kh,d,causal,with_dlse', [
-    (1, 100, 4, 4, 128, True, False), (2, 130, 4, 2, 128, False, True),
-    (1, 256, 8, 2, 128, True, True), (1, 200, 4, 1, 64, True, False),
-    (1, 300, 4, 2, 64, False, True), (2, 2048, 16, 8, 128, True, False)])
-def test_flash_bwd_kernels_match_plain(cuda, b, s, h, kh, d, causal,
-                                       with_dlse):
-    """Kernels C and D vs the plain backward in fp32 on the same bf16
-    inputs (o and lse from kernel A), at the chip_smoke shapes."""
-    gen = torch.Generator(device=cuda).manual_seed(s + h)
+def _bwd_inputs(cuda, b, s, t, h, kh, d, causal, with_dlse):
+    """The backward kernels' inputs: q pre-scaled, o and lse from kernel
+    A, dlse random or None."""
+    gen = torch.Generator(device=cuda).manual_seed(s + t + h)
     qs = (_rand(gen, b, s, h, d) * d ** -0.5).bfloat16()
-    k, v, do = _rand(gen, b, s, kh, d), _rand(gen, b, s, kh, d), \
+    k, v, do = _rand(gen, b, t, kh, d), _rand(gen, b, t, kh, d), \
         _rand(gen, b, s, h, d)
     o, lse = fa._fwd(qs, k, v, causal)
     dlse = torch.randn(lse.shape, generator=gen, device=cuda) \
         if with_dlse else None
+    return qs, k, v, o, lse, do, dlse
+
+
+# (B, S, T, H, KH, D, causal, nonzero lse cotangent): the chip_smoke
+# shapes, plus one partial tile, exact multiples of 128, T != S, D=64 at
+# S=2048; GQA groups 1, 2 and 4.
+BWD_CASES = [(1, 100, 100, 4, 4, 128, True, False),
+             (2, 130, 130, 4, 2, 128, False, True),
+             (1, 256, 256, 8, 2, 128, True, True),
+             (1, 200, 200, 4, 1, 64, True, False),
+             (1, 300, 300, 4, 2, 64, False, True),
+             (2, 2048, 2048, 16, 8, 128, True, False),
+             (1, 16, 16, 4, 2, 128, True, True),
+             (1, 70, 70, 4, 1, 64, True, True),
+             (1, 128, 128, 4, 4, 128, True, False),
+             (2, 100, 260, 4, 2, 128, False, True),
+             (1, 300, 77, 4, 1, 64, False, False),
+             (1, 2048, 2048, 4, 1, 64, True, False)]
+
+
+@pytest.mark.parametrize('b,s,t,h,kh,d,causal,with_dlse', BWD_CASES)
+def test_flash_bwd_kernels_match_plain(cuda, b, s, t, h, kh, d, causal,
+                                       with_dlse):
+    """Kernels C and D vs the plain backward in fp32 on the same bf16
+    inputs (o and lse from kernel A)."""
+    qs, k, v, o, lse, do, dlse = _bwd_inputs(cuda, b, s, t, h, kh, d, causal,
+                                             with_dlse)
     before = (fa.DQ_KERNEL.launches, fa.DKV_KERNEL.launches)
     got = fa._bwd(qs, k, v, o, lse, do, dlse, causal)
     assert (fa.DQ_KERNEL.launches, fa.DKV_KERNEL.launches) == \
@@ -194,6 +223,28 @@ def test_flash_bwd_kernels_match_plain(cuda, b, s, h, kh, d, causal,
         assert a.isfinite().all()
         assert float((a.float() - r).abs().max()) < 2e-2 * float(
             r.abs().max())
+
+
+def test_flash_dkv_is_deterministic(cuda):
+    """Kernel D twice on the same inputs gives bit-identical dk and dv:
+    each block owns its keys' grads and sums the group's q heads in
+    registers, with no atomics."""
+    b, s, h, kh, d = 1, 300, 8, 2, 128
+    qs, k, v, o, lse, do, _ = _bwd_inputs(cuda, b, s, s, h, kh, d, True,
+                                          False)
+    delta = fa._delta(o, do, None)
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = []
+    for _ in range(2):
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        fa.DKV_KERNEL.launch(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                             dk.data_ptr(), dv.data_ptr(), b, s, s, h, kh, d,
+                             1, stream)
+        outs.append((dk, dv))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
 
 
 def test_model_backward_gives_every_param_a_grad(cuda):

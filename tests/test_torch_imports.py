@@ -1,6 +1,6 @@
-"""Import hygiene of the PyTorch port: skypilot_tpu_torch and
-chip_smoke.py import neither jax nor the JAX package (skypilot_tpu), and
-the engine runs on the card unless asked for the CPU."""
+"""Import hygiene of the PyTorch port: skypilot_tpu_torch, chip_smoke.py
+and kernel_ab.py import neither jax nor the JAX package (skypilot_tpu),
+and the engine runs on the card unless asked for the CPU."""
 import ast
 import inspect
 import os
@@ -15,7 +15,8 @@ PORT = ROOT / 'skypilot_tpu_torch'
 
 
 def _port_files():
-    return sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+    return sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py',
+                                         ROOT / 'kernel_ab.py']
 
 
 def forbidden(module: str) -> bool:
@@ -62,7 +63,7 @@ def test_every_port_module_imports_with_jax_blocked():
         'import sys, importlib\n'
         "for m in ('jax', 'jaxlib', 'skypilot_tpu'):\n"
         '    sys.modules[m] = None\n'
-        f'for m in {mods!r} + ["chip_smoke"]:\n'
+        f'for m in {mods!r} + ["chip_smoke", "kernel_ab"]:\n'
         '    importlib.import_module(m)\n'
         'assert not any(k == "jax" or k.startswith("jax.") for k, v in '
         'sys.modules.items() if v is not None)\n'
@@ -100,3 +101,14 @@ def test_chip_smoke_refuses_without_a_card_or_the_package(tmp_path):
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_kernel_ab_refuses_without_a_card():
+    """kernel_ab.py times kernels on the card only: without a CUDA device
+    a side's run exits non-zero and prints no times."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='')
+    env.pop('PYTHONPATH', None)
+    out = subprocess.run([sys.executable, str(ROOT / 'kernel_ab.py'),
+                          '--child', str(ROOT)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and 'flash_fwd' not in out.stdout

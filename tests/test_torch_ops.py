@@ -115,17 +115,18 @@ def test_flash_plain_version_matches_jax_kernel(causal):
     _close(lse, jlse)
 
 
-def _pool(seed, s, n_pages=12, psz=8, kh=2, hd=16, maxp=4):
+def _pool(seed, s, n_pages=12, psz=8, kh=2, hd=16, maxp=4, length=None):
     """Ragged rows over shuffled pages; table tails are the trash page;
     one row has length 0."""
     rng = np.random.default_rng(seed)
     kp, vp = _np(rng, n_pages, psz, kh, hd), _np(rng, n_pages, psz, kh, hd)
-    length = np.array([13, 0, 27 - s, 5], np.int32)
+    if length is None:
+        length = np.array([13, 0, 27 - s, 5], np.int32)
     perm = rng.permutation(np.arange(1, n_pages))
     table = np.zeros((len(length), maxp), np.int32)
     used = 0
     for r, n in enumerate(length):
-        need = -(-(int(n) + s) // psz)
+        need = min(-(-(int(n) + s) // psz), maxp)
         table[r, :need] = perm[used:used + need]
         used += need
     return rng, kp, vp, table, length
@@ -145,15 +146,13 @@ def test_paged_plain_version_matches_jax_kernel(s):
     _close(got, want)
 
 
-@pytest.mark.parametrize('s', [1, 4])
-def test_paged_step_matches_jax_fused(s):
-    """The CPU step (fused overlay-then-attend, in place) vs JAX
-    paged_attention_step(impl='fused'): output and both pools."""
-    rng, kp, vp, table, length = _pool(9 + s, s)
+def _paged_step_both(rng, kp, vp, table, length, s, active):
+    """One paged step through JAX paged_attention_step(impl='fused') and
+    the port's CPU step on the same inputs: (out, kp2, vp2, jout, jkp,
+    jvp); asserts the port updated its pools in place."""
     b = len(length)
     q = _np(rng, b, s, 4, 16)
     k_new, v_new = _np(rng, b, s, 2, 16), _np(rng, b, s, 2, 16)
-    active = np.array([True, True, False, True])
     max_len = table.shape[1] * kp.shape[1]
     jcache = jpaging.PagedKV(k=jnp.asarray(kp)[None], v=jnp.asarray(vp)[None],
                              table=jnp.asarray(table),
@@ -175,9 +174,34 @@ def test_paged_step_matches_jax_fused(s):
         torch.from_numpy(k_new), torch.from_numpy(v_new), pid, off,
         max_len=max_len)
     assert kp2 is tkp and vp2 is tvp          # updated in place
+    return out, kp2, vp2, jout, jkp, jvp
+
+
+@pytest.mark.parametrize('s', [1, 4])
+def test_paged_step_matches_jax_fused(s):
+    """The CPU step (fused overlay-then-attend, in place) vs JAX
+    paged_attention_step(impl='fused'): output and both pools."""
+    rng, kp, vp, table, length = _pool(9 + s, s)
+    out, kp2, vp2, jout, jkp, jvp = _paged_step_both(
+        rng, kp, vp, table, length, s, np.array([True, True, False, True]))
     _close(out, jout)
     # Trash-page writes (the inactive row's) race in any order; the
     # content pages must match bit for bit.
+    np.testing.assert_array_equal(kp2.numpy()[1:], np.asarray(jkp)[1:])
+    np.testing.assert_array_equal(vp2.numpy()[1:], np.asarray(jvp)[1:])
+
+
+def test_paged_step_drops_positions_past_the_view():
+    """A row with length + S > max_len: the JAX scatter drops the overlay
+    positions at or past max_len, so the port's step must too (a clamp
+    would write keys 1-3 into the view's last slot). Every row active:
+    the output of each and every content page must match JAX."""
+    s, max_len = 4, 32
+    rng, kp, vp, table, length = _pool(
+        40, s, length=np.array([13, 0, max_len - 2, 5], np.int32))
+    out, kp2, vp2, jout, jkp, jvp = _paged_step_both(
+        rng, kp, vp, table, length, s, np.ones(4, bool))
+    _close(out, jout)
     np.testing.assert_array_equal(kp2.numpy()[1:], np.asarray(jkp)[1:])
     np.testing.assert_array_equal(vp2.numpy()[1:], np.asarray(jvp)[1:])
 
