@@ -6,16 +6,22 @@ Phases (any failure exits non-zero; nothing is swallowed):
   1. build     — nvcc-build every kernel from skypilot_tpu_torch/csrc/
                  for sm_90a, one nvcc per source, all at once;
   2. flash     — kernel A vs its plain version at llama-1b shapes;
-  3. paged     — kernel B vs its plain version at llama-1b decode shapes;
+  3. paged     — kernel B vs its plain version at llama-1b decode shapes
+                 and at g*S up to 64 (g = 7 and 8), rows ending on the
+                 split's page and chunk edges, two calls bit-equal;
   4. flash_bwd — kernels C (dq) and D (dk, dv) vs the plain backward:
                  GQA groups 1, 2, 4, both causal settings, ragged S,
-                 D=64, an lse cotangent, llama-1b heads at S=2048;
+                 D=64, an lse cotangent, llama-1b heads at S=2048; two
+                 launches of C bit-equal;
   5. timing    — each kernel's launch alone, its plain version's and
                  one library call's times (CUDA events, medians) beside
                  the kernel's bound and its share of it; kernel A at the
-                 serve (B=2) and train (B=4) shapes, with its wrapper;
+                 serve (B=2) and train (B=4) shapes; A's and B's
+                 wrappers; B at other chunk counts;
   6. model     — llama-1b (full width, random bf16 weights) prefill + 8
                  paged decode steps through the kernels vs the plain path;
+                 then a verify step of 8 tokens with 2 kv heads (g*S =
+                 64) through kernel B vs the plain path;
   7. serve     — the port's engine on llama-1b, 4 concurrent /generate
                  requests over HTTP; kernels A and B must launch; then
                  the same burst under torch.profiler for the card's idle
@@ -87,7 +93,6 @@ BWD_CASES = [(1, 100, 4, 4, 128, True, False),
              (1, 200, 4, 1, 64, True, False),
              (1, 300, 4, 2, 64, False, True),
              (1, 2048, 16, 8, 128, True, False)]
-PAGED_STEPS = (1, 4)
 # The kernels each main path must launch.
 SERVE_KERNELS = ('flash_fwd', 'paged_decode')
 TRAIN_KERNELS = ('flash_fwd', 'flash_dq', 'flash_dkv')
@@ -250,16 +255,38 @@ def phase_flash_bwd(torch, fa) -> dict:
         worst['flash_dq'] = max(worst['flash_dq'], max_err(got[0], ref[0]))
         worst['flash_dkv'] = max(worst['flash_dkv'], max_err(got[1], ref[1]),
                                  max_err(got[2], ref[2]))
+    # Kernel C twice on the last case's inputs: each dq element is
+    # written once by one block, with no atomics, so the two agree bit
+    # for bit.
+    again = fa._bwd(qs, k, v, o, lse, do, dlse, causal)
+    torch.cuda.synchronize()
+    if not torch.equal(got[0], again[0]):
+        fail('kernel C is not deterministic: two launches differ')
+    log('[flash_bwd] kernel C twice on one input: dq bit-equal')
     return worst
 
 
-def paged_inputs(torch, pa, paging, s, seed):
-    """llama-1b decode shapes: ragged lengths (one row of length 0),
-    shuffled page ids, table tails 0, the step's K/V written first."""
-    b, h, kh, hd, psz, maxp = 8, 16, 8, 128, 64, 32
+# Kernel B's cases, (S, H, KH): llama-1b's heads (g = 2) at S = 1 and
+# 4, then more than 16 q rows per kv head: g = 7 (qwen2-7b's group) at
+# S = 3 and 5, and g = 8 (llama3-70b's) at S = 8, g*S = 64, the limit.
+PAGED_CASES = [(1, 16, 8), (4, 16, 8), (3, 28, 4), (5, 28, 4), (8, 32, 4)]
+
+
+def paged_inputs(torch, pa, paging, s, seed, h=16, kh=8, edges=False):
+    """llama-1b decode shapes (B=8, psz 64, max_pages 32): ragged lengths
+    (one row of length 0), shuffled page ids, table tails 0, the step's
+    K/V written first. ``edges`` also sets the rows that end where the
+    kernel's split changes hands: row 5 ends inside its first page, row
+    6 exactly on a page and chunk boundary, row 7 one key past one."""
+    b, hd, psz, maxp = 8, 128, 64, 32
     rng = np.random.default_rng(seed)
     lengths = rng.integers(1, maxp * psz - s, size=b)
     lengths[3] = 0
+    if edges:
+        _, per = pa.split_pages(b, kh, maxp, pa._sm_count(0))
+        lengths[5] = 40 - s
+        lengths[6] = per * psz - s
+        lengths[7] = per * psz + 1 - s
     n_pages = b * maxp + 1
     perm = rng.permutation(np.arange(1, n_pages))
     table = np.zeros((b, maxp), np.int32)
@@ -287,21 +314,30 @@ def paged_inputs(torch, pa, paging, s, seed):
 
 
 def phase_paged(torch, pa, paging) -> dict:
+    """Kernel B vs its plain version in every PAGED_CASE, with the split's
+    edge rows; two calls of each case must be bit-equal (the partials
+    merge in a fixed order)."""
     worst = 0.0
-    for s in PAGED_STEPS:
-        q, kp, vp, table, length, _ = paged_inputs(torch, pa, paging, s,
-                                                   seed=7 + s)
+    for i, (s, h, kh) in enumerate(PAGED_CASES):
+        q, kp, vp, table, length, lengths = paged_inputs(
+            torch, pa, paging, s, seed=7 + s + i, h=h, kh=kh, edges=True)
         out = pa.paged_decode_attention(q, kp, vp, table, length)
+        again = pa.paged_decode_attention(q, kp, vp, table, length)
         qf, kf, vf = prescaled_fp32(q, kp, vp)
         ref = pa.paged_decode_attention_ref(qf, kf, vf, table, length,
                                             softmax_scale=1.0)
         torch.cuda.synchronize()
         e = max_err(out, ref)
         ok = o_ok(out, ref)
-        log(f'[paged] S={s}: out err {e:.3e} (tol {TOL_O} + 2^-8|o|) '
-            f'{"ok" if ok else "MISMATCH"}')
+        same = torch.equal(out, again)
+        log(f'[paged] S={s} H={h} KH={kh} (g*S={h // kh * s}) lengths '
+            f'{lengths.tolist()}: out err {e:.3e} (tol {TOL_O} + '
+            f'2^-8|o|) {"ok" if ok else "MISMATCH"}; two calls '
+            f'{"bit-equal" if same else "DIFFER"}')
         if not ok:
-            fail(f'paged kernel disagrees at S={s}')
+            fail(f'paged kernel disagrees at S={s} H={h} KH={kh}')
+        if not same:
+            fail(f'paged kernel is not deterministic at S={s} H={h} KH={kh}')
         worst = max(worst, e)
     return {'max_abs_err': worst}
 
@@ -331,7 +367,8 @@ def fwd_launch(torch, fa, b):
     args = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, s, s, h, kh, d, 1,
             torch.cuda.current_stream().cuda_stream)
-    return (q, k, v), lambda: fa.KERNEL.launch(*args)
+    held = (qs, o, lse)    # the closure holds every tensor in args
+    return (q, k, v), lambda: (held, fa.KERNEL.launch(*args))
 
 
 def bwd_launches(torch, fa):
@@ -352,11 +389,40 @@ def bwd_launches(torch, fa):
                                          *dims))
 
 
-def kernel_ms(torch, fa) -> dict:
-    """Each flash kernel's launch alone, in ms (kernel_ab.py compares two
-    checkouts with it)."""
+def paged_launch(torch, pa, paging):
+    """Kernel B's inputs at the timing shape (B=8, S=1, llama-1b heads,
+    psz 64, max_pages 32, ragged) and a callable that launches the
+    kernel alone."""
+    inputs = paged_inputs(torch, pa, paging, 1, seed=8)
+    q, kp, vp, table, length, _ = inputs
+    return inputs, pa.kernel_call(q, kp, vp, table, length)[1]
+
+
+def paged_launch_at(torch, pa, q, kp, vp, table, length, chunks):
+    """Kernel B's launch with the pages split over ``chunks`` blocks a
+    (row, kv head) instead of the wrapper's choice: (out, a callable
+    that launches into out). For the split's variants only."""
+    b, s, h, hd = q.shape
+    psz, kh, maxp = kp.shape[1], kp.shape[2], table.shape[1]
+    per = -(-maxp // chunks)
+    chunks = -(-maxp // per)
+    stream = torch.cuda.current_stream().cuda_stream
+    floats, tickets = pa.workspace_sizes(b, kh, h // kh * s, chunks)
+    work, ticket = pa._workspace(q.device, stream, floats, tickets)
+    out = torch.empty_like(q)
+    held = (q, kp, vp, table, length, out, work, ticket)
+    args = tuple(t.data_ptr() for t in held) + (
+        work.numel(), ticket.numel(), b, s, h, kh, hd, psz, maxp, chunks,
+        per, hd ** -0.5, stream)
+    return out, lambda: (held, pa.KERNEL.launch(*args))
+
+
+def kernel_ms(torch, fa, pa, paging, paged=paged_launch) -> dict:
+    """Each kernel's launch alone, in ms (kernel_ab.py compares two
+    checkouts with it; ``paged`` makes kernel B's inputs and launch)."""
     out = {f'flash_fwd B={b}': time_ms(fwd_launch(torch, fa, b)[1])
            for b in FWD_TIMING_B}
+    out['paged_decode'] = time_ms(paged(torch, pa, paging)[1], iters=100)
     _, dq, dkv = bwd_launches(torch, fa)
     out[f'flash_dq B={BWD_TIMING_B}'] = time_ms(dq)
     out[f'flash_dkv B={BWD_TIMING_B}'] = time_ms(dkv)
@@ -391,12 +457,13 @@ def phase_timing(torch, fa, pa, paging) -> dict:
             f'ms')
         # The serve-shape row is the kernel's row in the kernels line.
         res['flash_fwd' if b == FWD_TIMING_B[0] else f'flash_fwd B={b}'] = row
-    # Kernel B: B=8, S=1, ragged lengths, psz=64, max_pages=32.
-    s1 = 1
-    q, kp, vp, table, length, lengths = paged_inputs(torch, pa, paging, s1,
-                                                     seed=8)
-    ms = time_ms(lambda: pa.paged_decode_attention(q, kp, vp, table,
-                                                   length))
+    # Kernel B: B=8, S=1, ragged lengths, psz=64, max_pages=32, by its
+    # launch alone; the wrapper (checks, workspace, launch) on its own line.
+    (q, kp, vp, table, length, lengths), launch = paged_launch(torch, pa,
+                                                              paging)
+    ms = time_ms(launch, iters=100)
+    wrapper = time_ms(lambda: pa.paged_decode_attention(q, kp, vp, table,
+                                                        length), iters=100)
     plain = time_ms(lambda: pa.paged_decode_attention_ref(q, kp, vp, table,
                                                           length), iters=5)
     max_len = table.shape[1] * kp.shape[1]
@@ -407,12 +474,37 @@ def phase_timing(torch, fa, pa, paging) -> dict:
     pos = torch.arange(max_len, device='cuda')
     mask = (pos[None, :] <= length[:, None])[:, None, None, :]
     lib = time_ms(lambda: sdpa_gqa(torch, qs, k_l, v_l, attn_mask=mask,
-                                   scale=1.0))
+                                   scale=1.0), iters=100)
     b8, h8, kh8, hd = q.shape[0], q.shape[2], kp.shape[2], q.shape[3]
+    s1 = q.shape[1]
     toks = int(np.sum(lengths + s1))
     nbytes = 2 * 2 * toks * kh8 * hd + 2 * 2 * b8 * s1 * h8 * hd + \
         4 * (table.numel() + b8)
     flops = 4 * toks * s1 * h8 * hd
+    chunks, per = pa.split_pages(b8, kh8, table.shape[1], pa._sm_count(0))
+    log(f'[timing] paged_decode: wrapper paged_decode_attention (checks + '
+        f'launch) {wrapper:.4f} ms; kernel {nbytes / ms / 1e6:.1f} GB/s; '
+        f'grid {chunks} chunks x KH {kh8} x B {b8} = {chunks * kh8 * b8} '
+        f'blocks, {per} pages a chunk')
+    # The split's variants: the same launch at other chunk counts, each
+    # launched twice (bit-equal) and held to the fp32 plain version.
+    qf, kf, vf = prescaled_fp32(q, kp, vp)
+    ref = pa.paged_decode_attention_ref(qf, kf, vf, table, length,
+                                        softmax_scale=1.0)
+    for n in sorted({1, 2, 4, 8, 16, 32, chunks}):
+        out_n, launch_n = paged_launch_at(torch, pa, q, kp, vp, table,
+                                          length, n)
+        launch_n()
+        first = out_n.clone()
+        ms_n = time_ms(launch_n, iters=100)
+        same = torch.equal(first, out_n)
+        e = max_err(out_n, ref)
+        mark = " (the split's choice)" if n == chunks else ''
+        log(f'[timing] paged_decode at {n} chunks{mark}: {ms_n:.4f} ms; '
+            f'err vs fp32 plain {e:.4e}; launches '
+            f'{"bit-equal" if same else "DIFFER"}')
+        if not same or not o_ok(out_n, ref):
+            fail(f'paged kernel at {n} chunks: bit-equal {same}, err {e}')
     res['paged_decode'] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                **bound(flops, nbytes),
                                shape=f'B={b8} S={s1} H={h8} KH={kh8} '
@@ -469,6 +561,40 @@ def bound(flops: float, nbytes: float) -> dict:
             'bound_by': 'operations' if t_ops >= t_bytes else 'bytes'}
 
 
+# The model phases' prompts: four rows of ragged lengths, right-padded
+# to one bucket, over a pool of 64-token pages.
+MODEL_LENGTHS, MODEL_BUCKET, MODEL_MAX_LEN, MODEL_PSZ = \
+    [200, 256, 130, 17], 256, 512, 64
+
+
+def model_prompts(torch, vocab: int, rng):
+    """Random tokens for MODEL_LENGTHS, zero-padded to MODEL_BUCKET, and
+    the lengths, on the card."""
+    tokens = np.zeros((len(MODEL_LENGTHS), MODEL_BUCKET), np.int32)
+    for r, n in enumerate(MODEL_LENGTHS):
+        tokens[r, :n] = rng.integers(0, vocab, size=n)
+    return (torch.from_numpy(tokens).cuda(),
+            torch.tensor(MODEL_LENGTHS, dtype=torch.int32, device='cuda'))
+
+
+def prefilled_pool(torch, decode, paging, params, cfg, tok_t, len_t,
+                   impl: str):
+    """Prefill the prompts (attention ``impl``) and scatter their K/V
+    into a fresh page pool, each row's pages after the last's: (the
+    prefill logits, the pool)."""
+    b = tok_t.shape[0]
+    maxp = paging.pages_for(MODEL_MAX_LEN, MODEL_PSZ)
+    logits, ks, vs = decode.prefill(params, tok_t, cfg, MODEL_MAX_LEN,
+                                    lengths=len_t, attention_impl=impl)
+    pc = decode.init_page_pool(cfg, b * maxp + 1, MODEL_PSZ, b, maxp,
+                               device='cuda')
+    pc.table.copy_(torch.arange(1, b * maxp + 1, dtype=torch.int32,
+                                device='cuda').reshape(b, maxp))
+    paging.scatter_prefill(pc, ks, vs, torch.arange(b, device='cuda'),
+                           MODEL_BUCKET, len_t)
+    return logits, pc
+
+
 def phase_model(torch, cfg, params, decode, paging, pa) -> None:
     """Prefill + 8 paged decode steps three ways, teacher-forced with the
     kernel path's greedy tokens: bf16 through the kernels, bf16 through
@@ -477,26 +603,14 @@ def phase_model(torch, cfg, params, decode, paging, pa) -> None:
     points, so the check is that the kernel path lies no farther from the
     fp32 path than the plain bf16 path does (TOL_MODEL)."""
     import dataclasses
-    lengths = [200, 256, 130, 17]
-    b, bucket, max_len, psz, steps = len(lengths), 256, 512, 64, 8
-    rng = np.random.default_rng(5)
-    tokens = np.zeros((b, bucket), np.int32)
-    for r, n in enumerate(lengths):
-        tokens[r, :n] = rng.integers(0, cfg.vocab_size, size=n)
-    tok_t = torch.from_numpy(tokens).cuda()
-    len_t = torch.tensor(lengths, dtype=torch.int32, device='cuda')
-    maxp = paging.pages_for(max_len, psz)
+    steps = 8
+    tok_t, len_t = model_prompts(torch, cfg.vocab_size,
+                                 np.random.default_rng(5))
 
     def run(cfg_run, params_run, plain: bool, feed=None):
-        logits, ks, vs = decode.prefill(
-            params_run, tok_t, cfg_run, max_len, lengths=len_t,
-            attention_impl='xla' if plain else 'auto')
-        pc = decode.init_page_pool(cfg_run, b * maxp + 1, psz, b, maxp,
-                                   device='cuda')
-        pc.table.copy_(torch.arange(1, b * maxp + 1, dtype=torch.int32,
-                                    device='cuda').reshape(b, maxp))
-        paging.scatter_prefill(pc, ks, vs, torch.arange(b, device='cuda'),
-                               bucket, len_t)
+        logits, pc = prefilled_pool(torch, decode, paging, params_run,
+                                    cfg_run, tok_t, len_t,
+                                    'xla' if plain else 'auto')
         fn = pa.paged_attention_step_ref if plain else \
             pa.paged_attention_step
         out, toks = [logits], []
@@ -505,7 +619,7 @@ def phase_model(torch, cfg, params, decode, paging, pa) -> None:
                    else torch.argmax(out[-1], dim=-1).to(torch.int32))
             toks.append(nxt)
             logits, pc = decode.paged_decode_step(
-                params_run, nxt, pc, cfg_run, max_len=max_len,
+                params_run, nxt, pc, cfg_run, max_len=MODEL_MAX_LEN,
                 attention_fn=fn)
             out.append(logits)
         return out, toks
@@ -532,9 +646,64 @@ def phase_model(torch, cfg, params, decode, paging, pa) -> None:
     if worst > TOL_MODEL:
         fail(f'model path: kernel error {worst:.2f}x the plain bf16 '
              f'error > {TOL_MODEL}x')
-    log(f'[model] llama-1b {cfg.n_layers} layers, {b} rows, prefill bucket '
-        f'{bucket} + {steps} decode steps: kernel/plain error ratio worst '
+    log(f'[model] llama-1b {cfg.n_layers} layers, {len(MODEL_LENGTHS)} '
+        f'rows, prefill bucket {MODEL_BUCKET} + {steps} decode steps: '
+        f'kernel/plain error ratio worst '
         f'{worst:.3f} (tol {TOL_MODEL}) ok')
+
+
+def phase_verify(torch, cfg, decode, llama, paging, pa) -> None:
+    """paged_verify_step at S = 8 on a g = 8 head layout (llama-1b with 2
+    kv heads: 64 q rows per kv head, kernel B's limit), three ways as in
+    phase_model: bf16 through kernel B, bf16 through the plain attention,
+    fp32 through the plain attention on the same weights upcast. Every
+    path prefills through the plain attention, so the pools agree and
+    the verify step is the only place they part. Kernel B must launch
+    once a layer, and its path lie no farther from fp32 than the plain
+    bf16 path does (TOL_MODEL)."""
+    import dataclasses
+    cfg8 = dataclasses.replace(cfg, n_kv_heads=2)
+    params = decode.cast_params_for_decode(
+        llama.init_params(cfg8, torch.Generator(device='cuda').manual_seed(3),
+                          'cuda'), cfg8)
+    k = 8
+    rng = np.random.default_rng(6)
+    tok_t, len_t = model_prompts(torch, cfg8.vocab_size, rng)
+    b = tok_t.shape[0]
+    ver_t = torch.from_numpy(rng.integers(0, cfg8.vocab_size, size=(b, k))
+                             .astype(np.int32)).cuda()
+
+    def run(cfg_run, params_run, plain: bool):
+        _, pc = prefilled_pool(torch, decode, paging, params_run, cfg_run,
+                               tok_t, len_t, 'xla')
+        before = pa.KERNEL.launches
+        logits, _ = decode.paged_verify_step(
+            params_run, ver_t, pc, cfg_run, max_len=MODEL_MAX_LEN,
+            attention_fn=(pa.paged_attention_step_ref if plain
+                          else pa.paged_attention_step))
+        return logits, pa.KERNEL.launches - before
+
+    kern, n_kern = run(cfg8, params, False)
+    plain, _ = run(cfg8, params, True)
+    cfg32 = dataclasses.replace(cfg8, dtype=torch.float32)
+    ref, _ = run(cfg32, decode.cast_params_for_decode(params, cfg32), True)
+    torch.cuda.synchronize()
+    if n_kern != cfg8.n_layers:
+        fail(f'verify step launched kernel B {n_kern} times, not '
+             f'{cfg8.n_layers}')
+    if kern.shape != (b, k, cfg8.vocab_size) or \
+            not bool(torch.isfinite(kern).all()):
+        fail(f'verify step: bad logits {tuple(kern.shape)}')
+    std = float(ref.std())
+    e_k = float((kern - ref).abs().max()) / std
+    e_p = float((plain - ref).abs().max()) / std
+    log(f'[model] verify step, llama-1b heads 16/2 (g=8), S={k}, g*S='
+        f'{8 * k}, {cfg8.n_layers} layers: kernel B launched {n_kern}x; '
+        f'max|diff|/std(fp32 logits): kernel-fp32 {e_k:.3e}, plain-fp32 '
+        f'{e_p:.3e}, ratio {e_k / e_p:.3f} (tol {TOL_MODEL})')
+    if e_k / e_p > TOL_MODEL:
+        fail(f'verify step: kernel error {e_k / e_p:.2f}x the plain bf16 '
+             f'error > {TOL_MODEL}x')
 
 
 def free_port() -> int:
@@ -836,6 +1005,7 @@ def main() -> None:
             llama.init_params(cfg, gen, 'cuda'), cfg)
         if 'model' in phases:
             phase_model(torch, cfg, params, decode, paging, pa)
+            phase_verify(torch, cfg, decode, llama, paging, pa)
         if 'serve' in phases:
             by_path['serve'] = phase_serve(torch, cfg, params, engine_lib,
                                            build)

@@ -1,5 +1,4 @@
-"""Time the flash kernels of two checkouts of the port on one card, in
-turns.
+"""Time the kernels of two checkouts of the port on one card, in turns.
 
     python3 kernel_ab.py OLD_ROOT [NEW_ROOT]
 
@@ -7,8 +6,10 @@ NEW_ROOT defaults to this script's directory. The two sides run OLD,
 NEW, NEW, OLD, each in a process of its own that puts its checkout
 first on sys.path, builds that checkout's kernels from its csrc/ and
 times each kernel's launch alone (CUDA events, median of 5 runs of 20
-launches) at chip_smoke.py's timing shapes: kernel A at B=2 and B=4,
-kernels C and D at B=4, all S=T=2048, H=16, KH=8, D=128, causal, bf16.
+launches; 100 for kernel B) at chip_smoke.py's timing shapes: kernel A
+at B=2 and B=4, kernels C and D at B=4, all S=T=2048, H=16, KH=8,
+D=128, causal, bf16; kernel B at B=8, S=1, H=16, KH=8, psz 64,
+max_pages 32, ragged lengths.
 The timing code is this directory's chip_smoke.py for both sides, so
 both are measured alike. Prints the card's name and power limit, one
 ``[ab]`` line per run and, last, a JSON object of every run's times.
@@ -32,17 +33,43 @@ def _smoke():
     return mod
 
 
+def prescaled_paged_launch(torch, pa, paging):
+    """Kernel B's launch for a checkout whose kernel takes q pre-scaled
+    and no workspace: the one-block-per-(row, kv head) design before the
+    split over blocks (commit e685bd3 and earlier), which has no
+    ``kernel_call``. The q pre-scale pass runs once, outside the timed
+    launch, as the other kernels' inputs are made."""
+    inputs = _smoke().paged_inputs(torch, pa, paging, 1, seed=8)
+    q, kp, vp, table, length, _ = inputs
+    qs = (q * q.shape[-1] ** -0.5).to(q.dtype)
+    out = torch.empty_like(qs)
+    b, s, h, hd = q.shape
+    args = (qs.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
+            length.data_ptr(), out.data_ptr(), b, s, h, kp.shape[2], hd,
+            kp.shape[1], table.shape[1],
+            torch.cuda.current_stream().cuda_stream)
+    held = inputs + (qs, out)   # the closure holds every tensor in args
+    return inputs, lambda: (held, pa.KERNEL.launch(*args))
+
+
 def child(root: str) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from skypilot_tpu_torch.kernels import build
+    from skypilot_tpu_torch.models import paging
     from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
     if not torch.cuda.is_available():
         sys.exit('kernel_ab: no CUDA device')
-    if not os.path.abspath(fa.__file__).startswith(os.path.abspath(root)):
-        sys.exit(f'kernel_ab: imported {fa.__file__}, not {root}')
+    for mod in (fa, pa, paging):
+        if not os.path.abspath(mod.__file__).startswith(os.path.abspath(root)):
+            sys.exit(f'kernel_ab: imported {mod.__file__}, not {root}')
     build.build_all()
-    print(json.dumps(_smoke().kernel_ms(torch, fa)), flush=True)
+    smoke = _smoke()
+    paged = smoke.paged_launch if hasattr(pa, 'kernel_call') else \
+        prescaled_paged_launch
+    print(json.dumps(smoke.kernel_ms(torch, fa, pa, paging, paged)),
+          flush=True)
 
 
 def main() -> None:

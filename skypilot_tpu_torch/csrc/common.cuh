@@ -1,9 +1,10 @@
 // Shared helpers for the port's kernels, built for sm_90a:
 //  - sm_80-style async copies, ldmatrix and the bf16 mma.sync tile
-//    (kernels B and C);
+//    (kernel B, whose 16-row tiles of a few decode rows are below
+//    wgmma's 64);
 //  - Hopper's mbarrier, TMA tensor loads, setmaxnreg and wgmma with
-//    128-byte-swizzled shared-memory descriptors (kernels A and D), and
-//    the host-side TMA descriptor encoding they launch with.
+//    128-byte-swizzled shared-memory descriptors (kernels A, C and D),
+//    and the host-side TMA descriptor encoding they launch with.
 #pragma once
 
 #include <cuda.h>
@@ -24,15 +25,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
-// The same, copying `src_bytes` (0 or 16) and zero-filling the rest: a
-// row past the tensor's edge lands as zeros without a separate store.
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
-                                                 int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -41,27 +33,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Shared-memory row pitch of a tile of D bf16 columns: 16-byte rows and
-// conflict-free ldmatrix.
-template <int D>
-__host__ __device__ constexpr int row_pitch() { return D + 8; }
-
-// Stage `rows` rows of D bf16 (global row pitch `pitch` elements) into
-// shared memory (row pitch row_pitch<D>()) with cp.async, THREADS
-// threads sharing the copy; rows at or past `valid` are zero-filled. The
-// caller commits the group.
-template <int D, int THREADS>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           long pitch, int rows, int valid) {
-  constexpr int CHUNKS = D / 8;          // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * CHUNKS; c += THREADS) {
-    const int r = c / CHUNKS, cc = c % CHUNKS;
-    const bool ok = r < valid;
-    cp_async16_zfill(dst + r * row_pitch<D>() + cc * 8,
-                     src + (ok ? r * pitch + cc * 8 : 0), ok ? 16 : 0);
-  }
 }
 
 // Four 8x8 b16 matrices from shared memory; lane l gives the address of
@@ -295,6 +266,27 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b), "r"(SW128_HI));
+}
+
+// d[32] (a 64 x 64 fp32 tile, 32 a thread) = (scale_d ? d : 0) + A B, A
+// 64 x 16 and B 16 x 64 bf16 in shared memory (descriptors a, b), both
+// K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint32_t a,
+                                         uint32_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "mov.b64 da, {%32, %35};\nmov.b64 db, {%33, %35};\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "da, db, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a), "r"(b), "r"(scale_d), "r"(SW128_HI));
 }
 
 // d[16] (a 64 x 32 fp32 tile, 16 a thread) = (scale_d ? d : 0) + A B, A

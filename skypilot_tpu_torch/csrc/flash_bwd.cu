@@ -21,16 +21,27 @@
 // far below the ~295 FLOP/byte ridge at training lengths, so the floor
 // is FLOPs / 989 TFLOP/s (dense bf16).
 //
-// Kernel C: one block (4 warps) per (64-row q tile, q head, batch row),
-// heaviest causal tiles first, each warp owning 16 rows. Q and dO stay
-// in shared memory; a loop over 64-key tiles up to the causal diagonal
-// (the TPU's sequential kv grid axis) streams K and V, double-buffered
-// with zero-filling cp.async, and accumulates dq (16 x D a warp) in
-// fp32 registers. Every product runs on the tensor cores with mma.sync
-// m16n8k16 (bf16 in, fp32 accumulate) and ldmatrix fragment loads; the
-// C fragment of ds, rounded to bf16, is directly the A fragment of
-// ds k, so p and ds never leave registers. What this leaves for later:
-// kernel D's wgmma/TMA design.
+// Kernel C (Hopper: wgmma, TMA, warp specialisation), kernel A's
+// shape: one block per (128-row q tile, q head, batch row), heaviest
+// causal tiles first, of three warpgroups. A producer (40 registers,
+// setmaxnreg) loads the tile's Q and dO once by TMA, then streams the
+// kv head's K and V in 64-key tiles into a three-stage ring, each stage
+// one mbarrier for both tiles; the loop over key tiles takes the place
+// of the TPU's sequential kv grid axis and stops at the diagonal when
+// causal. Two consumers (232 registers) own 64 q rows each. Per key
+// tile: s = q k^T and dp = do v^T by SS wgmma m64n64k16 (Q and dO the A
+// operands, K and V the B operands, all K-major from shared memory);
+// p = exp2(s log2e - lse2) and ds = p (dp - delta), the ragged edge and
+// the causal diagonal masked in registers; ds, rounded to bf16, is the
+// register A operand of dq += ds k (RS wgmma, K read MN-major: the
+// transpose bit). lse (base 2) and delta are per-row constants of a
+// consumer: plain loads, once. A consumer only computes the key tiles
+// up to its own last row and releases the rest, so consumer 0's
+// diagonal comes a tile before consumer 1's. dq (fp32, 64 registers a
+// thread at D=128, beside 32 each of s and dp) rounds to bf16 once,
+// through shared memory, 16 bytes a lane to device memory: each dq
+// element is written once by one block, with no atomics, so a step is
+// deterministic.
 //
 // Kernel D (Hopper: wgmma, TMA, warp specialisation): one block per
 // (128-key tile, kv head, batch row) of three warpgroups. A producer (40
@@ -65,123 +76,57 @@ using port::bf16;
 
 namespace {
 
-constexpr int BQ = 64;           // kernel C: q rows a block
-constexpr int BK = 64;           // kernel C: keys a tile
-constexpr int NWARPS = 4;        // kernel C: each warp owns 16 rows
-constexpr int NTHREADS = NWARPS * 32;
+constexpr int WG_THREADS = 384;      // producer + two consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;
 constexpr float LOG2E = 1.4426950408889634f;
-
-template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           long pitch, int rows, int valid) {
-  port::stage_rows<D, NTHREADS>(dst, src, pitch, rows, valid);
-}
-
-// ldmatrix lane addressing (lane l names row l % 8 of matrix l / 8):
-//  - A fragment (16 rows x 16 k) of a row-major [row][k] tile, and the B
-//    fragments of a [k][n] tile read transposed: row a_row, column a_col;
-//  - B fragments of an [n][k] tile read as is: row b_row, column b_col.
-struct Lanes {
-  int a_row, a_col, b_row, b_col;
-  __device__ explicit Lanes(int lane) {
-    const int lm = lane / 8, lr = lane % 8;
-    a_row = (lm % 2) * 8 + lr;
-    a_col = (lm / 2) * 8;
-    b_row = (lm / 2) * 8 + lr;
-    b_col = (lm % 2) * 8;
-  }
-};
-
-// Two C fragments (n-tiles 2c and 2c+1 of a 16-row product) rounded to
-// bf16: the A fragment of the c-th 16-wide step of the next product.
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&x)[4],
-                                       const float (&y)[4]) {
-  a[0] = port::pack_bf16x2(x[0], x[1]);
-  a[1] = port::pack_bf16x2(x[2], x[3]);
-  a[2] = port::pack_bf16x2(y[0], y[1]);
-  a[3] = port::pack_bf16x2(y[2], y[3]);
-}
-
-// A warp's 16 x D fp32 accumulator, rounded to bf16, into its own 16
-// rows of a shared tile (pitch LD) and from there, 16 bytes a lane, to
-// global rows first_row.. (row pitch `pitch`, valid below `valid`).
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* stage, const float (&acc)[D / 8][4],
-                                           bf16* out, long pitch, int first_row,
-                                           int valid, int lane) {
-  constexpr int LD = port::row_pitch<D>();
-  constexpr int CHUNKS = D / 8;
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    *reinterpret_cast<uint32_t*>(stage + g * LD + 8 * i + 2 * t) =
-        port::pack_bf16x2(acc[i][0], acc[i][1]);
-    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LD + 8 * i + 2 * t) =
-        port::pack_bf16x2(acc[i][2], acc[i][3]);
-  }
-  __syncwarp();
-  for (int c = lane; c < 16 * CHUNKS; c += 32) {
-    const int r = c / CHUNKS, cc = c % CHUNKS;
-    if (first_row + r < valid)
-      *reinterpret_cast<uint4*>(out + (long)(first_row + r) * pitch + cc * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * LD + cc * 8);
-  }
-}
 
 // ---------------------------------------------------------------- kernel C
 
+constexpr int DQ_BQ = 128;       // q rows a block: two consumers of 64
+constexpr int DQ_BK = 64;        // keys a tile
+constexpr int DQ_STAGES = 3;     // K/V ring depth
+
+// Shared memory, every tile 1024-byte aligned: Q and dO (resident), the
+// K and V ring, each warp's 16 staging rows of dq, then the barriers. A
+// tile of D columns is D/64 swizzled boxes of 64 columns (128 B a row).
 template <int D>
-struct DqLayout {
-  static constexpr int LD = port::row_pitch<D>();
-  static constexpr int TILE = BK * LD;   // one K or V tile
-  static constexpr size_t BYTES = sizeof(bf16) * (2 * BQ * LD + 4 * TILE);
+struct DqSmem {
+  static constexpr int BOXES = D / 64;
+  static constexpr int Q_BOX = DQ_BQ * 128;
+  static constexpr int KV_BOX = DQ_BK * 128;
+  static constexpr int Q_TILE = BOXES * Q_BOX;
+  static constexpr int KV_TILE = BOXES * KV_BOX;
+  static constexpr int OUT_LD = D + 8;                  // staging pitch, bf16
+  static constexpr int Q_OFF = 0;
+  static constexpr int DO_OFF = Q_TILE;
+  static constexpr int K_OFF = 2 * Q_TILE;              // [stage] K tiles
+  static constexpr int V_OFF = K_OFF + DQ_STAGES * KV_TILE;
+  static constexpr int OUT_OFF = V_OFF + DQ_STAGES * KV_TILE;
+  static constexpr int BAR_OFF = OUT_OFF + CONSUMER_WARPS * 16 * OUT_LD * 2;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * DQ_STAGES) + 1024;
 };
 
+// Accumulator element i of a 64 x N wgmma tile, in the thread of lane l
+// of warp w of its warpgroup: row 16w + l/4 + 8 * ((i / 2) % 2), column
+// 8 * (i / 4) + 2 * (l % 4) + i % 2.
+
+// One consumer warpgroup's 64 rows of dq.
 template <int D>
-__global__ void __launch_bounds__(NTHREADS, 2)
-flash_dq_kernel(const bf16* __restrict__ q,      // [B,S,H,D] pre-scaled
-                const bf16* __restrict__ k,      // [B,T,KH,D]
-                const bf16* __restrict__ v,      // [B,T,KH,D]
-                const bf16* __restrict__ dout,   // [B,S,H,D]
-                const float* __restrict__ lse,   // [B,H,S]
-                const float* __restrict__ delta, // [B,H,S]
-                bf16* __restrict__ dq,           // [B,S,H,D]
-                int S, int T, int H, int KH, int causal) {
-  constexpr int LD = DqLayout<D>::LD, TILE = DqLayout<D>::TILE;
-  constexpr int NT = BK / 8;             // 8-key tiles of s and dp
-  constexpr int DT = D / 8;              // 8-column tiles of dq
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + BQ * LD;
-  bf16* sK = sdO + BQ * LD;              // two K tiles, then two V tiles
-  bf16* sV = sK + 2 * TILE;
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heaviest first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / (H / KH);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const Lanes ln(lane);
-
-  const long q_pitch = (long)H * D;
-  const long kv_pitch = (long)KH * D;
-  const long q_off = ((long)b * S + q0) * q_pitch + (long)h * D;
-  const bf16* kb = k + (long)b * T * kv_pitch + (long)kh * D;
-  const bf16* vb = v + (long)b * T * kv_pitch + (long)kh * D;
-
-  int n_kv = (T + BK - 1) / BK;
-  if (causal) n_kv = min(n_kv, (q0 + BQ - 1) / BK + 1);
-
-  stage_rows<D>(sQ, q + q_off, q_pitch, BQ, S - q0);
-  stage_rows<D>(sdO, dout + q_off, q_pitch, BQ, S - q0);
-  stage_rows<D>(sK, kb, kv_pitch, BK, T);
-  stage_rows<D>(sV, vb, kv_pitch, BK, T);
-  port::cp_async_commit();
-
-  // This lane's rows row0 and row0 + 8: lse in base-2 units and delta.
-  // Rows past S read 0: their q and dO are zero-filled, so ds is 0.
-  const int row0 = q0 + warp * 16 + g;
+__device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* bar_q,
+                                           uint64_t* full, uint64_t* empty,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ delta,
+                                           bf16* __restrict__ dq, int q0, int c,
+                                           int h, int b, int n_kv, int S, int T,
+                                           int H, int causal) {
+  using L = DqSmem<D>;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int t = lane % 4;
+  const int qw = q0 + 64 * c;                       // the consumer's first row
+  const int row0 = qw + warp * 16 + lane / 4;       // rows row0, row0 + 8
+  // This lane's rows' lse (base 2) and delta; rows past S read 0: their
+  // Q and dO land as zeros, so ds is 0.
   float lse2[2], dlt[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -190,89 +135,167 @@ flash_dq_kernel(const bf16* __restrict__ q,      // [B,S,H,D] pre-scaled
     lse2[hr] = row < S ? lse[idx] * LOG2E : 0.f;
     dlt[hr] = row < S ? delta[idx] : 0.f;
   }
-  float acc[DT][4];
+  const uint32_t q_addr = port::smem_u32(smem + L::Q_OFF) + 64 * c * 128;
+  const uint32_t do_addr = port::smem_u32(smem + L::DO_OFF) + 64 * c * 128;
+  const uint32_t k_addr = port::smem_u32(smem + L::K_OFF);
+  const uint32_t v_addr = port::smem_u32(smem + L::V_OFF);
+
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[DQ_BK / 2], dp[DQ_BK / 2];
+  uint32_t da[DQ_BK / 16][4];
 
-  const bf16* q_frag = sQ + (warp * 16 + ln.a_row) * LD + ln.a_col;
-  const bf16* do_frag = sdO + (warp * 16 + ln.a_row) * LD + ln.a_col;
-
+  const int n_mine = qw >= S ? 0 : causal ? min(n_kv, (qw + 63) / DQ_BK + 1) : n_kv;
+  port::mbar_wait(bar_q, 0);
   for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BK;
-    const int buf = kt & 1;
-    port::cp_async_wait<0>();   // tile kt (and Q, dO) landed
-    __syncthreads();            // ... for every thread; tile kt-1 is free
-    if (kt + 1 < n_kv) {        // the next tile loads while this one runs
-      stage_rows<D>(sK + (buf ^ 1) * TILE, kb + (long)(k0 + BK) * kv_pitch,
-                    kv_pitch, BK, T - k0 - BK);
-      stage_rows<D>(sV + (buf ^ 1) * TILE, vb + (long)(k0 + BK) * kv_pitch,
-                    kv_pitch, BK, T - k0 - BK);
-      port::cp_async_commit();
-    }
-    const bf16* tK = sK + buf * TILE;
-    const bf16* tV = sV + buf * TILE;
-
-    // s = q k^T and dp = do v^T: 16 rows x 64 keys a warp, fp32.
-    float s[NT][4], dp[NT][4];
+    const int s = kt % DQ_STAGES;
+    port::mbar_wait(&full[s], (kt / DQ_STAGES) & 1);
+    if (kt < n_mine) {
+      const uint32_t k_tile = k_addr + s * L::KV_TILE;
+      const uint32_t v_tile = v_addr + s * L::KV_TILE;
+      port::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      port::ldmatrix_x4(aq, q_frag + kk * 16);
-      port::ldmatrix_x4(ao, do_frag + kk * 16);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        const int off = (np * 16 + ln.b_row) * LD + kk * 16 + ln.b_col;
-        uint32_t bk[4], bv[4];
-        port::ldmatrix_x4(bk, tK + off);
-        port::mma_bf16_16816(s[2 * np], aq, bk[0], bk[1]);
-        port::mma_bf16_16816(s[2 * np + 1], aq, bk[2], bk[3]);
-        port::ldmatrix_x4(bv, tV + off);
-        port::mma_bf16_16816(dp[2 * np], ao, bv[0], bv[1]);
-        port::mma_bf16_16816(dp[2 * np + 1], ao, bv[2], bv[3]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;   // 16 columns a step
+        port::wgmma_ss(sc, port::sw128_desc(q_addr + (kk / 4) * L::Q_BOX + off, 16),
+                       port::sw128_desc(k_tile + (kk / 4) * L::KV_BOX + off, 16),
+                       kk > 0);
       }
-    }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        port::wgmma_ss(dp, port::sw128_desc(do_addr + (kk / 4) * L::Q_BOX + off, 16),
+                       port::sw128_desc(v_tile + (kk / 4) * L::KV_BOX + off, 16),
+                       kk > 0);
+      }
+      port::wgmma_commit();
+      port::wgmma_wait<0>();
+      port::fence_regs(sc);
+      port::fence_regs(dp);
 
-    // p = exp(s - lse), 0 where masked; ds = p (dp - delta), into s.
-    // Fragment element e of tile j: row row0 + 8*(e/2), key
-    // k0 + 8*j + 2*t + e%2.
-    const bool edge = k0 + BK > T || (causal && k0 + BK - 1 > q0);
+      // p = exp(s - lse), 0 where masked; ds = p (dp - delta), in bf16
+      // as the A fragments of dq += ds k.
+      const int k0 = kt * DQ_BK;
+      const bool edge = k0 + DQ_BK > T || (causal && k0 + DQ_BK - 1 > qw);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1;
-        float p = exp2f(s[j][e] * LOG2E - lse2[hr]);
+      for (int i = 0; i < DQ_BK / 2; ++i) {
+        const int hr = (i / 2) & 1;
+        float p = exp2f(sc[i] * LOG2E - lse2[hr]);
         if (edge) {
-          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1);
           if (key >= T || (causal && key > row0 + 8 * hr)) p = 0.f;
         }
-        s[j][e] = p * (dp[j][e] - dlt[hr]);
+        sc[i] = p * (dp[i] - dlt[hr]);
       }
-    }
-
-    // dq += ds k: k read transposed ([key][d] is the [k][n] operand).
 #pragma unroll
-    for (int c = 0; c < BK / 16; ++c) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * c], s[2 * c + 1]);
+      for (int kc = 0; kc < DQ_BK / 16; ++kc)
 #pragma unroll
-      for (int dp2 = 0; dp2 < DT / 2; ++dp2) {
-        uint32_t bk[4];
-        port::ldmatrix_x4_trans(
-            bk, tK + (c * 16 + ln.a_row) * LD + dp2 * 16 + ln.a_col);
-        port::mma_bf16_16816(acc[2 * dp2], a, bk[0], bk[1]);
-        port::mma_bf16_16816(acc[2 * dp2 + 1], a, bk[2], bk[3]);
-      }
+        for (int r = 0; r < 4; ++r)
+          da[kc][r] = port::pack_bf16x2(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
+      // dq += ds k: K ([key][d], d contiguous) the MN-major B operand; a
+      // 16-key step is 16 rows (2048 B) down the tile.
+      port::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < DQ_BK / 16; ++kc)
+        port::wgmma_rs_mn(acc, da[kc], port::sw128_desc(k_tile + kc * 16 * 128, L::KV_BOX));
+      port::wgmma_commit();
+      port::wgmma_wait<0>();
+      port::fence_regs(acc);
     }
+    __syncwarp();
+    if (lane == 0) port::mbar_arrive(&empty[s]);
   }
 
-  // The warp's own rows of sQ (only it reads them) stage its 16 rows.
-  store_rows<D>(sQ + warp * 16 * LD, acc, dq + (long)b * S * q_pitch + (long)h * D,
-                q_pitch, q0 + warp * 16, S, lane);
+  // dq in bf16 into this warp's 16 staging rows, then 16 bytes a lane to
+  // device memory.
+  bf16* stage = reinterpret_cast<bf16*>(smem + L::OUT_OFF) +
+                (c * 4 + warp) * 16 * L::OUT_LD;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      *reinterpret_cast<uint32_t*>(stage + (lane / 4 + 8 * hr) * L::OUT_LD + 8 * i + 2 * t) =
+          port::pack_bf16x2(acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
+  __syncwarp();
+  const long q_pitch = (long)H * D;
+  const int first = qw + warp * 16;
+  bf16* dst = dq + (long)b * S * q_pitch + (long)h * D;
+  for (int ci = lane; ci < 16 * (D / 8); ci += 32) {
+    const int r = ci / (D / 8), cc = ci % (D / 8);
+    if (first + r < S)
+      *reinterpret_cast<uint4*>(dst + (long)(first + r) * q_pitch + cc * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * L::OUT_LD + cc * 8);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,D] pre-scaled
+                const __grid_constant__ CUtensorMap tm_k,    // [B,T,KH,D]
+                const __grid_constant__ CUtensorMap tm_v,    // [B,T,KH,D]
+                const __grid_constant__ CUtensorMap tm_do,   // [B,S,H,D]
+                const float* __restrict__ lse,               // [B,H,S]
+                const float* __restrict__ delta,             // [B,H,S]
+                bf16* __restrict__ dq,                        // [B,S,H,D]
+                int S, int T, int H, int KH, int causal) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = port::align1024(smem_raw);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + DQ_STAGES;
+
+  // Causal work grows with the q tile: launch the heaviest tiles first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (H / KH);
+  int n_kv = (T + DQ_BK - 1) / DQ_BK;
+  if (causal) n_kv = min(n_kv, (q0 + DQ_BQ - 1) / DQ_BK + 1);
+
+  if (threadIdx.x == 0) {
+    port::mbar_init(bar_q, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      port::mbar_init(&full[s], 1);
+      port::mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    port::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The warpgroup index, broadcast from lane 0 so that the compiler
+  // sees it warp-uniform: each role's registers are then its own.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    port::setmaxnreg_dec<40>();
+    // ---- producer warpgroup: one thread issues every load.
+    if (threadIdx.x == 0) {
+      port::mbar_expect_tx(bar_q, 2 * L::Q_TILE);
+      for (int bx = 0; bx < L::BOXES; ++bx) {
+        port::tma_load_4d(smem + L::Q_OFF + bx * L::Q_BOX, &tm_q, bar_q, 64 * bx,
+                          h, q0, b);
+        port::tma_load_4d(smem + L::DO_OFF + bx * L::Q_BOX, &tm_do, bar_q, 64 * bx,
+                          h, q0, b);
+      }
+      for (int kt = 0; kt < n_kv; ++kt) {
+        const int s = kt % DQ_STAGES;
+        port::mbar_wait(&empty[s], ((kt / DQ_STAGES) & 1) ^ 1);
+        port::mbar_expect_tx(&full[s], 2 * L::KV_TILE);
+        for (int bx = 0; bx < L::BOXES; ++bx) {
+          port::tma_load_4d(smem + L::K_OFF + s * L::KV_TILE + bx * L::KV_BOX, &tm_k,
+                            &full[s], 64 * bx, kh, kt * DQ_BK, b);
+          port::tma_load_4d(smem + L::V_OFF + s * L::KV_TILE + bx * L::KV_BOX, &tm_v,
+                            &full[s], 64 * bx, kh, kt * DQ_BK, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 q rows each.
+    port::setmaxnreg_inc<232>();
+    dq_consume<D>(smem, bar_q, full, empty, lse, delta, dq, q0, wg - 1, h, b,
+                  n_kv, S, T, H, causal);
+  }
 }
 
 // ---------------------------------------------------------------- kernel D
@@ -280,8 +303,6 @@ flash_dq_kernel(const bf16* __restrict__ q,      // [B,S,H,D] pre-scaled
 constexpr int DK_BK = 128;       // keys a block: two consumers of 64
 constexpr int DK_BQ = 64;        // q rows a tile
 constexpr int DK_STAGES = 3;     // q-tile ring depth
-constexpr int DK_THREADS = 384;  // producer + two consumer warpgroups
-constexpr int DK_CONSUMER_WARPS = 8;
 
 // Shared memory, every tile 1024-byte aligned: K and V (resident), the
 // Q and dO ring, then each stage's lse (base 2) and delta rows and the
@@ -307,7 +328,7 @@ struct DkvSmem {
 };
 
 template <int D>
-__global__ void __launch_bounds__(DK_THREADS, 1)
+__global__ void __launch_bounds__(WG_THREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,D] pre-scaled
                  const __grid_constant__ CUtensorMap tm_k,    // [B,T,KH,D]
                  const __grid_constant__ CUtensorMap tm_v,    // [B,T,KH,D]
@@ -341,7 +362,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,D] pre-s
       // Lane 0's arrival with the TMA bytes, then one from each lane of
       // the producer warp once its lse and delta values are stored.
       port::mbar_init(&full[s], 1 + 32);
-      port::mbar_init(&empty[s], DK_CONSUMER_WARPS);
+      port::mbar_init(&empty[s], CONSUMER_WARPS);
     }
     port::fence_barrier_init();
   }
@@ -539,15 +560,21 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int S,
               int T, int H, int KH, int causal, cudaStream_t stream) {
-  const size_t smem = DqLayout<D>::BYTES;
-  cudaError_t err = allow_smem(flash_dq_kernel<D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), S, T, H, KH, causal);
+  // Tensor maps carry the pointers: encoded anew at every launch.
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int err = port::map_rows_bf16(&tm_q, q, B, S, H, D, DQ_BQ);
+  if (!err) err = port::map_rows_bf16(&tm_do, dout, B, S, H, D, DQ_BQ);
+  if (!err) err = port::map_rows_bf16(&tm_k, k, B, T, KH, D, DQ_BK);
+  if (!err) err = port::map_rows_bf16(&tm_v, v, B, T, KH, D, DQ_BK);
+  if (err) return err;
+  const size_t smem = DqSmem<D>::BYTES;
+  cudaError_t e = allow_smem(flash_dq_kernel<D>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((S + DQ_BQ - 1) / DQ_BQ, H, B);
+  flash_dq_kernel<D><<<grid, WG_THREADS, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), S, T, H, KH,
+      causal);
   return (int)cudaGetLastError();
 }
 
@@ -566,7 +593,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t e = allow_smem(flash_dkv_kernel<D>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((T + DK_BK - 1) / DK_BK, KH, B);
-  flash_dkv_kernel<D><<<grid, DK_THREADS, smem, stream>>>(
+  flash_dkv_kernel<D><<<grid, WG_THREADS, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), S, T, H, KH, causal);

@@ -12,22 +12,42 @@
 // the ~295 FLOP/byte ridge; the floor is the K+V bytes the rows' lengths
 // need / 3.35 TB/s.
 //
-// Design. One block per (kv head, batch row) serves all g*S query rows
-// of the group, so each K/V page is read from device memory once per
-// group, not once per q head as the TPU grid does. The block reads its
-// own table[b, j] and length[b] (the counterpart of scalar prefetch)
-// and loops j from 0 to min((length+S-1)/psz, max_pages-1): pages past
-// the row's content are never touched. Pages stream through a double
-// buffer in shared memory with cp.async, the next page in flight while
-// the current one is scored, so the block always has a whole page of
-// loads outstanding. Scores take one thread per (q row, key), reading
-// its key row (padded, conflict-free 16-byte loads) and the q row
-// (fp32, broadcast). The positional mask length+s >= j*psz+off, the
-// fp32 online softmax and the l == 0 guard follow the TPU kernel, and
-// probabilities round to bf16 before P V as there; then thread d
-// accumulates output column d of every row. What this leaves for later:
-// splitting a long row's pages over several blocks (flash-decoding) so
-// that B*KH blocks fill all 132 SMs.
+// Design (flash-decoding). The TPU grid walks a row's pages in order on
+// one core; here a row's pages are split over blocks so that the card's
+// 132 SMs all stream. The grid is (chunks, KH, B): block (c, kh, b)
+// takes pages [c*ppc, (c+1)*ppc) of row b for kv head kh, with all g*S
+// query rows of the group (row r = s*g + gi, q head kh*g + gi), so each
+// K/V page is read from device memory once per group. The host picks
+// the chunk count from max_pages, B*KH and the SM count (it does not
+// know the lengths); a block whose pages all lie past its row's last
+// page, min((length+S-1)/psz, max_pages-1), reads nothing, so as on the
+// TPU no page past a row's content is touched.
+//  - Loads: each block reads its own table[b, j] (the counterpart of
+//    scalar prefetch) and streams its pages through a ring of STAGES
+//    pages in shared memory with cp.async, STAGES-1 pages in flight while
+//    one is scored; one __syncthreads a page publishes it and frees the
+//    oldest stage.
+//  - Products on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+//    accumulate): the g*S rows, padded to MT m-tiles of 16 (MT 1, 2 or
+//    4: up to 64 rows), are the A operand; a page is cut into 16-key
+//    tiles. The four warps split (m-tile, key tile) pairs: warp w owns
+//    m-tile w % MT and the key tiles kt with kt % (4/MT) == w / MT, and
+//    keeps its own online softmax (m, l, and a 16 x 128 fp32 output) over
+//    them. q, pre-scaled in the kernel as bf16(float(q) * scale) (what
+//    the JAX wrapper's (q * scale).astype(q.dtype) gives), is loaded once
+//    into registers as A fragments; the fp32 scores' C fragments, masked
+//    (positional: length + s >= j*psz + off) and exponentiated, round to
+//    bf16 and are directly the A fragment of P V, as the TPU kernel
+//    rounds p before P V.
+//  - Combine: every warp writes its partial (unnormalised fp32 output,
+//    running max in base-2 units, sum) to a workspace; the block then
+//    takes a ticket from a per-(b, kh) counter, and the last block to
+//    arrive merges the partials of that (b, kh) in fixed order (chunk,
+//    then warp), applies the l == 0 guard, writes bf16 out and resets the
+//    counter to 0 for the next call. The order of every sum is fixed, so
+//    two calls give bit-equal outputs. One launch a call.
+// Masked scores give p = 0 exactly (not exp of NEG_INF - m), so a warp
+// whose keys a row cannot see yet contributes an empty partial.
 #include "common.cuh"
 
 using port::bf16;
@@ -36,204 +56,317 @@ using port::NEG_INF;
 namespace {
 
 constexpr int HD = 128;          // head_dim
-constexpr int LDK = HD + 8;      // padded bf16 pitch of sK rows
-constexpr int NTHREADS = 128;    // thread d owns output column d
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int MAXR = 16;         // max q rows per block: g * S
+constexpr int LD = HD + 8;       // padded bf16 pitch of Q, K and V rows
+constexpr int NWARPS = 4;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int STAGES = 3;        // page ring: STAGES - 1 pages in flight
+constexpr int MAXR = 64;         // max q rows per block: g * S
 constexpr int MAXPSZ = 128;
+constexpr float LOG2E = 1.4426950408889634f;
 
-// RT: compile-time row capacity (1, 2, 4, 8 or 16) >= the block's g*S,
-// so the per-key P V update is RT fused multiply-adds, not MAXR
-// predicated ones.
-template <int RT>
+__host__ __device__ constexpr int pad16(int psz) { return (psz + 15) / 16 * 16; }
+
+// Q (MT*16 rows), then per stage a page's K rows and V rows, each padded
+// to a multiple of 16 rows (the pad rows are zeroed once).
+template <int MT>
 __host__ __device__ constexpr size_t smem_bytes(int psz) {
-  return 2 * sizeof(bf16) * (size_t)psz * LDK +    // sK, double buffered
-         2 * sizeof(bf16) * (size_t)psz * HD +     // sV, double buffered
-         sizeof(float) * (size_t)RT * HD +         // sQ
-         sizeof(float) * (size_t)RT * psz +        // sP (scores/probs)
-         3 * sizeof(float) * RT;                   // sM, sL, sAlpha
+  return sizeof(bf16) * ((size_t)MT * 16 * LD + (size_t)STAGES * 2 * pad16(psz) * LD);
 }
 
-template <int RT>
-__global__ void __launch_bounds__(NTHREADS)
-paged_decode_kernel(const bf16* __restrict__ q,     // [B,S,H,HD] pre-scaled
+// ldmatrix lane addressing (lane l names row l % 8 of matrix l / 8): the
+// A fragment of a [row][k] tile, and the B fragments of a [k][n] tile
+// read transposed, at (a_row, a_col); the B fragments of an [n][k] tile
+// at (b_row, b_col).
+struct Lanes {
+  int a_row, a_col, b_row, b_col;
+  __device__ explicit Lanes(int lane) {
+    const int lm = lane / 8, lr = lane % 8;
+    a_row = (lm % 2) * 8 + lr;
+    a_col = (lm / 2) * 8;
+    b_row = (lm / 2) * 8 + lr;
+    b_col = (lm % 2) * 8;
+  }
+};
+
+template <int MT>
+__global__ void __launch_bounds__(NTHREADS, 2)
+paged_decode_kernel(const bf16* __restrict__ q,     // [B,S,H,HD]
                     const bf16* __restrict__ kp,    // [NP,psz,KH,HD]
                     const bf16* __restrict__ vp,    // [NP,psz,KH,HD]
                     const int* __restrict__ table,  // [B,maxp]
                     const int* __restrict__ length, // [B]
                     bf16* __restrict__ out,         // [B,S,H,HD]
-                    int S, int H, int KH, int psz, int maxp) {
+                    float* __restrict__ part_o,     // [B*KH, parts, R, HD]
+                    float* __restrict__ part_ml,    // [B*KH, parts, R, 2]
+                    int* __restrict__ ticket,       // [B*KH], 0 between calls
+                    int S, int H, int KH, int psz, int maxp, int ppc,
+                    float scale) {
+  constexpr int KS = NWARPS / MT;   // key splits: warps sharing an m-tile
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK0 = reinterpret_cast<bf16*>(smem);
-  bf16* sV0 = sK0 + 2 * (size_t)psz * LDK;
-  float* sQ = reinterpret_cast<float*>(sV0 + 2 * (size_t)psz * HD);
-  float* sP = sQ + RT * HD;
-  float* sM = sP + RT * psz;
-  float* sL = sM + RT;
-  float* sAlpha = sL + RT;
+  __shared__ int s_last;
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sKV = sQ + MT * 16 * LD;
+  const int P16 = pad16(psz);
+  const int stage_elems = 2 * P16 * LD;
 
-  const int kh = blockIdx.x, b = blockIdx.y;
+  const int chunk = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int nchunks = gridDim.x, nparts = nchunks * KS;
   const int g = H / KH;
-  const int R = g * S;            // row r = s * g + gi, q head kh*g + gi
+  const int R = g * S;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int t = lane % 4;
   const int len = length[b];
   const int last = min((len + S - 1) / psz, maxp - 1);
-  const long row_pitch = (long)KH * HD;          // one token of the pool
-  constexpr int CHUNKS = HD / 8;                 // 16-byte chunks per row
+  const int j0 = chunk * ppc;
+  const int j1 = min(j0 + ppc, last + 1);          // this block's pages [j0, j1)
+  const long bkh = (long)b * KH + kh;
+  const long row_pitch = (long)KH * HD;            // one token of the pool
 
-  auto issue_page = [&](int j, int buf) {
-    const long pid = table[(long)b * maxp + j];
-    const long base = pid * psz * row_pitch + (long)kh * HD;
-    bf16* dk = sK0 + (size_t)buf * psz * LDK;
-    bf16* dv = sV0 + (size_t)buf * psz * HD;
-    for (int c = tid; c < psz * CHUNKS; c += NTHREADS) {
-      const int t = c / CHUNKS, cc = c % CHUNKS;
-      const long off = base + t * row_pitch + cc * 8;
-      port::cp_async16(dk + t * LDK + cc * 8, kp + off);
-      port::cp_async16(dv + t * HD + cc * 8, vp + off);
+  if (j0 < j1) {
+    const int mt = warp % MT, split = warp / MT;
+    const Lanes ln(lane);
+
+    auto issue_page = [&](int j, int st) {
+      if (j < j1) {
+        const long pid = table[(long)b * maxp + j];
+        const long base = pid * psz * row_pitch + (long)kh * HD;
+        bf16* dk = sKV + (size_t)st * stage_elems;
+        bf16* dv = dk + P16 * LD;
+        for (int c = tid; c < psz * (HD / 8); c += NTHREADS) {
+          const int tok = c / (HD / 8), cc = c % (HD / 8);
+          const long off = base + tok * row_pitch + cc * 8;
+          port::cp_async16(dk + tok * LD + cc * 8, kp + off);
+          port::cp_async16(dv + tok * LD + cc * 8, vp + off);
+        }
+      }
+      port::cp_async_commit();     // empty past the block's pages
+    };
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) issue_page(j0 + i, i);
+
+    // q rows, pre-scaled and rounded to bf16; rows past R and the pad
+    // rows of every stage are zeros.
+    for (int i = tid; i < MT * 16 * (HD / 2); i += NTHREADS) {
+      const int r = i / (HD / 2), d = 2 * (i % (HD / 2));
+      float2 v = make_float2(0.f, 0.f);
+      if (r < R) {
+        const int s = r / g, h = kh * g + r % g;
+        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            q + (((long)b * S + s) * H + h) * HD + d));
+        v = make_float2(x.x * scale, x.y * scale);
+      }
+      *reinterpret_cast<uint32_t*>(sQ + r * LD + d) = port::pack_bf16x2(v.x, v.y);
     }
-    port::cp_async_commit();
-  };
+    if (P16 != psz) {
+      const int pad = (P16 - psz) * LD;
+      for (int i = tid; i < STAGES * 2 * pad; i += NTHREADS) {
+        const int half = i / pad;          // stage * 2 + (K or V)
+        sKV[(size_t)half * P16 * LD + psz * LD + i % pad] = __float2bfloat16(0.f);
+      }
+    }
+    __syncthreads();
 
-  issue_page(0, 0);
-  for (int i = tid; i < R * HD; i += NTHREADS) {
-    const int r = i / HD, d = i % HD;
+    uint32_t qa[HD / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      port::ldmatrix_x4(qa[kk], sQ + (mt * 16 + ln.a_row) * LD + kk * 16 + ln.a_col);
+
+    // This lane's rows mt*16 + lane/4 (+8): their q positions.
+    int qpos[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) qpos[hr] = len + (mt * 16 + lane / 4 + 8 * hr) / g;
+
+    float acc[HD / 8][4];
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF};   // running max, base-2 units
+    float l[2] = {0.f, 0.f};           // this lane's share of the sum
+
+    for (int i = 0; j0 + i < j1; ++i) {
+      const int j = j0 + i;
+      port::cp_async_wait<STAGES - 2>();   // page j (this thread's part)
+      __syncthreads();                     // ... everyone's; stage i-1 free
+      issue_page(j + STAGES - 1, (i + STAGES - 1) % STAGES);
+      const bf16* tK = sKV + (size_t)(i % STAGES) * stage_elems;
+      const bf16* tV = tK + P16 * LD;
+
+      for (int kt = split; kt < P16 / 16; kt += KS) {
+        // s = q k^T: 16 rows x 16 keys, fp32.
+        float s[2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          uint32_t bk[4];
+          port::ldmatrix_x4(bk, tK + (kt * 16 + ln.b_row) * LD + kk * 16 + ln.b_col);
+          port::mma_bf16_16816(s[0], qa[kk], bk[0], bk[1]);
+          port::mma_bf16_16816(s[1], qa[kk], bk[2], bk[3]);
+        }
+        // Mask and online softmax. Element e of tile n: row lane/4 +
+        // 8*(e/2), key kt*16 + 8n + 2t + e%2 of the page.
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int off = kt * 16 + 8 * n + 2 * t + (e & 1);
+            const int hr = e >> 1;
+            const bool ok = off < psz && qpos[hr] >= j * psz + off;
+            s[n][e] = ok ? s[n][e] * LOG2E : NEG_INF;
+            mx[hr] = fmaxf(mx[hr], s[n][e]);
+          }
+        float alpha[2];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+          mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+          alpha[hr] = exp2f(m[hr] - mx[hr]);
+          m[hr] = mx[hr];
+          l[hr] *= alpha[hr];
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hr = e >> 1;
+            const float p = s[n][e] == NEG_INF ? 0.f : exp2f(s[n][e] - m[hr]);
+            l[hr] += p;
+            s[n][e] = p;
+          }
+#pragma unroll
+        for (int i2 = 0; i2 < HD / 8; ++i2) {
+          acc[i2][0] *= alpha[0];
+          acc[i2][1] *= alpha[0];
+          acc[i2][2] *= alpha[1];
+          acc[i2][3] *= alpha[1];
+        }
+        // o += p v: p (bf16) is the A fragment; v read transposed.
+        uint32_t pa[4];
+        pa[0] = port::pack_bf16x2(s[0][0], s[0][1]);
+        pa[1] = port::pack_bf16x2(s[0][2], s[0][3]);
+        pa[2] = port::pack_bf16x2(s[1][0], s[1][1]);
+        pa[3] = port::pack_bf16x2(s[1][2], s[1][3]);
+#pragma unroll
+        for (int dp = 0; dp < HD / 16; ++dp) {
+          uint32_t bv[4];
+          port::ldmatrix_x4_trans(bv, tV + (kt * 16 + ln.a_row) * LD + dp * 16 + ln.a_col);
+          port::mma_bf16_16816(acc[2 * dp], pa, bv[0], bv[1]);
+          port::mma_bf16_16816(acc[2 * dp + 1], pa, bv[2], bv[3]);
+        }
+      }
+    }
+    port::cp_async_wait<0>();
+
+    // This warp's partial, rows below R only.
+    const long part = (bkh * nparts + (long)chunk * KS + split) * R;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+      const int row = mt * 16 + lane / 4 + 8 * hr;
+      if (row < R) {
+        float* po = part_o + (part + row) * HD + 2 * t;
+#pragma unroll
+        for (int i2 = 0; i2 < HD / 8; ++i2)
+          *reinterpret_cast<float2*>(po + 8 * i2) =
+              make_float2(acc[i2][2 * hr], acc[i2][2 * hr + 1]);
+        if (t == 0)
+          *reinterpret_cast<float2*>(part_ml + (part + row) * 2) = make_float2(m[hr], l[hr]);
+      }
+    }
+  }
+
+  // The last block of this (b, kh) to arrive merges every partial.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(ticket + bkh, 1) == nchunks - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  const int used = (last / ppc + 1) * KS;   // partials of chunks with pages
+  const float* pm = part_ml + bkh * nparts * R * 2;
+  const float* po = part_o + bkh * nparts * R * HD;
+  for (int r = warp; r < R; r += NWARPS) {
+    float mm = NEG_INF;
+    for (int p = 0; p < used; ++p) mm = fmaxf(mm, __ldcg(pm + ((long)p * R + r) * 2));
+    float ll = 0.f;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int p = 0; p < used; ++p) {
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(pm + ((long)p * R + r) * 2));
+      const float w = exp2f(ml.x - mm);
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(po + ((long)p * R + r) * HD) + lane);
+      ll += ml.y * w;
+      o.x += x.x * w;
+      o.y += x.y * w;
+      o.z += x.z * w;
+      o.w += x.w * w;
+    }
+    const float inv = (ll == 0.f) ? 1.f : 1.f / ll;
     const int s = r / g, h = kh * g + r % g;
-    sQ[i] = __bfloat162float(q[(((long)b * S + s) * H + h) * HD + d]);
+    uint2 pk;
+    pk.x = port::pack_bf16x2(o.x * inv, o.y * inv);
+    pk.y = port::pack_bf16x2(o.z * inv, o.w * inv);
+    *reinterpret_cast<uint2*>(out + (((long)b * S + s) * H + h) * HD + 4 * lane) = pk;
   }
-  if (tid < RT) {
-    sM[tid] = NEG_INF;
-    sL[tid] = 0.f;
-    sAlpha[tid] = 1.f;
-  }
-  for (int i = R * psz + tid; i < RT * psz; i += NTHREADS) sP[i] = 0.f;
-  float acc[RT];
-#pragma unroll
-  for (int r = 0; r < RT; ++r) acc[r] = 0.f;
+  if (tid == 0) ticket[bkh] = 0;
+}
 
-  for (int j = 0; j <= last; ++j) {
-    const int buf = j & 1;
-    if (j < last) {
-      issue_page(j + 1, buf ^ 1);   // its buffer was released last round
-      port::cp_async_wait<1>();
-    } else {
-      port::cp_async_wait<0>();
-    }
-    __syncthreads();                 // page j (and sQ, sM, sL) visible
-    const bf16* sK = sK0 + (size_t)buf * psz * LDK;
-    const bf16* sV = sV0 + (size_t)buf * psz * HD;
-
-    // Scores with the positional mask: one thread per (row, key).
-    for (int it = tid; it < R * psz; it += NTHREADS) {
-      const int r = it / psz, t = it % psz;   // rows past R stay 0
-      const uint4* krow = reinterpret_cast<const uint4*>(sK + t * LDK);
-      const float4* qrow = reinterpret_cast<const float4*>(sQ + r * HD);
-      float dot = 0.f;
-#pragma unroll
-      for (int c = 0; c < CHUNKS; ++c) {
-        const uint4 raw = krow[c];
-        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        const float4 qa = qrow[2 * c], qb = qrow[2 * c + 1];
-        const float2 f0 = __bfloat1622float2(k2[0]);
-        const float2 f1 = __bfloat1622float2(k2[1]);
-        const float2 f2 = __bfloat1622float2(k2[2]);
-        const float2 f3 = __bfloat1622float2(k2[3]);
-        dot += qa.x * f0.x + qa.y * f0.y + qa.z * f1.x + qa.w * f1.y +
-               qb.x * f2.x + qb.y * f2.y + qb.z * f3.x + qb.w * f3.y;
-      }
-      const int q_pos = len + r / g;
-      sP[r * psz + t] = (q_pos >= j * psz + t) ? dot : NEG_INF;
-    }
-    __syncthreads();
-
-    // Online softmax per row: warp w takes rows w, w+NWARPS, ...
-    for (int r = warp; r < R; r += NWARPS) {
-      float* prow = sP + r * psz;
-      float mloc = NEG_INF;
-      for (int c = lane; c < psz; c += 32) mloc = fmaxf(mloc, prow[c]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, o));
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mloc);
-      const float alpha = expf(m_prev - m_new);
-      float sum = 0.f;
-      for (int c = lane; c < psz; c += 32) {
-        const float p = expf(prow[c] - m_new);
-        sum += p;
-        prow[c] = __bfloat162float(__float2bfloat16(p));
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      __syncwarp();
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + sum;
-        sAlpha[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // P V: thread tid accumulates column tid of every row (rows past R
-    // hold zeros in sP and stay 0).
-#pragma unroll
-    for (int r = 0; r < RT; ++r) acc[r] *= sAlpha[r];
-#pragma unroll 4
-    for (int t = 0; t < psz; ++t) {
-      const float vv = __bfloat162float(sV[t * HD + tid]);
-#pragma unroll
-      for (int r = 0; r < RT; ++r) acc[r] += sP[r * psz + t] * vv;
-    }
-    __syncthreads();                 // buffer `buf` and sP are free again
-  }
-
-#pragma unroll
-  for (int r = 0; r < RT; ++r) {
-    if (r < R) {
-      const float l = sL[r];
-      const float inv = (l == 0.f) ? 1.f : 1.f / l;
-      const int s = r / g, h = kh * g + r % g;
-      out[(((long)b * S + s) * H + h) * HD + tid] =
-          __float2bfloat16(acc[r] * inv);
-    }
-  }
+template <int MT>
+int launch(const void* q, const void* kp, const void* vp, const void* table,
+           const void* length, void* out, void* part_o, void* part_ml,
+           void* ticket, int B, int S, int H, int KH, int psz, int maxp,
+           int nchunks, int ppc, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<MT>(psz);
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_decode_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(nchunks, KH, B);
+  paged_decode_kernel<MT><<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
+      static_cast<const bf16*>(vp), static_cast<const int*>(table),
+      static_cast<const int*>(length), static_cast<bf16*>(out),
+      static_cast<float*>(part_o), static_cast<float*>(part_ml),
+      static_cast<int*>(ticket), S, H, KH, psz, maxp, ppc, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-template <int RT>
-int launch(const void* q, const void* kp, const void* vp, const void* table,
-           const void* length, void* out, int B, int S, int H, int KH,
-           int psz, int maxp, cudaStream_t stream) {
-  const size_t smem = smem_bytes<RT>(psz);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(KH, B);
-  paged_decode_kernel<RT><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
-      static_cast<const bf16*>(vp), static_cast<const int*>(table),
-      static_cast<const int*>(length), static_cast<bf16*>(out), S, H, KH, psz,
-      maxp);
-  return (int)cudaGetLastError();
-}
-
+// The workspace's layout is this entry point's alone: ``work`` holds
+// the partials' fp32 outputs [B*KH, nchunks*KS, R, HD] and then their
+// (max, sum) pairs [B*KH, nchunks*KS, R, 2], where R = (H/KH)*S and KS =
+// 4/MT (MT = ceil(R/16) rounded up to 1, 2 or 4); ``ticket`` holds B*KH
+// ints that are 0 before the call and 0 again after it. A workspace
+// smaller than that (work_floats, n_tickets) is refused, never
+// overrun.
 extern "C" int paged_decode_bf16(const void* q, const void* kp,
                                  const void* vp, const void* table,
-                                 const void* length, void* out, int B, int S,
-                                 int H, int KH, int hd, int psz, int maxp,
-                                 void* stream) {
+                                 const void* length, void* out, void* work,
+                                 void* ticket, long long work_floats,
+                                 int n_tickets, int B, int S, int H, int KH,
+                                 int hd, int psz, int maxp, int nchunks,
+                                 int ppc, float scale, void* stream) {
   if (hd != HD || B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 ||
       (H / KH) * S > MAXR || psz <= 0 || psz % 8 != 0 || psz > MAXPSZ ||
-      maxp <= 0)
+      maxp <= 0 || nchunks <= 0 || ppc <= 0 || (long)nchunks * ppc < maxp ||
+      (long)(nchunks - 1) * ppc >= maxp || KH > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int R = (H / KH) * S;
-  if (R <= 1) return launch<1>(q, kp, vp, table, length, out, B, S, H, KH, psz, maxp, st);
-  if (R <= 2) return launch<2>(q, kp, vp, table, length, out, B, S, H, KH, psz, maxp, st);
-  if (R <= 4) return launch<4>(q, kp, vp, table, length, out, B, S, H, KH, psz, maxp, st);
-  if (R <= 8) return launch<8>(q, kp, vp, table, length, out, B, S, H, KH, psz, maxp, st);
-  return launch<16>(q, kp, vp, table, length, out, B, S, H, KH, psz, maxp, st);
+  const int MT = R <= 16 ? 1 : R <= 32 ? 2 : 4;
+  const long long parts = (long long)B * KH * nchunks * (NWARPS / MT) * R;
+  if (work_floats < parts * (HD + 2) || n_tickets < B * KH)
+    return (int)cudaErrorInvalidValue;
+  float* part_o = static_cast<float*>(work);
+  float* part_ml = part_o + parts * HD;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (MT == 1)
+    return launch<1>(q, kp, vp, table, length, out, part_o, part_ml, ticket, B, S, H,
+                     KH, psz, maxp, nchunks, ppc, scale, st);
+  if (MT == 2)
+    return launch<2>(q, kp, vp, table, length, out, part_o, part_ml, ticket, B, S, H,
+                     KH, psz, maxp, nchunks, ppc, scale, st);
+  return launch<4>(q, kp, vp, table, length, out, part_o, part_ml, ticket, B, S, H,
+                   KH, psz, maxp, nchunks, ppc, scale, st);
 }

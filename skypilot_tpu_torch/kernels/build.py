@@ -32,7 +32,8 @@ BUILD_DIR = os.path.join(_PKG, '_build')
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ('-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC')
 
-_CTYPES = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'f': ctypes.c_float}
+_CTYPES = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'l': ctypes.c_longlong,
+           'f': ctypes.c_float}
 _lock = threading.Lock()
 _KERNELS: Dict[str, 'Kernel'] = {}
 
@@ -96,8 +97,9 @@ def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
 
 class Kernel:
     """One C entry point of one csrc/ source. ``argtypes`` is a string
-    of ctypes codes: 'p' pointer (and stream), 'i' int, 'f' float. The
-    entry point returns cudaGetLastError(); non-zero raises."""
+    of ctypes codes: 'p' pointer (and stream), 'i' int, 'l' long long,
+    'f' float. The entry point returns cudaGetLastError() (or its own
+    cudaErrorInvalidValue); non-zero raises."""
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: Sequence[str]):

@@ -10,7 +10,10 @@ tensors lie:
 
   - CUDA: write the step's new K/V into the pool first, then launch the
     hand-written kernel (csrc/paged_decode.cu) that streams pages
-    through the table — the JAX ``impl='pallas'`` branch.
+    through the table — the JAX ``impl='pallas'`` branch. The kernel
+    splits each row's pages over blocks (:func:`split_pages`) and merges
+    their partials itself, through a workspace this module keeps per
+    (device, stream) (:func:`_workspace`).
   - CPU: the fused overlay-then-attend formulation — gather this
     layer's view from the pre-write pool, overlay the new K/V at each
     row's positions, run the plain attention, then write the pool —
@@ -21,7 +24,8 @@ the returned pools are the same tensors that were passed in.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -30,12 +34,74 @@ from skypilot_tpu_torch.ops.attention import xla_attention
 
 KERNEL = build.Kernel(
     name='paged_decode', source='paged_decode.cu', symbol='paged_decode_bf16',
-    argtypes=('p', 'p', 'p', 'p', 'p', 'p', 'i', 'i', 'i', 'i', 'i', 'i',
-              'i', 'p'))
+    argtypes=('p',) * 8 + ('l',) + ('i',) * 10 + ('f', 'p'))
 
 HEAD_DIM = 128      # the kernel's head_dim
-MAX_ROWS = 16       # the kernel's g * S limit per block
-MAX_PAGE_SIZE = 128  # two K and two V pages must fit in shared memory
+MAX_ROWS = 64       # the kernel's g * S limit per block: four 16-row tiles
+MAX_PAGE_SIZE = 128  # three K and V pages must fit in shared memory
+WARPS = 4           # the kernel's warps a block
+# Blocks the chunk count aims for, per SM: two fit on an SM at once
+# (page 64), and more than that evens out rows of unequal length.
+BLOCKS_PER_SM = 4
+
+
+def split_pages(batch: int, kv_heads: int, max_pages: int,
+                n_sm: int) -> Tuple[int, int]:
+    """(chunks, pages per chunk) for kernel B's grid (chunks, KH, B):
+    the chunk count aims at BLOCKS_PER_SM blocks per SM (never more
+    chunks than pages), then rounds down so that every chunk but the
+    last holds the same number of pages. The lengths are not known
+    here: a chunk past its row's last page reads nothing."""
+    want = -(-BLOCKS_PER_SM * n_sm // (batch * kv_heads))
+    per = -(-max_pages // max(1, min(max_pages, want)))
+    return -(-max_pages // per), per
+
+
+def key_splits(rows: int) -> int:
+    """Warps of a kernel-B block that share one 16-row tile of the g*S
+    rows (each takes every key_splits-th 16-key tile of a page and
+    writes its own partial)."""
+    tiles = 1 if rows <= 16 else 2 if rows <= 32 else 4
+    return WARPS // tiles
+
+
+def workspace_sizes(batch: int, kv_heads: int, rows: int,
+                    chunks: int) -> Tuple[int, int]:
+    """(floats, tickets) that kernel B's workspace needs: one partial
+    per (batch row, kv head, chunk, key split, q row), each an fp32
+    output row of hd floats and a max and a sum, and one counter per
+    (batch row, kv head). The layout inside is the kernel's own
+    (csrc/paged_decode.cu::paged_decode_bf16), which refuses a smaller
+    workspace."""
+    parts = batch * kv_heads * chunks * key_splits(rows) * rows
+    return parts * (HEAD_DIM + 2), batch * kv_heads
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# Per (device, stream): (fp32 partials, int32 tickets), grown, never
+# shrunk. The tickets must be 0 at a launch and the kernel leaves them
+# 0, so the launches of one stream, which run in order, share one
+# workspace; zeroing a fresh one per call would add a device operation
+# per layer per decode step to a path the host already limits.
+_WORKSPACES: Dict[Tuple[torch.device, int],
+                  Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, stream: int, floats: int,
+               tickets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    have = _WORKSPACES.get((device, stream))
+    if have is None or have[0].numel() < floats or \
+            have[1].numel() < tickets:
+        floats = max(floats, have[0].numel() if have else 0)
+        tickets = max(tickets, have[1].numel() if have else 0)
+        have = (torch.empty(floats, dtype=torch.float32, device=device),
+                torch.zeros(tickets, dtype=torch.int32, device=device))
+        _WORKSPACES[(device, stream)] = have
+    return have
 
 
 def gather_pages(pool_layer: torch.Tensor, table: torch.Tensor,
@@ -69,18 +135,12 @@ def paged_decode_attention_ref(q: torch.Tensor, kp: torch.Tensor,
                          softmax_scale=softmax_scale)
 
 
-def paged_decode_attention(q: torch.Tensor, kp: torch.Tensor,
-                           vp: torch.Tensor, table: torch.Tensor,
-                           length: torch.Tensor, *,
-                           softmax_scale: Optional[float] = None
-                           ) -> torch.Tensor:
-    """Kernel B on CUDA tensors, the plain version on CPU tensors."""
-    if not q.is_cuda:
-        return paged_decode_attention_ref(q, kp, vp, table, length,
-                                          softmax_scale=softmax_scale)
+def _check_kernel_inputs(q: torch.Tensor, kp: torch.Tensor,
+                         vp: torch.Tensor, table: torch.Tensor,
+                         length: torch.Tensor) -> None:
+    """Raise on what kernel B does not take."""
     b, s, h, hd = q.shape
     psz, kh = kp.shape[1], kp.shape[2]
-    maxp = table.shape[1]
     if q.dtype != torch.bfloat16 or kp.dtype != q.dtype or \
             vp.dtype != q.dtype:
         raise TypeError(f'paged kernel takes bf16 q/pools, got {q.dtype}, '
@@ -101,15 +161,53 @@ def paged_decode_attention(q: torch.Tensor, kp: torch.Tensor,
                          'card')
     if not (kp.is_contiguous() and vp.is_contiguous()):
         raise ValueError('pools must be contiguous')
+
+
+def kernel_call(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                table: torch.Tensor, length: torch.Tensor, *,
+                softmax_scale: Optional[float] = None):
+    """Check kernel B's inputs and make its output: (out, a callable
+    that launches the kernel into out). The callable holds every tensor
+    whose address it passes."""
+    _check_kernel_inputs(q, kp, vp, table, length)
+    b, s, h, hd = q.shape
+    psz, kh = kp.shape[1], kp.shape[2]
+    maxp = table.shape[1]
+    chunks, per = split_pages(b, kh, maxp, _sm_count(q.device.index))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    floats, tickets = workspace_sizes(b, kh, (h // kh) * s, chunks)
+    work, ticket = _workspace(q.device, stream, floats, tickets)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
-    qs = (q * scale).to(q.dtype).contiguous()
-    table = table.to(torch.int32).contiguous()
-    length = length.to(torch.int32).contiguous()
-    out = torch.empty_like(qs)
-    KERNEL.launch(qs.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                  table.data_ptr(), length.data_ptr(), out.data_ptr(),
-                  b, s, h, kh, hd, psz, maxp,
-                  torch.cuda.current_stream(q.device).cuda_stream)
+    # out is contiguous whatever q's strides: the kernel writes
+    # [B, S, H, hd] in order.
+    held = (q.contiguous(), kp, vp, table.to(torch.int32).contiguous(),
+            length.to(torch.int32).contiguous(),
+            torch.empty(q.shape, dtype=q.dtype, device=q.device), work,
+            ticket)
+    args = tuple(t.data_ptr() for t in held) + (
+        work.numel(), ticket.numel(), b, s, h, kh, hd, psz, maxp, chunks,
+        per, float(scale), stream)
+
+    def launch() -> None:
+        KERNEL.launch(*args)
+
+    launch.held = held   # alive as long as the callable is
+    return held[5], launch
+
+
+def paged_decode_attention(q: torch.Tensor, kp: torch.Tensor,
+                           vp: torch.Tensor, table: torch.Tensor,
+                           length: torch.Tensor, *,
+                           softmax_scale: Optional[float] = None
+                           ) -> torch.Tensor:
+    """Kernel B on CUDA tensors (one launch: q is pre-scaled inside it),
+    the plain version on CPU tensors."""
+    if not q.is_cuda:
+        return paged_decode_attention_ref(q, kp, vp, table, length,
+                                          softmax_scale=softmax_scale)
+    out, launch = kernel_call(q, kp, vp, table, length,
+                              softmax_scale=softmax_scale)
+    launch()
     return out
 
 

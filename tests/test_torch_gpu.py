@@ -85,12 +85,15 @@ def test_flash_kernel_matches_plain(cuda, b, s, t, h, kh, d, causal):
     assert float((lse - lse_ref).abs().max()) <= TOL_LSE
 
 
-@pytest.mark.parametrize('s', [1, 2, 4])
-def test_paged_kernel_matches_plain(cuda, s):
-    b, h, kh, hd, psz, maxp = 4, 8, 2, 128, 16, 6
-    rng = np.random.default_rng(s)
+def _paged_inputs(cuda, s, h, kh):
+    """Four ragged rows over shuffled pages (psz 16, 6 pages a row; the
+    kernel's split puts each page in its own chunk): row 1 of length 0,
+    row 2 inside its first page, row 3 ending exactly on a page (and
+    chunk) boundary."""
+    b, hd, psz, maxp = 4, 128, 16, 6
+    rng = np.random.default_rng(s + h)
     lengths = rng.integers(1, maxp * psz - s, size=b).astype(np.int32)
-    lengths[1] = 0
+    lengths[1], lengths[2], lengths[3] = 0, 10 - s, 2 * psz - s
     n_pages = b * maxp + 1
     perm = rng.permutation(np.arange(1, n_pages))
     table = np.zeros((b, maxp), np.int32)
@@ -99,11 +102,23 @@ def test_paged_kernel_matches_plain(cuda, s):
         n = paging.pages_for(int(lengths[r]) + s, psz)
         table[r, :n] = perm[used:used + n]
         used += n
-    gen = torch.Generator(device=cuda).manual_seed(s)
+    gen = torch.Generator(device=cuda).manual_seed(s + h)
     kp, vp = _rand(gen, n_pages, psz, kh, hd), _rand(gen, n_pages, psz, kh, hd)
     q = _rand(gen, b, s, h, hd)
-    table_t = torch.from_numpy(table).cuda()
-    length_t = torch.from_numpy(lengths).cuda()
+    return (q, kp, vp, torch.from_numpy(table).cuda(),
+            torch.from_numpy(lengths).cuda())
+
+
+# (S, H, KH): groups of 4 q heads at S 1, 2, 4; then g*S past 16: g = 7
+# at S = 3 and 5, g = 8 at S = 8 (64 rows, the kernel's limit).
+PAGED_CASES = [pytest.param(s, 8, 2, id=str(s)) for s in (1, 2, 4)] + [
+    pytest.param(s, h, kh, id=f's{s}-h{h}-kh{kh}')
+    for s, h, kh in ((3, 28, 4), (5, 28, 4), (8, 32, 4))]
+
+
+@pytest.mark.parametrize('s,h,kh', PAGED_CASES)
+def test_paged_kernel_matches_plain(cuda, s, h, kh):
+    q, kp, vp, table_t, length_t = _paged_inputs(cuda, s, h, kh)
     before = pa.KERNEL.launches
     out = pa.paged_decode_attention(q, kp, vp, table_t, length_t)
     assert pa.KERNEL.launches == before + 1
@@ -112,6 +127,58 @@ def test_paged_kernel_matches_plain(cuda, s):
                                         softmax_scale=1.0)
     torch.cuda.synchronize()
     _assert_o_close(out, ref)
+
+
+def test_paged_kernel_is_deterministic(cuda):
+    """Kernel B twice on one input at 64 rows, its pages split over
+    several blocks a row: bit-equal outputs (the partials merge in a
+    fixed order)."""
+    q, kp, vp, table, length = _paged_inputs(cuda, 8, 32, 4)
+    assert pa.split_pages(q.shape[0], kp.shape[2], table.shape[1],
+                          pa._sm_count(q.device.index))[0] > 1
+    outs = []
+    for _ in range(2):
+        out, launch = pa.kernel_call(q, kp, vp, table, length)
+        launch()
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_paged_kernel_takes_a_permuted_q(cuda):
+    """A dense q whose strides are not [B, S, H, hd]'s order gives the
+    same output as its contiguous copy, and the output is contiguous."""
+    q, kp, vp, table, length = _paged_inputs(cuda, 4, 8, 2)
+    qp = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not qp.is_contiguous() and torch.equal(qp, q)
+    out = pa.paged_decode_attention(qp, kp, vp, table, length)
+    want = pa.paged_decode_attention(q, kp, vp, table, length)
+    torch.cuda.synchronize()
+    assert out.is_contiguous()
+    assert torch.equal(out, want)
+
+
+def test_paged_kernel_refuses_a_short_workspace(cuda):
+    """The kernel's entry point owns the workspace layout and refuses a
+    workspace one float or one ticket short, launching nothing."""
+    q, kp, vp, table, length = _paged_inputs(cuda, 8, 32, 4)
+    b, s, h, hd = q.shape
+    kh, maxp = kp.shape[2], table.shape[1]
+    chunks, per = pa.split_pages(b, kh, maxp, pa._sm_count(q.device.index))
+    floats, tickets = pa.workspace_sizes(b, kh, h // kh * s, chunks)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    for nf, nt in ((floats - 1, tickets), (floats, tickets - 1)):
+        work = torch.empty(floats, dtype=torch.float32, device=cuda)
+        ticket = torch.zeros(tickets, dtype=torch.int32, device=cuda)
+        before = pa.KERNEL.launches
+        with pytest.raises(RuntimeError, match='launch failed'):
+            pa.KERNEL.launch(
+                *(t.data_ptr() for t in (q, kp, vp, table, length, out, work,
+                                         ticket)),
+                nf, nt, b, s, h, kh, hd, kp.shape[1], maxp, chunks, per,
+                hd ** -0.5, stream)
+        assert pa.KERNEL.launches == before
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -128,6 +195,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         pa.paged_decode_attention(_rand(gen, 1, 1, 4, 64), pool, pool, table,
                                   length)
+    # g*S = 72 rows per kv head: above the kernel's 64, refused with no
+    # fallback.
+    pool = _rand(gen, 3, 16, 2, 128)
+    with pytest.raises(ValueError, match='at most 64'):
+        pa.paged_decode_attention(_rand(gen, 1, 9, 16, 128), pool, pool,
+                                  table, length)
 
 
 def test_model_step_runs_both_kernels(cuda):
@@ -225,6 +298,26 @@ def test_flash_bwd_kernels_match_plain(cuda, b, s, t, h, kh, d, causal,
             r.abs().max())
 
 
+def test_flash_dq_is_deterministic(cuda):
+    """Kernel C twice on the same inputs gives a bit-identical dq: each
+    block owns its q rows' dq and writes each element once, with no
+    atomics."""
+    b, s, h, kh, d = 1, 300, 8, 2, 128
+    qs, k, v, o, lse, do, _ = _bwd_inputs(cuda, b, s, s, h, kh, d, True,
+                                          False)
+    delta = fa._delta(o, do, None)
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = []
+    for _ in range(2):
+        dq = torch.empty_like(qs)
+        fa.DQ_KERNEL.launch(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                            dq.data_ptr(), b, s, s, h, kh, d, 1, stream)
+        outs.append(dq)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
 def test_flash_dkv_is_deterministic(cuda):
     """Kernel D twice on the same inputs gives bit-identical dk and dv:
     each block owns its keys' grads and sums the group's q heads in
@@ -245,6 +338,44 @@ def test_flash_dkv_is_deterministic(cuda):
     torch.cuda.synchronize()
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
+
+
+def test_verify_step_at_64_rows_runs_kernel_b(cuda):
+    """A verify step of 8 tokens with 8 q heads on one kv head (g*S =
+    64) runs kernel B once a layer and agrees with the plain path within
+    bf16 noise."""
+    cfg = dataclasses.replace(config.PRESETS['llama-debug'], dim=1024,
+                              n_heads=8, n_kv_heads=1, head_dim=128,
+                              ffn_dim=512)
+    params = decode.cast_params_for_decode(
+        llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                          cuda), cfg)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), device=cuda,
+                           generator=gen, dtype=torch.int32)
+    verify = torch.randint(0, cfg.vocab_size, (2, 8), device=cuda,
+                           generator=gen, dtype=torch.int32)
+    lengths = torch.tensor([32, 20], dtype=torch.int32, device=cuda)
+    psz, maxp = 16, 4
+    _, ks, vs = decode.prefill(params, tokens, cfg, 64, lengths=lengths,
+                               attention_impl='xla')
+    outs = []
+    for fn in (pa.paged_attention_step, pa.paged_attention_step_ref):
+        pc = decode.init_page_pool(cfg, 2 * maxp + 1, psz, 2, maxp, cuda)
+        pc.table.copy_(torch.arange(1, 2 * maxp + 1, dtype=torch.int32,
+                                    device=cuda).reshape(2, maxp))
+        paging.scatter_prefill(pc, ks, vs, torch.arange(2, device=cuda), 32,
+                               lengths)
+        before = pa.KERNEL.launches
+        logits, _ = decode.paged_verify_step(params, verify, pc, cfg,
+                                             max_len=64, attention_fn=fn)
+        n = cfg.n_layers if fn is pa.paged_attention_step else 0
+        assert pa.KERNEL.launches == before + n
+        outs.append(logits)
+    assert outs[0].shape == (2, 8, cfg.vocab_size)
+    assert outs[0].isfinite().all()
+    assert float((outs[0] - outs[1]).abs().max()) <= \
+        5e-2 * float(outs[1].std())
 
 
 def test_model_backward_gives_every_param_a_grad(cuda):

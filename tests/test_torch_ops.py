@@ -132,11 +132,20 @@ def _pool(seed, s, n_pages=12, psz=8, kh=2, hd=16, maxp=4, length=None):
     return rng, kp, vp, table, length
 
 
-@pytest.mark.parametrize('s', [1, 4])
-def test_paged_plain_version_matches_jax_kernel(s):
+# (g, S): the q heads a kv head serves and the step width. Kernel B
+# takes g*S up to 64, so the plain version is held to the JAX kernel over
+# that range: g = 2 (llama-1b), 7 (qwen2-7b) and 8 (llama3-70b, qwen2-72b)
+# at S = 1 (decode), 4 and 8 (verify).
+PAGED_PARITY = [pytest.param(2, s, id=str(s)) for s in (1, 4)] + [
+    pytest.param(g, s, id=f'g{g}-s{s}')
+    for g, s in ((2, 8), (7, 1), (7, 4), (7, 8), (8, 1), (8, 4), (8, 8))]
+
+
+@pytest.mark.parametrize('g,s', PAGED_PARITY)
+def test_paged_plain_version_matches_jax_kernel(g, s):
     """Kernel B's plain version vs the JAX paged kernel (interpret)."""
     rng, kp, vp, table, length = _pool(5 + s, s)
-    q = _np(rng, len(length), s, 4, 16)
+    q = _np(rng, len(length), s, 2 * g, 16)
     got = paged_attention.paged_decode_attention_ref(
         torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
         torch.from_numpy(table), torch.from_numpy(length))
@@ -144,6 +153,52 @@ def test_paged_plain_version_matches_jax_kernel(s):
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
         jnp.asarray(table), jnp.asarray(length), interpret=True)
     _close(got, want)
+
+
+@pytest.mark.parametrize('b,kh,maxp,want', [
+    (8, 8, 32, (8, 4)),      # llama-1b serving: 512 blocks, 4 pages each
+    (8, 4, 32, (16, 2)),     # g = 7 or 8 heads: KH = 4
+    (4, 2, 6, (6, 1)),       # few pages: one a chunk
+    (64, 8, 32, (2, 16)),    # B*KH = 512 blocks already: two chunks
+    (128, 8, 32, (1, 32)),   # more than enough: one chunk, no split
+    (8, 8, 30, (8, 4)),      # the last chunk short (2 pages)
+    (3, 1, 1, (1, 1))])
+def test_kernel_b_split_covers_every_page_once(b, kh, maxp, want):
+    """Kernel B's grid (chunks, KH, B) on 132 SMs: every page in exactly
+    one chunk, every chunk but the last full, and at least half the 4
+    blocks per SM the split aims at where the pages allow (evening the
+    chunks out rounds the count down)."""
+    chunks, per = paged_attention.split_pages(b, kh, maxp, 132)
+    assert (chunks, per) == want
+    assert (chunks - 1) * per < maxp <= chunks * per
+    assert chunks * b * kh >= min(2 * 132, maxp * b * kh)
+
+
+@pytest.mark.parametrize('rows,splits', [(1, 4), (2, 4), (16, 4), (17, 2),
+                                         (21, 2), (32, 2), (35, 1),
+                                         (64, 1)])
+def test_kernel_b_workspace_holds_a_partial_per_warp(rows, splits):
+    """A partial per (batch row, kv head, chunk, key split, q row), where
+    the 4 warps of a block share ceil(rows / 16) m-tiles (1, 2 or 4),
+    each 128 output floats, a max and a sum; and a ticket per (batch
+    row, kv head)."""
+    assert paged_attention.key_splits(rows) == splits
+    assert paged_attention.workspace_sizes(8, 4, rows, 16) == \
+        (8 * 4 * 16 * splits * rows * (128 + 2), 8 * 4)
+
+
+@pytest.mark.parametrize('h,kh,s,ok', [(16, 2, 8, True), (28, 4, 9, True),
+                                       (16, 2, 9, False), (64, 1, 2, False)])
+def test_kernel_b_row_limit(h, kh, s, ok):
+    """g*S up to 64 passes kernel B's checks (and here stops at the card
+    test, as CPU tensors); above 64 the wrapper refuses it by name."""
+    q = torch.zeros(1, s, h, 128, dtype=torch.bfloat16)
+    pool = torch.zeros(3, 16, kh, 128, dtype=torch.bfloat16)
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    length = torch.zeros(1, dtype=torch.int32)
+    msg = 'must all lie on the card' if ok else 'at most 64 q rows'
+    with pytest.raises(ValueError, match=msg):
+        paged_attention._check_kernel_inputs(q, pool, pool, table, length)
 
 
 def _paged_step_both(rng, kp, vp, table, length, s, active):
