@@ -5,10 +5,16 @@
 Phases (any failure exits non-zero; nothing is swallowed):
   1. build     — nvcc-build every kernel from skypilot_tpu_torch/csrc/
                  for sm_90a, one nvcc per source, all at once;
-  2. flash     — kernel A vs its plain version at llama-1b shapes;
+  2. flash     — kernel A vs its plain version at llama-1b shapes, and
+                 at gemma-7b's head_dim 256 (16/16 heads; causal and
+                 not, ragged S, S=2048);
   3. paged     — kernel B vs its plain version at llama-1b decode shapes
                  and at g*S up to 64 (g = 7 and 8), rows ending on the
-                 split's page and chunk edges, two calls bit-equal;
+                 split's page and chunk edges, two calls bit-equal; then
+                 the same at head_dim 256: gemma-7b decode (g = 1),
+                 gemma2-9b heads (g = 2) up to S = 8, g*S = 64, page
+                 sizes 40, 64, 72 and 128 (pages over 64 tokens stream
+                 in halves: rows end on a half's edge too);
   4. flash_bwd — kernels C (dq) and D (dk, dv) vs the plain backward:
                  GQA groups 1, 2, 4, both causal settings, ragged S,
                  D=64, an lse cotangent, llama-1b heads at S=2048; two
@@ -17,7 +23,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  one library call's times (CUDA events, medians) beside
                  the kernel's bound and its share of it; kernel A at the
                  serve (B=2) and train (B=4) shapes; A's and B's
-                 wrappers; B at other chunk counts;
+                 wrappers; B at other chunk counts; A and B again at
+                 gemma-7b's head_dim 256 (A: B=2, S=T=2048, H=KH=16;
+                 B: B=8, S=1, H=KH=16, psz 64, the same ragged rows);
   6. model     — llama-1b (full width, random bf16 weights) prefill + 8
                  paged decode steps through the kernels vs the plain path;
                  then a verify step of 8 tokens with 2 kv heads (g*S =
@@ -26,7 +34,18 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  requests over HTTP; kernels A and B must launch; then
                  the same burst under torch.profiler for the card's idle
                  share and its time by kernel;
-  8. train     — the port's trainer on llama-1b at full width, 6 steps
+  8. model_gemma — gemma-7b at full width (28 layers, dim 3072, 16/16
+                 heads, hd 256, vocab 256000; random bf16 weights from
+                 seed 0, ~17.1 GB): prefill + 8 paged decode steps
+                 through kernels A and B vs the plain and fp32 paths;
+  9. serve_gemma — the port's engine on gemma-7b, 4 concurrent
+                 /generate requests; kernels A and B must launch; the
+                 burst profiled as in serve;
+ 10. gemma_switches — gemma2-9b (2 layers) and gemma3-12b (6 layers:
+                 one global) at full width: prefill + decode on the
+                 card vs fp32, with kernels A and B launched zero times
+                 (softcaps, windows: the plain route, as in JAX);
+ 11. train     — the port's trainer on llama-1b at full width, 6 steps
                  of 4 x 2048 tokens: A twice and C, D once per layer per
                  step; grads against the plain and fp32 paths, the loss
                  against the plain-attention trainer, a resume at step
@@ -95,6 +114,11 @@ BWD_CASES = [(1, 100, 4, 4, 128, True, False),
              (1, 2048, 16, 8, 128, True, False)]
 # The kernels each main path must launch.
 SERVE_KERNELS = ('flash_fwd', 'paged_decode')
+# Kernel A at head_dim 256 (gemma-7b's heads, 16/16): (B, S=T, H, KH,
+# causal) — ragged S, both causal settings, a GQA group, S=2048.
+FLASH256_CASES = [(2, 16, 16, 16, True), (2, 100, 16, 16, True),
+                  (1, 130, 16, 16, False), (2, 512, 16, 16, True),
+                  (1, 300, 16, 8, False), (1, 2048, 16, 16, True)]
 TRAIN_KERNELS = ('flash_fwd', 'flash_dq', 'flash_dkv')
 # Train phase: llama-1b at full width, batch 4 x 2048, 6 steps.
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP = 4, 2048, 6, 2
@@ -193,22 +217,25 @@ def flash_inputs(torch, b, s, h, kh, d, seed):
 
 
 def phase_flash(torch, fa) -> dict:
-    b, h, kh, d = 2, 16, 8, 128
     worst = 0.0
-    for i, (s, causal) in enumerate(FLASH_CASES):
+    cases = [(2, s, 16, 8, 128, causal) for s, causal in FLASH_CASES] + \
+        [(b, s, h, kh, 256, causal) for b, s, h, kh, causal in FLASH256_CASES]
+    for i, (b, s, h, kh, d, causal) in enumerate(cases):
         q, k, v = flash_inputs(torch, b, s, h, kh, d, seed=100 + i)
+        before = fa.KERNEL.launches
         o, lse = fa.flash_attention_lse(q, k, v, causal=causal)
         qf, kf, vf = prescaled_fp32(q, k, v)
         o_ref, lse_ref = fa.flash_attention_ref(qf, kf, vf, causal=causal,
                                                 softmax_scale=1.0)
         torch.cuda.synchronize()
         eo, el = max_err(o, o_ref), max_err(lse, lse_ref)
-        ok = o_ok(o, o_ref) and el <= TOL_LSE
-        log(f'[flash] S=T={s} causal={causal}: o err {eo:.3e} '
-            f'(tol {TOL_O} + 2^-8|o|), lse err {el:.3e} (tol {TOL_LSE}) '
-            f'{"ok" if ok else "MISMATCH"}')
+        ok = o_ok(o, o_ref) and el <= TOL_LSE and \
+            fa.KERNEL.launches == before + 1
+        where = f'D={d} B={b} S=T={s} H={h} KH={kh} causal={causal}'
+        log(f'[flash] {where}: o err {eo:.3e} (tol {TOL_O} + 2^-8|o|), lse '
+            f'err {el:.3e} (tol {TOL_LSE}) {"ok" if ok else "MISMATCH"}')
         if not ok:
-            fail(f'flash kernel disagrees at S={s} causal={causal}')
+            fail(f'flash kernel disagrees at {where}')
         worst = max(worst, eo)
     return {'max_abs_err': worst}
 
@@ -270,23 +297,35 @@ def phase_flash_bwd(torch, fa) -> dict:
 # 4, then more than 16 q rows per kv head: g = 7 (qwen2-7b's group) at
 # S = 3 and 5, and g = 8 (llama3-70b's) at S = 8, g*S = 64, the limit.
 PAGED_CASES = [(1, 16, 8), (4, 16, 8), (3, 28, 4), (5, 28, 4), (8, 32, 4)]
+# At head_dim 256, (S, H, KH, psz): gemma-7b decode (g = 1) at pages of
+# 64 and 128; gemma2-9b's heads (g = 2) at S 1, 4, 8; g*S 21 and 64
+# (two ring slots); pages of 40 (padded tiles) and 72 (padded halves).
+PAGED256_CASES = [(1, 16, 16, 64), (1, 16, 16, 128), (1, 16, 8, 64),
+                  (4, 16, 8, 128), (8, 16, 8, 64), (3, 28, 4, 64),
+                  (8, 32, 4, 128), (1, 16, 16, 40), (4, 16, 8, 72)]
 
 
-def paged_inputs(torch, pa, paging, s, seed, h=16, kh=8, edges=False):
-    """llama-1b decode shapes (B=8, psz 64, max_pages 32): ragged lengths
-    (one row of length 0), shuffled page ids, table tails 0, the step's
-    K/V written first. ``edges`` also sets the rows that end where the
-    kernel's split changes hands: row 5 ends inside its first page, row
-    6 exactly on a page and chunk boundary, row 7 one key past one."""
-    b, hd, psz, maxp = 8, 128, 64, 32
+def paged_inputs(torch, pa, paging, s, seed, h=16, kh=8, edges=False,
+                 hd=128, psz=64):
+    """llama-1b decode shapes (B=8, psz 64, max_pages 32; ``hd`` and
+    ``psz`` may differ): ragged lengths (one row of length 0), shuffled
+    page ids, table tails 0, the step's K/V written first. ``edges``
+    also sets the rows that end where the kernel's split changes hands:
+    row 5 ends inside its first page, row 6 exactly on a page and chunk
+    boundary, row 7 one key past one; at head_dim 256 with pages over 64
+    tokens (streamed in halves), row 4 ends on the first half of its
+    second page."""
+    b, maxp = 8, 32
     rng = np.random.default_rng(seed)
     lengths = rng.integers(1, maxp * psz - s, size=b)
     lengths[3] = 0
     if edges:
-        _, per = pa.split_pages(b, kh, maxp, pa._sm_count(0))
+        _, per = pa.split_pages(b, kh, maxp, pa._sm_count(0), hd)
         lengths[5] = 40 - s
         lengths[6] = per * psz - s
         lengths[7] = per * psz + 1 - s
+        if hd == 256 and psz > 64:
+            lengths[4] = psz + psz // 2 - s
     n_pages = b * maxp + 1
     perm = rng.permutation(np.arange(1, n_pages))
     table = np.zeros((b, maxp), np.int32)
@@ -318,9 +357,12 @@ def phase_paged(torch, pa, paging) -> dict:
     edge rows; two calls of each case must be bit-equal (the partials
     merge in a fixed order)."""
     worst = 0.0
-    for i, (s, h, kh) in enumerate(PAGED_CASES):
+    cases = [(s, h, kh, 128, 64) for s, h, kh in PAGED_CASES] + \
+        [(s, h, kh, 256, psz) for s, h, kh, psz in PAGED256_CASES]
+    for i, (s, h, kh, hd, psz) in enumerate(cases):
         q, kp, vp, table, length, lengths = paged_inputs(
-            torch, pa, paging, s, seed=7 + s + i, h=h, kh=kh, edges=True)
+            torch, pa, paging, s, seed=7 + s + i, h=h, kh=kh, edges=True,
+            hd=hd, psz=psz)
         out = pa.paged_decode_attention(q, kp, vp, table, length)
         again = pa.paged_decode_attention(q, kp, vp, table, length)
         qf, kf, vf = prescaled_fp32(q, kp, vp)
@@ -330,14 +372,15 @@ def phase_paged(torch, pa, paging) -> dict:
         e = max_err(out, ref)
         ok = o_ok(out, ref)
         same = torch.equal(out, again)
-        log(f'[paged] S={s} H={h} KH={kh} (g*S={h // kh * s}) lengths '
+        where = f'hd={hd} psz={psz} S={s} H={h} KH={kh}'
+        log(f'[paged] {where} (g*S={h // kh * s}) lengths '
             f'{lengths.tolist()}: out err {e:.3e} (tol {TOL_O} + '
             f'2^-8|o|) {"ok" if ok else "MISMATCH"}; two calls '
             f'{"bit-equal" if same else "DIFFER"}')
         if not ok:
-            fail(f'paged kernel disagrees at S={s} H={h} KH={kh}')
+            fail(f'paged kernel disagrees at {where}')
         if not same:
-            fail(f'paged kernel is not deterministic at S={s} H={h} KH={kh}')
+            fail(f'paged kernel is not deterministic at {where}')
         worst = max(worst, e)
     return {'max_abs_err': worst}
 
@@ -354,12 +397,16 @@ def sdpa_gqa(torch, q, k, v, **kw):
 FWD_TIMING_B = (2, 4)
 BWD_TIMING_B = 4
 TIMING_SHAPE = dict(s=2048, h=16, kh=8, d=128)
+# Kernels A and B at gemma-7b's heads (16/16, head_dim 256): A at the
+# serve shape; B at B's llama-1b timing rows (B=8, S=1, psz 64,
+# max_pages 32, the same ragged lengths).
+TIMING_SHAPE_256 = dict(s=2048, h=16, kh=16, d=256)
 
 
-def fwd_launch(torch, fa, b):
+def fwd_launch(torch, fa, b, shape=TIMING_SHAPE):
     """Kernel A's inputs at batch ``b`` and a callable that launches the
     kernel alone on pre-scaled q, as C and D are launched."""
-    s, h, kh, d = (TIMING_SHAPE[x] for x in ('s', 'h', 'kh', 'd'))
+    s, h, kh, d = (shape[x] for x in ('s', 'h', 'kh', 'd'))
     q, k, v = flash_inputs(torch, b, s, h, kh, d, seed=1)
     qs = (q * d ** -0.5).bfloat16()
     o = torch.empty_like(qs)
@@ -389,11 +436,11 @@ def bwd_launches(torch, fa):
                                          *dims))
 
 
-def paged_launch(torch, pa, paging):
-    """Kernel B's inputs at the timing shape (B=8, S=1, llama-1b heads,
-    psz 64, max_pages 32, ragged) and a callable that launches the
-    kernel alone."""
-    inputs = paged_inputs(torch, pa, paging, 1, seed=8)
+def paged_launch(torch, pa, paging, **heads):
+    """Kernel B's inputs at the timing shape (B=8, S=1, llama-1b heads or
+    ``heads`` (h, kh, hd), psz 64, max_pages 32, ragged) and a callable
+    that launches the kernel alone."""
+    inputs = paged_inputs(torch, pa, paging, 1, seed=8, **heads)
     q, kp, vp, table, length, _ = inputs
     return inputs, pa.kernel_call(q, kp, vp, table, length)[1]
 
@@ -407,7 +454,7 @@ def paged_launch_at(torch, pa, q, kp, vp, table, length, chunks):
     per = -(-maxp // chunks)
     chunks = -(-maxp // per)
     stream = torch.cuda.current_stream().cuda_stream
-    floats, tickets = pa.workspace_sizes(b, kh, h // kh * s, chunks)
+    floats, tickets = pa.workspace_sizes(b, kh, h // kh * s, chunks, hd)
     work, ticket = pa._workspace(q.device, stream, floats, tickets)
     out = torch.empty_like(q)
     held = (q, kp, vp, table, length, out, work, ticket)
@@ -419,13 +466,19 @@ def paged_launch_at(torch, pa, q, kp, vp, table, length, chunks):
 
 def kernel_ms(torch, fa, pa, paging, paged=paged_launch) -> dict:
     """Each kernel's launch alone, in ms (kernel_ab.py compares two
-    checkouts with it; ``paged`` makes kernel B's inputs and launch)."""
+    checkouts with it; ``paged`` makes kernel B's inputs and launch),
+    and A and B at head_dim 256 where the checkout serves it."""
     out = {f'flash_fwd B={b}': time_ms(fwd_launch(torch, fa, b)[1])
            for b in FWD_TIMING_B}
     out['paged_decode'] = time_ms(paged(torch, pa, paging)[1], iters=100)
     _, dq, dkv = bwd_launches(torch, fa)
     out[f'flash_dq B={BWD_TIMING_B}'] = time_ms(dq)
     out[f'flash_dkv B={BWD_TIMING_B}'] = time_ms(dkv)
+    if 256 in getattr(fa, 'FWD_HEAD_DIMS', ()):
+        out['flash_fwd hd256'] = time_ms(
+            fwd_launch(torch, fa, FWD_TIMING_B[0], TIMING_SHAPE_256)[1])
+        out['paged_decode hd256'] = time_ms(
+            paged(torch, pa, paging, h=16, kh=16, hd=256)[1], iters=100)
     return out
 
 
@@ -436,31 +489,32 @@ def fwd_flops_bytes(b, s, h, kh, d):
             2 * (2 * b * s * h * d + 2 * b * s * kh * d) + 4 * b * h * s)
 
 
-def phase_timing(torch, fa, pa, paging) -> dict:
-    """Times at the largest main-path shapes of phases 2, 3 and 4, each
-    kernel by its launch alone."""
-    res = {}
-    s, h, kh, d = (TIMING_SHAPE[x] for x in ('s', 'h', 'kh', 'd'))
-    for b in FWD_TIMING_B:
-        (q, k, v), launch = fwd_launch(torch, fa, b)
-        ms = time_ms(launch)
-        wrapper = time_ms(lambda: fa.flash_attention_lse(q, k, v, causal=True))
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib = time_ms(lambda: sdpa_gqa(torch, qt, kt, vt, is_causal=True))
-        plain = time_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True),
-                        iters=3)
-        row = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                   **bound(*fwd_flops_bytes(b, s, h, kh, d)),
-                   shape=f'B={b} S=T={s} H={h} KH={kh} D={d} causal bf16')
-        log(f'[timing] flash_fwd {row["shape"]}: wrapper '
-            f'flash_attention_lse (q pre-scale pass + kernel) {wrapper:.4f} '
-            f'ms')
-        # The serve-shape row is the kernel's row in the kernels line.
-        res['flash_fwd' if b == FWD_TIMING_B[0] else f'flash_fwd B={b}'] = row
-    # Kernel B: B=8, S=1, ragged lengths, psz=64, max_pages=32, by its
-    # launch alone; the wrapper (checks, workspace, launch) on its own line.
-    (q, kp, vp, table, length, lengths), launch = paged_launch(torch, pa,
-                                                              paging)
+def time_fwd(torch, fa, b, shape) -> dict:
+    """Kernel A's launch alone at batch ``b`` and ``shape``, beside its
+    wrapper, its plain version and SDPA."""
+    s, h, kh, d = (shape[x] for x in ('s', 'h', 'kh', 'd'))
+    (q, k, v), launch = fwd_launch(torch, fa, b, shape)
+    ms = time_ms(launch)
+    wrapper = time_ms(lambda: fa.flash_attention_lse(q, k, v, causal=True))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = time_ms(lambda: sdpa_gqa(torch, qt, kt, vt, is_causal=True))
+    plain = time_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True),
+                    iters=3)
+    row = dict(ms=ms, plain_ms=plain, library_ms=lib,
+               **bound(*fwd_flops_bytes(b, s, h, kh, d)),
+               shape=f'B={b} S=T={s} H={h} KH={kh} D={d} causal bf16')
+    log(f'[timing] flash_fwd {row["shape"]}: wrapper flash_attention_lse '
+        f'(q pre-scale pass + kernel) {wrapper:.4f} ms')
+    return row
+
+
+def time_paged(torch, pa, paging, h, kh, hd) -> dict:
+    """Kernel B's launch alone at B=8, S=1, psz 64, max_pages 32 and the
+    ragged timing rows, beside its wrapper, its plain version and SDPA
+    over pre-gathered pages; then the same launch at other chunk counts,
+    each twice (bit-equal) and held to the fp32 plain version."""
+    (q, kp, vp, table, length, lengths), launch = paged_launch(
+        torch, pa, paging, h=h, kh=kh, hd=hd)
     ms = time_ms(launch, iters=100)
     wrapper = time_ms(lambda: pa.paged_decode_attention(q, kp, vp, table,
                                                         length), iters=100)
@@ -475,22 +529,21 @@ def phase_timing(torch, fa, pa, paging) -> dict:
     mask = (pos[None, :] <= length[:, None])[:, None, None, :]
     lib = time_ms(lambda: sdpa_gqa(torch, qs, k_l, v_l, attn_mask=mask,
                                    scale=1.0), iters=100)
-    b8, h8, kh8, hd = q.shape[0], q.shape[2], kp.shape[2], q.shape[3]
-    s1 = q.shape[1]
+    del k_l, v_l
+    b8, s1 = q.shape[0], q.shape[1]
     toks = int(np.sum(lengths + s1))
-    nbytes = 2 * 2 * toks * kh8 * hd + 2 * 2 * b8 * s1 * h8 * hd + \
+    nbytes = 2 * 2 * toks * kh * hd + 2 * 2 * b8 * s1 * h * hd + \
         4 * (table.numel() + b8)
-    flops = 4 * toks * s1 * h8 * hd
-    chunks, per = pa.split_pages(b8, kh8, table.shape[1], pa._sm_count(0))
-    log(f'[timing] paged_decode: wrapper paged_decode_attention (checks + '
-        f'launch) {wrapper:.4f} ms; kernel {nbytes / ms / 1e6:.1f} GB/s; '
-        f'grid {chunks} chunks x KH {kh8} x B {b8} = {chunks * kh8 * b8} '
-        f'blocks, {per} pages a chunk')
-    # The split's variants: the same launch at other chunk counts, each
-    # launched twice (bit-equal) and held to the fp32 plain version.
+    flops = 4 * toks * s1 * h * hd
+    chunks, per = pa.split_pages(b8, kh, table.shape[1], pa._sm_count(0), hd)
+    log(f'[timing] paged_decode hd={hd}: wrapper paged_decode_attention '
+        f'(checks + launch) {wrapper:.4f} ms; kernel {nbytes / ms / 1e6:.1f} '
+        f'GB/s; grid {chunks} chunks x KH {kh} x B {b8} = '
+        f'{chunks * kh * b8} blocks, {per} pages a chunk')
     qf, kf, vf = prescaled_fp32(q, kp, vp)
     ref = pa.paged_decode_attention_ref(qf, kf, vf, table, length,
                                         softmax_scale=1.0)
+    del qf, kf, vf
     for n in sorted({1, 2, 4, 8, 16, 32, chunks}):
         out_n, launch_n = paged_launch_at(torch, pa, q, kp, vp, table,
                                           length, n)
@@ -500,17 +553,31 @@ def phase_timing(torch, fa, pa, paging) -> dict:
         same = torch.equal(first, out_n)
         e = max_err(out_n, ref)
         mark = " (the split's choice)" if n == chunks else ''
-        log(f'[timing] paged_decode at {n} chunks{mark}: {ms_n:.4f} ms; '
-            f'err vs fp32 plain {e:.4e}; launches '
+        log(f'[timing] paged_decode hd={hd} at {n} chunks{mark}: '
+            f'{ms_n:.4f} ms; err vs fp32 plain {e:.4e}; launches '
             f'{"bit-equal" if same else "DIFFER"}')
         if not same or not o_ok(out_n, ref):
-            fail(f'paged kernel at {n} chunks: bit-equal {same}, err {e}')
-    res['paged_decode'] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                               **bound(flops, nbytes),
-                               shape=f'B={b8} S={s1} H={h8} KH={kh8} '
-                                     f'hd={hd} psz=64 max_pages=32 '
-                                     f'ragged ({toks} K/V tokens) bf16')
+            fail(f'paged kernel hd={hd} at {n} chunks: bit-equal {same}, '
+                 f'err {e}')
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, **bound(flops, nbytes),
+                shape=f'B={b8} S={s1} H={h} KH={kh} hd={hd} psz=64 '
+                      f'max_pages=32 ragged ({toks} K/V tokens) bf16')
+
+
+def phase_timing(torch, fa, pa, paging) -> dict:
+    """Times at the largest main-path shapes of phases 2, 3 and 4, each
+    kernel by its launch alone: llama-1b's heads (A at the serve and
+    train batches), then A and B at gemma-7b's (head_dim 256)."""
+    res = {}
+    for b in FWD_TIMING_B:
+        # The serve-shape row is the kernel's row in the kernels line.
+        res['flash_fwd' if b == FWD_TIMING_B[0] else f'flash_fwd B={b}'] = \
+            time_fwd(torch, fa, b, TIMING_SHAPE)
+    res['paged_decode'] = time_paged(torch, pa, paging, 16, 8, 128)
     res.update(time_flash_bwd(torch, fa))
+    res['flash_fwd hd256'] = time_fwd(torch, fa, FWD_TIMING_B[0],
+                                      TIMING_SHAPE_256)
+    res['paged_decode hd256'] = time_paged(torch, pa, paging, 16, 16, 256)
     for name, r in res.items():
         log(f'[timing] {name} {r["shape"]}: kernel {r["ms"]:.4f} ms, '
             f'plain {r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} '
@@ -562,55 +629,64 @@ def bound(flops: float, nbytes: float) -> dict:
 
 
 # The model phases' prompts: four rows of ragged lengths, right-padded
-# to one bucket, over a pool of 64-token pages.
-MODEL_LENGTHS, MODEL_BUCKET, MODEL_MAX_LEN, MODEL_PSZ = \
-    [200, 256, 130, 17], 256, 512, 64
+# to one bucket, over a pool of 64-token pages of max_len positions.
+MODEL_SHAPE = dict(lengths=[200, 256, 130, 17], bucket=256, max_len=512)
+# Prompts past gemma3-12b's 1024-token window, so that it masks.
+LONG_SHAPE = dict(lengths=[1300, 2048, 700, 17], bucket=2048, max_len=2176)
+MODEL_PSZ = 64
 
 
-def model_prompts(torch, vocab: int, rng):
-    """Random tokens for MODEL_LENGTHS, zero-padded to MODEL_BUCKET, and
+def model_prompts(torch, vocab: int, rng, shape=MODEL_SHAPE):
+    """Random tokens for shape's lengths, zero-padded to its bucket, and
     the lengths, on the card."""
-    tokens = np.zeros((len(MODEL_LENGTHS), MODEL_BUCKET), np.int32)
-    for r, n in enumerate(MODEL_LENGTHS):
+    lengths = shape['lengths']
+    tokens = np.zeros((len(lengths), shape['bucket']), np.int32)
+    for r, n in enumerate(lengths):
         tokens[r, :n] = rng.integers(0, vocab, size=n)
     return (torch.from_numpy(tokens).cuda(),
-            torch.tensor(MODEL_LENGTHS, dtype=torch.int32, device='cuda'))
+            torch.tensor(lengths, dtype=torch.int32, device='cuda'))
 
 
 def prefilled_pool(torch, decode, paging, params, cfg, tok_t, len_t,
-                   impl: str):
+                   impl: str, shape=MODEL_SHAPE):
     """Prefill the prompts (attention ``impl``) and scatter their K/V
     into a fresh page pool, each row's pages after the last's: (the
     prefill logits, the pool)."""
     b = tok_t.shape[0]
-    maxp = paging.pages_for(MODEL_MAX_LEN, MODEL_PSZ)
-    logits, ks, vs = decode.prefill(params, tok_t, cfg, MODEL_MAX_LEN,
+    max_len = shape['max_len']
+    maxp = paging.pages_for(max_len, MODEL_PSZ)
+    logits, ks, vs = decode.prefill(params, tok_t, cfg, max_len,
                                     lengths=len_t, attention_impl=impl)
     pc = decode.init_page_pool(cfg, b * maxp + 1, MODEL_PSZ, b, maxp,
                                device='cuda')
     pc.table.copy_(torch.arange(1, b * maxp + 1, dtype=torch.int32,
                                 device='cuda').reshape(b, maxp))
     paging.scatter_prefill(pc, ks, vs, torch.arange(b, device='cuda'),
-                           MODEL_BUCKET, len_t)
+                           shape['bucket'], len_t)
     return logits, pc
 
 
-def phase_model(torch, cfg, params, decode, paging, pa) -> None:
+def phase_model(torch, cfg, params, decode, paging, pa, build, name,
+                shape=MODEL_SHAPE, kernels=True) -> float:
     """Prefill + 8 paged decode steps three ways, teacher-forced with the
-    kernel path's greedy tokens: bf16 through the kernels, bf16 through
-    the plain attention, and fp32 through the plain attention on the same
+    default path's greedy tokens: bf16 by the default routing (through
+    kernels A and B where the config lets them serve), bf16 through the
+    plain attention, and fp32 through the plain attention on the same
     weights upcast. Both bf16 paths round activations at different
-    points, so the check is that the kernel path lies no farther from the
-    fp32 path than the plain bf16 path does (TOL_MODEL)."""
+    points, so the check is that the default path lies no farther from
+    the fp32 path than the plain bf16 path does (TOL_MODEL). The default
+    path must launch A once a layer and B once a layer a step, or
+    (``kernels`` False: a softcap or a window on every layer) neither.
+    Returns the worst error ratio."""
     import dataclasses
     steps = 8
     tok_t, len_t = model_prompts(torch, cfg.vocab_size,
-                                 np.random.default_rng(5))
+                                 np.random.default_rng(5), shape)
 
     def run(cfg_run, params_run, plain: bool, feed=None):
         logits, pc = prefilled_pool(torch, decode, paging, params_run,
                                     cfg_run, tok_t, len_t,
-                                    'xla' if plain else 'auto')
+                                    'xla' if plain else 'auto', shape)
         fn = pa.paged_attention_step_ref if plain else \
             pa.paged_attention_step
         out, toks = [logits], []
@@ -619,12 +695,18 @@ def phase_model(torch, cfg, params, decode, paging, pa) -> None:
                    else torch.argmax(out[-1], dim=-1).to(torch.int32))
             toks.append(nxt)
             logits, pc = decode.paged_decode_step(
-                params_run, nxt, pc, cfg_run, max_len=MODEL_MAX_LEN,
+                params_run, nxt, pc, cfg_run, max_len=shape['max_len'],
                 attention_fn=fn)
             out.append(logits)
         return out, toks
 
+    build.reset_launches()
     kern, toks = run(cfg, params, False)
+    launches = {n: build.kernels()[n].launches for n in SERVE_KERNELS}
+    want = ({'flash_fwd': cfg.n_layers, 'paged_decode': cfg.n_layers * steps}
+            if kernels else {'flash_fwd': 0, 'paged_decode': 0})
+    if launches != want:
+        fail(f'model path {name}: launches {launches}, want {want}')
     plain, _ = run(cfg, params, True, feed=toks)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = decode.cast_params_for_decode(params, cfg32)
@@ -633,23 +715,29 @@ def phase_model(torch, cfg, params, decode, paging, pa) -> None:
     torch.cuda.synchronize()
     worst = 0.0
     for i, (a, p, f) in enumerate(zip(kern, plain, ref)):
-        if not bool(torch.isfinite(a).all()):
-            fail(f'model path: non-finite logits at step {i}')
+        if not bool(torch.isfinite(a).all()) or \
+                a.shape != (len(shape['lengths']), cfg.vocab_size):
+            fail(f'model path {name}: bad logits at step {i}')
         std = float(f.std())
         e_k = float((a - f).abs().max()) / std
         e_p = float((p - f).abs().max()) / std
         e_kp = float((a - p).abs().max()) / std
         worst = max(worst, e_k / e_p)
-        log(f'[model] step {i} ({"prefill" if i == 0 else "decode"}): '
-            f'max|diff|/std(fp32 logits): kernel-fp32 {e_k:.3e}, '
-            f'plain-fp32 {e_p:.3e}, kernel-plain {e_kp:.3e}')
+        # Not checked: the same ratio over all logits (Frobenius), which
+        # the max of one logit's error does not show.
+        fro = float((a - f).norm()) / float((p - f).norm())
+        log(f'[model] {name} step {i} ({"prefill" if i == 0 else "decode"}):'
+            f' max|diff|/std(fp32 logits): default-fp32 {e_k:.3e}, '
+            f'plain-fp32 {e_p:.3e}, default-plain {e_kp:.3e}; Frobenius '
+            f'ratio {fro:.3f}')
     if worst > TOL_MODEL:
-        fail(f'model path: kernel error {worst:.2f}x the plain bf16 '
-             f'error > {TOL_MODEL}x')
-    log(f'[model] llama-1b {cfg.n_layers} layers, {len(MODEL_LENGTHS)} '
-        f'rows, prefill bucket {MODEL_BUCKET} + {steps} decode steps: '
-        f'kernel/plain error ratio worst '
+        fail(f'model path {name}: default-path error {worst:.2f}x the plain '
+             f'bf16 error > {TOL_MODEL}x')
+    log(f'[model] {name} {cfg.n_layers} layers, {len(shape["lengths"])} '
+        f'rows, prefill bucket {shape["bucket"]} + {steps} decode steps, '
+        f'launches {launches}: default/plain error ratio worst '
         f'{worst:.3f} (tol {TOL_MODEL}) ok')
+    return worst
 
 
 def phase_verify(torch, cfg, decode, llama, paging, pa) -> None:
@@ -678,7 +766,7 @@ def phase_verify(torch, cfg, decode, llama, paging, pa) -> None:
                                tok_t, len_t, 'xla')
         before = pa.KERNEL.launches
         logits, _ = decode.paged_verify_step(
-            params_run, ver_t, pc, cfg_run, max_len=MODEL_MAX_LEN,
+            params_run, ver_t, pc, cfg_run, max_len=MODEL_SHAPE['max_len'],
             attention_fn=(pa.paged_attention_step_ref if plain
                           else pa.paged_attention_step))
         return logits, pa.KERNEL.launches - before
@@ -723,9 +811,14 @@ def http(url: str, doc=None, timeout: float = 600.0):
         return e.code, json.loads(e.read() or b'{}')
 
 
-def phase_serve(torch, cfg, params, engine_lib, build) -> dict:
-    eng = engine_lib.InferenceEngine('llama-1b', params=params,
-                                     device='cuda', seed=0)
+def phase_serve(torch, model, cfg, params, engine_lib, build) -> dict:
+    """The port's engine on preset ``model`` with ``params``: /health,
+    then one burst of 4 concurrent /generate requests (kernels A and B
+    must launch), then the burst again under the profiler. Returns the
+    launch counts of the first burst (warm-up included)."""
+    tag = '[serve]' if model == 'llama-1b' else f'[serve {model}]'
+    eng = engine_lib.InferenceEngine(model, params=params, device='cuda',
+                                     seed=0)
     server = engine_lib.build_app(eng, '127.0.0.1', free_port())
     port = server.server_address[1]
     th = threading.Thread(target=server.serve_forever, daemon=True)
@@ -743,7 +836,7 @@ def phase_serve(torch, cfg, params, engine_lib, build) -> dict:
             if code != 503 or time.perf_counter() - t0 > 600:
                 fail(f'/health never came up: {code} {doc}')
             time.sleep(0.1)
-        log(f'[serve] /health ok after {time.perf_counter() - t0:.1f}s: '
+        log(f'{tag} /health ok after {time.perf_counter() - t0:.1f}s: '
             f'{doc}')
         rng = np.random.default_rng(11)
         max_new = 32
@@ -775,7 +868,7 @@ def phase_serve(torch, cfg, params, engine_lib, build) -> dict:
 
         wall = burst()
         launches = {n: k.launches for n, k in build.kernels().items()}
-        log(f'[serve] 4 concurrent requests (17/130/300/700 tokens, '
+        log(f'{tag} 4 concurrent requests (17/130/300/700 tokens, '
             f'{max_new} new each) answered in {wall:.3f}s; launches '
             f'{launches}')
         for name in SERVE_KERNELS:
@@ -791,7 +884,7 @@ def phase_serve(torch, cfg, params, engine_lib, build) -> dict:
                  'tpot_ms_median': statistics.median(tpot) * 1e3,
                  'tok_per_s': n_tok / wall,
                  'decode_steps': eng.step_count}
-        log('[serve] ' + json.dumps(stats))
+        log(f'{tag} ' + json.dumps(stats))
         # The same burst again under the profiler: how much of the wall
         # time the card spends running kernels. Not the timed burst: the
         # profiler slows the host.
@@ -947,6 +1040,38 @@ def profile_device(torch, fn) -> None:
         log(f'[profile]   {ms:8.2f} ms {n:6d}x  {key[:90]}')
 
 
+def bf16_params(torch, cfg, llama, decode):
+    """Random params of preset ``cfg`` from seed 0, made on the card in
+    fp32 and kept in bf16."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    params = decode.cast_params_for_decode(llama.init_params(cfg, gen, 'cuda'),
+                                           cfg)
+    torch.cuda.empty_cache()
+    return params
+
+
+# Gemma-2/3 at full width, cut in depth: gemma2-9b to 2 layers (one
+# local, one global), gemma3-12b to 6 (five local, one global).
+SWITCH_DEPTHS = {'gemma2-9b': 2, 'gemma3-12b': 6}
+
+
+def phase_gemma_switches(torch, config, llama, decode, paging, pa,
+                         build) -> None:
+    """gemma2-9b and gemma3-12b at full width and reduced depth: prefill
+    (past gemma3's 1024-token window) + 8 decode steps by the default
+    routing vs the plain and fp32 paths. Every layer of both carries a
+    window (and gemma2 softcaps), so, as in the JAX package, kernels A
+    and B must launch zero times."""
+    import dataclasses
+    for name, depth in SWITCH_DEPTHS.items():
+        cfg = dataclasses.replace(config.get_config(name), n_layers=depth)
+        params = bf16_params(torch, cfg, llama, decode)
+        phase_model(torch, cfg, params, decode, paging, pa, build,
+                    f'{name} ({depth} layers)', LONG_SHAPE, kernels=False)
+        del params
+        torch.cuda.empty_cache()
+
+
 def gpu_line() -> str:
     try:
         return subprocess.run(
@@ -960,7 +1085,8 @@ def gpu_line() -> str:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--phases', default='build,flash,paged,flash_bwd,'
-                        'timing,model,serve,train', help='comma-separated '
+                        'timing,model,serve,model_gemma,serve_gemma,'
+                        'gemma_switches,train', help='comma-separated '
                         'subset (for '
                         'debugging; the full run is the check)')
     args = parser.parse_args()
@@ -1000,17 +1126,30 @@ def main() -> None:
         times = phase_timing(torch, fa, pa, paging)
     if 'model' in phases or 'serve' in phases:
         cfg = config.get_config('llama-1b')
-        gen = torch.Generator(device='cuda').manual_seed(0)
-        params = decode.cast_params_for_decode(
-            llama.init_params(cfg, gen, 'cuda'), cfg)
+        params = bf16_params(torch, cfg, llama, decode)
         if 'model' in phases:
-            phase_model(torch, cfg, params, decode, paging, pa)
+            phase_model(torch, cfg, params, decode, paging, pa, build,
+                        'llama-1b')
             phase_verify(torch, cfg, decode, llama, paging, pa)
         if 'serve' in phases:
-            by_path['serve'] = phase_serve(torch, cfg, params, engine_lib,
-                                           build)
+            by_path['serve'] = phase_serve(torch, 'llama-1b', cfg, params,
+                                           engine_lib, build)
         del params
         torch.cuda.empty_cache()
+    if 'model_gemma' in phases or 'serve_gemma' in phases:
+        cfg = config.get_config('gemma-7b')
+        params = bf16_params(torch, cfg, llama, decode)
+        if 'model_gemma' in phases:
+            phase_model(torch, cfg, params, decode, paging, pa, build,
+                        'gemma-7b')
+            torch.cuda.empty_cache()
+        if 'serve_gemma' in phases:
+            by_path['serve_gemma'] = phase_serve(torch, 'gemma-7b', cfg,
+                                                 params, engine_lib, build)
+        del params
+        torch.cuda.empty_cache()
+    if 'gemma_switches' in phases:
+        phase_gemma_switches(torch, config, llama, decode, paging, pa, build)
     if 'train' in phases:
         by_path['train'] = phase_train(torch, build)
 
@@ -1021,7 +1160,8 @@ def main() -> None:
         'paged_decode': 'skypilot_tpu/ops/pallas/paged_attention.py:48'}
     # Launches: each kernel's count on the main paths it belongs to
     # (serving: SERVE_KERNELS, training: TRAIN_KERNELS), summed.
-    paths = {'serve': SERVE_KERNELS, 'train': TRAIN_KERNELS}
+    paths = {'serve': SERVE_KERNELS, 'serve_gemma': SERVE_KERNELS,
+             'train': TRAIN_KERNELS}
     rows = []
     for name, kern in build.kernels().items():
         t = times.get(name, {})
@@ -1036,6 +1176,8 @@ def main() -> None:
             'ms': t.get('ms'), 'plain_ms': t.get('plain_ms'),
             **({'train_shape_ms': times['flash_fwd B=4']['ms']}
                if name == 'flash_fwd' and 'flash_fwd B=4' in times else {}),
+            **({'hd256': times[f'{name} hd256']}
+               if f'{name} hd256' in times else {}),
             'bound_ms': t.get('bound_ms'), 'bound_by': t.get('bound_by'),
             'library_ms': t.get('library_ms')})
     log(f'[device] {card}')

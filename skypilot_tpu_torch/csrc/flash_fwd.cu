@@ -15,16 +15,17 @@
 // (128-row q tile, head, batch row), the heaviest causal tiles launched
 // first, of three warpgroups:
 //  - a producer, down to 40 registers with setmaxnreg, one thread of
-//    which issues TMA loads: the Q tile once, then K and V tiles of 128
-//    keys into a two-stage ring in shared memory, each stage guarded by
+//    which issues TMA loads: the Q tile once, then K and V tiles of BK
+//    keys (128; 64 at D=256) into a two-stage ring in shared memory,
+//    each stage guarded by
 //    full (K, V) and empty mbarriers. The loop over key tiles takes the
 //    place of the TPU's sequential kv grid axis and stops at the
 //    diagonal tile when causal. Tiles are 128-byte swizzled (a row of
-//    D=128 is two 64-column boxes) and the tensor maps are 4-D over
+//    D is D/64 64-column boxes) and the tensor maps are 4-D over
 //    [B, S, H, D], so a box never crosses into another head or batch
 //    row and rows past S or T land as zeros;
 //  - two consumers of 64 q rows each, up to 232 registers. Each runs
-//    S = Q K^T with wgmma m64n128k16 (both operands from shared memory,
+//    S = Q K^T with wgmma m64nBKk16 (both operands from shared memory,
 //    K-major; bf16 in, fp32 accumulate), masks the ragged edge and the
 //    causal diagonal in registers with the finite NEG_INF (edge tiles
 //    only), takes the base-2 online softmax, rescales O, rounds P to
@@ -44,6 +45,11 @@
 // D=128 ptxas spilled it (216 B, even at 232 registers) and it ran ~40%
 // slower on an H100, so it is left for later with the inter-warpgroup
 // ping-pong.
+// D=256 (Gemma): a consumer's fp32 O is 128 registers a thread, so the
+// key tile halves to 64 (a 32-register score tile, P in 16) to keep one
+// score tile in flight under the 232; O += P V runs as two m64n128k16
+// products, one per 128-column half of V. Shared memory: Q 64 KB and
+// two stages of K and V at 32 KB each, 192 KB; three stages do not fit.
 #include "common.cuh"
 
 using port::bf16;
@@ -51,7 +57,6 @@ using port::bf16;
 namespace {
 
 constexpr int BQ = 128;          // q rows a block: two consumers of 64
-constexpr int BK = 128;          // keys a tile
 constexpr int STAGES = 2;        // K/V ring depth
 constexpr int NTHREADS = 384;    // producer + two consumer warpgroups
 constexpr int NCONSUMER_WARPS = 8;
@@ -63,6 +68,7 @@ constexpr float LN2 = 0.6931471805599453f;
 // columns (128 B a row), one after the other.
 template <int D>
 struct Smem {
+  static constexpr int BK = D == 256 ? 64 : 128;   // keys a tile
   static constexpr int BOXES = D / 64;
   static constexpr int Q_BOX = BQ * 128;            // bytes of one Q box
   static constexpr int KV_BOX = BK * 128;           // one K or V box
@@ -79,7 +85,7 @@ struct Smem {
 // 8 * (i / 4) + 2 * (l % 4) + i % 2.
 
 // S = Q K^T of one key tile (64 rows x BK keys), issued, not waited on.
-template <int D>
+template <int D, int BK = Smem<D>::BK>
 __device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint32_t q_addr,
                                         uint32_t k_tile) {
 #pragma unroll
@@ -94,15 +100,25 @@ __device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint32_t q_addr,
 
 // O += P V of one key tile: P in registers, V ([key][d], d contiguous)
 // the MN-major B operand; a 16-key step is 16 rows (2048 B) down the
-// tile. Issued, not waited on.
-template <int D>
+// tile. At D=256, one m64n128k16 product per 128-column half of O: half
+// j is O's elements [64j, 64j + 64) (element 4i + e lies in column
+// 8i + 2t + e%2 either way) and V's boxes 2j and 2j + 1. Issued, not
+// waited on.
+template <int D, int BK = Smem<D>::BK>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
                                          const uint32_t (&pa)[BK / 16][4],
                                          uint32_t v_tile) {
 #pragma unroll
-  for (int kc = 0; kc < BK / 16; ++kc)
-    port::wgmma_rs_mn(acc, pa[kc],
-                      port::sw128_desc(v_tile + kc * 16 * 128, BK * 128));
+  for (int kc = 0; kc < BK / 16; ++kc) {
+    const uint32_t v = v_tile + kc * 16 * 128;
+    if constexpr (D == 256) {
+      port::wgmma_rs_mn_n128<0>(acc, pa[kc], port::sw128_desc(v, BK * 128));
+      port::wgmma_rs_mn_n128<64>(acc, pa[kc],
+                                 port::sw128_desc(v + 2 * BK * 128, BK * 128));
+    } else {
+      port::wgmma_rs_mn(acc, pa[kc], port::sw128_desc(v, BK * 128));
+    }
+  }
   port::wgmma_commit();
 }
 
@@ -110,6 +126,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
 // causal diagonal) with the finite NEG_INF, move to base-2 units, update
 // the running max m and sum l, and leave exp2(s - m) in sc and the
 // factor that rescales O in alpha.
+template <int BK>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              int k0, int qw, int row0, int t,
@@ -150,6 +167,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&m)[2],
 
 // P in bf16: column chunks 2c and 2c+1 (keys 16c..16c+15) are the
 // register A fragment of the c-th 16-key step of P V.
+template <int BK>
 __device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4],
                                        const float (&sc)[BK / 2]) {
 #pragma unroll
@@ -172,6 +190,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* bar_q,
                                         int h, int b, int n_kv, int S, int T,
                                         int H, int causal) {
   using L = Smem<D>;
+  constexpr int BK = L::BK;
   const int c = (qw - q0) / 64;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
@@ -201,7 +220,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* bar_q,
       issue_s<D>(sc, q_addr, k_addr + s * L::KV_TILE);
       port::wgmma_wait<0>();
       port::fence_regs(sc);
-      softmax_tile(sc, m, l, alpha, kt * BK, qw, row0, t, T, causal);
+      softmax_tile<BK>(sc, m, l, alpha, kt * BK, qw, row0, t, T, causal);
 #pragma unroll
       for (int i = 0; i < D / 8; ++i) {
         acc[4 * i] *= alpha[0];
@@ -209,7 +228,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint64_t* bar_q,
         acc[4 * i + 2] *= alpha[1];
         acc[4 * i + 3] *= alpha[1];
       }
-      pack_p(pa, sc);
+      pack_p<BK>(pa, sc);
       port::mbar_wait(&full_v[s], ph);
       port::wgmma_fence();
       issue_pv<D>(acc, pa, v_addr + s * L::KV_TILE);
@@ -255,6 +274,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,   // [B,S,H,D] pre-sc
                  float* __restrict__ lse,                     // [B,H,S]
                  int S, int T, int H, int KH, int causal) {
   using L = Smem<D>;
+  constexpr int BK = L::BK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = port::align1024(smem_raw);
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -321,8 +341,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   int err = port::map_rows_bf16(&tm_q, q, B, S, H, D, BQ);
-  if (!err) err = port::map_rows_bf16(&tm_k, k, B, T, KH, D, BK);
-  if (!err) err = port::map_rows_bf16(&tm_v, v, B, T, KH, D, BK);
+  if (!err) err = port::map_rows_bf16(&tm_k, k, B, T, KH, D, Smem<D>::BK);
+  if (!err) err = port::map_rows_bf16(&tm_v, v, B, T, KH, D, Smem<D>::BK);
   if (err) return err;
   const int smem = Smem<D>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
@@ -343,6 +363,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0 || T <= 0 || KH <= 0 || H % KH != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 256) return launch<256>(q, k, v, o, lse, B, S, T, H, KH, causal, st);
   if (D == 128) return launch<128>(q, k, v, o, lse, B, S, T, H, KH, causal, st);
   if (D == 64) return launch<64>(q, k, v, o, lse, B, S, T, H, KH, causal, st);
   return (int)cudaErrorInvalidValue;

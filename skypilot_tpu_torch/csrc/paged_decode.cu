@@ -23,21 +23,30 @@
 // page, min((length+S-1)/psz, max_pages-1), reads nothing, so as on the
 // TPU no page past a row's content is touched.
 //  - Loads: each block reads its own table[b, j] (the counterpart of
-//    scalar prefetch) and streams its pages through a ring of STAGES
-//    pages in shared memory with cp.async, STAGES-1 pages in flight while
-//    one is scored; one __syncthreads a page publishes it and frees the
-//    oldest stage.
+//    scalar prefetch) and streams its pages through a ring of slots in
+//    shared memory with cp.async, all slots but one in flight while one
+//    is scored; one __syncthreads a slot publishes it and frees the
+//    oldest. A slot holds a whole page, or at head_dim 256 at most 64
+//    tokens: a page of 72 to 128 tokens streams as two equal halves (one
+//    128-token K+V page would be 128 KB). A slot is a tile of keys
+//    either way: tile u of a row covers positions [u*tile, (u+1)*tile),
+//    on page u / (psz/tile). The ring has three slots, or two where
+//    three do not fit in shared memory at the largest tile (head_dim 256
+//    with 64 q rows).
 //  - Products on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
 //    accumulate): the g*S rows, padded to MT m-tiles of 16 (MT 1, 2 or
-//    4: up to 64 rows), are the A operand; a page is cut into 16-key
+//    4: up to 64 rows), are the A operand; a tile is cut into 16-key
 //    tiles. The four warps split (m-tile, key tile) pairs: warp w owns
 //    m-tile w % MT and the key tiles kt with kt % (4/MT) == w / MT, and
-//    keeps its own online softmax (m, l, and a 16 x 128 fp32 output) over
+//    keeps its own online softmax (m, l, and a 16 x HD fp32 output) over
 //    them. q, pre-scaled in the kernel as bf16(float(q) * scale) (what
-//    the JAX wrapper's (q * scale).astype(q.dtype) gives), is loaded once
-//    into registers as A fragments; the fp32 scores' C fragments, masked
-//    (positional: length + s >= j*psz + off) and exponentiated, round to
-//    bf16 and are directly the A fragment of P V, as the TPU kernel
+//    the JAX wrapper's (q * scale).astype(q.dtype) gives), is staged in
+//    shared memory once; at head_dim 128 each warp then holds its A
+//    fragments in registers, at 256 (where the 16 x 256 fp32 output
+//    alone is 128 registers a thread) it reads them from shared memory
+//    at every 16-key tile. The fp32 scores' C fragments, masked
+//    (positional: length + s >= key position) and exponentiated, round
+//    to bf16 and are directly the A fragment of P V, as the TPU kernel
 //    rounds p before P V.
 //  - Combine: every warp writes its partial (unnormalised fp32 output,
 //    running max in base-2 units, sum) to a workspace; the block then
@@ -55,22 +64,46 @@ using port::NEG_INF;
 
 namespace {
 
-constexpr int HD = 128;          // head_dim
-constexpr int LD = HD + 8;       // padded bf16 pitch of Q, K and V rows
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int STAGES = 3;        // page ring: STAGES - 1 pages in flight
+constexpr int MAXSTAGES = 3;     // ring slots: all but one in flight
 constexpr int MAXR = 64;         // max q rows per block: g * S
 constexpr int MAXPSZ = 128;
+constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on sm_90
 constexpr float LOG2E = 1.4426950408889634f;
 
-__host__ __device__ constexpr int pad16(int psz) { return (psz + 15) / 16 * 16; }
+__host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
 
-// Q (MT*16 rows), then per stage a page's K rows and V rows, each padded
+// Padded bf16 pitch of Q, K and V rows (no ldmatrix bank conflicts), and
+// the most tokens a ring slot holds.
+template <int HD> struct Dims {
+  static constexpr int LD = HD + 8;
+  static constexpr int MAX_TILE = HD <= 128 ? MAXPSZ : 64;
+};
+
+// Tokens a slot holds: the page, or an equal part of it no larger than
+// MAX_TILE (psz is a multiple of 8, so halves are whole tokens). At
+// head_dim 128 every page fits: the compiler sees tile == psz.
+template <int HD>
+__host__ __device__ constexpr int tile_tokens(int psz) {
+  return Dims<HD>::MAX_TILE >= MAXPSZ || psz <= Dims<HD>::MAX_TILE ? psz
+                                                                   : psz / 2;
+}
+
+// Q (MT*16 rows), then per slot a tile's K rows and V rows, each padded
 // to a multiple of 16 rows (the pad rows are zeroed once).
-template <int MT>
-__host__ __device__ constexpr size_t smem_bytes(int psz) {
-  return sizeof(bf16) * ((size_t)MT * 16 * LD + (size_t)STAGES * 2 * pad16(psz) * LD);
+template <int HD>
+__host__ __device__ constexpr size_t smem_bytes(int mt, int stages, int psz) {
+  return sizeof(bf16) * Dims<HD>::LD *
+         ((size_t)mt * 16 + (size_t)stages * 2 * pad16(tile_tokens<HD>(psz)));
+}
+
+// Ring slots: three where they fit beside the q tile at the largest
+// tile, else two (head_dim 256 with 64 q rows).
+template <int HD, int MT>
+__host__ __device__ constexpr int ring_stages() {
+  return smem_bytes<HD>(MT, MAXSTAGES, Dims<HD>::MAX_TILE) <= SMEM_LIMIT
+             ? MAXSTAGES : 2;
 }
 
 // ldmatrix lane addressing (lane l names row l % 8 of matrix l / 8): the
@@ -88,7 +121,7 @@ struct Lanes {
   }
 };
 
-template <int MT>
+template <int HD, int MT>
 __global__ void __launch_bounds__(NTHREADS, 2)
 paged_decode_kernel(const bf16* __restrict__ q,     // [B,S,H,HD]
                     const bf16* __restrict__ kp,    // [NP,psz,KH,HD]
@@ -101,12 +134,17 @@ paged_decode_kernel(const bf16* __restrict__ q,     // [B,S,H,HD]
                     int* __restrict__ ticket,       // [B*KH], 0 between calls
                     int S, int H, int KH, int psz, int maxp, int ppc,
                     float scale) {
+  constexpr int LD = Dims<HD>::LD;
+  constexpr int STAGES = ring_stages<HD, MT>();
   constexpr int KS = NWARPS / MT;   // key splits: warps sharing an m-tile
+  constexpr bool Q_IN_REGS = HD <= 128;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_last;
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sKV = sQ + MT * 16 * LD;
-  const int P16 = pad16(psz);
+  const int tile = tile_tokens<HD>(psz);
+  const int nsub = tile == psz ? 1 : 2;            // slots a page
+  const int P16 = pad16(tile);
   const int stage_elems = 2 * P16 * LD;
 
   const int chunk = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
@@ -119,33 +157,37 @@ paged_decode_kernel(const bf16* __restrict__ q,     // [B,S,H,HD]
   const int last = min((len + S - 1) / psz, maxp - 1);
   const int j0 = chunk * ppc;
   const int j1 = min(j0 + ppc, last + 1);          // this block's pages [j0, j1)
+  // ... as tiles: none past the one holding the row's last position.
+  const int u0 = j0 * nsub;
+  const int u1 = min(j1 * nsub, (len + S - 1) / tile + 1);
   const long bkh = (long)b * KH + kh;
   const long row_pitch = (long)KH * HD;            // one token of the pool
 
-  if (j0 < j1) {
+  if (u0 < u1) {
     const int mt = warp % MT, split = warp / MT;
     const Lanes ln(lane);
 
-    auto issue_page = [&](int j, int st) {
-      if (j < j1) {
-        const long pid = table[(long)b * maxp + j];
-        const long base = pid * psz * row_pitch + (long)kh * HD;
+    auto issue_tile = [&](int u, int st) {
+      if (u < u1) {
+        const long pid = table[(long)b * maxp + u / nsub];
+        const long base = (pid * psz + (long)(u % nsub) * tile) * row_pitch +
+                          (long)kh * HD;
         bf16* dk = sKV + (size_t)st * stage_elems;
         bf16* dv = dk + P16 * LD;
-        for (int c = tid; c < psz * (HD / 8); c += NTHREADS) {
+        for (int c = tid; c < tile * (HD / 8); c += NTHREADS) {
           const int tok = c / (HD / 8), cc = c % (HD / 8);
           const long off = base + tok * row_pitch + cc * 8;
           port::cp_async16(dk + tok * LD + cc * 8, kp + off);
           port::cp_async16(dv + tok * LD + cc * 8, vp + off);
         }
       }
-      port::cp_async_commit();     // empty past the block's pages
+      port::cp_async_commit();     // empty past the block's tiles
     };
 #pragma unroll
-    for (int i = 0; i < STAGES - 1; ++i) issue_page(j0 + i, i);
+    for (int i = 0; i < STAGES - 1; ++i) issue_tile(u0 + i, i);
 
     // q rows, pre-scaled and rounded to bf16; rows past R and the pad
-    // rows of every stage are zeros.
+    // rows of every slot are zeros.
     for (int i = tid; i < MT * 16 * (HD / 2); i += NTHREADS) {
       const int r = i / (HD / 2), d = 2 * (i % (HD / 2));
       float2 v = make_float2(0.f, 0.f);
@@ -157,19 +199,21 @@ paged_decode_kernel(const bf16* __restrict__ q,     // [B,S,H,HD]
       }
       *reinterpret_cast<uint32_t*>(sQ + r * LD + d) = port::pack_bf16x2(v.x, v.y);
     }
-    if (P16 != psz) {
-      const int pad = (P16 - psz) * LD;
+    if (P16 != tile) {
+      const int pad = (P16 - tile) * LD;
       for (int i = tid; i < STAGES * 2 * pad; i += NTHREADS) {
-        const int half = i / pad;          // stage * 2 + (K or V)
-        sKV[(size_t)half * P16 * LD + psz * LD + i % pad] = __float2bfloat16(0.f);
+        const int half = i / pad;          // slot * 2 + (K or V)
+        sKV[(size_t)half * P16 * LD + tile * LD + i % pad] = __float2bfloat16(0.f);
       }
     }
     __syncthreads();
 
-    uint32_t qa[HD / 16][4];
+    const bf16* qrow = sQ + (mt * 16 + ln.a_row) * LD + ln.a_col;
+    uint32_t qa[Q_IN_REGS ? HD / 16 : 1][4];
+    if constexpr (Q_IN_REGS) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      port::ldmatrix_x4(qa[kk], sQ + (mt * 16 + ln.a_row) * LD + kk * 16 + ln.a_col);
+      for (int kk = 0; kk < HD / 16; ++kk) port::ldmatrix_x4(qa[kk], qrow + kk * 16);
+    }
 
     // This lane's rows mt*16 + lane/4 (+8): their q positions.
     int qpos[2];
@@ -182,13 +226,14 @@ paged_decode_kernel(const bf16* __restrict__ q,     // [B,S,H,HD]
     float m[2] = {NEG_INF, NEG_INF};   // running max, base-2 units
     float l[2] = {0.f, 0.f};           // this lane's share of the sum
 
-    for (int i = 0; j0 + i < j1; ++i) {
-      const int j = j0 + i;
-      port::cp_async_wait<STAGES - 2>();   // page j (this thread's part)
-      __syncthreads();                     // ... everyone's; stage i-1 free
-      issue_page(j + STAGES - 1, (i + STAGES - 1) % STAGES);
+    for (int i = 0; u0 + i < u1; ++i) {
+      const int u = u0 + i;
+      port::cp_async_wait<STAGES - 2>();   // tile u (this thread's part)
+      __syncthreads();                     // ... everyone's; slot i-1 free
+      issue_tile(u + STAGES - 1, (i + STAGES - 1) % STAGES);
       const bf16* tK = sKV + (size_t)(i % STAGES) * stage_elems;
       const bf16* tV = tK + P16 * LD;
+      const int key0 = u * tile;           // position of the tile's first key
 
       for (int kt = split; kt < P16 / 16; kt += KS) {
         // s = q k^T: 16 rows x 16 keys, fp32.
@@ -199,11 +244,18 @@ paged_decode_kernel(const bf16* __restrict__ q,     // [B,S,H,HD]
         for (int kk = 0; kk < HD / 16; ++kk) {
           uint32_t bk[4];
           port::ldmatrix_x4(bk, tK + (kt * 16 + ln.b_row) * LD + kk * 16 + ln.b_col);
-          port::mma_bf16_16816(s[0], qa[kk], bk[0], bk[1]);
-          port::mma_bf16_16816(s[1], qa[kk], bk[2], bk[3]);
+          if constexpr (Q_IN_REGS) {
+            port::mma_bf16_16816(s[0], qa[kk], bk[0], bk[1]);
+            port::mma_bf16_16816(s[1], qa[kk], bk[2], bk[3]);
+          } else {
+            uint32_t a[4];
+            port::ldmatrix_x4(a, qrow + kk * 16);
+            port::mma_bf16_16816(s[0], a, bk[0], bk[1]);
+            port::mma_bf16_16816(s[1], a, bk[2], bk[3]);
+          }
         }
         // Mask and online softmax. Element e of tile n: row lane/4 +
-        // 8*(e/2), key kt*16 + 8n + 2t + e%2 of the page.
+        // 8*(e/2), key kt*16 + 8n + 2t + e%2 of the slot.
         float mx[2] = {m[0], m[1]};
 #pragma unroll
         for (int n = 0; n < 2; ++n)
@@ -211,7 +263,7 @@ paged_decode_kernel(const bf16* __restrict__ q,     // [B,S,H,HD]
           for (int e = 0; e < 4; ++e) {
             const int off = kt * 16 + 8 * n + 2 * t + (e & 1);
             const int hr = e >> 1;
-            const bool ok = off < psz && qpos[hr] >= j * psz + off;
+            const bool ok = off < tile && qpos[hr] >= key0 + off;
             s[n][e] = ok ? s[n][e] * LOG2E : NEG_INF;
             mx[hr] = fmaxf(mx[hr], s[n][e]);
           }
@@ -291,39 +343,49 @@ paged_decode_kernel(const bf16* __restrict__ q,     // [B,S,H,HD]
     float mm = NEG_INF;
     for (int p = 0; p < used; ++p) mm = fmaxf(mm, __ldcg(pm + ((long)p * R + r) * 2));
     float ll = 0.f;
-    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 o[HD / 128];
+#pragma unroll
+    for (int c = 0; c < HD / 128; ++c) o[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int p = 0; p < used; ++p) {
       const float2 ml = __ldcg(reinterpret_cast<const float2*>(pm + ((long)p * R + r) * 2));
       const float w = exp2f(ml.x - mm);
-      const float4 x = __ldcg(reinterpret_cast<const float4*>(po + ((long)p * R + r) * HD) + lane);
       ll += ml.y * w;
-      o.x += x.x * w;
-      o.y += x.y * w;
-      o.z += x.z * w;
-      o.w += x.w * w;
+#pragma unroll
+      for (int c = 0; c < HD / 128; ++c) {
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(
+            po + ((long)p * R + r) * HD + 128 * c) + lane);
+        o[c].x += x.x * w;
+        o[c].y += x.y * w;
+        o[c].z += x.z * w;
+        o[c].w += x.w * w;
+      }
     }
     const float inv = (ll == 0.f) ? 1.f : 1.f / ll;
     const int s = r / g, h = kh * g + r % g;
-    uint2 pk;
-    pk.x = port::pack_bf16x2(o.x * inv, o.y * inv);
-    pk.y = port::pack_bf16x2(o.z * inv, o.w * inv);
-    *reinterpret_cast<uint2*>(out + (((long)b * S + s) * H + h) * HD + 4 * lane) = pk;
+#pragma unroll
+    for (int c = 0; c < HD / 128; ++c) {
+      uint2 pk;
+      pk.x = port::pack_bf16x2(o[c].x * inv, o[c].y * inv);
+      pk.y = port::pack_bf16x2(o[c].z * inv, o[c].w * inv);
+      *reinterpret_cast<uint2*>(out + (((long)b * S + s) * H + h) * HD + 128 * c +
+                                4 * lane) = pk;
+    }
   }
   if (tid == 0) ticket[bkh] = 0;
 }
 
-template <int MT>
+template <int HD, int MT>
 int launch(const void* q, const void* kp, const void* vp, const void* table,
            const void* length, void* out, void* part_o, void* part_ml,
            void* ticket, int B, int S, int H, int KH, int psz, int maxp,
            int nchunks, int ppc, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<MT>(psz);
+  const size_t smem = smem_bytes<HD>(MT, ring_stages<HD, MT>(), psz);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      paged_decode_kernel<HD, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(nchunks, KH, B);
-  paged_decode_kernel<MT><<<grid, NTHREADS, smem, stream>>>(
+  paged_decode_kernel<HD, MT><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
       static_cast<const bf16*>(vp), static_cast<const int*>(table),
       static_cast<const int*>(length), static_cast<bf16*>(out),
@@ -332,15 +394,31 @@ int launch(const void* q, const void* kp, const void* vp, const void* table,
   return (int)cudaGetLastError();
 }
 
+template <int HD>
+int launch_rows(int R, const void* q, const void* kp, const void* vp,
+                const void* table, const void* length, void* out, void* part_o,
+                void* part_ml, void* ticket, int B, int S, int H, int KH,
+                int psz, int maxp, int nchunks, int ppc, float scale,
+                cudaStream_t st) {
+  if (R <= 16)
+    return launch<HD, 1>(q, kp, vp, table, length, out, part_o, part_ml, ticket,
+                         B, S, H, KH, psz, maxp, nchunks, ppc, scale, st);
+  if (R <= 32)
+    return launch<HD, 2>(q, kp, vp, table, length, out, part_o, part_ml, ticket,
+                         B, S, H, KH, psz, maxp, nchunks, ppc, scale, st);
+  return launch<HD, 4>(q, kp, vp, table, length, out, part_o, part_ml, ticket,
+                       B, S, H, KH, psz, maxp, nchunks, ppc, scale, st);
+}
+
 }  // namespace
 
 // The workspace's layout is this entry point's alone: ``work`` holds
-// the partials' fp32 outputs [B*KH, nchunks*KS, R, HD] and then their
+// the partials' fp32 outputs [B*KH, nchunks*KS, R, hd] and then their
 // (max, sum) pairs [B*KH, nchunks*KS, R, 2], where R = (H/KH)*S and KS =
 // 4/MT (MT = ceil(R/16) rounded up to 1, 2 or 4); ``ticket`` holds B*KH
 // ints that are 0 before the call and 0 again after it. A workspace
 // smaller than that (work_floats, n_tickets) is refused, never
-// overrun.
+// overrun. head_dim is 128 or 256.
 extern "C" int paged_decode_bf16(const void* q, const void* kp,
                                  const void* vp, const void* table,
                                  const void* length, void* out, void* work,
@@ -348,25 +426,25 @@ extern "C" int paged_decode_bf16(const void* q, const void* kp,
                                  int n_tickets, int B, int S, int H, int KH,
                                  int hd, int psz, int maxp, int nchunks,
                                  int ppc, float scale, void* stream) {
-  if (hd != HD || B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 ||
-      (H / KH) * S > MAXR || psz <= 0 || psz % 8 != 0 || psz > MAXPSZ ||
-      maxp <= 0 || nchunks <= 0 || ppc <= 0 || (long)nchunks * ppc < maxp ||
-      (long)(nchunks - 1) * ppc >= maxp || KH > 65535 || B > 65535)
+  if ((hd != 128 && hd != 256) || B <= 0 || S <= 0 || KH <= 0 ||
+      H % KH != 0 || (H / KH) * S > MAXR || psz <= 0 || psz % 8 != 0 ||
+      psz > MAXPSZ || maxp <= 0 || nchunks <= 0 || ppc <= 0 ||
+      (long)nchunks * ppc < maxp || (long)(nchunks - 1) * ppc >= maxp ||
+      KH > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   const int R = (H / KH) * S;
   const int MT = R <= 16 ? 1 : R <= 32 ? 2 : 4;
   const long long parts = (long long)B * KH * nchunks * (NWARPS / MT) * R;
-  if (work_floats < parts * (HD + 2) || n_tickets < B * KH)
+  if (work_floats < parts * (hd + 2) || n_tickets < B * KH)
     return (int)cudaErrorInvalidValue;
   float* part_o = static_cast<float*>(work);
-  float* part_ml = part_o + parts * HD;
+  float* part_ml = part_o + parts * hd;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (MT == 1)
-    return launch<1>(q, kp, vp, table, length, out, part_o, part_ml, ticket, B, S, H,
-                     KH, psz, maxp, nchunks, ppc, scale, st);
-  if (MT == 2)
-    return launch<2>(q, kp, vp, table, length, out, part_o, part_ml, ticket, B, S, H,
-                     KH, psz, maxp, nchunks, ppc, scale, st);
-  return launch<4>(q, kp, vp, table, length, out, part_o, part_ml, ticket, B, S, H,
-                   KH, psz, maxp, nchunks, ppc, scale, st);
+  if (hd == 128)
+    return launch_rows<128>(R, q, kp, vp, table, length, out, part_o, part_ml,
+                            ticket, B, S, H, KH, psz, maxp, nchunks, ppc, scale,
+                            st);
+  return launch_rows<256>(R, q, kp, vp, table, length, out, part_o, part_ml,
+                          ticket, B, S, H, KH, psz, maxp, nchunks, ppc, scale,
+                          st);
 }

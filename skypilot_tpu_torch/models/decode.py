@@ -8,7 +8,12 @@ skypilot_tpu/models/decode.py: ``bucket_size``,
 update the pool IN PLACE: K/V for the fed positions land in each row's
 pages (inactive rows on the trash page) and the returned PagedKV holds
 the same tensors. On CUDA, prefill attention runs kernel A and the
-step's attention kernel B; on CPU both take their plain versions.
+step's attention kernel B; on CPU both take their plain versions. A
+layer with an attention softcap, a sliding window or sinks (Gemma-2/3,
+gpt-oss) takes the plain versions on every device, as its JAX
+counterpart does; the embedding scale, per-layer rope tables, post
+norms and final softcap come with the shared layer math of
+models/llama.py.
 """
 from __future__ import annotations
 
@@ -19,7 +24,6 @@ import torch
 from skypilot_tpu_torch.config import LlamaConfig, check_supported
 from skypilot_tpu_torch.models import llama, paging
 from skypilot_tpu_torch.ops import paged_attention as pa
-from skypilot_tpu_torch.ops import rotary
 from skypilot_tpu_torch.ops.attention import attention as _attention
 
 
@@ -72,13 +76,14 @@ def prefill(params, tokens: torch.Tensor, cfg: LlamaConfig, max_len: int,
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
     x = llama.embed(params, tokens, cfg)
-    sin, cos = rotary.rope_frequencies(cfg.hd, torch.arange(s, device=dev),
-                                       cfg.rope_theta, cfg.rope_scaling)
+    sin, cos = llama.rope_tables(cfg, torch.arange(s, device=dev))
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = llama.layer_params(params, i)
-        q, k, v = llama.qkv(x, lp, cfg, sin, cos)
-        out = _attention(q, k, v, impl=attention_impl, causal=True)
+        q, k, v = llama.qkv(x, lp, cfg,
+                            *llama.select_rope(sin, cos, i, cfg))
+        out = _attention(q, k, v, impl=attention_impl, causal=True,
+                         **llama.attention_switches(lp, cfg, i))
         x = x + llama.wo_project(out, lp, cfg)
         x = x + llama.ffn(x, lp, cfg)
         ks.append(k)
@@ -105,14 +110,15 @@ def paged_verify_step(params, tokens: torch.Tensor, pcache: paging.PagedKV,
         kk, device=tokens.device)
     pid, off = paging._write_indices(pcache, positions, active)
     x = llama.embed(params, tokens, cfg)
-    sin, cos = rotary.rope_frequencies(cfg.hd, positions, cfg.rope_theta,
-                                       cfg.rope_scaling)
+    sin, cos = llama.rope_tables(cfg, positions)
     for i in range(cfg.n_layers):
         lp = llama.layer_params(params, i)
-        q, k_new, v_new = llama.qkv(x, lp, cfg, sin, cos)
+        q, k_new, v_new = llama.qkv(x, lp, cfg,
+                                    *llama.select_rope(sin, cos, i, cfg))
         out, _, _ = attention_fn(q, pcache.k[i], pcache.v[i], pcache.table,
                                  length, k_new, v_new, pid, off,
-                                 max_len=max_len)
+                                 max_len=max_len,
+                                 **llama.attention_switches(lp, cfg, i))
         x = x + llama.wo_project(out, lp, cfg)
         x = x + llama.ffn(x, lp, cfg)
     return llama.unembed(x, params, cfg), pcache

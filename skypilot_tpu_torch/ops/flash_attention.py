@@ -44,7 +44,10 @@ DKV_KERNEL = build.Kernel(
     name='flash_dkv', source='flash_bwd.cu', symbol='flash_dkv_bf16',
     argtypes=('p',) * 8 + ('i',) * 7 + ('p',))
 
-SUPPORTED_HEAD_DIMS = (64, 128)
+# Head dims kernel A takes, and those kernels C and D take: Gemma's 256
+# is served (prefill) but not yet trained (ROADMAP Queue 2).
+FWD_HEAD_DIMS = (64, 128, 256)
+BWD_HEAD_DIMS = (64, 128)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -102,17 +105,26 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
             dv.transpose(1, 2).to(dt))
 
 
+def backward_refused(head_dim: int, on_card: bool, wants_grad: bool
+                     ) -> bool:
+    """True when a flash call must be refused before anything launches:
+    on the card, with a gradient wanted, at a head dim kernel A serves
+    but kernels C and D do not (Gemma's 256). Raising after the forward
+    would leave a graph whose backward cannot run."""
+    return on_card and wants_grad and head_dim not in BWD_HEAD_DIMS
+
+
 def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor) -> None:
+                         v: torch.Tensor,
+                         head_dims: Tuple[int, ...] = FWD_HEAD_DIMS) -> None:
     """Raise on what the kernels do not take."""
     b, _, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f'flash kernel takes bf16 q/k/v, got {q.dtype}, '
                         f'{k.dtype}, {v.dtype}')
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f'flash kernel head_dim {d} not in '
-                         f'{SUPPORTED_HEAD_DIMS}')
+    if d not in head_dims:
+        raise ValueError(f'flash kernel head_dim {d} not in {head_dims}')
     if k.shape != (b, t, kh, d) or v.shape != k.shape or h % kh:
         raise ValueError(f'bad shapes q {tuple(q.shape)} k {tuple(k.shape)} '
                          f'v {tuple(v.shape)}')
@@ -150,7 +162,7 @@ def _bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     if not q.is_cuda:
         return flash_attention_bwd_ref(q, k, v, o, lse, do, dlse,
                                        causal=causal)
-    _check_kernel_inputs(q, k, v)
+    _check_kernel_inputs(q, k, v, BWD_HEAD_DIMS)
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -197,7 +209,15 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """o [B,S,H,D] and lse [B,S,H] (fp32), differentiable in q, k, v
     through both outputs. Any S and T: the kernels mask the ragged tile
     edge, so every prompt bucket and every training length runs on
-    them."""
+    them. On the card a call that wants a gradient at a head dim the
+    backward kernels do not take raises NotImplementedError first."""
+    wants_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if backward_refused(q.shape[-1], q.is_cuda, wants_grad):
+        raise NotImplementedError(
+            f'flash backward at head_dim {q.shape[-1]} is not ported yet: '
+            f'kernels C and D take {BWD_HEAD_DIMS}; D=256 (Gemma training) '
+            f'waits for ROADMAP Queue 2 item 5')
     scale = softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5
     # The pre-scale stays outside _Flash: dq gets `scale` by the chain rule.
     qs = (q * scale).to(q.dtype)

@@ -8,16 +8,20 @@ Pools are ``[n_pages, page_size, KH, hd]`` per layer, tables
 :func:`paged_attention_step` has two formulations, chosen by where the
 tensors lie:
 
-  - CUDA: write the step's new K/V into the pool first, then launch the
-    hand-written kernel (csrc/paged_decode.cu) that streams pages
+  - CUDA, plain causal attention: write the step's new K/V into the
+    pool first, then launch the hand-written kernel
+    (csrc/paged_decode.cu, head_dim 128 or 256) that streams pages
     through the table — the JAX ``impl='pallas'`` branch. The kernel
     splits each row's pages over blocks (:func:`split_pages`) and merges
     their partials itself, through a workspace this module keeps per
     (device, stream) (:func:`_workspace`).
-  - CPU: the fused overlay-then-attend formulation — gather this
+  - CPU, or a step with a logit softcap, a sliding window or sinks on
+    any device: the fused overlay-then-attend formulation — gather this
     layer's view from the pre-write pool, overlay the new K/V at each
     row's positions, run the plain attention, then write the pool —
-    the JAX ``impl='fused'`` branch.
+    the JAX ``impl='fused'`` branch. The kernel takes none of those
+    switches, as the JAX kernel takes none (``_pallas_ok``); the choice
+    is made from the arguments before anything is launched.
 
 Both update the pool IN PLACE (the JAX version returns new pools);
 the returned pools are the same tensors that were passed in.
@@ -36,23 +40,24 @@ KERNEL = build.Kernel(
     name='paged_decode', source='paged_decode.cu', symbol='paged_decode_bf16',
     argtypes=('p',) * 8 + ('l',) + ('i',) * 10 + ('f', 'p'))
 
-HEAD_DIM = 128      # the kernel's head_dim
+HEAD_DIMS = (128, 256)  # the kernel's head dims
 MAX_ROWS = 64       # the kernel's g * S limit per block: four 16-row tiles
-MAX_PAGE_SIZE = 128  # three K and V pages must fit in shared memory
+MAX_PAGE_SIZE = 128  # the kernel's ring holds K and V tiles of <= 128 keys
 WARPS = 4           # the kernel's warps a block
-# Blocks the chunk count aims for, per SM: two fit on an SM at once
-# (page 64), and more than that evens out rows of unequal length.
-BLOCKS_PER_SM = 4
+# Blocks the chunk count aims for, per SM, by head_dim: at 128 two fit
+# on an SM at once (page 64), at 256 one; twice that evens out rows of
+# unequal length.
+BLOCKS_PER_SM = {128: 4, 256: 2}
 
 
-def split_pages(batch: int, kv_heads: int, max_pages: int,
-                n_sm: int) -> Tuple[int, int]:
+def split_pages(batch: int, kv_heads: int, max_pages: int, n_sm: int,
+                head_dim: int = 128) -> Tuple[int, int]:
     """(chunks, pages per chunk) for kernel B's grid (chunks, KH, B):
-    the chunk count aims at BLOCKS_PER_SM blocks per SM (never more
-    chunks than pages), then rounds down so that every chunk but the
-    last holds the same number of pages. The lengths are not known
+    the chunk count aims at BLOCKS_PER_SM[head_dim] blocks per SM (never
+    more chunks than pages), then rounds down so that every chunk but
+    the last holds the same number of pages. The lengths are not known
     here: a chunk past its row's last page reads nothing."""
-    want = -(-BLOCKS_PER_SM * n_sm // (batch * kv_heads))
+    want = -(-BLOCKS_PER_SM[head_dim] * n_sm // (batch * kv_heads))
     per = -(-max_pages // max(1, min(max_pages, want)))
     return -(-max_pages // per), per
 
@@ -65,16 +70,16 @@ def key_splits(rows: int) -> int:
     return WARPS // tiles
 
 
-def workspace_sizes(batch: int, kv_heads: int, rows: int,
-                    chunks: int) -> Tuple[int, int]:
+def workspace_sizes(batch: int, kv_heads: int, rows: int, chunks: int,
+                    head_dim: int) -> Tuple[int, int]:
     """(floats, tickets) that kernel B's workspace needs: one partial
     per (batch row, kv head, chunk, key split, q row), each an fp32
-    output row of hd floats and a max and a sum, and one counter per
-    (batch row, kv head). The layout inside is the kernel's own
+    output row of head_dim floats and a max and a sum, and one counter
+    per (batch row, kv head). The layout inside is the kernel's own
     (csrc/paged_decode.cu::paged_decode_bf16), which refuses a smaller
     workspace."""
     parts = batch * kv_heads * chunks * key_splits(rows) * rows
-    return parts * (HEAD_DIM + 2), batch * kv_heads
+    return parts * (head_dim + 2), batch * kv_heads
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,8 +150,8 @@ def _check_kernel_inputs(q: torch.Tensor, kp: torch.Tensor,
             vp.dtype != q.dtype:
         raise TypeError(f'paged kernel takes bf16 q/pools, got {q.dtype}, '
                         f'{kp.dtype}, {vp.dtype}')
-    if hd != HEAD_DIM or kp.shape[3] != hd or vp.shape != kp.shape:
-        raise ValueError(f'paged kernel needs head_dim {HEAD_DIM}: q '
+    if hd not in HEAD_DIMS or kp.shape[3] != hd or vp.shape != kp.shape:
+        raise ValueError(f'paged kernel needs head_dim in {HEAD_DIMS}: q '
                          f'{tuple(q.shape)} pool {tuple(kp.shape)}')
     if h % kh or (h // kh) * s > MAX_ROWS:
         raise ValueError(f'paged kernel serves at most {MAX_ROWS} q rows '
@@ -173,9 +178,9 @@ def kernel_call(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     b, s, h, hd = q.shape
     psz, kh = kp.shape[1], kp.shape[2]
     maxp = table.shape[1]
-    chunks, per = split_pages(b, kh, maxp, _sm_count(q.device.index))
+    chunks, per = split_pages(b, kh, maxp, _sm_count(q.device.index), hd)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    floats, tickets = workspace_sizes(b, kh, (h // kh) * s, chunks)
+    floats, tickets = workspace_sizes(b, kh, (h // kh) * s, chunks, hd)
     work, ticket = _workspace(q.device, stream, floats, tickets)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     # out is contiguous whatever q's strides: the kernel writes
@@ -215,11 +220,16 @@ def paged_attention_step_ref(q: torch.Tensor, kp: torch.Tensor,
                              vp: torch.Tensor, table: torch.Tensor,
                              length: torch.Tensor, k_new: torch.Tensor,
                              v_new: torch.Tensor, pid: torch.Tensor,
-                             off: torch.Tensor, *, max_len: int):
+                             off: torch.Tensor, *, max_len: int,
+                             logit_softcap: Optional[float] = None,
+                             window: Optional[int] = None,
+                             window_active=None,
+                             sinks: Optional[torch.Tensor] = None):
     """The fused overlay-then-attend formulation, on any device: gather
     this layer's view from the pre-write pool, overlay the new K/V at
     positions [length, length+S) of every row, attend with the plain
-    reduction, then write the pool in place."""
+    reduction (with the softcap, window and sinks), then write the pool
+    in place."""
     b, s = q.shape[0], q.shape[1]
     rows = torch.arange(b, device=q.device)[:, None].expand(b, s)
     positions = length[:, None].long() + torch.arange(s, device=q.device)
@@ -231,26 +241,42 @@ def paged_attention_step_ref(q: torch.Tensor, kp: torch.Tensor,
     v_l = gather_pages(vp, table, max_len)     # overlay in place
     k_l[rows, positions] = k_new[keep]
     v_l[rows, positions] = v_new[keep]
-    out = xla_attention(q, k_l, v_l, causal=True, q_offset=length)
+    out = xla_attention(q, k_l, v_l, causal=True, q_offset=length,
+                        logit_softcap=logit_softcap, window=window,
+                        window_active=window_active, sinks=sinks)
     write_pages(kp, k_new, pid, off)
     write_pages(vp, v_new, pid, off)
     return out, kp, vp
+
+
+def kernel_takes(logit_softcap=None, window=None, sinks=None) -> bool:
+    """Kernel B's feature gate (the JAX ``_pallas_ok``): plain causal
+    attention only. A windowed model's global layers carry a window too
+    (with ``window_active`` False) and take the fused formulation, as in
+    the JAX package."""
+    return logit_softcap is None and window is None and sinks is None
 
 
 def paged_attention_step(q: torch.Tensor, kp: torch.Tensor,
                          vp: torch.Tensor, table: torch.Tensor,
                          length: torch.Tensor, k_new: torch.Tensor,
                          v_new: torch.Tensor, pid: torch.Tensor,
-                         off: torch.Tensor, *, max_len: int):
+                         off: torch.Tensor, *, max_len: int,
+                         logit_softcap: Optional[float] = None,
+                         window: Optional[int] = None, window_active=None,
+                         sinks: Optional[torch.Tensor] = None):
     """One layer of in-place paged decode/verify attention: q
     [B, S, H, hd] at offsets ``length`` [B], pools kp/vp
     [n_pages, psz, KH, hd], the step's new K/V [B, S, KH, hd] written at
     (pid, off). Returns (out [B, S, H, hd], kp, vp), the pools updated
-    in place. CUDA: write the pool, then kernel B. CPU: the fused
-    formulation."""
-    if not q.is_cuda:
-        return paged_attention_step_ref(q, kp, vp, table, length, k_new,
-                                        v_new, pid, off, max_len=max_len)
+    in place. CUDA with none of ``logit_softcap``, ``window`` (whatever
+    ``window_active`` says) and ``sinks``: write the pool, then kernel
+    B. Otherwise, and on the CPU: the fused formulation."""
+    if not q.is_cuda or not kernel_takes(logit_softcap, window, sinks):
+        return paged_attention_step_ref(
+            q, kp, vp, table, length, k_new, v_new, pid, off,
+            max_len=max_len, logit_softcap=logit_softcap, window=window,
+            window_active=window_active, sinks=sinks)
     write_pages(kp, k_new, pid, off)
     write_pages(vp, v_new, pid, off)
     return paged_decode_attention(q, kp, vp, table, length), kp, vp

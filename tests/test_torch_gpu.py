@@ -85,12 +85,12 @@ def test_flash_kernel_matches_plain(cuda, b, s, t, h, kh, d, causal):
     assert float((lse - lse_ref).abs().max()) <= TOL_LSE
 
 
-def _paged_inputs(cuda, s, h, kh):
+def _paged_inputs(cuda, s, h, kh, hd=128, psz=16):
     """Four ragged rows over shuffled pages (psz 16, 6 pages a row; the
     kernel's split puts each page in its own chunk): row 1 of length 0,
     row 2 inside its first page, row 3 ending exactly on a page (and
     chunk) boundary."""
-    b, hd, psz, maxp = 4, 128, 16, 6
+    b, maxp = 4, 6
     rng = np.random.default_rng(s + h)
     lengths = rng.integers(1, maxp * psz - s, size=b).astype(np.int32)
     lengths[1], lengths[2], lengths[3] = 0, 10 - s, 2 * psz - s
@@ -165,7 +165,7 @@ def test_paged_kernel_refuses_a_short_workspace(cuda):
     b, s, h, hd = q.shape
     kh, maxp = kp.shape[2], table.shape[1]
     chunks, per = pa.split_pages(b, kh, maxp, pa._sm_count(q.device.index))
-    floats, tickets = pa.workspace_sizes(b, kh, h // kh * s, chunks)
+    floats, tickets = pa.workspace_sizes(b, kh, h // kh * s, chunks, hd)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
     for nf, nt in ((floats - 1, tickets), (floats, tickets - 1)):
@@ -409,3 +409,133 @@ def test_model_backward_gives_every_param_a_grad(cuda):
     for (name, _), g, ref in zip(weights.tree_paths(params), *grads):
         assert g is not None and g.isfinite().all(), name
         assert float((g - ref).norm()) < 5e-2 * float(ref.norm()), name
+
+
+# Head dim 256 (the Gemma family). Kernel A: (B, S, T, H, KH, causal) —
+# gemma-7b's 16/16 heads narrowed to 4/4, ragged S past the 64-key
+# tile, T != S, a GQA group (gemma2/3's 2).
+FLASH256_CASES = [(1, 16, 16, 4, 4, True), (2, 100, 100, 4, 4, True),
+                  (1, 130, 130, 4, 2, False), (1, 300, 77, 4, 4, False),
+                  (1, 1024, 1024, 2, 2, True)]
+
+
+@pytest.mark.parametrize('b,s,t,h,kh,causal', FLASH256_CASES)
+def test_flash_kernel_matches_plain_at_256(cuda, b, s, t, h, kh, causal):
+    gen = torch.Generator(device=cuda).manual_seed(s + t + 256)
+    q, k, v = _rand(gen, b, s, h, 256), _rand(gen, b, t, kh, 256), \
+        _rand(gen, b, t, kh, 256)
+    before = fa.KERNEL.launches
+    o, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+    assert fa.KERNEL.launches == before + 1
+    o_ref, lse_ref = fa.flash_attention_ref(*_prescaled_fp32(q, k, v),
+                                            causal=causal, softmax_scale=1.0)
+    torch.cuda.synchronize()
+    _assert_o_close(o, o_ref)
+    assert float((lse - lse_ref).abs().max()) <= TOL_LSE
+
+
+# Kernel B at head_dim 256, (S, H, KH, psz): g = 1 and 2 at decode and
+# verify widths; g*S = 64 (two ring slots); pages of 16, 40 (a padded
+# tile) and 72 (two padded halves: pages over 64 tokens stream in
+# halves).
+PAGED256_CASES = [(1, 4, 4, 16), (4, 4, 2, 16), (8, 32, 4, 16),
+                  (1, 4, 4, 40), (3, 4, 2, 72)]
+
+
+@pytest.mark.parametrize('s,h,kh,psz', PAGED256_CASES)
+def test_paged_kernel_matches_plain_at_256(cuda, s, h, kh, psz):
+    q, kp, vp, table_t, length_t = _paged_inputs(cuda, s, h, kh, hd=256,
+                                                 psz=psz)
+    before = pa.KERNEL.launches
+    out = pa.paged_decode_attention(q, kp, vp, table_t, length_t)
+    again = pa.paged_decode_attention(q, kp, vp, table_t, length_t)
+    assert pa.KERNEL.launches == before + 2
+    qf, kf, vf = _prescaled_fp32(q, kp, vp)
+    ref = pa.paged_decode_attention_ref(qf, kf, vf, table_t, length_t,
+                                        softmax_scale=1.0)
+    torch.cuda.synchronize()
+    _assert_o_close(out, ref)
+    assert torch.equal(out, again)
+
+
+def _gemma_layer_run(cuda, plain, **switches):
+    """Prefill and one paged decode step of a one-layer model with
+    gemma-7b's head shape (head_dim 256, 16/16 heads narrowed to 4/4,
+    its norms, gelu MLP and embedding scale) plus ``switches``, by the
+    default routing or (``plain``) the plain path, on the same bf16
+    weights (upcast for ``dtype=torch.float32``): (launch counts, the
+    prefill and step logits)."""
+    cfg = dataclasses.replace(config.PRESETS['gemma-7b'], n_layers=1,
+                              dim=512, n_heads=4, n_kv_heads=4, ffn_dim=1024,
+                              vocab_size=512, **switches)
+    params = decode.cast_params_for_decode(decode.cast_params_for_decode(
+        llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                          cuda), dataclasses.replace(cfg,
+                                                     dtype=torch.bfloat16)),
+        cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1), dtype=torch.int32)
+    lengths = torch.tensor([32, 20], dtype=torch.int32, device=cuda)
+    psz, maxp = 16, 4
+    build.reset_launches()
+    logits, ks, vs = decode.prefill(params, tokens, cfg, 64, lengths=lengths,
+                                    attention_impl='xla' if plain else 'auto')
+    pc = decode.init_page_pool(cfg, 2 * maxp + 1, psz, 2, maxp, cuda)
+    pc.table.copy_(torch.arange(1, 2 * maxp + 1, dtype=torch.int32,
+                                device=cuda).reshape(2, maxp))
+    paging.scatter_prefill(pc, ks, vs, torch.arange(2, device=cuda), 32,
+                           lengths)
+    # Every run decodes the same next tokens.
+    feed = torch.tensor([7, 300], dtype=torch.int32, device=cuda)
+    step, _ = decode.paged_decode_step(
+        params, feed, pc, cfg, max_len=64,
+        attention_fn=(pa.paged_attention_step_ref if plain
+                      else pa.paged_attention_step))
+    launches = {n: k.launches for n, k in build.kernels().items()}
+    return launches, torch.cat([logits, step]).float()
+
+
+def test_gemma_7b_layer_launches_kernels_a_and_b(cuda):
+    """The kernels launch once each, and the kernel path lies no
+    farther from an fp32 run of the same weights than the plain bf16
+    path does (relative Frobenius error, within 1.25x as chip_smoke's
+    model phases; the two bf16 paths round at different points)."""
+    launches, got = _gemma_layer_run(cuda, False)
+    assert launches == {'flash_fwd': 1, 'paged_decode': 1, 'flash_dq': 0,
+                        'flash_dkv': 0}
+    assert got.isfinite().all()
+    _, ref = _gemma_layer_run(cuda, True)
+    _, f32 = _gemma_layer_run(cuda, True, dtype=torch.float32)
+    e_kern = float((got - f32).norm()) / float(f32.norm())
+    e_plain = float((ref - f32).norm()) / float(f32.norm())
+    assert e_kern <= 1.25 * e_plain, (e_kern, e_plain)
+
+
+@pytest.mark.parametrize('switches', [
+    dict(attn_logit_softcap=50.0), dict(sliding_window=16),
+    dict(sliding_window=16, sliding_window_pattern=1)],
+    ids=['softcap', 'window', 'window-global'])
+def test_softcap_or_window_layer_launches_neither_kernel(cuda, switches):
+    """A softcap or a window (even on a global layer, whose window is
+    off) takes the plain route on the card, as in the JAX package: the
+    same logits as the plain path, bit for bit, and no launch."""
+    launches, got = _gemma_layer_run(cuda, False, **switches)
+    assert all(n == 0 for n in launches.values()), launches
+    assert torch.equal(got, _gemma_layer_run(cuda, True, **switches)[1])
+
+
+def test_flash_at_256_with_grad_is_refused_before_launch(cuda):
+    """Kernels C and D do not take head_dim 256: a call that wants a
+    grad there raises NotImplementedError before kernel A launches; the
+    same call without a grad runs kernel A."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = _rand(gen, 1, 64, 2, 256).requires_grad_()
+    k = _rand(gen, 1, 64, 2, 256)
+    before = fa.KERNEL.launches
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        fa.flash_attention(q, k, k)
+    assert fa.KERNEL.launches == before
+    with torch.no_grad():
+        fa.flash_attention(q, k, k)
+    assert fa.KERNEL.launches == before + 1

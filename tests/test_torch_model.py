@@ -58,16 +58,27 @@ def test_presets_match_jax_field_for_field():
 
 
 @pytest.mark.parametrize('name', ['gemma-7b', 'gemma2-9b', 'gemma3-12b'])
-def test_unported_switches_refused(name):
+def test_gemma_presets_accepted(name):
+    """Every Gemma switch is ported: the presets pass the check, and a
+    narrow copy of each initialises."""
     cfg = config.PRESETS[name]
+    config.check_supported(cfg)
+    llama.init_params(dataclasses.replace(cfg, n_layers=1, dim=8,
+                                          vocab_size=8, ffn_dim=8,
+                                          n_heads=1, n_kv_heads=1,
+                                          head_dim=8),
+                      torch.Generator().manual_seed(0), 'cpu')
+
+
+def test_remat_dots_still_refused():
+    cfg = dataclasses.replace(config.PRESETS['llama-debug'], remat='dots')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         config.check_supported(cfg)
-    with pytest.raises(NotImplementedError):
-        llama.init_params(dataclasses.replace(cfg, n_layers=1, dim=8,
-                                              vocab_size=8, ffn_dim=8,
-                                              n_heads=1, n_kv_heads=1,
-                                              head_dim=8),
-                          torch.Generator().manual_seed(0), 'cpu')
+    with pytest.raises(NotImplementedError, match='dots'):
+        llama.forward(llama.init_params(
+            dataclasses.replace(cfg, remat='none'),
+            torch.Generator().manual_seed(0), 'cpu'),
+            torch.zeros((1, 4), dtype=torch.int32), cfg)
 
 
 @pytest.mark.parametrize('qkv_bias', [False, True])

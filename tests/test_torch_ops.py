@@ -183,7 +183,7 @@ def test_kernel_b_workspace_holds_a_partial_per_warp(rows, splits):
     each 128 output floats, a max and a sum; and a ticket per (batch
     row, kv head)."""
     assert paged_attention.key_splits(rows) == splits
-    assert paged_attention.workspace_sizes(8, 4, rows, 16) == \
+    assert paged_attention.workspace_sizes(8, 4, rows, 16, 128) == \
         (8 * 4 * 16 * splits * rows * (128 + 2), 8 * 4)
 
 
