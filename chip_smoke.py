@@ -17,8 +17,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  in halves: rows end on a half's edge too);
   4. flash_bwd — kernels C (dq) and D (dk, dv) vs the plain backward:
                  GQA groups 1, 2, 4, both causal settings, ragged S,
-                 D=64, an lse cotangent, llama-1b heads at S=2048; two
-                 launches of C bit-equal;
+                 D=64, an lse cotangent, llama-1b heads at S=2048, and
+                 D=256 (groups 1, 2; S 100, 130, 300; gemma-7b's heads
+                 at S=2048); two launches of each case bit-equal;
   5. timing    — each kernel's launch alone, its plain version's and
                  one library call's times (CUDA events, medians) beside
                  the kernel's bound and its share of it; kernel A at the
@@ -26,6 +27,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  wrappers; B at other chunk counts; A and B again at
                  gemma-7b's head_dim 256 (A: B=2, S=T=2048, H=KH=16;
                  B: B=8, S=1, H=KH=16, psz 64, the same ragged rows);
+                 C and D at gemma-7b's train shape (B=2, S=T=2048,
+                 H=KH=16, D=256) beside SDPA's backward by backend;
   6. model     — llama-1b (full width, random bf16 weights) prefill + 8
                  paged decode steps through the kernels vs the plain path;
                  then a verify step of 8 tokens with 2 kv heads (g*S =
@@ -45,7 +48,15 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  one global) at full width: prefill + decode on the
                  card vs fp32, with kernels A and B launched zero times
                  (softcaps, windows: the plain route, as in JAX);
- 11. train     — the port's trainer on llama-1b at full width, 6 steps
+ 11. train_gemma — the port's trainer on gemma-7b at full width cut to
+                 4 layers, 4 steps of 2 x 2048 tokens: A twice and C, D
+                 once per layer per step at head_dim 256; peak memory;
+                 grads against the plain and fp32 paths, the loss
+                 against the plain-attention trainer; one step under
+                 torch.profiler; then one step each of gemma2-9b (2
+                 layers) and gemma3-12b (6 layers) with no kernel
+                 launched, their grads against fp32;
+ 12. train     — the port's trainer on llama-1b at full width, 6 steps
                  of 4 x 2048 tokens: A twice and C, D once per layer per
                  step; grads against the plain and fp32 paths, the loss
                  against the plain-attention trainer, a resume at step
@@ -105,13 +116,21 @@ FLASH_CASES = [(16, True), (100, True), (512, True), (2048, True),
 # relative each), as the TPU kernels do.
 TOL_BWD = 2e-2
 # (B, S=T, H, KH, D, causal, nonzero lse cotangent): GQA groups 1, 2, 4;
-# ragged S; both causal settings; D=64; llama-1b heads at S=2048.
+# ragged S; both causal settings; D=64; llama-1b heads at S=2048; then
+# D=256 (the Gemma family): groups 1 and 2, ragged S (odd-S lse and
+# delta rows), both causal settings, an lse cotangent, gemma-7b's heads
+# at S=2048.
 BWD_CASES = [(1, 100, 4, 4, 128, True, False),
              (2, 130, 4, 2, 128, False, False),
              (1, 256, 8, 2, 128, True, True),
              (1, 200, 4, 1, 64, True, False),
              (1, 300, 4, 2, 64, False, True),
-             (1, 2048, 16, 8, 128, True, False)]
+             (1, 2048, 16, 8, 128, True, False),
+             (1, 100, 4, 4, 256, True, False),
+             (2, 130, 4, 2, 256, False, True),
+             (1, 300, 8, 4, 256, True, True),
+             (1, 300, 4, 4, 256, False, False),
+             (2, 2048, 16, 16, 256, True, False)]
 # The kernels each main path must launch.
 SERVE_KERNELS = ('flash_fwd', 'paged_decode')
 # Kernel A at head_dim 256 (gemma-7b's heads, 16/16): (B, S=T, H, KH,
@@ -256,13 +275,15 @@ def bwd_inputs(torch, fa, b, s, h, kh, d, causal, with_dlse, seed):
 def phase_flash_bwd(torch, fa) -> dict:
     """Kernels C (dq) and D (dk, dv) vs the plain backward computed in
     fp32 on the same bf16 inputs: max|err| / max|ref| < TOL_BWD for each
-    grad."""
+    grad; then both kernels again on each case's inputs, bit-equal (each
+    grad element is written once by one block, with no atomics)."""
     worst = {'flash_dq': 0.0, 'flash_dkv': 0.0}
     for i, (b, s, h, kh, d, causal, with_dlse) in enumerate(BWD_CASES):
         qs, k, v, o, lse, do, dlse = bwd_inputs(torch, fa, b, s, h, kh, d,
                                                 causal, with_dlse,
                                                 seed=200 + i)
         got = fa._bwd(qs, k, v, o, lse, do, dlse, causal)
+        again = fa._bwd(qs, k, v, o, lse, do, dlse, causal)
         ref = fa.flash_attention_bwd_ref(qs.float(), k.float(), v.float(),
                                          o.float(), lse, do.float(), dlse,
                                          causal=causal)
@@ -272,24 +293,21 @@ def phase_flash_bwd(torch, fa) -> dict:
             if not bool(a.isfinite().all()):
                 fail(f'flash backward: non-finite {name} in case {i}')
             rel.append(max_err(a, r) / float(r.abs().max()))
+        same = all(torch.equal(a, a2) for a, a2 in zip(got, again))
         ok = max(rel) < TOL_BWD
         log(f'[flash_bwd] B={b} S=T={s} H={h} KH={kh} D={d} causal={causal}'
             f' dlse={with_dlse}: max|err|/max|ref| dq {rel[0]:.3e} dk '
             f'{rel[1]:.3e} dv {rel[2]:.3e} (tol {TOL_BWD}) '
-            f'{"ok" if ok else "MISMATCH"}')
+            f'{"ok" if ok else "MISMATCH"}; two launches '
+            f'{"bit-equal" if same else "DIFFER"}')
         if not ok:
             fail(f'flash backward kernels disagree in case {i}')
+        if not same:
+            fail(f'flash backward kernels are not deterministic in case {i}')
         worst['flash_dq'] = max(worst['flash_dq'], max_err(got[0], ref[0]))
         worst['flash_dkv'] = max(worst['flash_dkv'], max_err(got[1], ref[1]),
                                  max_err(got[2], ref[2]))
-    # Kernel C twice on the last case's inputs: each dq element is
-    # written once by one block, with no atomics, so the two agree bit
-    # for bit.
-    again = fa._bwd(qs, k, v, o, lse, do, dlse, causal)
-    torch.cuda.synchronize()
-    if not torch.equal(got[0], again[0]):
-        fail('kernel C is not deterministic: two launches differ')
-    log('[flash_bwd] kernel C twice on one input: dq bit-equal')
+        del got, again, ref
     return worst
 
 
@@ -399,8 +417,10 @@ BWD_TIMING_B = 4
 TIMING_SHAPE = dict(s=2048, h=16, kh=8, d=128)
 # Kernels A and B at gemma-7b's heads (16/16, head_dim 256): A at the
 # serve shape; B at B's llama-1b timing rows (B=8, S=1, psz 64,
-# max_pages 32, the same ragged lengths).
+# max_pages 32, the same ragged lengths); C and D at the train_gemma
+# phase's batch (B=2: the same FLOPs as the B=4, D=128 shape).
 TIMING_SHAPE_256 = dict(s=2048, h=16, kh=16, d=256)
+BWD_TIMING_B_256 = 2
 
 
 def fwd_launch(torch, fa, b, shape=TIMING_SHAPE):
@@ -418,11 +438,11 @@ def fwd_launch(torch, fa, b, shape=TIMING_SHAPE):
     return (q, k, v), lambda: (held, fa.KERNEL.launch(*args))
 
 
-def bwd_launches(torch, fa):
-    """Kernels C and D's inputs at the train shape (o and lse from kernel
-    A, delta from the delta op) and a callable launching each alone."""
-    b = BWD_TIMING_B
-    s, h, kh, d = (TIMING_SHAPE[x] for x in ('s', 'h', 'kh', 'd'))
+def bwd_launches(torch, fa, b=BWD_TIMING_B, shape=TIMING_SHAPE):
+    """Kernels C and D's inputs at batch ``b`` and ``shape`` (o and lse
+    from kernel A, delta from the delta op) and a callable launching
+    each alone."""
+    s, h, kh, d = (shape[x] for x in ('s', 'h', 'kh', 'd'))
     qs, k, v, o, lse, do, _ = bwd_inputs(torch, fa, b, s, h, kh, d, True,
                                          False, seed=2)
     delta = fa._delta(o, do, None)
@@ -479,6 +499,11 @@ def kernel_ms(torch, fa, pa, paging, paged=paged_launch) -> dict:
             fwd_launch(torch, fa, FWD_TIMING_B[0], TIMING_SHAPE_256)[1])
         out['paged_decode hd256'] = time_ms(
             paged(torch, pa, paging, h=16, kh=16, hd=256)[1], iters=100)
+    if 256 in getattr(fa, 'BWD_HEAD_DIMS', ()):
+        _, dq, dkv = bwd_launches(torch, fa, BWD_TIMING_B_256,
+                                  TIMING_SHAPE_256)
+        out['flash_dq hd256'] = time_ms(dq)
+        out['flash_dkv hd256'] = time_ms(dkv)
     return out
 
 
@@ -578,6 +603,8 @@ def phase_timing(torch, fa, pa, paging) -> dict:
     res['flash_fwd hd256'] = time_fwd(torch, fa, FWD_TIMING_B[0],
                                       TIMING_SHAPE_256)
     res['paged_decode hd256'] = time_paged(torch, pa, paging, 16, 16, 256)
+    res.update({f'{n} hd256': r for n, r in time_flash_bwd(
+        torch, fa, BWD_TIMING_B_256, TIMING_SHAPE_256).items()})
     for name, r in res.items():
         log(f'[timing] {name} {r["shape"]}: kernel {r["ms"]:.4f} ms, '
             f'plain {r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} '
@@ -586,39 +613,59 @@ def phase_timing(torch, fa, pa, paging) -> dict:
     return res
 
 
-def time_flash_bwd(torch, fa) -> dict:
-    """Kernels C and D at llama-1b training shapes (B=4, S=T=2048,
-    H=16, KH=8, D=128, causal, bf16), each launched alone on inputs
-    that kernel A and the delta op made. The plain backward and SDPA's
-    backward compute dq, dk and dv in one call: their times are the
-    pair's and stand on both rows."""
+def sdpa_bwd_backends(torch, qt, kt, vt, go) -> dict:
+    """SDPA's whole backward (dq, dk, dv) on [B, H, S, D] tensors, timed
+    under each backend that takes it: {backend name: ms}."""
     import torch.nn.functional as F
-    b = BWD_TIMING_B
-    s, h, kh, d = (TIMING_SHAPE[x] for x in ('s', 'h', 'kh', 'd'))
-    (qs, k, v, o, lse, do), launch_dq, launch_dkv = bwd_launches(torch, fa)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                o = F.scaled_dot_product_attention(
+                    qt, kt, vt, enable_gqa=True, is_causal=True, scale=1.0)
+                out[backend.name] = time_ms(lambda: torch.autograd.grad(
+                    o, (qt, kt, vt), go, retain_graph=True))
+        except RuntimeError as e:
+            log(f'[timing] SDPA backend {backend.name} refused: '
+                f'{str(e).splitlines()[0][:120]}')
+    return out
+
+
+def time_flash_bwd(torch, fa, b=BWD_TIMING_B, shape=TIMING_SHAPE) -> dict:
+    """Kernels C and D at batch ``b`` and ``shape`` (by default llama-1b
+    training: B=4, S=T=2048, H=16, KH=8, D=128; causal, bf16), each
+    launched alone on inputs that kernel A and the delta op made. The
+    plain backward and SDPA's backward compute dq, dk and dv in one
+    call: their times are the pair's and stand on both rows. SDPA runs
+    under each backend that takes it; the fastest is the row's library
+    time, named."""
+    s, h, kh, d = (shape[x] for x in ('s', 'h', 'kh', 'd'))
+    (qs, k, v, o, lse, do), launch_dq, launch_dkv = bwd_launches(
+        torch, fa, b, shape)
     ms_dq = time_ms(launch_dq)
     ms_dkv = time_ms(launch_dkv)
     plain = time_ms(lambda: fa.flash_attention_bwd_ref(qs, k, v, o, lse, do,
                                                        causal=True), iters=3)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (qs, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
-                                         is_causal=True, scale=1.0)
     go = do.transpose(1, 2).contiguous()
-    lib = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), go,
-                                              retain_graph=True))
+    libs = sdpa_bwd_backends(torch, qt, kt, vt, go)
+    log(f'[timing] SDPA backward at D={d}: ' + ', '.join(
+        f'{n} {ms:.4f} ms' for n, ms in libs.items()))
+    lib_name = min(libs, key=libs.get) if libs else None
     # Matrix-product FLOPs, halved for causal: dq 3 products (s, dp,
     # ds k), dkv 4 (s, dp, p^T do, ds^T q), each 2*B*H*S*T*D.
     prod = 2 * b * h * s * s * d / 2
     n_in = 2 * (2 * b * s * h * d + 2 * b * s * kh * d) + 4 * 2 * b * h * s
     shape = f'B={b} S=T={s} H={h} KH={kh} D={d} causal bf16'
+    lib = dict(library_ms=libs.get(lib_name), library=f'SDPA {lib_name}')
     return {
-        'flash_dq': dict(ms=ms_dq, plain_ms=plain, library_ms=lib,
-                         shape=shape, **bound(3 * prod,
-                                              n_in + 2 * b * s * h * d)),
-        'flash_dkv': dict(ms=ms_dkv, plain_ms=plain, library_ms=lib,
-                          shape=shape, **bound(4 * prod,
-                                               n_in + 4 * b * s * kh * d))}
+        'flash_dq': dict(ms=ms_dq, plain_ms=plain, shape=shape, **lib,
+                         **bound(3 * prod, n_in + 2 * b * s * h * d)),
+        'flash_dkv': dict(ms=ms_dkv, plain_ms=plain, shape=shape, **lib,
+                          **bound(4 * prod, n_in + 4 * b * s * kh * d))}
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -896,56 +943,65 @@ def phase_serve(torch, model, cfg, params, engine_lib, build) -> dict:
         eng.stop()
 
 
+def train_checked(torch, build, tcfg, cfg, tag: str):
+    """The port's trainer with ``tcfg`` from launch counts of 0: with
+    remat 'full', kernel A twice and C and D once per layer per step
+    (none where the config takes the plain route); finite losses and
+    grad norms; ms/step and tokens/s; peak memory; then the
+    plain-attention trainer's losses within TOL_LOSS. Returns (the
+    history, the launch counts)."""
+    import dataclasses
+    from skypilot_tpu_torch.train import trainer
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    hist = trainer.train(tcfg)
+    launches = {n: k.launches for n, k in build.kernels().items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    layers, n = cfg.n_layers, tcfg.total_steps
+    want = {'flash_fwd': 2 * layers * n, 'flash_dq': layers * n,
+            'flash_dkv': layers * n, 'paged_decode': 0}
+    log(f'{tag} {tcfg.model}, {layers} layers, remat {cfg.remat}, batch '
+        f'{tcfg.batch_size}x{tcfg.seq_len}, {n} steps: launches {launches} '
+        f'(want {want}); peak memory {peak:.2f} GB')
+    if launches != want:
+        fail(f'{tag} launches {launches} != {want}')
+    for r in hist:
+        log(f'{tag} {json.dumps(r)}')
+        if not (np.isfinite(r['loss']) and np.isfinite(r['grad_norm'])):
+            fail(f'{tag} step {r["step"]}: non-finite loss or grad norm')
+    sec = statistics.median(r['sec_per_step'] for r in hist[1:])
+    log(f'{tag} {sec * 1e3:.1f} ms/step (median of steps 2-{n}), '
+        f'{tcfg.batch_size * tcfg.seq_len / sec:.0f} tokens/s')
+
+    plain = trainer.train(dataclasses.replace(
+        tcfg, model_overrides={**tcfg.model_overrides,
+                               'attention_impl': 'xla'}))
+    diff = max(abs(a['loss'] - b['loss']) for a, b in zip(hist, plain))
+    log(f'{tag} loss, kernels vs plain attention: '
+        f'{[r["loss"] for r in hist]} vs {[r["loss"] for r in plain]}, '
+        f'max |diff| {diff:.4f} (tol {TOL_LOSS})')
+    if diff > TOL_LOSS:
+        fail(f'{tag} loss departs from the plain path by {diff}')
+    return hist, launches
+
+
 def phase_train(torch, build) -> dict:
     """The port's trainer on llama-1b at full width (16 layers, dim
     2048, vocab 32768, tied embeddings, remat 'full'): TRAIN_STEPS steps
     of batch TRAIN_B x TRAIN_S on the synthetic corpus, through the
-    kernels. Checks the launch counts per step, finite losses and grad
-    norms, one step's grads against the plain bf16 and fp32 paths
-    (TOL_GRAD), the loss trajectory against the plain-attention trainer
-    (TOL_LOSS), and a resume at step 3 (TOL_RESUME); then profiles one
-    step. Returns the main run's launch counts."""
+    kernels (train_checked), a resume at step 3 (TOL_RESUME), one
+    step's grads against the plain bf16 and fp32 paths (TOL_GRAD), one
+    step profiled. Returns the main run's launch counts."""
     import dataclasses
     import shutil
     from skypilot_tpu_torch import config
-    from skypilot_tpu_torch.data import loader
-    from skypilot_tpu_torch.data_service import spec as spec_lib
-    from skypilot_tpu_torch.models import llama, weights
-    from skypilot_tpu_torch.train import train_lib, trainer
+    from skypilot_tpu_torch.train import trainer
     cfg = config.get_config('llama-1b')
     tcfg = trainer.TrainerConfig(
         model='llama-1b', batch_size=TRAIN_B, seq_len=TRAIN_S,
         total_steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP, log_every=1,
         device='cuda')
-
-    # The main path: every launch count from 0.
-    build.reset_launches()
-    hist = trainer.train(tcfg)
-    launches = {n: k.launches for n, k in build.kernels().items()}
-    want = {'flash_fwd': 2 * cfg.n_layers * TRAIN_STEPS,
-            'flash_dq': cfg.n_layers * TRAIN_STEPS,
-            'flash_dkv': cfg.n_layers * TRAIN_STEPS, 'paged_decode': 0}
-    log(f'[train] llama-1b, {cfg.n_layers} layers, remat {cfg.remat}, '
-        f'batch {TRAIN_B}x{TRAIN_S}, {TRAIN_STEPS} steps: launches '
-        f'{launches} (want {want})')
-    if launches != want:
-        fail(f'train launches {launches} != {want}')
-    for r in hist:
-        log(f'[train] {json.dumps(r)}')
-        if not (np.isfinite(r['loss']) and np.isfinite(r['grad_norm'])):
-            fail(f'train step {r["step"]}: non-finite loss or grad norm')
-    sec = statistics.median(r['sec_per_step'] for r in hist[1:])
-    log(f'[train] {sec * 1e3:.1f} ms/step (median of steps 2-'
-        f'{TRAIN_STEPS}), {TRAIN_B * TRAIN_S / sec:.0f} tokens/s')
-
-    plain = trainer.train(dataclasses.replace(
-        tcfg, model_overrides={'attention_impl': 'xla'}))
-    diff = max(abs(a['loss'] - b['loss']) for a, b in zip(hist, plain))
-    log(f'[train] loss, kernels vs plain attention: '
-        f'{[r["loss"] for r in hist]} vs {[r["loss"] for r in plain]}, '
-        f'max |diff| {diff:.4f} (tol {TOL_LOSS})')
-    if diff > TOL_LOSS:
-        fail(f'train loss departs from the plain path by {diff}')
+    hist, launches = train_checked(torch, build, tcfg, cfg, '[train]')
 
     ck = os.path.join(HERE, '.smoke_ckpt')
     shutil.rmtree(ck, ignore_errors=True)
@@ -968,20 +1024,58 @@ def phase_train(torch, build) -> dict:
         fail(f'resumed run departs from the uninterrupted one by {diff}')
 
     # One step's grads three ways on the trainer's initial weights and
-    # first batch: kernels (bf16), plain attention (bf16), plain fp32.
+    # first batch, then that step under the profiler.
+    params, batch = first_step(torch, cfg, TRAIN_B)
+    check_grads(torch, cfg, params, batch, '[train]')
+    profile_step(torch, cfg, params, batch)
+    return launches
+
+
+def first_step(torch, cfg, batch_size: int):
+    """The trainer's initial weights (seed 0, fp32 master, on the card,
+    requiring grad) and its first batch of ``batch_size`` x TRAIN_S."""
+    from skypilot_tpu_torch.data import loader
+    from skypilot_tpu_torch.data_service import spec as spec_lib
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import train_lib
     params = llama.init_params(cfg, torch.Generator(device='cuda')
                                .manual_seed(0), 'cuda')
-    leaves = train_lib.leaves(params)
-    for leaf in leaves:
+    for leaf in train_lib.leaves(params):
         leaf.requires_grad_(True)
     source = spec_lib.load_source(spec_lib.DatasetSpec(
-        TRAIN_B, TRAIN_S, cfg.vocab_size))
-    batch = loader.to_device(source.batch_at_step(0), 'cuda')
+        batch_size, TRAIN_S, cfg.vocab_size))
+    return params, loader.to_device(source.batch_at_step(0), 'cuda')
+
+
+def profile_step(torch, cfg, params, batch) -> None:
+    """One train step on ``params`` and ``batch`` (run once first, so
+    that nothing is built inside the window) under the profiler: the
+    card's idle share and where its time goes."""
+    from skypilot_tpu_torch.train import train_lib
+    tx = train_lib.default_optimizer(warmup_steps=TRAIN_WARMUP)
+    state = train_lib.init_train_state(cfg, tx, 'cuda', params=params)
+    step_fn = train_lib.make_train_step(cfg, tx)
+    step_fn(state, batch)
+    profile_device(torch, lambda: step_fn(state, batch))
+
+
+def check_grads(torch, cfg, params, batch, tag: str) -> float:
+    """One step's grads three ways on ``params`` and ``batch``: the
+    default route (bf16; through the kernels where the config lets
+    them), plain attention in bf16, plain attention in fp32. Per leaf,
+    the default route's relative error (Frobenius) against fp32 may be
+    at most TOL_GRAD times the plain bf16 path's. Returns the worst
+    ratio."""
+    import dataclasses
+    from skypilot_tpu_torch.models import llama, weights
+    from skypilot_tpu_torch.train import train_lib
+    leaves = train_lib.leaves(params)
 
     def grads(cfg_run):
         tokens = batch['tokens']
         logits = llama.forward(params, tokens[:, :-1], cfg_run)
         loss, _ = train_lib.cross_entropy_loss(logits, tokens[:, 1:])
+        del logits
         return torch.autograd.grad(loss, leaves, allow_unused=True)
 
     g_kern = grads(cfg)
@@ -992,28 +1086,77 @@ def phase_train(torch, build) -> dict:
     worst = 0.0
     for name, gk, gp, gr in zip(names, g_kern, g_plain, g_ref):
         if gk is None or not bool(gk.isfinite().all()):
-            fail(f'grad of {name}: missing or non-finite on the kernel path')
+            fail(f'{tag} grad of {name}: missing or non-finite')
         ref_norm = float(gr.norm())
         e_k = float((gk - gr).norm()) / ref_norm
         e_p = float((gp - gr).norm()) / ref_norm
         worst = max(worst, e_k / e_p)
-        log(f'[train] grad {name}: |err|/|fp32| kernel {e_k:.3e}, plain '
+        log(f'{tag} grad {name}: |err|/|fp32| default {e_k:.3e}, plain '
             f'{e_p:.3e}, ratio {e_k / e_p:.3f}')
     if worst > TOL_GRAD:
-        fail(f'grads: kernel error {worst:.2f}x the plain bf16 error > '
-             f'{TOL_GRAD}x')
-    log(f'[train] grads of all {len(names)} leaves: kernel/plain error '
+        fail(f'{tag} grads: default-route error {worst:.2f}x the plain bf16 '
+             f'error > {TOL_GRAD}x')
+    log(f'{tag} grads of all {len(names)} leaves: default/plain error '
         f'ratio worst {worst:.3f} (tol {TOL_GRAD}) ok')
-    del g_kern, g_plain, g_ref
+    return worst
 
-    # One step under the profiler: the card's idle share and where its
-    # time goes.
-    tx = train_lib.default_optimizer(warmup_steps=TRAIN_WARMUP,
-                                     total_steps=TRAIN_STEPS)
-    state = train_lib.init_train_state(cfg, tx, 'cuda', params=params)
-    step_fn = train_lib.make_train_step(cfg, tx)
-    step_fn(state, batch)
-    profile_device(torch, lambda: step_fn(state, batch))
+
+# train_gemma: gemma-7b at full width cut to 4 layers (~1.89 B params,
+# 18 bytes a param of master, moments, grads and bf16 copies, ~34 GB,
+# before the fp32 logits at vocab 256000), batch 2 x 2048, 4 steps; then
+# one step each of gemma2-9b and gemma3-12b at SWITCH_DEPTHS, batch 1.
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_B, GEMMA_TRAIN_STEPS = 4, 2, 4
+
+
+def phase_train_gemma(torch, build) -> dict:
+    """The port's trainer on gemma-7b (full width, GEMMA_TRAIN_LAYERS
+    layers, remat 'full'; kernels A, C and D at head_dim 256) through
+    train_checked, one step's grads against the plain bf16 and fp32
+    paths (TOL_GRAD), one step profiled. No checkpoint is written (the
+    format is held on the CPU). Then one trainer step each of gemma2-9b
+    and gemma3-12b (a softcap or a window on every layer: the plain
+    route, as in JAX), with zero kernel launches, and their grads
+    against fp32. Returns gemma-7b's launch counts."""
+    import dataclasses
+    from skypilot_tpu_torch import config
+    from skypilot_tpu_torch.train import trainer
+    cfg = dataclasses.replace(config.get_config('gemma-7b'),
+                              n_layers=GEMMA_TRAIN_LAYERS)
+    tcfg = trainer.TrainerConfig(
+        model='gemma-7b', model_overrides={'n_layers': GEMMA_TRAIN_LAYERS},
+        batch_size=GEMMA_TRAIN_B, seq_len=TRAIN_S,
+        total_steps=GEMMA_TRAIN_STEPS, warmup_steps=TRAIN_WARMUP,
+        log_every=1, device='cuda')
+    free_card(torch)
+    log(f'[train_gemma] {torch.cuda.memory_allocated() / 1e9:.2f} GB held '
+        f'by earlier phases')
+    _, launches = train_checked(torch, build, tcfg, cfg, '[train_gemma]')
+    params, batch = first_step(torch, cfg, GEMMA_TRAIN_B)
+    check_grads(torch, cfg, params, batch, '[train_gemma]')
+    profile_step(torch, cfg, params, batch)
+    del params, batch
+    free_card(torch)
+
+    for name, depth in SWITCH_DEPTHS.items():
+        tag = f'[train_gemma {name}]'
+        build.reset_launches()
+        rec = trainer.train(trainer.TrainerConfig(
+            model=name, model_overrides={'n_layers': depth}, batch_size=1,
+            seq_len=TRAIN_S, total_steps=1, warmup_steps=TRAIN_WARMUP,
+            log_every=1, device='cuda'))[0]
+        got = {k: v.launches for k, v in build.kernels().items()}
+        log(f'{tag} {depth} layers, batch 1x{TRAIN_S}, one step: '
+            f'{json.dumps(rec)}; launches {got}')
+        if any(got.values()):
+            fail(f'{tag} launched kernels {got}: its layers take the plain '
+                 f'route')
+        if not (np.isfinite(rec['loss']) and np.isfinite(rec['grad_norm'])):
+            fail(f'{tag} non-finite loss or grad norm')
+        cfg_s = dataclasses.replace(config.get_config(name), n_layers=depth)
+        params, batch = first_step(torch, cfg_s, 1)
+        check_grads(torch, cfg_s, params, batch, tag)
+        del params, batch
+        free_card(torch)
     return launches
 
 
@@ -1038,6 +1181,15 @@ def profile_device(torch, fn) -> None:
         f'idle share {1 - busy_ms / wall_ms:.3f}; by device time:')
     for ms, n, key in sorted(rows, reverse=True)[:8]:
         log(f'[profile]   {ms:8.2f} ms {n:6d}x  {key[:90]}')
+
+
+def free_card(torch) -> None:
+    """Collect what an ended phase left in reference cycles (an engine
+    and its server threads hold each other) and give the cached blocks
+    back, so that the next phase starts from an empty card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def bf16_params(torch, cfg, llama, decode):
@@ -1086,7 +1238,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--phases', default='build,flash,paged,flash_bwd,'
                         'timing,model,serve,model_gemma,serve_gemma,'
-                        'gemma_switches,train', help='comma-separated '
+                        'gemma_switches,train_gemma,train', help='comma-separated '
                         'subset (for '
                         'debugging; the full run is the check)')
     args = parser.parse_args()
@@ -1135,21 +1287,24 @@ def main() -> None:
             by_path['serve'] = phase_serve(torch, 'llama-1b', cfg, params,
                                            engine_lib, build)
         del params
-        torch.cuda.empty_cache()
+        free_card(torch)
     if 'model_gemma' in phases or 'serve_gemma' in phases:
         cfg = config.get_config('gemma-7b')
         params = bf16_params(torch, cfg, llama, decode)
         if 'model_gemma' in phases:
             phase_model(torch, cfg, params, decode, paging, pa, build,
                         'gemma-7b')
-            torch.cuda.empty_cache()
+            free_card(torch)
         if 'serve_gemma' in phases:
             by_path['serve_gemma'] = phase_serve(torch, 'gemma-7b', cfg,
                                                  params, engine_lib, build)
         del params
-        torch.cuda.empty_cache()
+        free_card(torch)
     if 'gemma_switches' in phases:
         phase_gemma_switches(torch, config, llama, decode, paging, pa, build)
+    if 'train_gemma' in phases:
+        by_path['train_gemma'] = phase_train_gemma(torch, build)
+        free_card(torch)
     if 'train' in phases:
         by_path['train'] = phase_train(torch, build)
 
@@ -1161,7 +1316,7 @@ def main() -> None:
     # Launches: each kernel's count on the main paths it belongs to
     # (serving: SERVE_KERNELS, training: TRAIN_KERNELS), summed.
     paths = {'serve': SERVE_KERNELS, 'serve_gemma': SERVE_KERNELS,
-             'train': TRAIN_KERNELS}
+             'train': TRAIN_KERNELS, 'train_gemma': TRAIN_KERNELS}
     rows = []
     for name, kern in build.kernels().items():
         t = times.get(name, {})

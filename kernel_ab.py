@@ -10,7 +10,8 @@ launches; 100 for kernel B) at chip_smoke.py's timing shapes: kernel A
 at B=2 and B=4, kernels C and D at B=4, all S=T=2048, H=16, KH=8,
 D=128, causal, bf16; kernel B at B=8, S=1, H=16, KH=8, psz 64,
 max_pages 32, ragged lengths; and, where a checkout serves head_dim
-256, A at B=2, H=KH=16, D=256 and B at H=KH=16, hd 256.
+256, A at B=2, H=KH=16, D=256 and B at H=KH=16, hd 256, and where its
+backward takes head_dim 256, C and D at B=2, H=KH=16, D=256.
 The timing code is this directory's chip_smoke.py for both sides, so
 both are measured alike. Prints the card's name and power limit, one
 ``[ab]`` line per run and, last, a JSON object of every run's times.

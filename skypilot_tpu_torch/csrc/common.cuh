@@ -4,7 +4,8 @@
 //    wgmma's 64);
 //  - Hopper's mbarrier, TMA tensor loads, setmaxnreg and wgmma with
 //    128-byte-swizzled shared-memory descriptors (kernels A, C and D),
-//    and the host-side TMA descriptor encoding they launch with.
+//    named barriers between warpgroups (kernel D at D=256), and the
+//    host-side TMA descriptor encoding they launch with.
 #pragma once
 
 #include <cuda.h>
@@ -145,6 +146,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads,
+// a multiple of 32: sync waits until `count` threads have arrived,
+// arrive counts this thread and goes on. Shared-memory writes made
+// before an arrive are visible to the threads past the matching sync.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // Register rebalancing between warpgroups (all four warps execute it).

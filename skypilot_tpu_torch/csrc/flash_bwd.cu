@@ -41,7 +41,10 @@
 // thread at D=128, beside 32 each of s and dp) rounds to bf16 once,
 // through shared memory, 16 bytes a lane to device memory: each dq
 // element is written once by one block, with no atomics, so a step is
-// deterministic.
+// deterministic. At D=256 (Gemma) dq alone is 128 registers a thread:
+// the key tile halves to 32 (s and dp 16 registers each), and dq goes
+// from registers straight to device memory, since Q, dO and three K/V
+// stages fill 224 KB of shared memory.
 //
 // Kernel D (Hopper: wgmma, TMA, warp specialisation): one block per
 // (128-key tile, kv head, batch row) of three warpgroups. A producer (40
@@ -69,7 +72,9 @@
 // one head and batch row and zero-fill rows past S or T. The ragged edge
 // and the causal diagonal are masked in registers, so any S and T run.
 // Probabilities and ds round to bf16 before their products, as the TPU
-// kernels do.
+// kernels do. At D=256 dk and dv of one consumer's keys would be 256
+// registers a thread: flash_dkv256_kernel (below) gives the two
+// consumers one 64-key tile and one accumulator each.
 #include "common.cuh"
 
 using port::bf16;
@@ -83,28 +88,51 @@ constexpr float LOG2E = 1.4426950408889634f;
 // ---------------------------------------------------------------- kernel C
 
 constexpr int DQ_BQ = 128;       // q rows a block: two consumers of 64
-constexpr int DQ_BK = 64;        // keys a tile
 constexpr int DQ_STAGES = 3;     // K/V ring depth
 
 // Shared memory, every tile 1024-byte aligned: Q and dO (resident), the
 // K and V ring, each warp's 16 staging rows of dq, then the barriers. A
 // tile of D columns is D/64 swizzled boxes of 64 columns (128 B a row).
+// At D=256 the key tile halves to 32 (s and dp 16 registers each beside
+// the 128 of dq) and dq goes from registers straight to device memory:
+// Q and dO (128 KB) and three K/V stages (96 KB) leave no room for the
+// staging rows.
 template <int D>
 struct DqSmem {
+  static constexpr int BK = D == 256 ? 32 : 64;        // keys a tile
   static constexpr int BOXES = D / 64;
   static constexpr int Q_BOX = DQ_BQ * 128;
-  static constexpr int KV_BOX = DQ_BK * 128;
+  static constexpr int KV_BOX = BK * 128;
   static constexpr int Q_TILE = BOXES * Q_BOX;
   static constexpr int KV_TILE = BOXES * KV_BOX;
   static constexpr int OUT_LD = D + 8;                  // staging pitch, bf16
+  static constexpr int OUT_BYTES = D == 256 ? 0 : CONSUMER_WARPS * 16 * OUT_LD * 2;
   static constexpr int Q_OFF = 0;
   static constexpr int DO_OFF = Q_TILE;
   static constexpr int K_OFF = 2 * Q_TILE;              // [stage] K tiles
   static constexpr int V_OFF = K_OFF + DQ_STAGES * KV_TILE;
   static constexpr int OUT_OFF = V_OFF + DQ_STAGES * KV_TILE;
-  static constexpr int BAR_OFF = OUT_OFF + CONSUMER_WARPS * 16 * OUT_LD * 2;
+  static constexpr int BAR_OFF = OUT_OFF + OUT_BYTES;
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * DQ_STAGES) + 1024;
 };
+
+// acc (a 64 x D fp32 tile) += A B: A 64 x 16 bf16 in registers (the
+// mma.m16n8k16 A fragment of each warp's 16 rows), B 16 x D bf16 from
+// a tile of D/64 swizzled boxes of `box` bytes at `b`, MN-major (a
+// 16-row k step is 2048 B down a box). At D=256, one m64n128k16 product
+// per 128-column half: half j is acc's elements [64j, 64j + 64) (element
+// 4i + e lies in column 8i + 2t + e%2 either way) and boxes 2j, 2j + 1.
+template <int D>
+__device__ __forceinline__ void rs_mn_tile(float (&acc)[D / 2],
+                                           const uint32_t (&a)[4], uint32_t b,
+                                           uint32_t box) {
+  if constexpr (D == 256) {
+    port::wgmma_rs_mn_n128<0>(acc, a, port::sw128_desc(b, box));
+    port::wgmma_rs_mn_n128<64>(acc, a, port::sw128_desc(b + 2 * box, box));
+  } else {
+    port::wgmma_rs_mn(acc, a, port::sw128_desc(b, box));
+  }
+}
 
 // Accumulator element i of a 64 x N wgmma tile, in the thread of lane l
 // of warp w of its warpgroup: row 16w + l/4 + 8 * ((i / 2) % 2), column
@@ -120,6 +148,7 @@ __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* bar_q,
                                            int h, int b, int n_kv, int S, int T,
                                            int H, int causal) {
   using L = DqSmem<D>;
+  constexpr int BK = L::BK;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
   const int t = lane % 4;
@@ -143,10 +172,10 @@ __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* bar_q,
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float sc[DQ_BK / 2], dp[DQ_BK / 2];
-  uint32_t da[DQ_BK / 16][4];
+  float sc[BK / 2], dp[BK / 2];
+  uint32_t da[BK / 16][4];
 
-  const int n_mine = qw >= S ? 0 : causal ? min(n_kv, (qw + 63) / DQ_BK + 1) : n_kv;
+  const int n_mine = qw >= S ? 0 : causal ? min(n_kv, (qw + 63) / BK + 1) : n_kv;
   port::mbar_wait(bar_q, 0);
   for (int kt = 0; kt < n_kv; ++kt) {
     const int s = kt % DQ_STAGES;
@@ -176,10 +205,10 @@ __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* bar_q,
 
       // p = exp(s - lse), 0 where masked; ds = p (dp - delta), in bf16
       // as the A fragments of dq += ds k.
-      const int k0 = kt * DQ_BK;
-      const bool edge = k0 + DQ_BK > T || (causal && k0 + DQ_BK - 1 > qw);
+      const int k0 = kt * BK;
+      const bool edge = k0 + BK > T || (causal && k0 + BK - 1 > qw);
 #pragma unroll
-      for (int i = 0; i < DQ_BK / 2; ++i) {
+      for (int i = 0; i < BK / 2; ++i) {
         const int hr = (i / 2) & 1;
         float p = exp2f(sc[i] * LOG2E - lse2[hr]);
         if (edge) {
@@ -189,7 +218,7 @@ __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* bar_q,
         sc[i] = p * (dp[i] - dlt[hr]);
       }
 #pragma unroll
-      for (int kc = 0; kc < DQ_BK / 16; ++kc)
+      for (int kc = 0; kc < BK / 16; ++kc)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           da[kc][r] = port::pack_bf16x2(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
@@ -197,8 +226,8 @@ __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* bar_q,
       // 16-key step is 16 rows (2048 B) down the tile.
       port::wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < DQ_BK / 16; ++kc)
-        port::wgmma_rs_mn(acc, da[kc], port::sw128_desc(k_tile + kc * 16 * 128, L::KV_BOX));
+      for (int kc = 0; kc < BK / 16; ++kc)
+        rs_mn_tile<D>(acc, da[kc], k_tile + kc * 16 * 128, L::KV_BOX);
       port::wgmma_commit();
       port::wgmma_wait<0>();
       port::fence_regs(acc);
@@ -207,25 +236,41 @@ __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* bar_q,
     if (lane == 0) port::mbar_arrive(&empty[s]);
   }
 
-  // dq in bf16 into this warp's 16 staging rows, then 16 bytes a lane to
-  // device memory.
-  bf16* stage = reinterpret_cast<bf16*>(smem + L::OUT_OFF) +
-                (c * 4 + warp) * 16 * L::OUT_LD;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr)
-      *reinterpret_cast<uint32_t*>(stage + (lane / 4 + 8 * hr) * L::OUT_LD + 8 * i + 2 * t) =
-          port::pack_bf16x2(acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
-  __syncwarp();
   const long q_pitch = (long)H * D;
-  const int first = qw + warp * 16;
-  bf16* dst = dq + (long)b * S * q_pitch + (long)h * D;
-  for (int ci = lane; ci < 16 * (D / 8); ci += 32) {
-    const int r = ci / (D / 8), cc = ci % (D / 8);
-    if (first + r < S)
-      *reinterpret_cast<uint4*>(dst + (long)(first + r) * q_pitch + cc * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * L::OUT_LD + cc * 8);
+  if constexpr (D == 256) {
+    // dq in bf16 straight from registers, this lane's two rows, 4 bytes
+    // a store.
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 8 * hr;
+      if (row < S) {
+        bf16* dst = dq + ((long)b * S + row) * q_pitch + (long)h * D + 2 * t;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i)
+          *reinterpret_cast<uint32_t*>(dst + 8 * i) =
+              port::pack_bf16x2(acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
+      }
+    }
+  } else {
+    // dq in bf16 into this warp's 16 staging rows, then 16 bytes a lane
+    // to device memory.
+    bf16* stage = reinterpret_cast<bf16*>(smem + L::OUT_OFF) +
+                  (c * 4 + warp) * 16 * L::OUT_LD;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        *reinterpret_cast<uint32_t*>(stage + (lane / 4 + 8 * hr) * L::OUT_LD + 8 * i + 2 * t) =
+            port::pack_bf16x2(acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
+    __syncwarp();
+    const int first = qw + warp * 16;
+    bf16* dst = dq + (long)b * S * q_pitch + (long)h * D;
+    for (int ci = lane; ci < 16 * (D / 8); ci += 32) {
+      const int r = ci / (D / 8), cc = ci % (D / 8);
+      if (first + r < S)
+        *reinterpret_cast<uint4*>(dst + (long)(first + r) * q_pitch + cc * 8) =
+            *reinterpret_cast<const uint4*>(stage + r * L::OUT_LD + cc * 8);
+    }
   }
 }
 
@@ -251,8 +296,8 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,D] pre-sc
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (H / KH);
-  int n_kv = (T + DQ_BK - 1) / DQ_BK;
-  if (causal) n_kv = min(n_kv, (q0 + DQ_BQ - 1) / DQ_BK + 1);
+  int n_kv = (T + L::BK - 1) / L::BK;
+  if (causal) n_kv = min(n_kv, (q0 + DQ_BQ - 1) / L::BK + 1);
 
   if (threadIdx.x == 0) {
     port::mbar_init(bar_q, 1);
@@ -284,9 +329,9 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,D] pre-sc
         port::mbar_expect_tx(&full[s], 2 * L::KV_TILE);
         for (int bx = 0; bx < L::BOXES; ++bx) {
           port::tma_load_4d(smem + L::K_OFF + s * L::KV_TILE + bx * L::KV_BOX, &tm_k,
-                            &full[s], 64 * bx, kh, kt * DQ_BK, b);
+                            &full[s], 64 * bx, kh, kt * L::BK, b);
           port::tma_load_4d(smem + L::V_OFF + s * L::KV_TILE + bx * L::KV_BOX, &tm_v,
-                            &full[s], 64 * bx, kh, kt * DQ_BK, b);
+                            &full[s], 64 * bx, kh, kt * L::BK, b);
         }
       }
     }
@@ -310,6 +355,7 @@ constexpr int DK_STAGES = 3;     // q-tile ring depth
 // A tile of D columns is D/64 swizzled boxes of 64 columns (128 B a row).
 template <int D>
 struct DkvSmem {
+  static constexpr int BQ = DK_BQ, STAGES = DK_STAGES;
   static constexpr int BOXES = D / 64;
   static constexpr int KV_BOX = DK_BK * 128;
   static constexpr int Q_BOX = DK_BQ * 128;
@@ -326,6 +372,56 @@ struct DkvSmem {
   static constexpr int STAGE_TX = 2 * Q_TILE;             // TMA bytes
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * DK_STAGES) + 1024;
 };
+
+// Kernel D's producer warp (layout L: DkvSmem<D> or Dkv256Smem): K and
+// V of the block's keys once by TMA; then, for each (q head, q tile), a
+// ring stage of Q and dO by TMA (rows past S land as zeros) and the
+// tile's lse (base 2) and delta rows by plain loads (rows past S read
+// 0), all under the stage's one barrier.
+template <typename L>
+__device__ __forceinline__ void dkv_produce(
+    unsigned char* smem, uint64_t* bar_kv, uint64_t* full, uint64_t* empty,
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    const CUtensorMap* tm_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, int lane, int k0, int kh, int b, int G,
+    int H, int S, int q_start, int n_qt, int n_it) {
+  if (lane == 0) {
+    port::mbar_expect_tx(bar_kv, 2 * L::KV_TILE);
+    for (int bx = 0; bx < L::BOXES; ++bx) {
+      port::tma_load_4d(smem + L::K_OFF + bx * L::KV_BOX, tm_k, bar_kv,
+                        64 * bx, kh, k0, b);
+      port::tma_load_4d(smem + L::V_OFF + bx * L::KV_BOX, tm_v, bar_kv,
+                        64 * bx, kh, k0, b);
+    }
+  }
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % L::STAGES;
+    port::mbar_wait(&empty[s], ((it / L::STAGES) & 1) ^ 1);
+    const int hq = kh * G + it / n_qt;
+    const int q0 = q_start + (it % n_qt) * L::BQ;
+    if (lane == 0) {
+      port::mbar_expect_tx(&full[s], L::STAGE_TX);
+      for (int bx = 0; bx < L::BOXES; ++bx) {
+        port::tma_load_4d(smem + L::Q_OFF + s * L::Q_TILE + bx * L::Q_BOX,
+                          tm_q, &full[s], 64 * bx, hq, q0, b);
+        port::tma_load_4d(smem + L::DO_OFF + s * L::Q_TILE + bx * L::Q_BOX,
+                          tm_do, &full[s], 64 * bx, hq, q0, b);
+      }
+    }
+    float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF +
+                                            s * L::ROWS_BYTES);
+    float* dl_s = reinterpret_cast<float*>(smem + L::DELTA_OFF +
+                                           s * L::ROWS_BYTES);
+    const long base = ((long)b * H + hq) * S;
+#pragma unroll
+    for (int r = lane; r < L::BQ; r += 32) {
+      const bool in = q0 + r < S;
+      lse_s[r] = in ? lse[base + q0 + r] * LOG2E : 0.f;
+      dl_s[r] = in ? delta[base + q0 + r] : 0.f;
+    }
+    port::mbar_arrive(&full[s]);
+  }
+}
 
 template <int D>
 __global__ void __launch_bounds__(WG_THREADS, 1)
@@ -372,50 +468,13 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,D] pre-s
   // sees it warp-uniform: each role's registers are then its own.
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == 0) {
-    // ---- producer warpgroup: its first warp fills the ring. Each stage
-    // holds one (q head, q tile)'s Q and dO tiles (TMA; rows past S land
-    // as zeros) and its rows' lse (base 2) and delta (two rows a lane,
-    // plain loads; rows past S read 0), all under one barrier.
+    // ---- producer warpgroup: its first warp fills the ring.
     port::setmaxnreg_dec<40>();
     const int lane = threadIdx.x;
-    if (lane < 32) {
-      if (lane == 0) {
-        port::mbar_expect_tx(bar_kv, 2 * L::KV_TILE);
-        for (int bx = 0; bx < L::BOXES; ++bx) {
-          port::tma_load_4d(smem + L::K_OFF + bx * L::KV_BOX, &tm_k, bar_kv,
-                            64 * bx, kh, k0, b);
-          port::tma_load_4d(smem + L::V_OFF + bx * L::KV_BOX, &tm_v, bar_kv,
-                            64 * bx, kh, k0, b);
-        }
-      }
-      for (int it = 0; it < n_it; ++it) {
-        const int s = it % DK_STAGES;
-        port::mbar_wait(&empty[s], ((it / DK_STAGES) & 1) ^ 1);
-        const int hq = kh * G + it / n_qt;
-        const int q0 = q_start + (it % n_qt) * DK_BQ;
-        if (lane == 0) {
-          port::mbar_expect_tx(&full[s], L::STAGE_TX);
-          for (int bx = 0; bx < L::BOXES; ++bx) {
-            port::tma_load_4d(smem + L::Q_OFF + s * L::Q_TILE + bx * L::Q_BOX,
-                              &tm_q, &full[s], 64 * bx, hq, q0, b);
-            port::tma_load_4d(smem + L::DO_OFF + s * L::Q_TILE + bx * L::Q_BOX,
-                              &tm_do, &full[s], 64 * bx, hq, q0, b);
-          }
-        }
-        float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF +
-                                                s * L::ROWS_BYTES);
-        float* dl_s = reinterpret_cast<float*>(smem + L::DELTA_OFF +
-                                               s * L::ROWS_BYTES);
-        const long base = ((long)b * H + hq) * S;
-#pragma unroll
-        for (int r = lane; r < DK_BQ; r += 32) {
-          const bool in = q0 + r < S;
-          lse_s[r] = in ? lse[base + q0 + r] * LOG2E : 0.f;
-          dl_s[r] = in ? delta[base + q0 + r] : 0.f;
-        }
-        port::mbar_arrive(&full[s]);
-      }
-    }
+    if (lane < 32)
+      dkv_produce<L>(smem, bar_kv, full, empty, &tm_q, &tm_k, &tm_v, &tm_do,
+                     lse, delta, lane, k0, kh, b, G, H, S, q_start, n_qt,
+                     n_it);
   } else {
     // ---- consumer warpgroups: 64 keys each.
     port::setmaxnreg_inc<232>();
@@ -550,6 +609,243 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,D] pre-s
   }
 }
 
+// ------------------------------------------------------- kernel D, D=256
+
+// At D=256 one consumer cannot hold both of its keys' accumulators:
+// dk and dv of 64 keys are 2 x 64 x 256 fp32, 256 registers a thread.
+// So the two consumers share one 64-key tile and split the work by
+// accumulator. The p side computes s^T = k q^T, p^T = exp(s^T - lse)
+// and dv += p^T do; the ds side computes dp^T = v do^T, takes p^T (fp32)
+// from the p side through shared memory, and computes ds^T = p^T (dp^T
+// - delta) and dk += ds^T q. Each does two of a tile's four products
+// and holds one 128-register accumulator; no product is computed twice.
+// q tiles are 32 rows (a 16-register score tile), streamed with dO,
+// lse and delta through a four-stage ring as in the D <= 128 kernel.
+// p^T crosses in two slots under named barriers: the p side fills slot
+// i % 2 and arrives on its FULL barrier; the ds side waits there, reads,
+// and arrives on the slot's FREE barrier, which the p side waits on
+// before it fills the slot again two tiles later.
+constexpr int DK256_BK = 64;       // keys a block, shared by both consumers
+constexpr int DK256_BQ = 32;       // q rows a tile
+constexpr int DK256_STAGES = 4;    // q-tile ring depth
+constexpr int BAR_P_FULL = 1;      // named barriers 1, 2: slot filled
+constexpr int BAR_P_FREE = 3;      // named barriers 3, 4: slot read
+
+struct Dkv256Smem {
+  static constexpr int BQ = DK256_BQ, STAGES = DK256_STAGES;
+  static constexpr int BOXES = 4;
+  static constexpr int KV_BOX = DK256_BK * 128;
+  static constexpr int Q_BOX = DK256_BQ * 128;
+  static constexpr int KV_TILE = BOXES * KV_BOX;
+  static constexpr int Q_TILE = BOXES * Q_BOX;
+  static constexpr int ROWS_BYTES = DK256_BQ * 4;         // lse or delta
+  static constexpr int P_SLOT = 16 * 128 * 4;             // 64 x 32 fp32
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = KV_TILE;
+  static constexpr int Q_OFF = 2 * KV_TILE;               // [stage] Q tiles
+  static constexpr int DO_OFF = Q_OFF + DK256_STAGES * Q_TILE;
+  static constexpr int LSE_OFF = DO_OFF + DK256_STAGES * Q_TILE;
+  static constexpr int DELTA_OFF = LSE_OFF + DK256_STAGES * ROWS_BYTES;
+  static constexpr int P_OFF = DELTA_OFF + DK256_STAGES * ROWS_BYTES;
+  static constexpr int BAR_OFF = P_OFF + 2 * P_SLOT;
+  static constexpr int STAGE_TX = 2 * Q_TILE;             // TMA bytes
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * DK256_STAGES) + 1024;
+};
+
+// One consumer of kernel D at D=256: the p side (P_SIDE: s^T, p^T, dv)
+// or the ds side (dp^T, ds^T, dk), each its own code so that neither
+// carries the other's registers. Writes its accumulator to `out`.
+template <bool P_SIDE>
+__device__ __forceinline__ void dkv256_consume(
+    unsigned char* smem, uint64_t* bar_kv, uint64_t* full, uint64_t* empty,
+    bf16* __restrict__ out, int k0, int kh, int b, int q_start, int n_qt,
+    int n_it, int S, int T, int KH, int causal) {
+  using L = Dkv256Smem;
+  constexpr int D = 256;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int t = lane % 4;
+  const int key0 = k0 + warp * 16 + lane / 4;   // keys key0, key0 + 8
+
+  // Accumulator element i of a 64 x N wgmma tile: key key0 + 8 * ((i /
+  // 2) % 2), column 8 * (i / 4) + 2 * t + i % 2 (a q row of s^T and
+  // dp^T, a d column of dk and dv). Both sides share this layout, so
+  // lane tid of one reads lane tid of the other's p^T.
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[16];
+  uint32_t frag[2][4];
+
+  // The p side's scores come from K and Q, the ds side's from V and dO;
+  // its product then takes dO (dv) or Q (dk) as the B operand.
+  const uint32_t a_addr = port::smem_u32(smem + (P_SIDE ? L::K_OFF : L::V_OFF));
+  const uint32_t b_addr = port::smem_u32(smem + (P_SIDE ? L::Q_OFF : L::DO_OFF));
+  const uint32_t o_addr = port::smem_u32(smem + (P_SIDE ? L::DO_OFF : L::Q_OFF));
+  float* slots = reinterpret_cast<float*>(smem + L::P_OFF);
+  port::mbar_wait(bar_kv, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % DK256_STAGES;
+    const int q0 = q_start + (it % n_qt) * DK256_BQ;
+    port::mbar_wait(&full[s], (it / DK256_STAGES) & 1);
+    // s^T (p side) or dp^T (ds side): 64 keys x 32 rows, K or V the A
+    // operand, Q or dO the B operand, both K-major.
+    const uint32_t bs = b_addr + s * L::Q_TILE;
+    port::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;   // 16 columns a step
+      port::wgmma_ss(sc, port::sw128_desc(a_addr + (kk / 4) * L::KV_BOX + off, 16),
+                     port::sw128_desc(bs + (kk / 4) * L::Q_BOX + off, 16),
+                     kk > 0);
+    }
+    port::wgmma_commit();
+    port::wgmma_wait<0>();
+    port::fence_regs(sc);
+
+    const int slot = it & 1;
+    float* p_slot = slots + slot * (L::P_SLOT / 4);
+    if constexpr (P_SIDE) {
+      // p^T = exp(s^T - lse), 0 past T or S and above the diagonal.
+      const float* lse_s = reinterpret_cast<const float*>(
+          smem + L::LSE_OFF + s * L::ROWS_BYTES);
+      const bool edge = k0 + DK256_BK > T || q0 + DK256_BQ > S ||
+                        (causal && k0 + DK256_BK - 1 > q0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = 8 * j + 2 * t;
+        const float2 lv = *reinterpret_cast<const float2*>(lse_s + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          float p = exp2f(sc[i] * LOG2E - ((e & 1) ? lv.y : lv.x));
+          if (edge) {
+            const int key = key0 + 8 * (e >> 1), row = q0 + col + (e & 1);
+            if (key >= T || row >= S || (causal && key > row)) p = 0.f;
+          }
+          sc[i] = p;
+        }
+      }
+      if (it >= 2) port::named_bar_sync(BAR_P_FREE + slot, 256);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) p_slot[i * 128 + tid] = sc[i];
+      port::named_bar_arrive(BAR_P_FULL + slot, 256);
+    } else {
+      // ds^T = p^T (dp^T - delta).
+      const float* dl_s = reinterpret_cast<const float*>(
+          smem + L::DELTA_OFF + s * L::ROWS_BYTES);
+      port::named_bar_sync(BAR_P_FULL + slot, 256);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(dl_s + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          sc[i] = p_slot[i * 128 + tid] * (sc[i] - ((e & 1) ? dl.y : dl.x));
+        }
+      }
+      if (it + 2 < n_it) port::named_bar_arrive(BAR_P_FREE + slot, 256);
+    }
+    // p^T or ds^T in bf16 as the register A operand (k = the tile's 32 q
+    // rows, two steps of 16) of dv += p^T do or dk += ds^T q, with dO or
+    // Q read MN-major.
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      frag[j / 2][2 * (j & 1)] = port::pack_bf16x2(sc[4 * j], sc[4 * j + 1]);
+      frag[j / 2][2 * (j & 1) + 1] = port::pack_bf16x2(sc[4 * j + 2], sc[4 * j + 3]);
+    }
+    const uint32_t os = o_addr + s * L::Q_TILE;
+    port::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 2; ++kc)
+      rs_mn_tile<D>(acc, frag[kc], os + kc * 16 * 128, L::Q_BOX);
+    port::wgmma_commit();
+    port::wgmma_wait<0>();
+    port::fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) port::mbar_arrive(&empty[s]);
+  }
+
+  // dv (p side) or dk (ds side) in bf16, this lane's two keys, 4 bytes a
+  // store.
+  const long kv_pitch = (long)KH * D;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = key0 + 8 * hr;
+    if (key < T) {
+      const long off = ((long)b * T + key) * kv_pitch + (long)kh * D + 2 * t;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(out + off + 8 * i) =
+            port::pack_bf16x2(acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_dkv256_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,256] pre-scaled
+                    const __grid_constant__ CUtensorMap tm_k,    // [B,T,KH,256]
+                    const __grid_constant__ CUtensorMap tm_v,    // [B,T,KH,256]
+                    const __grid_constant__ CUtensorMap tm_do,   // [B,S,H,256]
+                    const float* __restrict__ lse,               // [B,H,S]
+                    const float* __restrict__ delta,             // [B,H,S]
+                    bf16* __restrict__ dk,                        // [B,T,KH,256]
+                    bf16* __restrict__ dv,                        // [B,T,KH,256]
+                    int S, int T, int H, int KH, int causal) {
+  using L = Dkv256Smem;
+  constexpr int D = 256;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = port::align1024(smem_raw);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + DK256_STAGES;
+
+  // Causal work shrinks as the key tile moves right: the lowest tiles,
+  // launched first, are the heaviest.
+  const int k0 = blockIdx.x * DK256_BK;
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KH;
+  // q rows below the block's first key see none of its keys when causal.
+  const int q_start = causal ? k0 : 0;
+  const int n_qt = q_start < S ? (S - q_start + DK256_BQ - 1) / DK256_BQ : 0;
+  const int n_it = G * n_qt;             // (q head, q tile) pairs
+
+  if (threadIdx.x == 0) {
+    port::mbar_init(bar_kv, 1);
+    for (int s = 0; s < DK256_STAGES; ++s) {
+      // Lane 0's arrival with the TMA bytes, then one from each lane of
+      // the producer warp once its lse and delta values are stored.
+      port::mbar_init(&full[s], 1 + 32);
+      port::mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    port::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---- producer warpgroup: its first warp fills the ring.
+    port::setmaxnreg_dec<40>();
+    const int lane = threadIdx.x;
+    if (lane < 32)
+      dkv_produce<L>(smem, bar_kv, full, empty, &tm_q, &tm_k, &tm_v, &tm_do,
+                     lse, delta, lane, k0, kh, b, G, H, S, q_start, n_qt,
+                     n_it);
+    return;
+  }
+
+  // ---- consumer warpgroups: wg 1 the p side (dv), wg 2 the ds side (dk).
+  port::setmaxnreg_inc<232>();
+  if (wg == 1)
+    dkv256_consume<true>(smem, bar_kv, full, empty, dv, k0, kh, b, q_start,
+                         n_qt, n_it, S, T, KH, causal);
+  else
+    dkv256_consume<false>(smem, bar_kv, full, empty, dk, k0, kh, b, q_start,
+                          n_qt, n_it, S, T, KH, causal);
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(
@@ -564,8 +860,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   int err = port::map_rows_bf16(&tm_q, q, B, S, H, D, DQ_BQ);
   if (!err) err = port::map_rows_bf16(&tm_do, dout, B, S, H, D, DQ_BQ);
-  if (!err) err = port::map_rows_bf16(&tm_k, k, B, T, KH, D, DQ_BK);
-  if (!err) err = port::map_rows_bf16(&tm_v, v, B, T, KH, D, DQ_BK);
+  if (!err) err = port::map_rows_bf16(&tm_k, k, B, T, KH, D, DqSmem<D>::BK);
+  if (!err) err = port::map_rows_bf16(&tm_v, v, B, T, KH, D, DqSmem<D>::BK);
   if (err) return err;
   const size_t smem = DqSmem<D>::BYTES;
   cudaError_t e = allow_smem(flash_dq_kernel<D>, smem);
@@ -600,6 +896,27 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+int launch_dkv256(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk, void* dv, int B, int S, int T, int H, int KH,
+                  int causal, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int err = port::map_rows_bf16(&tm_q, q, B, S, H, 256, DK256_BQ);
+  if (!err) err = port::map_rows_bf16(&tm_do, dout, B, S, H, 256, DK256_BQ);
+  if (!err) err = port::map_rows_bf16(&tm_k, k, B, T, KH, 256, DK256_BK);
+  if (!err) err = port::map_rows_bf16(&tm_v, v, B, T, KH, 256, DK256_BK);
+  if (err) return err;
+  const size_t smem = Dkv256Smem::BYTES;
+  cudaError_t e = allow_smem(flash_dkv256_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((T + DK256_BK - 1) / DK256_BK, KH, B);
+  flash_dkv256_kernel<<<grid, WG_THREADS, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), S, T, H, KH, causal);
+  return (int)cudaGetLastError();
+}
+
 bool bad_shape(int B, int S, int T, int H, int KH) {
   return B <= 0 || S <= 0 || T <= 0 || KH <= 0 || H % KH != 0;
 }
@@ -614,6 +931,8 @@ extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128)
     return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, S, T, H, KH, causal, st);
+  if (D == 256)
+    return launch_dq<256>(q, k, v, dout, lse, delta, dq, B, S, T, H, KH, causal, st);
   if (D == 64)
     return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, S, T, H, KH, causal, st);
   return (int)cudaErrorInvalidValue;
@@ -629,6 +948,9 @@ extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v,
   if (D == 128)
     return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, S, T, H, KH,
                            causal, st);
+  if (D == 256)
+    return launch_dkv256(q, k, v, dout, lse, delta, dk, dv, B, S, T, H, KH,
+                         causal, st);
   if (D == 64)
     return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, S, T, H, KH,
                           causal, st);

@@ -201,13 +201,46 @@ def final_norm(x: torch.Tensor, params: Params, cfg: LlamaConfig
     return _norm(x, params['final_norm'], cfg)
 
 
+class _MatmulFp32Out(torch.autograd.Function):
+    """x [M, K] @ w [K, N], both bf16 on the card, into fp32 by one
+    cuBLAS product (fp32 accumulate, the result not rounded to bf16).
+    The grads are bf16 products of the cotangent rounded to bf16, in the
+    operands' dtype, as the JAX transpose casts them."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = g @ w.T if ctx.needs_input_grad[0] else None
+        gw = x.T @ g if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def logits_matmul(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """x [..., D] @ head [D, V] into fp32 logits from operands in their
+    own (compute) dtype: the JAX einsum's preferred_element_type=f32, no
+    rounding of the result. On the card one product with fp32 output;
+    on the CPU, which has no such product, both operands upcast."""
+    if x.dtype == torch.float32 or not x.is_cuda:
+        return x.float() @ head.float()
+    lead = x.shape[:-1]
+    out = _MatmulFp32Out.apply(x.reshape(-1, x.shape[-1]), head)
+    return out.reshape(*lead, head.shape[-1])
+
+
 def unembed(x: torch.Tensor, params: Params, cfg: LlamaConfig
             ) -> torch.Tensor:
-    """final norm → head; fp32 logits (the JAX einsum's
-    preferred_element_type), then the Gemma-2 final softcap on them."""
+    """final norm → head; fp32 logits from the bf16 operands (the JAX
+    einsum's preferred_element_type), then the Gemma-2 final softcap on
+    them."""
     x = final_norm(x, params, cfg)
     head = params['embed'].T if cfg.tie_embeddings else params['lm_head']
-    logits = (x @ head.to(cfg.dtype)).float()
+    logits = logits_matmul(x, head.to(cfg.dtype))
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)

@@ -44,10 +44,10 @@ DKV_KERNEL = build.Kernel(
     name='flash_dkv', source='flash_bwd.cu', symbol='flash_dkv_bf16',
     argtypes=('p',) * 8 + ('i',) * 7 + ('p',))
 
-# Head dims kernel A takes, and those kernels C and D take: Gemma's 256
-# is served (prefill) but not yet trained (ROADMAP Queue 2).
+# Head dims kernel A takes, and those kernels C and D take (Gemma's 256
+# among them: the JAX backward takes any multiple of 128).
 FWD_HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 128, 256)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -108,9 +108,9 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 def backward_refused(head_dim: int, on_card: bool, wants_grad: bool
                      ) -> bool:
     """True when a flash call must be refused before anything launches:
-    on the card, with a gradient wanted, at a head dim kernel A serves
-    but kernels C and D do not (Gemma's 256). Raising after the forward
-    would leave a graph whose backward cannot run."""
+    on the card, with a gradient wanted, at a head dim kernels C and D
+    do not take. Raising after the forward would leave a graph whose
+    backward cannot run."""
     return on_card and wants_grad and head_dim not in BWD_HEAD_DIMS
 
 
@@ -215,9 +215,8 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         t.requires_grad for t in (q, k, v))
     if backward_refused(q.shape[-1], q.is_cuda, wants_grad):
         raise NotImplementedError(
-            f'flash backward at head_dim {q.shape[-1]} is not ported yet: '
-            f'kernels C and D take {BWD_HEAD_DIMS}; D=256 (Gemma training) '
-            f'waits for ROADMAP Queue 2 item 5')
+            f'flash backward at head_dim {q.shape[-1]} is not ported: '
+            f'kernels C and D take {BWD_HEAD_DIMS} (ROADMAP Queue 2)')
     scale = softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5
     # The pre-scale stays outside _Flash: dq gets `scale` by the chain rule.
     qs = (q * scale).to(q.dtype)

@@ -302,12 +302,13 @@ def test_kernel_b_workspace_at_256():
 
 
 @pytest.mark.parametrize('d,on_card,grad,refused', [
-    (256, True, True, True), (256, True, False, False),
+    (256, True, True, False), (256, True, False, False),
     (256, False, True, False), (128, True, True, False),
-    (64, True, True, False)])
+    (64, True, True, False), (96, True, True, True)])
 def test_flash_backward_refused_up_front_at_256(d, on_card, grad, refused):
-    """Kernel A serves head_dim 256, kernels C and D do not: on the card
-    a call that wants a gradient there is refused before any launch."""
+    """Kernels C and D take head_dim 256 as kernel A does, so a call
+    there that wants a gradient runs; on the card a head dim C and D do
+    not take is refused before any launch when a gradient is wanted."""
     assert flash_attention.backward_refused(d, on_card, grad) is refused
 
 

@@ -261,7 +261,9 @@ def _bwd_inputs(cuda, b, s, t, h, kh, d, causal, with_dlse):
 
 # (B, S, T, H, KH, D, causal, nonzero lse cotangent): the chip_smoke
 # shapes, plus one partial tile, exact multiples of 128, T != S, D=64 at
-# S=2048; GQA groups 1, 2 and 4.
+# S=2048; GQA groups 1, 2 and 4; then D=256 (the Gemma family): groups
+# 1 and 2, ragged and odd S (lse and delta rows by plain loads), both
+# causal settings, an lse cotangent, T != S, S=1024.
 BWD_CASES = [(1, 100, 100, 4, 4, 128, True, False),
              (2, 130, 130, 4, 2, 128, False, True),
              (1, 256, 256, 8, 2, 128, True, True),
@@ -273,7 +275,13 @@ BWD_CASES = [(1, 100, 100, 4, 4, 128, True, False),
              (1, 128, 128, 4, 4, 128, True, False),
              (2, 100, 260, 4, 2, 128, False, True),
              (1, 300, 77, 4, 1, 64, False, False),
-             (1, 2048, 2048, 4, 1, 64, True, False)]
+             (1, 2048, 2048, 4, 1, 64, True, False),
+             (1, 100, 100, 4, 4, 256, True, False),
+             (2, 130, 130, 4, 2, 256, False, True),
+             (1, 301, 301, 8, 4, 256, True, True),
+             (1, 16, 16, 2, 2, 256, True, False),
+             (2, 100, 260, 4, 2, 256, False, False),
+             (1, 1024, 1024, 4, 4, 256, True, False)]
 
 
 @pytest.mark.parametrize('b,s,t,h,kh,d,causal,with_dlse', BWD_CASES)
@@ -298,11 +306,12 @@ def test_flash_bwd_kernels_match_plain(cuda, b, s, t, h, kh, d, causal,
             r.abs().max())
 
 
-def test_flash_dq_is_deterministic(cuda):
+@pytest.mark.parametrize('d', [128, 256])
+def test_flash_dq_is_deterministic(cuda, d):
     """Kernel C twice on the same inputs gives a bit-identical dq: each
     block owns its q rows' dq and writes each element once, with no
     atomics."""
-    b, s, h, kh, d = 1, 300, 8, 2, 128
+    b, s, h, kh = 1, 300, 8, 2
     qs, k, v, o, lse, do, _ = _bwd_inputs(cuda, b, s, s, h, kh, d, True,
                                           False)
     delta = fa._delta(o, do, None)
@@ -318,11 +327,12 @@ def test_flash_dq_is_deterministic(cuda):
     assert torch.equal(outs[0], outs[1])
 
 
-def test_flash_dkv_is_deterministic(cuda):
+@pytest.mark.parametrize('d', [128, 256])
+def test_flash_dkv_is_deterministic(cuda, d):
     """Kernel D twice on the same inputs gives bit-identical dk and dv:
     each block owns its keys' grads and sums the group's q heads in
     registers, with no atomics."""
-    b, s, h, kh, d = 1, 300, 8, 2, 128
+    b, s, h, kh = 1, 300, 8, 2
     qs, k, v, o, lse, do, _ = _bwd_inputs(cuda, b, s, s, h, kh, d, True,
                                           False)
     delta = fa._delta(o, do, None)
@@ -525,17 +535,70 @@ def test_softcap_or_window_layer_launches_neither_kernel(cuda, switches):
     assert torch.equal(got, _gemma_layer_run(cuda, True, **switches)[1])
 
 
-def test_flash_at_256_with_grad_is_refused_before_launch(cuda):
-    """Kernels C and D do not take head_dim 256: a call that wants a
-    grad there raises NotImplementedError before kernel A launches; the
-    same call without a grad runs kernel A."""
+def test_flash_with_grad_at_an_unported_head_dim_is_refused(cuda):
+    """A head dim kernels C and D do not take: a call that wants a grad
+    there raises NotImplementedError before anything launches."""
     gen = torch.Generator(device=cuda).manual_seed(3)
-    q = _rand(gen, 1, 64, 2, 256).requires_grad_()
-    k = _rand(gen, 1, 64, 2, 256)
+    q = _rand(gen, 1, 64, 2, 96).requires_grad_()
+    k = _rand(gen, 1, 64, 2, 96)
     before = fa.KERNEL.launches
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         fa.flash_attention(q, k, k)
     assert fa.KERNEL.launches == before
-    with torch.no_grad():
-        fa.flash_attention(q, k, k)
-    assert fa.KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize('causal', [True, False])
+def test_flash_autograd_at_256_matches_plain_autograd(cuda, causal):
+    """_Flash at head_dim 256 (gemma's heads narrowed to 4/2): kernel A
+    forward, kernels C and D backward, once each; grads of q, k and v
+    against autograd through the plain attention in fp32 on the same
+    bf16 inputs, within the backward kernels' 2e-2 of the largest."""
+    from skypilot_tpu_torch.ops import attention
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (_rand(gen, 2, 200, h, 256).requires_grad_()
+               for h in (4, 2, 2))
+    w = torch.randn((2, 200, 4, 256), generator=gen, device=cuda)
+    build.reset_launches()
+    o = fa.flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad((o.float() * w).sum(), (q, k, v))
+    assert {n: kern.launches for n, kern in build.kernels().items()} == \
+        {'flash_fwd': 1, 'flash_dq': 1, 'flash_dkv': 1, 'paged_decode': 0}
+    q32, k32, v32 = (x.detach().float().requires_grad_() for x in (q, k, v))
+    ref_o = attention.xla_attention(q32, k32, v32, causal=causal)
+    want = torch.autograd.grad((ref_o * w).sum(), (q32, k32, v32))
+    for a, r in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.isfinite().all()
+        assert float((a.float() - r).abs().max()) < 2e-2 * float(
+            r.abs().max())
+
+
+def test_gemma_model_backward_runs_kernels_a_c_d(cuda):
+    """One backward pass of a narrow gemma-7b-shaped model (head_dim
+    256, 4/4 heads, 2 layers, remat 'full') through the kernels: A twice
+    a layer, C and D once; every param's grad close to the plain path's
+    (relative Frobenius error < 5e-2, as at head_dim 128)."""
+    cfg = dataclasses.replace(config.PRESETS['gemma-7b'], n_layers=2,
+                              dim=512, n_heads=4, n_kv_heads=4, ffn_dim=1024,
+                              vocab_size=512)
+    params = llama.init_params(cfg, torch.Generator(device=cuda)
+                               .manual_seed(0), cuda)
+    leaves = [leaf for _, leaf in weights.tree_paths(params)]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    grads = []
+    for impl in ('auto', 'xla'):
+        build.reset_launches()
+        logits = llama.forward(params, tokens[:, :-1],
+                               dataclasses.replace(cfg, attention_impl=impl))
+        loss, _ = train_lib.cross_entropy_loss(logits, tokens[:, 1:])
+        grads.append(torch.autograd.grad(loss, leaves))
+        n = cfg.n_layers if impl == 'auto' else 0
+        assert {n_: k.launches for n_, k in build.kernels().items()} == \
+            {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
+             'paged_decode': 0}
+    for (name, _), g, ref in zip(weights.tree_paths(params), *grads):
+        assert g.isfinite().all(), name
+        assert float((g - ref).norm()) < 5e-2 * float(ref.norm()), name
