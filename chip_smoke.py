@@ -33,17 +33,23 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  paged decode steps through the kernels vs the plain path;
                  then a verify step of 8 tokens with 2 kv heads (g*S =
                  64) through kernel B vs the plain path;
-  7. serve     — the port's engine on llama-1b, 4 concurrent /generate
-                 requests over HTTP; kernels A and B must launch; then
-                 the same burst under torch.profiler for the card's idle
-                 share and its time by kernel;
+  7. serve     — the port's engine on llama-1b: warm-up must capture
+                 the 8 decode-step variants as CUDA graphs (k x layers
+                 B launches each); a burst of 4 concurrent /generate
+                 requests and 2 streamed /v1/completions (one with both
+                 penalties, one with logprobs=5); kernels A and B must
+                 launch, nothing is captured after warm-up; TTFT, TPOT,
+                 tok/s, device calls by width, peak memory; the burst
+                 again under torch.profiler for the idle share, time by
+                 kernel and B's launches counted on the device (equal
+                 to captured launches x replays); then, the loop
+                 stopped, one k=1 greedy replay against the eager step
+                 and two sampled replays that must differ;
   8. model_gemma — gemma-7b at full width (28 layers, dim 3072, 16/16
                  heads, hd 256, vocab 256000; random bf16 weights from
                  seed 0, ~17.1 GB): prefill + 8 paged decode steps
                  through kernels A and B vs the plain and fp32 paths;
-  9. serve_gemma — the port's engine on gemma-7b, 4 concurrent
-                 /generate requests; kernels A and B must launch; the
-                 burst profiled as in serve;
+  9. serve_gemma — the port's engine on gemma-7b, checked as in serve;
  10. gemma_switches — gemma2-9b (2 layers) and gemma3-12b (6 layers:
                  one global) at full width: prefill + decode on the
                  card vs fp32, with kernels A and B launched zero times
@@ -858,12 +864,118 @@ def http(url: str, doc=None, timeout: float = 600.0):
         return e.code, json.loads(e.read() or b'{}')
 
 
-def phase_serve(torch, model, cfg, params, engine_lib, build) -> dict:
-    """The port's engine on preset ``model`` with ``params``: /health,
-    then one burst of 4 concurrent /generate requests (kernels A and B
-    must launch), then the burst again under the profiler. Returns the
-    launch counts of the first burst (warm-up included)."""
+def sse(url: str, doc, timeout: float = 600.0) -> list:
+    """POST a streaming request; the JSON of every event before the
+    final ``data: [DONE]``, which must be there."""
+    req = urllib.request.Request(url, data=json.dumps(doc).encode(),
+                                 headers={'Content-Type': 'application/json'})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        if r.status != 200 or r.headers['Content-Type'] != \
+                'text/event-stream':
+            fail(f'stream answered {r.status} {r.headers["Content-Type"]}')
+        events = [e for e in r.read().decode().split('\n\n') if e]
+    if not events or events[-1] != 'data: [DONE]':
+        fail(f'stream did not end with data: [DONE]: {events[-2:]}')
+    return [json.loads(e[len('data: '):]) for e in events[:-1]]
+
+
+# Graph replay vs the eager step: the same kernels on the same inputs,
+# so they are expected bit-equal; a library may pick another algorithm
+# under capture, so logprobs (chosen and top-5, fp32, from bf16
+# activations) may differ by up to half a bf16 ulp of a logit near 4.
+TOL_GRAPH = 1e-2
+
+
+def check_graph_replay(torch, eng, engine_lib, decode, build, tag) -> dict:
+    """With the batch loop stopped, on one state of four admitted rows:
+    one replay of the k=1 greedy top-logprobs graph against the eager
+    paged_decode_step + sampler (tokens exactly, logprobs to TOL_GRAPH),
+    then two replays of the sampled k=MAX_STEP_CHUNK graph from the same
+    state at a flat distribution, which must draw different tokens."""
+    rng = np.random.default_rng(12)
+    reqs = [engine_lib.Request(rng.integers(0, 256, n).tolist(), 64)
+            for n in (17, 100, 250, 40)]
+    for group in eng._admit_groups(reqs):
+        eng._admit_group(group)
+    rows = [i for i, s in enumerate(eng.slots) if eng._row_active(s)]
+    act = torch.zeros(eng.max_batch, dtype=torch.bool, device='cuda')
+    act[rows] = True
+    snap = [t.clone() for t in (eng.cache.length, eng.last_dev, eng.counts)]
+
+    def restore() -> None:
+        for t, v in zip((eng.cache.length, eng.last_dev, eng.counts), snap):
+            t.copy_(v)
+
+    def replay(k: int, want_tops: bool):
+        key = (k, False, want_tops)
+        if key not in eng.graphs:
+            fail(f'{tag} variant {key} was not captured')
+        b0, cap0 = build.kernels()['paged_decode'].launches, build.captured()
+        h = eng._dispatch_step(k, want_tops_force=want_tops)
+        h.event.synchronize()
+        eng._inflight.remove(h)
+        if build.captured() != cap0 or \
+                build.kernels()['paged_decode'].launches - b0 != \
+                eng._graph_launches[key]['paged_decode']:
+            fail(f'{tag} dispatch of {key} did not replay its graph')
+        return [x.clone() for x in (h.toks, h.lps, h.tis, h.tvs)
+                if x is not None]
+
+    zf = torch.zeros(eng.max_batch, device='cuda')
+    with torch.no_grad():
+        logits, _ = decode.paged_decode_step(
+            eng.params, snap[1].clone(), eng.cache, eng.cfg,
+            max_len=eng.max_len, active=act)
+        tok = decode.select_token_per_row(logits, zf, zf.int(), zf, None)
+        tok = torch.where(act, tok, snap[1])
+        lp = decode.chosen_logprob(logits, tok)
+        tv, ti = decode.top_k_logprobs(logits, engine_lib.TOP_LOGPROBS_K)
+    torch.cuda.synchronize()
+    restore()
+    g_tok, g_lp, g_ti, g_tv = replay(1, True)
+    tok, lp, ti, tv = (x.cpu()[rows] for x in (tok, lp, ti, tv))
+    g_tok, g_lp, g_ti, g_tv = (x[0, rows] for x in (g_tok, g_lp, g_ti, g_tv))
+    err = max(max_err(g_lp, lp), max_err(g_tv, tv))
+    if not torch.equal(g_tok, tok) or not torch.equal(g_ti, ti) or \
+            err > TOL_GRAPH:
+        fail(f'{tag} k=1 graph vs eager step: tokens {g_tok.tolist()} vs '
+             f'{tok.tolist()}, top ids equal {torch.equal(g_ti, ti)}, '
+             f'logprob error {err:.3e} (tol {TOL_GRAPH})')
+    # A temperature that flattens the distribution: random weights give
+    # peaked logits (gemma-7b's rows draw one token at temperature 1).
+    eng.temp[rows] = 1e6
+    eng._samp_dirty = True
+    restore()
+    first = replay(eng.step_chunk, False)[0][:, rows]
+    restore()
+    second = replay(eng.step_chunk, False)[0][:, rows]
+    if torch.equal(first, second):
+        fail(f'{tag} two replays of the sampled k={eng.step_chunk} graph '
+             f'drew the same tokens: {first.tolist()}')
+    eng._reset_device_state()
+    out = {'graph_vs_eager_max_logprob_err': err,
+           'sampled_replays_differ': int((first != second).sum())}
+    log(f'{tag} k=1 greedy graph replay == eager step on {len(rows)} rows '
+        f'(tokens and top-5 ids exact, logprobs max|diff| {err:.3e}, tol '
+        f'{TOL_GRAPH}); two replays of the sampled k={eng.step_chunk} graph '
+        f'differ in {out["sampled_replays_differ"]} of {first.numel()} '
+        f'tokens')
+    return out
+
+
+def phase_serve(torch, model, cfg, params, engine_lib, build,
+                decode) -> dict:
+    """The port's engine on preset ``model`` with ``params``: /health
+    (warm-up captures the eight step variants as CUDA graphs), then one
+    burst of 4 concurrent /generate requests, one penalized and one
+    logprobs=5 streaming /v1/completions request (kernels A and B must
+    launch, B's launches inside graph replays), then the burst again
+    under the profiler, whose kernel events count B's launches on the
+    device; then, with the loop stopped, a graph replay against the
+    eager step. Returns the launch counts of the first burst (warm-up
+    included)."""
     tag = '[serve]' if model == 'llama-1b' else f'[serve {model}]'
+    torch.cuda.reset_peak_memory_stats()
     eng = engine_lib.InferenceEngine(model, params=params, device='cuda',
                                      seed=0)
     server = engine_lib.build_app(eng, '127.0.0.1', free_port())
@@ -883,21 +995,59 @@ def phase_serve(torch, model, cfg, params, engine_lib, build) -> dict:
             if code != 503 or time.perf_counter() - t0 > 600:
                 fail(f'/health never came up: {code} {doc}')
             time.sleep(0.1)
-        log(f'{tag} /health ok after {time.perf_counter() - t0:.1f}s: '
-            f'{doc}')
+        want = {(k, p, t) for k in (1, engine_lib.MAX_STEP_CHUNK)
+                for p in (False, True) for t in (False, True)}
+        if set(eng.graphs) != want:
+            fail(f'{tag} warm-up captured {sorted(eng.graphs)}, not {want}')
+        per_graph = {key: n.get('paged_decode', 0)
+                     for key, n in eng._graph_launches.items()}
+        if any(n != key[0] * cfg.n_layers for key, n in per_graph.items()):
+            fail(f'{tag} captured B launches {per_graph}: want k x '
+                 f'{cfg.n_layers} layers')
+        log(f'{tag} /health ok after {time.perf_counter() - t0:.1f}s '
+            f'(warm-up captured {len(eng.graphs)} graphs, B launches '
+            f'captured per graph {per_graph}): {doc}')
         rng = np.random.default_rng(11)
         max_new = 32
         reqs = [{'text': 'The quick brown f', 'max_new_tokens': max_new}]
         for n in (130, 300, 700):
             reqs.append({'tokens': rng.integers(0, 256, size=n).tolist(),
                          'max_new_tokens': max_new})
+        streams = [
+            {'prompt': rng.integers(0, 256, size=60).tolist(),
+             'max_tokens': 48, 'temperature': 0, 'presence_penalty': 0.5,
+             'frequency_penalty': 0.5, 'logprobs': 0, 'ignore_eos': True,
+             'stream': True},
+            {'prompt': 'Once upon a time', 'max_tokens': 40,
+             'temperature': 0.8, 'top_p': 0.9, 'logprobs': 5,
+             'ignore_eos': True, 'stream': True}]
+
+        def check_stream(d, events) -> None:
+            lps = [e['choices'][0]['logprobs'] for e in events
+                   if e['choices'][0]['logprobs'] is not None]
+            if len(lps) != d['max_tokens'] or \
+                    events[-1]['choices'][0]['finish_reason'] != 'length' \
+                    or not all(np.isfinite(lp['token_logprobs'][0])
+                               for lp in lps):
+                fail(f'bad stream for {d}: {events[-3:]}')
+            if d['logprobs'] and not all(
+                    lp['top_logprobs'][0] and all(
+                        np.isfinite(v) and v <= 0
+                        for v in lp['top_logprobs'][0].values())
+                    for lp in lps):
+                fail(f'stream without top logprobs: {lps[:2]}')
 
         def burst() -> float:
             """Send every request at once, check every answer; seconds."""
             t1 = time.perf_counter()
-            with concurrent.futures.ThreadPoolExecutor(len(reqs)) as ex:
-                answers = list(ex.map(
-                    lambda d: http(base + '/generate', d), reqs))
+            with concurrent.futures.ThreadPoolExecutor(
+                    len(reqs) + len(streams)) as ex:
+                futs = [ex.submit(http, base + '/generate', d) for d in reqs]
+                sfuts = [ex.submit(sse, base + '/v1/completions', d)
+                         for d in streams]
+                answers = [f.result() for f in futs]
+                for d, f in zip(streams, sfuts):
+                    check_stream(d, f.result())
             secs = time.perf_counter() - t1
             for d, (code, doc) in zip(reqs, answers):
                 n_in = len(d.get('tokens', d.get('text', '')))
@@ -913,29 +1063,65 @@ def phase_serve(torch, model, cfg, params, engine_lib, build) -> dict:
                     fail('text request answered without text')
             return secs
 
+        at_health = {n: k.launches for n, k in build.kernels().items()}
+        captured = build.captured()
+        calls0 = dict(eng.calls)
         wall = burst()
         launches = {n: k.launches for n, k in build.kernels().items()}
-        log(f'{tag} 4 concurrent requests (17/130/300/700 tokens, '
-            f'{max_new} new each) answered in {wall:.3f}s; launches '
-            f'{launches}')
+        in_burst = {n: launches[n] - at_health[n] for n in launches}
+        calls = {key: n - calls0.get(key, 0) for key, n in eng.calls.items()
+                 if n > calls0.get(key, 0)}
+        log(f'{tag} 4 /generate (17/130/300/700 tokens, {max_new} new) + '
+            f'2 streamed /v1/completions (penalized 48, logprobs=5 40) '
+            f'answered in {wall:.3f}s; launches since 0 {launches}, in the '
+            f'burst {in_burst}; device calls by (k, penalties, top '
+            f'logprobs) {sorted(calls.items())}')
         for name in SERVE_KERNELS:
-            if launches[name] == 0:
+            if in_burst[name] == 0:
                 fail(f'kernel {name} was never launched while serving')
+        if not any(key[1] for key in calls) or \
+                not any(key[2] for key in calls):
+            fail(f'{tag} the burst ran no penalized or no top-logprobs '
+                 f'call: {calls}')
         timings = list(eng.timings)
         ttft = [t[0] for t in timings]
         tpot = [t[1] for t in timings]
         n_tok = sum(t[2] for t in timings)
+        by_k = {}
+        for key, n in calls.items():
+            by_k[key[0]] = by_k.get(key[0], 0) + n
         stats = {'requests': len(timings),
                  'ttft_ms_median': statistics.median(ttft) * 1e3,
                  'ttft_ms_max': max(ttft) * 1e3,
                  'tpot_ms_median': statistics.median(tpot) * 1e3,
                  'tok_per_s': n_tok / wall,
-                 'decode_steps': eng.step_count}
-        log(f'{tag} ' + json.dumps(stats))
+                 'decode_steps': eng.step_count,
+                 'device_calls_by_k': by_k,
+                 'graph_replays': sum(calls.values())}
         # The same burst again under the profiler: how much of the wall
-        # time the card spends running kernels. Not the timed burst: the
-        # profiler slows the host.
-        profile_device(torch, burst)
+        # time the card spends running kernels, and kernel B's launches
+        # counted on the device (the engine's count, captured launches
+        # x replays, must agree). Not the timed burst: the profiler
+        # slows the host.
+        b0 = build.kernels()['paged_decode'].launches
+        prof = profile_device(torch, burst)
+        b_engine = build.kernels()['paged_decode'].launches - b0
+        b_device = prof['kernel_counts'].get('paged_decode', 0)
+        log(f'{tag} profiled burst: kernel B launched {b_device}x on the '
+            f'device (profiler kernel events), {b_engine}x by the engine\'s '
+            f'count (captured launches x replays)')
+        if b_device == 0 or b_device != b_engine:
+            fail(f'{tag} kernel B on the device {b_device}x, by the engine '
+                 f'{b_engine}x')
+        if build.captured() != captured:
+            fail(f'{tag} a kernel was captured after warm-up: '
+                 f'{build.captured()} vs {captured}')
+        stats.update(idle_share=prof['idle_share'],
+                     b_launches_device=b_device,
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f'{tag} ' + json.dumps(stats))
+        eng.stop()
+        check_graph_replay(torch, eng, engine_lib, decode, build, tag)
         return launches
     finally:
         server.shutdown()
@@ -1160,10 +1346,17 @@ def phase_train_gemma(torch, build) -> dict:
     return launches
 
 
-def profile_device(torch, fn) -> None:
+# Kernel-name fragments of the port's kernels, as the profiler shows them.
+KERNEL_SYMBOLS = {'paged_decode': 'paged_decode_kernel',
+                  'flash_fwd': 'flash_fwd'}
+
+
+def profile_device(torch, fn) -> dict:
     """Run ``fn`` under torch.profiler (CUDA activity) and print its wall
     time, the device time of every kernel and copy it ran, the idle
-    share, and the kernels that took the most device time."""
+    share, and the kernels that took the most device time. Returns the
+    idle share (None when the profiler saw no kernel) and the number of
+    kernel events of each of KERNEL_SYMBOLS' kernels."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1173,14 +1366,18 @@ def profile_device(torch, fn) -> None:
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(r[0] for r in rows)
+    counts = {name: sum(n for _, n, key in rows if sym in key)
+              for name, sym in KERNEL_SYMBOLS.items()}
     if not rows:
         log(f'[profile] wall {wall_ms:.1f} ms; device time not measured '
             f'(the profiler saw no kernel)')
-        return
+        return {'idle_share': None, 'kernel_counts': counts}
+    idle = 1 - busy_ms / wall_ms
     log(f'[profile] wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, '
-        f'idle share {1 - busy_ms / wall_ms:.3f}; by device time:')
+        f'idle share {idle:.3f}; by device time:')
     for ms, n, key in sorted(rows, reverse=True)[:8]:
         log(f'[profile]   {ms:8.2f} ms {n:6d}x  {key[:90]}')
+    return {'idle_share': idle, 'kernel_counts': counts}
 
 
 def free_card(torch) -> None:
@@ -1285,7 +1482,7 @@ def main() -> None:
             phase_verify(torch, cfg, decode, llama, paging, pa)
         if 'serve' in phases:
             by_path['serve'] = phase_serve(torch, 'llama-1b', cfg, params,
-                                           engine_lib, build)
+                                           engine_lib, build, decode)
         del params
         free_card(torch)
     if 'model_gemma' in phases or 'serve_gemma' in phases:
@@ -1297,7 +1494,8 @@ def main() -> None:
             free_card(torch)
         if 'serve_gemma' in phases:
             by_path['serve_gemma'] = phase_serve(torch, 'gemma-7b', cfg,
-                                                 params, engine_lib, build)
+                                                 params, engine_lib, build,
+                                                 decode)
         del params
         free_card(torch)
     if 'gemma_switches' in phases:

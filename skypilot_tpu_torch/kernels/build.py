@@ -14,7 +14,11 @@ module without nvcc.
 
 Each :class:`Kernel` keeps ``launches``, a plain int that its
 ``launch`` bumps once per kernel launch and nowhere else, so a run can
-prove which kernels its main path went through.
+prove which kernels its main path went through. A launch made while its
+stream is being captured into a CUDA graph runs nothing then: it counts
+in ``captured`` instead, and whoever replays the graph adds the
+graph's captured launches to ``launches`` once per replay
+(:meth:`Kernel.replayed`).
 """
 from __future__ import annotations
 
@@ -108,6 +112,7 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = [_CTYPES[a] for a in argtypes]
         self.launches = 0
+        self.captured = 0
         self._fn = None
         _KERNELS[name] = self
 
@@ -127,7 +132,16 @@ class Kernel:
         if rc != 0:
             raise RuntimeError(f'kernel {self.name} launch failed: CUDA '
                                f'error {rc}')
-        self.launches += 1
+        import torch
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
+
+    def replayed(self, n: int) -> None:
+        """A replayed CUDA graph ran ``n`` captured launches of this
+        kernel."""
+        self.launches += n
 
 
 def kernels() -> Dict[str, Kernel]:
@@ -139,3 +153,8 @@ def kernels() -> Dict[str, Kernel]:
 def reset_launches() -> None:
     for k in _KERNELS.values():
         k.launches = 0
+
+
+def captured() -> Dict[str, int]:
+    """Every kernel's count of launches captured into CUDA graphs."""
+    return {n: k.captured for n, k in _KERNELS.items()}

@@ -1,8 +1,8 @@
 """Prefill and the paged decode step for the Llama family (port of
 skypilot_tpu/models/decode.py: ``bucket_size``,
 ``cast_params_for_decode``, ``init_page_pool``, ``prefill``,
-``paged_verify_step``, ``paged_decode_step``, ``chosen_logprob``,
-``select_token_per_row``).
+``paged_verify_step``, ``paged_decode_step``, ``top_k_logprobs``,
+``chosen_logprob``, ``select_token_per_row`` with its penalties).
 
 ``jax.lax.scan`` over layers becomes a Python loop. The paged steps
 update the pool IN PLACE: K/V for the fed positions land in each row's
@@ -138,6 +138,17 @@ def paged_decode_step(params, token: torch.Tensor, pcache: paging.PagedKV,
     return logits[:, 0], pcache
 
 
+def top_k_logprobs(logits: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k alternative logprobs of the unpenalized model distribution
+    (OpenAI ``logprobs=N``): [..., V] logits → (values [..., k] fp32,
+    ids [..., k] int32), values minus the logsumexp."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    v, i = torch.topk(logits, k, dim=-1)
+    return v - lse, i.to(torch.int32)
+
+
 def chosen_logprob(logits: torch.Tensor, tokens: torch.Tensor
                    ) -> torch.Tensor:
     """log P(token) under the unmodified distribution: [B, V], [B] →
@@ -148,14 +159,33 @@ def chosen_logprob(logits: torch.Tensor, tokens: torch.Tensor
     return gold - logz
 
 
-def filter_logits(logits: torch.Tensor, temperature: torch.Tensor,
-                  top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
-    """The per-row sampling distribution's logits: temperature-scaled,
-    then top-k, then top-p (nucleus) masked to the fp32 minimum —
-    ``select_token_per_row``'s mask construction, row by row.
-    temperature [B] (<= 0 → greedy, scale 1), top_k [B] (<= 0 → off),
-    top_p [B] (outside (0, 1) → off)."""
+def penalize(logits: torch.Tensor, counts: Optional[torch.Tensor],
+             presence: Optional[torch.Tensor],
+             frequency: Optional[torch.Tensor]) -> torch.Tensor:
+    """OpenAI repetition penalties: fp32 logits [B, V] lose
+    presence·1[count>0] + frequency·count, with ``counts`` [B, V] int32
+    of the row's generated tokens and per-row ``presence`` /
+    ``frequency`` [B] fp32. No ``counts``: the logits as they are."""
     logits = logits.float()
+    if counts is None:
+        return logits
+    pen = (presence[:, None] * (counts > 0).float() +
+           frequency[:, None] * counts.float())
+    return logits - pen
+
+
+def filter_logits(logits: torch.Tensor, temperature: torch.Tensor,
+                  top_k: torch.Tensor, top_p: torch.Tensor,
+                  counts: Optional[torch.Tensor] = None,
+                  presence: Optional[torch.Tensor] = None,
+                  frequency: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-row sampling distribution's logits: penalized
+    (:func:`penalize`), temperature-scaled, then top-k, then top-p
+    (nucleus) masked to the fp32 minimum — ``select_token_per_row``'s
+    mask construction, row by row. temperature [B] (<= 0 → greedy,
+    scale 1), top_k [B] (<= 0 → off), top_p [B] (outside (0, 1) →
+    off)."""
+    logits = penalize(logits, counts, presence, frequency)
     v = logits.shape[-1]
     greedy = temperature <= 0.0
     scaled = logits / torch.where(greedy, torch.ones_like(temperature),
@@ -181,13 +211,19 @@ def filter_logits(logits: torch.Tensor, temperature: torch.Tensor,
 
 def select_token_per_row(logits: torch.Tensor, temperature: torch.Tensor,
                          top_k: torch.Tensor, top_p: torch.Tensor,
-                         generator: Optional[torch.Generator]
+                         generator: Optional[torch.Generator],
+                         counts: Optional[torch.Tensor] = None,
+                         presence: Optional[torch.Tensor] = None,
+                         frequency: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Per-row greedy (temperature <= 0) or filtered sampling. Sampling
     is Gumbel-max over :func:`filter_logits` with noise drawn from
     ``generator`` — the same distribution as jax.random.categorical,
-    not the same draws."""
-    logits = logits.float()
+    not the same draws. ``counts`` (+ ``presence`` / ``frequency``):
+    the penalties, applied before temperature and filtering, so they
+    bite in greedy mode too. No host sync: the engine captures this in
+    CUDA graphs."""
+    logits = penalize(logits, counts, presence, frequency)
     scaled = filter_logits(logits, temperature, top_k, top_p)
     u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
     u = u.clamp_(min=torch.finfo(torch.float32).tiny)

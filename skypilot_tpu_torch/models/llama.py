@@ -254,8 +254,8 @@ def embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig
     as the JAX package does."""
     x = params['embed'][tokens.long()].to(cfg.dtype)
     if cfg.embed_scale:
-        x = x * torch.tensor(cfg.dim ** 0.5, dtype=cfg.dtype,
-                             device=x.device)
+        x = x * torch.full((), cfg.dim ** 0.5, dtype=cfg.dtype,
+                           device=x.device)
     return x
 
 

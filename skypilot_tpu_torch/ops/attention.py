@@ -48,14 +48,14 @@ def _attention_impl(q, k, v, causal, q_offset, softmax_scale, return_lse,
         scores = logit_softcap * torch.tanh(scores / logit_softcap)
     mask = None
     if causal:
-        kv_pos = torch.arange(t, device=dev) + torch.as_tensor(
-            kv_offset, device=dev)
-        q_off = torch.as_tensor(q_offset, device=dev)
-        if q_off.ndim == 1:
-            q_pos = torch.arange(s, device=dev)[None, :] + q_off[:, None]
+        # Offsets join as they come (ints or tensors): no host-to-device
+        # copy, so a decode step captures into a CUDA graph.
+        kv_pos = torch.arange(t, device=dev) + kv_offset
+        if torch.is_tensor(q_offset) and q_offset.ndim == 1:
+            q_pos = torch.arange(s, device=dev)[None, :] + q_offset[:, None]
             rel = q_pos[:, :, None] - kv_pos[None, None, :]   # [B,S,T]
         else:
-            q_pos = torch.arange(s, device=dev) + q_off
+            q_pos = torch.arange(s, device=dev) + q_offset
             rel = (q_pos[:, None] - kv_pos[None, :])[None]     # [1,S,T]
         mask = rel >= 0
         # A global layer of a windowed model (window_active False) keeps

@@ -234,16 +234,20 @@ def paged_attention_step_ref(q: torch.Tensor, kp: torch.Tensor,
     rows = torch.arange(b, device=q.device)[:, None].expand(b, s)
     positions = length[:, None].long() + torch.arange(s, device=q.device)
     # Positions at or past the view are dropped, as the JAX scatter
-    # drops them: no two kept writes share a slot.
-    keep = positions < max_len
-    rows, positions = rows[keep], positions[keep]
-    k_l = gather_pages(kp, table, max_len)     # a fresh gather: safe to
-    v_l = gather_pages(vp, table, max_len)     # overlay in place
-    k_l[rows, positions] = k_new[keep]
-    v_l[rows, positions] = v_new[keep]
-    out = xla_attention(q, k_l, v_l, causal=True, q_offset=length,
-                        logit_softcap=logit_softcap, window=window,
-                        window_active=window_active, sinks=sinks)
+    # drops them: they land on one scratch position past the view (from
+    # one more trash page a row), which the attention never reads. No
+    # two kept writes share a slot, and no shape depends on the data, so
+    # the step captures into a CUDA graph.
+    positions = torch.clamp(positions, max=max_len)
+    spare = torch.zeros_like(table[:, :1])
+    k_l = gather_pages(kp, torch.cat([table, spare], 1), max_len + 1)
+    v_l = gather_pages(vp, torch.cat([table, spare], 1), max_len + 1)
+    k_l[rows, positions] = k_new     # a fresh gather: safe to overlay
+    v_l[rows, positions] = v_new
+    out = xla_attention(q, k_l[:, :max_len], v_l[:, :max_len], causal=True,
+                        q_offset=length, logit_softcap=logit_softcap,
+                        window=window, window_active=window_active,
+                        sinks=sinks)
     write_pages(kp, k_new, pid, off)
     write_pages(vp, v_new, pid, off)
     return out, kp, vp

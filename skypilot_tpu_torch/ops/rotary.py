@@ -18,7 +18,7 @@ def rope_frequencies(head_dim: int, positions: torch.Tensor,
     half = head_dim // 2
     dev = positions.device
     idx = torch.arange(half, dtype=torch.float32, device=dev)
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=dev),
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32, device=dev),
                       -idx / half)
     mscale = 1.0
     if scaling:

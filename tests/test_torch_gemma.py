@@ -471,7 +471,7 @@ def test_engine_greedy_tokens_match_jax_generate(name):
         prompts = [rng.integers(0, 256, n).tolist() for n in (5, 20, 40)]
         futs = [eng.submit(p, 8) for p in prompts]
         for prompt, fut in zip(prompts, futs):
-            toks, reason, _ = fut.result(timeout=120)
+            toks, reason, _, _ = fut.result(timeout=120)
             want = jdecode.generate(jparams, jnp.asarray([prompt], jnp.int32),
                                     jcfg, 8)
             assert toks == np.asarray(want)[0].tolist()

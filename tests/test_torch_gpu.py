@@ -602,3 +602,98 @@ def test_gemma_model_backward_runs_kernels_a_c_d(cuda):
     for (name, _), g, ref in zip(weights.tree_paths(params), *grads):
         assert g.isfinite().all(), name
         assert float((g - ref).norm()) < 5e-2 * float(ref.norm()), name
+
+
+@pytest.mark.parametrize('switches', [
+    dict(logit_softcap=30.0), dict(window=8, window_active=True),
+    dict(sinks=torch.tensor([0.5, -1.0, 2.0, 0.0]))],
+    ids=['softcap', 'window', 'sinks'])
+def test_plain_paged_step_captures_into_a_graph(cuda, switches):
+    """The plain paged step (the route of every softcap, window or sinks
+    layer, which the engine's graphs capture) has no host sync: captured
+    into a CUDA graph and replayed, it gives the eager call's output and
+    content pages bit for bit, a row past the view's end included (its
+    overlay drops the positions past the view; inactive, it writes the
+    trash page, where clamped writes race)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    b, s, h, kh, hd, psz, maxp = 3, 4, 4, 2, 128, 16, 4
+    max_len = psz * maxp
+    kp0, vp0 = _rand(gen, 13, psz, kh, hd), _rand(gen, 13, psz, kh, hd)
+    table = torch.arange(1, 13, dtype=torch.int32,
+                         device=cuda).reshape(b, maxp)
+    length = torch.tensor([5, 30, max_len - 2], dtype=torch.int32,
+                          device=cuda)
+    q, k_new, v_new = (_rand(gen, b, s, h, hd), _rand(gen, b, s, kh, hd),
+                       _rand(gen, b, s, kh, hd))
+    pc = paging.PagedKV(kp0.clone(), vp0.clone(), table, length)
+    pid, off = paging._write_indices(
+        pc, length[:, None].long() + torch.arange(s, device=cuda),
+        torch.tensor([True, True, False], device=cuda))
+    kw = dict(max_len=max_len, **{
+        n: (v.to(cuda) if torch.is_tensor(v) else v)
+        for n, v in switches.items()})
+
+    def call():
+        return pa.paged_attention_step_ref(q, pc.k, pc.v, table, length,
+                                           k_new, v_new, pid, off, **kw)[0]
+
+    want = call().clone()
+    want_k, want_v = pc.k.clone(), pc.v.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()                          # warm up on the capture stream
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = call()
+    pc.k.copy_(kp0)
+    pc.v.copy_(vp0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert torch.equal(pc.k[1:], want_k[1:])
+    assert torch.equal(pc.v[1:], want_v[1:])
+    assert not torch.equal(pc.k[1:], kp0[1:])    # the step wrote pages
+
+
+def test_engine_decodes_through_graphs(cuda, monkeypatch):
+    """The engine on the card: warm-up captures all eight step variants
+    with kernel B inside (k launches a layer each), decode calls only
+    replay them (nothing captured after warm-up, B's count rises by the
+    captured launches per replay), and greedy tokens at MAX_STEP_CHUNK 8
+    equal those at 1, one request at a time (the same shapes every
+    step)."""
+    from skypilot_tpu_torch.serve import engine as engine_lib
+    cfg = dataclasses.replace(config.PRESETS['llama-debug'], dim=256,
+                              n_heads=4, n_kv_heads=2, head_dim=128,
+                              ffn_dim=512, vocab_size=512)
+    params = llama.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    prompts = [[3, 1, 4, 1, 5], list(range(40)), [9] * 20]
+    outs = {}
+    for chunk in (8, 1):
+        monkeypatch.setattr(engine_lib, 'MAX_STEP_CHUNK', chunk)
+        build.reset_launches()
+        eng = engine_lib.InferenceEngine('llama-debug', cfg=cfg,
+                                         params=params, device='cuda')
+        eng.warmup()
+        want = {(k, p, t) for k in {1, chunk} for p in (False, True)
+                for t in (False, True)}
+        assert set(eng.graphs) == want
+        for (k, _, _), n in eng._graph_launches.items():
+            assert n == {'paged_decode': k * cfg.n_layers}
+        captured = build.captured()
+        b0 = pa.KERNEL.launches
+        eng.start()
+        try:
+            outs[chunk] = [eng.submit(p, 21).result(timeout=300)[0]
+                           for p in prompts]
+        finally:
+            eng.stop()
+        assert build.captured() == captured
+        assert pa.KERNEL.launches - b0 == sum(
+            n * eng._graph_launches[key]['paged_decode']
+            for key, n in eng.calls.items())
+        assert eng.calls_by_width().get(chunk, 0) > 0
+    assert outs[8] == outs[1]
