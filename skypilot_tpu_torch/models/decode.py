@@ -1,15 +1,20 @@
-"""Prefill and the paged decode step for the Llama family (port of
-skypilot_tpu/models/decode.py: ``bucket_size``,
+"""Prefill, the prefill extends and the paged decode step for the Llama
+family (port of skypilot_tpu/models/decode.py: ``bucket_size``,
 ``cast_params_for_decode``, ``init_page_pool``, ``prefill``,
-``paged_verify_step``, ``paged_decode_step``, ``top_k_logprobs``,
-``chosen_logprob``, ``select_token_per_row`` with its penalties).
+``prefill_extend``, ``paged_prefill_extend``, ``paged_verify_step``,
+``paged_decode_step``, ``top_k_logprobs``, ``chosen_logprob``,
+``select_token_per_row`` with its penalties).
 
 ``jax.lax.scan`` over layers becomes a Python loop. The paged steps
 update the pool IN PLACE: K/V for the fed positions land in each row's
 pages (inactive rows on the trash page) and the returned PagedKV holds
 the same tensors. On CUDA, prefill attention runs kernel A and the
-step's attention kernel B; on CPU both take their plain versions. A
-layer with an attention softcap, a sliding window or sinks (Gemma-2/3,
+step's attention kernel B; on CPU both take their plain versions. An
+extend over a prefix (``p > 0``) attends at a position offset, which
+the flash kernel does not take, so it runs the plain attention on every
+device, as the JAX gate routes it; an extend at ``p == 0`` is a prefill
+and takes kernel A. A layer with an attention softcap, a sliding
+window or sinks (Gemma-2/3,
 gpt-oss) takes the plain versions on every device, as its JAX
 counterpart does; the embedding scale, per-layer rope tables, post
 norms and final softcap come with the shared layer math of
@@ -92,6 +97,104 @@ def prefill(params, tokens: torch.Tensor, cfg: LlamaConfig, max_len: int,
     x_last = torch.gather(x, 1, idx)
     logits = llama.unembed(x_last, params, cfg)
     return logits[:, 0], torch.stack(ks), torch.stack(vs)
+
+
+def prefill_extend(params, tokens: torch.Tensor, cfg: LlamaConfig,
+                   max_len: int, prefix_k: torch.Tensor,
+                   prefix_v: torch.Tensor,
+                   lengths: Optional[torch.Tensor] = None,
+                   attention_impl: str = 'auto'
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill a right-padded SUFFIX tokens [B, S2] over a computed
+    prefix prefix_k/v [L, B, P, KH, hd] (every row a full P-token
+    prefix; ``lengths`` [B] the real suffix lengths). The suffix runs at
+    positions P..P+S2, for rope and for the causal offset, attending
+    [prefix ++ suffix]: the math of a prefill of the whole sequence.
+    Returns (logits at each row's last content position [B, vocab]
+    fp32, the suffix's k [L, B, S2, KH, hd], v), the shape contract of
+    :func:`prefill`; the JAX version returns the whole padded cache."""
+    check_supported(cfg)
+    b, s2 = tokens.shape
+    p = prefix_k.shape[2]
+    if p + s2 > max_len:
+        raise ValueError(f'prefix ({p}) + suffix ({s2}) exceeds max_len '
+                         f'({max_len})')
+    dev = tokens.device
+    if lengths is None:
+        lengths = torch.full((b,), s2, dtype=torch.int32, device=dev)
+    x = llama.embed(params, tokens, cfg)
+    sin, cos = llama.rope_tables(cfg, torch.arange(s2, device=dev) + p)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = llama.layer_params(params, i)
+        q, k, v = llama.qkv(x, lp, cfg,
+                            *llama.select_rope(sin, cos, i, cfg))
+        k_all = torch.cat([prefix_k[i].to(k.dtype), k], dim=1)
+        v_all = torch.cat([prefix_v[i].to(v.dtype), v], dim=1)
+        out = _attention(q, k_all, v_all, impl=attention_impl, causal=True,
+                         q_offset=p, **llama.attention_switches(lp, cfg, i))
+        x = x + llama.wo_project(out, lp, cfg)
+        x = x + llama.ffn(x, lp, cfg)
+        ks.append(k)
+        vs.append(v)
+    idx = (lengths.long() - 1)[:, None, None].expand(b, 1, x.shape[-1])
+    logits = llama.unembed(torch.gather(x, 1, idx), params, cfg)
+    return logits[:, 0], torch.stack(ks), torch.stack(vs)
+
+
+def paged_prefill_extend(params, tokens: torch.Tensor,
+                         pcache: paging.PagedKV, cfg: LlamaConfig, *,
+                         slot: int, p: int, lengths,
+                         attention_impl: str = 'auto') -> torch.Tensor:
+    """:func:`prefill_extend` for ONE paged row, in place: the [1, S2]
+    suffix attends [prefix ++ suffix], the prefix gathered per layer
+    from the (possibly shared) pages that row ``slot``'s table covers,
+    and the suffix K/V written straight into the row's own pages (a
+    position past the row's reservation lands on the trash page);
+    length[slot] = p + lengths. The chunked-prefill and prefix-hit
+    program of the engine. Returns the logits at the last content
+    position, [1, vocab] fp32.
+
+    At ``p == 0`` the attention is a plain prefill and takes kernel A
+    on the card; at ``p > 0`` it carries an offset and takes the plain
+    version (the JAX gate). A suffix reaching past the table's coverage
+    raises: the JAX gather would clamp it onto a live page."""
+    check_supported(cfg)
+    b, s2 = tokens.shape
+    psz, maxp = pcache.page_size, pcache.max_pages
+    if b != 1:
+        raise ValueError(f'paged_prefill_extend takes one row, got {b}')
+    if p + s2 > maxp * psz:
+        raise ValueError(f'paged_prefill_extend: prefix ({p}) + suffix '
+                         f'({s2}) exceeds the table\'s {maxp} pages of '
+                         f'{psz}')
+    dev = tokens.device
+    row = pcache.table[slot].long()
+    pre_pos = torch.arange(p, device=dev)
+    pre_pid, pre_off = row[pre_pos // psz], pre_pos % psz
+    suf_pos = torch.arange(s2, device=dev) + p
+    suf_pid, suf_off = row[suf_pos // psz], suf_pos % psz
+    lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                              device=dev).reshape(b)
+    x = llama.embed(params, tokens, cfg)
+    sin, cos = llama.rope_tables(cfg, suf_pos)
+    for i in range(cfg.n_layers):
+        lp = llama.layer_params(params, i)
+        q, k, v = llama.qkv(x, lp, cfg,
+                            *llama.select_rope(sin, cos, i, cfg))
+        kp, vp = pcache.k[i], pcache.v[i]
+        k_all = torch.cat([kp[pre_pid, pre_off][None].to(k.dtype), k], 1)
+        v_all = torch.cat([vp[pre_pid, pre_off][None].to(v.dtype), v], 1)
+        out = _attention(q, k_all, v_all, impl=attention_impl, causal=True,
+                         q_offset=p, **llama.attention_switches(lp, cfg, i))
+        kp[suf_pid, suf_off] = k[0].to(kp.dtype)
+        vp[suf_pid, suf_off] = v[0].to(vp.dtype)
+        x = x + llama.wo_project(out, lp, cfg)
+        x = x + llama.ffn(x, lp, cfg)
+    idx = (lengths.long() - 1)[:, None, None].expand(b, 1, x.shape[-1])
+    logits = llama.unembed(torch.gather(x, 1, idx), params, cfg)
+    pcache.length[slot] = (lengths[0] + p).to(pcache.length.dtype)
+    return logits[:, 0]
 
 
 def paged_verify_step(params, tokens: torch.Tensor, pcache: paging.PagedKV,

@@ -1,7 +1,7 @@
 """Block-paged KV cache: the device page pools and the host-side
 refcounted allocator (port of skypilot_tpu/models/paging.py:
 ``PagedKV``, ``pages_for``, ``_write_indices``, ``scatter_prefill``,
-``PageAllocator``).
+``gather_prefix``, ``PageAllocator``).
 
 Page 0 is the TRASH page: never allocated; writes for inactive rows are
 routed to it so a freed page can never be corrupted by a stale step.
@@ -73,6 +73,20 @@ def scatter_prefill(pcache: PagedKV, k_rows: torch.Tensor,
     pcache.v[:, pid, off] = v_rows[:, :, :s]
     pcache.length[slots.long()] = lengths.to(pcache.length.dtype)
     return pcache
+
+
+def gather_prefix(pcache: PagedKV, slot: int, p: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row ``slot``'s first ``p`` positions as contiguous [L, 1, p, KH,
+    hd] (k, v): the pair :func:`decode.prefill_extend` takes. A prefix
+    hit's table points at shared pages, so this reads what every other
+    holder reads. The engine extends in place instead
+    (``decode.paged_prefill_extend``); this is its oracle."""
+    psz = pcache.page_size
+    pos = torch.arange(p, device=pcache.k.device)
+    pid = pcache.table[slot].long()[pos // psz]
+    off = pos % psz
+    return pcache.k[:, pid, off][:, None], pcache.v[:, pid, off][:, None]
 
 
 class PagesExhausted(Exception):

@@ -91,9 +91,13 @@ def _sm_count(index: int) -> int:
 # shrunk. The tickets must be 0 at a launch and the kernel leaves them
 # 0, so the launches of one stream, which run in order, share one
 # workspace; zeroing a fresh one per call would add a device operation
-# per layer per decode step to a path the host already limits.
+# per layer per decode step to a path the host already limits. A
+# workspace that grew is kept alive, not freed: a CUDA graph captured
+# with it still launches into its address (the engine captures decode
+# steps at S = 1 before its verify at S = K, which needs more).
 _WORKSPACES: Dict[Tuple[torch.device, int],
                   Tuple[torch.Tensor, torch.Tensor]] = {}
+_OUTGROWN: list = []
 
 
 def _workspace(device: torch.device, stream: int, floats: int,
@@ -103,6 +107,8 @@ def _workspace(device: torch.device, stream: int, floats: int,
             have[1].numel() < tickets:
         floats = max(floats, have[0].numel() if have else 0)
         tickets = max(tickets, have[1].numel() if have else 0)
+        if have is not None:
+            _OUTGROWN.append(have)
         have = (torch.empty(floats, dtype=torch.float32, device=device),
                 torch.zeros(tickets, dtype=torch.int32, device=device))
         _WORKSPACES[(device, stream)] = have

@@ -1,32 +1,50 @@
 """The inference engine and its HTTP surface (a reduced port of
 skypilot_tpu/serve/engine.py: ``InferenceEngine`` with its fused k-step
 decode, ``_InFlightStep``, ``_dispatch_step`` / ``_collect_step``,
-``_choose_k`` / ``_lookahead_k``, ``_publish``, ``cancel``,
+``_choose_k`` / ``_lookahead_k``, the admission path with chunked
+prefill and the shared-page prefix cache, prompt-lookup speculative
+decoding (``_lookup_draft``, ``_spec_once``), ``_publish``, ``cancel``,
 ``batch_loop`` / ``_step_round``, ``warmup``; ``build_app``'s
 ``/health``, ``/generate``, ``/v1/completions`` with SSE and
 ``/v1/models``; ``main``).
 
 What it keeps: ``MAX_BATCH`` slots over a block-paged K/V pool (page
-size 64, ``MAX_BATCH * pages_for(max_len) + 1`` pages with page 0 the
-trash page); admission that groups same-bucket prompts into one prefill
-(kernel A on the card) and scatters it into freshly allocated pages;
+size 64, ``(MAX_BATCH + min(PREFIX_CACHE_ENTRIES, MAX_BATCH)) *
+pages_for(max_len) + 1`` pages unless ``SKYTPU_ENGINE_KV_PAGES`` says,
+page 0 the trash page); admission, gated on free pages (counting what
+evicting unshared prefix entries would return), that:
+  - serves a prompt sharing a snapshotted power-of-two prefix of at
+    least 64 tokens by prefilling only its suffix over the SAME pages
+    (refcounted) — one ``paged_prefill_extend``;
+  - prefills a longer miss in ``SKYTPU_ENGINE_PREFILL_CHUNK``-token
+    chunks, one chunk per scheduling round, so decoding rows keep
+    decoding; the first chunk is a plain prefill (kernel A on the
+    card), later ones extend at an offset (the plain attention, as in
+    JAX);
+  - groups the other prompts by bucket into one prefill each (kernel
+    A), scattered into freshly allocated pages;
 then fused decode calls of k ∈ {1, ``MAX_STEP_CHUNK``} steps each, every
 step a paged decode step (kernel B on the card) → per-row sampling
 (greedy / temperature / top-k / top-p, OpenAI presence and frequency
 penalties over the row's generated-token counts) → optional top-5
-logprobs. On the card each of the eight variants (k × penalties × top
-logprobs) is one CUDA graph, captured in warm-up; on the CPU the same
-function runs eagerly. The batch loop pipelines: it dispatches call N+1
-before it collects call N while nothing waits to join, no cancel is
-pending and no row can finish inside the call in flight. Admission,
-cancels and failure resets happen only at drained points; at most two
-calls are in flight.
+logprobs. An all-greedy pool without penalties speculates instead: a
+host-side n-gram draft from each row's own context, then one
+``SKYTPU_ENGINE_SPEC_K``-wide verify (kernel B at S = K), committing the
+accepted run plus the correction. On the card each of the eight step
+variants (k × penalties × top logprobs) and the two verify variants
+(top logprobs or not) is one CUDA graph, captured in warm-up; on the
+CPU the same functions run eagerly; extends stay eager. The batch loop
+pipelines: it dispatches call N+1 before it collects call N while
+nothing waits to join, no cancel or chunk is pending, speculation does
+not apply and no row can finish inside the call in flight. Admission,
+chunks, speculative rounds, cancels and failure resets happen only at
+drained points; at most two calls are in flight.
 
 What waits (ROADMAP Queue 1 item 4): chat completions, ``n`` /
 ``best_of`` and batched prompts (each refused with 400 by name),
-speculative decoding, the prefix cache, chunked prefill, metrics and
-the flight recorder, the spill tier and int8 KV, disagg, meshes and
-multi-host, and ``--hf-dir`` / ``--ckpt-dir``.
+metrics and the flight recorder, failure resurrection, the spill tier
+and int8 KV, disagg, meshes and multi-host, and ``--hf-dir`` /
+``--ckpt-dir``.
 
 The HTTP server is the standard library's ThreadingHTTPServer; the
 batch loop runs in its own thread and owns all device state. Request
@@ -63,12 +81,17 @@ from skypilot_tpu_torch.models import decode, llama, paging
 
 logger = logging.getLogger(__name__)
 
+
+def _env_int(name: str, default: int) -> int:
+    return int(os.environ.get(name, str(default)))
+
+
 MAX_BATCH = 8
 PAGE_SIZE = 64
 MAX_QUEUE = 64
 # Decode steps fused into one device call when no request waits to join
 # (the JAX knob of the same name): the two step widths are 1 and this.
-MAX_STEP_CHUNK = int(os.environ.get('SKYTPU_ENGINE_STEP_CHUNK', '8'))
+MAX_STEP_CHUNK = _env_int('SKYTPU_ENGINE_STEP_CHUNK', 8)
 # Top-N alternative logprobs computed per token (OpenAI ``logprobs=N``):
 # only in the step variants some active row asked for, always at admit.
 TOP_LOGPROBS_K = 5
@@ -77,6 +100,32 @@ TOP_LOGPROBS_K = 5
 CTRL_ROWS = 6
 # Calls in flight at most (one collected while the next one runs).
 MAX_INFLIGHT = 2
+# The JAX engine's knobs, under its names and with its defaults. Each is
+# an instance attribute too, which tests may set before warm-up.
+# Prefix cache: LRU entries (0 disables). A prompt sharing a snapshotted
+# prefix prefills only its suffix, over the snapshot's own pages.
+PREFIX_CACHE_ENTRIES = _env_int('SKYTPU_ENGINE_PREFIX_CACHE', 4)
+# Prompts shorter than this are never snapshotted; snapshots are powers
+# of two, so the page size must divide it.
+PREFIX_MIN_TOKENS = 64
+# Speculative decoding: tokens proposed per verify round (0 disables).
+SPEC_K = _env_int('SKYTPU_ENGINE_SPEC_K', 4)
+# Longest n-gram of the row's own context matched when drafting, and the
+# trailing window scanned (host-side Python on the decode loop).
+SPEC_NGRAM = 3
+SPEC_LOOKUP_WINDOW = 512
+# A round accepting under SPEC_MIN_ACCEPT of its real proposals pauses
+# speculation for SPEC_COOLDOWN collected calls; a probe that finds no
+# draft (or a row without verify headroom) for SPEC_NO_DRAFT_COOLDOWN.
+SPEC_MIN_ACCEPT = 0.25
+SPEC_COOLDOWN = _env_int('SKYTPU_ENGINE_SPEC_COOLDOWN', 16)
+SPEC_NO_DRAFT_COOLDOWN = 4
+# Pool pages, the trash page included; 0: every slot's worst case plus
+# the prefix cache's headroom.
+KV_PAGES = _env_int('SKYTPU_ENGINE_KV_PAGES', 0)
+# Prompts longer than this prefill in chunks of this many tokens (a power
+# of two >= 16), one chunk per scheduling round.
+PREFILL_CHUNK = _env_int('SKYTPU_ENGINE_PREFILL_CHUNK', 256)
 
 
 class EngineOverloaded(Exception):
@@ -103,7 +152,9 @@ class Request:
 class _Stage:
     """One in-flight call's pinned host buffers: the control block it
     uploads (rows CTRL_ROWS.. hold a ``fix_last`` upload made at its
-    collect) and the step outputs it downloads."""
+    collect) and the step outputs it downloads. A speculative round's
+    stage holds the verify's int32 block ([K + 4, B]) in ``ctrl`` and
+    its [B, K] outputs."""
     ctrl: torch.Tensor      # [CTRL_ROWS + 2, B] fp32
     toks: torch.Tensor      # [K, B] int32
     lps: torch.Tensor       # [K, B] fp32
@@ -138,12 +189,36 @@ def _tops_list(ti, tv) -> list:
     return [(int(i), float(v)) for i, v in zip(ti, tv)]
 
 
+def _lookup_draft(ctx: List[int], k: int) -> Optional[List[int]]:
+    """Prompt-lookup drafting: the tokens that followed the most recent
+    earlier occurrence of the context's trailing SPEC_NGRAM-gram (then
+    2-gram), at most k of them, or None when the context never repeats
+    itself (the JAX ``_lookup_draft``)."""
+    if len(ctx) > SPEC_LOOKUP_WINDOW:
+        ctx = ctx[-SPEC_LOOKUP_WINDOW:]
+    for n in (SPEC_NGRAM, 2):
+        if len(ctx) < n + 1:
+            continue
+        key = ctx[-n:]
+        for i in range(len(ctx) - n - 1, -1, -1):
+            if ctx[i:i + n] == key:
+                cont = ctx[i + n:i + n + k]
+                if cont:
+                    return cont
+                break
+    return None
+
+
 class InferenceEngine:
     """Owns params, the page pool and the batched generate loop.
 
     ``device`` defaults to 'cuda'; constructing on 'cuda' without a card
     raises (there is no fallback to the CPU). Tests pass ``device='cpu'``
-    plus a small ``cfg`` and bridged ``params``."""
+    plus a small ``cfg`` and bridged ``params``. The pool and every
+    tensor a graph touches are built at warm-up (or at the first
+    admission), after tests may have set ``page_size``, ``kv_pages``,
+    ``prefix_cache``, ``prefill_chunk``, ``spec_k`` or
+    ``spec_cooldown``."""
 
     def __init__(self, model: str = 'llama-1b', *,
                  cfg: Optional[LlamaConfig] = None, params=None,
@@ -160,9 +235,12 @@ class InferenceEngine:
         self.max_batch = MAX_BATCH
         self.page_size = PAGE_SIZE
         self.step_chunk = MAX_STEP_CHUNK
-        if self.step_chunk < 1:
-            raise ValueError(f'SKYTPU_ENGINE_STEP_CHUNK must be >= 1, got '
-                             f'{self.step_chunk}')
+        self.prefix_cache = PREFIX_CACHE_ENTRIES
+        self.spec_k = SPEC_K
+        self.spec_cooldown = SPEC_COOLDOWN
+        self.prefill_chunk = PREFILL_CHUNK
+        self.kv_pages = KV_PAGES
+        self._check_knobs()
         self.seed = seed
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -179,22 +257,75 @@ class InferenceEngine:
         self.warm = False
         self.loop_error: Optional[BaseException] = None
         self.step_count = 0
-        # Fused calls dispatched, by variant (k, use_pen, want_tops).
+        # Fused calls dispatched, by variant (k, use_pen, want_tops), and
+        # speculative verify calls, by want_tops.
         self.calls: collections.Counter = collections.Counter()
+        self.verify_calls: collections.Counter = collections.Counter()
+        # Admission and speculation counters (zeroed after warm-up).
+        self.prefix_hits = 0
+        self.prefill_chunks = 0
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
         # Finished requests' (ttft_s, tpot_s, n_tokens), newest last.
         self.timings: collections.deque = collections.deque(maxlen=4096)
         self._inflight: List[_InFlightStep] = []
+        self.cache: Optional[paging.PagedKV] = None
+        self._layout: Optional[Tuple[int, int, int]] = None
+        self.alloc: Optional[paging.PageAllocator] = None
+        self.slots: List[Optional[Dict[str, Any]]] = [None] * self.max_batch
+        self._prefix_store: 'collections.OrderedDict[tuple, List[int]]' = \
+            collections.OrderedDict()
+
+    def _check_knobs(self) -> None:
+        """The JAX engine's checks of its paging knobs."""
+        psz, chunk = self.page_size, self.prefill_chunk
+        if psz < 1 or psz & (psz - 1) or PREFIX_MIN_TOKENS % psz:
+            raise ValueError(f'page size must be a power of two dividing '
+                             f'{PREFIX_MIN_TOKENS}, got {psz}')
+        if chunk < 16 or chunk & (chunk - 1):
+            raise ValueError(f'SKYTPU_ENGINE_PREFILL_CHUNK must be a power '
+                             f'of two >= 16, got {chunk}')
+        if self.step_chunk < 1:
+            raise ValueError(f'SKYTPU_ENGINE_STEP_CHUNK must be >= 1, got '
+                             f'{self.step_chunk}')
+
+    # -- device state ------------------------------------------------------
+    def _ensure_state(self) -> None:
+        """Build the pool and the device state for the current knobs, once
+        (warm-up, or the first admission of a test that skips it). The
+        captured graphs hold these tensors' addresses: once a graph
+        exists the layout may not change."""
+        self._check_knobs()
+        max_pages = paging.pages_for(self.max_len, self.page_size)
+        n_pages = self.kv_pages
+        if n_pages <= 0:
+            n_pages = (self.max_batch + max(0, min(self.prefix_cache,
+                                                   self.max_batch))) \
+                * max_pages + 1
+        if n_pages < max_pages + 1:
+            raise ValueError(f'SKYTPU_ENGINE_KV_PAGES={n_pages} cannot hold '
+                             f'one full-length request ({max_pages} pages + '
+                             f'trash)')
+        layout = (self.page_size, n_pages, max(self.spec_k, 0))
+        if layout == self._layout:
+            return
+        if self._layout is not None and self.graphs:
+            raise RuntimeError(f'pool layout {layout} changed after CUDA '
+                               f'graphs were captured on {self._layout}')
+        self.cache = None               # give the old pool back first
+        self._layout = layout
+        self._max_pages, self.n_pages = max_pages, n_pages
         self._alloc_device_state()
         self._reset_host_state()
 
-    # -- device state ------------------------------------------------------
     def _alloc_device_state(self) -> None:
-        """Allocate every tensor a captured step reads or writes, once:
-        CUDA graphs hold their addresses for the engine's lifetime, so a
-        reset writes into these same tensors (:meth:`_reset_device_state`)."""
+        """Allocate every tensor a captured step or verify reads or
+        writes, once: CUDA graphs hold their addresses for the engine's
+        lifetime, so a reset writes into these same tensors
+        (:meth:`_reset_device_state`), and the eager extends write the
+        pool, lengths, ``last`` and counts in place."""
         psz, b, dev = self.page_size, self.max_batch, self.device
-        self._max_pages = paging.pages_for(self.max_len, psz)
-        self.n_pages = b * self._max_pages + 1
         self.cache = decode.init_page_pool(
             self.cfg, self.n_pages, psz, b, self._max_pages, device=dev)
         # Per-slot previous token, device-resident: the fused calls carry
@@ -229,6 +360,27 @@ class InferenceEngine:
                                host((kmax, b, ntop), torch.float32))
                         for _ in range(MAX_INFLIGHT)]
         self._n_dispatch = 0
+        # The verify's block: rows [0, K) the fed tokens [last, d1..]
+        # transposed, row K active, then the commit's length advance,
+        # fix_last mask and last; its outputs are [B, K]. One pinned
+        # stage: rounds run at drained points, one at a time.
+        k = max(self.spec_k, 0)
+        if k:
+            self._spec_dev = torch.zeros((k + 4, b), dtype=torch.int32,
+                                         device=dev)
+            self._ver_toks = torch.zeros((b, k), dtype=torch.int32,
+                                         device=dev)
+            self._ver_lps = torch.zeros((b, k), dtype=torch.float32,
+                                        device=dev)
+            self._ver_tis = torch.zeros((b, k, ntop), dtype=torch.int32,
+                                        device=dev)
+            self._ver_tvs = torch.zeros((b, k, ntop), dtype=torch.float32,
+                                        device=dev)
+            self._spec_stage = _Stage(host((k + 4, b), torch.int32),
+                                      host((b, k), torch.int32),
+                                      host((b, k), torch.float32),
+                                      host((b, k, ntop), torch.int32),
+                                      host((b, k, ntop), torch.float32))
         # Admission samples eagerly from one generator; the fused steps
         # draw from another, registered with every graph that draws.
         self.generator = torch.Generator(device=dev).manual_seed(self.seed)
@@ -236,19 +388,21 @@ class InferenceEngine:
             self.seed + 1)
         # The captured variants (card only), their captured kernel
         # launches, one capture stream and one memory pool for all.
-        self.graphs: Dict[Tuple[int, bool, bool], Any] = {}
-        self._graph_launches: Dict[Tuple[int, bool, bool],
-                                   Dict[str, int]] = {}
+        self.graphs: Dict[tuple, Any] = {}
+        self._graph_launches: Dict[tuple, Dict[str, int]] = {}
         self._graph_stream = None
         self._graph_pool = None
 
     def _reset_host_state(self) -> None:
-        """The allocator, slots and every host mirror, as new."""
+        """The allocator, slots, the prefix store and every host mirror,
+        as new. The store is emptied without unref'ing its ids: they
+        belonged to the allocator this replaces."""
         self.alloc = paging.PageAllocator(self.n_pages)
         self._table_np = np.zeros((self.max_batch, self._max_pages),
                                   np.int32)
         self._table_dirty = True
-        self.slots: List[Optional[Dict[str, Any]]] = [None] * self.max_batch
+        self.slots = [None] * self.max_batch
+        self._prefix_store = collections.OrderedDict()
         self.last = np.zeros(self.max_batch, np.int32)
         self.temp = np.zeros(self.max_batch, np.float32)
         self.topk = np.zeros(self.max_batch, np.int32)
@@ -257,6 +411,8 @@ class InferenceEngine:
         self.freq = np.zeros(self.max_batch, np.float32)
         self._samp_dirty = True
         self._inflight = []
+        self._spec_cool = 0
+        self._chunk_rr = 0
 
     def _reset_device_state(self) -> None:
         """After a failed admit/step: wait out whatever the card still
@@ -268,6 +424,8 @@ class InferenceEngine:
         for t in (self.cache.k, self.cache.v, self.cache.table,
                   self.cache.length, self.last_dev, self.counts):
             t.zero_()
+        if self.spec_k > 0:
+            self._spec_dev.zero_()
         self._reset_host_state()
 
     def _refresh_table(self) -> None:
@@ -278,12 +436,31 @@ class InferenceEngine:
             self.cache.table.copy_(torch.from_numpy(self._table_np))
             self._table_dirty = False
 
+    # -- pages -------------------------------------------------------------
     def _pages_needed(self, req: Request) -> int:
-        """Pages a request reserves: bucketed prompt + max_new, capped at
-        the table's coverage. A lookahead call never writes past them."""
-        want = min(decode.bucket_size(len(req.tokens)) + req.max_new,
+        """Pages a request reserves: bucketed prompt + max_new + the
+        speculative verify's headroom (it writes K positions on every
+        row), capped at the table's coverage. A lookahead call never
+        writes past them; a prefix hit needs fewer of its own."""
+        spec = max(self.spec_k, 0)
+        want = min(decode.bucket_size(len(req.tokens)) + req.max_new + spec,
                    self._max_pages * self.page_size)
         return paging.pages_for(want, self.page_size)
+
+    def _evictable_pages(self) -> int:
+        """Pages the prefix store would free if evicted now: those no
+        live request shares."""
+        return sum(1 for pids in self._prefix_store.values()
+                   for pid in pids if self.alloc.refcount(pid) == 1)
+
+    def _alloc_pages(self, n: int) -> List[int]:
+        """Reserve n pages, evicting prefix entries, oldest first, while
+        the free list is short (a cached prefix is worth less than an
+        admitted request)."""
+        while not self.alloc.can_fit(n) and self._prefix_store:
+            _, pids = self._prefix_store.popitem(last=False)
+            self.alloc.unref_all(pids)
+        return self.alloc.alloc(n)
 
     def _reserve_slot_pages(self, slot: int, pids: List[int]) -> None:
         self._table_np[slot, :len(pids)] = pids
@@ -291,11 +468,27 @@ class InferenceEngine:
         self._table_dirty = True
 
     def _release_slot_pages(self, slot: int) -> None:
+        """Drop the slot's refs: its own pages free, shared prefix pages
+        free when their last holder lets go."""
         pids = [int(p) for p in self._table_np[slot] if p]
         if pids:
             self.alloc.unref_all(pids)
             self._table_np[slot] = 0
             self._table_dirty = True
+
+    def _drop_all_slots(self) -> None:
+        """Warm-up's slot wipe, returning every slot's pages."""
+        for i in range(self.max_batch):
+            if self.slots[i] is not None:
+                self._release_slot_pages(i)
+                self.slots[i] = None
+
+    def _clear_prefix_store(self) -> None:
+        """Empty the prefix store, returning its page refs (a reset
+        rebuilds the allocator and drops the store instead)."""
+        while self._prefix_store:
+            _, pids = self._prefix_store.popitem(last=False)
+            self.alloc.unref_all(pids)
 
     # -- observability -----------------------------------------------------
     def queue_depth(self) -> int:
@@ -355,7 +548,7 @@ class InferenceEngine:
 
     def _process_cancels(self) -> None:
         """Apply deferred cancels (drained points only). Marks only: the
-        slot frees at the next publish."""
+        slot (a prefilling one too) frees at the next publish."""
         while self._pending_cancels:
             fut = self._pending_cancels.popleft()
             for s in self.slots:
@@ -366,12 +559,13 @@ class InferenceEngine:
 
     # -- admission -------------------------------------------------------------
     def _drain_admissible(self) -> List[Request]:
-        """Pop requests bounded by free slots and free pages, FIFO: once
+        """Pop requests bounded by free slots and by free pages plus
+        what evicting unshared prefix entries would return, FIFO: once
         one is held, nothing younger passes it. A cancelled request is
         dropped here."""
         items: List[Request] = []
         free_slots = sum(1 for s in self.slots if s is None)
-        budget = self.alloc.free_count
+        budget = self.alloc.free_count + self._evictable_pages()
 
         def fits(req: Request) -> bool:
             nonlocal budget
@@ -420,30 +614,77 @@ class InferenceEngine:
                 i += size
         return groups
 
+    def _free_slot(self, taken=()) -> int:
+        return next(i for i, s in enumerate(self.slots)
+                    if s is None and i not in taken)
+
+    def _set_sampling(self, slot: int, req: Request) -> None:
+        self.temp[slot] = max(req.temperature, 0.0)
+        self.topk[slot] = int(req.top_k) if req.top_k else 0
+        self.topp[slot] = float(req.top_p) if req.top_p else 0.0
+        self.pres[slot] = req.presence
+        self.freq[slot] = req.frequency
+        self._samp_dirty = True
+
+    def _sample_first(self, logits: torch.Tensor, slots: List[int]):
+        """Sample each admitted row's first token from the admission
+        generator, seed the slot's device ``last`` and penalty counts
+        (zeroed, the first token counted): (tokens, logprobs, top ids,
+        top logprobs) on the host. The JAX ``sample_tail``."""
+        dev = self.device
+        slots_t = torch.tensor(slots, dtype=torch.int64, device=dev)
+        first = decode.select_token_per_row(
+            logits, torch.from_numpy(self.temp[slots]).to(dev),
+            torch.from_numpy(self.topk[slots]).to(dev),
+            torch.from_numpy(self.topp[slots]).to(dev), self.generator)
+        first_lp = decode.chosen_logprob(logits, first)
+        tvs, tis = decode.top_k_logprobs(logits, TOP_LOGPROBS_K)
+        self.last_dev[slots_t] = first
+        self.counts[slots_t] = 0
+        self.counts[slots_t, first.long()] += 1
+        return (first.cpu().numpy(), first_lp.cpu().numpy(),
+                tis.cpu().numpy(), tvs.cpu().numpy())
+
     def _admit_group(self, items: List[Request]) -> None:
-        """Prefill same-bucket prompts in ONE call (eager: kernel A on
-        the card), scatter their K/V into freshly allocated pages, sample
-        each first token and seed the slot's device ``last`` and penalty
-        counts (zeroed, the first token counted). Drained points only."""
+        """Admit requests at a drained point. Once warm with the prefix
+        cache on, a hit prefills only its suffix (:meth:`_admit_with_
+        prefix`), a long miss whose snapshot was evicted meanwhile
+        starts chunked, and the other misses are re-split into
+        power-of-two groups. A group (same bucket) prefills in ONE
+        eager call (kernel A on the card), its K/V scattered into
+        freshly allocated pages; each first token is sampled and, once
+        warm, each prompt's prefix snapshotted."""
         assert not self._inflight, 'admission with a call in flight'
+        self._ensure_state()
+        if self.warm and self.prefix_cache > 0:
+            rest = []
+            for req in items:
+                p = self._prefix_match(req.tokens)
+                if p is not None:
+                    self._admit_with_prefix(req, p)
+                elif self._should_chunk(req):
+                    self._start_chunked(req)
+                else:
+                    rest.append(req)
+            if not rest:
+                return
+            if len(rest) != len(items):
+                for group in self._admit_groups(rest):
+                    self._admit_group(group)
+                return
+            items = rest
         bucket = decode.bucket_size(len(items[0].tokens))
         slots, padded, lengths = [], [], []
         for req in items:
             if decode.bucket_size(len(req.tokens)) != bucket:
                 raise ValueError('admit group mixes prompt buckets')
-            slot = next(i for i, s in enumerate(self.slots)
-                        if s is None and i not in slots)
+            slot = self._free_slot(slots)
             slots.append(slot)
             padded.append(req.tokens + [0] * (bucket - len(req.tokens)))
             lengths.append(len(req.tokens))
-            self.temp[slot] = max(req.temperature, 0.0)
-            self.topk[slot] = int(req.top_k) if req.top_k else 0
-            self.topp[slot] = float(req.top_p) if req.top_p else 0.0
-            self.pres[slot] = req.presence
-            self.freq[slot] = req.frequency
+            self._set_sampling(slot, req)
             self._reserve_slot_pages(
-                slot, self.alloc.alloc(self._pages_needed(req)))
-        self._samp_dirty = True
+                slot, self._alloc_pages(self._pages_needed(req)))
         self._refresh_table()
         dev = self.device
         slots_t = torch.tensor(slots, dtype=torch.int64, device=dev)
@@ -455,29 +696,24 @@ class InferenceEngine:
                 self.cfg, self.max_len, lengths=lengths_t)
             paging.scatter_prefill(self.cache, ks, vs, slots_t, bucket,
                                    lengths_t)
-            first = decode.select_token_per_row(
-                logits, torch.from_numpy(self.temp[slots]).to(dev),
-                torch.from_numpy(self.topk[slots]).to(dev),
-                torch.from_numpy(self.topp[slots]).to(dev), self.generator)
-            first_lp = decode.chosen_logprob(logits, first)
-            tvs, tis = decode.top_k_logprobs(logits, TOP_LOGPROBS_K)
-            self.last_dev[slots_t] = first
-            self.counts[slots_t] = 0
-            self.counts[slots_t, first.long()] += 1
-        first, first_lp = first.cpu().numpy(), first_lp.cpu().numpy()
-        tis, tvs = tis.cpu().numpy(), tvs.cpu().numpy()
+            first, first_lp, tis, tvs = self._sample_first(logits, slots)
         now = time.perf_counter()
         for i, req in enumerate(items):
             self._finish_admit(req, slots[i], int(first[i]),
                                float(first_lp[i]),
                                _tops_list(tis[i], tvs[i]), now)
+            if self.warm:
+                self._prefix_capture(req.tokens, slots[i])
 
     def _finish_admit(self, req: Request, slot: int, first: int,
                       first_lp: float, tops: list, now: float) -> None:
         self.last[slot] = first
+        # ctx = prompt ++ generated: the draft's source, and the host
+        # view of the row's cache length (len(ctx) - 1).
         entry = {'req': req, 'out': [], 'lps': [], 'tops': [],
                  'finish': None, 'stop': frozenset(req.stop_ids),
-                 't_first': now, 'sent': 0}
+                 't_first': now, 'sent': 0,
+                 'ctx': list(req.tokens) + [first]}
         if first in entry['stop']:
             entry['finish'] = 'stop'
         else:
@@ -487,6 +723,144 @@ class InferenceEngine:
             if len(entry['out']) >= req.max_new:
                 entry['finish'] = 'length'
         self.slots[slot] = entry
+
+    # -- the prefix cache --------------------------------------------------------
+    def _prefix_match(self, tokens: List[int]) -> Optional[int]:
+        """The longest snapshotted power-of-two prefix of ``tokens``
+        leaving at least one suffix token, whose prefix + bucketed
+        suffix fits max_len; None: a full prefill."""
+        if not self._prefix_store:
+            return None
+        p, best = PREFIX_MIN_TOKENS, None
+        while p < len(tokens):
+            if (tuple(tokens[:p]) in self._prefix_store and
+                    p + decode.bucket_size(len(tokens) - p) <= self.max_len):
+                best = p
+            p *= 2
+        return best
+
+    def _prefix_capture(self, tokens: List[int], slot: int) -> None:
+        """Snapshot the slot's longest power-of-two prefix (at least
+        PREFIX_MIN_TOKENS): p / page_size refs on the slot's own first
+        pages, which nobody writes again (the row decodes at positions
+        >= len(tokens) >= p). The store keeps ``prefix_cache`` entries,
+        least recently used out first."""
+        if self.prefix_cache <= 0 or len(tokens) < PREFIX_MIN_TOKENS:
+            return
+        p = PREFIX_MIN_TOKENS
+        while p * 2 <= len(tokens):
+            p *= 2
+        key = tuple(tokens[:p])
+        if key in self._prefix_store:
+            self._prefix_store.move_to_end(key)
+            return
+        pids = [int(x) for x in self._table_np[slot, :p // self.page_size]]
+        if not pids or 0 in pids:
+            return
+        for pid in pids:
+            self.alloc.ref(pid)
+        self._prefix_store[key] = pids
+        while len(self._prefix_store) > self.prefix_cache:
+            _, old = self._prefix_store.popitem(last=False)
+            self.alloc.unref_all(old)
+
+    def _admit_with_prefix(self, req: Request, p: int) -> None:
+        """Admit one request over a stored prefix: its table points at
+        the snapshot's pages (one more ref each), its own pages follow
+        (the suffix starts on a page edge, so no sharer writes a shared
+        page), then one ``paged_prefill_extend`` at (p, bucket(suffix))
+        and the first token sampled; the longer prompt is snapshotted
+        in turn, so a growing history extends its entry."""
+        slot = self._free_slot()
+        suffix = req.tokens[p:]
+        s2 = decode.bucket_size(len(suffix))
+        self._set_sampling(slot, req)
+        key = tuple(req.tokens[:p])
+        shared = list(self._prefix_store[key])
+        self._prefix_store.move_to_end(key)
+        # Ref the shared pages before allocating: an eviction under page
+        # pressure may then drop the entry, never the pages.
+        for pid in shared:
+            self.alloc.ref(pid)
+        own = self._alloc_pages(max(0, self._pages_needed(req) - len(shared)))
+        self._reserve_slot_pages(slot, shared + own)
+        self._refresh_table()
+        with torch.no_grad():
+            logits = decode.paged_prefill_extend(
+                self.params, torch.tensor([suffix + [0] * (s2 - len(suffix))],
+                                          dtype=torch.int32,
+                                          device=self.device),
+                self.cache, self.cfg, slot=slot, p=p, lengths=len(suffix))
+            first, first_lp, tis, tvs = self._sample_first(logits, [slot])
+        self.prefix_hits += 1
+        self._finish_admit(req, slot, int(first[0]), float(first_lp[0]),
+                           _tops_list(tis[0], tvs[0]), time.perf_counter())
+        self._prefix_capture(req.tokens, slot)
+
+    # -- chunked prefill ---------------------------------------------------------
+    def _should_chunk(self, req: Request) -> bool:
+        """A prompt longer than ``prefill_chunk`` prefills in chunks,
+        unless it rides the prefix cache."""
+        if len(req.tokens) <= self.prefill_chunk:
+            return False
+        return not (self.warm and self.prefix_cache > 0 and
+                    self._prefix_match(req.tokens) is not None)
+
+    def _pending_chunks(self) -> List[int]:
+        """Slots mid-chunked-prefill."""
+        return [i for i, s in enumerate(self.slots)
+                if s is not None and s['finish'] is None and
+                s.get('prefill') is not None]
+
+    def _start_chunked(self, req: Request) -> None:
+        """Claim a slot, reserve all of the row's pages now and run the
+        first chunk; the batch loop runs the rest, one per round."""
+        assert not self._inflight, 'chunk start with a call in flight'
+        self._ensure_state()
+        slot = self._free_slot()
+        self._set_sampling(slot, req)
+        self._reserve_slot_pages(
+            slot, self._alloc_pages(self._pages_needed(req)))
+        self.slots[slot] = {'req': req, 'out': [], 'lps': [], 'tops': [],
+                            'finish': None, 'stop': frozenset(req.stop_ids),
+                            'sent': 0, 'prefill': {'pos': 0}}
+        self._advance_chunk(slot)
+
+    def _advance_chunk(self, slot: int) -> None:
+        """Run ONE prefill chunk of ``slot`` (drained points only). A
+        non-final chunk writes positions [pos, pos + chunk) into the
+        row's pages and touches neither the admission generator nor the
+        device ``last``, so a chunked prompt draws what a grouped one
+        would; the final chunk samples the first token, turns the slot
+        into a decoding row and snapshots its prefix."""
+        s = self.slots[slot]
+        if s is None or s['finish'] is not None or s.get('prefill') is None:
+            return                      # cancelled: publish reaps it
+        assert not self._inflight, 'chunk with a call in flight'
+        req, pos, c = s['req'], s['prefill']['pos'], self.prefill_chunk
+        remaining = len(req.tokens) - pos
+        self._refresh_table()
+        dev = self.device
+        with torch.no_grad():
+            if remaining > c:
+                decode.paged_prefill_extend(
+                    self.params, torch.tensor([req.tokens[pos:pos + c]],
+                                              dtype=torch.int32, device=dev),
+                    self.cache, self.cfg, slot=slot, p=pos, lengths=c)
+                s['prefill']['pos'] = pos + c
+                self.prefill_chunks += 1
+                return
+            s2 = decode.bucket_size(remaining)
+            logits = decode.paged_prefill_extend(
+                self.params, torch.tensor(
+                    [req.tokens[pos:] + [0] * (s2 - remaining)],
+                    dtype=torch.int32, device=dev),
+                self.cache, self.cfg, slot=slot, p=pos, lengths=remaining)
+            first, first_lp, tis, tvs = self._sample_first(logits, [slot])
+        self.prefill_chunks += 1
+        self._finish_admit(req, slot, int(first[0]), float(first_lp[0]),
+                           _tops_list(tis[0], tvs[0]), time.perf_counter())
+        self._prefix_capture(req.tokens, slot)
 
     # -- the fused k-step program ----------------------------------------------
     def _step_body(self, k: int, use_pen: bool, want_tops: bool) -> None:
@@ -527,19 +901,49 @@ class InferenceEngine:
                 last = nxt
             self.last_dev.copy_(last)
 
-    def _variant(self, k: int, use_pen: bool,
-                 want_tops: bool) -> Callable[[], None]:
-        """The callable that runs one fused call of this variant: on the
-        CPU the step body itself; on the card the replay of its CUDA
-        graph, captured here the first time (warm-up drives every
-        variant, so after it nothing is captured and nothing runs
+    def _verify_body(self, want_tops: bool) -> None:
+        """One K-wide speculative verify over the whole pool: the fed
+        [B, K] = per-row [last, d1..d_{K-1}] from ``_spec_dev`` (row K:
+        active) through ``paged_verify_step`` (kernel B at S = K on the
+        card; K/V of the fed tokens written at each row's offset, the
+        inactive rows' on the trash page; ``length`` does not move),
+        then the greedy token and its logprob at every position (and the
+        top-5 in the want_tops variant) into ``_ver_*``. Fixed
+        addresses and no host sync, as :meth:`_step_body`."""
+        k = self.spec_k
+        fed = self._spec_dev[:k].t()
+        active = self._spec_dev[k] > 0
+        with torch.no_grad():
+            logits, _ = decode.paged_verify_step(
+                self.params, fed, self.cache, self.cfg,
+                max_len=self.max_len, active=active)
+            greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+            self._ver_toks.copy_(greedy)
+            self._ver_lps.copy_(decode.chosen_logprob(
+                logits.reshape(-1, logits.shape[-1]),
+                greedy.reshape(-1)).reshape(greedy.shape))
+            if want_tops:
+                tv, ti = decode.top_k_logprobs(logits, TOP_LOGPROBS_K)
+                self._ver_tvs.copy_(tv)
+                self._ver_tis.copy_(ti)
+
+    def _body(self, key: tuple) -> Callable[[], None]:
+        if key[0] == 'verify':
+            return lambda: self._verify_body(key[1])
+        return lambda: self._step_body(*key)
+
+    def _variant(self, key: tuple) -> Callable[[], None]:
+        """The callable that runs one call of variant ``key`` — (k,
+        use_pen, want_tops) for a fused step, ('verify', want_tops) for
+        a verify: on the CPU the body itself; on the card the replay of
+        its CUDA graph, captured here the first time (warm-up drives
+        every variant, so after it nothing is captured and nothing runs
         eagerly)."""
-        key = (k, use_pen, want_tops)
         if self.device.type != 'cuda':
-            return lambda: self._step_body(k, use_pen, want_tops)
+            return self._body(key)
         if key not in self.graphs:
             if self.warm:
-                raise RuntimeError(f'step variant {key} was not captured in '
+                raise RuntimeError(f'variant {key} was not captured in '
                                    f'warm-up')
             self._capture(key)
         graph, launched = self.graphs[key], self._graph_launches[key]
@@ -551,7 +955,7 @@ class InferenceEngine:
                 kernels[name].replayed(n)
         return replay
 
-    def _capture(self, key: Tuple[int, bool, bool]) -> None:
+    def _capture(self, key: tuple) -> None:
         """Capture one variant into a CUDA graph on the engine's capture
         stream, into the pool all variants share (they never run at
         once). Its first run is eager on that same stream, with every
@@ -562,18 +966,23 @@ class InferenceEngine:
             self._graph_stream = torch.cuda.Stream(self.device)
             self._graph_pool = torch.cuda.graph_pool_handle()
         stream = self._graph_stream
-        self._ctrl.zero_()               # every row inactive, greedy
-        self._samp_dirty = True          # the next dispatch re-uploads
+        body = self._body(key)
+        if key[0] == 'verify':
+            self._spec_dev[:self.spec_k + 1].zero_()   # no row active
+        else:
+            self._ctrl.zero_()           # every row inactive, greedy
+            self._samp_dirty = True      # the next dispatch re-uploads
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
-            self._step_body(*key)
+            body()
         stream.synchronize()
         before = build.captured()
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self._step_gen)
+        if key[0] != 'verify':
+            graph.register_generator_state(self._step_gen)
         with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
                               capture_error_mode='thread_local'):
-            self._step_body(*key)
+            body()
         after = build.captured()
         self._graph_launches[key] = {n: after[n] - before[n] for n in after
                                      if after[n] > before[n]}
@@ -582,7 +991,9 @@ class InferenceEngine:
     # -- dispatch / collect ----------------------------------------------------
     @staticmethod
     def _row_active(s: Optional[Dict[str, Any]]) -> bool:
-        return s is not None and s['finish'] is None
+        """A row to step: occupied, unfinished, not mid-chunked-prefill."""
+        return (s is not None and s['finish'] is None and
+                s.get('prefill') is None)
 
     def _remaining(self, inflight_k: int = 0) -> List[int]:
         """Per-active-row token budget before a length finish; an
@@ -592,10 +1003,11 @@ class InferenceEngine:
 
     def _choose_k(self, inflight_k: int = 0) -> int:
         """Step width for the next fused call: MAX_STEP_CHUNK while every
-        active row has that many tokens left and nothing waits to be
-        admitted, else 1. Only the two widths exist, so a client's
-        max_new cannot ask for a variant warm-up did not capture."""
-        if self._hold:
+        active row has that many tokens left, nothing waits to be
+        admitted and no chunk is pending, else 1. Only the two widths
+        exist, so a client's max_new cannot ask for a variant warm-up
+        did not capture."""
+        if self._hold or self._pending_chunks():
             return 1
         remaining = self._remaining(inflight_k)
         if (remaining and min(remaining) >= self.step_chunk and
@@ -606,9 +1018,13 @@ class InferenceEngine:
     def _lookahead_k(self, inflight_k: int) -> Optional[int]:
         """Width for a lookahead dispatch (call N+1 before call N is
         collected), or None when the pipeline must drain first: a
-        request waits to be admitted, a cancel is pending, or some
-        active row may finish inside the call in flight."""
+        request waits to be admitted, a cancel or a chunk is pending,
+        the next drained round could speculate (speculation takes
+        precedence while its preconditions hold), or some active row
+        may finish inside the call in flight."""
         if self._pending_cancels or self._hold or not self._queue.empty():
+            return None
+        if self._pending_chunks() or self._spec_precheck():
             return None
         remaining = self._remaining(inflight_k)
         if not remaining or min(remaining) < 1:
@@ -629,7 +1045,7 @@ class InferenceEngine:
         want_tops = (bool(want_tops_force) if want_tops_force is not None
                      else any(self._row_active(s) and s['req'].want_tops
                               for s in self.slots))
-        run = self._variant(k, use_pen, want_tops)
+        run = self._variant((k, use_pen, want_tops))
         stage = self._stages[self._n_dispatch % MAX_INFLIGHT]
         self._n_dispatch += 1
         ctrl = stage.ctrl.numpy()
@@ -648,19 +1064,41 @@ class InferenceEngine:
         if want_tops:
             stage.tis[:k].copy_(self._out_tis[:k], non_blocking=True)
             stage.tvs[:k].copy_(self._out_tvs[:k], non_blocking=True)
-        event = None
-        if self.device.type == 'cuda':
-            event = torch.cuda.Event()
-            event.record()
-        handle = _InFlightStep(k, want_tops, stage, event)
+        handle = _InFlightStep(k, want_tops, stage, self._record())
         self._inflight.append(handle)
         return handle
+
+    def _record(self):
+        """An event after the work enqueued so far (None on the CPU,
+        whose copies are synchronous)."""
+        if self.device.type != 'cuda':
+            return None
+        event = torch.cuda.Event()
+        event.record()
+        return event
+
+    def _commit(self, s: Dict[str, Any], tok: int, lp: float,
+                tops: list) -> bool:
+        """Append one generated token to row ``s`` unless it is a stop
+        id; True when the row finished (stop or length)."""
+        if tok in s['stop']:
+            s['finish'] = 'stop'
+            return True
+        s['out'].append(tok)
+        s['lps'].append(lp)
+        s['tops'].append(tops)
+        s['ctx'].append(tok)
+        if len(s['out']) >= s['req'].max_new:
+            s['finish'] = 'length'
+            return True
+        return False
 
     def _collect_step(self) -> None:
         """Collect half: wait on the OLDEST call's event (never a
         blocking tensor read) and do the bookkeeping. Rows that finish
         mid-chunk leave the device ``last`` at the chunk's final token:
-        ``_fix_last`` re-pins it to the host mirror."""
+        ``_fix_last`` re-pins it to the host mirror. One speculation
+        cooldown tick per collected call."""
         assert self._inflight, 'collect with no step in flight'
         h = self._inflight.pop(0)
         if h.event is not None:
@@ -673,26 +1111,22 @@ class InferenceEngine:
         for i, s in enumerate(self.slots):
             if not self._row_active(s):
                 # Finished rows were masked at dispatch, or this call
-                # was dispatched before the finish was known: their
-                # outputs are not consumed.
+                # was dispatched before the finish was known; prefilling
+                # rows were masked too: their outputs are not consumed.
                 continue
             for t in range(h.k):
                 tok = int(toks[t, i])
                 self.last[i] = tok
-                if tok in s['stop']:
-                    s['finish'] = 'stop'
-                    break
-                s['out'].append(tok)
-                s['lps'].append(float(lps[t, i]))
-                s['tops'].append(_tops_list(tis[t, i], tvs[t, i])
-                                 if h.want_tops else [])
-                if len(s['out']) >= s['req'].max_new:
-                    s['finish'] = 'length'
+                if self._commit(s, tok, float(lps[t, i]),
+                                _tops_list(tis[t, i], tvs[t, i])
+                                if h.want_tops else []):
                     break
             if s['finish'] is not None:
                 fixups.append(i)
         if fixups:
             self._fix_last(h.stage, fixups)
+        if self._spec_cool > 0:
+            self._spec_cool -= 1
 
     def _fix_last(self, stage: _Stage, rows: List[int]) -> None:
         """Re-sync the device ``last`` with the host mirror on ``rows``
@@ -708,10 +1142,125 @@ class InferenceEngine:
                                         self._fix[1].to(torch.int32),
                                         self.last_dev))
 
+    # -- speculative decoding --------------------------------------------------
+    def _spec_precheck(self) -> bool:
+        """The cheap host-only preconditions of a speculative round:
+        speculation on, warm, no cooldown, some active row, every active
+        row greedy and no penalties anywhere."""
+        if self.spec_k <= 0 or not self.warm or self._spec_cool > 0:
+            return False
+        active = [i for i, s in enumerate(self.slots) if self._row_active(s)]
+        if not active or any(self.temp[i] > 0 for i in active):
+            return False
+        return not (self.pres.any() or self.freq.any())
+
+    def _spec_once(self) -> bool:
+        """Try ONE speculative round at a drained point; False: the
+        caller runs a fused call instead. Each active row drafts from
+        its own context (a row without a draft feeds its ``last`` and
+        commits one token, the correction); one verify call; each row
+        commits its accepted run plus the correction, ``length``
+        advances by what was committed and ``last`` is re-pinned, both
+        through the pinned stage. Outputs are the greedy decode's:
+        acceptance only changes how many tokens a call commits. No
+        draft anywhere, or a row without K positions of headroom,
+        pauses speculation for SPEC_NO_DRAFT_COOLDOWN calls; a round
+        accepting under SPEC_MIN_ACCEPT of its proposals for
+        ``spec_cooldown``."""
+        if self._inflight or not self._spec_precheck():
+            return False
+        k = self.spec_k
+        active = [i for i, s in enumerate(self.slots) if self._row_active(s)]
+        drafts, real_len = {}, {}
+        for i in active:
+            ctx = self.slots[i]['ctx']
+            if len(ctx) - 1 + k > self.max_len:
+                drafts = {}
+                break
+            d = _lookup_draft(ctx, k)
+            if d:
+                real_len[i] = len(d)
+                drafts[i] = (d + [0] * k)[:k]
+        if not drafts:
+            self._spec_cool = SPEC_NO_DRAFT_COOLDOWN
+            return False
+        st = self._spec_stage
+        block = st.ctrl.numpy()
+        block[:k + 1] = 0
+        for i in active:
+            block[0, i] = self.last[i]
+            block[1:k, i] = (drafts[i][:k - 1] if i in drafts
+                             else [self.last[i]] * (k - 1))
+            block[k, i] = 1
+        want_tops = any(self.slots[i]['req'].want_tops for i in active)
+        self._refresh_table()
+        self._spec_dev[:k + 1].copy_(st.ctrl[:k + 1], non_blocking=True)
+        self._variant(('verify', want_tops))()
+        self.verify_calls[want_tops] += 1
+        st.toks.copy_(self._ver_toks, non_blocking=True)
+        st.lps.copy_(self._ver_lps, non_blocking=True)
+        if want_tops:
+            st.tis.copy_(self._ver_tis, non_blocking=True)
+            st.tvs.copy_(self._ver_tvs, non_blocking=True)
+        event = self._record()
+        if event is not None:
+            event.synchronize()
+        greedy, lps = st.toks.numpy().copy(), st.lps.numpy().copy()
+        if want_tops:
+            tis, tvs = st.tis.numpy().copy(), st.tvs.numpy().copy()
+        self.step_count += 1
+        self.spec_rounds += 1
+        adv = np.zeros(self.max_batch, np.int32)
+        round_prop = round_acc = 0
+        for i in active:
+            s = self.slots[i]
+            prop = drafts.get(i, [int(self.last[i])] * k)
+            a = 0
+            while a < k and prop[a] == int(greedy[i, a]):
+                a += 1
+            if i in drafts:
+                round_prop += real_len[i]
+                round_acc += min(a, real_len[i])
+            row = prop[:a] + [int(greedy[i, a])] if a < k else prop[:k]
+            # The fed tokens' K/V for row[:-1] were written; row[-1] is
+            # the new last, whose K/V the next call writes.
+            adv[i] = len(row)
+            self.last[i] = row[-1]
+            for j, tok in enumerate(row):
+                if s['finish'] is not None or self._commit(
+                        s, tok, float(lps[i, j]),
+                        _tops_list(tis[i, j], tvs[i, j])
+                        if want_tops else []):
+                    break
+        block[k + 1] = adv
+        block[k + 2] = 0
+        block[k + 2, active] = 1
+        block[k + 3] = self.last
+        self._spec_dev[k + 1:].copy_(st.ctrl[k + 1:], non_blocking=True)
+        self.cache.length += self._spec_dev[k + 1]
+        self.last_dev.copy_(torch.where(self._spec_dev[k + 2] > 0,
+                                        self._spec_dev[k + 3],
+                                        self.last_dev))
+        self.spec_proposed += round_prop
+        self.spec_accepted += round_acc
+        if round_prop and round_acc < SPEC_MIN_ACCEPT * round_prop:
+            self._spec_cool = self.spec_cooldown
+        return True
+
+    def _step_or_dispatch(self, k: int) -> Optional[_InFlightStep]:
+        """A speculative round when it applies (then None), else a
+        dispatch returning the in-flight handle."""
+        if self._spec_once():
+            return None
+        return self._dispatch_step(k)
+
     def _step_once(self, k_force: Optional[int] = None,
                    want_tops_force: Optional[bool] = None) -> None:
-        """Synchronous dispatch + collect (warm-up and tests; the batch
-        loop pipelines through ``_step_round``)."""
+        """Synchronous round: a speculative one when it applies, else a
+        dispatch + collect (warm-up and tests; the batch loop pipelines
+        through ``_step_round``)."""
+        if self._spec_once():
+            return
         k = k_force if k_force is not None else self._choose_k()
         self._dispatch_step(k, want_tops_force=want_tops_force)
         self._collect_step()
@@ -734,9 +1283,10 @@ class InferenceEngine:
             if s['finish'] is None:
                 continue
             n = len(s['out'])
-            self.timings.append((
-                s['t_first'] - req.t_submit,
-                (now - s['t_first']) / (n - 1) if n > 1 else 0.0, n))
+            if 't_first' in s:          # not a row cancelled mid-prefill
+                self.timings.append((
+                    s['t_first'] - req.t_submit,
+                    (now - s['t_first']) / (n - 1) if n > 1 else 0.0, n))
             if req.future is not None and not req.future.done():
                 req.future.set_result((s['out'], s['finish'], s['lps'],
                                        s['tops']))
@@ -750,12 +1300,14 @@ class InferenceEngine:
 
     def _fail(self, err: Exception, extra: List[Request]) -> None:
         """Contain an admit/step failure: fail every request on the
-        device and the group being admitted, drop the calls in flight,
-        then reset device state. Requests still queued or held are
-        untouched."""
+        device (prefilling ones too) and the group being admitted, drop
+        the calls in flight, then reset device state. Requests still
+        queued or held are untouched."""
         logger.error('engine step/admit failed; resetting: %s\n%s', err,
                      traceback.format_exc())
-        reqs = [s['req'] for s in self.slots if s is not None] + list(extra)
+        reqs = [s['req'] for s in self.slots if s is not None]
+        seen = {id(r) for r in reqs}
+        reqs += [r for r in extra if id(r) not in seen]
         self._reset_device_state()
         for req in reqs:
             if req.future is not None and not req.future.done():
@@ -764,19 +1316,32 @@ class InferenceEngine:
                 req.stream.put(None)
 
     def _admit_pending(self) -> None:
-        for group in self._admit_groups(self._drain_admissible()):
+        """Admit what fits: grouped prefills first, then the chunked
+        starts."""
+        items = self._drain_admissible()
+        grouped = [r for r in items if not self._should_chunk(r)]
+        chunked = [r for r in items if self._should_chunk(r)]
+        for group in self._admit_groups(grouped):
             try:
                 self._admit_group(group)
             except Exception as e:  # pylint: disable=broad-except
                 self._fail(e, group)
+        for req in chunked:
+            try:
+                self._start_chunked(req)
+            except Exception as e:  # pylint: disable=broad-except
+                self._fail(e, [req])
 
     def warmup(self) -> None:
-        """Run the whole variant matrix — k ∈ {1, MAX_STEP_CHUNK} ×
-        penalties × top logprobs, the only calls ``_dispatch_step`` can
-        make — through the real dispatch/collect path on one admitted
-        request, capturing each variant on the card; then free the slot,
-        reset the counters and flip ``warm`` (``/health`` answers 200).
-        A capture that fails raises."""
+        """Build the device state, then run the whole variant matrix —
+        k ∈ {1, MAX_STEP_CHUNK} × penalties × top logprobs, the only
+        calls ``_dispatch_step`` can make — through the real
+        dispatch/collect path on one admitted request, and both verify
+        variants with no row active, capturing each on the card; then
+        free the slot (no page leaks), empty the prefix store, reset
+        the counters and flip ``warm`` (``/health`` answers 200). A
+        capture that fails raises."""
+        self._ensure_state()
         ks = sorted({self.step_chunk, 1}, reverse=True)
         steps = 4 * sum(ks)
         max_new = min(steps + 8, self.max_len - decode.bucket_size(8))
@@ -788,10 +1353,13 @@ class InferenceEngine:
                 for k in ks:
                     self._step_once(k_force=k, want_tops_force=want_tops)
         self.pres[:] = 0.0
-        for i, s in enumerate(self.slots):
-            if s is not None:
-                s['finish'] = s['finish'] or 'length'
-        self._publish()
+        if self.spec_k > 0:
+            self._refresh_table()
+            for want_tops in (False, True):
+                self._spec_dev[:self.spec_k + 1].zero_()
+                self._variant(('verify', want_tops))()
+        self._drop_all_slots()
+        self._clear_prefix_store()
         self.cache.length.zero_()
         self.last_dev.zero_()
         self.counts.zero_()
@@ -800,14 +1368,21 @@ class InferenceEngine:
             torch.cuda.synchronize(self.device)
         self.timings.clear()
         self.calls.clear()
+        self.verify_calls.clear()
         self.step_count = 0
+        self.prefix_hits = self.prefill_chunks = 0
+        self.spec_rounds = self.spec_proposed = self.spec_accepted = 0
+        self._spec_cool = 0
         self.warm = True
 
     def _step_round(self) -> None:
-        """One scheduling round of device work, pipelined: dispatch call
-        N, then — while ``_lookahead_k`` allows — dispatch call N+1
-        BEFORE collecting call N, publishing after every collect."""
-        inflight = self._dispatch_step(self._choose_k())
+        """One scheduling round of device work: a speculative round when
+        it applies, else pipelined — dispatch call N, then, while
+        ``_lookahead_k`` allows, dispatch call N+1 BEFORE collecting
+        call N, publishing after every collect."""
+        inflight = self._step_or_dispatch(self._choose_k())
+        if inflight is None:
+            return
         while True:
             k2 = self._lookahead_k(inflight.k)
             if k2 is None:
@@ -820,9 +1395,10 @@ class InferenceEngine:
 
     def batch_loop(self) -> None:
         """Continuous scheduler: admit whenever a slot and pages are
-        free, step while anything is active, publish after each. A
-        failure outside the contained admit/step (warm-up included) is
-        kept in ``loop_error`` and ``/health`` answers 500."""
+        free, advance one pending chunk a round, step while anything is
+        active, publish after each. A failure outside the contained
+        admit/chunk/step (warm-up included) is kept in ``loop_error``
+        and ``/health`` answers 500."""
         try:
             self._batch_loop()
         except Exception as e:  # pylint: disable=broad-except
@@ -847,6 +1423,18 @@ class InferenceEngine:
                     self._hold or not self._queue.empty()):
                 self._admit_pending()
             self._publish()
+            pending = self._pending_chunks()
+            if pending:
+                # One chunk a round, round-robin over the prefilling
+                # rows: decoding rows keep decoding between chunks.
+                slot = pending[self._chunk_rr % len(pending)]
+                self._chunk_rr += 1
+                try:
+                    self._advance_chunk(slot)
+                except Exception as e:  # pylint: disable=broad-except
+                    self._fail(e, [])
+                    continue
+                self._publish()
             if not any(self._row_active(s) for s in self.slots):
                 continue
             try:

@@ -663,7 +663,8 @@ def test_engine_decodes_through_graphs(cuda, monkeypatch):
     replay them (nothing captured after warm-up, B's count rises by the
     captured launches per replay), and greedy tokens at MAX_STEP_CHUNK 8
     equal those at 1, one request at a time (the same shapes every
-    step)."""
+    step). Speculation is off on these engines: its verify calls would
+    run at another S than the steps whose widths this compares."""
     from skypilot_tpu_torch.serve import engine as engine_lib
     cfg = dataclasses.replace(config.PRESETS['llama-debug'], dim=256,
                               n_heads=4, n_kv_heads=2, head_dim=128,
@@ -677,6 +678,7 @@ def test_engine_decodes_through_graphs(cuda, monkeypatch):
         build.reset_launches()
         eng = engine_lib.InferenceEngine('llama-debug', cfg=cfg,
                                          params=params, device='cuda')
+        eng.spec_k = 0
         eng.warmup()
         want = {(k, p, t) for k in {1, chunk} for p in (False, True)
                 for t in (False, True)}
@@ -697,3 +699,118 @@ def test_engine_decodes_through_graphs(cuda, monkeypatch):
             for key, n in eng.calls.items())
         assert eng.calls_by_width().get(chunk, 0) > 0
     assert outs[8] == outs[1]
+
+
+def _hd128_model(cuda, vocab=512):
+    cfg = dataclasses.replace(config.PRESETS['llama-debug'], dim=256,
+                              n_heads=4, n_kv_heads=2, head_dim=128,
+                              ffn_dim=512, vocab_size=vocab)
+    params = llama.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    return cfg, params
+
+
+def test_extend_launches_a_only_at_p_zero(cuda):
+    """A paged extend at p == 0 is a prefill: kernel A once a layer; at
+    p > 0 it attends at an offset and takes the plain attention (the
+    JAX gate): no A. Both agree with the plain route within bf16 noise,
+    and the two chunks give the one-shot prefill's logits."""
+    cfg, params = _hd128_model(cuda)
+    params = decode.cast_params_for_decode(params, cfg)
+    tok = torch.randint(0, cfg.vocab_size, (1, 64), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(2),
+                        dtype=torch.int32)
+    outs = {}
+    for impl in ('auto', 'xla'):
+        pc = decode.init_page_pool(cfg, 5, 16, 1, 4, cuda)
+        pc.table[0] = torch.tensor([2, 4, 1, 3], dtype=torch.int32,
+                                   device=cuda)
+        launches = []
+        for p in (0, 32):
+            a0 = fa.KERNEL.launches
+            logits = decode.paged_prefill_extend(
+                params, tok[:, p:p + 32], pc, cfg, slot=0, p=p, lengths=32,
+                attention_impl=impl)
+            launches.append(fa.KERNEL.launches - a0)
+        assert launches == ([cfg.n_layers, 0] if impl == 'auto' else [0, 0])
+        outs[impl] = logits
+    one_shot, _, _ = decode.prefill(params, tok, cfg, 64)
+    for got in outs.values():
+        assert got.isfinite().all()
+        assert float((got - one_shot).abs().max()) <= \
+            5e-2 * float(one_shot.std())
+
+
+def test_verify_graph_replay_equals_eager_verify(cuda):
+    """Warm-up captures the two verify variants (kernel B once a layer);
+    a replay on admitted rows gives the eager verify's greedy tokens and
+    logprobs bit for bit, and writes the same K/V."""
+    from skypilot_tpu_torch.serve import engine as engine_lib
+    cfg, params = _hd128_model(cuda)
+    eng = engine_lib.InferenceEngine('llama-debug', cfg=cfg, params=params,
+                                     device='cuda', max_len=256)
+    eng.warmup()
+    k = eng.spec_k
+    assert {key for key in eng.graphs if key[0] == 'verify'} == \
+        {('verify', False), ('verify', True)}
+    for want_tops in (False, True):
+        assert eng._graph_launches[('verify', want_tops)] == \
+            {'paged_decode': cfg.n_layers}
+    eng._admit_group([engine_lib.Request([3, 1, 4, 1, 5], 32),
+                      engine_lib.Request(list(range(9)), 32)])
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    fed = torch.randint(0, cfg.vocab_size, (eng.max_batch, k), device=cuda,
+                        generator=gen, dtype=torch.int32)
+    fed[:, 0] = eng.last_dev
+    act = torch.zeros(eng.max_batch, dtype=torch.int32, device=cuda)
+    act[:2] = 1
+    eng._spec_dev[:k].copy_(fed.t())
+    eng._spec_dev[k].copy_(act)
+    b0 = pa.KERNEL.launches
+    eng._variant(('verify', False))()
+    torch.cuda.synchronize()
+    assert pa.KERNEL.launches - b0 == cfg.n_layers
+    g_tok, g_lp = eng._ver_toks.clone(), eng._ver_lps.clone()
+    g_k = eng.cache.k.clone()
+    eng._verify_body(False)                      # eager, same inputs
+    torch.cuda.synchronize()
+    # The active rows; the inactive ones read the trash page, which each
+    # call rewrites.
+    assert torch.equal(eng._ver_toks[:2], g_tok[:2])
+    assert torch.equal(eng._ver_lps[:2], g_lp[:2])
+    assert torch.equal(eng.cache.k[:, 1:], g_k[:, 1:])
+
+
+def test_engine_pages_balance_after_a_mixed_burst(cuda):
+    """Chunked prompts, prefix hits and speculative rounds on the card
+    through the batch loop: every counter moved, nothing was captured
+    after warm-up, and afterwards only the prefix store holds pages, one
+    ref each; emptying it frees everything."""
+    from skypilot_tpu_torch.serve import engine as engine_lib
+    cfg, params = _hd128_model(cuda)
+    eng = engine_lib.InferenceEngine('llama-debug', cfg=cfg, params=params,
+                                     device='cuda', max_len=512)
+    eng.prefill_chunk = 32
+    eng.warmup()
+    captured = build.captured()
+    eng.start()
+    try:
+        system = [(i * 7) % 500 + 1 for i in range(70)]
+        eng.submit(system + [1, 2], 8).result(timeout=300)
+        futs = [eng.submit(system + [3 + j], 16) for j in range(3)]
+        futs += [eng.submit([(i * 3) % 500 for i in range(150)], 16),
+                 eng.submit([5, 6, 7, 8] * 6, 48),
+                 eng.submit([9] * 12, 8, temperature=0.8)]
+        outs = [f.result(timeout=300) for f in futs]
+    finally:
+        eng.stop()
+    assert all(len(o[0]) == n for o, n in zip(outs, (16, 16, 16, 16, 48,
+                                                     8)))
+    assert eng.prefix_hits >= 3 and eng.prefill_chunks >= 6
+    assert eng.spec_rounds > 0
+    assert build.captured() == captured
+    held = [p for pids in eng._prefix_store.values() for p in pids]
+    assert eng.alloc.used_count == len(held) > 0
+    assert all(eng.alloc.refcount(p) == 1 for p in held)
+    eng._clear_prefix_store()
+    assert eng.alloc.used_count == 0
