@@ -73,7 +73,27 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  one global) at full width: prefill + decode on the
                  card vs fp32, with kernels A and B launched zero times
                  (softcaps, windows: the plain route, as in JAX);
- 11. train_gemma — the port's trainer on gemma-7b at full width cut to
+ 11. model_moe — gpt-oss-20b at full width cut to 4 layers, then moe-1b
+                 at full width and depth (12 layers, dim 1024, 8/4
+                 heads, hd 128, 8 experts top-2, ffn 4096, vocab 32768,
+                 tied; random bf16 weights from seed 0): prefill + 8
+                 paged decode steps by the default routing (moe-1b
+                 through kernels A and B, gpt-oss through neither) vs
+                 the plain and fp32 paths, those two taking the default
+                 path's routes (experts and capacity drops), so that
+                 every token's routes agree in every layer on all three
+                 paths; free runs first print the share of (token,
+                 layer) routes that differ;
+ 12. serve_moe — the port's engine on moe-1b, checked as in serve but
+                 with no speculation (spec_k 0 for MoE, as in JAX: 8
+                 graphs, no verify) and no chunked-logits check;
+ 13. serve_gptoss — the engine on gpt-oss-20b at full width and depth
+                 (24 layers, dim 2880, 64/8 heads, hd 64, 32 experts
+                 top-4, vocab 201088, sinks, a 128-token window on every
+                 other layer, YaRN, clamped SwiGLU, qkv bias; random bf16
+                 weights drawn leaf by leaf, 41.8 GB), the same bursts:
+                 A and B launch zero times (sinks: the plain route);
+ 14. train_gemma — the port's trainer on gemma-7b at full width cut to
                  4 layers, 4 steps of 2 x 2048 tokens: A twice and C, D
                  once per layer per step at head_dim 256; peak memory;
                  grads against the plain and fp32 paths, the loss
@@ -81,7 +101,7 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  torch.profiler; then one step each of gemma2-9b (2
                  layers) and gemma3-12b (6 layers) with no kernel
                  launched, their grads against fp32;
- 12. train     — the port's trainer on llama-1b at full width, 6 steps
+ 15. train     — the port's trainer on llama-1b at full width, 6 steps
                  of 4 x 2048 tokens: A twice and C, D once per layer per
                  step; grads against the plain and fp32 paths, the loss
                  against the plain-attention trainer, a resume at step
@@ -97,6 +117,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import os
 import socket
@@ -750,6 +771,71 @@ def prefilled_pool(torch, decode, paging, params, cfg, tok_t, len_t,
     return logits, pc
 
 
+class RouteLog:
+    """While installed (``with``), records every ``models.moe.route``
+    call's expert ids [B, G, T, K] and capacity slots [B, G, T, K, E,
+    C]. Given another run's calls (``force``), it hands each call that
+    run's ids and slots in place of its own, the gates then being this
+    run's own probabilities at those experts, renormalised: the routes
+    teacher-forced, as phase_model forces the tokens."""
+
+    def __init__(self, moe, force=None):
+        self.moe, self.force, self.calls = moe, force, []
+
+    def __enter__(self):
+        orig = self.route = self.moe.route
+
+        def spy(xg, router, cfg, c):
+            probs, gate_w, idx, slot = orig(xg, router, cfg, c)
+            if self.force is not None:
+                idx, slot = self.force[len(self.calls)]
+                gate_w = probs.gather(-1, idx)
+                gate_w = gate_w / gate_w.sum(-1, keepdim=True)
+            self.calls.append((idx, slot))
+            return probs, gate_w, idx, slot
+        self.moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def routes(self, i: int):
+        """Call i's (expert ids, kept flags), each [B, G·T, K]."""
+        idx, slot = self.calls[i]
+        b, g, t, k = idx.shape
+        return (idx.reshape(b, g * t, k),
+                slot.sum((-1, -2)).reshape(b, g * t, k))
+
+
+def route_agreement(torch, ra, rb, n_layers: int, len_t, steps: int):
+    """Two paths' RouteLog calls (prefill, then each decode step, a call
+    a layer) compared: (same [steps + 1, B]: whether the measured
+    token's routes, experts and drops, agree in every layer: at step 0
+    the prefill's last content position, then the step's token;
+    differing (token, layer) pairs; all such pairs, over content
+    positions)."""
+    def stack(log, calls):
+        got = [log.routes(i) for i in calls]
+        return (torch.stack([c[0] for c in got]),
+                torch.stack([c[1] for c in got]))
+
+    def eq(calls):
+        a, b = stack(ra, calls), stack(rb, calls)
+        return (a[0] == b[0]).all(-1) & (a[1] == b[1]).all(-1)
+
+    L = n_layers
+    pre = eq(range(L))                                          # [L,B,S]
+    dec = eq(range(L, len(ra.calls)))                           # [nL,B,1]
+    dec = dec[..., 0].reshape(steps, L, -1)
+    b, s = pre.shape[1:]
+    content = torch.arange(s, device=pre.device)[None] < len_t[:, None]
+    last = pre.all(0)[torch.arange(b), len_t.long() - 1]
+    same = torch.cat([last[None], dec.all(1)])
+    n_diff = int((~pre & content).sum()) + int((~dec).sum())
+    n_all = int(content.sum()) * L + dec.numel()
+    return same, n_diff, n_all
+
+
 def phase_model(torch, cfg, params, decode, paging, pa, build, name,
                 shape=MODEL_SHAPE, kernels=True) -> float:
     """Prefill + 8 paged decode steps three ways, teacher-forced with the
@@ -761,42 +847,76 @@ def phase_model(torch, cfg, params, decode, paging, pa, build, name,
     the fp32 path than the plain bf16 path does (TOL_MODEL). The default
     path must launch A once a layer and B once a layer a step, or
     (``kernels`` False: a softcap or a window on every layer) neither.
-    Returns the worst error ratio."""
+    An MoE config routes each path's own hidden states, and a near tie
+    of router probabilities can pick other experts on one path: a flip
+    moves that token's logits far more than any rounding, and through
+    attention every later token's. So the ratio is held on the tokens
+    whose routes (experts and drops) agree in every layer on all three
+    paths, and made to agree on all of them: the plain and fp32 paths
+    take the default path's routes (RouteLog's ``force``), as they take
+    its tokens. Free runs of both first give the share of (token,
+    layer) routes that differ, printed. Returns the worst error ratio."""
     import dataclasses
+    from skypilot_tpu_torch.models import moe
     steps = 8
+    routed = hasattr(cfg, 'n_experts')
     tok_t, len_t = model_prompts(torch, cfg.vocab_size,
                                  np.random.default_rng(5), shape)
 
-    def run(cfg_run, params_run, plain: bool, feed=None):
-        logits, pc = prefilled_pool(torch, decode, paging, params_run,
-                                    cfg_run, tok_t, len_t,
-                                    'xla' if plain else 'auto', shape)
-        fn = pa.paged_attention_step_ref if plain else \
-            pa.paged_attention_step
-        out, toks = [logits], []
-        for i in range(steps):
-            nxt = (feed[i] if feed is not None
-                   else torch.argmax(out[-1], dim=-1).to(torch.int32))
-            toks.append(nxt)
-            logits, pc = decode.paged_decode_step(
-                params_run, nxt, pc, cfg_run, max_len=shape['max_len'],
-                attention_fn=fn)
-            out.append(logits)
-        return out, toks
+    def run(cfg_run, params_run, plain: bool, feed=None, force=None):
+        routes = RouteLog(moe, force)
+        with routes if routed else contextlib.nullcontext():
+            logits, pc = prefilled_pool(torch, decode, paging, params_run,
+                                        cfg_run, tok_t, len_t,
+                                        'xla' if plain else 'auto', shape)
+            fn = pa.paged_attention_step_ref if plain else \
+                pa.paged_attention_step
+            out, toks = [logits], []
+            for i in range(steps):
+                nxt = (feed[i] if feed is not None
+                       else torch.argmax(out[-1], dim=-1).to(torch.int32))
+                toks.append(nxt)
+                logits, pc = decode.paged_decode_step(
+                    params_run, nxt, pc, cfg_run, max_len=shape['max_len'],
+                    attention_fn=fn)
+                out.append(logits)
+        return out, toks, routes
 
     build.reset_launches()
-    kern, toks = run(cfg, params, False)
+    kern, toks, r_kern = run(cfg, params, False)
     launches = {n: build.kernels()[n].launches for n in SERVE_KERNELS}
     want = ({'flash_fwd': cfg.n_layers, 'paged_decode': cfg.n_layers * steps}
             if kernels else {'flash_fwd': 0, 'paged_decode': 0})
     if launches != want:
         fail(f'model path {name}: launches {launches}, want {want}')
-    plain, _ = run(cfg, params, True, feed=toks)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = decode.cast_params_for_decode(params, cfg32)
-    ref, _ = run(cfg32, params32, True, feed=toks)
+    force = None
+    if routed:
+        logs = {'default': r_kern}
+        logs['plain bf16'] = run(cfg, params, True, feed=toks)[2]
+        logs['fp32'] = run(cfg32, params32, True, feed=toks)[2]
+        for a, b in (('default', 'plain bf16'), ('default', 'fp32'),
+                     ('plain bf16', 'fp32')):
+            same, n_diff, n_all = route_agreement(
+                torch, logs[a], logs[b], cfg.n_layers, len_t, steps)
+            log(f'[model] {name} free routes, {a} vs {b}: {n_diff} of '
+                f'{n_all} (token, layer) choices differ (share '
+                f'{n_diff / n_all:.4f}); measured tokens whose routes agree '
+                f'in every layer: {int(same.sum())} of {same.numel()}')
+        del logs
+        force = r_kern.calls
+    plain, _, r_plain = run(cfg, params, True, feed=toks, force=force)
+    ref, _, r_ref = run(cfg32, params32, True, feed=toks, force=force)
     del params32
     torch.cuda.synchronize()
+    # The rule: every measured token's routes agree in every layer on
+    # the three paths (forced above), so the ratio is held on all rows.
+    for other in ((r_plain, r_ref) if routed else ()):
+        held = route_agreement(torch, r_kern, other, cfg.n_layers, len_t,
+                               steps)[0]
+        if not bool(held.all()):
+            fail(f'model path {name}: forced routes differ: {held.tolist()}')
     worst = 0.0
     for i, (a, p, f) in enumerate(zip(kern, plain, ref)):
         if not bool(torch.isfinite(a).all()) or \
@@ -947,7 +1067,7 @@ def check_graph_replay(torch, eng, engine_lib, decode, build, tag) -> dict:
         eng._inflight.remove(h)
         if build.captured() != cap0 or \
                 build.kernels()['paged_decode'].launches - b0 != \
-                eng._graph_launches[key]['paged_decode']:
+                eng._graph_launches[key].get('paged_decode', 0):
             fail(f'{tag} dispatch of {key} did not replay its graph')
         return [x.clone() for x in (h.toks, h.lps, h.tis, h.tvs)
                 if x is not None]
@@ -979,27 +1099,41 @@ def check_graph_replay(torch, eng, engine_lib, decode, build, tag) -> dict:
     restore()
     first = replay(eng.step_chunk, False)[0][:, rows]
     restore()
+    t0 = time.perf_counter()
     second = replay(eng.step_chunk, False)[0][:, rows]
+    step_ms = (time.perf_counter() - t0) * 1e3 / eng.step_chunk
     if torch.equal(first, second):
         fail(f'{tag} two replays of the sampled k={eng.step_chunk} graph '
              f'drew the same tokens: {first.tolist()}')
     eng._reset_device_state()
     out = {'graph_vs_eager_max_logprob_err': err,
-           'sampled_replays_differ': int((first != second).sum())}
+           'sampled_replays_differ': int((first != second).sum()),
+           'step_ms': step_ms}
     log(f'{tag} k=1 greedy graph replay == eager step on {len(rows)} rows '
         f'(tokens and top-5 ids exact, logprobs max|diff| {err:.3e}, tol '
         f'{TOL_GRAPH}); two replays of the sampled k={eng.step_chunk} graph '
         f'differ in {out["sampled_replays_differ"]} of {first.numel()} '
-        f'tokens')
+        f'tokens; that replay took {step_ms:.3f} ms a step (host clock to '
+        f'its event, {eng.max_batch} rows computed)')
     return out
+
+
+def takes_kernels(cfg) -> bool:
+    """Whether the config's layers run kernels A and B: none of a
+    softcap, a window or sinks (the JAX gates send every layer of a
+    model with one of them, global layers included, to the plain
+    attention)."""
+    return not (cfg.attn_logit_softcap or cfg.sliding_window or
+                cfg.attn_sinks)
 
 
 def start_engine(model, params, engine_lib, tag, **knobs):
     """An engine on preset ``model`` with ``knobs`` set before warm-up,
     behind its HTTP server; waits for /health (warm-up: every variant
     captured, the eight step graphs with k x layers B launches each and,
-    with speculation on, the two verify graphs with one a layer).
-    Returns (engine, server, base url)."""
+    with speculation on, the two verify graphs with one a layer; no B
+    launch where the config does not take kernels). Returns (engine,
+    server, base url)."""
     eng = engine_lib.InferenceEngine(model, params=params, device='cuda',
                                      seed=0)
     for name, val in knobs.items():
@@ -1016,7 +1150,7 @@ def start_engine(model, params, engine_lib, tag, **knobs):
         if code != 503 or time.perf_counter() - t0 > 600:
             fail(f'{tag} /health never came up: {code} {doc}')
         time.sleep(0.1)
-    layers = eng.cfg.n_layers
+    layers = eng.cfg.n_layers * takes_kernels(eng.cfg)
     want = {(k, p, t): k * layers for k in (1, engine_lib.MAX_STEP_CHUNK)
             for p in (False, True) for t in (False, True)}
     if eng.spec_k > 0:
@@ -1141,7 +1275,7 @@ def admission_burst(eng, base, watch, seed: int, tag: str) -> dict:
     none). Returns the burst's end-to-end numbers and counters."""
     vocab = eng.cfg.vocab_size
     rng = np.random.default_rng(seed)
-    layers = eng.cfg.n_layers
+    layers = eng.cfg.n_layers * takes_kernels(eng.cfg)
     n_t = len(eng.timings)
     c0 = {k: getattr(eng, k) for k in ('prefix_hits', 'prefill_chunks',
                                        'spec_rounds', 'spec_proposed',
@@ -1169,7 +1303,7 @@ def admission_burst(eng, base, watch, seed: int, tag: str) -> dict:
                              SPEC_NEW) for _ in range(SPEC_ROWS)], vocab)
     wall = time.perf_counter() - t0
     d = {k: getattr(eng, k) - v for k, v in c0.items()}
-    # (1) The long prompt: 4 chunks, A in the first only.
+    # (1) The long prompt: 4 chunks, A in the first only (or never).
     last = ADMIT_LONG - (ADMIT_LONG - 1) // ADMIT_CHUNK * ADMIT_CHUNK
     want = [(ADMIT_LONG, p, ADMIT_LONG - p, layers if p == 0 else 0)
             for p in range(0, ADMIT_LONG - last + 1, ADMIT_CHUNK)]
@@ -1393,10 +1527,20 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
     eager step and the verify against sequential steps. Then a second
     engine with speculation and the prefix cache off (the first freed)
     takes the same admission burst, and the chunked prefill's logits
-    are held against one-shot prefills. Returns the launch counts of
-    the main path (warm-up, the first burst and the timed admission
-    burst)."""
+    are held against one-shot prefills. An MoE engine does not
+    speculate (spec_k 0: eight graphs, no verify to check), so its
+    second engine differs by the prefix cache alone and its burst is
+    timed, not profiled again (the profiler's pass over gpt-oss-20b's
+    ~660k kernel events takes about a minute); and its chunked logits
+    are not held against a one-shot prefill: a chunk routes in groups
+    of its own tokens, so where capacity binds other choices drop (and
+    gpt-oss-20b's fp32 copy would not fit the card).
+    A config with sinks, a window or a softcap (gpt-oss) must launch
+    neither kernel. Returns the launch counts of the main path
+    (warm-up, the first burst and the timed admission burst)."""
     tag = '[serve]' if model == 'llama-1b' else f'[serve {model}]'
+    kernels = takes_kernels(cfg)
+    moe = hasattr(cfg, 'n_experts')
     torch.cuda.reset_peak_memory_stats()
     # The main path starts here: every launch count from 0.
     build.reset_launches()
@@ -1442,8 +1586,9 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
             f'burst {in_burst}; device calls by (k, penalties, top '
             f'logprobs) {sorted(calls.items())}')
         for name in SERVE_KERNELS:
-            if in_burst[name] == 0:
-                fail(f'kernel {name} was never launched while serving')
+            if (in_burst[name] > 0) != kernels:
+                fail(f'{tag} kernel {name} launched {in_burst[name]} times '
+                     f'while serving (the config takes kernels: {kernels})')
         if not any(key[1] for key in calls) or \
                 not any(key[2] for key in calls):
             fail(f'{tag} the burst ran no penalized or no top-logprobs '
@@ -1475,7 +1620,7 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
         log(f'{tag} profiled burst: kernel B launched {b_device}x on the '
             f'device (profiler kernel events), {b_engine}x by the engine\'s '
             f'count (captured launches x replays)')
-        if b_device == 0 or b_device != b_engine:
+        if (b_device > 0) != kernels or b_device != b_engine:
             fail(f'{tag} kernel B on the device {b_device}x, by the engine '
                  f'{b_engine}x')
         stats.update(idle_share=prof['idle_share'],
@@ -1498,8 +1643,9 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
         # count.
         log(f'{tag} profiled admission burst: kernel B {b_device}x on the '
             f'device (profiler kernel events), {b_engine}x by the engine')
-        if b_device == 0:
-            fail(f'{tag} admission burst: kernel B never on the device')
+        if (b_device > 0) != kernels:
+            fail(f'{tag} admission burst: kernel B {b_device}x on the '
+                 f'device (the config takes kernels: {kernels})')
         admit['on'].update(idle_share=prof['idle_share'],
                            b_launches_device=b_device)
         if build.captured() != captured:
@@ -1507,7 +1653,8 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
                  f'{build.captured()} vs {captured}')
         eng.stop()
         check_graph_replay(torch, eng, engine_lib, decode, build, tag)
-        admit['on'].update(check_verify(torch, eng, decode, build, tag))
+        if eng.spec_k > 0:
+            admit['on'].update(check_verify(torch, eng, decode, build, tag))
     finally:
         stop_engine(eng, server)
     # The server's handler holds the engine: drop both, then the pool.
@@ -1521,22 +1668,24 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
         watch = Watch(eng, build)
         admit['off'] = admission_burst(eng, base, watch, 31, tag + ' off')
         admit['off']['peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
-        prof = profile_device(torch, lambda: admission_burst(
-            eng, base, watch, 32, tag + ' off profiled'))
-        admit['off']['idle_share'] = prof['idle_share']
+        if not moe:
+            prof = profile_device(torch, lambda: admission_burst(
+                eng, base, watch, 32, tag + ' off profiled'))
+            admit['off']['idle_share'] = prof['idle_share']
     finally:
         stop_engine(eng, server)
     del eng, watch, server
     free_card(torch)
-    admit['chunked'] = check_chunked_logits(torch, cfg, params, decode,
-                                            paging, build, tag)
+    if not moe:
+        admit['chunked'] = check_chunked_logits(torch, cfg, params, decode,
+                                                paging, build, tag)
     for key in ('tpot_ms_median', 'tpot_ms_spec_wave', 'ttft_ms_median',
                 'tok_per_s',
                 'idle_share', 'peak_gb', 'ttft_ms_long', 'ttft_ms_short',
                 'ttft_ms_cold', 'ttft_ms_hits', 'spec_rounds',
                 'spec_accepted', 'spec_proposed', 'decode_steps'):
         log(f'{tag} admission burst {key}: spec+prefix on '
-            f'{admit["on"][key]} | off {admit["off"][key]}')
+            f'{admit["on"][key]} | off {admit["off"].get(key)}')
     with open(os.path.join(OUT_DIR, f'admission_{model}.json'), 'w') as f:
         json.dump(admit, f, indent=1)
     return launches
@@ -1759,6 +1908,9 @@ def phase_train_gemma(torch, build) -> dict:
     return launches
 
 
+# Seconds the profiler's window stays open before its work starts and
+# after it has finished.
+PROFILE_MARGIN_S = 0.5
 # Kernel-name fragments of the port's kernels, as the profiler shows them.
 KERNEL_SYMBOLS = {'paged_decode': 'paged_decode_kernel',
                   'flash_fwd': 'flash_fwd'}
@@ -1772,10 +1924,17 @@ def profile_device(torch, fn) -> dict:
     kernel events of each of KERNEL_SYMBOLS' kernels."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # The profiler keeps a device event only if, on the host clock
+        # it converts the card's timestamps to, the event lies inside
+        # its window: idle margins on both sides keep fn's first and
+        # last kernels in (a window that opens or closes right at them
+        # has lost some).
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_MARGIN_S)
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(r[0] for r in rows)
@@ -1806,12 +1965,13 @@ def free_card(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def bf16_params(torch, cfg, llama, decode):
-    """Random params of preset ``cfg`` from seed 0, made on the card in
-    fp32 and kept in bf16."""
+def bf16_params(torch, cfg):
+    """Random params of preset ``cfg`` (dense or MoE) from seed 0, drawn
+    on the card leaf by leaf into bf16, as the engine's serving init
+    draws them (no leaf whole in fp32)."""
+    from skypilot_tpu_torch.models import module_for
     gen = torch.Generator(device='cuda').manual_seed(0)
-    params = decode.cast_params_for_decode(llama.init_params(cfg, gen, 'cuda'),
-                                           cfg)
+    params = module_for(cfg).init_params(cfg, gen, 'cuda', dtype=cfg.dtype)
     torch.cuda.empty_cache()
     return params
 
@@ -1819,10 +1979,12 @@ def bf16_params(torch, cfg, llama, decode):
 # Gemma-2/3 at full width, cut in depth: gemma2-9b to 2 layers (one
 # local, one global), gemma3-12b to 6 (five local, one global).
 SWITCH_DEPTHS = {'gemma2-9b': 2, 'gemma3-12b': 6}
+# gpt-oss-20b's model check at full width, cut in depth so that its fp32
+# copy fits beside the bf16 one (24 layers would take 84 GB in fp32).
+GPTOSS_MODEL_DEPTH = 4
 
 
-def phase_gemma_switches(torch, config, llama, decode, paging, pa,
-                         build) -> None:
+def phase_gemma_switches(torch, config, decode, paging, pa, build) -> None:
     """gemma2-9b and gemma3-12b at full width and reduced depth: prefill
     (past gemma3's 1024-token window) + 8 decode steps by the default
     routing vs the plain and fp32 paths. Every layer of both carries a
@@ -1831,7 +1993,7 @@ def phase_gemma_switches(torch, config, llama, decode, paging, pa,
     import dataclasses
     for name, depth in SWITCH_DEPTHS.items():
         cfg = dataclasses.replace(config.get_config(name), n_layers=depth)
-        params = bf16_params(torch, cfg, llama, decode)
+        params = bf16_params(torch, cfg)
         phase_model(torch, cfg, params, decode, paging, pa, build,
                     f'{name} ({depth} layers)', LONG_SHAPE, kernels=False)
         del params
@@ -1852,7 +2014,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--phases', default='build,flash,paged,flash_bwd,'
                         'timing,model,serve,model_gemma,serve_gemma,'
-                        'gemma_switches,train_gemma,train', help='comma-separated '
+                        'gemma_switches,model_moe,serve_moe,serve_gptoss,'
+                        'train_gemma,train', help='comma-separated '
                         'subset (for '
                         'debugging; the full run is the check)')
     args = parser.parse_args()
@@ -1892,7 +2055,7 @@ def main() -> None:
         times = phase_timing(torch, fa, pa, paging)
     if 'model' in phases or 'serve' in phases:
         cfg = config.get_config('llama-1b')
-        params = bf16_params(torch, cfg, llama, decode)
+        params = bf16_params(torch, cfg)
         if 'model' in phases:
             phase_model(torch, cfg, params, decode, paging, pa, build,
                         'llama-1b')
@@ -1904,7 +2067,7 @@ def main() -> None:
         free_card(torch)
     if 'model_gemma' in phases or 'serve_gemma' in phases:
         cfg = config.get_config('gemma-7b')
-        params = bf16_params(torch, cfg, llama, decode)
+        params = bf16_params(torch, cfg)
         if 'model_gemma' in phases:
             phase_model(torch, cfg, params, decode, paging, pa, build,
                         'gemma-7b')
@@ -1916,7 +2079,41 @@ def main() -> None:
         del params
         free_card(torch)
     if 'gemma_switches' in phases:
-        phase_gemma_switches(torch, config, llama, decode, paging, pa, build)
+        phase_gemma_switches(torch, config, decode, paging, pa, build)
+    if 'model_moe' in phases:
+        # gpt-oss-20b at full width cut to 4 layers (2 windowed, 2
+        # global): sinks, the window, YaRN, qkv bias and the clamped
+        # SwiGLU with the routed FFN, off the kernels, against fp32.
+        import dataclasses
+        cfg = dataclasses.replace(config.get_config('gpt-oss-20b'),
+                                  n_layers=GPTOSS_MODEL_DEPTH)
+        params = bf16_params(torch, cfg)
+        phase_model(torch, cfg, params, decode, paging, pa, build,
+                    f'gpt-oss-20b ({GPTOSS_MODEL_DEPTH} layers)',
+                    kernels=False)
+        del params
+        free_card(torch)
+    if 'model_moe' in phases or 'serve_moe' in phases:
+        cfg = config.get_config('moe-1b')
+        params = bf16_params(torch, cfg)
+        if 'model_moe' in phases:
+            phase_model(torch, cfg, params, decode, paging, pa, build,
+                        'moe-1b')
+            free_card(torch)
+        if 'serve_moe' in phases:
+            by_path['serve_moe'] = phase_serve(torch, 'moe-1b', cfg, params,
+                                               engine_lib, build, decode,
+                                               paging)
+        del params
+        free_card(torch)
+    if 'serve_gptoss' in phases:
+        cfg = config.get_config('gpt-oss-20b')
+        params = bf16_params(torch, cfg)
+        by_path['serve_gptoss'] = phase_serve(torch, 'gpt-oss-20b', cfg,
+                                              params, engine_lib, build,
+                                              decode, paging)
+        del params
+        free_card(torch)
     if 'train_gemma' in phases:
         by_path['train_gemma'] = phase_train_gemma(torch, build)
         free_card(torch)
@@ -1931,6 +2128,7 @@ def main() -> None:
     # Launches: each kernel's count on the main paths it belongs to
     # (serving: SERVE_KERNELS, training: TRAIN_KERNELS), summed.
     paths = {'serve': SERVE_KERNELS, 'serve_gemma': SERVE_KERNELS,
+             'serve_moe': SERVE_KERNELS, 'serve_gptoss': SERVE_KERNELS,
              'train': TRAIN_KERNELS, 'train_gemma': TRAIN_KERNELS}
     rows = []
     for name, kern in build.kernels().items():

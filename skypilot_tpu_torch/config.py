@@ -1,7 +1,9 @@
-"""Llama-family configuration: the port of the config half of
+"""Model configurations: the port of the config halves of
 skypilot_tpu/models/llama.py (``RopeScaling``, ``LlamaConfig``,
-``PRESETS``), field for field, with torch dtypes and the same preset
-names.
+``PRESETS``) and skypilot_tpu/models/moe.py (``MoEConfig``, its
+``PRESETS`` as ``MOE_PRESETS``), field for field, with torch dtypes and
+the same preset names. :func:`get_config` resolves both, as the JAX
+package's ``models.get_config`` does.
 
 Every switch of the dense forward is implemented: the Llama/Qwen2 ones
 (``qkv_bias``, ``tie_embeddings``, llama3/yarn ``rope_scaling``), the
@@ -10,7 +12,9 @@ the final and attention logit softcaps, ``post_norms``, the sliding
 window and its layer pattern, ``qk_norm``, ``local_rope_theta``) and
 the gpt-oss dense ones (``attn_sinks``, ``swiglu_limit``).
 :func:`check_supported` refuses what the port does not have yet by
-name: ``remat='dots'``.
+name: ``remat='dots'``; and on an MoE config ``qk_norm`` and
+``post_norms``, which the JAX MoE layer refuses too (its layers have no
+such norm params).
 """
 from __future__ import annotations
 
@@ -188,6 +192,82 @@ PRESETS: Dict[str, LlamaConfig] = {
 }
 
 
+@dataclasses.dataclass(frozen=True)
+class MoEConfig(LlamaConfig):
+    """Mixture-of-Experts decoder (Mixtral family, gpt-oss): Llama's
+    attention block, then a routed SwiGLU FFN of ``n_experts`` experts,
+    ``top_k`` a token, with a static per-expert capacity
+    (models/moe.py)."""
+    n_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.02
+    # Tokens are routed within fixed-size groups along the sequence
+    # (GShard), so the dispatch tensors stay linear in S.
+    router_group_size: int = 2048
+
+    def _per_layer(self, experts: int) -> int:
+        a = 2 + 2 * (self.n_kv_heads / self.n_heads)
+        attn = int(a * self.dim * self.n_heads * self.hd)
+        return (attn + experts * 3 * self.dim * self.ffn_dim +
+                self.dim * self.n_experts + 2 * self.dim)
+
+    def _embed(self) -> int:
+        return self.vocab_size * self.dim * (1 if self.tie_embeddings else 2)
+
+    @property
+    def num_params(self) -> int:
+        return (self.n_layers * self._per_layer(self.n_experts) +
+                self._embed() + self.dim)
+
+    @property
+    def active_params(self) -> int:
+        """Params touched per token (for MFU accounting)."""
+        return (self.n_layers * self._per_layer(self.top_k) +
+                self._embed() + self.dim)
+
+
+_YARN_32 = dict(rope_type='yarn', factor=32.0, original_max_position=4096)
+
+MOE_PRESETS: Dict[str, MoEConfig] = {
+    'moe-debug': MoEConfig(vocab_size=256, dim=64, n_layers=2, n_heads=4,
+                           n_kv_heads=2, ffn_dim=128, max_seq_len=128,
+                           rope_theta=10000.0, remat='none', n_experts=4,
+                           top_k=2),
+    'mixtral-8x7b': MoEConfig(vocab_size=32000, dim=4096, n_layers=32,
+                              n_heads=32, n_kv_heads=8, ffn_dim=14336,
+                              rope_theta=1e6, max_seq_len=32768, n_experts=8,
+                              top_k=2),
+    # ~1B-active MoE for single-chip benchmarking.
+    'moe-1b': MoEConfig(vocab_size=32768, dim=1024, n_layers=12, n_heads=8,
+                        n_kv_heads=4, ffn_dim=4096, max_seq_len=4096,
+                        tie_embeddings=True, n_experts=8, top_k=2),
+    # gpt-oss: MoE + alternating sliding-window/full attention + sinks +
+    # clamped SwiGLU + YaRN rope + qkv bias, every switch from the config.
+    'gptoss-debug': MoEConfig(
+        vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        ffn_dim=128, max_seq_len=128, rope_theta=10000.0, remat='none',
+        n_experts=4, top_k=2, qkv_bias=True, attn_sinks=True,
+        swiglu_limit=7.0, sliding_window=32, sliding_window_pattern=2,
+        # Ample capacity: no routed token drops.
+        capacity_factor=4.0,
+        rope_scaling=dict(rope_type='yarn', factor=2.0,
+                          original_max_position=64)),
+    'gpt-oss-20b': MoEConfig(
+        vocab_size=201088, dim=2880, n_layers=24, n_heads=64,
+        n_kv_heads=8, head_dim=64, ffn_dim=2880, max_seq_len=131072,
+        rope_theta=150000.0, n_experts=32, top_k=4, qkv_bias=True,
+        attn_sinks=True, swiglu_limit=7.0, sliding_window=128,
+        sliding_window_pattern=2, rope_scaling=_YARN_32),
+    'gpt-oss-120b': MoEConfig(
+        vocab_size=201088, dim=2880, n_layers=36, n_heads=64,
+        n_kv_heads=8, head_dim=64, ffn_dim=2880, max_seq_len=131072,
+        rope_theta=150000.0, n_experts=128, top_k=4, qkv_bias=True,
+        attn_sinks=True, swiglu_limit=7.0, sliding_window=128,
+        sliding_window_pattern=2, rope_scaling=_YARN_32),
+}
+
+
 def check_supported(cfg: LlamaConfig) -> None:
     """Raise NotImplementedError for a switch the port does not have."""
     if cfg.remat not in ('none', 'full'):
@@ -196,10 +276,21 @@ def check_supported(cfg: LlamaConfig) -> None:
             f"'none' and 'full' layer recompute; 'dots' (save the matrix "
             f'products, recompute the rest) waits for ROADMAP Queue 1 item '
             f'4 (training slice)')
+    if isinstance(cfg, MoEConfig):
+        for name, family in (('qk_norm', 'Gemma-3'), ('post_norms',
+                                                      'Gemma-2')):
+            if getattr(cfg, name):
+                raise NotImplementedError(
+                    f'{name} is a dense ({family}) feature; MoE layers have '
+                    f'no such norm params')
 
 
 def get_config(name: str) -> LlamaConfig:
-    if name not in PRESETS:
+    """A dense or MoE preset by name, normalised as the JAX package does
+    (lower case, '_' read as '-')."""
+    key = name.lower().replace('_', '-')
+    presets = {**PRESETS, **MOE_PRESETS}
+    if key not in presets:
         raise ValueError(f'unknown model preset {name!r}; known: '
-                         f'{sorted(PRESETS)}')
-    return PRESETS[name]
+                         f'{sorted(presets)}')
+    return presets[key]

@@ -18,7 +18,8 @@ window or sinks (Gemma-2/3,
 gpt-oss) takes the plain versions on every device, as its JAX
 counterpart does; the embedding scale, per-layer rope tables, post
 norms and final softcap come with the shared layer math of
-models/llama.py.
+models/llama.py. An MoE config (models/moe.py) takes the same paths
+with its routed FFN in place of the gated MLP (:func:`_ffn`).
 """
 from __future__ import annotations
 
@@ -26,8 +27,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from skypilot_tpu_torch.config import LlamaConfig, check_supported
-from skypilot_tpu_torch.models import llama, paging
+from skypilot_tpu_torch.config import LlamaConfig, MoEConfig, check_supported
+from skypilot_tpu_torch.models import llama, moe, paging
 from skypilot_tpu_torch.ops import paged_attention as pa
 from skypilot_tpu_torch.ops.attention import attention as _attention
 
@@ -48,6 +49,19 @@ def cast_params_for_decode(params, cfg: LlamaConfig):
             return {k: cast(x) for k, x in v.items()}
         return v.to(cfg.dtype)
     return cast(params)
+
+
+def _ffn(x: torch.Tensor, lp, cfg: LlamaConfig) -> torch.Tensor:
+    """Post-attention FFN block: the dense gated MLP, or for an MoE
+    config ``moe_norm`` → the routed experts with the aux dropped, as
+    JAX's ``decode._ffn`` does. Each call routes its own [B, S] tokens
+    in groups along S, so at a decode step (S = 1) every row is a group
+    of one token, whose distinct top-k choices the min-8 capacity never
+    drops; a prefill routes its pad tokens too (the JAX caveat at
+    ``decode.prefill``)."""
+    if isinstance(cfg, MoEConfig):
+        return moe.ffn(x, lp, cfg)[0]
+    return llama.ffn(x, lp, cfg)
 
 
 def init_page_pool(cfg: LlamaConfig, n_pages: int, page_size: int,
@@ -90,7 +104,7 @@ def prefill(params, tokens: torch.Tensor, cfg: LlamaConfig, max_len: int,
         out = _attention(q, k, v, impl=attention_impl, causal=True,
                          **llama.attention_switches(lp, cfg, i))
         x = x + llama.wo_project(out, lp, cfg)
-        x = x + llama.ffn(x, lp, cfg)
+        x = x + _ffn(x, lp, cfg)
         ks.append(k)
         vs.append(v)
     idx = (lengths.long() - 1)[:, None, None].expand(b, 1, x.shape[-1])
@@ -134,7 +148,7 @@ def prefill_extend(params, tokens: torch.Tensor, cfg: LlamaConfig,
         out = _attention(q, k_all, v_all, impl=attention_impl, causal=True,
                          q_offset=p, **llama.attention_switches(lp, cfg, i))
         x = x + llama.wo_project(out, lp, cfg)
-        x = x + llama.ffn(x, lp, cfg)
+        x = x + _ffn(x, lp, cfg)
         ks.append(k)
         vs.append(v)
     idx = (lengths.long() - 1)[:, None, None].expand(b, 1, x.shape[-1])
@@ -190,7 +204,7 @@ def paged_prefill_extend(params, tokens: torch.Tensor,
         kp[suf_pid, suf_off] = k[0].to(kp.dtype)
         vp[suf_pid, suf_off] = v[0].to(vp.dtype)
         x = x + llama.wo_project(out, lp, cfg)
-        x = x + llama.ffn(x, lp, cfg)
+        x = x + _ffn(x, lp, cfg)
     idx = (lengths.long() - 1)[:, None, None].expand(b, 1, x.shape[-1])
     logits = llama.unembed(torch.gather(x, 1, idx), params, cfg)
     pcache.length[slot] = (lengths[0] + p).to(pcache.length.dtype)
@@ -223,7 +237,7 @@ def paged_verify_step(params, tokens: torch.Tensor, pcache: paging.PagedKV,
                                  max_len=max_len,
                                  **llama.attention_switches(lp, cfg, i))
         x = x + llama.wo_project(out, lp, cfg)
-        x = x + llama.ffn(x, lp, cfg)
+        x = x + _ffn(x, lp, cfg)
     return llama.unembed(x, params, cfg), pcache
 
 

@@ -36,51 +36,80 @@ from skypilot_tpu_torch.ops.attention import attention as _attention
 Params = Dict[str, object]
 
 
+class LeafInit:
+    """Makes ``init_params``' leaves from ``generator`` on ``device``, in
+    ``dtype``: normal(0.02) and truncated-normal (std fan_in**-0.5,
+    fan_in = shape[-2], cut at two std) draws, ones and zeros. A
+    stacked [L, ...] leaf is drawn one layer slice at a time in fp32 and
+    stored into its slice, so in a narrower dtype no leaf ever exists
+    whole in fp32 (gpt-oss-20b's 41.8 GB of bf16 weights are 84 GB in
+    fp32, more than the card holds); the draws are the same in every
+    dtype."""
+
+    def __init__(self, generator: torch.Generator, device, dtype):
+        self.generator, self.device, self.dtype = generator, device, dtype
+
+    def _draw(self, shape, fill, stacked: bool) -> torch.Tensor:
+        out = torch.empty(shape, dtype=self.dtype, device=self.device)
+        for part in (out.unbind(0) if stacked else (out,)):
+            if part.dtype == torch.float32:
+                fill(part)
+            else:
+                tmp = torch.empty(part.shape, dtype=torch.float32,
+                                  device=self.device)
+                fill(tmp)
+                part.copy_(tmp)
+        return out
+
+    def normal(self, shape, std: float = 0.02,
+               stacked: bool = False) -> torch.Tensor:
+        return self._draw(shape, lambda t: t.normal_(
+            0.0, std, generator=self.generator), stacked)
+
+    def trunc(self, shape) -> torch.Tensor:
+        std = 1.0 / math.sqrt(shape[-2])
+        return self._draw(shape, lambda t: torch.nn.init.trunc_normal_(
+            t, 0.0, std, -2 * std, 2 * std, generator=self.generator), True)
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+    def ones(self, shape) -> torch.Tensor:
+        return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device='cuda') -> Params:
-    """Random params from ``generator`` (on ``device``), in
-    cfg.param_dtype: normal(0.02) embeddings and truncated-normal
-    projections with std fan_in**-0.5. Torch's RNG stream differs from
-    jax.random's, so these are not the JAX package's weights: parity
-    tests bridge JAX weights with models/weights.py instead."""
+                device='cuda', dtype=None) -> Params:
+    """Random params from ``generator`` (on ``device``), in ``dtype``
+    (default cfg.param_dtype; a server asks for cfg.dtype, and gets the
+    fp32 draws rounded, leaf by leaf: :class:`LeafInit`): normal(0.02)
+    embeddings and truncated-normal projections with std fan_in**-0.5.
+    Torch's RNG stream differs from jax.random's, so these are not the
+    JAX package's weights: parity tests bridge JAX weights with
+    models/weights.py instead."""
     check_supported(cfg)
     hd, L, D, Fd = cfg.hd, cfg.n_layers, cfg.dim, cfg.ffn_dim
-    dt = cfg.param_dtype
-
-    def normal(shape, std):
-        t = torch.empty(shape, dtype=dt, device=device)
-        return t.normal_(0.0, std, generator=generator)
-
-    def trunc(shape):
-        t = torch.empty(shape, dtype=dt, device=device)
-        std = 1.0 / math.sqrt(shape[-2])
-        return torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
-                                           generator=generator)
-
-    def zeros(shape):
-        return torch.zeros(shape, dtype=dt, device=device)
+    init = LeafInit(generator, device, dtype or cfg.param_dtype)
 
     def norm(shape):
         # (1 + w) norms carry their identity in the "+ 1": w starts at 0.
-        if cfg.norm_plus_one:
-            return zeros(shape)
-        return torch.ones(shape, dtype=dt, device=device)
+        return init.zeros(shape) if cfg.norm_plus_one else init.ones(shape)
 
     layers = {
         'attn_norm': norm((L, D)),
-        'wq': trunc((L, D, cfg.n_heads * hd)),
-        'wk': trunc((L, D, cfg.n_kv_heads * hd)),
-        'wv': trunc((L, D, cfg.n_kv_heads * hd)),
-        'wo': trunc((L, cfg.n_heads * hd, D)),
+        'wq': init.trunc((L, D, cfg.n_heads * hd)),
+        'wk': init.trunc((L, D, cfg.n_kv_heads * hd)),
+        'wv': init.trunc((L, D, cfg.n_kv_heads * hd)),
+        'wo': init.trunc((L, cfg.n_heads * hd, D)),
         'mlp_norm': norm((L, D)),
-        'w_gate': trunc((L, D, Fd)),
-        'w_up': trunc((L, D, Fd)),
-        'w_down': trunc((L, Fd, D)),
+        'w_gate': init.trunc((L, D, Fd)),
+        'w_up': init.trunc((L, D, Fd)),
+        'w_down': init.trunc((L, Fd, D)),
     }
     if cfg.qkv_bias:
-        layers['bq'] = zeros((L, cfg.n_heads * hd))
-        layers['bk'] = zeros((L, cfg.n_kv_heads * hd))
-        layers['bv'] = zeros((L, cfg.n_kv_heads * hd))
+        layers['bq'] = init.zeros((L, cfg.n_heads * hd))
+        layers['bk'] = init.zeros((L, cfg.n_kv_heads * hd))
+        layers['bv'] = init.zeros((L, cfg.n_kv_heads * hd))
     if cfg.post_norms:
         layers['post_attn_norm'] = norm((L, D))
         layers['post_mlp_norm'] = norm((L, D))
@@ -89,11 +118,11 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         layers['k_norm'] = norm((L, hd))
     if cfg.attn_sinks:
         # exp(0) = 1 joins every softmax denominator from the start.
-        layers['sink'] = zeros((L, cfg.n_heads))
-    params: Params = {'embed': normal((cfg.vocab_size, D), 0.02),
+        layers['sink'] = init.zeros((L, cfg.n_heads))
+    params: Params = {'embed': init.normal((cfg.vocab_size, D)),
                       'layers': layers, 'final_norm': norm((D,))}
     if not cfg.tie_embeddings:
-        params['lm_head'] = normal((D, cfg.vocab_size), 0.02)
+        params['lm_head'] = init.normal((D, cfg.vocab_size))
     return params
 
 

@@ -1,0 +1,185 @@
+"""Mixture-of-Experts decoder, Mixtral family and gpt-oss (port of
+skypilot_tpu/models/moe.py: ``capacity``, ``init_params``, ``moe_ffn``,
+``_layer``, ``forward``).
+
+GShard/Switch-style dense dispatch, as in JAX: tokens are routed within
+fixed-size groups along the sequence, top-k of a softmax over an fp32
+router, with a static per-expert capacity; one-hot dispatch and combine
+tensors carry tokens to the experts' buffers and back, so the layer is
+static-shaped (the engine captures it into CUDA graphs: no host sync,
+no shape that depends on the data). The experts are SwiGLU FFNs (or
+gpt-oss's clamped variant, ``cfg.glu``) stacked on a leading expert
+axis; their products are batched matmuls, as the JAX package leaves
+them to XLA. A layer is Llama's attention block (models/llama.py) then
+``moe_norm`` → :func:`moe_ffn`. Python loop over layers; no pipeline,
+ring or expert mesh.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from skypilot_tpu_torch.config import MoEConfig, check_supported
+from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.ops import norms
+from skypilot_tpu_torch.ops.attention import attention as _attention
+
+Params = llama.Params
+
+
+def capacity(cfg: MoEConfig, seq_len: int) -> int:
+    """Buffer slots an expert has in a group of ``seq_len`` tokens:
+    capacity_factor times the fair share, rounded up to a multiple of 8,
+    at least 8."""
+    c = int(cfg.capacity_factor * seq_len * cfg.top_k / cfg.n_experts)
+    return max(8, ((c + 7) // 8) * 8)
+
+
+def init_params(cfg: MoEConfig, generator: torch.Generator, device='cuda',
+                dtype=None) -> Params:
+    """Random params from ``generator`` in ``dtype`` (default
+    cfg.param_dtype), the JAX tree: Llama's attention leaves, then
+    ``moe_norm``, ``router`` [L, D, E], ``w_gate`` / ``w_up`` [L, E, D,
+    F] and ``w_down`` [L, E, F, D]; ``bq/bk/bv``, ``sink`` and
+    ``lm_head`` by the config. Drawn leaf by leaf (llama.LeafInit), so
+    a server asking for bf16 never holds more than a layer slice in
+    fp32."""
+    check_supported(cfg)
+    hd, L, D, Fd, E = (cfg.hd, cfg.n_layers, cfg.dim, cfg.ffn_dim,
+                       cfg.n_experts)
+    init = llama.LeafInit(generator, device, dtype or cfg.param_dtype)
+    layers = {
+        'attn_norm': init.ones((L, D)),
+        'wq': init.trunc((L, D, cfg.n_heads * hd)),
+        'wk': init.trunc((L, D, cfg.n_kv_heads * hd)),
+        'wv': init.trunc((L, D, cfg.n_kv_heads * hd)),
+        'wo': init.trunc((L, cfg.n_heads * hd, D)),
+        'moe_norm': init.ones((L, D)),
+        'router': init.normal((L, D, E), stacked=True),
+        'w_gate': init.trunc((L, E, D, Fd)),
+        'w_up': init.trunc((L, E, D, Fd)),
+        'w_down': init.trunc((L, E, Fd, D)),
+    }
+    if cfg.qkv_bias:
+        layers['bq'] = init.zeros((L, cfg.n_heads * hd))
+        layers['bk'] = init.zeros((L, cfg.n_kv_heads * hd))
+        layers['bv'] = init.zeros((L, cfg.n_kv_heads * hd))
+    if cfg.attn_sinks:
+        layers['sink'] = init.zeros((L, cfg.n_heads))
+    params: Params = {'embed': init.normal((cfg.vocab_size, D)),
+                      'layers': layers, 'final_norm': init.ones((D,))}
+    if not cfg.tie_embeddings:
+        params['lm_head'] = init.normal((D, cfg.vocab_size))
+    return params
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """fp32 one-hot of ``idx`` over n classes, by comparison with
+    arange(n) (no host check of the indices: capture-safe)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def route(xg: torch.Tensor, router: torch.Tensor, cfg: MoEConfig, c: int
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The routing of grouped tokens xg [B, G, T, D] with capacity ``c``:
+    (probs [B, G, T, E] fp32, renormalised gates [B, G, T, K] fp32,
+    expert ids [B, G, T, K], slot [B, G, T, K, E, C] fp32: 1 where a
+    kept choice lands in its expert's buffer).
+
+    The router product is fp32 (x and the router cast up first); the
+    top-k is a stable descending sort, so tied probabilities take the
+    lower expert first as jax.lax.top_k does. A choice's slot is its
+    expert's count of earlier choices in the group, counted over the
+    [T·K] choices token-major (token 0's second choice before token 1's
+    first); a choice at a slot >= c is dropped. The slot one-hot is a
+    comparison with arange(c), never one_hot of the position, which
+    lies past c for every dropped or unchosen expert."""
+    b, g, gs, _ = xg.shape
+    e, k = cfg.n_experts, cfg.top_k
+    logits = torch.einsum('bgtd,de->bgte', xg.float(), router.float())
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+    gate_w, gate_idx = gate_w[..., :k], gate_idx[..., :k]
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    onehot = _one_hot(gate_idx, e)                           # [B,G,T,K,E]
+    flat = onehot.reshape(b, g, gs * k, e)
+    pos = (torch.cumsum(flat, dim=2) - flat).reshape(b, g, gs, k, e)
+    keep = (pos < c).float() * onehot
+    slot = (pos[..., None] == torch.arange(c, device=xg.device,
+                                           dtype=pos.dtype)).float()
+    return probs, gate_w, gate_idx, slot * keep[..., None]
+
+
+def moe_ffn(x: torch.Tensor, lp, cfg: MoEConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, D] → (y [B, S, D], the Switch load-balance aux, fp32
+    scalar). Routes within groups of ``router_group_size`` tokens (one
+    group of S where that does not divide S), so every dispatch tensor
+    is linear in S. The dispatch and combine tensors go to cfg.dtype
+    before their products, as do the expert weights; the gates stay
+    fp32 until the combine."""
+    b, s_len, d = x.shape
+    e = cfg.n_experts
+    gs = min(cfg.router_group_size, s_len)
+    if s_len % gs != 0:
+        gs = s_len
+    g = s_len // gs
+    c = capacity(cfg, gs)
+    xg = x.reshape(b, g, gs, d)
+    probs, gate_w, gate_idx, slot = route(xg, lp['router'], cfg, c)
+
+    # Load-balance aux (Switch): E · Σ_e f_e · p̄_e over the top-1 choice.
+    top1 = _one_hot(gate_idx[..., 0], e)
+    aux = e * torch.sum(top1.mean((0, 1, 2)) * probs.mean((0, 1, 2)))
+
+    dispatch = slot.sum(3)                                   # [B,G,T,E,C]
+    combine = torch.einsum('bgtk,bgtkec->bgtec', gate_w, slot)
+    dt = cfg.dtype
+    xin = torch.einsum('bgtec,bgtd->ebgcd', dispatch.to(dt), xg)
+    xin = xin.reshape(e, b * g * c, d)
+    gate = torch.bmm(xin, lp['w_gate'].to(dt))
+    up = torch.bmm(xin, lp['w_up'].to(dt))
+    out = torch.bmm(cfg.glu(gate, up), lp['w_down'].to(dt))  # [E,BGC,D]
+    out = out.reshape(e, b, g, c, d)
+    y = torch.einsum('bgtec,ebgcd->bgtd', combine.to(dt), out)
+    return y.reshape(b, s_len, d), aux
+
+
+def ffn(x: torch.Tensor, lp, cfg: MoEConfig
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer's FFN block: ``moe_norm`` → :func:`moe_ffn`."""
+    return moe_ffn(norms.rms_norm(x, lp['moe_norm'], cfg.rms_eps), lp, cfg)
+
+
+def layer(x: torch.Tensor, lp, cfg: MoEConfig, sin, cos, layer_idx: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer over a whole sequence: Llama's attention block
+    (the plain attention on a layer with a window or sinks), then the
+    routed FFN. Returns (x, this layer's aux)."""
+    sin, cos = llama.select_rope(sin, cos, layer_idx, cfg)
+    q, k, v = llama.qkv(x, lp, cfg, sin, cos)
+    out = _attention(q, k, v, impl=cfg.attention_impl, causal=True,
+                     **llama.attention_switches(lp, cfg, layer_idx))
+    x = x + llama.wo_project(out, lp, cfg)
+    y, aux = ffn(x, lp, cfg)
+    return x + y, aux
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
+            return_aux: bool = False):
+    """tokens [B, S] → logits [B, S, vocab] fp32, and with
+    ``return_aux`` (logits, router_aux_weight · Σ aux / n_layers)."""
+    check_supported(cfg)
+    x = llama.embed(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    sin, cos = llama.rope_tables(cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i in range(cfg.n_layers):
+        x, a = layer(x, llama.layer_params(params, i), cfg, sin, cos, i)
+        aux = aux + a
+    logits = llama.unembed(x, params, cfg)
+    if return_aux:
+        return logits, cfg.router_aux_weight * aux / cfg.n_layers
+    return logits

@@ -1,11 +1,12 @@
 """The bridge between the JAX package's trees and the port's tensors:
 params, the optimizer state, and a train state's checkpoint paths.
 
-The JAX package's ``init_params`` (and its checkpoints) give a nested
-dict whose layer leaves are stacked ``[L, ...]`` and whose projections
-are ``[in, out]``. The port keeps exactly that layout (models/llama.py
-multiplies ``h @ w``), so the bridge is a per-leaf copy with a dtype
-and a device; nothing is transposed.
+The JAX package's ``init_params`` (llama's and moe's, and its
+checkpoints) give a nested dict whose layer leaves are stacked
+``[L, ...]`` and whose projections are ``[in, out]``. The port keeps
+exactly that layout (models/llama.py multiplies ``h @ w``), so the
+bridge is a per-leaf copy with a dtype and a device; nothing is
+transposed.
 
 The JAX train state is ``TrainState(step, params, opt_state)`` with the
 optax state of ``default_optimizer``: ``(EmptyState(),
@@ -34,8 +35,9 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig,
                     device='cuda', dtype=None):
     """Nested dict of numpy arrays (``jax.device_get`` of the JAX tree)
     → the same nested dict of torch tensors in ``dtype`` (default
-    cfg.param_dtype) on ``device``. Checks every layer leaf carries
-    cfg.n_layers on its leading axis."""
+    cfg.param_dtype) on ``device``. Any stacked tree: a dense Llama
+    config's, or an MoEConfig's (router [L, D, E], experts [L, E, ...]).
+    Checks every layer leaf carries cfg.n_layers on its leading axis."""
     dtype = dtype or cfg.param_dtype
 
     def conv(a):

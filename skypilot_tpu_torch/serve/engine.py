@@ -40,11 +40,17 @@ not apply and no row can finish inside the call in flight. Admission,
 chunks, speculative rounds, cancels and failure resets happen only at
 drained points; at most two calls are in flight.
 
+Dense presets and the MoE family (``module_for``: models/moe.py, e.g.
+``gpt-oss-20b``, ``moe-1b``) serve through the same paths, the routed
+FFN inside every step graph; an MoE engine does not speculate
+(``spec_k`` 0, as in JAX: capacity grouping makes a verify differ from
+sequential steps), so its warm-up captures the eight step graphs only.
+
 What waits (ROADMAP Queue 1 item 4): chat completions, ``n`` /
 ``best_of`` and batched prompts (each refused with 400 by name),
 metrics and the flight recorder, failure resurrection, the spill tier
-and int8 KV, disagg, meshes and multi-host, and ``--hf-dir`` /
-``--ckpt-dir``.
+and int8 KV, disagg, meshes (an expert axis among them) and
+multi-host, and ``--hf-dir`` / ``--ckpt-dir``.
 
 The HTTP server is the standard library's ThreadingHTTPServer; the
 batch loop runs in its own thread and owns all device state. Request
@@ -53,6 +59,7 @@ streaming, a per-request queue.
 
     SKYTPU_ENGINE_STEP_CHUNK=8 python -m skypilot_tpu_torch.serve.engine \\
         --model llama-1b --port 8300
+    python -m skypilot_tpu_torch.serve.engine --model gpt-oss-20b
 """
 from __future__ import annotations
 
@@ -74,10 +81,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.config import LlamaConfig, check_supported, get_config
+from skypilot_tpu_torch.config import (LlamaConfig, MoEConfig,
+                                      check_supported, get_config)
 from skypilot_tpu_torch.data.tokenizer import ByteTokenizer, StreamDecoder
 from skypilot_tpu_torch.kernels import build
-from skypilot_tpu_torch.models import decode, llama, paging
+from skypilot_tpu_torch.models import decode, module_for, paging
 
 logger = logging.getLogger(__name__)
 
@@ -236,15 +244,20 @@ class InferenceEngine:
         self.page_size = PAGE_SIZE
         self.step_chunk = MAX_STEP_CHUNK
         self.prefix_cache = PREFIX_CACHE_ENTRIES
-        self.spec_k = SPEC_K
+        # Speculation needs a verify equal to sequential steps, which MoE
+        # capacity grouping breaks: off for an MoE config, as in JAX.
+        self.spec_k = 0 if isinstance(self.cfg, MoEConfig) else SPEC_K
         self.spec_cooldown = SPEC_COOLDOWN
         self.prefill_chunk = PREFILL_CHUNK
         self.kv_pages = KV_PAGES
         self._check_knobs()
         self.seed = seed
         if params is None:
+            # Drawn leaf by leaf into the compute dtype: the whole tree
+            # never exists in fp32 (gpt-oss-20b's would not fit the card).
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = llama.init_params(self.cfg, gen, self.device)
+            params = module_for(self.cfg).init_params(
+                self.cfg, gen, self.device, dtype=self.cfg.dtype)
             logger.info('Serving randomly-initialized params (seed %d).',
                         seed)
         self.params = decode.cast_params_for_decode(params, self.cfg)

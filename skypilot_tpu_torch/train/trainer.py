@@ -87,6 +87,11 @@ def _refuse_unported(tcfg: TrainerConfig) -> None:
             raise NotImplementedError(
                 f'{flag} is not ported yet: it waits for ROADMAP Queue 1 '
                 f'{item}')
+    if isinstance(config.get_config(tcfg.model), config.MoEConfig):
+        raise NotImplementedError(
+            f'--model {tcfg.model}: training the MoE family is not ported '
+            f'yet (the port serves it): it waits for ROADMAP Queue 1 item 6 '
+            f'(MoE training: the router aux loss in train_lib)')
 
 
 class _PreemptionWatch(contextlib.AbstractContextManager):

@@ -814,3 +814,53 @@ def test_engine_pages_balance_after_a_mixed_burst(cuda):
     assert all(eng.alloc.refcount(p) == 1 for p in held)
     eng._clear_prefix_store()
     assert eng.alloc.used_count == 0
+
+
+@pytest.mark.parametrize('name,head_dim', [('moe-debug', 128),
+                                           ('gptoss-debug', None)])
+def test_moe_step_graph_replay_equals_eager_step(cuda, name, head_dim):
+    """An MoE engine on random weights (seed 0): moe-debug at head_dim
+    128, where kernel B runs inside the graphs, and gptoss-debug (sinks:
+    the plain attention). Warm-up captures the eight step graphs and no
+    verify graph (spec_k is 0), and a replay of the k=1 greedy graph on
+    two admitted rows gives the eager step's tokens, logprobs and K/V
+    bit for bit: the routed FFN's static dispatch has no host sync and
+    no shape that depends on the data."""
+    from skypilot_tpu_torch.models import moe
+    from skypilot_tpu_torch.serve import engine as engine_lib
+    cfg = config.MOE_PRESETS[name]
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    params = moe.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             cuda, dtype=cfg.dtype)
+    eng = engine_lib.InferenceEngine(name, cfg=cfg, params=params,
+                                     device='cuda', max_len=256)
+    eng.warmup()
+    assert eng.spec_k == 0
+    assert set(eng.graphs) == {(k, p, t) for k in (1, eng.step_chunk)
+                               for p in (False, True)
+                               for t in (False, True)}
+    per_layer = 0 if cfg.attn_sinks else 1
+    for (k, _, _), n in eng._graph_launches.items():
+        assert n.get('paged_decode', 0) == k * cfg.n_layers * per_layer
+    eng._admit_group([engine_lib.Request([3, 1, 4, 1, 5], 32),
+                      engine_lib.Request(list(range(9)), 32)])
+    eng._ctrl.zero_()
+    eng._ctrl[0, :2] = 1                     # two rows active, greedy
+    state = (eng.cache.k, eng.cache.v, eng.cache.length, eng.last_dev)
+    snap = [t.clone() for t in state]
+    b0 = pa.KERNEL.launches
+    eng._variant((1, False, False))()
+    torch.cuda.synchronize()
+    assert pa.KERNEL.launches - b0 == cfg.n_layers * per_layer
+    g_tok, g_lp = eng._out_toks[0].clone(), eng._out_lps[0].clone()
+    g_k, g_len = eng.cache.k.clone(), eng.cache.length.clone()
+    for t, v in zip(state, snap):
+        t.copy_(v)
+    eng._step_body(1, False, False)          # eager, same inputs
+    torch.cuda.synchronize()
+    assert torch.equal(eng._out_toks[0, :2], g_tok[:2])
+    assert torch.equal(eng._out_lps[0, :2], g_lp[:2])
+    assert torch.equal(eng.cache.length, g_len)
+    assert torch.equal(eng.cache.k[:, 1:], g_k[:, 1:])
+    assert not torch.equal(g_k[:, 1:], snap[0][:, 1:])

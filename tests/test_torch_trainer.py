@@ -264,7 +264,8 @@ def test_trainer_defaults_to_cuda_and_refuses_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize('flags', [
     ['--mesh', 'data=2'], ['--lora-rank', '4'], ['--hf-dir', '/x'],
-    ['--sft-data', 'c.jsonl'], ['--data-service', 'h:1']])
+    ['--sft-data', 'c.jsonl'], ['--data-service', 'h:1'],
+    ['--model', 'moe-debug'], ['--model', 'GPT_OSS-20b']])
 def test_unported_flags_refused_by_name(flags):
     with pytest.raises(NotImplementedError, match=f'{flags[0]}.*ROADMAP'):
         trainer.main(flags + ['--device', 'cpu'])
