@@ -93,7 +93,29 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  other layer, YaRN, clamped SwiGLU, qkv bias; random bf16
                  weights drawn leaf by leaf, 41.8 GB), the same bursts:
                  A and B launch zero times (sinks: the plain route);
- 14. train_gemma — the port's trainer on gemma-7b at full width cut to
+ 14. model_mla — deepseek-v2-lite at full width and depth (27 layers, dim
+                 2048, 16 heads, latent r 512, dn 128, dr 64, dv 128,
+                 ffn 10944, vocab 102400; random bf16 weights from seed
+                 0): prefill + 8 paged decode steps over the paged
+                 latent pool, teacher-forced, against the fp32 paged
+                 path (its error at most TOL_MODEL x the plain bf16
+                 forward's); the fp32 paged steps against the fp32 full
+                 forward (TOL_MLA_SELF); a k=1 CUDA-graph replay of
+                 mla.paged_decode_step bit-equal to the eager step; A
+                 and B launched zero times (the latent family has no
+                 kernel, as in JAX);
+ 15. serve_mla — the engine on deepseek-v2-lite, checked as in serve
+                 (the bursts, the admission burst with chunks, prefix
+                 hits and speculation, the verify graphs, the chunked
+                 logits), A and B launched zero times;
+ 16. serve_deepseek_v2 — deepseek-v2 at full width: first model_mla's
+                 checks at 2 layers with capacity for every token (no
+                 routed choice dropped) and the forwards' and fp32
+                 path's routes forced to the default path's; then the
+                 engine at 4 of 60 layers (160 experts top-6 + 2
+                 shared; random bf16 weights, 34.5 GB), spec_k 0,
+                 checked as in serve_moe; A and B launched zero times;
+ 17. train_gemma — the port's trainer on gemma-7b at full width cut to
                  4 layers, 4 steps of 2 x 2048 tokens: A twice and C, D
                  once per layer per step at head_dim 256; peak memory;
                  grads against the plain and fp32 paths, the loss
@@ -101,7 +123,7 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  torch.profiler; then one step each of gemma2-9b (2
                  layers) and gemma3-12b (6 layers) with no kernel
                  launched, their grads against fp32;
- 15. train     — the port's trainer on llama-1b at full width, 6 steps
+ 18. train     — the port's trainer on llama-1b at full width, 6 steps
                  of 4 x 2048 tokens: A twice and C, D once per layer per
                  step; grads against the plain and fp32 paths, the loss
                  against the plain-attention trainer, a resume at step
@@ -777,21 +799,34 @@ class RouteLog:
     C]. Given another run's calls (``force``), it hands each call that
     run's ids and slots in place of its own, the gates then being this
     run's own probabilities at those experts, renormalised: the routes
-    teacher-forced, as phase_model forces the tokens."""
+    teacher-forced, as phase_model forces the tokens. ``force`` may
+    instead be a function (call index, own ids) → ids, for a run whose
+    calls group tokens otherwise (a forward of whole sequences against
+    prefill + steps): the slots are then counted from the forced ids.
+    ``no_drop`` makes any dropped choice fail the run; the slots then
+    follow from the ids and are not kept."""
 
-    def __init__(self, moe, force=None):
+    def __init__(self, moe, force=None, no_drop=False):
         self.moe, self.force, self.calls = moe, force, []
+        self.no_drop = no_drop
 
     def __enter__(self):
         orig = self.route = self.moe.route
 
         def spy(xg, router, cfg, c):
             probs, gate_w, idx, slot = orig(xg, router, cfg, c)
-            if self.force is not None:
+            if callable(self.force):
+                idx = self.force(len(self.calls), idx)
+                slot = self.moe.slots(idx, cfg.n_experts, c)
+            elif self.force is not None:
                 idx, slot = self.force[len(self.calls)]
+            if self.force is not None:
                 gate_w = probs.gather(-1, idx)
                 gate_w = gate_w / gate_w.sum(-1, keepdim=True)
-            self.calls.append((idx, slot))
+            if self.no_drop and int(slot.sum()) != idx.numel():
+                fail(f'route call {len(self.calls)}: {int(slot.sum())} of '
+                     f'{idx.numel()} choices kept, want no drop')
+            self.calls.append((idx, None if self.no_drop else slot))
             return probs, gate_w, idx, slot
         self.moe.route = spy
         return self
@@ -998,6 +1033,209 @@ def phase_verify(torch, cfg, decode, llama, paging, pa) -> None:
              f'error > {TOL_MODEL}x')
 
 
+# The MLA model check's bound on the fp32 paged path against the fp32
+# whole-sequence forward (max|diff| / std of the forward's logits): the
+# same products in other shapes and orders, no rounding but fp32's.
+TOL_MLA_SELF = 1e-3
+# deepseek-v2's model check at full width cut to 2 layers (an fp32 layer
+# is 16.2 GB: 2 in fp32 beside 2 in bf16 take ~55 GB), with capacity
+# n_experts / top_k: an expert's slots cover every token of a group, so
+# no routed choice drops in any grouping (random routers send most of a
+# group's tokens to a few experts), and the whole-sequence forward and
+# prefill + steps, once their expert ids are forced to the default
+# path's, route alike. deepseek-v2 serves at 4 of its 60 layers (34.5 GB
+# of bf16 weights; all 60 take 488 GB).
+DSV2_MODEL_DEPTH, DSV2_SERVE_DEPTH = 2, 4
+
+
+def mla_sequences(torch, tok_t, len_t, toks):
+    """Each row's prompt then the fed tokens, zero-padded: [B, bucket +
+    steps] for the whole-sequence forward; and [B, steps + 1], the
+    positions whose logits the paged path gave (the prompt's last, then
+    each fed token's)."""
+    b, steps = tok_t.shape[0], len(toks)
+    seq = torch.zeros((b, tok_t.shape[1] + steps), dtype=torch.int32,
+                      device='cuda')
+    fed = torch.stack(toks, 1)
+    lens = len_t.tolist()
+    for r, n in enumerate(lens):
+        seq[r, :n] = tok_t[r, :n]
+        seq[r, n:n + steps] = fed[r]
+    pos = torch.tensor([[n - 1 + i for i in range(steps + 1)] for n in lens],
+                       device='cuda')
+    return seq, pos
+
+
+def forced_by_token(r_paged, n_layers: int, lens, steps: int):
+    """A RouteLog force function for a whole-sequence forward, from the
+    paged path's calls (a prefill call a layer, then a call a layer a
+    step): layer i's ids at row b's position j < len_b are the
+    prefill's, at len_b + t step t's; the padding after keeps its own
+    (it reaches no content position)."""
+    def force(i, idx):
+        out = idx.clone()
+        pre = r_paged.calls[i][0]
+        for b, n in enumerate(lens):
+            out[b, 0, :n] = pre[b, 0, :n]
+            for t in range(steps):
+                out[b, 0, n + t] = r_paged.calls[n_layers * (t + 1) + i][0][
+                    b, 0, 0]
+        return out
+    return force
+
+
+def mla_graph_check(torch, mla, params, cfg, pc, max_len: int, tag) -> None:
+    """One mla.paged_decode_step on ``pc`` captured into a CUDA graph and
+    replayed from the same pool state: logits, latent pages and lengths
+    bit-equal to the eager step's."""
+    b = pc.length.shape[0]
+    tok = (torch.arange(b, dtype=torch.int32, device='cuda') * 7 + 3) % \
+        cfg.vocab_size
+    state = (pc.c_kv, pc.k_rope, pc.length)
+    snap = [t.clone() for t in state]
+
+    def restore():
+        for t, v in zip(state, snap):
+            t.copy_(v)
+
+    def step():
+        return mla.paged_decode_step(params, tok, pc, cfg,
+                                     max_len=max_len)[0]
+
+    with torch.no_grad():
+        want = step().clone()
+        want_state = [t.clone() for t in state]
+        restore()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            step()                      # warm up on the capture stream
+        torch.cuda.synchronize()
+        restore()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = step()
+        restore()
+        graph.replay()
+        torch.cuda.synchronize()
+    same = [torch.equal(out, want)] + [
+        torch.equal(t, w) for t, w in zip(state, want_state)]
+    if not all(same):
+        fail(f'{tag} k=1 graph replay of mla.paged_decode_step vs the eager '
+             f'step: (logits, c_kv, k_rope, length) equal {same}')
+    log(f'{tag} k=1 CUDA-graph replay of mla.paged_decode_step on {b} rows '
+        f'== the eager step, bit for bit (logits, latent pages, lengths)')
+    del graph, out
+    restore()
+
+
+def phase_model_mla(torch, cfg, params, mla, paging, build, name,
+                    steps: int = 8) -> float:
+    """Prefill + ``steps`` paged decode steps over the paged latent pool,
+    teacher-forced with the bf16 path's own greedy tokens, four ways:
+    bf16 paged (the serving path), the bf16 whole-sequence forward
+    (each row's prompt and fed tokens, read at the same positions),
+    fp32 paged and the fp32 forward on the same weights upcast. The
+    bf16 paged path must lie no farther from the fp32 paged path than
+    the plain bf16 forward does (TOL_MODEL, phase_model's chain); the
+    fp32 paged path must equal the fp32 forward within TOL_MLA_SELF
+    (paged steps are the full forward's math); a k=1 graph replay of
+    the step must equal the eager step bit for bit; A and B must launch
+    zero times. A DeepSeekMoE config routes: the fp32 paged path takes
+    the default path's routes (RouteLog's ``force``) and the forwards
+    take them token by token, with no choice dropped on any path (the
+    config's capacity must be ample). Returns the worst error ratio."""
+    import dataclasses
+    from skypilot_tpu_torch.models import decode, moe
+    shape = MODEL_SHAPE
+    routed = hasattr(cfg, 'n_experts')
+    tok_t, len_t = model_prompts(torch, cfg.vocab_size,
+                                 np.random.default_rng(5), shape)
+    lens, b, max_len = len_t.tolist(), tok_t.shape[0], shape['max_len']
+    maxp = paging.pages_for(max_len, MODEL_PSZ)
+
+    def routes(force=None):
+        return (RouteLog(moe, force, no_drop=True) if routed
+                else contextlib.nullcontext())
+
+    def paged(cfg_run, params_run, feed=None, force=None):
+        with routes(force) as log_:
+            logits, cs, krs = mla.prefill(params_run, tok_t, cfg_run,
+                                          max_len, lengths=len_t)
+            pc = mla.init_page_pool(cfg_run, b * maxp + 1, MODEL_PSZ, b,
+                                    maxp, device='cuda')
+            pc.table.copy_(torch.arange(1, b * maxp + 1, dtype=torch.int32,
+                                        device='cuda').reshape(b, maxp))
+            paging.scatter_prefill(pc, cs, krs, torch.arange(b, device='cuda'),
+                                   shape['bucket'], len_t)
+            del cs, krs
+            out, toks = [logits], []
+            for i in range(steps):
+                nxt = (feed[i] if feed is not None
+                       else torch.argmax(out[-1], dim=-1).to(torch.int32))
+                toks.append(nxt)
+                logits, pc = mla.paged_decode_step(params_run, nxt, pc,
+                                                   cfg_run, max_len=max_len)
+                out.append(logits)
+        return torch.stack(out, 1), toks, log_, pc
+
+    def whole(cfg_run, params_run, seq, pos, force=None):
+        with routes(force):
+            logits = mla.forward(params_run, seq, cfg_run)
+        return torch.gather(logits, 1, pos[..., None].expand(
+            -1, -1, logits.shape[-1]))
+
+    with torch.no_grad():
+        build.reset_launches()
+        kern, toks, r_def, pc = paged(cfg, params)
+        launches = {n: build.kernels()[n].launches for n in SERVE_KERNELS}
+        if any(launches.values()):
+            fail(f'model path {name}: launches {launches}, want none (the '
+                 f'latent family has no kernel)')
+        mla_graph_check(torch, mla, params, cfg, pc, max_len,
+                        f'[model] {name}')
+        del pc
+        seq, pos = mla_sequences(torch, tok_t, len_t, toks)
+        by_token = (forced_by_token(r_def, cfg.n_layers, lens, steps)
+                    if routed else None)
+        plain = whole(cfg, params, seq, pos, by_token)
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        params32 = decode.cast_params_for_decode(params, cfg32)
+        ref = paged(cfg32, params32, feed=toks,
+                    force=(lambda i, _: r_def.calls[i][0]) if routed
+                    else None)[0]
+        ref_fwd = whole(cfg32, params32, seq, pos, by_token)
+        del params32, r_def, by_token
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(kern).all()) or \
+            kern.shape != (b, steps + 1, cfg.vocab_size):
+        fail(f'model path {name}: bad logits {tuple(kern.shape)}')
+    e_self = float((ref - ref_fwd).abs().max()) / float(ref_fwd.std())
+    if e_self > TOL_MLA_SELF:
+        fail(f'model path {name}: fp32 paged steps vs the fp32 forward '
+             f'max|diff|/std {e_self:.3e} > {TOL_MLA_SELF}')
+    worst = 0.0
+    for i in range(steps + 1):
+        a, p, f = kern[:, i], plain[:, i], ref[:, i]
+        std = float(f.std())
+        e_k = float((a - f).abs().max()) / std
+        e_p = float((p - f).abs().max()) / std
+        worst = max(worst, e_k / e_p)
+        log(f'[model] {name} step {i} ({"prefill" if i == 0 else "decode"}):'
+            f' max|diff|/std(fp32 logits): paged-fp32 {e_k:.3e}, '
+            f'forward-fp32 {e_p:.3e}, paged-forward '
+            f'{float((a - p).abs().max()) / std:.3e}')
+    if worst > TOL_MODEL:
+        fail(f'model path {name}: paged error {worst:.2f}x the plain bf16 '
+             f'forward\'s > {TOL_MODEL}x')
+    log(f'[model] {name} {cfg.n_layers} layers, {b} rows, prefill bucket '
+        f'{shape["bucket"]} + {steps} paged latent steps{", routes forced" if routed else ""}'
+        f', launches {launches}: paged/forward error ratio worst '
+        f'{worst:.3f} (tol {TOL_MODEL}); fp32 paged vs fp32 forward '
+        f'{e_self:.3e} (tol {TOL_MLA_SELF}) ok')
+    return worst
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(('127.0.0.1', 0))
@@ -1074,7 +1312,7 @@ def check_graph_replay(torch, eng, engine_lib, decode, build, tag) -> dict:
 
     zf = torch.zeros(eng.max_batch, device='cuda')
     with torch.no_grad():
-        logits, _ = decode.paged_decode_step(
+        logits, _ = eng._decode.paged_decode_step(
             eng.params, snap[1].clone(), eng.cache, eng.cfg,
             max_len=eng.max_len, active=act)
         tok = decode.select_token_per_row(logits, zf, zf.int(), zf, None)
@@ -1118,24 +1356,37 @@ def check_graph_replay(torch, eng, engine_lib, decode, build, tag) -> dict:
     return out
 
 
+def is_mla(cfg) -> bool:
+    return hasattr(cfg, 'kv_lora_rank')
+
+
+def decode_module(cfg):
+    """The decode functions of the config's cache family: models/mla.py
+    (the paged latent pool) for an MLA config, else models/decode.py."""
+    from skypilot_tpu_torch.models import decode, mla
+    return mla if is_mla(cfg) else decode
+
+
 def takes_kernels(cfg) -> bool:
-    """Whether the config's layers run kernels A and B: none of a
-    softcap, a window or sinks (the JAX gates send every layer of a
-    model with one of them, global layers included, to the plain
-    attention)."""
-    return not (cfg.attn_logit_softcap or cfg.sliding_window or
-                cfg.attn_sinks)
+    """Whether the config's layers run kernels A and B: not an MLA
+    config (its absorbed latent attention is plain PyTorch, as the JAX
+    package's is plain XLA) and none of a softcap, a window or sinks
+    (the JAX gates send every layer of a model with one of them, global
+    layers included, to the plain attention)."""
+    return not (is_mla(cfg) or cfg.attn_logit_softcap or
+                cfg.sliding_window or cfg.attn_sinks)
 
 
-def start_engine(model, params, engine_lib, tag, **knobs):
-    """An engine on preset ``model`` with ``knobs`` set before warm-up,
+def start_engine(model, cfg, params, engine_lib, tag, **knobs):
+    """An engine on preset ``model`` (as ``cfg`` has it: a depth cut
+    stays cut) with ``knobs`` set before warm-up,
     behind its HTTP server; waits for /health (warm-up: every variant
     captured, the eight step graphs with k x layers B launches each and,
     with speculation on, the two verify graphs with one a layer; no B
     launch where the config does not take kernels). Returns (engine,
     server, base url)."""
-    eng = engine_lib.InferenceEngine(model, params=params, device='cuda',
-                                     seed=0)
+    eng = engine_lib.InferenceEngine(model, cfg=cfg, params=params,
+                                     device='cuda', seed=0)
     for name, val in knobs.items():
         setattr(eng, name, val)
     server = engine_lib.build_app(eng, '127.0.0.1', free_port())
@@ -1371,7 +1622,8 @@ def check_verify(torch, eng, decode, build, tag) -> dict:
             engine_lib.Request(rng.integers(0, 256, n).tolist(), 64)
             for n in (17, 100, 250, 40)]):
         eng._admit_group(group)
-    k, b, layers = eng.spec_k, eng.max_batch, eng.cfg.n_layers
+    k, b = eng.spec_k, eng.max_batch
+    layers = eng.cfg.n_layers * takes_kernels(eng.cfg)
     rows = [i for i, s in enumerate(eng.slots) if eng._row_active(s)]
     act = torch.zeros(b, dtype=torch.bool, device='cuda')
     act[rows] = True
@@ -1390,12 +1642,12 @@ def check_verify(torch, eng, decode, build, tag) -> dict:
              f'launches, not {layers}')
     g_tok = eng._ver_toks.clone()
     with torch.no_grad():
-        v_logits, _ = decode.paged_verify_step(
+        v_logits, _ = eng._decode.paged_verify_step(
             eng.params, fed, eng.cache, eng.cfg, max_len=eng.max_len,
             active=act)
         seq = []
         for j in range(k):
-            logits, _ = decode.paged_decode_step(
+            logits, _ = eng._decode.paged_decode_step(
                 eng.params, fed[:, j].contiguous(), eng.cache, eng.cfg,
                 max_len=eng.max_len, active=act)
             seq.append(logits)
@@ -1448,11 +1700,15 @@ def check_chunked_logits(torch, cfg, params, decode, paging, build,
     import dataclasses
     rng = np.random.default_rng(21)
     n, c = ADMIT_LONG, ADMIT_CHUNK
+    dec = decode_module(cfg)
+    # An MLA config has no kernel path: its one-shot prefill is the
+    # plain one.
+    plain_kw = {} if is_mla(cfg) else {'attention_impl': 'xla'}
     tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, n)
                            .astype(np.int32)).cuda()
     maxp = paging.pages_for(decode.bucket_size(n), MODEL_PSZ)
-    pc = decode.init_page_pool(cfg, maxp + 1, MODEL_PSZ, 1, maxp,
-                               device='cuda')
+    pc = dec.init_page_pool(cfg, maxp + 1, MODEL_PSZ, 1, maxp,
+                            device='cuda')
     pc.table[0] = torch.arange(1, maxp + 1, dtype=torch.int32, device='cuda')
     kern_a, deltas = build.kernels()['flash_fwd'], []
     bucket = decode.bucket_size(n)
@@ -1469,7 +1725,7 @@ def check_chunked_logits(torch, cfg, params, decode, paging, build,
             chunk[0, :min(left, s2)] = tok[pos:pos + s2]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            chunked = decode.paged_prefill_extend(
+            chunked = dec.paged_prefill_extend(
                 params, chunk, pc, cfg, slot=0, p=pos, lengths=min(left, c))
             torch.cuda.synchronize()
             chunk_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1477,21 +1733,21 @@ def check_chunked_logits(torch, cfg, params, decode, paging, build,
             if left <= c:
                 break
             pos += c
-        kern, _, _ = decode.prefill(params, padded, cfg, bucket,
-                                    lengths=lengths)
-        plain, _, _ = decode.prefill(params, padded, cfg, bucket,
-                                     lengths=lengths, attention_impl='xla')
+        kern, _, _ = dec.prefill(params, padded, cfg, bucket,
+                                 lengths=lengths)
+        plain, _, _ = dec.prefill(params, padded, cfg, bucket,
+                                  lengths=lengths, **plain_kw)
         del pc
         cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
         params32 = decode.cast_params_for_decode(params, cfg32)
-        ref, _, _ = decode.prefill(params32, padded, cfg32, bucket,
-                                   lengths=lengths, attention_impl='xla')
+        ref, _, _ = dec.prefill(params32, padded, cfg32, bucket,
+                                lengths=lengths, **plain_kw)
         del params32
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    if deltas != [cfg.n_layers, 0, 0, 0]:
-        fail(f'{tag} chunks launched A {deltas} times, want '
-             f'[{cfg.n_layers}, 0, 0, 0]')
+    want = [cfg.n_layers * takes_kernels(cfg), 0, 0, 0]
+    if deltas != want:
+        fail(f'{tag} chunks launched A {deltas} times, want {want}')
     if not bool(torch.isfinite(chunked).all()):
         fail(f'{tag} chunked logits not finite')
     std = float(ref.std())
@@ -1514,7 +1770,7 @@ def check_chunked_logits(torch, cfg, params, decode, paging, build,
 
 
 def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
-                paging) -> dict:
+                paging, label=None) -> dict:
     """The port's engine on preset ``model`` with ``params`` and the
     default knobs (the prefix cache, speculation, 256-token chunks):
     /health (warm-up captures the eight step and two verify graphs),
@@ -1535,16 +1791,18 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
     are not held against a one-shot prefill: a chunk routes in groups
     of its own tokens, so where capacity binds other choices drop (and
     gpt-oss-20b's fp32 copy would not fit the card).
-    A config with sinks, a window or a softcap (gpt-oss) must launch
-    neither kernel. Returns the launch counts of the main path
-    (warm-up, the first burst and the timed admission burst)."""
-    tag = '[serve]' if model == 'llama-1b' else f'[serve {model}]'
+    A config with sinks, a window or a softcap (gpt-oss), or an MLA
+    config (the latent pool: no kernel, as in JAX), must launch neither
+    kernel. ``label`` names a cut of the preset in the output. Returns
+    the launch counts of the main path (warm-up, the first burst and
+    the timed admission burst)."""
+    tag = '[serve]' if model == 'llama-1b' else f'[serve {label or model}]'
     kernels = takes_kernels(cfg)
     moe = hasattr(cfg, 'n_experts')
     torch.cuda.reset_peak_memory_stats()
     # The main path starts here: every launch count from 0.
     build.reset_launches()
-    eng, server, base = start_engine(model, params, engine_lib, tag)
+    eng, server, base = start_engine(model, cfg, params, engine_lib, tag)
     try:
         rng = np.random.default_rng(11)
         max_new = 32
@@ -1601,6 +1859,10 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
         for key, n in calls.items():
             by_k[key[0]] = by_k.get(key[0], 0) + n
         stats = {'requests': len(timings),
+                 'cache_family': eng.cache_family(),
+                 'pool_bytes_per_token': sum(
+                     p[:, 0, 0].numel() * p.element_size()
+                     for p in paging._pools(eng.cache).values()),
                  'ttft_ms_median': statistics.median(ttft) * 1e3,
                  'ttft_ms_max': max(ttft) * 1e3,
                  'tpot_ms_median': statistics.median(tpot) * 1e3,
@@ -1624,7 +1886,8 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
             fail(f'{tag} kernel B on the device {b_device}x, by the engine '
                  f'{b_engine}x')
         stats.update(idle_share=prof['idle_share'],
-                     b_launches_device=b_device)
+                     b_launches_device=b_device,
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         log(f'{tag} ' + json.dumps(stats))
         # The admission burst on the defaults: timed, then profiled.
         watch = Watch(eng, build)
@@ -1662,7 +1925,8 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
     free_card(torch)
     # The same admission burst with speculation and the prefix cache off.
     torch.cuda.reset_peak_memory_stats()
-    eng, server, base = start_engine(model, params, engine_lib, tag + ' off',
+    eng, server, base = start_engine(model, cfg, params, engine_lib,
+                                     tag + ' off',
                                      spec_k=0, prefix_cache=0)
     try:
         watch = Watch(eng, build)
@@ -2015,6 +2279,7 @@ def main() -> None:
     parser.add_argument('--phases', default='build,flash,paged,flash_bwd,'
                         'timing,model,serve,model_gemma,serve_gemma,'
                         'gemma_switches,model_moe,serve_moe,serve_gptoss,'
+                        'model_mla,serve_mla,serve_deepseek_v2,'
                         'train_gemma,train', help='comma-separated '
                         'subset (for '
                         'debugging; the full run is the check)')
@@ -2114,6 +2379,41 @@ def main() -> None:
                                               decode, paging)
         del params
         free_card(torch)
+    if 'model_mla' in phases or 'serve_mla' in phases:
+        from skypilot_tpu_torch.models import mla
+        cfg = config.get_config('deepseek-v2-lite')
+        params = bf16_params(torch, cfg)
+        if 'model_mla' in phases:
+            phase_model_mla(torch, cfg, params, mla, paging, build,
+                            'deepseek-v2-lite')
+            free_card(torch)
+        if 'serve_mla' in phases:
+            by_path['serve_mla'] = phase_serve(torch, 'deepseek-v2-lite', cfg,
+                                               params, engine_lib, build,
+                                               decode, paging)
+        del params
+        free_card(torch)
+    if 'serve_deepseek_v2' in phases:
+        import dataclasses
+        from skypilot_tpu_torch.models import mla
+        # The model check at 2 layers (fp32 beside bf16), no drops.
+        cfg = config.get_config('deepseek-v2')
+        cfg = dataclasses.replace(cfg, n_layers=DSV2_MODEL_DEPTH,
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+        params = bf16_params(torch, cfg)
+        phase_model_mla(torch, cfg, params, mla, paging, build,
+                        f'deepseek-v2 ({DSV2_MODEL_DEPTH} of 60 layers, '
+                        f'capacity_factor {cfg.capacity_factor:.2f})')
+        del params
+        free_card(torch)
+        cfg = dataclasses.replace(config.get_config('deepseek-v2'),
+                                  n_layers=DSV2_SERVE_DEPTH)
+        params = bf16_params(torch, cfg)
+        by_path['serve_deepseek_v2'] = phase_serve(
+            torch, 'deepseek-v2', cfg, params, engine_lib, build, decode,
+            paging, label=f'deepseek-v2 ({DSV2_SERVE_DEPTH} of 60 layers)')
+        del params
+        free_card(torch)
     if 'train_gemma' in phases:
         by_path['train_gemma'] = phase_train_gemma(torch, build)
         free_card(torch)
@@ -2129,6 +2429,7 @@ def main() -> None:
     # (serving: SERVE_KERNELS, training: TRAIN_KERNELS), summed.
     paths = {'serve': SERVE_KERNELS, 'serve_gemma': SERVE_KERNELS,
              'serve_moe': SERVE_KERNELS, 'serve_gptoss': SERVE_KERNELS,
+             'serve_mla': SERVE_KERNELS, 'serve_deepseek_v2': SERVE_KERNELS,
              'train': TRAIN_KERNELS, 'train_gemma': TRAIN_KERNELS}
     rows = []
     for name, kern in build.kernels().items():

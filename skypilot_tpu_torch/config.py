@@ -1,8 +1,10 @@
 """Model configurations: the port of the config halves of
 skypilot_tpu/models/llama.py (``RopeScaling``, ``LlamaConfig``,
-``PRESETS``) and skypilot_tpu/models/moe.py (``MoEConfig``, its
-``PRESETS`` as ``MOE_PRESETS``), field for field, with torch dtypes and
-the same preset names. :func:`get_config` resolves both, as the JAX
+``PRESETS``), skypilot_tpu/models/moe.py (``MoEConfig``, its
+``PRESETS`` as ``MOE_PRESETS``) and skypilot_tpu/models/mla.py
+(``MLAConfig``, ``DeepSeekMoEConfig``, its ``PRESETS`` as
+``MLA_PRESETS``), field for field, with torch dtypes and the same
+preset names. :func:`get_config` resolves all three, as the JAX
 package's ``models.get_config`` does.
 
 Every switch of the dense forward is implemented: the Llama/Qwen2 ones
@@ -12,9 +14,11 @@ the final and attention logit softcaps, ``post_norms``, the sliding
 window and its layer pattern, ``qk_norm``, ``local_rope_theta``) and
 the gpt-oss dense ones (``attn_sinks``, ``swiglu_limit``).
 :func:`check_supported` refuses what the port does not have yet by
-name: ``remat='dots'``; and on an MoE config ``qk_norm`` and
+name: ``remat='dots'``; on an MoE config ``qk_norm`` and
 ``post_norms``, which the JAX MoE layer refuses too (its layers have no
-such norm params).
+such norm params); and on an MLA config every dense switch its layers
+do not read (the JAX MLA layer ignores them), ring attention and
+pipeline stages, which the JAX MLA forward refuses.
 """
 from __future__ import annotations
 
@@ -268,6 +272,107 @@ MOE_PRESETS: Dict[str, MoEConfig] = {
 }
 
 
+@dataclasses.dataclass(frozen=True)
+class MLAConfig(LlamaConfig):
+    """DeepSeek-V2-style Multi-head Latent Attention dims
+    (models/mla.py). n_kv_heads is ignored: the latent replaces the K/V
+    heads."""
+    kv_lora_rank: int = 512          # r: latent width
+    qk_nope_head_dim: int = 128      # dn: non-rope q/k per head
+    qk_rope_head_dim: int = 64       # dr: shared rope key width
+    v_head_dim: int = 128            # dv: value width per head
+
+    def _attn_params(self) -> int:
+        D, H = self.dim, self.n_heads
+        r, dn, dr, dv = (self.kv_lora_rank, self.qk_nope_head_dim,
+                         self.qk_rope_head_dim, self.v_head_dim)
+        return (D * H * (dn + dr)        # W_q
+                + D * r + D * dr         # W_dkv, W_kr
+                + r * H * dn             # W_uk
+                + r * H * dv             # W_uv
+                + H * dv * D)            # W_o
+
+    def _embed(self) -> int:
+        return self.vocab_size * self.dim * (1 if self.tie_embeddings else 2)
+
+    @property
+    def num_params(self) -> int:
+        per_layer = self._attn_params() + 3 * self.dim * self.ffn_dim + \
+            2 * self.dim
+        return self.n_layers * per_layer + self._embed() + self.dim
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekMoEConfig(MLAConfig):
+    """DeepSeek-V2/V3: MLA attention and a mixture-of-experts FFN with
+    always-on SHARED experts beside the routed ones. ``ffn_dim`` is the
+    per-expert width; the shared experts add ``n_shared_experts *
+    ffn_dim`` of dense SwiGLU on every token. The routed half is
+    models/moe.py's ``moe_ffn`` (the same fields as MoEConfig's)."""
+    n_experts: int = 8
+    top_k: int = 2
+    n_shared_experts: int = 1
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.02
+    router_group_size: int = 2048
+
+    @property
+    def num_params(self) -> int:
+        D, F, E = self.dim, self.ffn_dim, self.n_experts
+        ffn = (E * 3 * D * F                        # routed experts
+               + self.n_shared_experts * 3 * D * F  # shared experts
+               + D * E)                             # router
+        per_layer = self._attn_params() + ffn + 2 * D
+        return self.n_layers * per_layer + self._embed() + D
+
+
+MLA_PRESETS: Dict[str, MLAConfig] = {
+    'mla-debug': MLAConfig(vocab_size=256, dim=64, n_layers=2, n_heads=4,
+                           n_kv_heads=4, ffn_dim=128, max_seq_len=128,
+                           rope_theta=10000.0, remat='none',
+                           kv_lora_rank=32, qk_nope_head_dim=16,
+                           qk_rope_head_dim=8, v_head_dim=16),
+    # DeepSeek-V2-Lite's attention geometry with a dense FFN.
+    'deepseek-v2-lite': MLAConfig(vocab_size=102400, dim=2048, n_layers=27,
+                                  n_heads=16, n_kv_heads=16, ffn_dim=10944,
+                                  rope_theta=10000.0, max_seq_len=32768,
+                                  kv_lora_rank=512, qk_nope_head_dim=128,
+                                  qk_rope_head_dim=64, v_head_dim=128),
+    'deepseek-moe-debug': DeepSeekMoEConfig(
+        vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=4,
+        ffn_dim=64, max_seq_len=128, rope_theta=10000.0, remat='none',
+        kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+        v_head_dim=16, n_experts=4, top_k=2, n_shared_experts=1,
+        # Ample capacity: no routed token drops.
+        capacity_factor=4.0),
+    # DeepSeek-V2: MLA (r=512), 160 routed experts (1536 wide, top-6)
+    # and 2 shared.
+    'deepseek-v2': DeepSeekMoEConfig(
+        vocab_size=102400, dim=5120, n_layers=60, n_heads=128,
+        n_kv_heads=128, ffn_dim=1536, max_seq_len=32768,
+        rope_theta=10000.0, kv_lora_rank=512, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, n_experts=160, top_k=6,
+        n_shared_experts=2),
+    # Kimi-K2 (the DeepSeek-V3 architecture): 384 routed experts (2048
+    # wide, top-8) and 1 shared, 64 heads, 61 layers.
+    'kimi-k2': DeepSeekMoEConfig(
+        vocab_size=163840, dim=7168, n_layers=61, n_heads=64,
+        n_kv_heads=64, ffn_dim=2048, max_seq_len=131072,
+        rope_theta=50000.0, kv_lora_rank=512, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, n_experts=384, top_k=8,
+        n_shared_experts=1),
+}
+
+# The dense switches an MLA layer does not read: (field, family).
+_NOT_IN_MLA = (('qk_norm', 'Gemma-3'), ('post_norms', 'Gemma-2'),
+               ('norm_plus_one', 'Gemma'), ('embed_scale', 'Gemma'),
+               ('final_logit_softcap', 'Gemma-2'),
+               ('attn_logit_softcap', 'Gemma-2'),
+               ('sliding_window', 'Gemma-2/3, gpt-oss'),
+               ('local_rope_theta', 'Gemma-3'), ('qkv_bias', 'Qwen2'),
+               ('attn_sinks', 'gpt-oss'), ('swiglu_limit', 'gpt-oss'))
+
+
 def check_supported(cfg: LlamaConfig) -> None:
     """Raise NotImplementedError for a switch the port does not have."""
     if cfg.remat not in ('none', 'full'):
@@ -283,13 +388,23 @@ def check_supported(cfg: LlamaConfig) -> None:
                 raise NotImplementedError(
                     f'{name} is a dense ({family}) feature; MoE layers have '
                     f'no such norm params')
+    if isinstance(cfg, MLAConfig):
+        for name, family in _NOT_IN_MLA:
+            if getattr(cfg, name):
+                raise NotImplementedError(
+                    f'{name} is a dense ({family}) feature; MLA layers do '
+                    f'not read it')
+        if cfg.attention_impl == 'ring' or cfg.pipeline_stages > 1:
+            raise NotImplementedError(
+                'ring attention and pipeline stages are not implemented '
+                'for MLA models (the JAX MLA forward refuses both)')
 
 
 def get_config(name: str) -> LlamaConfig:
-    """A dense or MoE preset by name, normalised as the JAX package does
-    (lower case, '_' read as '-')."""
+    """A dense, MoE or MLA preset by name, normalised as the JAX package
+    does (lower case, '_' read as '-')."""
     key = name.lower().replace('_', '-')
-    presets = {**PRESETS, **MOE_PRESETS}
+    presets = {**PRESETS, **MOE_PRESETS, **MLA_PRESETS}
     if key not in presets:
         raise ValueError(f'unknown model preset {name!r}; known: '
                          f'{sorted(presets)}')

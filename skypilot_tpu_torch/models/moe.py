@@ -95,7 +95,6 @@ def route(xg: torch.Tensor, router: torch.Tensor, cfg: MoEConfig, c: int
     first); a choice at a slot >= c is dropped. The slot one-hot is a
     comparison with arange(c), never one_hot of the position, which
     lies past c for every dropped or unchosen expert."""
-    b, g, gs, _ = xg.shape
     e, k = cfg.n_experts, cfg.top_k
     logits = torch.einsum('bgtd,de->bgte', xg.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
@@ -103,13 +102,21 @@ def route(xg: torch.Tensor, router: torch.Tensor, cfg: MoEConfig, c: int
                                   stable=True)
     gate_w, gate_idx = gate_w[..., :k], gate_idx[..., :k]
     gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate_w, gate_idx, slots(gate_idx, e, c)
+
+
+def slots(gate_idx: torch.Tensor, e: int, c: int) -> torch.Tensor:
+    """The capacity slots of expert ids gate_idx [B, G, T, K] over ``e``
+    experts of ``c`` slots: [B, G, T, K, E, C] fp32, 1 where a kept
+    choice lands (:func:`route`'s token-major count)."""
+    b, g, gs, k = gate_idx.shape
     onehot = _one_hot(gate_idx, e)                           # [B,G,T,K,E]
     flat = onehot.reshape(b, g, gs * k, e)
     pos = (torch.cumsum(flat, dim=2) - flat).reshape(b, g, gs, k, e)
     keep = (pos < c).float() * onehot
-    slot = (pos[..., None] == torch.arange(c, device=xg.device,
+    slot = (pos[..., None] == torch.arange(c, device=gate_idx.device,
                                            dtype=pos.dtype)).float()
-    return probs, gate_w, gate_idx, slot * keep[..., None]
+    return slot * keep[..., None]
 
 
 def moe_ffn(x: torch.Tensor, lp, cfg: MoEConfig

@@ -1,12 +1,16 @@
 """Block-paged KV cache: the device page pools and the host-side
 refcounted allocator (port of skypilot_tpu/models/paging.py:
-``PagedKV``, ``pages_for``, ``_write_indices``, ``scatter_prefill``,
-``gather_prefix``, ``PageAllocator``).
+``PagedKV``, ``PagedLatent``, ``_pools``, ``pages_for``,
+``_write_indices``, ``scatter_prefill``, ``gather_prefix``,
+``PageAllocator``).
 
-Page 0 is the TRASH page: never allocated; writes for inactive rows are
-routed to it so a freed page can never be corrupted by a stale step.
-The tensors of a :class:`PagedKV` are updated in place (the JAX version
-returns new pytrees).
+Two cache families share one page-table contract: ``PagedKV`` pools the
+dense/GQA/MoE K/V (models/decode.py), ``PagedLatent`` the MLA latents
+(models/mla.py). The helpers reach a family's per-token pools through
+:func:`_pools`, so they take either. Page 0 is the TRASH page: never
+allocated; writes for inactive rows are routed to it so a freed page
+can never be corrupted by a stale step. The pools are updated in place
+(the JAX version returns new pytrees).
 """
 from __future__ import annotations
 
@@ -40,12 +44,49 @@ class PagedKV:
         return self.table.shape[1]
 
 
+@dataclasses.dataclass
+class PagedLatent:
+    """Paged MLA latent pool + per-slot tables: c_kv [L, n_pages,
+    page_size, r], k_rope [L, n_pages, page_size, dr]; table and length
+    as :class:`PagedKV`'s. The JAX pool's int8 variant (``c_scale`` /
+    ``r_scale`` sidecars) is refused by name: it comes with the dense
+    int8 pools."""
+    c_kv: torch.Tensor
+    k_rope: torch.Tensor
+    table: torch.Tensor
+    length: torch.Tensor
+    c_scale: Optional[torch.Tensor] = None
+    r_scale: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.c_scale is not None or self.r_scale is not None:
+            raise NotImplementedError(
+                'int8 latent pools (c_scale / r_scale sidecars) are not '
+                'ported yet: they wait for ROADMAP Queue 1 item 3 (int8 KV)')
+
+    @property
+    def page_size(self) -> int:
+        return self.c_kv.shape[2]
+
+    @property
+    def max_pages(self) -> int:
+        return self.table.shape[1]
+
+
+def _pools(pcache) -> Dict[str, torch.Tensor]:
+    """The per-token pool tensors of either family, by field name, in
+    the order the family's prefill returns its rows."""
+    if isinstance(pcache, PagedKV):
+        return {'k': pcache.k, 'v': pcache.v}
+    return {'c_kv': pcache.c_kv, 'k_rope': pcache.k_rope}
+
+
 def pages_for(n_tokens: int, page_size: int) -> int:
     """Pages covering positions [0, n_tokens)."""
     return -(-n_tokens // page_size)
 
 
-def _write_indices(pcache: PagedKV, pos: torch.Tensor,
+def _write_indices(pcache, pos: torch.Tensor,
                    active: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(page_id, offset) for token positions ``pos`` [B, ...]; inactive
@@ -58,35 +99,37 @@ def _write_indices(pcache: PagedKV, pos: torch.Tensor,
     return pid, pos % psz
 
 
-def scatter_prefill(pcache: PagedKV, k_rows: torch.Tensor,
-                    v_rows: torch.Tensor, slots: torch.Tensor, s: int,
-                    lengths: torch.Tensor) -> PagedKV:
-    """Write a grouped prefill's rows, in place: positions [0, s) of
-    k_rows/v_rows [L, N, >=s, KH, hd] land in the pages the admitted
-    slots' table rows cover; length[slots] = lengths."""
-    dev = pcache.k.device
-    pos = torch.arange(s, device=dev)
+def scatter_prefill(pcache, rows_a: torch.Tensor, rows_b: torch.Tensor,
+                    slots: torch.Tensor, s: int, lengths: torch.Tensor):
+    """Write a grouped prefill's rows, in place: positions [0, s) of the
+    family's two row tensors, as its ``prefill`` returns them (PagedKV:
+    k, v [L, N, >=s, KH, hd]; PagedLatent: c_kv [L, N, >=s, r], k_rope
+    [L, N, >=s, dr]), land in the pages the admitted slots' table rows
+    cover; length[slots] = lengths."""
+    pos = torch.arange(s, device=pcache.table.device)
     psz = pcache.page_size
     pid = pcache.table.long()[slots.long()][:, pos // psz]     # [N, s]
     off = (pos % psz)[None, :].expand_as(pid)
-    pcache.k[:, pid, off] = k_rows[:, :, :s]
-    pcache.v[:, pid, off] = v_rows[:, :, :s]
+    for pool, rows in zip(_pools(pcache).values(), (rows_a, rows_b)):
+        pool[:, pid, off] = rows[:, :, :s]
     pcache.length[slots.long()] = lengths.to(pcache.length.dtype)
     return pcache
 
 
-def gather_prefix(pcache: PagedKV, slot: int, p: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Row ``slot``'s first ``p`` positions as contiguous [L, 1, p, KH,
-    hd] (k, v): the pair :func:`decode.prefill_extend` takes. A prefix
-    hit's table points at shared pages, so this reads what every other
-    holder reads. The engine extends in place instead
-    (``decode.paged_prefill_extend``); this is its oracle."""
+def gather_prefix(pcache, slot: int, p: int) -> Tuple[torch.Tensor, ...]:
+    """Row ``slot``'s first ``p`` positions of each of the family's
+    pools as contiguous [L, 1, p, ...] tensors — (k, v) for a PagedKV,
+    (c_kv, k_rope) for a PagedLatent: the prefix pair the family's
+    ``prefill_extend`` takes. A prefix hit's table points at shared
+    pages, so this reads what every other holder reads. The engine
+    extends in place instead (``paged_prefill_extend``); this is its
+    oracle."""
     psz = pcache.page_size
-    pos = torch.arange(p, device=pcache.k.device)
+    pos = torch.arange(p, device=pcache.table.device)
     pid = pcache.table[slot].long()[pos // psz]
     off = pos % psz
-    return pcache.k[:, pid, off][:, None], pcache.v[:, pid, off][:, None]
+    return tuple(pool[:, pid, off][:, None]
+                 for pool in _pools(pcache).values())
 
 
 class PagesExhausted(Exception):

@@ -1,7 +1,7 @@
 """The bridge between the JAX package's trees and the port's tensors:
 params, the optimizer state, and a train state's checkpoint paths.
 
-The JAX package's ``init_params`` (llama's and moe's, and its
+The JAX package's ``init_params`` (llama's, moe's and mla's, and its
 checkpoints) give a nested dict whose layer leaves are stacked
 ``[L, ...]`` and whose projections are ``[in, out]``. The port keeps
 exactly that layout (models/llama.py multiplies ``h @ w``), so the
@@ -36,8 +36,11 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig,
     """Nested dict of numpy arrays (``jax.device_get`` of the JAX tree)
     → the same nested dict of torch tensors in ``dtype`` (default
     cfg.param_dtype) on ``device``. Any stacked tree: a dense Llama
-    config's, or an MoEConfig's (router [L, D, E], experts [L, E, ...]).
-    Checks every layer leaf carries cfg.n_layers on its leading axis."""
+    config's, an MoEConfig's (router [L, D, E], experts [L, E, ...]), an
+    MLAConfig's (w_dkv, w_kr, kv_norm, w_uk, w_uv) or a
+    DeepSeekMoEConfig's (MLA's leaves, the routed experts and the shared
+    ws_*). Checks every layer leaf carries cfg.n_layers on its leading
+    axis."""
     dtype = dtype or cfg.param_dtype
 
     def conv(a):

@@ -45,6 +45,12 @@ Dense presets and the MoE family (``module_for``: models/moe.py, e.g.
 FFN inside every step graph; an MoE engine does not speculate
 (``spec_k`` 0, as in JAX: capacity grouping makes a verify differ from
 sequential steps), so its warm-up captures the eight step graphs only.
+The MLA family (``deepseek-v2-lite``; ``deepseek-v2``, whose DeepSeekMoE
+FFN is routed) decodes over a second cache family, the paged latent
+pool: ``_decode`` is models/mla.py instead of models/decode.py, the
+same calls on a ``PagedLatent`` (``cache_family()`` says which), every
+attention the plain absorbed-matmul one, as in JAX; dense MLA
+speculates, DeepSeekMoE does not.
 
 What waits (ROADMAP Queue 1 item 4): chat completions, ``n`` /
 ``best_of`` and batched prompts (each refused with 400 by name),
@@ -60,6 +66,7 @@ streaming, a per-request queue.
     SKYTPU_ENGINE_STEP_CHUNK=8 python -m skypilot_tpu_torch.serve.engine \\
         --model llama-1b --port 8300
     python -m skypilot_tpu_torch.serve.engine --model gpt-oss-20b
+    python -m skypilot_tpu_torch.serve.engine --model deepseek-v2-lite
 """
 from __future__ import annotations
 
@@ -81,11 +88,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.config import (LlamaConfig, MoEConfig,
-                                      check_supported, get_config)
+from skypilot_tpu_torch.config import (DeepSeekMoEConfig, LlamaConfig,
+                                      MLAConfig, MoEConfig, check_supported,
+                                      get_config)
 from skypilot_tpu_torch.data.tokenizer import ByteTokenizer, StreamDecoder
 from skypilot_tpu_torch.kernels import build
-from skypilot_tpu_torch.models import decode, module_for, paging
+from skypilot_tpu_torch.models import decode, mla, module_for, paging
 
 logger = logging.getLogger(__name__)
 
@@ -239,14 +247,21 @@ class InferenceEngine:
         self.cfg = cfg if cfg is not None else get_config(model)
         check_supported(self.cfg)
         self.model_name = model
+        # The MLA family decodes over the paged latent pool (models/
+        # mla.py), every other over the paged K/V (models/decode.py):
+        # one call surface, so the engine picks a module, not a path.
+        self._decode = mla if isinstance(self.cfg, MLAConfig) else decode
         self.max_len = max_len or min(self.cfg.max_seq_len, 2048)
         self.max_batch = MAX_BATCH
         self.page_size = PAGE_SIZE
         self.step_chunk = MAX_STEP_CHUNK
         self.prefix_cache = PREFIX_CACHE_ENTRIES
         # Speculation needs a verify equal to sequential steps, which MoE
-        # capacity grouping breaks: off for an MoE config, as in JAX.
-        self.spec_k = 0 if isinstance(self.cfg, MoEConfig) else SPEC_K
+        # capacity grouping breaks: off for an MoE or DeepSeekMoE config,
+        # as in JAX (dense MLA speculates).
+        self.spec_k = (0 if isinstance(self.cfg, (MoEConfig,
+                                                  DeepSeekMoEConfig))
+                       else SPEC_K)
         self.spec_cooldown = SPEC_COOLDOWN
         self.prefill_chunk = PREFILL_CHUNK
         self.kv_pages = KV_PAGES
@@ -283,7 +298,7 @@ class InferenceEngine:
         # Finished requests' (ttft_s, tpot_s, n_tokens), newest last.
         self.timings: collections.deque = collections.deque(maxlen=4096)
         self._inflight: List[_InFlightStep] = []
-        self.cache: Optional[paging.PagedKV] = None
+        self.cache: Optional[Any] = None    # PagedKV or PagedLatent
         self._layout: Optional[Tuple[int, int, int]] = None
         self.alloc: Optional[paging.PageAllocator] = None
         self.slots: List[Optional[Dict[str, Any]]] = [None] * self.max_batch
@@ -302,6 +317,11 @@ class InferenceEngine:
         if self.step_chunk < 1:
             raise ValueError(f'SKYTPU_ENGINE_STEP_CHUNK must be >= 1, got '
                              f'{self.step_chunk}')
+
+    def cache_family(self) -> str:
+        """'paged_kv' (dense/GQA/MoE) or 'paged_latent' (MLA): the
+        family of the pool this engine decodes over."""
+        return 'paged_latent' if self._decode is mla else 'paged_kv'
 
     # -- device state ------------------------------------------------------
     def _ensure_state(self) -> None:
@@ -339,7 +359,7 @@ class InferenceEngine:
         (:meth:`_reset_device_state`), and the eager extends write the
         pool, lengths, ``last`` and counts in place."""
         psz, b, dev = self.page_size, self.max_batch, self.device
-        self.cache = decode.init_page_pool(
+        self.cache = self._decode.init_page_pool(
             self.cfg, self.n_pages, psz, b, self._max_pages, device=dev)
         # Per-slot previous token, device-resident: the fused calls carry
         # it, so a lookahead call is dispatched with no host sync;
@@ -434,7 +454,7 @@ class InferenceEngine:
         graphs keep their addresses) and reset the host state."""
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
-        for t in (self.cache.k, self.cache.v, self.cache.table,
+        for t in (*paging._pools(self.cache).values(), self.cache.table,
                   self.cache.length, self.last_dev, self.counts):
             t.zero_()
         if self.spec_k > 0:
@@ -703,12 +723,12 @@ class InferenceEngine:
         slots_t = torch.tensor(slots, dtype=torch.int64, device=dev)
         lengths_t = torch.tensor(lengths, dtype=torch.int32, device=dev)
         with torch.no_grad():
-            logits, ks, vs = decode.prefill(
+            logits, rows_a, rows_b = self._decode.prefill(
                 self.params,
                 torch.tensor(padded, dtype=torch.int32, device=dev),
                 self.cfg, self.max_len, lengths=lengths_t)
-            paging.scatter_prefill(self.cache, ks, vs, slots_t, bucket,
-                                   lengths_t)
+            paging.scatter_prefill(self.cache, rows_a, rows_b, slots_t,
+                                   bucket, lengths_t)
             first, first_lp, tis, tvs = self._sample_first(logits, slots)
         now = time.perf_counter()
         for i, req in enumerate(items):
@@ -799,7 +819,7 @@ class InferenceEngine:
         self._reserve_slot_pages(slot, shared + own)
         self._refresh_table()
         with torch.no_grad():
-            logits = decode.paged_prefill_extend(
+            logits = self._decode.paged_prefill_extend(
                 self.params, torch.tensor([suffix + [0] * (s2 - len(suffix))],
                                           dtype=torch.int32,
                                           device=self.device),
@@ -856,7 +876,7 @@ class InferenceEngine:
         dev = self.device
         with torch.no_grad():
             if remaining > c:
-                decode.paged_prefill_extend(
+                self._decode.paged_prefill_extend(
                     self.params, torch.tensor([req.tokens[pos:pos + c]],
                                               dtype=torch.int32, device=dev),
                     self.cache, self.cfg, slot=slot, p=pos, lengths=c)
@@ -864,7 +884,7 @@ class InferenceEngine:
                 self.prefill_chunks += 1
                 return
             s2 = decode.bucket_size(remaining)
-            logits = decode.paged_prefill_extend(
+            logits = self._decode.paged_prefill_extend(
                 self.params, torch.tensor(
                     [req.tokens[pos:] + [0] * (s2 - remaining)],
                     dtype=torch.int32, device=dev),
@@ -892,7 +912,7 @@ class InferenceEngine:
         last = self.last_dev
         with torch.no_grad():
             for t in range(k):
-                logits, _ = decode.paged_decode_step(
+                logits, _ = self._decode.paged_decode_step(
                     self.params, last, self.cache, self.cfg,
                     max_len=self.max_len, active=active)
                 nxt = decode.select_token_per_row(
@@ -927,7 +947,7 @@ class InferenceEngine:
         fed = self._spec_dev[:k].t()
         active = self._spec_dev[k] > 0
         with torch.no_grad():
-            logits, _ = decode.paged_verify_step(
+            logits, _ = self._decode.paged_verify_step(
                 self.params, fed, self.cache, self.cfg,
                 max_len=self.max_len, active=active)
             greedy = torch.argmax(logits, dim=-1).to(torch.int32)

@@ -87,7 +87,14 @@ def _refuse_unported(tcfg: TrainerConfig) -> None:
             raise NotImplementedError(
                 f'{flag} is not ported yet: it waits for ROADMAP Queue 1 '
                 f'{item}')
-    if isinstance(config.get_config(tcfg.model), config.MoEConfig):
+    cfg = config.get_config(tcfg.model)
+    if isinstance(cfg, config.MLAConfig):
+        raise NotImplementedError(
+            f'--model {tcfg.model}: training the MLA family is not ported '
+            f'yet (the port serves it): it waits for ROADMAP Queue 1 items '
+            f'6 and 7 (MoE and MLA training: the router aux loss in '
+            f'train_lib, gradients through the latent attention)')
+    if isinstance(cfg, config.MoEConfig):
         raise NotImplementedError(
             f'--model {tcfg.model}: training the MoE family is not ported '
             f'yet (the port serves it): it waits for ROADMAP Queue 1 item 6 '

@@ -864,3 +864,60 @@ def test_moe_step_graph_replay_equals_eager_step(cuda, name, head_dim):
     assert torch.equal(eng.cache.length, g_len)
     assert torch.equal(eng.cache.k[:, 1:], g_k[:, 1:])
     assert not torch.equal(g_k[:, 1:], snap[0][:, 1:])
+
+
+@pytest.mark.parametrize('name', ['mla-debug', 'deepseek-moe-debug'])
+def test_mla_paged_step_captures_into_a_graph(cuda, name):
+    """The plain MLA paged decode step (the latent family has no kernel:
+    its absorbed attention is plain PyTorch on every device, as in JAX)
+    has no host sync: captured into a CUDA graph on random bf16 weights
+    and replayed from the same pool, it gives the eager step's logits,
+    latent pages and lengths bit for bit, with one row inactive and one
+    writing the view's last position."""
+    from skypilot_tpu_torch.models import mla
+    cfg = config.MLA_PRESETS[name]
+    params = mla.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             cuda, dtype=cfg.dtype)
+    b, psz, maxp = 3, 16, 4
+    max_len = psz * maxp
+    pool = mla.init_page_pool(cfg, b * maxp + 1, psz, b, maxp, device=cuda)
+    pool.table.copy_(torch.arange(1, b * maxp + 1, dtype=torch.int32,
+                                  device=cuda).reshape(b, maxp))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    _, cs, krs = mla.prefill(params, torch.randint(
+        0, cfg.vocab_size, (b, 32), generator=gen, device=cuda,
+        dtype=torch.int32), cfg, max_len)
+    paging.scatter_prefill(pool, cs, krs, torch.arange(b, device=cuda), 32,
+                           torch.tensor([7, 32, 20], dtype=torch.int32,
+                                        device=cuda))
+    pool.length[1] = max_len - 1
+    tok = torch.tensor([5, 9, 11], dtype=torch.int32, device=cuda)
+    active = torch.tensor([True, True, False], device=cuda)
+    state = (pool.c_kv, pool.k_rope, pool.length)
+    snap = [t.clone() for t in state]
+
+    def step():
+        return mla.paged_decode_step(params, tok, pool, cfg, max_len=max_len,
+                                     active=active)[0]
+
+    want = step().clone()
+    want_state = [t.clone() for t in state]
+    for t, v in zip(state, snap):
+        t.copy_(v)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        step()                          # warm up on the capture stream
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = step()
+    for t, v in zip(state, snap):
+        t.copy_(v)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert torch.equal(pool.length, want_state[2])
+    assert torch.equal(pool.c_kv[:, 1:], want_state[0][:, 1:])
+    assert torch.equal(pool.k_rope[:, 1:], want_state[1][:, 1:])
+    assert not torch.equal(pool.c_kv[:, 1:], snap[0][:, 1:])
