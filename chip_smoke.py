@@ -127,7 +127,21 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  of 4 x 2048 tokens: A twice and C, D once per layer per
                  step; grads against the plain and fp32 paths, the loss
                  against the plain-attention trainer, a resume at step
-                 3; one step under torch.profiler.
+                 3; one step under torch.profiler;
+ 19. train_moe — the trainer on moe-1b whole (12 layers, 8 experts top-2,
+                 hd 128), checked as in train: A 144, C 72 and D 72
+                 launches in 6 steps; the grads (CE + router aux) at
+                 capacity for every choice, the plain and fp32 runs
+                 teacher-forced onto the default run's routes in the
+                 forward and in the remat recompute; then gpt-oss-20b at
+                 full width cut to 2 layers, one step with no kernel, its
+                 grads finite and those of the sinks, the q/k/v biases
+                 and the clamped experts non-zero;
+ 20. train_mla — the trainer on deepseek-v2-lite whole (27 layers, r 512,
+                 vocab 102400), 4 steps of 4 x 2048, no kernel launched
+                 (the latent attention is plain PyTorch, as in JAX);
+                 finite losses and grads, each leaf's bf16 grad within
+                 TOL_GRAD_MLA of fp32; one step profiled, peak memory.
 Then it prints the card's name and power limit, one {"kernels": [...]}
 line, and as its last line {"ok": true, "device": {...}}.
 
@@ -1955,13 +1969,13 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
     return launches
 
 
-def train_checked(torch, build, tcfg, cfg, tag: str):
+def train_checked(torch, build, tcfg, cfg, tag: str, plain: bool = True):
     """The port's trainer with ``tcfg`` from launch counts of 0: with
     remat 'full', kernel A twice and C and D once per layer per step
-    (none where the config takes the plain route); finite losses and
-    grad norms; ms/step and tokens/s; peak memory; then the
-    plain-attention trainer's losses within TOL_LOSS. Returns (the
-    history, the launch counts)."""
+    (none where the config takes the plain route: takes_kernels); finite
+    losses and grad norms; ms/step and tokens/s; peak memory; then, with
+    ``plain``, the plain-attention trainer's losses within TOL_LOSS.
+    Returns (the history, the launch counts)."""
     import dataclasses
     from skypilot_tpu_torch.train import trainer
     torch.cuda.reset_peak_memory_stats()
@@ -1970,8 +1984,9 @@ def train_checked(torch, build, tcfg, cfg, tag: str):
     launches = {n: k.launches for n, k in build.kernels().items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
     layers, n = cfg.n_layers, tcfg.total_steps
-    want = {'flash_fwd': 2 * layers * n, 'flash_dq': layers * n,
-            'flash_dkv': layers * n, 'paged_decode': 0}
+    k = layers * n if takes_kernels(cfg) else 0
+    want = {'flash_fwd': 2 * k, 'flash_dq': k, 'flash_dkv': k,
+            'paged_decode': 0}
     log(f'{tag} {tcfg.model}, {layers} layers, remat {cfg.remat}, batch '
         f'{tcfg.batch_size}x{tcfg.seq_len}, {n} steps: launches {launches} '
         f'(want {want}); peak memory {peak:.2f} GB')
@@ -1984,6 +1999,8 @@ def train_checked(torch, build, tcfg, cfg, tag: str):
     sec = statistics.median(r['sec_per_step'] for r in hist[1:])
     log(f'{tag} {sec * 1e3:.1f} ms/step (median of steps 2-{n}), '
         f'{tcfg.batch_size * tcfg.seq_len / sec:.0f} tokens/s')
+    if not plain:
+        return hist, launches
 
     plain = trainer.train(dataclasses.replace(
         tcfg, model_overrides={**tcfg.model_overrides,
@@ -2004,8 +2021,6 @@ def phase_train(torch, build) -> dict:
     kernels (train_checked), a resume at step 3 (TOL_RESUME), one
     step's grads against the plain bf16 and fp32 paths (TOL_GRAD), one
     step profiled. Returns the main run's launch counts."""
-    import dataclasses
-    import shutil
     from skypilot_tpu_torch import config
     from skypilot_tpu_torch.train import trainer
     cfg = config.get_config('llama-1b')
@@ -2014,7 +2029,23 @@ def phase_train(torch, build) -> dict:
         total_steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP, log_every=1,
         device='cuda')
     hist, launches = train_checked(torch, build, tcfg, cfg, '[train]')
+    check_resume(tcfg, hist, '[train]')
 
+    # One step's grads three ways on the trainer's initial weights and
+    # first batch, then that step under the profiler.
+    params, batch = first_step(torch, cfg, TRAIN_B)
+    check_grads(torch, cfg, params, batch, '[train]')
+    profile_step(torch, cfg, params, batch)
+    return launches
+
+
+def check_resume(tcfg, hist, tag: str) -> None:
+    """The trainer run of ``tcfg`` again, cut at step 3 with a checkpoint
+    in the git-ignored .smoke_ckpt/ (deleted after), then resumed to its
+    end: steps 4.. within TOL_RESUME of the uninterrupted ``hist``."""
+    import dataclasses
+    import shutil
+    from skypilot_tpu_torch.train import trainer
     ck = os.path.join(HERE, '.smoke_ckpt')
     shutil.rmtree(ck, ignore_errors=True)
     try:
@@ -2026,21 +2057,16 @@ def phase_train(torch, build) -> dict:
         secs = time.perf_counter() - t0
     finally:
         shutil.rmtree(ck, ignore_errors=True)
-    if [r['step'] for r in resumed] != list(range(4, TRAIN_STEPS + 1)):
-        fail(f'resume ran steps {[r["step"] for r in resumed]}')
+    if [r['step'] for r in resumed] != list(range(4, tcfg.total_steps + 1)):
+        fail(f'{tag} resume ran steps {[r["step"] for r in resumed]}')
     diff = max(abs(a['loss'] - b['loss']) for a, b in zip(hist[3:], resumed))
-    log(f'[train] resume at step 3 (save, restore, 3 more steps: '
-        f'{secs:.1f}s): losses {[r["loss"] for r in resumed]}, max |diff| '
-        f'vs uninterrupted {diff:.4f} (tol {TOL_RESUME})')
+    log(f'{tag} resume at step 3 (save, restore, '
+        f'{tcfg.total_steps - 3} more steps: {secs:.1f}s): losses '
+        f'{[r["loss"] for r in resumed]}, max |diff| vs uninterrupted '
+        f'{diff:.4f} (tol {TOL_RESUME})')
     if diff > TOL_RESUME:
-        fail(f'resumed run departs from the uninterrupted one by {diff}')
-
-    # One step's grads three ways on the trainer's initial weights and
-    # first batch, then that step under the profiler.
-    params, batch = first_step(torch, cfg, TRAIN_B)
-    check_grads(torch, cfg, params, batch, '[train]')
-    profile_step(torch, cfg, params, batch)
-    return launches
+        fail(f'{tag} resumed run departs from the uninterrupted one by '
+             f'{diff}')
 
 
 def first_step(torch, cfg, batch_size: int):
@@ -2048,10 +2074,10 @@ def first_step(torch, cfg, batch_size: int):
     requiring grad) and its first batch of ``batch_size`` x TRAIN_S."""
     from skypilot_tpu_torch.data import loader
     from skypilot_tpu_torch.data_service import spec as spec_lib
-    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models import module_for
     from skypilot_tpu_torch.train import train_lib
-    params = llama.init_params(cfg, torch.Generator(device='cuda')
-                               .manual_seed(0), 'cuda')
+    params = module_for(cfg).init_params(
+        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
     for leaf in train_lib.leaves(params):
         leaf.requires_grad_(True)
     source = spec_lib.load_source(spec_lib.DatasetSpec(
@@ -2071,40 +2097,89 @@ def profile_step(torch, cfg, params, batch) -> None:
     profile_device(torch, lambda: step_fn(state, batch))
 
 
-def check_grads(torch, cfg, params, batch, tag: str) -> float:
-    """One step's grads three ways on ``params`` and ``batch``: the
-    default route (bf16; through the kernels where the config lets
-    them), plain attention in bf16, plain attention in fp32. Per leaf,
-    the default route's relative error (Frobenius) against fp32 may be
-    at most TOL_GRAD times the plain bf16 path's. Returns the worst
-    ratio."""
-    import dataclasses
-    from skypilot_tpu_torch.models import llama, weights
+def step_grads(torch, cfg, params, batch, routes=None):
+    """The grads of CE + router aux (train_lib's step) on ``params`` and
+    ``batch`` under ``cfg``, aligned with train_lib.leaves(params) (None
+    for a leaf off the path). ``routes``, a RouteLog, is installed over
+    the forward and the backward both: under remat 'full' the backward
+    recomputes each layer, its routing included."""
     from skypilot_tpu_torch.train import train_lib
-    leaves = train_lib.leaves(params)
-
-    def grads(cfg_run):
-        tokens = batch['tokens']
-        logits = llama.forward(params, tokens[:, :-1], cfg_run)
+    tokens = batch['tokens']
+    with routes or contextlib.nullcontext():
+        logits, aux = train_lib.forward_with_aux(cfg, params, tokens[:, :-1])
         loss, _ = train_lib.cross_entropy_loss(logits, tokens[:, 1:])
         del logits
-        return torch.autograd.grad(loss, leaves, allow_unused=True)
+        return torch.autograd.grad(loss + aux, train_lib.leaves(params),
+                                   allow_unused=True)
 
-    g_kern = grads(cfg)
-    g_plain = grads(dataclasses.replace(cfg, attention_impl='xla'))
-    g_ref = grads(dataclasses.replace(cfg, attention_impl='xla',
-                                      dtype=torch.float32))
+
+def forced_routes(torch, moe, cfg, rec):
+    """A RouteLog that hands a remat 'full' run the routes ``rec`` (a
+    run of the same batch, no choice dropped) took in its forward: call
+    i < L is layer i's forward, call L + j the recompute of layer L-1-j
+    (the backward runs the layers last to first). Checks first that
+    ``rec``'s own recompute routed as its forward did."""
+    L = cfg.n_layers
+    order = list(range(L)) + list(range(L - 1, -1, -1))
+    if len(rec.calls) != len(order):
+        fail(f'{len(rec.calls)} route calls, want {len(order)} (forward '
+             f'and recompute of {L} layers)')
+    fwd = [idx for idx, _ in rec.calls[:L]]
+    for i, layer in enumerate(order[L:], L):
+        if not torch.equal(rec.calls[i][0], fwd[layer]):
+            fail(f'layer {layer}: the recompute routed apart from the '
+                 f'forward')
+    return RouteLog(moe, force=lambda i, _: fwd[order[i]], no_drop=True)
+
+
+def check_grads(torch, cfg, params, batch, tag: str, bound=None,
+                force_routes: bool = False) -> float:
+    """One step's grads (CE + router aux) three ways on ``params`` and
+    ``batch``: the default route (bf16; through the kernels where the
+    config lets them), plain attention in bf16, plain attention in fp32.
+    Per leaf, the default route's relative error (Frobenius) against
+    fp32 may be at most TOL_GRAD times the plain bf16 path's. With
+    ``bound`` (a config whose default route is the plain one, so that
+    there is no second bf16 path), the default route's own error may be
+    at most ``bound`` instead. With ``force_routes`` (an MoE config with
+    capacity for every choice), the plain and fp32 runs take the
+    default run's routes. Returns the worst ratio, or error."""
+    import dataclasses
+    from skypilot_tpu_torch.models import moe, weights
+    rec = RouteLog(moe, no_drop=True) if force_routes else None
+    g_kern = step_grads(torch, cfg, params, batch, rec)
+
+    def routes():
+        return forced_routes(torch, moe, cfg, rec) if force_routes else None
+
+    g_plain = (None if bound is not None else step_grads(
+        torch, dataclasses.replace(cfg, attention_impl='xla'), params,
+        batch, routes()))
+    g_ref = step_grads(torch, dataclasses.replace(
+        cfg, attention_impl='xla', dtype=torch.float32), params, batch,
+        routes())
     names = [p for p, _ in weights.tree_paths(params)]
     worst = 0.0
-    for name, gk, gp, gr in zip(names, g_kern, g_plain, g_ref):
+    for i, (name, gk, gr) in enumerate(zip(names, g_kern, g_ref)):
         if gk is None or not bool(gk.isfinite().all()):
             fail(f'{tag} grad of {name}: missing or non-finite')
         ref_norm = float(gr.norm())
         e_k = float((gk - gr).norm()) / ref_norm
-        e_p = float((gp - gr).norm()) / ref_norm
+        if bound is not None:
+            worst = max(worst, e_k)
+            log(f'{tag} grad {name}: |err|/|fp32| {e_k:.3e}')
+            continue
+        e_p = float((g_plain[i] - gr).norm()) / ref_norm
         worst = max(worst, e_k / e_p)
         log(f'{tag} grad {name}: |err|/|fp32| default {e_k:.3e}, plain '
             f'{e_p:.3e}, ratio {e_k / e_p:.3f}')
+    if bound is not None:
+        if worst > bound:
+            fail(f'{tag} grads: bf16 error {worst:.3e} against fp32 > '
+                 f'{bound}')
+        log(f'{tag} grads of all {len(names)} leaves: bf16 vs fp32 error '
+            f'worst {worst:.3e} (bound {bound}) ok')
+        return worst
     if worst > TOL_GRAD:
         fail(f'{tag} grads: default-route error {worst:.2f}x the plain bf16 '
              f'error > {TOL_GRAD}x')
@@ -2172,18 +2247,149 @@ def phase_train_gemma(torch, build) -> dict:
     return launches
 
 
+# train_moe: moe-1b whole (12 layers, dim 1024, 8 experts top-2, hd 128,
+# 8/4 heads: kernels A, C and D under the routed FFN), TRAIN_B x TRAIN_S,
+# TRAIN_STEPS steps; its grads checked at capacity n_experts / top_k (no
+# choice dropped) with the routes forced. Then gpt-oss-20b at full width
+# cut to GPTOSS_TRAIN_LAYERS (one window layer, one full, sinks on both:
+# no kernel), one step of 1 x TRAIN_S (44.9 GB of fp32 state).
+GPTOSS_TRAIN_LAYERS = 2
+# train_mla: deepseek-v2-lite whole (27 layers, 2.607 B params, 41.7 GB of
+# fp32 state), MLA_TRAIN_B x TRAIN_S, MLA_TRAIN_STEPS steps; no kernel
+# (the latent attention is plain PyTorch, as in JAX). Batch 4: at batch 2
+# the trainer's peak was 49.04 GB (H100 80GB HBM3), leaving room.
+MLA_TRAIN_B, MLA_TRAIN_STEPS = 4, 4
+# Its grads: per leaf, the bf16 step's relative error (Frobenius) against
+# the fp32 step at most this. There is no second bf16 path to hold it
+# against (no kernel); llama-1b's 16 layers give at most 2.6e-2 a leaf,
+# and 27 layers of bf16 rounding may give more: four times that, rounded.
+TOL_GRAD_MLA = 0.1
+
+
+def phase_train_moe(torch, build) -> dict:
+    """The port's trainer on moe-1b whole (remat 'full') through
+    train_checked, a resume at step 3 (TOL_RESUME), one step's grads
+    against the plain bf16 and fp32 paths (TOL_GRAD; capacity for every
+    choice, the plain and fp32 runs on the default run's routes), one
+    step profiled; then gpt-oss-20b's step (gptoss_train_step). Returns
+    moe-1b's launch counts."""
+    import dataclasses
+    from skypilot_tpu_torch import config
+    from skypilot_tpu_torch.train import trainer
+    cfg = config.get_config('moe-1b')
+    tcfg = trainer.TrainerConfig(
+        model='moe-1b', batch_size=TRAIN_B, seq_len=TRAIN_S,
+        total_steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP, log_every=1,
+        device='cuda')
+    free_card(torch)
+    log(f'[train_moe] {torch.cuda.memory_allocated() / 1e9:.2f} GB held by '
+        f'earlier phases')
+    hist, launches = train_checked(torch, build, tcfg, cfg, '[train_moe]')
+    check_resume(tcfg, hist, '[train_moe]')
+    free_card(torch)
+    ample = dataclasses.replace(cfg,
+                                capacity_factor=cfg.n_experts / cfg.top_k)
+    params, batch = first_step(torch, cfg, TRAIN_B)
+    check_grads(torch, ample, params, batch, '[train_moe]',
+                force_routes=True)
+    free_card(torch)
+    profile_step(torch, cfg, params, batch)
+    del params, batch
+    free_card(torch)
+    gptoss_train_step(torch, build)
+    return launches
+
+
+def gptoss_train_step(torch, build) -> None:
+    """gpt-oss-20b at full width, GPTOSS_TRAIN_LAYERS layers: one trainer
+    step of 1 x TRAIN_S with no kernel launched (sinks and the window send
+    every layer to the plain attention, as JAX's gate does), a finite loss
+    and grad norm; then one step's grads, every leaf's finite and those
+    of the sinks, the q/k/v biases and the clamped experts non-zero."""
+    import dataclasses
+    from skypilot_tpu_torch import config
+    from skypilot_tpu_torch.models import weights
+    from skypilot_tpu_torch.train import trainer
+    name, depth = 'gpt-oss-20b', GPTOSS_TRAIN_LAYERS
+    tag = f'[train_moe {name}]'
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rec = trainer.train(trainer.TrainerConfig(
+        model=name, model_overrides={'n_layers': depth}, batch_size=1,
+        seq_len=TRAIN_S, total_steps=1, warmup_steps=TRAIN_WARMUP,
+        log_every=1, device='cuda'))[0]
+    got = {k: v.launches for k, v in build.kernels().items()}
+    log(f'{tag} {depth} layers, batch 1x{TRAIN_S}, one step: '
+        f'{json.dumps(rec)}; launches {got}; peak memory '
+        f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
+    if any(got.values()):
+        fail(f'{tag} launched kernels {got}: its layers take the plain route')
+    if not (np.isfinite(rec['loss']) and np.isfinite(rec['grad_norm'])):
+        fail(f'{tag} non-finite loss or grad norm')
+    free_card(torch)
+    cfg = dataclasses.replace(config.get_config(name), n_layers=depth)
+    params, batch = first_step(torch, cfg, 1)
+    grads = dict(zip((p for p, _ in weights.tree_paths(params)),
+                     step_grads(torch, cfg, params, batch)))
+    for path, g in grads.items():
+        if g is None or not bool(g.isfinite().all()):
+            fail(f'{tag} grad of {path}: missing or non-finite')
+    live = {k: float(grads[f"['layers']['{k}']"].norm())
+            for k in ('sink', 'bq', 'bk', 'bv', 'w_gate', 'w_up', 'w_down')}
+    log(f'{tag} grads of all {len(grads)} leaves finite; norms '
+        + ', '.join(f'{k} {v:.3e}' for k, v in live.items()))
+    if not all(v > 0 for v in live.values()):
+        fail(f'{tag} a grad is zero: {live}')
+    del params, batch, grads
+    free_card(torch)
+
+
+def phase_train_mla(torch, build) -> dict:
+    """The port's trainer on deepseek-v2-lite whole (remat 'full') through
+    train_checked, with no kernel launched and no plain-attention rerun
+    (the one path is the plain one); then one step's grads, bf16 against
+    fp32, each leaf's error at most TOL_GRAD_MLA; one step profiled.
+    Its resume is held on the CPU (tests/test_torch_trainer.py): a
+    checkpoint here would be 31 GB. Returns the launch counts (all 0)."""
+    from skypilot_tpu_torch import config
+    from skypilot_tpu_torch.train import trainer
+    cfg = config.get_config('deepseek-v2-lite')
+    tcfg = trainer.TrainerConfig(
+        model='deepseek-v2-lite', batch_size=MLA_TRAIN_B, seq_len=TRAIN_S,
+        total_steps=MLA_TRAIN_STEPS, warmup_steps=TRAIN_WARMUP,
+        log_every=1, device='cuda')
+    free_card(torch)
+    log(f'[train_mla] {torch.cuda.memory_allocated() / 1e9:.2f} GB held by '
+        f'earlier phases')
+    _, launches = train_checked(torch, build, tcfg, cfg, '[train_mla]',
+                                plain=False)
+    free_card(torch)
+    params, batch = first_step(torch, cfg, MLA_TRAIN_B)
+    check_grads(torch, cfg, params, batch, '[train_mla]',
+                bound=TOL_GRAD_MLA)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    profile_step(torch, cfg, params, batch)
+    log(f'[train_mla] profiled step: peak memory '
+        f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
+    del params, batch
+    free_card(torch)
+    return launches
+
+
 # Seconds the profiler's window stays open before its work starts and
 # after it has finished.
 PROFILE_MARGIN_S = 0.5
 # Kernel-name fragments of the port's kernels, as the profiler shows them.
 KERNEL_SYMBOLS = {'paged_decode': 'paged_decode_kernel',
-                  'flash_fwd': 'flash_fwd'}
+                  'flash_fwd': 'flash_fwd', 'flash_dq': 'flash_dq',
+                  'flash_dkv': 'flash_dkv'}
 
 
 def profile_device(torch, fn) -> dict:
     """Run ``fn`` under torch.profiler (CUDA activity) and print its wall
-    time, the device time of every kernel and copy it ran, the idle
-    share, and the kernels that took the most device time. Returns the
+    time, the port's kernels' events and device time, the idle share,
+    and the kernels that took the most device time. Returns the
     idle share (None when the profiler saw no kernel) and the number of
     kernel events of each of KERNEL_SYMBOLS' kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -2205,7 +2411,8 @@ def profile_device(torch, fn) -> dict:
     counts = {name: sum(n for _, n, key in rows if sym in key)
               for name, sym in KERNEL_SYMBOLS.items()}
     log(f'[profile] kernel events {sum(r[1] for r in rows)}; by port '
-        f'kernel: ' + '; '.join(f'{key[:60]} {n}x' for _, n, key in rows
+        f'kernel: ' + '; '.join(f'{key[:60]} {n}x {ms:.2f} ms'
+                                for ms, n, key in rows
                                 if any(sym in key for sym in
                                        KERNEL_SYMBOLS.values())))
     if not rows:
@@ -2280,7 +2487,8 @@ def main() -> None:
                         'timing,model,serve,model_gemma,serve_gemma,'
                         'gemma_switches,model_moe,serve_moe,serve_gptoss,'
                         'model_mla,serve_mla,serve_deepseek_v2,'
-                        'train_gemma,train', help='comma-separated '
+                        'train_gemma,train,train_moe,train_mla',
+                        help='comma-separated '
                         'subset (for '
                         'debugging; the full run is the check)')
     args = parser.parse_args()
@@ -2419,6 +2627,13 @@ def main() -> None:
         free_card(torch)
     if 'train' in phases:
         by_path['train'] = phase_train(torch, build)
+        free_card(torch)
+    if 'train_moe' in phases:
+        by_path['train_moe'] = phase_train_moe(torch, build)
+        free_card(torch)
+    if 'train_mla' in phases:
+        by_path['train_mla'] = phase_train_mla(torch, build)
+        free_card(torch)
 
     replaces = {
         'flash_fwd': 'skypilot_tpu/ops/pallas/flash_attention.py:63',
@@ -2430,7 +2645,8 @@ def main() -> None:
     paths = {'serve': SERVE_KERNELS, 'serve_gemma': SERVE_KERNELS,
              'serve_moe': SERVE_KERNELS, 'serve_gptoss': SERVE_KERNELS,
              'serve_mla': SERVE_KERNELS, 'serve_deepseek_v2': SERVE_KERNELS,
-             'train': TRAIN_KERNELS, 'train_gemma': TRAIN_KERNELS}
+             'train': TRAIN_KERNELS, 'train_gemma': TRAIN_KERNELS,
+             'train_moe': TRAIN_KERNELS, 'train_mla': TRAIN_KERNELS}
     rows = []
     for name, kern in build.kernels().items():
         t = times.get(name, {})

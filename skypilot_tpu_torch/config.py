@@ -380,7 +380,7 @@ def check_supported(cfg: LlamaConfig) -> None:
             f'remat={cfg.remat!r} is not ported yet: the port has the '
             f"'none' and 'full' layer recompute; 'dots' (save the matrix "
             f'products, recompute the rest) waits for ROADMAP Queue 1 item '
-            f'4 (training slice)')
+            f'5 (training: what waits)')
     if isinstance(cfg, MoEConfig):
         for name, family in (('qk_norm', 'Gemma-3'), ('post_norms',
                                                       'Gemma-2')):
@@ -398,6 +398,12 @@ def check_supported(cfg: LlamaConfig) -> None:
             raise NotImplementedError(
                 'ring attention and pipeline stages are not implemented '
                 'for MLA models (the JAX MLA forward refuses both)')
+    if cfg.pipeline_stages > 1:
+        raise NotImplementedError(
+            f'pipeline_stages={cfg.pipeline_stages} is not ported yet: the '
+            f'port runs every layer as one stage on one card; the pipeline '
+            f'schedule waits for ROADMAP Queue 1 item 8 (parallelism and '
+            f'multi-process)')
 
 
 def get_config(name: str) -> LlamaConfig:

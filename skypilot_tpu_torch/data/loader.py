@@ -28,7 +28,7 @@ def tokenize_text(text: str, tokenizer: Optional[str] = None) -> np.ndarray:
     if tokenizer is not None:
         raise NotImplementedError(
             f'tokenizer {tokenizer!r}: HF tokenizers are not ported yet; '
-            f'they wait for ROADMAP Queue 1 item 9 (model I/O). The port '
+            f'they wait for ROADMAP Queue 1 item 6 (model I/O). The port '
             f'tokenizes text as bytes.')
     return np.frombuffer(text.encode('utf-8'), dtype=np.uint8).astype(
         np.int32)

@@ -9,7 +9,7 @@ stream bit for bit (``synthetic_tokens`` draws the same numpy stream).
 
 This copy has the synthetic and the plain-corpus sources. SFT
 conversations, the tokenizer zoo and the data-service client wait for a
-later slice (ROADMAP Queue 1 item 4).
+later slice (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 

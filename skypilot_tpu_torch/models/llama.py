@@ -302,16 +302,12 @@ def layer(x: torch.Tensor, lp, cfg: LlamaConfig, sin, cos,
     return x + ffn(x, lp, cfg)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-            return_hidden: bool = False) -> torch.Tensor:
-    """tokens [B, S] → logits [B, S, vocab] (fp32), or the final-norm
-    hidden states [B, S, D] fp32 with ``return_hidden``. Under autograd
-    with ``cfg.remat == 'full'`` each layer is recomputed in the
-    backward (its attention forward runs twice a step)."""
-    check_supported(cfg)
-    x = embed(params, tokens, cfg)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    sin, cos = rope_tables(cfg, positions)
+def apply_layers(params: Params, cfg: LlamaConfig, step, carry):
+    """The layer loop of every family's forward: ``carry = step(carry,
+    lp, i)`` for each layer i, lp its slice of the stacked leaves. Under
+    autograd with ``cfg.remat == 'full'`` each step is recomputed in the
+    backward (a layer's forward runs twice a step, the recomputes last
+    layer first)."""
     remat = cfg.remat == 'full' and torch.is_grad_enabled()
     # One unbind per stacked leaf, not an index per layer: the backward
     # of unbind stacks the L layer grads once, where indexing would
@@ -320,10 +316,25 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in layers.items()}
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                layer, x, lp, cfg, sin, cos, i, use_reentrant=False)
+            carry = torch.utils.checkpoint.checkpoint(
+                step, carry, lp, i, use_reentrant=False)
         else:
-            x = layer(x, lp, cfg, sin, cos, i)
+            carry = step(carry, lp, i)
+    return carry
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            return_hidden: bool = False) -> torch.Tensor:
+    """tokens [B, S] → logits [B, S, vocab] (fp32), or the final-norm
+    hidden states [B, S, D] fp32 with ``return_hidden``. Under autograd
+    with ``cfg.remat == 'full'`` each layer is recomputed in the
+    backward (:func:`apply_layers`)."""
+    check_supported(cfg)
+    x = embed(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    sin, cos = rope_tables(cfg, positions)
+    x = apply_layers(params, cfg,
+                     lambda h, lp, i: layer(h, lp, cfg, sin, cos, i), x)
     if return_hidden:
         return final_norm(x, params, cfg).float()
     return unembed(x, params, cfg)

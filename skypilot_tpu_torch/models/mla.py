@@ -32,7 +32,8 @@ path. The paged steps gather each layer's whole ``max_len`` view from
 the pages (fixed shapes, no host sync: the engine captures them into
 CUDA graphs), overlay the fed positions and attend; a position at or
 past the view is dropped, as the JAX scatter drops it. The pools are
-updated in place. Python loop over layers; no pipeline, ring or mesh.
+updated in place. Python loop over layers, each recomputed in the
+backward under ``remat='full'``; no pipeline, ring or mesh.
 """
 from __future__ import annotations
 
@@ -206,15 +207,21 @@ def forward(params: Params, tokens: torch.Tensor, cfg: MLAConfig,
             return_aux: bool = False):
     """tokens [B, S] → logits [B, S, vocab] fp32, and with
     ``return_aux`` (logits, router_aux_weight · Σ aux / n_layers; 0 for
-    dense MLA)."""
+    dense MLA). Under autograd with ``cfg.remat == 'full'`` each layer
+    is recomputed in the backward (llama.apply_layers)."""
     check_supported(cfg)
     x = llama.embed(params, tokens, cfg)
     sin, cos = rope_tables(cfg, torch.arange(tokens.shape[1],
                                              device=tokens.device))
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for i in range(cfg.n_layers):
-        x, a = _layer(x, llama.layer_params(params, i), cfg, sin, cos, 0)
-        aux = aux + a
+
+    def step(carry, lp, i):
+        h, aux = carry
+        h, a = _layer(h, lp, cfg, sin, cos, 0)
+        return h, aux + a
+
+    x, aux = llama.apply_layers(
+        params, cfg, step,
+        (x, torch.zeros((), dtype=torch.float32, device=tokens.device)))
     logits = llama.unembed(x, params, cfg)
     if return_aux:
         return logits, getattr(cfg, 'router_aux_weight', 0.0) * aux / \

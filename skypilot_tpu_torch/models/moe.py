@@ -11,8 +11,9 @@ no shape that depends on the data). The experts are SwiGLU FFNs (or
 gpt-oss's clamped variant, ``cfg.glu``) stacked on a leading expert
 axis; their products are batched matmuls, as the JAX package leaves
 them to XLA. A layer is Llama's attention block (models/llama.py) then
-``moe_norm`` → :func:`moe_ffn`. Python loop over layers; no pipeline,
-ring or expert mesh.
+``moe_norm`` → :func:`moe_ffn`. Python loop over layers, each
+recomputed in the backward under ``remat='full'``
+(llama.apply_layers); no pipeline, ring or expert mesh.
 """
 from __future__ import annotations
 
@@ -26,6 +27,10 @@ from skypilot_tpu_torch.ops import norms
 from skypilot_tpu_torch.ops.attention import attention as _attention
 
 Params = llama.Params
+
+# The training loop reads it: forward(return_aux=True) gives the router
+# load-balance aux.
+HAS_AUX = True
 
 
 def capacity(cfg: MoEConfig, seq_len: int) -> int:
@@ -177,15 +182,23 @@ def layer(x: torch.Tensor, lp, cfg: MoEConfig, sin, cos, layer_idx: int
 def forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
             return_aux: bool = False):
     """tokens [B, S] → logits [B, S, vocab] fp32, and with
-    ``return_aux`` (logits, router_aux_weight · Σ aux / n_layers)."""
+    ``return_aux`` (logits, router_aux_weight · Σ aux / n_layers). Under
+    autograd with ``cfg.remat == 'full'`` each layer, routing included,
+    is recomputed in the backward (llama.apply_layers: ``route`` runs
+    twice a layer a step, in the forward, then in the recompute)."""
     check_supported(cfg)
     x = llama.embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     sin, cos = llama.rope_tables(cfg, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for i in range(cfg.n_layers):
-        x, a = layer(x, llama.layer_params(params, i), cfg, sin, cos, i)
-        aux = aux + a
+
+    def step(carry, lp, i):
+        h, aux = carry
+        h, a = layer(h, lp, cfg, sin, cos, i)
+        return h, aux + a
+
+    x, aux = llama.apply_layers(
+        params, cfg, step,
+        (x, torch.zeros((), dtype=torch.float32, device=tokens.device)))
     logits = llama.unembed(x, params, cfg)
     if return_aux:
         return logits, cfg.router_aux_weight * aux / cfg.n_layers

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.config import LlamaConfig
-from skypilot_tpu_torch.models import llama, weights
+from skypilot_tpu_torch.models import module_for, weights
 from skypilot_tpu_torch.train import train_lib
 
 logger = logging.getLogger(__name__)
@@ -61,8 +61,8 @@ class CheckpointCorruptError(RuntimeError):
 def abstract_train_state(cfg: LlamaConfig,
                          tx: train_lib.AdamW) -> train_lib.TrainState:
     """The TrainState's structure, shapes and dtypes on the meta device
-    (no memory): the restore target."""
-    params = llama.init_params(cfg, None, 'meta')
+    (no memory), from the config's model module: the restore target."""
+    params = module_for(cfg).init_params(cfg, None, 'meta')
     return train_lib.TrainState(step=0, params=params,
                                 opt_state=tx.init(params))
 

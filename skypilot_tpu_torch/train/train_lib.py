@@ -1,9 +1,10 @@
 """Training step for the port (port of skypilot_tpu/train/train_lib.py,
 without meshes: one card or the CPU).
 
-fp32 master params and bf16 compute (models/llama.py), next-token
-cross entropy, and the JAX package's optimizer written out as plain
-tensor code: ``optax.chain(clip_by_global_norm(max_grad_norm),
+fp32 master params and bf16 compute, next-token cross entropy (plus
+the router load-balance aux of a model whose module sets ``HAS_AUX``:
+the MoE and MLA families), and the JAX package's optimizer written out
+as plain tensor code: ``optax.chain(clip_by_global_norm(max_grad_norm),
 adamw(warmup_cosine_decay_schedule(0, lr, warmup, max(total,
 warmup + 1)), b1=.9, b2=.95, eps=1e-8, weight_decay=wd))``. The step
 updates the state in place (params, moments), where the JAX step
@@ -18,8 +19,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from skypilot_tpu_torch.config import LlamaConfig
-from skypilot_tpu_torch.models import llama
-from skypilot_tpu_torch.models import weights
+from skypilot_tpu_torch.models import module_for, weights
 
 Batch = Dict[str, torch.Tensor]
 Params = Dict[str, object]
@@ -149,11 +149,12 @@ def init_train_state(cfg: LlamaConfig, tx: AdamW, device='cuda',
                      params: Optional[Params] = None) -> TrainState:
     """Step 0: ``params`` as given (e.g. bridged from JAX with
     models/weights.params_from_jax), else random from ``generator``
-    (default: seed 0 on ``device``), in cfg.param_dtype; fresh moments."""
+    (default: seed 0 on ``device``) by the config's model module, in
+    cfg.param_dtype; fresh moments."""
     if params is None:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        params = llama.init_params(cfg, generator, device)
+        params = module_for(cfg).init_params(cfg, generator, device)
     for leaf in leaves(params):
         leaf.requires_grad_(True)
     return TrainState(step=0, params=params, opt_state=tx.init(params))
@@ -161,6 +162,17 @@ def init_train_state(cfg: LlamaConfig, tx: AdamW, device='cuda',
 
 def _shift(tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return tokens[:, :-1], tokens[:, 1:]
+
+
+def forward_with_aux(cfg: LlamaConfig, params: Params, inputs: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logits, the router aux to add to the loss): the model module's
+    ``forward(return_aux=True)`` when it sets ``HAS_AUX``, else its
+    logits and 0."""
+    mod = module_for(cfg)
+    if getattr(mod, 'HAS_AUX', False):
+        return mod.forward(params, inputs, cfg, return_aux=True)
+    return mod.forward(params, inputs, cfg), 0.0
 
 
 def make_train_step(cfg: LlamaConfig, tx: AdamW, grad_accum_steps: int = 1
@@ -172,16 +184,18 @@ def make_train_step(cfg: LlamaConfig, tx: AdamW, grad_accum_steps: int = 1
     'loss_mask' [B, S] masks the target positions. grad_accum_steps > 1
     splits the batch into that many microbatches run one after another
     before one update, weighting each microbatch's mean grad by its
-    target-token count, so the update equals the dense step. Metrics:
-    loss, grad_norm (of the unclipped grads), tokens (0-d tensors, not
+    target-token count, so the update equals the dense step. The grads
+    are those of the CE plus the router aux (each microbatch's own aux
+    inside its grads, as in the JAX scan). Metrics: loss (the CE alone),
+    grad_norm (of the unclipped grads), tokens (0-d tensors, not
     synchronised) and step.
     """
 
     def grads_of(params, tokens, mask):
         inputs, targets = _shift(tokens)
-        logits = llama.forward(params, inputs, cfg)
+        logits, aux = forward_with_aux(cfg, params, inputs)
         loss, denom = cross_entropy_loss(logits, targets, mask)
-        grads = torch.autograd.grad(loss, leaves(params))
+        grads = torch.autograd.grad(loss + aux, leaves(params))
         return list(grads), loss.detach(), denom
 
     def step_fn(state: TrainState, batch: Batch):
@@ -222,12 +236,13 @@ def make_train_step(cfg: LlamaConfig, tx: AdamW, grad_accum_steps: int = 1
 
 def make_eval_step(cfg: LlamaConfig
                    ) -> Callable[[Params, Batch], torch.Tensor]:
-    """Forward-only loss: (params, batch) → 0-d mean CE, no grad."""
+    """Forward-only loss: (params, batch) → 0-d mean CE, no grad (the
+    router aux is asked for and dropped, as in JAX)."""
 
     @torch.no_grad()
     def eval_fn(params, batch: Batch) -> torch.Tensor:
         inputs, targets = _shift(batch['tokens'])
-        logits = llama.forward(params, inputs, cfg)
+        logits, _ = forward_with_aux(cfg, params, inputs)
         loss, _ = cross_entropy_loss(logits, targets, batch.get('loss_mask'))
         return loss
 

@@ -7,14 +7,16 @@ checkpoints (port of skypilot_tpu/train/trainer.py on one card).
 Step-indexed input (data_service/spec.py: the synthetic stream, or a
 corpus with ``--data``), periodic async checkpoints in the JAX
 package's format, resume from the newest step, and a final save on
-SIGTERM (a spot preemption notice). The trainer runs on the card
+SIGTERM (a spot preemption notice). Every family the port serves
+trains: dense Llama/Qwen2 and Gemma, MoE and MLA/DeepSeek (their router
+aux joins the loss; train/train_lib.py). The trainer runs on the card
 (``--device cuda``, the default) and raises without one; tests pass
 ``device='cpu'``.
 
 Not ported yet, and refused by name: meshes (``--mesh``), LoRA,
 ``--hf-dir``, ``--sft-data`` and ``--data-service``. Failpoints, spans
 and the batch-wait histogram wait for a later slice too (ROADMAP
-Queue 1 item 4).
+Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -74,10 +76,10 @@ class TrainerConfig:
 _UNPORTED = (
     ('mesh', '--mesh', 'item 8 (parallelism and multi-process)'),
     ('lora_rank', '--lora-rank (LoRA)', 'item 7 (fine-tuning and RL)'),
-    ('hf_dir', '--hf-dir', 'item 9 (model I/O)'),
-    ('sft_data_path', '--sft-data', 'item 4 (training slice: SFT data)'),
+    ('hf_dir', '--hf-dir', 'item 6 (model I/O)'),
+    ('sft_data_path', '--sft-data', 'item 5 (training: SFT data)'),
     ('data_service', '--data-service',
-     'item 4 (training slice: the data-service client)'),
+     'item 5 (training: the data-service client)'),
 )
 
 
@@ -87,18 +89,6 @@ def _refuse_unported(tcfg: TrainerConfig) -> None:
             raise NotImplementedError(
                 f'{flag} is not ported yet: it waits for ROADMAP Queue 1 '
                 f'{item}')
-    cfg = config.get_config(tcfg.model)
-    if isinstance(cfg, config.MLAConfig):
-        raise NotImplementedError(
-            f'--model {tcfg.model}: training the MLA family is not ported '
-            f'yet (the port serves it): it waits for ROADMAP Queue 1 items '
-            f'6 and 7 (MoE and MLA training: the router aux loss in '
-            f'train_lib, gradients through the latent attention)')
-    if isinstance(cfg, config.MoEConfig):
-        raise NotImplementedError(
-            f'--model {tcfg.model}: training the MoE family is not ported '
-            f'yet (the port serves it): it waits for ROADMAP Queue 1 item 6 '
-            f'(MoE training: the router aux loss in train_lib)')
 
 
 class _PreemptionWatch(contextlib.AbstractContextManager):

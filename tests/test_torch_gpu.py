@@ -921,3 +921,68 @@ def test_mla_paged_step_captures_into_a_graph(cuda, name):
     assert torch.equal(pool.c_kv[:, 1:], want_state[0][:, 1:])
     assert torch.equal(pool.k_rope[:, 1:], want_state[1][:, 1:])
     assert not torch.equal(pool.c_kv[:, 1:], snap[0][:, 1:])
+
+
+@pytest.mark.parametrize('name', ['moe-debug', 'deepseek-moe-debug'])
+def test_family_train_step_on_card_matches_cpu(cuda, name):
+    """One train step (CE + router aux, then AdamW) of an MoE and an MLA
+    family preset in fp32 from the same weights and batch on the card
+    and on the CPU: loss and grad norm within rtol 1e-4, and every
+    leaf's grad elementwise within 1e-4 of the leaf's largest (cuBLAS
+    and the CPU sum in other orders; TF32 is off). fp32 takes the plain
+    attention on the card (the kernels are bf16)."""
+    from skypilot_tpu_torch.models import module_for
+    cfg = dataclasses.replace(config.get_config(name), dtype=torch.float32,
+                              attention_impl='xla', remat='full')
+    host = module_for(cfg).init_params(cfg, torch.Generator().manual_seed(0),
+                                       'cpu')
+    tokens = torch.randint(0, cfg.vocab_size, (2, 65),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        # Copies: the step updates its params in place.
+        params = {k: ({n: t.clone().to(dev) for n, t in v.items()}
+                      if isinstance(v, dict) else v.clone().to(dev))
+                  for k, v in host.items()}
+        leaves = train_lib.leaves(params)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        tok = tokens.to(dev)
+        logits, aux = train_lib.forward_with_aux(cfg, params, tok[:, :-1])
+        loss, _ = train_lib.cross_entropy_loss(logits, tok[:, 1:])
+        grads = [g.cpu() for g in torch.autograd.grad(loss + aux, leaves)]
+        tx = train_lib.default_optimizer(warmup_steps=0, total_steps=10)
+        state = train_lib.init_train_state(cfg, tx, dev, params=params)
+        _, m = train_lib.make_train_step(cfg, tx)(state, {'tokens': tok})
+        out[dev] = (float(m['loss']), float(m['grad_norm']), grads)
+    (l_c, n_c, g_c), (l_g, n_g, g_g) = out['cpu'], out['cuda']
+    np.testing.assert_allclose([l_g, n_g], [l_c, n_c], rtol=1e-4)
+    for (path, _), a, b in zip(weights.tree_paths(host), g_g, g_c):
+        scale = float(b.abs().max())
+        assert scale > 0, path
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale,
+                                   msg=path)
+
+
+def test_moe_1b_attention_shape_launches_a_c_d(cuda):
+    """moe-1b's attention (dim 1024, 8/4 heads, head_dim 128) under its
+    routed FFN, cut to 2 layers with a narrow vocab and experts: one
+    train step with remat 'full' launches A twice a layer (forward and
+    recompute) and C and D once; loss and grad norm finite."""
+    cfg = dataclasses.replace(config.get_config('moe-1b'), n_layers=2,
+                              vocab_size=512, ffn_dim=256)
+    assert cfg.remat == 'full' and cfg.hd == 128
+    tx = train_lib.default_optimizer(warmup_steps=0, total_steps=10)
+    state = train_lib.init_train_state(
+        cfg, tx, cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 257), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    build.reset_launches()
+    _, m = train_lib.make_train_step(cfg, tx)(state, {'tokens': tokens})
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert {k: v.launches for k, v in build.kernels().items()} == \
+        {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
+         'paged_decode': 0}
+    assert np.isfinite(float(m['loss'])) and np.isfinite(float(m['grad_norm']))

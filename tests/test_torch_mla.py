@@ -156,15 +156,6 @@ def test_int8_latent_pool_refused_by_name(sidecar):
                            **{sidecar: torch.zeros(2, 5, 8)})
 
 
-@pytest.mark.parametrize('name', sorted(config.MLA_PRESETS))
-def test_trainer_refuses_mla_presets_by_name(name):
-    from skypilot_tpu_torch.train import trainer
-    with pytest.raises(NotImplementedError,
-                       match=f'--model {name}: training the MLA family.*'
-                             f'ROADMAP Queue 1 items 6 and 7'):
-        trainer.main(['--model', name, '--device', 'cpu'])
-
-
 # ------------------------------------------------------------------ params
 
 @pytest.mark.parametrize('name', NAMES)

@@ -200,3 +200,22 @@ def test_dots_remat_is_refused_by_name():
     _, tcfg = _cfgs(remat='dots')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         config.check_supported(tcfg)
+
+
+@pytest.mark.parametrize('name', ['llama-debug', 'moe-debug'])
+def test_pipeline_stages_refused_by_name(name):
+    """The dense and MoE forwards have no pipeline schedule: a config
+    asking for stages is refused by name (as MLA's always was), in the
+    forward and in the trainer, not run as one stage."""
+    from skypilot_tpu_torch.models import module_for
+    from skypilot_tpu_torch.train import trainer
+    cfg = dataclasses.replace(config.get_config(name), pipeline_stages=2)
+    with pytest.raises(NotImplementedError,
+                       match='pipeline_stages=2.*ROADMAP Queue 1 item 8'):
+        config.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match='pipeline_stages'):
+        module_for(cfg).forward({}, torch.zeros((1, 4), dtype=torch.int32),
+                                cfg)
+    with pytest.raises(NotImplementedError, match='pipeline_stages'):
+        trainer.main(['--model', name, '--model-override',
+                      'pipeline_stages=2', '--device', 'cpu'])

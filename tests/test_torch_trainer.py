@@ -10,9 +10,17 @@ on the CPU.
   2x2x2 mesh, so in chunks) restores in the port, and a step the port
   saved restores through the JAX ``Checkpointer.restore_tree``, every
   leaf bit for bit.
+- Every family: the MoE and MLA debug presets (moe-debug, gptoss-debug,
+  mla-debug, deepseek-moe-debug) train through ``trainer.main`` with
+  remat 'full', save, resume, and match the uninterrupted run within
+  TOL_RESUME (chip_smoke.py's bound; on the CPU they are equal); a JAX
+  step of each restores in the port, whose trainer resumes from it, and
+  a port step of each restores in JAX, leaf for leaf.
 """
 import dataclasses
 import inspect
+import json
+import logging
 import os
 import select
 import signal
@@ -26,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from skypilot_tpu import models as jmodels
 from skypilot_tpu.data import loader as jloader
 from skypilot_tpu.data_service import spec as jspec
 from skypilot_tpu.models import llama as jllama
@@ -42,6 +51,8 @@ from skypilot_tpu_torch.train import checkpoints, train_lib, trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = {'n_layers': 1, 'dim': 32, 'ffn_dim': 64, 'max_seq_len': 64}
+FAMILIES = ['moe-debug', 'gptoss-debug', 'mla-debug', 'deepseek-moe-debug']
+TOL_RESUME = 1e-3
 
 
 def _cfgs():
@@ -265,7 +276,93 @@ def test_trainer_defaults_to_cuda_and_refuses_without_a_card(monkeypatch):
 @pytest.mark.parametrize('flags', [
     ['--mesh', 'data=2'], ['--lora-rank', '4'], ['--hf-dir', '/x'],
     ['--sft-data', 'c.jsonl'], ['--data-service', 'h:1'],
-    ['--model', 'moe-debug'], ['--model', 'GPT_OSS-20b']])
+    ['--model', 'moe-debug', '--mesh', 'expert=2'],
+    ['--model', 'GPT_OSS-20b', '--lora-rank', '4']])
 def test_unported_flags_refused_by_name(flags):
-    with pytest.raises(NotImplementedError, match=f'{flags[0]}.*ROADMAP'):
+    """The flags the port lacks, on a dense model and on the families
+    that train now."""
+    with pytest.raises(NotImplementedError, match=f'{flags[-2]}.*ROADMAP'):
         trainer.main(flags + ['--device', 'cpu'])
+
+
+def _main_records(caplog, argv):
+    """The JSON records ``trainer.main(argv)`` logs."""
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger=trainer.logger.name):
+        trainer.main(argv)
+    return [json.loads(r.getMessage()) for r in caplog.records
+            if r.name == trainer.logger.name and
+            r.getMessage().startswith('{')]
+
+
+@pytest.mark.parametrize('name', FAMILIES)
+def test_trainer_main_trains_and_resumes_every_family(name, tmp_path,
+                                                      caplog):
+    """4 steps through the CLI entry, and 2 + 2 with a checkpoint and a
+    resume between them: the same losses and grad norms."""
+    argv = ['--model', name, '--model-override', 'remat=full',
+            '--batch-size', '4', '--seq-len', '16', '--log-every', '1',
+            '--lr', '1e-2', '--device', 'cpu']
+    ref = _main_records(caplog, argv + ['--steps', '4'])
+    ck = str(tmp_path / 'ck')
+    run = argv + ['--ckpt-dir', ck, '--ckpt-every', '2']
+    first = _main_records(caplog, run + ['--steps', '2'])
+    resumed = _main_records(caplog, run + ['--steps', '4'])
+    assert [r['step'] for r in first + resumed] == [1, 2, 3, 4]
+    assert [r['step'] for r in ref] == [1, 2, 3, 4]
+    for key in ('loss', 'grad_norm'):
+        got = [r[key] for r in first + resumed]
+        assert all(np.isfinite(got)), got
+        np.testing.assert_allclose(got, [r[key] for r in ref],
+                                   atol=TOL_RESUME, rtol=0)
+    assert checkpoints.Checkpointer(ck).all_steps() == [2, 4]
+
+
+def _family_cfgs(name):
+    return (dataclasses.replace(jmodels.get_config(name), dtype=jnp.float32),
+            dataclasses.replace(config.get_config(name), dtype=torch.float32))
+
+
+@pytest.mark.parametrize('name', FAMILIES)
+def test_jax_saved_family_step_restores_in_port(name, tmp_path):
+    """A JAX step of the family, saved on a 2x2x2 mesh (in chunks),
+    restores in the port leaf for leaf, and the port's trainer resumes
+    from it."""
+    jcfg, tcfg = _family_cfgs(name)
+    mesh = build_mesh(MeshSpec(data=2, fsdp=2, tensor=2))
+    jtx = jtrain_lib.default_optimizer(warmup_steps=1, total_steps=10)
+    jstate = jtrain_lib.init_train_state(jax.random.PRNGKey(0), jcfg, mesh,
+                                         jtx)
+    tokens = np.random.default_rng(0).integers(0, 256, (8, 17))
+    jstate, _ = jtrain_lib.make_train_step(jcfg, mesh, jtx)(
+        jstate, {'tokens': jnp.asarray(tokens, jnp.int32)})
+    with jcheckpoints.Checkpointer(str(tmp_path)) as jck:
+        jck.save(jstate, wait=True)
+    tx = train_lib.default_optimizer(warmup_steps=1, total_steps=10)
+    state = checkpoints.Checkpointer(str(tmp_path)).restore_tree(
+        checkpoints.abstract_train_state(tcfg, tx), 1, 'cpu')
+    assert state.step == state.opt_state.count == 1
+    _assert_state_equals_jax(state, jstate)
+    hist = trainer.train(trainer.TrainerConfig(
+        model=name, model_overrides={'dtype': torch.float32}, batch_size=2,
+        seq_len=16, total_steps=2, log_every=1, ckpt_dir=str(tmp_path),
+        device='cpu'))
+    assert [r['step'] for r in hist] == [2]
+    assert np.isfinite(hist[0]['loss'])
+
+
+@pytest.mark.parametrize('name', FAMILIES)
+def test_port_saved_family_step_restores_in_jax(name, tmp_path):
+    jcfg, tcfg = _family_cfgs(name)
+    tx = train_lib.default_optimizer(warmup_steps=1, total_steps=10)
+    state = train_lib.init_train_state(tcfg, tx, 'cpu')
+    tokens = np.random.default_rng(1).integers(0, 256, (2, 17))
+    state, _ = train_lib.make_train_step(tcfg, tx)(
+        state, {'tokens': torch.from_numpy(tokens)})
+    with checkpoints.Checkpointer(str(tmp_path)) as ck:
+        assert ck.save(state, wait=True) == 1
+    jtx = jtrain_lib.default_optimizer(warmup_steps=1, total_steps=10)
+    abstract = jcheckpoints.abstract_train_state(
+        jcfg, jmesh.single_device_mesh(), jtx)
+    jstate = jcheckpoints.Checkpointer(str(tmp_path)).restore_tree(abstract, 1)
+    _assert_state_equals_jax(state, jstate)
