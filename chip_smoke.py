@@ -64,6 +64,21 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  chiprun_out/admission_<model>.json), and a 1000-token
                  prompt's logits after the 4 chunks are held against
                  one-shot prefills (bf16 kernel, bf16 plain, fp32);
+  7b. batch_infer — offline batch inference on llama-1b whole (bf16,
+                 random weights from seed 0) through batch_infer.run in
+                 process: 64 records of random bytes, 16-1000 tokens, in
+                 batches of 32, 64 greedy tokens each: all written, a
+                 second run re-runs none, kernel A exactly 16 layers x 2
+                 batches in generate and again in embed (every row
+                 finite, dim wide); items/s, tokens/s, peak memory; the
+                 file's completions == the replayed CUDA-graph generate
+                 == an eager decode_step loop; contiguous decode_step
+                 logits vs paged_decode_step's (kernels A, B) against
+                 fp32 (TOL_MODEL); generate_speculative in fp32 with a
+                 2-layer draft == fp32 generate, its rounds; int8 from
+                 the fp32 masters vs bf16: first-logit error (< 0.1), ms
+                 a replayed step at B=32, peak memory
+                 (chiprun_out/batch_infer.json);
   8. model_gemma — gemma-7b at full width (28 layers, dim 3072, 16/16
                  heads, hd 256, vocab 256000; random bf16 weights from
                  seed 0, ~17.1 GB): prefill + 8 paged decode steps
@@ -103,7 +118,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  forward (TOL_MLA_SELF); a k=1 CUDA-graph replay of
                  mla.paged_decode_step bit-equal to the eager step; A
                  and B launched zero times (the latent family has no
-                 kernel, as in JAX);
+                 kernel, as in JAX); mla.generate over the contiguous
+                 latent cache: the replayed graph's greedy tokens == the
+                 eager steps', first logits bf16 vs fp32 (TOL_MODEL);
  15. serve_mla — the engine on deepseek-v2-lite, checked as in serve
                  (the bursts, the admission burst with chunks, prefix
                  hits and speculation, the verify graphs, the chunked
@@ -1144,7 +1161,7 @@ def mla_graph_check(torch, mla, params, cfg, pc, max_len: int, tag) -> None:
 
 
 def phase_model_mla(torch, cfg, params, mla, paging, build, name,
-                    steps: int = 8) -> float:
+                    steps: int = 8, gen_check: bool = False) -> float:
     """Prefill + ``steps`` paged decode steps over the paged latent pool,
     teacher-forced with the bf16 path's own greedy tokens, four ways:
     bf16 paged (the serving path), the bf16 whole-sequence forward
@@ -1158,7 +1175,9 @@ def phase_model_mla(torch, cfg, params, mla, paging, build, name,
     zero times. A DeepSeekMoE config routes: the fp32 paged path takes
     the default path's routes (RouteLog's ``force``) and the forwards
     take them token by token, with no choice dropped on any path (the
-    config's capacity must be ample). Returns the worst error ratio."""
+    config's capacity must be ample). ``gen_check``: mla.generate over
+    the contiguous latent cache too (mla_generate_check). Returns the
+    worst error ratio."""
     import dataclasses
     from skypilot_tpu_torch.models import decode, moe
     shape = MODEL_SHAPE
@@ -1219,6 +1238,12 @@ def phase_model_mla(torch, cfg, params, mla, paging, build, name,
                     force=(lambda i, _: r_def.calls[i][0]) if routed
                     else None)[0]
         ref_fwd = whole(cfg32, params32, seq, pos, by_token)
+        if gen_check:
+            f0 = ref[:, 0]
+            mla_generate_check(
+                torch, mla, cfg, params, params32, f0,
+                float((plain[:, 0] - f0).abs().max()) / float(f0.std()),
+                name)
         del params32, r_def, by_token
     torch.cuda.synchronize()
     if not bool(torch.isfinite(kern).all()) or \
@@ -1248,6 +1273,463 @@ def phase_model_mla(torch, cfg, params, mla, paging, build, name,
         f'{worst:.3f} (tol {TOL_MODEL}); fp32 paged vs fp32 forward '
         f'{e_self:.3e} (tol {TOL_MLA_SELF}) ok')
     return worst
+
+
+def mla_generate_check(torch, mla, cfg, params, params32, ref0, e_plain0,
+                       name) -> None:
+    """mla.generate over the contiguous latent cache, on the block's
+    prompts: the graph's greedy tokens (16 steps) equal an eager
+    prefill_cache + decode_step loop's; its bf16 first logits lie no
+    farther from the fp32 paged path's (``ref0``) than TOL_MODEL x the
+    bf16 forward's error there (``e_plain0``), and the fp32 contiguous
+    prefill's equal them within TOL_MLA_SELF."""
+    import dataclasses
+    shape, n = MODEL_SHAPE, 16
+    tok_t, len_t = model_prompts(torch, cfg.vocab_size,
+                                 np.random.default_rng(5), shape)
+    max_len = shape['bucket'] + n
+    got = mla.generate(params, tok_t, cfg, n, max_len=max_len,
+                       prompt_lengths=len_t)
+    with torch.no_grad():
+        logits, cache = mla.prefill_cache(params, tok_t, cfg, max_len,
+                                          lengths=len_t)
+        first = logits
+        toks = [torch.argmax(logits, -1).to(torch.int32)]
+        for _ in range(n - 1):
+            logits, cache = mla.decode_step(params, toks[-1], cache, cfg)
+            toks.append(torch.argmax(logits, -1).to(torch.int32))
+        del cache
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        first32 = mla.prefill_cache(params32, tok_t, cfg32, max_len,
+                                    lengths=len_t)[0]
+    eager = torch.stack(toks, 1)
+    if not torch.equal(got, eager):
+        fail(f'{name} mla.generate graph tokens differ from the eager '
+             f'steps in {int((got != eager).sum())} of {got.numel()}')
+    std = float(ref0.std())
+    e16 = float((first - ref0).abs().max()) / std
+    e32 = float((first32 - ref0).abs().max()) / std
+    if e16 > TOL_MODEL * e_plain0 or e32 > TOL_MLA_SELF:
+        fail(f'{name} mla.generate first logits: bf16-fp32 {e16:.3e} '
+             f'(tol {TOL_MODEL} x {e_plain0:.3e}), fp32 contiguous vs fp32 '
+             f'paged {e32:.3e} (tol {TOL_MLA_SELF})')
+    log(f'[model] {name} mla.generate: {tuple(got.shape)} greedy tokens of '
+        f'the replayed graph == the eager steps; first logits bf16-fp32 '
+        f'{e16:.3e} (forward {e_plain0:.3e}), fp32 contiguous vs paged '
+        f'{e32:.3e} ok')
+
+
+# The batch_infer phase: 64 records of random printable bytes (1 byte,
+# 1 token) of 16 to 1000 tokens, in batches of 32, 64 new tokens each.
+BI_RECORDS, BI_BATCH, BI_NEW = 64, 32, 64
+# Weight-only int8 against bf16: the first logits' max |diff| over the
+# bf16 max |logit|, JAX's bound (tests/unit_tests/test_decode.py).
+TOL_INT8 = 0.1
+
+
+def batch_records(path: str, seed: int = 0) -> None:
+    rng = np.random.default_rng(seed)
+    with open(path, 'w', encoding='utf-8') as f:
+        for n in rng.integers(16, 1001, size=BI_RECORDS):
+            text = ''.join(map(chr, rng.integers(32, 127, size=n)))
+            f.write(json.dumps({'prompt': text}) + '\n')
+
+
+def timed(torch, fn):
+    """(fn's result, its wall seconds ending in a synchronise)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def tree_gb(tree) -> float:
+    """GB held by a params tree's tensors (an int8 weight's codes and
+    scales both)."""
+    if isinstance(tree, dict):
+        return sum(tree_gb(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_gb(v) for v in tree)
+    if hasattr(tree, 'q') and hasattr(tree, 'scale'):
+        return tree_gb(tree.q) + tree_gb(tree.scale)
+    return tree.numel() * tree.element_size() / 1e9
+
+
+# A replayed step's time: the median of this many runs of BI_NEW - 1
+# replays each.
+REPLAY_REPEATS = 5
+
+
+def step_cost(torch, decode, p, cfg, tok_t, len_t, width: int) -> dict:
+    """What generate's step costs with the weights ``p`` on one batch.
+    'ms': a replayed step, the median of REPLAY_REPEATS runs ('ms_all'),
+    each BI_NEW - 1 replays of one captured step (decode_step, then the
+    greedy token fed back, as generate's graph does) from the same
+    prefilled cache, timed with CUDA events; no prefill, capture or host
+    work inside. 'tree_gb': p's bytes. 'work_gb': what one generate call
+    allocates above what was live before it, so that tree_gb + work_gb
+    ('alone_gb') is its peak with p the only tree on the card. 'out':
+    that call's tokens."""
+    tree = tree_gb(p)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = decode.generate(p, tok_t, cfg, BI_NEW, max_len=width + BI_NEW,
+                          prompt_lengths=len_t)
+    torch.cuda.synchronize()
+    work = (torch.cuda.max_memory_allocated() - base) / 1e9
+    n, ms = BI_NEW - 1, []
+    with torch.no_grad():
+        logits, cache = decode.prefill_cache(p, tok_t, cfg, width + BI_NEW,
+                                             lengths=len_t)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        len0 = cache.length.clone()
+
+        def body():
+            lg = decode.decode_step(p, tok, cache, cfg)[0]
+            tok.copy_(torch.argmax(lg, -1).to(torch.int32))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode='thread_local'):
+            body()
+        for _ in range(REPLAY_REPEATS):
+            cache.length.copy_(len0)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for _ in range(n):
+                graph.replay()
+            t1.record()
+            t1.synchronize()
+            ms.append(t0.elapsed_time(t1) / n)
+        del graph, cache
+    return {'ms': float(np.median(ms)), 'ms_all': ms, 'tree_gb': tree,
+            'work_gb': work, 'alone_gb': tree + work, 'out': out}
+
+
+def kernel_a_at_batch(torch, cfg, params, decode, batch_infer, batches,
+                      padded, emb_recs) -> float:
+    """Kernel A at the shapes batch_infer.run gave it: the first and the
+    last batch (BI_BATCH of the file's own ragged rows, widths 512 and
+    1024). generate's prefill logits (prefill_cache) and embed's pooled
+    rows (batch_infer._pooled_hidden through llama.forward), with A
+    ('auto'), against the same with the plain attention in bf16 and in
+    fp32 (the weights upcast): A's max |diff| to fp32 must be no more
+    than TOL_MODEL x the plain bf16 path's. The pooled rows with A must
+    also be the file's embed records. Returns the worst ratio."""
+    import dataclasses
+    cfg_x = dataclasses.replace(cfg, attention_impl='xla')
+    cfg32 = dataclasses.replace(cfg_x, dtype=torch.float32)
+    params32 = decode.cast_params_for_decode(params, cfg32)
+    by_id = {r['id']: r['embedding'] for r in emb_recs}
+    worst = 0.0
+    for i in (0, len(padded) - 1):
+        tok_t, len_t, width = padded[i]
+        runs = {
+            'prefill logits': lambda c, p: decode.prefill_cache(
+                p, tok_t, c, width, lengths=len_t)[0],
+            'embed rows': lambda c, p: batch_infer._pooled_hidden(
+                p, tok_t, len_t, cfg=c, pool='mean')}
+        for what, fn in runs.items():
+            with torch.no_grad():
+                a, x, f = fn(cfg, params), fn(cfg_x, params), \
+                    fn(cfg32, params32)
+            if not bool(torch.isfinite(a).all()):
+                fail(f'batch_infer: kernel A {what} non-finite at B='
+                     f'{tok_t.shape[0]} width {width}')
+            std = float(f.std())
+            e_a = float((a - f).abs().max()) / std
+            e_x = float((x - f).abs().max()) / std
+            worst = max(worst, e_a / e_x)
+            if e_a > TOL_MODEL * e_x:
+                fail(f'batch_infer: kernel A {what} at B={tok_t.shape[0]} '
+                     f'width {width}: max|diff|/std to fp32 {e_a:.3e} > '
+                     f'{TOL_MODEL} x the plain bf16 path\'s {e_x:.3e}')
+            if what == 'embed rows':
+                file_rows = torch.tensor([by_id[it['id']]
+                                          for it in batches[i]])
+                d = float((file_rows - a.cpu()).abs().max())
+                if d > 1e-6 * float(file_rows.abs().max()):
+                    fail(f'batch_infer: batch {i} embed records differ '
+                         f'from _pooled_hidden with kernel A by {d:.3e}')
+            log(f'[batch_infer] kernel A, batch {i} (B={tok_t.shape[0]}, '
+                f'width {width}), {what}: max|diff|/std(fp32): A '
+                f'{e_a:.3e}, plain bf16 {e_x:.3e}, ratio {e_a / e_x:.3f} '
+                f'(tol {TOL_MODEL}) ok')
+    del params32
+    return worst
+
+
+def contiguous_vs_paged(torch, cfg, params, decode, paging, pa) -> float:
+    """Prefill + 8 decode steps on phase_model's prompts, teacher-forced
+    with the paged path's greedy tokens: the paged path through kernels
+    A and B (checked in phase_model), the contiguous path of generate
+    (A, then plain-attention steps) and the contiguous path in fp32 on
+    the same weights upcast. The contiguous bf16 path must lie no
+    farther from fp32 than TOL_MODEL x the paged path does. Returns the
+    worst ratio."""
+    import dataclasses
+    steps, shape = 8, MODEL_SHAPE
+    tok_t, len_t = model_prompts(torch, cfg.vocab_size,
+                                 np.random.default_rng(5), shape)
+    max_len = shape['max_len']
+    with torch.no_grad():
+        logits, pc = prefilled_pool(torch, decode, paging, params, cfg,
+                                    tok_t, len_t, 'auto', shape)
+        paged, toks = [logits], []
+        for _ in range(steps):
+            toks.append(torch.argmax(paged[-1], -1).to(torch.int32))
+            logits, pc = decode.paged_decode_step(params, toks[-1], pc, cfg,
+                                                  max_len=max_len)
+            paged.append(logits)
+        del pc
+
+        def contiguous(cfg_run, params_run):
+            logits, cache = decode.prefill_cache(params_run, tok_t, cfg_run,
+                                                 max_len, lengths=len_t)
+            out = [logits]
+            for t in toks:
+                logits, cache = decode.decode_step(params_run, t, cache,
+                                                   cfg_run)
+                out.append(logits)
+            return out
+        contig = contiguous(cfg, params)
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                    attention_impl='xla')
+        params32 = decode.cast_params_for_decode(params, cfg32)
+        ref = contiguous(cfg32, params32)
+        del params32
+    worst = 0.0
+    for i, (c, p, f) in enumerate(zip(contig, paged, ref)):
+        if not bool(torch.isfinite(c).all()):
+            fail(f'contiguous decode: non-finite logits at step {i}')
+        std = float(f.std())
+        e_c = float((c - f).abs().max()) / std
+        e_p = float((p - f).abs().max()) / std
+        worst = max(worst, e_c / e_p)
+        log(f'[batch_infer] step {i}: max|diff|/std(fp32 logits): '
+            f'contiguous-fp32 {e_c:.3e}, paged (A, B)-fp32 {e_p:.3e}, '
+            f'contiguous-paged {float((c - p).abs().max()) / std:.3e}')
+    if worst > TOL_MODEL:
+        fail(f'contiguous decode error {worst:.2f}x the paged path\'s > '
+             f'{TOL_MODEL}x')
+    log(f'[batch_infer] contiguous decode_step vs paged_decode_step '
+        f'(kernel B), {len(toks)} steps on {tok_t.shape[0]} rows: error '
+        f'ratio worst {worst:.3f} (tol {TOL_MODEL}) ok')
+    return worst
+
+
+def speculative_check(torch, cfg, params, decode) -> dict:
+    """generate_speculative in fp32 with the plain attention on
+    phase_model's prompts, the draft llama-1b's first 2 layers (and its
+    embedding and head): its tokens must equal fp32 generate's."""
+    import dataclasses
+    shape, k = MODEL_SHAPE, 4
+    tok_t, len_t = model_prompts(torch, cfg.vocab_size,
+                                 np.random.default_rng(5), shape)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                attention_impl='xla')
+    p32 = decode.cast_params_for_decode(params, cfg32)
+    dcfg = dataclasses.replace(cfg32, n_layers=2)
+    draft = dict(p32, layers={n: v[:2] for n, v in p32['layers'].items()})
+    max_len = shape['bucket'] + BI_NEW + 2 * k
+    want, t_gen = timed(torch, lambda: decode.generate(
+        p32, tok_t, cfg32, BI_NEW, max_len=max_len, prompt_lengths=len_t))
+    (got, stats), t_spec = timed(torch, lambda: decode.generate_speculative(
+        p32, cfg32, draft, dcfg, tok_t, BI_NEW, k=k, max_len=max_len,
+        prompt_lengths=len_t, return_stats=True))
+    del p32, draft
+    if not torch.equal(got, want):
+        fail(f'generate_speculative (fp32, 2-layer draft) differs from fp32 '
+             f'generate in {int((got != want).sum())} of {got.numel()} '
+             f'tokens')
+    log(f'[batch_infer] generate_speculative fp32, k={k}, 2-layer draft: '
+        f'{tuple(got.shape)} tokens == fp32 generate; {stats["rounds"]} '
+        f'rounds for {BI_NEW} tokens ({t_spec:.2f} s; generate '
+        f'{t_gen:.2f} s) ok')
+    return {'rounds': stats['rounds'], 'spec_s': t_spec, 'generate_s': t_gen}
+
+
+def phase_batch_infer(torch, cfg, params, decode, paging, pa, build,
+                      card: str) -> dict:
+    """Offline batch inference on llama-1b whole (bf16, random weights
+    from seed 0), through the user's entry point batch_infer.run in
+    process: BI_RECORDS records in batches of BI_BATCH, BI_NEW greedy
+    tokens each. Checks: every record written; a second run re-runs
+    none; kernel A launched exactly once a layer a batch in generate and
+    again in embed; the output equals the replayed graph's tokens,
+    which equal an eager decode_step loop's; contiguous vs paged steps
+    (contiguous_vs_paged); speculative == greedy in fp32
+    (speculative_check); embed rows finite and dim wide; kernel A at
+    the run's own shapes against the plain attention (kernel_a_at_batch);
+    int8 from fp32 masters against bf16 (first logits within TOL_INT8, a
+    replayed step, each tree's bytes and a generate's working set:
+    step_cost). Returns the launches of the counted runs (generate and
+    embed), by kernel."""
+    import argparse
+    import shutil
+    from skypilot_tpu_torch.models import batch_infer, llama
+    work = os.path.join(OUT_DIR, 'batch_infer')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    inp = os.path.join(work, 'in.jsonl')
+    batch_records(inp)
+
+    def args(mode, out):
+        return argparse.Namespace(
+            input=inp, output=os.path.join(work, out), mode=mode,
+            model='llama-1b', hf_dir=None, tokenizer=None, mesh={},
+            batch_size=BI_BATCH, max_len=2048, max_new_tokens=BI_NEW,
+            temperature=0.0, top_k=None, top_p=None, seed=0, pool='mean',
+            num_workers=1, worker_id=0, device='cuda')
+
+    n_batches = -(-BI_RECORDS // BI_BATCH)
+    counted = {}
+    runs = {}
+    for mode, out in (('generate', 'gen.jsonl'), ('embed', 'emb.jsonl')):
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        stats, secs = timed(torch, lambda: batch_infer.run(args(mode, out)))
+        launched = {n: k.launches for n, k in build.kernels().items()}
+        for n, c in launched.items():
+            counted[n] = counted.get(n, 0) + c
+        want_a = cfg.n_layers * n_batches
+        if launched.get('flash_fwd') != want_a or any(
+                c for n, c in launched.items() if n != 'flash_fwd'):
+            fail(f'batch_infer {mode}: launches {launched}, want flash_fwd '
+                 f'{want_a} ({cfg.n_layers} layers x {n_batches} batches) '
+                 f'and no other kernel')
+        if stats != {'total': BI_RECORDS, 'done': 0, 'ran': BI_RECORDS}:
+            fail(f'batch_infer {mode}: stats {stats}')
+        recs = [json.loads(line) for line in open(args(mode, out).output)]
+        if sorted(r['id'] for r in recs) != list(range(BI_RECORDS)):
+            fail(f'batch_infer {mode}: {len(recs)} records written')
+        runs[mode] = dict(secs=secs, recs=recs,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        again = batch_infer.run(args(mode, out))
+        if again != {'total': BI_RECORDS, 'done': BI_RECORDS, 'ran': 0}:
+            fail(f'batch_infer {mode} resume: {again}, want 0 re-run')
+    gen, emb = runs['generate'], runs['embed']
+    if any(r['tokens'] != BI_NEW for r in gen['recs']):
+        fail('batch_infer generate: a record has fewer than '
+             f'{BI_NEW} tokens (the byte tokenizer has no EOS)')
+    for r in emb['recs']:
+        e = np.asarray(r['embedding'])
+        if e.shape != (cfg.dim,) or not np.isfinite(e).all():
+            fail(f'batch_infer embed: record {r["id"]} shape {e.shape}')
+    items_s = BI_RECORDS / gen['secs']
+    tok_s = BI_RECORDS * BI_NEW / gen['secs']
+    log(f'[batch_infer] generate: {BI_RECORDS} records, batches of '
+        f'{BI_BATCH}, {BI_NEW} new tokens each, in {gen["secs"]:.2f} s '
+        f'(weights drawn, prefill, graph capture and replays): '
+        f'{items_s:.2f} items/s, {tok_s:.1f} generated tokens/s, peak '
+        f'{gen["peak_gb"]:.2f} GB; embed {BI_RECORDS} in {emb["secs"]:.2f} '
+        f's ({BI_RECORDS / emb["secs"]:.2f} items/s, peak '
+        f'{emb["peak_gb"]:.2f} GB); a second run of each ran 0; A '
+        f'{cfg.n_layers} x {n_batches} batches in each mode ok')
+
+    # The replayed graph against the file and against eager steps, on
+    # the first (shortest) batch.
+    runner = batch_infer.BatchRunner(device='cuda', cfg=cfg, params=params)
+    items = batch_infer.read_items(inp, 1, 0)
+    for it in items:
+        it['tokens'] = runner.tokenizer.encode(it['text'])
+    items.sort(key=lambda it: len(it['tokens']))
+    by_id = {r['id']: r['completion'] for r in gen['recs']}
+    batches = [items[i:i + BI_BATCH] for i in range(0, BI_RECORDS,
+                                                    BI_BATCH)]
+    padded = [runner._pad_batch([it['tokens'] for it in b],
+                                runner.max_len - BI_NEW) for b in batches]
+    tok_t, len_t, width = padded[0]
+    got = decode.generate(params, tok_t, cfg, BI_NEW,
+                          max_len=width + BI_NEW, prompt_lengths=len_t)
+    for it, row in zip(batches[0], got.tolist()):
+        if runner.tokenizer.decode(row) != by_id[it['id']]:
+            fail(f'batch_infer: record {it["id"]} in the file differs from '
+                 f'the replayed generate')
+    with torch.no_grad():
+        logits, cache = decode.prefill_cache(params, tok_t, cfg,
+                                             width + BI_NEW, lengths=len_t)
+        toks = [torch.argmax(logits, -1).to(torch.int32)]
+        for _ in range(BI_NEW - 1):
+            logits, cache = decode.decode_step(params, toks[-1], cache, cfg)
+            toks.append(torch.argmax(logits, -1).to(torch.int32))
+        del cache
+    eager = torch.stack(toks, 1)
+    if not torch.equal(got, eager):
+        fail(f'batch_infer: the replayed graph\'s tokens differ from the '
+             f'eager steps\' in {int((got != eager).sum())} of '
+             f'{got.numel()}')
+    log(f'[batch_infer] batch 0 (B={tok_t.shape[0]}, width {width}): the '
+        f'file\'s completions == the replayed generate == an eager '
+        f'decode_step loop, token for token ok')
+
+    a_ratio = kernel_a_at_batch(torch, cfg, params, decode, batch_infer,
+                                batches, padded, emb['recs'])
+    paged_ratio = contiguous_vs_paged(torch, cfg, params, decode, paging, pa)
+    spec = speculative_check(torch, cfg, params, decode)
+
+    # bf16 against int8 (quantized from the fp32 masters of the same
+    # seed) on the longest batch: a replayed step, each tree's bytes and
+    # the working set of a generate, first logits.
+    tok_t, len_t, width = padded[-1]
+    masters = llama.init_params(cfg, torch.Generator(
+        device='cuda').manual_seed(0), 'cuda')
+    q8 = decode.cast_params_for_decode(masters, cfg, quantize='int8')
+    del masters
+    free_card(torch)
+    res = {}
+    for tag, p in (('bf16', params), ('int8', q8)):
+        with torch.no_grad():
+            first = decode.prefill_cache(p, tok_t, cfg, width + BI_NEW,
+                                         lengths=len_t)[0]
+        res[tag] = step_cost(torch, decode, p, cfg, tok_t, len_t, width)
+        res[tag]['first'] = first
+    log(f'[batch_infer] profile of one bf16 generate, B={tok_t.shape[0]}, '
+        f'width {width} + {BI_NEW} (prefill, capture, {BI_NEW - 1} '
+        f'replays):')
+    prof = profile_device(torch, lambda: decode.generate(
+        params, tok_t, cfg, BI_NEW, max_len=width + BI_NEW,
+        prompt_lengths=len_t))
+    rel = float((res['int8']['first'] - res['bf16']['first']).abs().max()) \
+        / float(res['bf16']['first'].abs().max())
+    agree = float((res['int8']['out'] == res['bf16']['out']).float().mean())
+    del q8
+    if rel >= TOL_INT8 or not bool(torch.isfinite(res['int8']['first'])
+                                   .all()):
+        fail(f'int8 first logits rel err {rel:.4f} >= {TOL_INT8}')
+    for tag in ('bf16', 'int8'):
+        r = res[tag]
+        log(f'[batch_infer] {tag}, B={tok_t.shape[0]} width {width} + '
+            f'{BI_NEW}: a replayed step {r["ms"]:.3f} ms (median of '
+            f'{[round(m, 3) for m in r["ms_all"]]}); tree '
+            f'{r["tree_gb"]:.3f} GB + a generate\'s working set '
+            f'{r["work_gb"]:.3f} GB = {r["alone_gb"]:.3f} GB alone | {card}')
+    log(f'[batch_infer] int8 first logits rel err {rel:.4f} (tol '
+        f'{TOL_INT8}); greedy tokens equal to bf16 {agree:.3f} ok')
+    summary = {
+        'card': card, 'records': BI_RECORDS, 'batch': BI_BATCH,
+        'new_tokens': BI_NEW, 'generate_s': gen['secs'],
+        'items_per_s': items_s, 'tokens_per_s': tok_s,
+        'generate_peak_gb': gen['peak_gb'], 'embed_s': emb['secs'],
+        'embed_peak_gb': emb['peak_gb'], 'kernel_a_ratio': a_ratio,
+        'contiguous_paged_ratio': paged_ratio,
+        'step_batch_width': width, 'int8_rel_err': rel,
+        'int8_token_agreement': agree,
+        'generate_idle_share': prof['idle_share'],
+        'speculative': spec, 'launches': counted}
+    for tag in ('bf16', 'int8'):
+        for key in ('ms', 'ms_all', 'tree_gb', 'work_gb', 'alone_gb'):
+            summary[f'step_{key}_{tag}'] = res[tag][key]
+    with open(os.path.join(OUT_DIR, 'batch_infer.json'), 'w') as f:
+        json.dump(summary, f, indent=1)
+    log(f'[batch_infer] summary {json.dumps(summary)}')
+    return counted
 
 
 def free_port() -> int:
@@ -2484,7 +2966,8 @@ def gpu_line() -> str:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--phases', default='build,flash,paged,flash_bwd,'
-                        'timing,model,serve,model_gemma,serve_gemma,'
+                        'timing,model,serve,batch_infer,model_gemma,'
+                        'serve_gemma,'
                         'gemma_switches,model_moe,serve_moe,serve_gptoss,'
                         'model_mla,serve_mla,serve_deepseek_v2,'
                         'train_gemma,train,train_moe,train_mla',
@@ -2526,7 +3009,7 @@ def main() -> None:
         errs.update(phase_flash_bwd(torch, fa))
     if 'timing' in phases:
         times = phase_timing(torch, fa, pa, paging)
-    if 'model' in phases or 'serve' in phases:
+    if phases & {'model', 'serve', 'batch_infer'}:
         cfg = config.get_config('llama-1b')
         params = bf16_params(torch, cfg)
         if 'model' in phases:
@@ -2536,6 +3019,10 @@ def main() -> None:
         if 'serve' in phases:
             by_path['serve'] = phase_serve(torch, 'llama-1b', cfg, params,
                                            engine_lib, build, decode, paging)
+            free_card(torch)
+        if 'batch_infer' in phases:
+            by_path['batch_infer'] = phase_batch_infer(
+                torch, cfg, params, decode, paging, pa, build, card)
         del params
         free_card(torch)
     if 'model_gemma' in phases or 'serve_gemma' in phases:
@@ -2593,7 +3080,7 @@ def main() -> None:
         params = bf16_params(torch, cfg)
         if 'model_mla' in phases:
             phase_model_mla(torch, cfg, params, mla, paging, build,
-                            'deepseek-v2-lite')
+                            'deepseek-v2-lite', gen_check=True)
             free_card(torch)
         if 'serve_mla' in phases:
             by_path['serve_mla'] = phase_serve(torch, 'deepseek-v2-lite', cfg,
@@ -2645,6 +3132,7 @@ def main() -> None:
     paths = {'serve': SERVE_KERNELS, 'serve_gemma': SERVE_KERNELS,
              'serve_moe': SERVE_KERNELS, 'serve_gptoss': SERVE_KERNELS,
              'serve_mla': SERVE_KERNELS, 'serve_deepseek_v2': SERVE_KERNELS,
+             'batch_infer': ('flash_fwd',),
              'train': TRAIN_KERNELS, 'train_gemma': TRAIN_KERNELS,
              'train_moe': TRAIN_KERNELS, 'train_mla': TRAIN_KERNELS}
     rows = []

@@ -1,34 +1,57 @@
-"""Prefill, the prefill extends and the paged decode step for the Llama
-family (port of skypilot_tpu/models/decode.py: ``bucket_size``,
-``cast_params_for_decode``, ``init_page_pool``, ``prefill``,
-``prefill_extend``, ``paged_prefill_extend``, ``paged_verify_step``,
-``paged_decode_step``, ``top_k_logprobs``, ``chosen_logprob``,
-``select_token_per_row`` with its penalties).
+"""Prefill, the decode steps and generation for the Llama family (port
+of skypilot_tpu/models/decode.py: ``bucket_size``, ``KVCache``,
+``QuantizedWeight``, ``_quantize_int8``, ``_d``,
+``cast_params_for_decode``, ``init_cache``, ``init_page_pool``,
+``prefill``, ``prefill_extend``, ``verify_step``, ``decode_step``,
+``paged_prefill_extend``, ``paged_verify_step``, ``paged_decode_step``,
+``generate_speculative``, ``_select_token``, ``top_k_logprobs``,
+``chosen_logprob``, ``select_token_per_row`` with its penalties,
+``generate``).
 
-``jax.lax.scan`` over layers becomes a Python loop. The paged steps
-update the pool IN PLACE: K/V for the fed positions land in each row's
-pages (inactive rows on the trash page) and the returned PagedKV holds
-the same tensors. On CUDA, prefill attention runs kernel A and the
-step's attention kernel B; on CPU both take their plain versions. An
-extend over a prefix (``p > 0``) attends at a position offset, which
-the flash kernel does not take, so it runs the plain attention on every
-device, as the JAX gate routes it; an extend at ``p == 0`` is a prefill
-and takes kernel A. A layer with an attention softcap, a sliding
-window or sinks (Gemma-2/3,
-gpt-oss) takes the plain versions on every device, as its JAX
-counterpart does; the embedding scale, per-layer rope tables, post
-norms and final softcap come with the shared layer math of
-models/llama.py. An MoE config (models/moe.py) takes the same paths
-with its routed FFN in place of the gated MLP (:func:`_ffn`).
+``jax.lax.scan`` over layers becomes a Python loop. Two cache families:
+  - the contiguous ``KVCache`` [L, B, max_len, KH, hd] of
+    :func:`generate` (offline batch inference, models/batch_infer.py):
+    :func:`prefill_cache` fills it, :func:`verify_step` /
+    :func:`decode_step` write each fed position's K/V into it IN PLACE
+    and attend over the whole row with the plain attention, as JAX's
+    contiguous steps do (``impl='xla'``);
+  - the block-paged ``PagedKV`` of the engine: the paged steps write
+    K/V into each row's pages in place (inactive rows on the trash
+    page) and attend through kernel B on the card.
+Prefill attention runs kernel A on the card and its plain version on
+the CPU. An extend over a prefix (``p > 0``) attends at a position
+offset, which the flash kernel does not take, so it runs the plain
+attention on every device, as the JAX gate routes it; an extend at
+``p == 0`` is a prefill and takes kernel A. A layer with an attention
+softcap, a sliding window or sinks (Gemma-2/3, gpt-oss) takes the
+plain versions on every device, as its JAX counterpart does; the
+embedding scale, per-layer rope tables, post norms and final softcap
+come with the shared layer math of models/llama.py. An MoE config
+(models/moe.py) takes the same paths with its routed FFN in place of
+the gated MLP (:func:`_ffn`). Every layer product reads its weight
+through ``_d`` (models/quant.py), so the same paths serve weight-only
+int8 params (:func:`cast_params_for_decode`).
+
+On the card :func:`generate` captures one decode step (step, token
+choice, EOS update) into a CUDA graph and replays it, with no host sync
+per token: the counterpart of JAX's single jitted program. A capture
+that fails raises; nothing falls back to eager steps on the card. On
+the CPU the same step body runs eagerly.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from skypilot_tpu_torch.config import LlamaConfig, MoEConfig, check_supported
+from skypilot_tpu_torch.kernels import build
 from skypilot_tpu_torch.models import llama, moe, paging
+# Re-exported: decode is where the JAX package keeps these names.
+from skypilot_tpu_torch.models.quant import (  # noqa: F401
+    _QUANT_KEYS, QuantizedWeight, _d, _quantize_int8)
 from skypilot_tpu_torch.ops import paged_attention as pa
 from skypilot_tpu_torch.ops.attention import attention as _attention
 
@@ -41,14 +64,66 @@ def bucket_size(n: int, floor: int = 16) -> int:
     return b
 
 
-def cast_params_for_decode(params, cfg: LlamaConfig):
-    """Cast every leaf to the compute dtype once, for serving (no int8
-    path in this slice)."""
+@dataclasses.dataclass
+class KVCache:
+    """The contiguous cache: k/v [L, B, T, KH, hd] with T = max_len,
+    length [B] int32, each row's valid prefix (ragged rows share one
+    cache: pad slots are causally masked and overwritten before they
+    are attended). The steps update it in place."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+
+def check_quantize(cfg: LlamaConfig, quantize: Optional[str]) -> None:
+    """The JAX refusals of ``cast_params_for_decode``: ``quantize`` None
+    or 'int8', and int8 not for an MoE config (its expert dispatch does
+    not read through ``_d``)."""
+    if quantize not in (None, 'int8'):
+        raise ValueError(f"quantize must be None or 'int8', got "
+                         f'{quantize!r}')
+    if quantize == 'int8' and isinstance(cfg, MoEConfig):
+        raise NotImplementedError(
+            'int8 decode is implemented for the dense Llama and MLA '
+            'families (MoE expert dispatch is not quant-aware yet).')
+
+
+def cast_params_for_decode(params, cfg: LlamaConfig,
+                           quantize: Optional[str] = None):
+    """Cast the weights to the compute dtype once, for serving; with
+    ``quantize='int8'`` every layer projection named in ``_QUANT_KEYS``
+    of 2 or 3 dims becomes a :class:`QuantizedWeight`, quantized from
+    the weights as given (pass the fp32 masters), and the rest is cast.
+    DeepSeekMoE's 4-D routed-expert stacks stay dense; an MoE config
+    raises NotImplementedError, as in JAX."""
+    check_quantize(cfg, quantize)
+
     def cast(v):
         if isinstance(v, dict):
             return {k: cast(x) for k, x in v.items()}
         return v.to(cfg.dtype)
-    return cast(params)
+    if quantize != 'int8':
+        return cast(params)
+    out = {}
+    for key, sub in params.items():
+        if key != 'layers':
+            out[key] = cast(sub)
+            continue
+        out[key] = {k: (_quantize_int8(w) if k in _QUANT_KEYS and
+                        2 <= w.ndim <= 3 else w.to(cfg.dtype))
+                    for k, w in sub.items()}
+    return out
+
+
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
+               device='cuda') -> KVCache:
+    """Zeroed [L, batch, max_len, KH, hd] K/V in cfg.dtype, zero
+    lengths."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+                   v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+                   length=torch.zeros((batch,), dtype=torch.int32,
+                                      device=device))
 
 
 def _ffn(x: torch.Tensor, lp, cfg: LlamaConfig) -> torch.Tensor:
@@ -78,15 +153,14 @@ def init_page_pool(cfg: LlamaConfig, n_pages: int, page_size: int,
         length=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
-def prefill(params, tokens: torch.Tensor, cfg: LlamaConfig, max_len: int,
-            lengths: Optional[torch.Tensor] = None,
-            attention_impl: str = 'auto'
-            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Process right-padded prompts in one pass. tokens [B, S] →
-    (logits at each row's last content position [B, vocab] fp32,
-    k [L, B, S, KH, hd], v [L, B, S, KH, hd]). The JAX version pads the
-    cache rows to max_len; the engine scatters positions [0, S) into
-    pages, so the port returns just those."""
+def _prefill_layers(params, tokens: torch.Tensor, cfg: LlamaConfig,
+                    max_len: int, lengths: Optional[torch.Tensor],
+                    attention_impl: str,
+                    store: Callable[[int, torch.Tensor, torch.Tensor], None]
+                    ) -> torch.Tensor:
+    """The prefill pass of both cache forms: ``store(i, k, v)`` takes
+    layer i's K/V [B, S, KH, hd]; returns the logits at each row's last
+    content position, [B, vocab] fp32."""
     check_supported(cfg)
     b, s = tokens.shape
     if s > max_len:
@@ -96,7 +170,6 @@ def prefill(params, tokens: torch.Tensor, cfg: LlamaConfig, max_len: int,
         lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
     x = llama.embed(params, tokens, cfg)
     sin, cos = llama.rope_tables(cfg, torch.arange(s, device=dev))
-    ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = llama.layer_params(params, i)
         q, k, v = llama.qkv(x, lp, cfg,
@@ -105,12 +178,55 @@ def prefill(params, tokens: torch.Tensor, cfg: LlamaConfig, max_len: int,
                          **llama.attention_switches(lp, cfg, i))
         x = x + llama.wo_project(out, lp, cfg)
         x = x + _ffn(x, lp, cfg)
-        ks.append(k)
-        vs.append(v)
+        store(i, k, v)
     idx = (lengths.long() - 1)[:, None, None].expand(b, 1, x.shape[-1])
     x_last = torch.gather(x, 1, idx)
-    logits = llama.unembed(x_last, params, cfg)
-    return logits[:, 0], torch.stack(ks), torch.stack(vs)
+    return llama.unembed(x_last, params, cfg)[:, 0]
+
+
+def prefill(params, tokens: torch.Tensor, cfg: LlamaConfig, max_len: int,
+            lengths: Optional[torch.Tensor] = None,
+            attention_impl: str = 'auto'
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Process right-padded prompts in one pass. tokens [B, S] →
+    (logits at each row's last content position [B, vocab] fp32,
+    k [L, B, S, KH, hd], v [L, B, S, KH, hd]). The JAX version pads the
+    cache rows to max_len; the engine scatters positions [0, S) into
+    pages, so this form returns just those, and :func:`prefill_cache`
+    is the padded one."""
+    ks, vs = [], []
+
+    def store(i, k, v):
+        ks.append(k)
+        vs.append(v)
+    logits = _prefill_layers(params, tokens, cfg, max_len, lengths,
+                             attention_impl, store)
+    return logits, torch.stack(ks), torch.stack(vs)
+
+
+def prefill_cache(params, tokens: torch.Tensor, cfg: LlamaConfig,
+                  max_len: int, lengths: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, KVCache]:
+    """JAX ``prefill``: right-padded prompts tokens [B, S] (``lengths``
+    [B] the real lengths, ragged rows allowed) → (logits at each row's
+    last content position [B, vocab] fp32, a :class:`KVCache` of
+    max_len positions holding [0, S), length = lengths). The attention
+    is ``cfg.attention_impl``'s, as in JAX ('auto': kernel A on the
+    card). Each layer's K/V goes straight into the cache;
+    :func:`prefill` is the engine's unpadded form of the same pass."""
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_len, device=tokens.device)
+
+    def store(i, k, v):
+        cache.k[i, :, :s] = k
+        cache.v[i, :, :s] = v
+    logits = _prefill_layers(params, tokens, cfg, max_len, lengths,
+                             cfg.attention_impl, store)
+    if lengths is None:
+        cache.length.fill_(s)
+    else:
+        cache.length.copy_(lengths)
+    return logits, cache
 
 
 def prefill_extend(params, tokens: torch.Tensor, cfg: LlamaConfig,
@@ -341,9 +457,334 @@ def select_token_per_row(logits: torch.Tensor, temperature: torch.Tensor,
     bite in greedy mode too. No host sync: the engine captures this in
     CUDA graphs."""
     logits = penalize(logits, counts, presence, frequency)
-    scaled = filter_logits(logits, temperature, top_k, top_p)
-    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
-    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
-    sampled = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
+    sampled = _gumbel_argmax(filter_logits(logits, temperature, top_k,
+                                           top_p), generator)
     greedy = torch.argmax(logits, dim=-1)
     return torch.where(temperature <= 0.0, greedy, sampled).to(torch.int32)
+
+
+def _gumbel_argmax(logits: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One draw from softmax(logits) per row: the argmax of the logits
+    plus Gumbel noise made from ``generator``'s uniforms, the
+    construction of jax.random.categorical (its distribution, not its
+    draws: Philox is not threefry)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# The contiguous cache: steps, generation, speculation
+# ---------------------------------------------------------------------------
+
+def put_positions(dst: torch.Tensor, positions: torch.Tensor,
+                  new: torch.Tensor) -> None:
+    """dst[b, positions[b, j]] = new[b, j] in place, for dst [B, T, ...],
+    positions [B, K] running on from each row's length and new
+    [B, K, ...]. A position at or past T is dropped, as JAX's scatter
+    drops it: its write goes instead to the row's slot min(length, T) - 1,
+    which no kept write of the row touches, with that slot's own value.
+    Static shapes, no host sync (K must not exceed T)."""
+    b, t = dst.shape[:2]
+    rows = torch.arange(b, device=dst.device)[:, None]
+    keep = positions < t
+    spare = (positions[:, :1].clamp(max=t) - 1).clamp(min=0)
+    idx = torch.where(keep, positions, spare)
+    keep = keep.view(keep.shape + (1,) * (new.dim() - 2))
+    dst[rows, idx] = torch.where(keep, new.to(dst.dtype), dst[rows, spare])
+
+
+def verify_step(params, tokens: torch.Tensor, cache: KVCache,
+                cfg: LlamaConfig) -> Tuple[torch.Tensor, KVCache]:
+    """K tokens per row at each row's own offset in one call. tokens
+    [B, K] → (logits [B, K, vocab] fp32, the cache): K/V for the K
+    positions [length, length + K) are written into the cache in place
+    and ``length`` does NOT advance — the caller commits what it
+    accepts (stale K/V past the committed length is causally masked and
+    overwritten later). The attention is the plain one over the row's
+    whole max_len, as JAX's ``impl='xla'``. Writes at positions at or
+    past max_len are dropped, as JAX's are (:func:`put_positions`). No
+    shape depends on the data and nothing syncs the host, so the step
+    captures into a CUDA graph."""
+    check_supported(cfg)
+    b, kk = tokens.shape
+    dev = tokens.device
+    length = cache.length
+    positions = length[:, None].long() + torch.arange(kk, device=dev)
+    x = llama.embed(params, tokens, cfg)
+    sin, cos = llama.rope_tables(cfg, positions)
+    for i in range(cfg.n_layers):
+        lp = llama.layer_params(params, i)
+        q, k_new, v_new = llama.qkv(x, lp, cfg,
+                                    *llama.select_rope(sin, cos, i, cfg))
+        k_l, v_l = cache.k[i], cache.v[i]
+        put_positions(k_l, positions, k_new)
+        put_positions(v_l, positions, v_new)
+        out = _attention(q, k_l, v_l, impl='xla', causal=True,
+                         q_offset=length,
+                         **llama.attention_switches(lp, cfg, i))
+        x = x + llama.wo_project(out, lp, cfg)
+        x = x + _ffn(x, lp, cfg)
+    return llama.unembed(x, params, cfg), cache
+
+
+def decode_step(params, token: torch.Tensor, cache: KVCache,
+                cfg: LlamaConfig, active: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, KVCache]:
+    """One step: token [B] → (logits [B, vocab] fp32, the cache), the
+    K = 1 case of :func:`verify_step` plus the length advance, in
+    place. ``active`` [B] bool: rows where it is False do not advance
+    (their write lands on the frozen ``length`` slot, which the next
+    step overwrites)."""
+    logits, cache = verify_step(params, token[:, None], cache, cfg)
+    cache.length += 1 if active is None else active.to(cache.length.dtype)
+    return logits[:, 0], cache
+
+
+def _select_token(logits: torch.Tensor, temperature: float,
+                  generator: Optional[torch.Generator],
+                  top_k: Optional[int] = None,
+                  top_p: Optional[float] = None) -> torch.Tensor:
+    """Greedy (temperature <= 0, or no generator) or filtered sampling
+    for the whole batch: int32 [B]. The masks are
+    :func:`filter_logits`' with every row's values the same (top_k None
+    or <= 0 and top_p None or outside (0, 1) turn them off; a top_k past
+    the vocab keeps every token, as JAX's clamped index does); the draw
+    is Gumbel-max from ``generator``. Static shapes, no host sync."""
+    if temperature <= 0.0 or generator is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def rows(value):
+        return torch.full(logits.shape[:1], value, dtype=torch.float32,
+                          device=logits.device)
+    scaled = filter_logits(logits, rows(temperature), rows(top_k or 0),
+                           rows(1.0 if top_p is None else top_p))
+    return _gumbel_argmax(scaled, generator).to(torch.int32)
+
+
+def replay_steps(body: Callable[[], None], warm: Callable[[], None],
+                 n: int, generator: torch.Generator,
+                 device: torch.device) -> None:
+    """Run ``body`` (one generation step, updating tensors in place) n
+    times. On the CPU eagerly. On the card: ``warm`` (the step's work
+    with nothing a later step reads changed) runs once on a side stream
+    so that lazily made state exists, ``generator``'s state is put back,
+    then ``body`` is captured into one CUDA graph, with the generator
+    registered, and replayed n times with no host sync. A capture that
+    fails raises. Kernel launches captured in the graph count once per
+    replay (``Kernel.replayed``)."""
+    if n <= 0:
+        return
+    if device.type != 'cuda':
+        for _ in range(n):
+            body()
+        return
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    state = generator.get_state()
+    with torch.cuda.stream(stream):
+        warm()
+    generator.set_state(state)
+    before = build.captured()
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode='thread_local'):
+        body()
+    after = build.captured()
+    launched = {k: after[k] - before.get(k, 0) for k in after
+                if after[k] > before.get(k, 0)}
+    kernels = build.kernels()
+    for _ in range(n):
+        graph.replay()
+        for name, c in launched.items():
+            kernels[name].replayed(c)
+
+
+def run_generate(step: Callable[..., torch.Tensor], logits: torch.Tensor,
+                 max_new_tokens: int, *, temperature: float,
+                 eos_id: Optional[int], top_k: Optional[int],
+                 top_p: Optional[float],
+                 generator: torch.Generator) -> torch.Tensor:
+    """The token loop of both cache families' ``generate``: the first
+    token from the prefill ``logits`` [B, V], then max_new_tokens - 1
+    steps, each ``step(tok, active)`` → logits (advancing its cache for
+    the active rows, all when ``active`` is None) → :func:`_select_token`
+    → the EOS fill (after a row's EOS every token is EOS). The steps run
+    through :func:`replay_steps`; the warm-up step has every row
+    inactive. Returns [B, max_new_tokens] int32."""
+    b, dev = logits.shape[0], logits.device
+    out = torch.zeros((b, max(max_new_tokens, 0)), dtype=torch.int32,
+                      device=dev)
+    if max_new_tokens <= 0:
+        return out
+    tok = _select_token(logits, temperature, generator, top_k, top_p)
+    out[:, 0] = tok
+    done = (tok == eos_id) if eos_id is not None else None
+    col = torch.ones((1,), dtype=torch.long, device=dev)
+    inactive = torch.zeros((b,), dtype=torch.bool, device=dev)
+
+    def body():
+        nxt = _select_token(step(tok, None), temperature, generator, top_k,
+                            top_p)
+        if done is not None:
+            nxt = torch.where(done, eos_id, nxt)
+            done.logical_or_(nxt == eos_id)
+        tok.copy_(nxt)
+        out.index_copy_(1, col, nxt[:, None])
+        col.add_(1)
+
+    def warm():
+        _select_token(step(tok, inactive), temperature, generator, top_k,
+                      top_p)
+
+    replay_steps(body, warm, max_new_tokens - 1, generator, dev)
+    return out
+
+
+@torch.no_grad()
+def generate(params, prompt: torch.Tensor, cfg: LlamaConfig,
+             max_new_tokens: int, *, max_len: Optional[int] = None,
+             temperature: float = 0.0, eos_id: Optional[int] = None,
+             top_k: Optional[int] = None, top_p: Optional[float] = None,
+             prompt_lengths: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Greedy / temperature / top-k / top-p generation over the
+    contiguous cache: prompt [B, S] → [B, max_new_tokens] int32 (after
+    a row's EOS every position is EOS). ``prompt_lengths`` [B] serves
+    ragged right-padded rows. ``generator`` (default: seed 0 on the
+    prompt's device) draws the samples: the same distribution as JAX's
+    ``rng``, not the same draws. The prefill's attention is
+    ``cfg.attention_impl``'s (kernel A on the card under 'auto'); the
+    steps take the plain attention. On the card the steps replay one
+    CUDA graph (:func:`replay_steps`)."""
+    b, s = prompt.shape
+    if max_len is None:
+        max_len = min(cfg.max_seq_len, s + max_new_tokens)
+    if s + max_new_tokens > max_len:
+        raise ValueError(
+            f'prompt ({s}) + max_new_tokens ({max_new_tokens}) exceeds '
+            f'max_len ({max_len})')
+    if generator is None:
+        generator = torch.Generator(device=prompt.device).manual_seed(0)
+    logits, cache = prefill_cache(params, prompt, cfg, max_len,
+                                  lengths=prompt_lengths)
+
+    def step(tok, active):
+        return decode_step(params, tok, cache, cfg, active=active)[0]
+    return run_generate(step, logits, max_new_tokens,
+                        temperature=temperature, eos_id=eos_id, top_k=top_k,
+                        top_p=top_p, generator=generator)
+
+
+@torch.no_grad()
+def generate_speculative(params, cfg: LlamaConfig, draft_params,
+                         draft_cfg: LlamaConfig, prompt: torch.Tensor,
+                         max_new_tokens: int, *, k: int = 4,
+                         max_len: Optional[int] = None,
+                         eos_id: Optional[int] = None,
+                         prompt_lengths: Optional[torch.Tensor] = None,
+                         return_stats: bool = False):
+    """Greedy speculative decoding: the draft proposes k tokens by k
+    decode steps, the target scores them in one K-wide
+    :func:`verify_step`, and each row commits its agreeing run plus the
+    target's own next token, so the output is exactly the target's
+    greedy :func:`generate` whatever the draft. Rounds are
+    host-synchronous, as in JAX. Near max_len k shrinks to fit (a round
+    needs 2k slots past prompt + max_new_tokens); when even k = 1 does
+    not fit it falls back to :func:`generate`. ``return_stats`` adds
+    {'rounds': n} ({'rounds': max_new_tokens, 'fallback': True} on the
+    fallback). The draft's vocab must cover the target's."""
+    b, s = prompt.shape
+    dev = prompt.device
+    if draft_cfg.vocab_size < cfg.vocab_size:
+        raise ValueError(
+            f'draft vocab {draft_cfg.vocab_size} < target vocab '
+            f'{cfg.vocab_size}: draft proposals could be unscorable')
+    if max_len is None:
+        max_len = min(cfg.max_seq_len, s + max_new_tokens + 2 * k)
+    budget = max_len - s - max_new_tokens
+    if budget < 2 * k:
+        k = budget // 2
+        if k < 1:
+            out = generate(params, prompt, cfg, max_new_tokens,
+                           max_len=max_len, eos_id=eos_id,
+                           prompt_lengths=prompt_lengths)
+            if return_stats:
+                return out, {'rounds': max_new_tokens, 'fallback': True}
+            return out
+    if max_new_tokens <= 0:
+        out = torch.zeros((b, 0), dtype=torch.int32, device=dev)
+        return (out, {'rounds': 0}) if return_stats else out
+
+    t_logits, t_cache = prefill_cache(params, prompt, cfg, max_len,
+                                      lengths=prompt_lengths)
+    _, d_cache = prefill_cache(draft_params, prompt, draft_cfg, max_len,
+                               lengths=prompt_lengths)
+    last = torch.argmax(t_logits, dim=-1).to(torch.int32)
+    out = np.zeros((b, max_new_tokens), np.int32)
+    count = np.ones((b,), np.int64)     # committed tokens per row
+    done = np.zeros((b,), bool)
+    last_h = last.cpu().numpy()
+    out[:, 0] = last_h
+    if eos_id is not None:
+        done |= (last_h == eos_id)
+        count[done] = max_new_tokens
+        out[done, :] = eos_id
+
+    # At the top of each round both caches hold K/V for every committed
+    # token but ``last``, and both lengths advance by what a round
+    # commits.
+    rounds = 0
+    while count.min() < max_new_tokens:
+        rounds += 1
+        t_len0 = t_cache.length.clone()
+        d_len0 = d_cache.length.clone()
+        proposals = []
+        d_tok = last
+        for _ in range(k):
+            dl, _ = decode_step(draft_params, d_tok, d_cache, draft_cfg)
+            d_tok = torch.argmax(dl[:, :cfg.vocab_size],
+                                 dim=-1).to(torch.int32)
+            proposals.append(d_tok)
+        drafted = torch.stack(proposals, dim=1)               # [B, k]
+        # The target scores fed = [last, d1..d_{k-1}]: greedy[:, i] is
+        # its token after fed[:, :i+1], so d_j is accepted iff it equals
+        # greedy[:, j-1] and every earlier proposal was accepted.
+        fed = torch.cat([last[:, None], drafted[:, :-1]], dim=1)
+        v_logits, _ = verify_step(params, fed, t_cache, cfg)
+        greedy = torch.argmax(v_logits, dim=-1).cpu().numpy()
+        drafted_h = drafted.cpu().numpy()
+        n_commit = np.zeros((b,), np.int32)
+        new_last = last_h.copy()
+        for r in range(b):
+            if done[r] or count[r] >= max_new_tokens:
+                continue
+            a = 0
+            while a < k and drafted_h[r, a] == greedy[r, a]:
+                a += 1
+            if a < k:
+                row = list(drafted_h[r, :a]) + [int(greedy[r, a])]
+            else:
+                row = list(drafted_h[r, :k])
+            n_commit[r] = len(row)
+            new_last[r] = row[-1]
+            space = max_new_tokens - int(count[r])
+            take = row[:space]
+            out[r, count[r]:count[r] + len(take)] = take
+            count[r] = min(count[r] + len(row), max_new_tokens)
+            if eos_id is not None and eos_id in take:
+                p = int(count[r]) - len(take) + take.index(eos_id)
+                out[r, p:] = eos_id
+                count[r] = max_new_tokens
+                done[r] = True
+        last_h = new_last
+        last = torch.as_tensor(last_h, device=dev)
+        # Both lengths advance by the committed count (a row that
+        # committed nothing rolls the draft's k-step advance back).
+        adv = torch.as_tensor(n_commit, device=dev)
+        t_cache.length.copy_(t_len0 + adv)
+        d_cache.length.copy_(d_len0 + adv)
+    out_t = torch.as_tensor(out, device=dev)
+    return (out_t, {'rounds': rounds}) if return_stats else out_t

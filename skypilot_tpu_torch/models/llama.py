@@ -30,6 +30,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from skypilot_tpu_torch.config import LlamaConfig, check_supported
+from skypilot_tpu_torch.models.quant import _d
 from skypilot_tpu_torch.ops import norms, rotary
 from skypilot_tpu_torch.ops.attention import attention as _attention
 
@@ -188,9 +189,9 @@ def qkv(x: torch.Tensor, lp, cfg: LlamaConfig, sin, cos):
     are this layer's (:func:`select_rope`)."""
     b, s, _ = x.shape
     h = _norm(x, lp['attn_norm'], cfg)
-    q = h @ lp['wq'].to(cfg.dtype)
-    k = h @ lp['wk'].to(cfg.dtype)
-    v = h @ lp['wv'].to(cfg.dtype)
+    q = h @ _d(lp['wq'], cfg.dtype)
+    k = h @ _d(lp['wk'], cfg.dtype)
+    v = h @ _d(lp['wv'], cfg.dtype)
     if cfg.qkv_bias:
         q = q + lp['bq'].to(cfg.dtype)
         k = k + lp['bk'].to(cfg.dtype)
@@ -207,7 +208,7 @@ def qkv(x: torch.Tensor, lp, cfg: LlamaConfig, sin, cos):
 def wo_project(out: torch.Tensor, lp, cfg: LlamaConfig) -> torch.Tensor:
     """Attention output projection (+ the Gemma-2 post-attention norm)."""
     b, s = out.shape[:2]
-    y = out.reshape(b, s, cfg.n_heads * cfg.hd) @ lp['wo'].to(cfg.dtype)
+    y = out.reshape(b, s, cfg.n_heads * cfg.hd) @ _d(lp['wo'], cfg.dtype)
     if cfg.post_norms:
         y = _norm(y, lp['post_attn_norm'], cfg)
     return y
@@ -217,9 +218,9 @@ def ffn(x: torch.Tensor, lp, cfg: LlamaConfig) -> torch.Tensor:
     """Post-attention gated MLP block (pre-norm; + the Gemma-2
     post-MLP norm)."""
     h = _norm(x, lp['mlp_norm'], cfg)
-    gate = h @ lp['w_gate'].to(cfg.dtype)
-    up = h @ lp['w_up'].to(cfg.dtype)
-    down = cfg.glu(gate, up) @ lp['w_down'].to(cfg.dtype)
+    gate = h @ _d(lp['w_gate'], cfg.dtype)
+    up = h @ _d(lp['w_up'], cfg.dtype)
+    down = cfg.glu(gate, up) @ _d(lp['w_down'], cfg.dtype)
     if cfg.post_norms:
         down = _norm(down, lp['post_mlp_norm'], cfg)
     return down

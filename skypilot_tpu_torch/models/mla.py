@@ -2,7 +2,9 @@
 skypilot_tpu/models/mla.py: ``init_params``, ``_latents``,
 ``_attend_latent``, ``_mlp``, ``_ffn``, ``_layer``, ``forward``,
 ``init_page_pool``, ``prefill``, ``prefill_extend``,
-``paged_verify_step``, ``paged_decode_step``, ``paged_prefill_extend``).
+``paged_verify_step``, ``paged_decode_step``, ``paged_prefill_extend``,
+``LatentCache``, ``init_cache``, ``verify_step``, ``decode_step``,
+``generate``).
 
 MLA replaces the K/V heads with a low-rank bottleneck:
 
@@ -28,7 +30,11 @@ width ``n_shared_experts * ffn_dim``.
 
 The decode functions keep models/decode.py's call surface over a
 ``paging.PagedLatent`` pool, so the engine picks a module, not a code
-path. The paged steps gather each layer's whole ``max_len`` view from
+path; the contiguous ``LatentCache`` family (``prefill_cache``,
+``verify_step``, ``decode_step``, ``generate``) mirrors decode.py's
+``KVCache`` one for offline batch inference, its steps replayed as one
+CUDA graph on the card. Every projection reads its weight through
+``_d`` (models/quant.py), so int8 params serve too. The paged steps gather each layer's whole ``max_len`` view from
 the pages (fixed shapes, no host sync: the engine captures them into
 CUDA graphs), overlay the fed positions and attend; a position at or
 past the view is dropped, as the JAX scatter drops it. The pools are
@@ -37,13 +43,15 @@ backward under ``remat='full'``; no pipeline, ring or mesh.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from skypilot_tpu_torch.config import (DeepSeekMoEConfig, MLAConfig,
                                       check_supported)
-from skypilot_tpu_torch.models import llama, moe, paging
+from skypilot_tpu_torch.models import decode, llama, moe, paging
+from skypilot_tpu_torch.models.quant import _d
 from skypilot_tpu_torch.ops import norms, rotary
 from skypilot_tpu_torch.ops.paged_attention import gather_pages, write_pages
 
@@ -122,10 +130,11 @@ def _latents(x: torch.Tensor, lp, cfg: MLAConfig, sin, cos):
     H, dn, dr = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     dt = cfg.dtype
     h = norms.rms_norm(x, lp['attn_norm'], cfg.rms_eps)
-    q = (h @ lp['wq'].to(dt)).reshape(b, s, H, dn + dr)
+    q = (h @ _d(lp['wq'], dt)).reshape(b, s, H, dn + dr)
     q_nope, q_rope = q[..., :dn], rotary.apply_rope(q[..., dn:], sin, cos)
-    c_kv = norms.rms_norm(h @ lp['w_dkv'].to(dt), lp['kv_norm'], cfg.rms_eps)
-    k_rope = rotary.apply_rope((h @ lp['w_kr'].to(dt))[:, :, None, :], sin,
+    c_kv = norms.rms_norm(h @ _d(lp['w_dkv'], dt), lp['kv_norm'],
+                          cfg.rms_eps)
+    k_rope = rotary.apply_rope((h @ _d(lp['w_kr'], dt))[:, :, None, :], sin,
                                cos)[:, :, 0, :]
     return q_nope, q_rope, c_kv, k_rope
 
@@ -145,7 +154,7 @@ def _attend_latent(q_nope: torch.Tensor, q_rope: torch.Tensor,
     r, dv = cfg.kv_lora_rank, cfg.v_head_dim
     scale = (dn + cfg.qk_rope_head_dim) ** -0.5
     dev = q_nope.device
-    w_uk = lp['w_uk'].to(cfg.dtype).reshape(r, H, dn)
+    w_uk = _d(lp['w_uk'], cfg.dtype).reshape(r, H, dn)
     q_lat = torch.einsum('bshd,rhd->bshr', q_nope, w_uk)
     scores = (torch.einsum('bshr,btr->bhst', q_lat, c_kv) +
               torch.einsum('bshr,btr->bhst', q_rope, k_rope)).float() * scale
@@ -158,14 +167,15 @@ def _attend_latent(q_nope: torch.Tensor, q_rope: torch.Tensor,
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
     ctx = torch.einsum('bhst,btr->bshr', probs, c_kv)
-    w_uv = lp['w_uv'].to(cfg.dtype).reshape(r, H, dv)
+    w_uv = _d(lp['w_uv'], cfg.dtype).reshape(r, H, dv)
     out = torch.einsum('bshr,rhv->bshv', ctx, w_uv)
     return out.reshape(b, s, H * dv)
 
 
 def _swiglu(h: torch.Tensor, w_gate, w_up, w_down, cfg: MLAConfig):
     dt = cfg.dtype
-    return (cfg.act(h @ w_gate.to(dt)) * (h @ w_up.to(dt))) @ w_down.to(dt)
+    return (cfg.act(h @ _d(w_gate, dt)) * (h @ _d(w_up, dt))) @ \
+        _d(w_down, dt)
 
 
 def _mlp(x: torch.Tensor, lp, cfg: MLAConfig) -> torch.Tensor:
@@ -190,7 +200,7 @@ def _ffn(x: torch.Tensor, lp, cfg: MLAConfig
 
 
 def _wo(out: torch.Tensor, lp, cfg: MLAConfig) -> torch.Tensor:
-    return out @ lp['wo'].to(cfg.dtype)
+    return out @ _d(lp['wo'], cfg.dtype)
 
 
 def _layer(x: torch.Tensor, lp, cfg: MLAConfig, sin, cos, q_offset
@@ -251,6 +261,28 @@ def init_page_pool(cfg: MLAConfig, n_pages: int, page_size: int,
         length=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
+@dataclasses.dataclass
+class LatentCache:
+    """The contiguous latent cache: c_kv [L, B, T, r] and k_rope [L, B,
+    T, dr] with T = max_len, length [B] int32 (as decode.KVCache's).
+    The steps update it in place."""
+    c_kv: torch.Tensor
+    k_rope: torch.Tensor
+    length: torch.Tensor
+
+
+def init_cache(cfg: MLAConfig, batch: int, max_len: int,
+               device='cuda') -> LatentCache:
+    """Zeroed latents in cfg.dtype and zero lengths."""
+    shape = (cfg.n_layers, batch, max_len)
+    return LatentCache(
+        c_kv=torch.zeros(shape + (cfg.kv_lora_rank,), dtype=cfg.dtype,
+                         device=device),
+        k_rope=torch.zeros(shape + (cfg.qk_rope_head_dim,), dtype=cfg.dtype,
+                           device=device),
+        length=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
 def _last_logits(x: torch.Tensor, lengths: torch.Tensor, params,
                  cfg: MLAConfig) -> torch.Tensor:
     """fp32 logits at each row's last content position: [B, vocab]."""
@@ -259,13 +291,13 @@ def _last_logits(x: torch.Tensor, lengths: torch.Tensor, params,
     return llama.unembed(torch.gather(x, 1, idx), params, cfg)[:, 0]
 
 
-def prefill(params, tokens: torch.Tensor, cfg: MLAConfig, max_len: int,
-            lengths: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Right-padded prompts in one pass. tokens [B, S] → (logits at each
-    row's last content position [B, vocab] fp32, c_kv [L, B, S, r],
-    k_rope [L, B, S, dr]): the rows :func:`paging.scatter_prefill`
-    writes. The JAX version pads them to max_len in a LatentCache."""
+def _prefill_layers(params, tokens: torch.Tensor, cfg: MLAConfig,
+                    max_len: int, lengths: Optional[torch.Tensor],
+                    store: Callable[[int, torch.Tensor, torch.Tensor], None]
+                    ) -> torch.Tensor:
+    """The prefill pass of both cache forms: ``store(i, c_kv, k_rope)``
+    takes layer i's latents [B, S, r] and [B, S, dr]; returns the logits
+    at each row's last content position, [B, vocab] fp32."""
     check_supported(cfg)
     b, s = tokens.shape
     if s > max_len:
@@ -275,17 +307,52 @@ def prefill(params, tokens: torch.Tensor, cfg: MLAConfig, max_len: int,
         lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
     x = llama.embed(params, tokens, cfg)
     sin, cos = rope_tables(cfg, torch.arange(s, device=dev))
-    cs, krs = [], []
     for i in range(cfg.n_layers):
         lp = llama.layer_params(params, i)
         q_nope, q_rope, c_kv, k_rope = _latents(x, lp, cfg, sin, cos)
         x = x + _wo(_attend_latent(q_nope, q_rope, c_kv, k_rope, lp, cfg,
                                    0), lp, cfg)
         x = x + _ffn(x, lp, cfg)[0]
-        cs.append(c_kv)
-        krs.append(k_rope)
-    return _last_logits(x, lengths, params, cfg), torch.stack(cs), \
-        torch.stack(krs)
+        store(i, c_kv, k_rope)
+    return _last_logits(x, lengths, params, cfg)
+
+
+def prefill(params, tokens: torch.Tensor, cfg: MLAConfig, max_len: int,
+            lengths: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Right-padded prompts in one pass. tokens [B, S] → (logits at each
+    row's last content position [B, vocab] fp32, c_kv [L, B, S, r],
+    k_rope [L, B, S, dr]): the rows :func:`paging.scatter_prefill`
+    writes. The JAX version pads them to max_len in a LatentCache,
+    which is :func:`prefill_cache`'s form."""
+    cs, krs = [], []
+
+    def store(i, c, kr):
+        cs.append(c)
+        krs.append(kr)
+    logits = _prefill_layers(params, tokens, cfg, max_len, lengths, store)
+    return logits, torch.stack(cs), torch.stack(krs)
+
+
+def prefill_cache(params, tokens: torch.Tensor, cfg: MLAConfig,
+                  max_len: int, lengths: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, LatentCache]:
+    """JAX ``prefill``: right-padded prompts tokens [B, S] (``lengths``
+    [B], ragged rows allowed) → (logits at each row's last content
+    position [B, vocab] fp32, a :class:`LatentCache` of max_len
+    positions holding [0, S), length = lengths)."""
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_len, device=tokens.device)
+
+    def store(i, c, kr):
+        cache.c_kv[i, :, :s] = c
+        cache.k_rope[i, :, :s] = kr
+    logits = _prefill_layers(params, tokens, cfg, max_len, lengths, store)
+    if lengths is None:
+        cache.length.fill_(s)
+    else:
+        cache.length.copy_(lengths)
+    return logits, cache
 
 
 def prefill_extend(params, tokens: torch.Tensor, cfg: MLAConfig,
@@ -429,3 +496,71 @@ def paged_decode_step(params, token: torch.Tensor,
     advance = 1 if active is None else active.to(pcache.length.dtype)
     pcache.length += advance
     return logits[:, 0], pcache
+
+
+def verify_step(params, tokens: torch.Tensor, cache: LatentCache,
+                cfg: MLAConfig) -> Tuple[torch.Tensor, LatentCache]:
+    """K tokens per row at each row's own offset over the contiguous
+    latent cache: tokens [B, K] → (logits [B, K, vocab] fp32, the
+    cache). The K positions' latents are written in place at [length,
+    length + K) and ``length`` does NOT advance (decode.verify_step's
+    contract); writes at or past max_len are dropped, as JAX's are. No
+    host sync, so the step captures into a CUDA graph."""
+    check_supported(cfg)
+    kk = tokens.shape[1]
+    length = cache.length
+    positions = length[:, None].long() + torch.arange(kk,
+                                                      device=tokens.device)
+    x = llama.embed(params, tokens, cfg)
+    sin, cos = rope_tables(cfg, positions)
+    for i in range(cfg.n_layers):
+        lp = llama.layer_params(params, i)
+        q_nope, q_rope, c_new, kr_new = _latents(x, lp, cfg, sin, cos)
+        c_l, kr_l = cache.c_kv[i], cache.k_rope[i]
+        decode.put_positions(c_l, positions, c_new)
+        decode.put_positions(kr_l, positions, kr_new)
+        out = _attend_latent(q_nope, q_rope, c_l, kr_l, lp, cfg, length)
+        x = x + _wo(out, lp, cfg)
+        x = x + _ffn(x, lp, cfg)[0]
+    return llama.unembed(x, params, cfg), cache
+
+
+def decode_step(params, token: torch.Tensor, cache: LatentCache,
+                cfg: MLAConfig, active: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, LatentCache]:
+    """One step over the latent cache: token [B] → (logits [B, vocab],
+    the cache); active rows' lengths advance by one, in place."""
+    logits, cache = verify_step(params, token[:, None], cache, cfg)
+    cache.length += 1 if active is None else active.to(cache.length.dtype)
+    return logits[:, 0], cache
+
+
+@torch.no_grad()
+def generate(params, prompt: torch.Tensor, cfg: MLAConfig,
+             max_new_tokens: int, *, max_len: Optional[int] = None,
+             temperature: float = 0.0, eos_id: Optional[int] = None,
+             top_k: Optional[int] = None, top_p: Optional[float] = None,
+             prompt_lengths: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Generation over the latent cache with decode.generate's surface
+    (greedy / temperature / top-k / top-p, EOS fill, ragged prompts);
+    on the card the steps replay one CUDA graph
+    (decode.replay_steps)."""
+    b, s = prompt.shape
+    if max_len is None:
+        max_len = min(cfg.max_seq_len, s + max_new_tokens)
+    if s + max_new_tokens > max_len:
+        raise ValueError(
+            f'prompt ({s}) + max_new_tokens ({max_new_tokens}) exceeds '
+            f'max_len ({max_len})')
+    if generator is None:
+        generator = torch.Generator(device=prompt.device).manual_seed(0)
+    logits, cache = prefill_cache(params, prompt, cfg, max_len,
+                                  lengths=prompt_lengths)
+
+    def step(tok, active):
+        return decode_step(params, tok, cache, cfg, active=active)[0]
+    return decode.run_generate(step, logits, max_new_tokens,
+                               temperature=temperature, eos_id=eos_id,
+                               top_k=top_k, top_p=top_p,
+                               generator=generator)

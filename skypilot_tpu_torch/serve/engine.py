@@ -50,7 +50,10 @@ FFN is routed) decodes over a second cache family, the paged latent
 pool: ``_decode`` is models/mla.py instead of models/decode.py, the
 same calls on a ``PagedLatent`` (``cache_family()`` says which), every
 attention the plain absorbed-matmul one, as in JAX; dense MLA
-speculates, DeepSeekMoE does not.
+speculates, DeepSeekMoE does not. ``quantize='int8'`` (``--quantize
+int8``) serves weight-only int8 params (models/decode.py
+``cast_params_for_decode``, from fp32 masters): every step graph reads
+them through the dequant of ``_d``; an MoE config is refused, as in JAX.
 
 What waits (ROADMAP Queue 1 item 4): chat completions, ``n`` /
 ``best_of`` and batched prompts (each refused with 400 by name),
@@ -121,6 +124,8 @@ MAX_INFLIGHT = 2
 # Prefix cache: LRU entries (0 disables). A prompt sharing a snapshotted
 # prefix prefills only its suffix, over the snapshot's own pages.
 PREFIX_CACHE_ENTRIES = _env_int('SKYTPU_ENGINE_PREFIX_CACHE', 4)
+# int8 K/V pools ('int8'; JAX default 'none'): refused, not ported yet.
+KV_QUANT = os.environ.get('SKYTPU_ENGINE_KV_QUANT', 'none')
 # Prompts shorter than this are never snapshotted; snapshots are powers
 # of two, so the page size must divide it.
 PREFIX_MIN_TOKENS = 64
@@ -239,13 +244,14 @@ class InferenceEngine:
     def __init__(self, model: str = 'llama-1b', *,
                  cfg: Optional[LlamaConfig] = None, params=None,
                  max_len: Optional[int] = None, device: str = 'cuda',
-                 seed: int = 0):
+                 seed: int = 0, quantize: Optional[str] = None):
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError('no CUDA device: the engine runs on the card '
                                "unless device='cpu' is asked for")
         self.cfg = cfg if cfg is not None else get_config(model)
         check_supported(self.cfg)
+        decode.check_quantize(self.cfg, quantize)
         self.model_name = model
         # The MLA family decodes over the paged latent pool (models/
         # mla.py), every other over the paged K/V (models/decode.py):
@@ -270,12 +276,19 @@ class InferenceEngine:
         if params is None:
             # Drawn leaf by leaf into the compute dtype: the whole tree
             # never exists in fp32 (gpt-oss-20b's would not fit the card).
+            # int8 quantizes from the fp32 masters, as JAX does (MoE,
+            # the large family, is refused above).
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = module_for(self.cfg).init_params(
-                self.cfg, gen, self.device, dtype=self.cfg.dtype)
+                self.cfg, gen, self.device,
+                dtype=self.cfg.param_dtype if quantize else self.cfg.dtype)
             logger.info('Serving randomly-initialized params (seed %d).',
                         seed)
-        self.params = decode.cast_params_for_decode(params, self.cfg)
+        self.params = decode.cast_params_for_decode(params, self.cfg,
+                                                    quantize=quantize)
+        if quantize:
+            logger.info('Serving with weight-only %s quantization.',
+                        quantize)
         self.tokenizer = ByteTokenizer()
         self._queue: 'queue.Queue[Request]' = queue.Queue(maxsize=MAX_QUEUE)
         self._hold: List[Request] = []
@@ -317,6 +330,11 @@ class InferenceEngine:
         if self.step_chunk < 1:
             raise ValueError(f'SKYTPU_ENGINE_STEP_CHUNK must be >= 1, got '
                              f'{self.step_chunk}')
+        if KV_QUANT not in ('', 'none'):
+            raise NotImplementedError(
+                f'SKYTPU_ENGINE_KV_QUANT={KV_QUANT!r}: int8 K/V pools are '
+                f'not ported yet; they wait for ROADMAP Queue 1 item 3 '
+                f'(int8 KV). Weight-only int8 is quantize=\'int8\'.')
 
     def cache_family(self) -> str:
         """'paged_kv' (dense/GQA/MoE) or 'paged_latent' (MLA): the
@@ -1943,6 +1961,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="'cuda' (default) or 'cpu'.")
     parser.add_argument('--seed', type=int, default=0,
                         help='Seed of the random weights and the sampler.')
+    parser.add_argument('--quantize', choices=['int8'], default=None,
+                        help='Weight-only int8 (the dense Llama and MLA '
+                             'families).')
     parser.add_argument('--port', type=int, default=8300)
     parser.add_argument('--host', default='0.0.0.0')
     return parser
@@ -1952,7 +1973,8 @@ def main() -> None:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args()
     engine = InferenceEngine(args.model, max_len=args.max_len,
-                             device=args.device, seed=args.seed)
+                             device=args.device, seed=args.seed,
+                             quantize=args.quantize)
     server = build_app(engine, args.host, args.port)
     engine.start()
     try:

@@ -986,3 +986,88 @@ def test_moe_1b_attention_shape_launches_a_c_d(cuda):
         {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
          'paged_decode': 0}
     assert np.isfinite(float(m['loss'])) and np.isfinite(float(m['grad_norm']))
+
+
+def _eager_greedy(decode_mod, params, cfg, prompt, lengths, n, max_len):
+    """Greedy tokens from an eager decode_step loop over the contiguous
+    cache: the reference for generate's replayed graph."""
+    logits, cache = decode_mod.prefill_cache(params, prompt, cfg, max_len,
+                                             lengths=lengths)
+    toks = [torch.argmax(logits, -1).to(torch.int32)]
+    for _ in range(n - 1):
+        logits, cache = decode_mod.decode_step(params, toks[-1], cache, cfg)
+        toks.append(torch.argmax(logits, -1).to(torch.int32))
+    return torch.stack(toks, 1)
+
+
+def test_generate_graph_replay_equals_eager_steps(cuda):
+    """decode.generate on the card: the prefill through kernel A (once a
+    layer), the steps one CUDA graph replayed with the plain attention
+    (no kernel captured); its greedy tokens on ragged rows equal an eager
+    decode_step loop's, and the graph's sampled tokens follow their
+    generator (one seed twice: the same; two seeds: not)."""
+    cfg, params = _hd128_model(cuda)
+    params = decode.cast_params_for_decode(params, cfg)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 48), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    lengths = torch.tensor([48, 17, 30, 5], dtype=torch.int32, device=cuda)
+    a0, cap0 = fa.KERNEL.launches, build.captured()
+    got = decode.generate(params, prompt, cfg, 24, max_len=80,
+                          prompt_lengths=lengths)
+    assert fa.KERNEL.launches - a0 == cfg.n_layers
+    assert build.captured() == cap0
+    want = _eager_greedy(decode, params, cfg, prompt, lengths, 24, 80)
+    assert torch.equal(got, want)
+
+    def sample(seed):
+        return decode.generate(
+            params, prompt, cfg, 16, max_len=80, prompt_lengths=lengths,
+            temperature=1.0, top_k=50, top_p=0.95,
+            generator=torch.Generator(device=cuda).manual_seed(seed))
+    assert torch.equal(sample(1), sample(1))
+    assert not torch.equal(sample(1), sample(2))
+
+
+@pytest.mark.parametrize('name', ['mla-debug', 'deepseek-moe-debug'])
+def test_mla_generate_graph_replay_equals_eager_steps(cuda, name):
+    """mla.generate on the card replays its captured step; greedy tokens
+    equal an eager mla.decode_step loop's."""
+    from skypilot_tpu_torch.models import mla
+    cfg = config.MLA_PRESETS[name]
+    params = mla.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             cuda, dtype=cfg.dtype)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 32), device=cuda,
+                           generator=gen, dtype=torch.int32)
+    lengths = torch.tensor([32, 9, 20], dtype=torch.int32, device=cuda)
+    got = mla.generate(params, prompt, cfg, 12, max_len=64,
+                       prompt_lengths=lengths)
+    want = _eager_greedy(mla, params, cfg, prompt, lengths, 12, 64)
+    assert torch.equal(got, want)
+
+
+def test_int8_engine_burst(cuda):
+    """The engine with quantize='int8' (fp32 masters quantized at load)
+    captures its step graphs with the dequant inside and kernel B a
+    layer a step, and serves a burst of concurrent greedy requests to
+    their length."""
+    from skypilot_tpu_torch.serve import engine as engine_lib
+    cfg, params = _hd128_model(cuda)
+    eng = engine_lib.InferenceEngine('llama-debug', cfg=cfg, params=params,
+                                     device='cuda', quantize='int8')
+    assert isinstance(eng.params['layers']['wq'], decode.QuantizedWeight)
+    eng.spec_k = 0
+    eng.warmup()
+    for (k, _, _), n in eng._graph_launches.items():
+        assert n == {'paged_decode': k * cfg.n_layers}
+    prompts = [[3, 1, 4, 1, 5], list(range(40)), [9] * 20, [7] * 33]
+    b0 = pa.KERNEL.launches
+    eng.start()
+    try:
+        futs = [eng.submit(p, 16) for p in prompts]
+        burst = [f.result(timeout=300)[0] for f in futs]
+    finally:
+        eng.stop()
+    assert all(len(t) == 16 and max(t) < cfg.vocab_size for t in burst)
+    assert pa.KERNEL.launches > b0
