@@ -5,16 +5,19 @@
 Phases (any failure exits non-zero; nothing is swallowed):
   1. build     — nvcc-build every kernel from skypilot_tpu_torch/csrc/
                  for sm_90a, one nvcc per source, all at once;
-  2. flash     — kernel A vs its plain version at llama-1b shapes, and
-                 at gemma-7b's head_dim 256 (16/16 heads; causal and
-                 not, ragged S, S=2048);
+  2. flash     — kernel A vs its plain version at llama-1b shapes, at
+                 gemma-7b's head_dim 256 (16/16 heads; causal and not,
+                 ragged S, S=2048) and at llama3.2-1b's head_dim 64
+                 (32/8 heads);
   3. paged     — kernel B vs its plain version at llama-1b decode shapes
                  and at g*S up to 64 (g = 7 and 8), rows ending on the
                  split's page and chunk edges, two calls bit-equal; then
                  the same at head_dim 256: gemma-7b decode (g = 1),
                  gemma2-9b heads (g = 2) up to S = 8, g*S = 64, page
                  sizes 40, 64, 72 and 128 (pages over 64 tokens stream
-                 in halves: rows end on a half's edge too);
+                 in halves: rows end on a half's edge too); then at
+                 head_dim 64: llama3.2-1b's heads (g = 4) at S 1, 2, 4
+                 on pages of 40, 64 and 128, and g = 8 at S = 8;
   4. flash_bwd — kernels C (dq) and D (dk, dv) vs the plain backward:
                  GQA groups 1, 2, 4, both causal settings, ragged S,
                  D=64, an lse cotangent, llama-1b heads at S=2048, and
@@ -27,9 +30,11 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  wrappers; B at other chunk counts; A and B again at
                  gemma-7b's head_dim 256 (A: B=2, S=T=2048, H=KH=16;
                  B: B=8, S=1, H=KH=16, psz 64, the same ragged rows);
-                 B at the speculative verify's S=4 at both head dims;
+                 B at the speculative verify's S=4 at every head dim;
                  C and D at gemma-7b's train shape (B=2, S=T=2048,
-                 H=KH=16, D=256) beside SDPA's backward by backend;
+                 H=KH=16, D=256) beside SDPA's backward by backend; A,
+                 B (S=1 and 4), C and D at llama3.2-1b's heads (32/8,
+                 D=64; A at B=2, C and D at B=4);
   6. model     — llama-1b (full width, random bf16 weights) prefill + 8
                  paged decode steps through the kernels vs the plain path;
                  then a verify step of 8 tokens with 2 kv heads (g*S =
@@ -79,9 +84,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  the fp32 masters vs bf16: first-logit error (< 0.1), ms
                  a replayed step at B=32, peak memory
                  (chiprun_out/batch_infer.json);
-  8. model_gemma — gemma-7b at full width (28 layers, dim 3072, 16/16
-                 heads, hd 256, vocab 256000; random bf16 weights from
-                 seed 0, ~17.1 GB): prefill + 8 paged decode steps
+  8. model_gemma — gemma-7b at full width cut to 14 of its 28 layers
+                 (dim 3072, 16/16 heads, hd 256, vocab 256000; random
+                 bf16 weights from seed 0, ~9.7 GB): prefill + 8 paged decode steps
                  through kernels A and B vs the plain and fp32 paths;
   9. serve_gemma — the port's engine on gemma-7b, checked as in serve;
  10. gemma_switches — gemma2-9b (2 layers) and gemma3-12b (6 layers:
@@ -102,14 +107,15 @@ Phases (any failure exits non-zero; nothing is swallowed):
  12. serve_moe — the port's engine on moe-1b, checked as in serve but
                  with no speculation (spec_k 0 for MoE, as in JAX: 8
                  graphs, no verify) and no chunked-logits check;
- 13. serve_gptoss — the engine on gpt-oss-20b at full width and depth
-                 (24 layers, dim 2880, 64/8 heads, hd 64, 32 experts
-                 top-4, vocab 201088, sinks, a 128-token window on every
-                 other layer, YaRN, clamped SwiGLU, qkv bias; random bf16
-                 weights drawn leaf by leaf, 41.8 GB), the same bursts:
-                 A and B launch zero times (sinks: the plain route);
- 14. model_mla — deepseek-v2-lite at full width and depth (27 layers, dim
-                 2048, 16 heads, latent r 512, dn 128, dr 64, dv 128,
+ 13. serve_gptoss — the engine on gpt-oss-20b at full width cut to 12
+                 of its 24 layers (dim 2880, 64/8 heads, hd 64, 32
+                 experts top-4, vocab 201088, sinks, a 128-token window
+                 on every other layer, YaRN, clamped SwiGLU, qkv bias;
+                 random bf16 weights drawn leaf by leaf, ~21 GB), the
+                 same bursts: A and B launch zero times (sinks: the
+                 plain route);
+ 14. model_mla — deepseek-v2-lite at full width cut to 14 of its 27
+                 layers (dim 2048, 16 heads, latent r 512, dn 128, dr 64, dv 128,
                  ffn 10944, vocab 102400; random bf16 weights from seed
                  0): prefill + 8 paged decode steps over the paged
                  latent pool, teacher-forced, against the fp32 paged
@@ -145,9 +151,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  step; grads against the plain and fp32 paths, the loss
                  against the plain-attention trainer, a resume at step
                  3; one step under torch.profiler;
- 19. train_moe — the trainer on moe-1b whole (12 layers, 8 experts top-2,
-                 hd 128), checked as in train: A 144, C 72 and D 72
-                 launches in 6 steps; the grads (CE + router aux) at
+ 19. train_moe — the trainer on moe-1b at full width cut to 6 of its 12
+                 layers (8 experts top-2, hd 128), checked as in train:
+                 A 72, C 36 and D 36 launches in 6 steps; the grads (CE + router aux) at
                  capacity for every choice, the plain and fp32 runs
                  teacher-forced onto the default run's routes in the
                  forward and in the remat recompute; then gpt-oss-20b at
@@ -158,7 +164,26 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  vocab 102400), 4 steps of 4 x 2048, no kernel launched
                  (the latent attention is plain PyTorch, as in JAX);
                  finite losses and grads, each leaf's bf16 grad within
-                 TOL_GRAD_MLA of fp32; one step profiled, peak memory.
+                 TOL_GRAD_MLA of fp32; one step profiled, peak memory;
+ 21. hf        — real checkpoints at llama3.2-1b's full width (16
+                 layers, dim 2048, 32/8 heads, hd 64, vocab 128256,
+                 tied, llama3 rope scaling; random bf16 weights from
+                 seed 0, 2.47 GB): save_hf_checkpoint, whose config
+                 imports equal to the preset and whose tensors
+                 load_hf_checkpoint puts on the card bit for bit; the
+                 trainer from --hf-dir, 3 steps of 4 x 2048 (A 96, C 48,
+                 D 48 launches; the first loss against the imported
+                 tree's cross-entropy, TOL_LOSS), saving 14.8 GB of fp32
+                 state at the last; the engine on that checkpoint
+                 (--ckpt-dir) behind build_app: /health, 4 greedy
+                 /generate and a chat completion as JSON and streamed
+                 (A and B launch), the greedy tokens against
+                 decode.generate; then `python -m
+                 skypilot_tpu_torch.serve.engine --model llama3.2-1b
+                 --ckpt-dir` as a subprocess (no --device): /health and
+                 one chat; then qwen2.5-1.5b (qkv biases) exported and
+                 imported bit for bit. Its files live in the git-ignored
+                 .smoke_hf/ and are removed.
 Then it prints the card's name and power limit, one {"kernels": [...]}
 line, and as its last line {"ok": true, "device": {...}}.
 
@@ -208,6 +233,8 @@ TOL_MODEL = 1.25
 
 FLASH_CASES = [(16, True), (100, True), (512, True), (2048, True),
                (512, False)]
+# Kernel A at head_dim 64 (llama3.2-1b's heads, 32/8): (B, S=T, causal).
+FLASH64_CASES = [(2, 100, True), (2, 2048, True), (1, 300, False)]
 # Backward kernels: each grad's max|err| / max|ref| against the plain
 # backward in fp32 on the same bf16 inputs, the JAX package's own bound
 # for its backward kernels (tests/unit_tests/test_flash_attention.py).
@@ -225,6 +252,7 @@ BWD_CASES = [(1, 100, 4, 4, 128, True, False),
              (1, 200, 4, 1, 64, True, False),
              (1, 300, 4, 2, 64, False, True),
              (1, 2048, 16, 8, 128, True, False),
+             (1, 2048, 32, 8, 64, True, False),
              (1, 100, 4, 4, 256, True, False),
              (2, 130, 4, 2, 256, False, True),
              (1, 300, 8, 4, 256, True, True),
@@ -337,7 +365,9 @@ def flash_inputs(torch, b, s, h, kh, d, seed):
 def phase_flash(torch, fa) -> dict:
     worst = 0.0
     cases = [(2, s, 16, 8, 128, causal) for s, causal in FLASH_CASES] + \
-        [(b, s, h, kh, 256, causal) for b, s, h, kh, causal in FLASH256_CASES]
+        [(b, s, h, kh, 256, causal) for b, s, h, kh, causal in
+         FLASH256_CASES] + \
+        [(b, s, 32, 8, 64, causal) for b, s, causal in FLASH64_CASES]
     for i, (b, s, h, kh, d, causal) in enumerate(cases):
         q, k, v = flash_inputs(torch, b, s, h, kh, d, seed=100 + i)
         before = fa.KERNEL.launches
@@ -420,6 +450,11 @@ PAGED_CASES = [(1, 16, 8), (4, 16, 8), (3, 28, 4), (5, 28, 4), (8, 32, 4)]
 PAGED256_CASES = [(1, 16, 16, 64), (1, 16, 16, 128), (1, 16, 8, 64),
                   (4, 16, 8, 128), (8, 16, 8, 64), (3, 28, 4, 64),
                   (8, 32, 4, 128), (1, 16, 16, 40), (4, 16, 8, 72)]
+# At head_dim 64, (S, H, KH, psz): llama3.2-1b's heads (g = 4) at decode
+# and verify widths on 64-token pages and on pages of 128 and 40; then
+# g = 8 at S = 8 (64 rows).
+PAGED64_CASES = [(1, 32, 8, 64), (4, 32, 8, 64), (1, 32, 8, 128),
+                 (2, 32, 8, 40), (8, 32, 4, 64)]
 
 
 def paged_inputs(torch, pa, paging, s, seed, h=16, kh=8, edges=False,
@@ -479,7 +514,8 @@ def phase_paged(torch, pa, paging) -> dict:
     merge in a fixed order)."""
     worst = 0.0
     cases = [(s, h, kh, 128, 64) for s, h, kh in PAGED_CASES] + \
-        [(s, h, kh, 256, psz) for s, h, kh, psz in PAGED256_CASES]
+        [(s, h, kh, 256, psz) for s, h, kh, psz in PAGED256_CASES] + \
+        [(s, h, kh, 64, psz) for s, h, kh, psz in PAGED64_CASES]
     for i, (s, h, kh, hd, psz) in enumerate(cases):
         q, kp, vp, table, length, lengths = paged_inputs(
             torch, pa, paging, s, seed=7 + s + i, h=h, kh=kh, edges=True,
@@ -524,6 +560,10 @@ TIMING_SHAPE = dict(s=2048, h=16, kh=8, d=128)
 # phase's batch (B=2: the same FLOPs as the B=4, D=128 shape).
 TIMING_SHAPE_256 = dict(s=2048, h=16, kh=16, d=256)
 BWD_TIMING_B_256 = 2
+# At llama3.2-1b's heads (32/8, head_dim 64), the hf phase's model: A at
+# the serve shape (B=2), B at the timing rows, C and D at its train
+# batch (B=4).
+TIMING_SHAPE_64 = dict(s=2048, h=32, kh=8, d=64)
 
 
 def fwd_launch(torch, fa, b, shape=TIMING_SHAPE):
@@ -698,7 +738,8 @@ def time_paged(torch, pa, paging, h, kh, hd, s=1) -> dict:
 def phase_timing(torch, fa, pa, paging) -> dict:
     """Times at the largest main-path shapes of phases 2, 3 and 4, each
     kernel by its launch alone: llama-1b's heads (A at the serve and
-    train batches), then A and B at gemma-7b's (head_dim 256)."""
+    train batches), then A and B at gemma-7b's (head_dim 256), then A,
+    B, C and D at llama3.2-1b's (head_dim 64)."""
     res = {}
     for b in FWD_TIMING_B:
         # The serve-shape row is the kernel's row in the kernels line.
@@ -716,6 +757,13 @@ def phase_timing(torch, fa, pa, paging) -> dict:
                                                256, s=4)
     res.update({f'{n} hd256': r for n, r in time_flash_bwd(
         torch, fa, BWD_TIMING_B_256, TIMING_SHAPE_256).items()})
+    res['flash_fwd hd64'] = time_fwd(torch, fa, FWD_TIMING_B[0],
+                                     TIMING_SHAPE_64)
+    res['paged_decode hd64'] = time_paged(torch, pa, paging, 32, 8, 64)
+    res['paged_decode hd64 S=4'] = time_paged(torch, pa, paging, 32, 8, 64,
+                                              s=4)
+    res.update({f'{n} hd64': r for n, r in time_flash_bwd(
+        torch, fa, BWD_TIMING_B, TIMING_SHAPE_64).items()})
     for name, r in res.items():
         log(f'[timing] {name} {r["shape"]}: kernel {r["ms"]:.4f} ms, '
             f'plain {r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} '
@@ -1883,6 +1931,11 @@ def start_engine(model, cfg, params, engine_lib, tag, **knobs):
     server, base url)."""
     eng = engine_lib.InferenceEngine(model, cfg=cfg, params=params,
                                      device='cuda', seed=0)
+    return serve_engine(eng, engine_lib, tag, **knobs)
+
+
+def serve_engine(eng, engine_lib, tag, **knobs):
+    """start_engine's serving half, on an engine already built."""
     for name, val in knobs.items():
         setattr(eng, name, val)
     server = engine_lib.build_app(eng, '127.0.0.1', free_port())
@@ -2729,13 +2782,19 @@ def phase_train_gemma(torch, build) -> dict:
     return launches
 
 
-# train_moe: moe-1b whole (12 layers, dim 1024, 8 experts top-2, hd 128,
-# 8/4 heads: kernels A, C and D under the routed FFN), TRAIN_B x TRAIN_S,
-# TRAIN_STEPS steps; its grads checked at capacity n_experts / top_k (no
-# choice dropped) with the routes forced. Then gpt-oss-20b at full width
+# train_moe: moe-1b at full width cut to MOE_TRAIN_DEPTH of its 12 layers
+# (dim 1024, 8 experts top-2, hd 128, 8/4 heads: kernels A, C and D under
+# the routed FFN), TRAIN_B x TRAIN_S, TRAIN_STEPS steps; its grads
+# checked at capacity n_experts / top_k (no choice dropped) with the
+# routes forced. Then gpt-oss-20b at full width
 # cut to GPTOSS_TRAIN_LAYERS (one window layer, one full, sinks on both:
 # no kernel), one step of 1 x TRAIN_S (44.9 GB of fp32 state).
 GPTOSS_TRAIN_LAYERS = 2
+# Depth cuts that keep the whole script well inside its time limit on a
+# slow host (every check stands at any depth; full depth was checked
+# before): gemma-7b's model and serve phases, deepseek-v2-lite's model
+# and serve phases, and moe-1b's training, each at half its layers.
+GEMMA_SERVE_DEPTH, MLA_SERVE_DEPTH, MOE_TRAIN_DEPTH = 14, 14, 6
 # train_mla: deepseek-v2-lite whole (27 layers, 2.607 B params, 41.7 GB of
 # fp32 state), MLA_TRAIN_B x TRAIN_S, MLA_TRAIN_STEPS steps; no kernel
 # (the latent attention is plain PyTorch, as in JAX). Batch 4: at batch 2
@@ -2749,8 +2808,8 @@ TOL_GRAD_MLA = 0.1
 
 
 def phase_train_moe(torch, build) -> dict:
-    """The port's trainer on moe-1b whole (remat 'full') through
-    train_checked, a resume at step 3 (TOL_RESUME), one step's grads
+    """The port's trainer on moe-1b at MOE_TRAIN_DEPTH layers (remat
+    'full') through train_checked, a resume at step 3 (TOL_RESUME), one step's grads
     against the plain bf16 and fp32 paths (TOL_GRAD; capacity for every
     choice, the plain and fp32 runs on the default run's routes), one
     step profiled; then gpt-oss-20b's step (gptoss_train_step). Returns
@@ -2758,9 +2817,11 @@ def phase_train_moe(torch, build) -> dict:
     import dataclasses
     from skypilot_tpu_torch import config
     from skypilot_tpu_torch.train import trainer
-    cfg = config.get_config('moe-1b')
+    cfg = dataclasses.replace(config.get_config('moe-1b'),
+                              n_layers=MOE_TRAIN_DEPTH)
     tcfg = trainer.TrainerConfig(
-        model='moe-1b', batch_size=TRAIN_B, seq_len=TRAIN_S,
+        model='moe-1b', model_overrides={'n_layers': MOE_TRAIN_DEPTH},
+        batch_size=TRAIN_B, seq_len=TRAIN_S,
         total_steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP, log_every=1,
         device='cuda')
     free_card(torch)
@@ -2909,6 +2970,273 @@ def profile_device(torch, fn) -> dict:
     return {'idle_share': idle, 'kernel_counts': counts}
 
 
+# The hf phase: llama3.2-1b at full width (16 layers, dim 2048, 32/8
+# heads, hd 64, vocab 128256, tied, llama3 rope scaling by 32; random
+# bf16 weights from seed 0) exported as an HF checkpoint, imported,
+# fine-tuned from the HF directory and served from the trainer's
+# checkpoint; then qwen2.5-1.5b (qkv biases, hd 128) exported and
+# imported. HF_EOS is Llama 3's <|end_of_text|>, written into the
+# export's generation_config.json.
+HF_MODEL, HF_QWEN, HF_EOS = 'llama3.2-1b', 'qwen2.5-1.5b', 128001
+HF_B, HF_STEPS, HF_NEW = 4, 3, 32
+HF_CHAT = {'messages': [{'role': 'system', 'content': 'be brief'},
+                        {'role': 'user', 'content': 'Say hi'}],
+           'max_tokens': 16, 'temperature': 0}
+
+
+def hf_round_trip(torch, cfg, out: str, tag: str, eos=None) -> None:
+    """Random bf16 params of ``cfg`` exported with the port's
+    save_hf_checkpoint into ``out``: its config must import equal to the
+    preset, and load_hf_checkpoint onto the card must give every leaf
+    bit for bit, bf16 kept."""
+    import dataclasses
+    from skypilot_tpu_torch.models import hf_export, hf_import, weights
+    params = bf16_params(torch, cfg)
+    t0 = time.perf_counter()
+    hf_export.save_hf_checkpoint(params, cfg, out)
+    t_export = time.perf_counter() - t0
+    if eos is not None:
+        with open(os.path.join(out, 'generation_config.json'), 'w') as f:
+            json.dump({'eos_token_id': eos}, f)
+    nbytes = os.path.getsize(os.path.join(out, 'model.safetensors'))
+    got = hf_import.load_hf_config(out)
+    if got != dataclasses.replace(cfg, head_dim=cfg.hd):
+        fail(f'{tag} the export\'s config imports as {got}, not the preset')
+    t0 = time.perf_counter()
+    _, back = hf_import.load_hf_checkpoint(out, device='cuda')
+    torch.cuda.synchronize()
+    t_import = time.perf_counter() - t0
+    mine, theirs = weights.tree_paths(params), weights.tree_paths(back)
+    if [p for p, _ in mine] != [p for p, _ in theirs]:
+        fail(f'{tag} imported tree {[p for p, _ in theirs]}')
+    for (path, a), (_, b) in zip(mine, theirs):
+        if b.dtype != a.dtype or b.device.type != 'cuda' or \
+                not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+            fail(f'{tag} leaf {path}: {b.dtype} {tuple(b.shape)} on '
+                 f'{b.device} is not the exported {a.dtype} bit for bit')
+    if eos is not None and hf_import.hf_eos_ids(out) != [eos]:
+        fail(f'{tag} eos ids {hf_import.hf_eos_ids(out)}')
+    n = sum(a.numel() for _, a in mine)
+    log(f'{tag} {cfg.n_layers} layers, {n / 1e9:.3f} B params: exported '
+        f'{nbytes / 1e9:.2f} GB of safetensors in {t_export:.1f}s, imported '
+        f'onto the card in {t_import:.1f}s; config == preset, {len(mine)} '
+        f'leaves bit-equal in {a.dtype} ok')
+    del params, back
+    free_card(torch)
+
+
+def hf_finetune(torch, build, cfg, hf_dir: str, ck: str) -> dict:
+    """The port's trainer from ``hf_dir`` (its fp32 masters read from
+    the export), HF_STEPS steps of HF_B x TRAIN_S saving the last into
+    ``ck``: kernel launches (train_checked), the first loss against the
+    imported tree's cross-entropy on the same batch (TOL_LOSS), one
+    complete step on disk. Returns the launch counts."""
+    from skypilot_tpu_torch.data import loader
+    from skypilot_tpu_torch.data_service import spec as spec_lib
+    from skypilot_tpu_torch.models import hf_import
+    from skypilot_tpu_torch.train import checkpoints, train_lib, trainer
+    _, p32 = hf_import.load_hf_checkpoint(hf_dir, dtype=torch.float32,
+                                          device='cuda')
+    batch = loader.to_device(spec_lib.load_source(spec_lib.DatasetSpec(
+        HF_B, TRAIN_S, cfg.vocab_size)).batch_at_step(0), 'cuda')
+    with torch.no_grad():
+        tokens = batch['tokens']
+        logits, _ = train_lib.forward_with_aux(cfg, p32, tokens[:, :-1])
+        ce = float(train_lib.cross_entropy_loss(logits, tokens[:, 1:])[0])
+    del logits, p32, batch
+    free_card(torch)
+    tcfg = trainer.TrainerConfig(
+        model=HF_MODEL, hf_dir=hf_dir, batch_size=HF_B, seq_len=TRAIN_S,
+        total_steps=HF_STEPS, warmup_steps=TRAIN_WARMUP, log_every=1,
+        ckpt_dir=ck, ckpt_every=HF_STEPS, device='cuda')
+    t0 = time.perf_counter()
+    hist, launches = train_checked(torch, build, tcfg, cfg, '[hf train]',
+                                   plain=False)
+    secs = time.perf_counter() - t0
+    diff = abs(hist[0]['loss'] - ce)
+    steps = checkpoints.Checkpointer(ck).all_steps()
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(ck) for f in fs)
+    log(f'[hf train] --hf-dir run of {HF_STEPS} steps with its save: '
+        f'{secs:.1f}s; first loss {hist[0]["loss"]} vs the imported '
+        f'tree\'s cross-entropy {ce:.4f} on batch 0: |diff| {diff:.4f} (tol '
+        f'{TOL_LOSS}); checkpoint steps {steps}, {nbytes / 1e9:.2f} GB')
+    if diff > TOL_LOSS:
+        fail(f'[hf train] first loss departs from the imported tree\'s by '
+             f'{diff}')
+    if steps != [HF_STEPS]:
+        fail(f'[hf train] checkpoint steps {steps}, want [{HF_STEPS}]')
+    return launches
+
+
+def held_against_generate(torch, decode, llama, cfg, params, prompts,
+                          answers, tag: str) -> None:
+    """The engine's greedy tokens for each prompt against
+    decode.generate on the same params (the contiguous cache, B=1):
+    equal up to the first difference, where both tokens must be near
+    the top of the reference's logits at that point (within TOL_SPEC of
+    their std: the paged steps through kernel B and the contiguous ones
+    round differently in bf16); past it the sequences part."""
+    agree = []
+    for prompt, got in zip(prompts, answers):
+        tok_t = torch.tensor([prompt], dtype=torch.int32, device='cuda')
+        want = decode.generate(params, tok_t, cfg, len(got),
+                               max_len=len(prompt) + len(got))[0].tolist()
+        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 len(got))
+        agree.append(j)
+        if j == len(got):
+            continue
+        seq = torch.tensor([prompt + got[:j]], dtype=torch.long,
+                           device='cuda')
+        with torch.no_grad():
+            logits = llama.forward(params, seq, cfg)[0, -1].float()
+        gap = float(logits[want[j]] - logits[got[j]]) / float(logits.std())
+        if gap > TOL_SPEC:
+            fail(f'{tag} a {len(prompt)}-token prompt: token {j} is '
+                 f'{got[j]}, decode.generate\'s {want[j]}, {gap:.3f} std '
+                 f'apart (tol {TOL_SPEC})')
+    log(f'{tag} greedy tokens == decode.generate on the restored params '
+        f'for {agree} of {[len(a) for a in answers]} (to the first '
+        f'near-tie, within {TOL_SPEC} std) ok')
+
+
+def hf_serve(torch, build, engine_lib, decode, cfg, ck: str) -> dict:
+    """The engine main() builds, on the trainer's checkpoint
+    (InferenceEngine(HF_MODEL, ckpt_dir=ck): the params alone, restored
+    onto the card), behind build_app: /health (graphs captured),
+    4 greedy /generate requests, then /v1/chat/completions (the plain
+    template and the byte tokenizer) as JSON and streamed, the stream's
+    text equal to the JSON's; kernels A and B must launch. Then the
+    greedy tokens against decode.generate. Returns the launch counts
+    from the engine's construction on."""
+    from skypilot_tpu_torch.models import llama
+    tag = '[hf serve]'
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    eng = engine_lib.InferenceEngine(HF_MODEL, ckpt_dir=ck, device='cuda',
+                                     seed=0)
+    log(f'{tag} engine on {ck} (params restored onto the card) built in '
+        f'{time.perf_counter() - t0:.1f}s')
+    eng, server, base = serve_engine(eng, engine_lib, tag)
+    try:
+        rng = np.random.default_rng(13)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in (17, 130, 300, 700)]
+        answers = [doc['tokens'] for _, doc in generate_all(
+            base, [{'tokens': p, 'max_new_tokens': HF_NEW}
+                   for p in prompts], cfg.vocab_size)]
+        code, doc = http(base + '/v1/chat/completions', HF_CHAT)
+        c = doc.get('choices', [{}])[0] if code == 200 else {}
+        if code != 200 or doc['object'] != 'chat.completion' or \
+                c['message']['role'] != 'assistant' or \
+                c['finish_reason'] != 'length' or \
+                doc['usage']['completion_tokens'] != HF_CHAT['max_tokens']:
+            fail(f'{tag} chat answered {code}: {doc}')
+        events = sse(base + '/v1/chat/completions',
+                     dict(HF_CHAT, stream=True))
+        text = ''.join(e['choices'][0]['delta'].get('content', '')
+                       for e in events[1:])
+        if events[0]['choices'][0]['delta'] != {'role': 'assistant',
+                                                'content': ''} or \
+                events[-1]['choices'][0]['finish_reason'] != 'length' or \
+                text != c['message']['content']:
+            fail(f'{tag} chat stream {events[:2]} ... {events[-1:]}: text '
+                 f'{text!r} vs {c["message"]["content"]!r}')
+        launches = {n: k.launches for n, k in build.kernels().items()}
+        log(f'{tag} 4 /generate (17/130/300/700 tokens, {HF_NEW} new), a '
+            f'chat completion (prompt {doc["usage"]["prompt_tokens"]} '
+            f'tokens) and its stream ({len(events)} events, same text): '
+            f'ok; launches {launches}; peak '
+            f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
+        if not launches['flash_fwd'] or not launches['paged_decode']:
+            fail(f'{tag} kernels A and B must launch: {launches}')
+    finally:
+        stop_engine(eng, server)
+    held_against_generate(torch, decode, llama, eng.cfg, eng.params,
+                          prompts, answers, tag)
+    del eng, server
+    return launches
+
+
+def hf_cli(ck: str) -> None:
+    """``python -m skypilot_tpu_torch.serve.engine --model HF_MODEL
+    --ckpt-dir ck`` as a user starts it (no --device: the card): /health
+    must answer 200, then one chat completion; the process is stopped
+    and waited for. Its output goes to chiprun_out/hf_cli.log."""
+    port = free_port()
+    base = f'http://127.0.0.1:{port}'
+    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.serve.engine',
+           '--model', HF_MODEL, '--ckpt-dir', ck, '--host', '127.0.0.1',
+           '--port', str(port)]
+    t0 = time.perf_counter()
+    with open(os.path.join(OUT_DIR, 'hf_cli.log'), 'w') as out:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=out,
+                                stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    fail(f'[hf cli] {" ".join(cmd[1:])} exited '
+                         f'{proc.returncode} before /health (see '
+                         f'chiprun_out/hf_cli.log)')
+                try:
+                    code, _ = http(base + '/health', timeout=5)
+                except (urllib.error.URLError, OSError):
+                    code = None
+                if code == 200:
+                    break
+                if time.perf_counter() - t0 > 300:
+                    fail(f'[hf cli] /health not 200 after 300 s: {code}')
+                time.sleep(0.5)
+            up = time.perf_counter() - t0
+            code, doc = http(base + '/v1/chat/completions', HF_CHAT)
+            if code != 200 or doc['choices'][0]['finish_reason'] != 'length':
+                fail(f'[hf cli] chat answered {code}: {doc}')
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    log(f'[hf cli] {" ".join(cmd[1:6])} (no --device) up in {up:.1f}s, '
+        f'a chat completion answered ({doc["usage"]}), stopped: exit '
+        f'{proc.returncode}')
+
+
+def phase_hf(torch, build, engine_lib, decode) -> dict:
+    """Real checkpoints: hf_round_trip of llama3.2-1b, hf_finetune from
+    its HF directory, hf_serve and hf_cli on the trainer's checkpoint,
+    then hf_round_trip of qwen2.5-1.5b; every file under the git-ignored
+    .smoke_hf/, removed at the end. Returns the launch counts of the
+    paths 'train_hf' and 'serve_hf'."""
+    import shutil
+    from skypilot_tpu_torch import config
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, '.smoke_hf')
+    shutil.rmtree(root, ignore_errors=True)
+    hf_dir = os.path.join(root, 'Llama-3.2-1B')
+    ck = os.path.join(root, 'ck')
+    paths = {}
+    try:
+        cfg = config.get_config(HF_MODEL)
+        hf_round_trip(torch, cfg, hf_dir, '[hf]', eos=HF_EOS)
+        paths['train_hf'] = hf_finetune(torch, build, cfg, hf_dir, ck)
+        free_card(torch)
+        paths['serve_hf'] = hf_serve(torch, build, engine_lib, decode, cfg,
+                                     ck)
+        free_card(torch)
+        hf_cli(ck)
+        shutil.rmtree(hf_dir)
+        hf_round_trip(torch, config.get_config(HF_QWEN),
+                      os.path.join(root, 'Qwen2.5-1.5B'), '[hf qwen]')
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f'[hf] phase took {time.perf_counter() - t0:.1f}s')
+    return paths
+
+
 def free_card(torch) -> None:
     """Collect what an ended phase left in reference cycles (an engine
     and its server threads hold each other) and give the cached blocks
@@ -2935,6 +3263,10 @@ SWITCH_DEPTHS = {'gemma2-9b': 2, 'gemma3-12b': 6}
 # gpt-oss-20b's model check at full width, cut in depth so that its fp32
 # copy fits beside the bf16 one (24 layers would take 84 GB in fp32).
 GPTOSS_MODEL_DEPTH = 4
+# gpt-oss-20b's serve phase at full width, cut to 12 of its 24 layers
+# (six windowed, six global; ~21 GB of bf16 weights) so that the whole
+# script keeps a margin inside its time limit.
+GPTOSS_SERVE_DEPTH = 12
 
 
 def phase_gemma_switches(torch, config, decode, paging, pa, build) -> None:
@@ -2970,11 +3302,12 @@ def main() -> None:
                         'serve_gemma,'
                         'gemma_switches,model_moe,serve_moe,serve_gptoss,'
                         'model_mla,serve_mla,serve_deepseek_v2,'
-                        'train_gemma,train,train_moe,train_mla',
+                        'train_gemma,train,train_moe,train_mla,hf',
                         help='comma-separated '
                         'subset (for '
                         'debugging; the full run is the check)')
     args = parser.parse_args()
+    t_main = time.perf_counter()
     phases = set(args.phases.split(','))
     sys.path.insert(0, HERE)
     try:
@@ -2999,16 +3332,30 @@ def main() -> None:
         f'{torch.__version__} cuda {torch.version.cuda}')
 
     errs, times, by_path = {}, {}, {}
+    last = [t_main]
+
+    def lap(done: str) -> None:
+        """The wall time of the block of phases just run."""
+        now = time.perf_counter()
+        if now - last[0] > 0.5:
+            log(f'[time] {done}: {now - last[0]:.1f}s (total '
+                f'{now - t_main:.1f}s)')
+        last[0] = now
     if 'build' in phases:
         phase_build(build)
+    lap('build')
     if 'flash' in phases:
         errs['flash_fwd'] = phase_flash(torch, fa)['max_abs_err']
+    lap('flash')
     if 'paged' in phases:
         errs['paged_decode'] = phase_paged(torch, pa, paging)['max_abs_err']
+    lap('paged')
     if 'flash_bwd' in phases:
         errs.update(phase_flash_bwd(torch, fa))
+    lap('flash_bwd')
     if 'timing' in phases:
         times = phase_timing(torch, fa, pa, paging)
+    lap('timing')
     if phases & {'model', 'serve', 'batch_infer'}:
         cfg = config.get_config('llama-1b')
         params = bf16_params(torch, cfg)
@@ -3025,21 +3372,27 @@ def main() -> None:
                 torch, cfg, params, decode, paging, pa, build, card)
         del params
         free_card(torch)
+    lap('model+serve+batch_infer')
     if 'model_gemma' in phases or 'serve_gemma' in phases:
-        cfg = config.get_config('gemma-7b')
+        import dataclasses
+        cfg = dataclasses.replace(config.get_config('gemma-7b'),
+                                  n_layers=GEMMA_SERVE_DEPTH)
+        label = f'gemma-7b ({GEMMA_SERVE_DEPTH} of 28 layers)'
         params = bf16_params(torch, cfg)
         if 'model_gemma' in phases:
             phase_model(torch, cfg, params, decode, paging, pa, build,
-                        'gemma-7b')
+                        label)
             free_card(torch)
         if 'serve_gemma' in phases:
-            by_path['serve_gemma'] = phase_serve(torch, 'gemma-7b', cfg,
-                                                 params, engine_lib, build,
-                                                 decode, paging)
+            by_path['serve_gemma'] = phase_serve(
+                torch, 'gemma-7b', cfg, params, engine_lib, build, decode,
+                paging, label=label)
         del params
         free_card(torch)
+    lap('model_gemma+serve_gemma')
     if 'gemma_switches' in phases:
         phase_gemma_switches(torch, config, decode, paging, pa, build)
+    lap('gemma_switches')
     if 'model_moe' in phases:
         # gpt-oss-20b at full width cut to 4 layers (2 windowed, 2
         # global): sinks, the window, YaRN, qkv bias and the clamped
@@ -3053,6 +3406,7 @@ def main() -> None:
                     kernels=False)
         del params
         free_card(torch)
+    lap('model_moe')
     if 'model_moe' in phases or 'serve_moe' in phases:
         cfg = config.get_config('moe-1b')
         params = bf16_params(torch, cfg)
@@ -3066,28 +3420,36 @@ def main() -> None:
                                                paging)
         del params
         free_card(torch)
+    lap('model_moe+serve_moe')
     if 'serve_gptoss' in phases:
-        cfg = config.get_config('gpt-oss-20b')
+        import dataclasses
+        cfg = dataclasses.replace(config.get_config('gpt-oss-20b'),
+                                  n_layers=GPTOSS_SERVE_DEPTH)
         params = bf16_params(torch, cfg)
-        by_path['serve_gptoss'] = phase_serve(torch, 'gpt-oss-20b', cfg,
-                                              params, engine_lib, build,
-                                              decode, paging)
+        by_path['serve_gptoss'] = phase_serve(
+            torch, 'gpt-oss-20b', cfg, params, engine_lib, build, decode,
+            paging, label=f'gpt-oss-20b ({GPTOSS_SERVE_DEPTH} of 24 layers)')
         del params
         free_card(torch)
+    lap('serve_gptoss')
     if 'model_mla' in phases or 'serve_mla' in phases:
+        import dataclasses
         from skypilot_tpu_torch.models import mla
-        cfg = config.get_config('deepseek-v2-lite')
+        cfg = dataclasses.replace(config.get_config('deepseek-v2-lite'),
+                                  n_layers=MLA_SERVE_DEPTH)
+        label = f'deepseek-v2-lite ({MLA_SERVE_DEPTH} of 27 layers)'
         params = bf16_params(torch, cfg)
         if 'model_mla' in phases:
-            phase_model_mla(torch, cfg, params, mla, paging, build,
-                            'deepseek-v2-lite', gen_check=True)
+            phase_model_mla(torch, cfg, params, mla, paging, build, label,
+                            gen_check=True)
             free_card(torch)
         if 'serve_mla' in phases:
-            by_path['serve_mla'] = phase_serve(torch, 'deepseek-v2-lite', cfg,
-                                               params, engine_lib, build,
-                                               decode, paging)
+            by_path['serve_mla'] = phase_serve(
+                torch, 'deepseek-v2-lite', cfg, params, engine_lib, build,
+                decode, paging, label=label)
         del params
         free_card(torch)
+    lap('model_mla+serve_mla')
     if 'serve_deepseek_v2' in phases:
         import dataclasses
         from skypilot_tpu_torch.models import mla
@@ -3109,19 +3471,28 @@ def main() -> None:
             paging, label=f'deepseek-v2 ({DSV2_SERVE_DEPTH} of 60 layers)')
         del params
         free_card(torch)
+    lap('serve_deepseek_v2')
     if 'train_gemma' in phases:
         by_path['train_gemma'] = phase_train_gemma(torch, build)
         free_card(torch)
+    lap('train_gemma')
     if 'train' in phases:
         by_path['train'] = phase_train(torch, build)
         free_card(torch)
+    lap('train')
     if 'train_moe' in phases:
         by_path['train_moe'] = phase_train_moe(torch, build)
         free_card(torch)
+    lap('train_moe')
     if 'train_mla' in phases:
         by_path['train_mla'] = phase_train_mla(torch, build)
         free_card(torch)
+    lap('train_mla')
+    if 'hf' in phases:
+        by_path.update(phase_hf(torch, build, engine_lib, decode))
+        free_card(torch)
 
+    lap('hf')
     replaces = {
         'flash_fwd': 'skypilot_tpu/ops/pallas/flash_attention.py:63',
         'flash_dq': 'skypilot_tpu/ops/pallas/flash_attention.py:159',
@@ -3134,7 +3505,8 @@ def main() -> None:
              'serve_mla': SERVE_KERNELS, 'serve_deepseek_v2': SERVE_KERNELS,
              'batch_infer': ('flash_fwd',),
              'train': TRAIN_KERNELS, 'train_gemma': TRAIN_KERNELS,
-             'train_moe': TRAIN_KERNELS, 'train_mla': TRAIN_KERNELS}
+             'train_moe': TRAIN_KERNELS, 'train_mla': TRAIN_KERNELS,
+             'train_hf': TRAIN_KERNELS, 'serve_hf': SERVE_KERNELS}
     rows = []
     for name, kern in build.kernels().items():
         t = times.get(name, {})
@@ -3151,11 +3523,15 @@ def main() -> None:
                if name == 'flash_fwd' and 'flash_fwd B=4' in times else {}),
             **({'hd256': times[f'{name} hd256']}
                if f'{name} hd256' in times else {}),
+            **({'hd64': times[f'{name} hd64']}
+               if f'{name} hd64' in times else {}),
             **({'verify_s4': times[f'{name} S=4'],
-                'hd256_verify_s4': times[f'{name} hd256 S=4']}
+                'hd256_verify_s4': times[f'{name} hd256 S=4'],
+                'hd64_verify_s4': times[f'{name} hd64 S=4']}
                if f'{name} S=4' in times else {}),
             'bound_ms': t.get('bound_ms'), 'bound_by': t.get('bound_by'),
             'library_ms': t.get('library_ms')})
+    log(f'[total] {time.perf_counter() - t_main:.1f}s')
     log(f'[device] {card}')
     print(json.dumps({'kernels': rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -41,7 +41,7 @@
 //    keeps its own online softmax (m, l, and a 16 x HD fp32 output) over
 //    them. q, pre-scaled in the kernel as bf16(float(q) * scale) (what
 //    the JAX wrapper's (q * scale).astype(q.dtype) gives), is staged in
-//    shared memory once; at head_dim 128 each warp then holds its A
+//    shared memory once; at head_dim 64 and 128 each warp then holds its A
 //    fragments in registers, at 256 (where the 16 x 256 fp32 output
 //    alone is 128 registers a thread) it reads them from shared memory
 //    at every 16-key tile. The fp32 scores' C fragments, masked
@@ -83,7 +83,7 @@ template <int HD> struct Dims {
 
 // Tokens a slot holds: the page, or an equal part of it no larger than
 // MAX_TILE (psz is a multiple of 8, so halves are whole tokens). At
-// head_dim 128 every page fits: the compiler sees tile == psz.
+// head_dim 64 and 128 every page fits: the compiler sees tile == psz.
 template <int HD>
 __host__ __device__ constexpr int tile_tokens(int psz) {
   return Dims<HD>::MAX_TILE >= MAXPSZ || psz <= Dims<HD>::MAX_TILE ? psz
@@ -339,36 +339,51 @@ paged_decode_kernel(const bf16* __restrict__ q,     // [B,S,H,HD]
   const int used = (last / ppc + 1) * KS;   // partials of chunks with pages
   const float* pm = part_ml + bkh * nparts * R * 2;
   const float* po = part_o + bkh * nparts * R * HD;
+  // A warp merges one row: lane l owns VEC consecutive columns of each
+  // 32*VEC-column chunk (4 at head_dim 128 and 256, 2 at 64).
+  constexpr int VEC = HD >= 128 ? 4 : 2;
+  constexpr int NC = HD / (32 * VEC);
   for (int r = warp; r < R; r += NWARPS) {
     float mm = NEG_INF;
     for (int p = 0; p < used; ++p) mm = fmaxf(mm, __ldcg(pm + ((long)p * R + r) * 2));
     float ll = 0.f;
-    float4 o[HD / 128];
+    float o[NC][VEC];
 #pragma unroll
-    for (int c = 0; c < HD / 128; ++c) o[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) o[c][v] = 0.f;
     for (int p = 0; p < used; ++p) {
       const float2 ml = __ldcg(reinterpret_cast<const float2*>(pm + ((long)p * R + r) * 2));
       const float w = exp2f(ml.x - mm);
       ll += ml.y * w;
 #pragma unroll
-      for (int c = 0; c < HD / 128; ++c) {
-        const float4 x = __ldcg(reinterpret_cast<const float4*>(
-            po + ((long)p * R + r) * HD + 128 * c) + lane);
-        o[c].x += x.x * w;
-        o[c].y += x.y * w;
-        o[c].z += x.z * w;
-        o[c].w += x.w * w;
+      for (int c = 0; c < NC; ++c) {
+        const float* src = po + ((long)p * R + r) * HD + 32 * VEC * c + VEC * lane;
+        float x[VEC];
+        if constexpr (VEC == 4) {
+          const float4 x4 = __ldcg(reinterpret_cast<const float4*>(src));
+          x[0] = x4.x; x[1] = x4.y; x[2] = x4.z; x[3] = x4.w;
+        } else {
+          const float2 x2 = __ldcg(reinterpret_cast<const float2*>(src));
+          x[0] = x2.x; x[1] = x2.y;
+        }
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) o[c][v] += x[v] * w;
       }
     }
     const float inv = (ll == 0.f) ? 1.f : 1.f / ll;
     const int s = r / g, h = kh * g + r % g;
 #pragma unroll
-    for (int c = 0; c < HD / 128; ++c) {
-      uint2 pk;
-      pk.x = port::pack_bf16x2(o[c].x * inv, o[c].y * inv);
-      pk.y = port::pack_bf16x2(o[c].z * inv, o[c].w * inv);
-      *reinterpret_cast<uint2*>(out + (((long)b * S + s) * H + h) * HD + 128 * c +
-                                4 * lane) = pk;
+    for (int c = 0; c < NC; ++c) {
+      bf16* dst = out + (((long)b * S + s) * H + h) * HD + 32 * VEC * c + VEC * lane;
+      if constexpr (VEC == 4) {
+        uint2 pk;
+        pk.x = port::pack_bf16x2(o[c][0] * inv, o[c][1] * inv);
+        pk.y = port::pack_bf16x2(o[c][2] * inv, o[c][3] * inv);
+        *reinterpret_cast<uint2*>(dst) = pk;
+      } else {
+        *reinterpret_cast<uint32_t*>(dst) = port::pack_bf16x2(o[c][0] * inv, o[c][1] * inv);
+      }
     }
   }
   if (tid == 0) ticket[bkh] = 0;
@@ -418,7 +433,7 @@ int launch_rows(int R, const void* q, const void* kp, const void* vp,
 // 4/MT (MT = ceil(R/16) rounded up to 1, 2 or 4); ``ticket`` holds B*KH
 // ints that are 0 before the call and 0 again after it. A workspace
 // smaller than that (work_floats, n_tickets) is refused, never
-// overrun. head_dim is 128 or 256.
+// overrun. head_dim is 64, 128 or 256.
 extern "C" int paged_decode_bf16(const void* q, const void* kp,
                                  const void* vp, const void* table,
                                  const void* length, void* out, void* work,
@@ -426,7 +441,7 @@ extern "C" int paged_decode_bf16(const void* q, const void* kp,
                                  int n_tickets, int B, int S, int H, int KH,
                                  int hd, int psz, int maxp, int nchunks,
                                  int ppc, float scale, void* stream) {
-  if ((hd != 128 && hd != 256) || B <= 0 || S <= 0 || KH <= 0 ||
+  if ((hd != 64 && hd != 128 && hd != 256) || B <= 0 || S <= 0 || KH <= 0 ||
       H % KH != 0 || (H / KH) * S > MAXR || psz <= 0 || psz % 8 != 0 ||
       psz > MAXPSZ || maxp <= 0 || nchunks <= 0 || ppc <= 0 ||
       (long)nchunks * ppc < maxp || (long)(nchunks - 1) * ppc >= maxp ||
@@ -440,6 +455,10 @@ extern "C" int paged_decode_bf16(const void* q, const void* kp,
   float* part_o = static_cast<float*>(work);
   float* part_ml = part_o + parts * hd;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    return launch_rows<64>(R, q, kp, vp, table, length, out, part_o, part_ml,
+                           ticket, B, S, H, KH, psz, maxp, nchunks, ppc, scale,
+                           st);
   if (hd == 128)
     return launch_rows<128>(R, q, kp, vp, table, length, out, part_o, part_ml,
                             ticket, B, S, H, KH, psz, maxp, nchunks, ppc, scale,

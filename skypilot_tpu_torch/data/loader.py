@@ -6,10 +6,11 @@ continues the exact token stream (the checkpoint/resume contract of
 train/checkpoints.py), and the stream equals the JAX package's batch
 for batch.
 
-Tokenization is byte-level (vocab 256). HF tokenizers wait for a later
-slice. ``.bin`` corpora read as a uint16 memmap: the JAX package's
-native C++ core gives the same batches from the same file, so it is not
-ported. ``to_device`` takes the place of ``shard_batch``: one card, no
+Tokenization is byte-level (vocab 256). The JAX loader's
+``transformers.AutoTokenizer`` waits for a later slice (the card's
+machine has no transformers). ``.bin`` corpora read as a uint16
+memmap: the JAX package's native C++ core gives the same batches from
+the same file, so it is not ported. ``to_device`` takes the place of ``shard_batch``: one card, no
 mesh.
 """
 from __future__ import annotations
@@ -27,9 +28,10 @@ def tokenize_text(text: str, tokenizer: Optional[str] = None) -> np.ndarray:
     """Text → int32 token ids: raw UTF-8 bytes (vocab 256)."""
     if tokenizer is not None:
         raise NotImplementedError(
-            f'tokenizer {tokenizer!r}: HF tokenizers are not ported yet; '
-            f'they wait for ROADMAP Queue 1 item 6 (model I/O). The port '
-            f'tokenizes text as bytes.')
+            f'tokenizer {tokenizer!r}: the data loader\'s HF tokenizer '
+            f'(transformers.AutoTokenizer in the JAX package) is not '
+            f'ported; it waits for ROADMAP Queue 1 item 6 (model I/O: the '
+            f'loader\'s --tokenizer). The port tokenizes text as bytes.')
     return np.frombuffer(text.encode('utf-8'), dtype=np.uint8).astype(
         np.int32)
 

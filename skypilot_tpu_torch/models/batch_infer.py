@@ -19,14 +19,19 @@ The managed-job workload of the reference's batch-inference recipe:
     states pooled over the real tokens, mean or last: the dense family,
     through ``llama.forward``, kernel A in every layer).
 
-Params come from the preset, drawn with a seeded ``torch.Generator``
-into the compute dtype, as the engine draws them; the tokenizer is the
-byte tokenizer. It runs on the card unless ``--device cpu`` is asked
-for. ``--hf-dir`` and ``--tokenizer`` wait for ROADMAP Queue 1 item 6
-and ``--mesh`` for item 8; each is refused by name.
+Params come from ``--hf-dir`` (models/hf_import.py, in the stored
+dtype, the checkpoint's eos ids added to the tokenizer's) or from the
+preset, drawn with a seeded ``torch.Generator`` into the compute dtype,
+as the engine draws them. The tokenizer is ``--tokenizer``'s
+``tokenizer.json``, else the HF directory's (it must be there: no byte
+fallback for a real vocabulary), else the byte tokenizer. It runs on
+the card unless ``--device cpu`` is asked for. ``--mesh`` waits for
+ROADMAP Queue 1 item 8 and is refused by name.
 
     python -m skypilot_tpu_torch.models.batch_infer --input in.jsonl \\
         --output out.jsonl --model llama-1b --mode generate   # or embed
+    python -m skypilot_tpu_torch.models.batch_infer --input in.jsonl \\
+        --output out.jsonl --hf-dir ./Llama-3.2-1B
 """
 from __future__ import annotations
 
@@ -40,23 +45,16 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from skypilot_tpu_torch.config import MLAConfig, check_supported, get_config
-from skypilot_tpu_torch.data.tokenizer import ByteTokenizer
-from skypilot_tpu_torch.models import decode, llama, mla, module_for
+from skypilot_tpu_torch.data import tokenizer as tokenizer_lib
+from skypilot_tpu_torch.models import (decode, hf_import, llama, mla,
+                                       module_for)
 
 logger = logging.getLogger('skypilot_tpu_torch.models.batch_infer')
 
 
-def refuse_unported(hf_dir: Optional[str] = None,
-                    tokenizer_path: Optional[str] = None,
-                    mesh_spec: Optional[Dict[str, int]] = None) -> None:
+def refuse_unported(mesh_spec: Optional[Dict[str, int]] = None) -> None:
     """Raise NotImplementedError, naming the flag, for what the port
     does not have yet."""
-    for flag, value in (('--hf-dir', hf_dir), ('--tokenizer',
-                                               tokenizer_path)):
-        if value:
-            raise NotImplementedError(
-                f'{flag} is not ported yet: HF checkpoints and tokenizers '
-                f'wait for ROADMAP Queue 1 item 6 (model I/O)')
     if mesh_spec:
         raise NotImplementedError(
             '--mesh is not ported yet: the port runs on one card; meshes '
@@ -117,7 +115,7 @@ class BatchRunner:
     """Owns the params, the tokenizer and the bucketed batch loop.
     ``device`` defaults to 'cuda' and raises without a card; tests pass
     ``device='cpu'``, and may pass a small ``cfg`` with bridged
-    ``params``."""
+    ``params``; ``hf_dir`` gives both."""
 
     def __init__(self, model: Optional[str] = None,
                  hf_dir: Optional[str] = None,
@@ -125,14 +123,22 @@ class BatchRunner:
                  mesh_spec: Optional[Dict[str, int]] = None,
                  max_len: int = 2048, *, device: str = 'cuda',
                  cfg=None, params=None, seed: int = 0):
-        refuse_unported(hf_dir, tokenizer_path, mesh_spec)
+        refuse_unported(mesh_spec)
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: batch inference runs on the "
                                "card unless device='cpu' is asked for")
-        if cfg is None:
+        eos_extra: List[int] = []
+        if hf_dir:
+            if params is not None:
+                raise ValueError('params come from the checkpoint: pass '
+                                 'params or hf_dir, not both')
+            cfg, params = hf_import.load_hf_checkpoint(hf_dir,
+                                                       device=self.device)
+            eos_extra = hf_import.hf_eos_ids(hf_dir)
+        elif cfg is None:
             if model is None:
-                raise ValueError('need --model')
+                raise ValueError('need --model or --hf-dir')
             cfg = get_config(model)
         check_supported(cfg)
         self.cfg = cfg
@@ -144,7 +150,15 @@ class BatchRunner:
             params = self.mod.init_params(cfg, gen, self.device,
                                           dtype=cfg.dtype)
         self.params = params
-        self.tokenizer = ByteTokenizer()
+        if tokenizer_path:
+            self.tokenizer = tokenizer_lib.load_tokenizer(
+                tokenizer_path, eos_extra=eos_extra)
+        elif hf_dir:
+            self.tokenizer = tokenizer_lib.load_tokenizer(
+                os.path.join(os.path.expanduser(hf_dir), 'tokenizer.json'),
+                eos_extra=eos_extra)
+        else:
+            self.tokenizer = tokenizer_lib.ByteTokenizer()
 
     def _pad_batch(self, token_rows: List[List[int]], width_cap: int
                    ) -> Tuple[torch.Tensor, torch.Tensor, int]:
@@ -220,7 +234,7 @@ class BatchRunner:
 def run(args) -> Dict[str, int]:
     """One worker's pass over its partition: {'total', 'done', 'ran'}
     (its items, those found done, those run now)."""
-    refuse_unported(args.hf_dir, args.tokenizer, args.mesh)
+    refuse_unported(args.mesh)
     num_workers = args.num_workers or int(
         os.environ.get('SKYPILOT_NUM_NODES', '1'))
     worker_id = (args.worker_id if args.worker_id is not None
@@ -240,7 +254,8 @@ def run(args) -> Dict[str, int]:
     if not todo:
         return {'total': len(items), 'done': len(done), 'ran': 0}
 
-    runner = BatchRunner(model=args.model, max_len=args.max_len,
+    runner = BatchRunner(model=args.model, hf_dir=args.hf_dir,
+                         tokenizer_path=args.tokenizer, max_len=args.max_len,
                          device=getattr(args, 'device', 'cuda'))
     for it in todo:
         it['tokens'] = runner.tokenizer.encode(it['text'])
@@ -286,9 +301,11 @@ def build_parser() -> argparse.ArgumentParser:
                         default='generate')
     parser.add_argument('--model', default=None)
     parser.add_argument('--hf-dir', default=None,
-                        help='Not ported yet (ROADMAP Queue 1 item 6).')
+                        help='An HF checkpoint directory (config, '
+                             'safetensors and tokenizer.json).')
     parser.add_argument('--tokenizer', default=None,
-                        help='Not ported yet (ROADMAP Queue 1 item 6).')
+                        help='A tokenizer.json (overrides the one in '
+                             '--hf-dir).')
     parser.add_argument('--mesh', default='',
                         help='Not ported yet (ROADMAP Queue 1 item 8).')
     parser.add_argument('--device', default='cuda',

@@ -119,14 +119,22 @@ def train_state_from_arrays(template, arrays: Mapping[str, np.ndarray],
         raise ValueError(f'optimizer counts disagree: adam {count}, '
                          f'schedule {int(arrays[SCHEDULE_COUNT_PATH])}')
 
-    def fill(tree, prefix):
-        out = {}
-        for key, val in tree.items():
-            path = f"{prefix}['{key}']"
-            out[key] = (fill(val, path) if isinstance(val, Mapping) else
-                        torch.from_numpy(np.array(arrays[path])).to(device))
-        return out
-
     opt = template.opt_state
-    return (int(arrays['.step']), fill(template.params, '.params'), count,
-            fill(opt.mu, f'{ADAM_PATH}.mu'), fill(opt.nu, f'{ADAM_PATH}.nu'))
+    return (int(arrays['.step']),
+            tree_from_arrays(template.params, arrays, '.params', device),
+            count, tree_from_arrays(opt.mu, arrays, f'{ADAM_PATH}.mu', device),
+            tree_from_arrays(opt.nu, arrays, f'{ADAM_PATH}.nu', device))
+
+
+def tree_from_arrays(template: Mapping[str, Any],
+                     arrays: Mapping[str, np.ndarray], prefix: str,
+                     device) -> dict:
+    """The nested dict shaped like ``template`` whose leaves are the
+    checkpoint arrays at ``prefix`` + each leaf's path, on ``device``."""
+    out = {}
+    for key, val in template.items():
+        path = f"{prefix}['{key}']"
+        out[key] = (tree_from_arrays(val, arrays, path, device)
+                    if isinstance(val, Mapping) else
+                    torch.from_numpy(np.array(arrays[path])).to(device))
+    return out

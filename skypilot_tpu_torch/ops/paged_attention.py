@@ -10,13 +10,14 @@ tensors lie:
 
   - CUDA, plain causal attention: write the step's new K/V into the
     pool first, then launch the hand-written kernel
-    (csrc/paged_decode.cu, head_dim 128 or 256) that streams pages
+    (csrc/paged_decode.cu, head_dim 64, 128 or 256) that streams pages
     through the table — the JAX ``impl='pallas'`` branch. The kernel
     splits each row's pages over blocks (:func:`split_pages`) and merges
     their partials itself, through a workspace this module keeps per
     (device, stream) (:func:`_workspace`).
-  - CPU, or a step with a logit softcap, a sliding window or sinks on
-    any device: the fused overlay-then-attend formulation — gather this
+  - CPU, a step with a logit softcap, a sliding window or sinks on
+    any device, or a shape the kernel does not take (:func:`kernel_takes`):
+    the fused overlay-then-attend formulation — gather this
     layer's view from the pre-write pool, overlay the new K/V at each
     row's positions, run the plain attention, then write the pool —
     the JAX ``impl='fused'`` branch. The kernel takes none of those
@@ -40,14 +41,14 @@ KERNEL = build.Kernel(
     name='paged_decode', source='paged_decode.cu', symbol='paged_decode_bf16',
     argtypes=('p',) * 8 + ('l',) + ('i',) * 10 + ('f', 'p'))
 
-HEAD_DIMS = (128, 256)  # the kernel's head dims
+HEAD_DIMS = (64, 128, 256)  # the kernel's head dims
 MAX_ROWS = 64       # the kernel's g * S limit per block: four 16-row tiles
 MAX_PAGE_SIZE = 128  # the kernel's ring holds K and V tiles of <= 128 keys
 WARPS = 4           # the kernel's warps a block
-# Blocks the chunk count aims for, per SM, by head_dim: at 128 two fit
-# on an SM at once (page 64), at 256 one; twice that evens out rows of
-# unequal length.
-BLOCKS_PER_SM = {128: 4, 256: 2}
+# Blocks the chunk count aims for, per SM, by head_dim: at 64 and 128
+# two fit on an SM at once (page 64; the block's launch bound), at 256
+# one; twice that evens out rows of unequal length.
+BLOCKS_PER_SM = {64: 4, 128: 4, 256: 2}
 
 
 def split_pages(batch: int, kv_heads: int, max_pages: int, n_sm: int,
@@ -259,12 +260,24 @@ def paged_attention_step_ref(q: torch.Tensor, kp: torch.Tensor,
     return out, kp, vp
 
 
-def kernel_takes(logit_softcap=None, window=None, sinks=None) -> bool:
-    """Kernel B's feature gate (the JAX ``_pallas_ok``): plain causal
-    attention only. A windowed model's global layers carry a window too
-    (with ``window_active`` False) and take the fused formulation, as in
-    the JAX package."""
-    return logit_softcap is None and window is None and sinks is None
+def kernel_takes(q_shape, pool_shape, logit_softcap=None, window=None,
+                 sinks=None) -> bool:
+    """Kernel B's gate (the JAX ``_pallas_ok``) for q [B, S, H, hd] over
+    a pool [n, psz, KH, hd]: plain causal attention only — a windowed
+    model's global layers carry a window too (with ``window_active``
+    False) and take the fused formulation, as in the JAX package — at
+    the shapes the kernel takes: hd in HEAD_DIMS, psz a multiple of 8 up
+    to MAX_PAGE_SIZE, g*S <= MAX_ROWS. JAX's shape clause (hd % 128,
+    psz % 8) is the TPU's lane alignment; this one names the card
+    kernel's own limits. Every other step takes the fused
+    formulation."""
+    if logit_softcap is not None or window is not None or sinks is not None:
+        return False
+    _, s, h, hd = q_shape
+    psz, kh = pool_shape[1], pool_shape[2]
+    return (hd in HEAD_DIMS and pool_shape[3] == hd and psz % 8 == 0 and
+            psz <= MAX_PAGE_SIZE and h % kh == 0 and
+            (h // kh) * s <= MAX_ROWS)
 
 
 def paged_attention_step(q: torch.Tensor, kp: torch.Tensor,
@@ -280,9 +293,11 @@ def paged_attention_step(q: torch.Tensor, kp: torch.Tensor,
     [n_pages, psz, KH, hd], the step's new K/V [B, S, KH, hd] written at
     (pid, off). Returns (out [B, S, H, hd], kp, vp), the pools updated
     in place. CUDA with none of ``logit_softcap``, ``window`` (whatever
-    ``window_active`` says) and ``sinks``: write the pool, then kernel
-    B. Otherwise, and on the CPU: the fused formulation."""
-    if not q.is_cuda or not kernel_takes(logit_softcap, window, sinks):
+    ``window_active`` says) and ``sinks``, at a shape kernel B takes:
+    write the pool, then kernel B. Otherwise, and on the CPU: the fused
+    formulation."""
+    if not q.is_cuda or not kernel_takes(q.shape, kp.shape, logit_softcap,
+                                         window, sinks):
         return paged_attention_step_ref(
             q, kp, vp, table, length, k_new, v_new, pid, off,
             max_len=max_len, logit_softcap=logit_softcap, window=window,

@@ -55,11 +55,18 @@ int8``) serves weight-only int8 params (models/decode.py
 ``cast_params_for_decode``, from fp32 masters): every step graph reads
 them through the dequant of ``_d``; an MoE config is refused, as in JAX.
 
-What waits (ROADMAP Queue 1 item 4): chat completions, ``n`` /
-``best_of`` and batched prompts (each refused with 400 by name),
-metrics and the flight recorder, failure resurrection, the spill tier
-and int8 KV, disagg, meshes (an expert axis among them) and
-multi-host, and ``--hf-dir`` / ``--ckpt-dir``.
+Weights come from a preset drawn from ``seed``, from a checkpoint of
+the port's trainer (``ckpt_dir``: its params alone, restored onto the
+engine's device) or from an HF checkpoint directory (``hf_dir``:
+models/hf_import.py, the model named after the directory, its
+``tokenizer.json`` required). ``/v1/chat/completions`` templates the
+messages for the tokenizer's chat family (llama3, ChatML, or plain for
+the byte tokenizer) and answers as JSON or SSE.
+
+What waits (ROADMAP Queue 1 item 4): ``n`` / ``best_of`` and batched
+prompts (each refused with 400 by name), metrics and the flight
+recorder, failure resurrection, the spill tier and int8 KV, disagg,
+meshes (an expert axis among them) and multi-host.
 
 The HTTP server is the standard library's ThreadingHTTPServer; the
 batch loop runs in its own thread and owns all device state. Request
@@ -70,6 +77,9 @@ streaming, a per-request queue.
         --model llama-1b --port 8300
     python -m skypilot_tpu_torch.serve.engine --model gpt-oss-20b
     python -m skypilot_tpu_torch.serve.engine --model deepseek-v2-lite
+    python -m skypilot_tpu_torch.serve.engine --model llama3.2-1b \\
+        --ckpt-dir ./ck      # a trainer checkpoint (e.g. from --hf-dir)
+    python -m skypilot_tpu_torch.serve.engine --hf-dir ./Llama-3.2-1B
 """
 from __future__ import annotations
 
@@ -94,9 +104,12 @@ import torch
 from skypilot_tpu_torch.config import (DeepSeekMoEConfig, LlamaConfig,
                                       MLAConfig, MoEConfig, check_supported,
                                       get_config)
-from skypilot_tpu_torch.data.tokenizer import ByteTokenizer, StreamDecoder
+from skypilot_tpu_torch.data import tokenizer as tokenizer_lib
+from skypilot_tpu_torch.data.tokenizer import StreamDecoder
 from skypilot_tpu_torch.kernels import build
-from skypilot_tpu_torch.models import decode, mla, module_for, paging
+from skypilot_tpu_torch.models import (decode, hf_import, mla, module_for,
+                                       paging)
+from skypilot_tpu_torch.train import checkpoints
 
 logger = logging.getLogger(__name__)
 
@@ -231,28 +244,60 @@ def _lookup_draft(ctx: List[int], k: int) -> Optional[List[int]]:
 
 
 class InferenceEngine:
-    """Owns params, the page pool and the batched generate loop.
+    """Owns params, the tokenizer, the page pool and the batched
+    generate loop.
 
     ``device`` defaults to 'cuda'; constructing on 'cuda' without a card
     raises (there is no fallback to the CPU). Tests pass ``device='cpu'``
-    plus a small ``cfg`` and bridged ``params``. The pool and every
+    plus a small ``cfg`` and bridged ``params``. ``ckpt_dir`` (a
+    checkpoint of the port's trainer, of ``model``'s config) and
+    ``hf_dir`` (an HF checkpoint directory, which also gives the config)
+    are exclusive, and neither takes ``params``. The tokenizer is
+    ``tokenizer_path``'s ``tokenizer.json``, else ``hf_dir``'s (it must
+    be there: no byte fallback for a real vocabulary), else the byte
+    tokenizer. The pool and every
     tensor a graph touches are built at warm-up (or at the first
     admission), after tests may have set ``page_size``, ``kv_pages``,
     ``prefix_cache``, ``prefill_chunk``, ``spec_k`` or
     ``spec_cooldown``."""
 
-    def __init__(self, model: str = 'llama-1b', *,
+    def __init__(self, model: Optional[str] = 'llama-1b', *,
                  cfg: Optional[LlamaConfig] = None, params=None,
+                 ckpt_dir: Optional[str] = None,
+                 hf_dir: Optional[str] = None,
+                 tokenizer_path: Optional[str] = None,
                  max_len: Optional[int] = None, device: str = 'cuda',
                  seed: int = 0, quantize: Optional[str] = None):
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError('no CUDA device: the engine runs on the card '
                                "unless device='cpu' is asked for")
-        self.cfg = cfg if cfg is not None else get_config(model)
+        if ckpt_dir and hf_dir:
+            raise ValueError('--ckpt-dir and --hf-dir are exclusive')
+        if params is not None and (ckpt_dir or hf_dir):
+            raise ValueError('params come from the checkpoint: pass '
+                             'params or ckpt_dir/hf_dir, not both')
+        if hf_dir:
+            cfg, params = hf_import.load_hf_checkpoint(hf_dir,
+                                                       device=self.device)
+            model = os.path.basename(os.path.normpath(
+                os.path.expanduser(hf_dir)))
+        elif cfg is None:
+            if model is None:
+                raise ValueError('need --model or --hf-dir')
+            cfg = get_config(model)
+        self.cfg = cfg
         check_supported(self.cfg)
         decode.check_quantize(self.cfg, quantize)
         self.model_name = model
+        if ckpt_dir:
+            if not os.path.isdir(os.path.expanduser(ckpt_dir)):
+                raise FileNotFoundError(f'--ckpt-dir {ckpt_dir}: no such '
+                                        f'directory')
+            with checkpoints.Checkpointer(ckpt_dir) as ckpt:
+                params, step = ckpt.restore_params(self.cfg, self.device)
+            logger.info('Restored checkpoint step %d from %s (params '
+                        'only).', step, ckpt_dir)
         # The MLA family decodes over the paged latent pool (models/
         # mla.py), every other over the paged K/V (models/decode.py):
         # one call surface, so the engine picks a module, not a path.
@@ -289,7 +334,16 @@ class InferenceEngine:
         if quantize:
             logger.info('Serving with weight-only %s quantization.',
                         quantize)
-        self.tokenizer = ByteTokenizer()
+        if tokenizer_path:
+            self.tokenizer = tokenizer_lib.load_tokenizer(tokenizer_path)
+        elif hf_dir:
+            self.tokenizer = tokenizer_lib.load_tokenizer(
+                hf_dir, eos_extra=hf_import.hf_eos_ids(hf_dir))
+            logger.info('Loaded tokenizer.json from %s (chat family: %s, '
+                        'eos ids: %s).', hf_dir, self.tokenizer.chat_family,
+                        self.tokenizer.eos_ids)
+        else:
+            self.tokenizer = tokenizer_lib.ByteTokenizer()
         self._queue: 'queue.Queue[Request]' = queue.Queue(maxsize=MAX_QUEUE)
         self._hold: List[Request] = []
         self._pending_cancels: collections.deque = collections.deque()
@@ -1541,16 +1595,24 @@ def _parse_sampling(body, default_temperature: float = 0.0
     return (temperature, top_k, top_p, *penalties)
 
 
-def _parse_logprobs(body) -> Tuple[bool, int]:
-    """Completions ``logprobs: N`` (0..TOP_LOGPROBS_K) → (want_logprobs,
-    top_n): chosen-token logprobs plus N alternatives per position;
-    boolean true means N = 0."""
+def _parse_logprobs(body, chat: bool = False) -> Tuple[bool, int]:
+    """OpenAI logprobs → (want_logprobs, top_n). Completions:
+    ``logprobs: N`` (0..TOP_LOGPROBS_K), chosen-token logprobs plus N
+    alternatives per position, boolean true meaning N = 0. Chat:
+    ``logprobs: true`` and an optional ``top_logprobs: N``."""
     lp = body.get('logprobs')
     if lp is None or lp is False:
+        if chat and int(body.get('top_logprobs') or 0) > 0:
+            raise ValueError('top_logprobs requires logprobs=true')
         return False, 0
-    top_n = 0 if lp is True else int(lp)
+    if chat:
+        if lp is not True:
+            raise ValueError('chat logprobs must be a boolean')
+        top_n = int(body.get('top_logprobs') or 0)
+    else:
+        top_n = 0 if lp is True else int(lp)
     if top_n < 0:
-        raise ValueError('logprobs must be >= 0')
+        raise ValueError('logprobs/top_logprobs must be >= 0')
     if top_n > TOP_LOGPROBS_K:
         raise ValueError(f'top logprobs > {TOP_LOGPROBS_K} is not '
                          f'supported (the engine computes a fixed top-'
@@ -1645,13 +1707,84 @@ def _resolve_prompt(engine: InferenceEngine, prompt) -> List[int]:
     return engine.tokenizer.encode(str(prompt))
 
 
-def _refuse_fanout(body) -> None:
-    """``n`` > 1 and ``best_of`` > 1 wait for a later slice."""
+def _refuse_fanout(body, chat: bool = False) -> None:
+    """``n`` > 1 and ``best_of`` > 1 wait for a later slice; chat has no
+    ``best_of`` at all, as in JAX."""
+    if chat and body.get('best_of') is not None:
+        raise ValueError('best_of is not supported on /v1/chat/completions')
     for field in ('n', 'best_of'):
         val = body.get(field)
         if val is not None and int(val) != 1:
             raise ValueError(f'{field} > 1 is not supported by this engine '
                              f'yet')
+
+
+def _completion_chunks(meta, top_n: int, tokenizer):
+    """The SSE payloads of one /v1/completions choice:
+    ``make(delta, finish, first=False, lp=None)`` yields the events for
+    one token's text (with its logprob info), the finish, or the stream's
+    opening (none)."""
+    def make(delta, finish, first=False, lp=None):
+        if first:
+            return
+        lp_obj = None
+        if lp is not None:
+            piece, lpv, tops, off = lp
+            lp_obj = {'tokens': [piece], 'token_logprobs': [round(lpv, 6)],
+                      'top_logprobs': [
+                          {tokenizer.decode([i]): round(v, 6)
+                           for i, v in tops}] if top_n else None,
+                      'text_offset': [off]}
+        yield {**meta, 'choices': [
+            {'text': delta or '', 'index': 0, 'logprobs': lp_obj,
+             'finish_reason': finish}]}
+    return make
+
+
+def _chat_chunks(meta, top_n: int, tokenizer):
+    """The SSE payloads of one /v1/chat/completions choice (JAX
+    ``openai_chat``'s ``make_chunks``): the opening delta with the role,
+    a content delta per token (chat-format logprobs), then an empty
+    delta with the finish reason."""
+    def make(delta, finish, first=False, lp=None):
+        if first:
+            yield {**meta, 'choices': [{
+                'index': 0, 'delta': {'role': 'assistant', 'content': ''},
+                'finish_reason': None}]}
+            return
+        if delta is not None or lp is not None:
+            lp_obj = None
+            if lp is not None:
+                piece, lpv, tops, _ = lp
+                lp_obj = {'content': [{
+                    'token': piece, 'logprob': round(lpv, 6),
+                    'top_logprobs': [
+                        {'token': tokenizer.decode([i]),
+                         'logprob': round(v, 6)}
+                        for i, v in tops] if top_n else None}]}
+            yield {**meta, 'choices': [{
+                'index': 0, 'delta': {'content': delta or ''},
+                'logprobs': lp_obj, 'finish_reason': None}]}
+        if finish is not None:
+            yield {**meta, 'choices': [{
+                'index': 0, 'delta': {}, 'finish_reason': finish}]}
+    return make
+
+
+def _chat_logprobs(tokenizer, out, lps, text, tops, top_n: int) -> dict:
+    """Chat-format logprobs of a whole answer: content entries of
+    {token, logprob, top_logprobs}, trimmed to the returned text."""
+    flat = _completion_logprobs(tokenizer, out, lps, text,
+                                tops=[t[:top_n] for t in tops]
+                                if top_n else None)
+    content = []
+    for j, (p, v) in enumerate(zip(flat['tokens'], flat['token_logprobs'])):
+        entry = {'token': p, 'logprob': v}
+        if top_n:
+            entry['top_logprobs'] = [{'token': tt, 'logprob': tv} for tt, tv
+                                     in flat['top_logprobs'][j].items()]
+        content.append(entry)
+    return {'content': content}
 
 
 class _SseState:
@@ -1667,10 +1800,16 @@ class _SseState:
         self.stopped = False
 
 
+def _usage(tokens: List[int], out: List[int]) -> Dict[str, int]:
+    return {'prompt_tokens': len(tokens), 'completion_tokens': len(out),
+            'total_tokens': len(tokens) + len(out)}
+
+
 def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
               port: int = 0) -> ThreadingHTTPServer:
     """A ThreadingHTTPServer bound to (host, port) serving ``/health``,
-    ``/generate``, ``/v1/completions`` (JSON or SSE) and ``/v1/models``;
+    ``/generate``, ``/v1/completions`` and ``/v1/chat/completions``
+    (JSON or SSE) and ``/v1/models``;
     the caller runs ``serve_forever`` (in a thread) and
     ``shutdown``/``server_close`` when done."""
 
@@ -1722,13 +1861,8 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
             if self.path == '/v1/completions':
                 return self._completions()
             if self.path == '/v1/chat/completions':
-                self._drain()
-                return self._openai_error('chat completions are not '
-                                          'supported by this engine yet')
+                return self._chat()
             return self._json(404, {'error': 'not found'})
-
-        def _drain(self) -> None:
-            self.rfile.read(int(self.headers.get('Content-Length', 0)))
 
         def _generate(self) -> None:
             try:
@@ -1784,24 +1918,107 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
                 want_logprobs, top_n = _parse_logprobs(body)
             except (TypeError, ValueError) as e:
                 return self._openai_error(f'invalid request: {e}')
-            msg = engine.check_len(tokens, max_new)
-            if msg:
-                return self._openai_error(msg)
             meta = {'id': f'cmpl-{time.time_ns()}',
                     'object': 'text_completion', 'created': int(time.time()),
                     'model': body.get('model', engine.model_name)}
+            got = self._submit(body, tokens, max_new, sampling, stop_ids,
+                               want_logprobs and top_n > 0)
+            if got is None:
+                return None
+            fut, stream = got
+            if stream is not None:
+                return self._sse(fut, stream, stops, want_logprobs, top_n,
+                                 _completion_chunks(meta, top_n,
+                                                    engine.tokenizer))
+            res = self._result(fut, stops)
+            if res is None:
+                return None
+            out, finish, lps, tops, text = res
+            lp_obj = None
+            if want_logprobs:
+                lp_obj = _completion_logprobs(
+                    engine.tokenizer, out, lps, text,
+                    tops=[t[:top_n] for t in tops] if top_n else None)
+            return self._json(200, {**meta, 'choices': [
+                {'text': text, 'index': 0, 'logprobs': lp_obj,
+                 'finish_reason': finish}],
+                'usage': _usage(tokens, out)})
+
+        def _chat(self) -> None:
+            """OpenAI chat completions (JAX ``openai_chat``): the
+            messages templated for the tokenizer's chat family, encoded
+            with add_special_tokens=False (the template carries its
+            specials); max_tokens or max_completion_tokens (default
+            256), temperature (default 1.0), top_k, top_p, penalties,
+            logprobs=true with top_logprobs <= 5, stop, stop_token_ids,
+            ignore_eos and stream (SSE)."""
+            try:
+                body = self._body()
+                prompt = tokenizer_lib.apply_chat_template(
+                    body.get('messages'), engine.tokenizer.chat_family)
+                tokens = [int(t) for t in engine.tokenizer.encode(
+                    prompt, add_special_tokens=False)]
+                if not tokens:
+                    raise ValueError('empty prompt after templating')
+                max_new = int(body.get('max_tokens',
+                                       body.get('max_completion_tokens',
+                                                256)))
+                if max_new < 1:
+                    raise ValueError('max_tokens must be >= 1')
+                sampling = _parse_sampling(body, default_temperature=1.0)
+                stop_ids = _parse_stop_ids(body, engine.tokenizer)
+                stops = _stop_list(body.get('stop'))
+                want_logprobs, top_n = _parse_logprobs(body, chat=True)
+                _refuse_fanout(body, chat=True)
+            except (TypeError, ValueError) as e:
+                return self._openai_error(f'invalid request: {e}')
+            meta = {'id': f'chatcmpl-{time.time_ns()}',
+                    'object': 'chat.completion', 'created': int(time.time()),
+                    'model': body.get('model', engine.model_name)}
+            got = self._submit(body, tokens, max_new, sampling, stop_ids,
+                               want_logprobs and top_n > 0)
+            if got is None:
+                return None
+            fut, stream = got
+            if stream is not None:
+                return self._sse(fut, stream, stops, want_logprobs, top_n,
+                                 _chat_chunks({**meta, 'object':
+                                               'chat.completion.chunk'},
+                                              top_n, engine.tokenizer))
+            res = self._result(fut, stops)
+            if res is None:
+                return None
+            out, finish, lps, tops, text = res
+            lp_obj = (_chat_logprobs(engine.tokenizer, out, lps, text, tops,
+                                     top_n) if want_logprobs else None)
+            return self._json(200, {**meta, 'choices': [
+                {'index': 0, 'message': {'role': 'assistant',
+                                         'content': text},
+                 'logprobs': lp_obj, 'finish_reason': finish}],
+                'usage': _usage(tokens, out)})
+
+        def _submit(self, body, tokens, max_new, sampling, stop_ids,
+                    want_tops: bool):
+            """Check the length and enqueue: (future, the token queue
+            when streaming, else None), or None after answering 400 or
+            429."""
+            msg = engine.check_len(tokens, max_new)
+            if msg:
+                return self._openai_error(msg)
             stream = queue.Queue() if body.get('stream') else None
             try:
                 fut = engine.submit(tokens, max_new, *sampling,
-                                    stop_ids=stop_ids,
-                                    want_tops=want_logprobs and top_n > 0,
+                                    stop_ids=stop_ids, want_tops=want_tops,
                                     stream=stream)
             except EngineOverloaded as e:
                 return self._openai_error(str(e), status=429,
                                           err_type='overloaded_error')
-            if stream is not None:
-                return self._sse(fut, stream, meta, stops, want_logprobs,
-                                 top_n)
+            return fut, stream
+
+        def _result(self, fut, stops: List[str]):
+            """A finished request's (tokens, finish, logprobs, tops,
+            text cut at the first stop string), or None after answering
+            503."""
             try:
                 out, finish, lps, tops = fut.result()
             except Exception as e:  # pylint: disable=broad-except
@@ -1811,17 +2028,7 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
             cut = _stop_scan(text, stops)
             if cut is not None:
                 text, finish = text[:cut], 'stop'
-            lp_obj = None
-            if want_logprobs:
-                lp_obj = _completion_logprobs(
-                    engine.tokenizer, out, lps, text,
-                    tops=[t[:top_n] for t in tops] if top_n else None)
-            return self._json(200, {**meta, 'choices': [
-                {'text': text, 'index': 0, 'logprobs': lp_obj,
-                 'finish_reason': finish}],
-                'usage': {'prompt_tokens': len(tokens),
-                          'completion_tokens': len(out),
-                          'total_tokens': len(tokens) + len(out)}})
+            return out, finish, lps, tops, text
 
         # -- SSE ------------------------------------------------------------
         def _chunk(self, data: bytes) -> None:
@@ -1830,32 +2037,24 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
         def _event(self, payload) -> None:
             self._chunk(b'data: ' + json.dumps(payload).encode() + b'\n\n')
 
-        def _sse(self, fut, stream: 'queue.Queue', meta, stops: List[str],
-                 want_logprobs: bool, top_n: int) -> None:
+        def _sse(self, fut, stream: 'queue.Queue', stops: List[str],
+                 want_logprobs: bool, top_n: int, make_chunks) -> None:
             """Stream one choice as server-sent events over chunked
-            transfer: one ``data: {json}`` event per token (with its
-            logprob info when asked), a final event with the
-            finish_reason, then ``data: [DONE]``. Stop strings are held
-            back by len(longest) - 1 characters so a match split across
-            tokens never leaks; on a match the request is cancelled. A
-            failed write (the client went away) cancels it too."""
+            transfer: ``make_chunks``' opening events, its events for
+            each token (with its logprob info when asked), its final
+            events with the finish_reason, then ``data: [DONE]``. Stop
+            strings are held back by len(longest) - 1 characters so a
+            match split across tokens never leaks; on a match the
+            request is cancelled. A failed write (the client went away)
+            cancels it too."""
             hold = max((len(s) for s in stops), default=0) - 1
             st = _SseState(engine.tokenizer)
             self.close_connection = True
 
-            def send(text, lp=None, finish=None) -> None:
-                lp_obj = None
-                if lp is not None:
-                    piece, lpv, tops, off = lp
-                    lp_obj = {
-                        'tokens': [piece], 'token_logprobs': [round(lpv, 6)],
-                        'top_logprobs': [
-                            {engine.tokenizer.decode([i]): round(v, 6)
-                             for i, v in tops}] if top_n else None,
-                        'text_offset': [off]}
-                self._event({**meta, 'choices': [
-                    {'text': text, 'index': 0, 'logprobs': lp_obj,
-                     'finish_reason': finish}]})
+            def send(text, lp=None, finish=None, first=False) -> None:
+                for payload in make_chunks(text, finish, first=first,
+                                           lp=lp):
+                    self._event(payload)
 
             def emit_piece(piece: str, lp, tops) -> None:
                 lp_info = ((piece, lp, tops[:top_n], st.emitted)
@@ -1906,7 +2105,7 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
                     if cut is not None:
                         finish = 'stop'
                     emit_until(len(joined) if cut is None else cut)
-                send('', finish=finish)
+                send(None, finish=finish)
 
             try:
                 self.send_response(200)
@@ -1915,6 +2114,7 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
                 self.send_header('Transfer-Encoding', 'chunked')
                 self.end_headers()
                 try:
+                    send(None, first=True)
                     while True:
                         try:
                             item = stream.get(timeout=1.0)
@@ -1954,8 +2154,18 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog='skypilot_tpu_torch.serve.engine')
-    parser.add_argument('--model', default='llama-1b',
-                        help='Preset name (skypilot_tpu_torch.config).')
+    parser.add_argument('--model', default=None,
+                        help='Preset name (skypilot_tpu_torch.config); '
+                             'llama-1b unless --hf-dir is given.')
+    parser.add_argument('--ckpt-dir', default=None,
+                        help="A checkpoint of the port's trainer to serve "
+                             '(its params; --model names its config).')
+    parser.add_argument('--hf-dir', default=None,
+                        help='An HF checkpoint directory (safetensors + '
+                             'tokenizer.json) to serve.')
+    parser.add_argument('--tokenizer', default=None,
+                        help='A tokenizer.json (overrides the one in '
+                             '--hf-dir).')
     parser.add_argument('--max-len', type=int, default=None)
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default) or 'cpu'.")
@@ -1969,12 +2179,14 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main() -> None:
+def main(argv: Optional[List[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO)
-    args = build_parser().parse_args()
-    engine = InferenceEngine(args.model, max_len=args.max_len,
-                             device=args.device, seed=args.seed,
-                             quantize=args.quantize)
+    args = build_parser().parse_args(argv)
+    engine = InferenceEngine(
+        args.model or (None if args.hf_dir else 'llama-1b'),
+        ckpt_dir=args.ckpt_dir, hf_dir=args.hf_dir,
+        tokenizer_path=args.tokenizer, max_len=args.max_len,
+        device=args.device, seed=args.seed, quantize=args.quantize)
     server = build_app(engine, args.host, args.port)
     engine.start()
     try:

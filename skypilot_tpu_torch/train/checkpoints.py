@@ -219,10 +219,52 @@ class Checkpointer:
         manifest and every chunk digest (CheckpointCorruptError); a
         tree, shape or dtype mismatch is a config mismatch (ValueError),
         not corruption."""
+        arrays = self._read_arrays(step, weights.train_state_leaves(template))
+        st, params, count, mu, nu = weights.train_state_from_arrays(
+            template, arrays, device)
+        for leaf in train_lib.leaves(params):
+            leaf.requires_grad_(True)
+        return train_lib.TrainState(
+            step=st, params=params,
+            opt_state=train_lib.OptState(count=count, mu=mu, nu=nu))
+
+    def restore_params(self, cfg: LlamaConfig, device='cuda'
+                       ) -> Tuple[train_lib.Params, int]:
+        """(params, step) of the newest step that restores, the
+        optimizer state never read: what a server needs of a trainer's
+        checkpoint. Corrupt steps are refused loudly and skipped, as in
+        :meth:`restore_newest`; FileNotFoundError when the directory
+        holds no complete step."""
+        template = module_for(cfg).init_params(cfg, None, 'meta')
+        want = [('.params' + p, t) for p, t in weights.tree_paths(template)]
+        steps = self.all_steps()
+        if not steps:
+            raise FileNotFoundError(
+                f'No complete checkpoint step under {self.directory}.')
+        for step in reversed(steps):
+            try:
+                arrays = self._read_arrays(step, want, prefix='.params')
+            except CheckpointCorruptError as e:
+                logger.error('REFUSING corrupt checkpoint step %d: %s — '
+                             'falling back to the next older complete '
+                             'step.', step, e)
+                continue
+            return weights.tree_from_arrays(template, arrays, '.params',
+                                            device), step
+        raise CheckpointCorruptError(
+            f'All {len(steps)} checkpoint step(s) under {self.directory} '
+            f'failed integrity verification.')
+
+    def _read_arrays(self, step: int, want, prefix: str = ''
+                     ) -> Dict[str, np.ndarray]:
+        """The arrays of ``step`` at the (path, leaf) pairs ``want``,
+        which must be every array of the step whose path starts with
+        ``prefix``; a missing, extra or differently shaped or typed
+        array is a config mismatch (ValueError)."""
         step_dir = os.path.join(self.directory, _step_dirname(step))
         manifest = self._load_manifest(step_dir, step)
-        by_path = {rec['path']: rec for rec in manifest['arrays']}
-        want = weights.train_state_leaves(template)
+        by_path = {rec['path']: rec for rec in manifest['arrays']
+                   if rec['path'].startswith(prefix)}
         missing = [p for p, _ in want if p not in by_path]
         extra = set(by_path) - {p for p, _ in want}
         if missing or extra:
@@ -240,13 +282,7 @@ class Checkpointer:
                     f'{tuple(rec["shape"])}, restore target wants {dtype}'
                     f'{shape} — config mismatch.')
             arrays[path] = _assemble_array(step_dir, step, rec)
-        st, params, count, mu, nu = weights.train_state_from_arrays(
-            template, arrays, device)
-        for leaf in train_lib.leaves(params):
-            leaf.requires_grad_(True)
-        return train_lib.TrainState(
-            step=st, params=params,
-            opt_state=train_lib.OptState(count=count, mu=mu, nu=nu))
+        return arrays
 
     def _load_manifest(self, step_dir: str, step: int) -> Dict[str, Any]:
         if not os.path.isdir(step_dir):

@@ -4,19 +4,25 @@ checkpoints (port of skypilot_tpu/train/trainer.py on one card).
     python -m skypilot_tpu_torch.train.trainer --model llama-1b \\
         --batch-size 4 --seq-len 2048 --steps 100 --ckpt-dir ./ck
 
+    python -m skypilot_tpu_torch.train.trainer --hf-dir ./Llama-3.2-1B \\
+        --batch-size 4 --seq-len 2048 --steps 100 --ckpt-dir ./ft
+
 Step-indexed input (data_service/spec.py: the synthetic stream, or a
 corpus with ``--data``), periodic async checkpoints in the JAX
 package's format, resume from the newest step, and a final save on
 SIGTERM (a spot preemption notice). Every family the port serves
 trains: dense Llama/Qwen2 and Gemma, MoE and MLA/DeepSeek (their router
-aux joins the loss; train/train_lib.py). The trainer runs on the card
-(``--device cuda``, the default) and raises without one; tests pass
-``device='cpu'``.
+aux joins the loss; train/train_lib.py). ``--hf-dir`` fine-tunes an HF
+checkpoint (models/hf_import.py): its config replaces the preset (the
+overrides still apply), and its weights, read in fp32 as the masters,
+start a fresh run only; a resumed run restores its own checkpoint and
+never reads them. The trainer runs on the card (``--device cuda``, the
+default) and raises without one; tests pass ``device='cpu'``.
 
 Not ported yet, and refused by name: meshes (``--mesh``), LoRA,
-``--hf-dir``, ``--sft-data`` and ``--data-service``. Failpoints, spans
-and the batch-wait histogram wait for a later slice too (ROADMAP
-Queue 1 item 5).
+``--sft-data`` and ``--data-service``. Failpoints, spans and the
+batch-wait histogram wait for a later slice too (ROADMAP Queue 1 item
+5).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 from skypilot_tpu_torch import config
 from skypilot_tpu_torch.data import loader
 from skypilot_tpu_torch.data_service import spec as spec_lib
+from skypilot_tpu_torch.models import hf_import
 from skypilot_tpu_torch.train import checkpoints, train_lib
 
 logger = logging.getLogger('skypilot_tpu_torch.train.trainer')
@@ -76,7 +83,6 @@ class TrainerConfig:
 _UNPORTED = (
     ('mesh', '--mesh', 'item 8 (parallelism and multi-process)'),
     ('lora_rank', '--lora-rank (LoRA)', 'item 7 (fine-tuning and RL)'),
-    ('hf_dir', '--hf-dir', 'item 6 (model I/O)'),
     ('sft_data_path', '--sft-data', 'item 5 (training: SFT data)'),
     ('data_service', '--data-service',
      'item 5 (training: the data-service client)'),
@@ -139,14 +145,31 @@ def train(tcfg: TrainerConfig,
           params: Optional[train_lib.Params] = None) -> List[Dict[str, float]]:
     """Run the loop; returns the per-log-interval records (loss, grad
     norm, seconds per step, eval loss). ``params`` seeds a fresh run (no
-    checkpoint to resume): bridged JAX params, say; default random from
-    seed 0. The run updates them in place."""
+    checkpoint to resume): bridged JAX params, say; default the
+    ``hf_dir`` checkpoint's weights, else random from seed 0. The run
+    updates them in place."""
     _refuse_unported(tcfg)
     device = torch.device(tcfg.device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('no CUDA device: the trainer runs on the card '
                            "unless device='cpu' is asked for")
-    cfg = _model_config(tcfg)
+    load_base = None
+    if tcfg.hf_dir:
+        if params is not None:
+            raise ValueError('params and hf_dir both seed the run: pass '
+                             'one')
+        cfg = hf_import.load_hf_config(tcfg.hf_dir)
+        if tcfg.model_overrides:
+            cfg = dataclasses.replace(cfg, **tcfg.model_overrides)
+        logger.info('--hf-dir given: model config from %s (preset %r '
+                    'ignored).', tcfg.hf_dir, tcfg.model)
+
+        def load_base():
+            # fp32: the optimizer's masters.
+            return hf_import.load_hf_checkpoint(
+                tcfg.hf_dir, dtype=torch.float32, device=device)[1]
+    else:
+        cfg = _model_config(tcfg)
     config.check_supported(cfg)
     if tcfg.batch_size % tcfg.grad_accum_steps != 0:
         raise ValueError(f'batch_size={tcfg.batch_size} must be divisible '
@@ -156,6 +179,10 @@ def train(tcfg: TrainerConfig,
                                      total_steps=tcfg.total_steps)
     ckpt = None
     start_step = 0
+    if load_base is not None and (
+            not tcfg.ckpt_dir or
+            checkpoints.Checkpointer(tcfg.ckpt_dir).latest_step() is None):
+        params = load_base()
     if tcfg.ckpt_dir:
         state, start_step, ckpt = checkpoints.restore_or_init(
             tcfg.ckpt_dir, cfg, tx, device, params)
@@ -270,10 +297,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--eval-batches', type=int, default=8)
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default) or 'cpu'.")
+    parser.add_argument('--hf-dir', default=None,
+                        help='HF checkpoint to fine-tune from (config and '
+                             'base weights; the preset is ignored).')
     # Flags of the JAX trainer that the port refuses by name.
     parser.add_argument('--mesh', default='')
     parser.add_argument('--lora-rank', type=int, default=0)
-    parser.add_argument('--hf-dir', default=None)
     parser.add_argument('--sft-data', default=None)
     parser.add_argument('--data-service', default=None)
     return parser

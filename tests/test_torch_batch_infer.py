@@ -5,10 +5,10 @@ shapes and padding invariance, pool modes) on ``device='cpu'``, plus
 the port against the JAX package on the same bridged weights:
 ``_pooled_hidden`` rows within TOL (2e-4, rtol and atol: fp32 on both
 sides, a forward's products summed in other orders) and a generate
-batch's tokens exactly; the refusals of ``--hf-dir``, ``--tokenizer``
-and ``--mesh`` by name; and the CLI, which writes, resumes and
-partitions. The padding-invariance bound is JAX's own (2e-4 on bf16
-compute with padding moved).
+batch's tokens exactly; the refusal of ``--mesh`` by name (``--hf-dir``
+and ``--tokenizer`` run: tests/test_torch_hf.py); and the CLI, which
+writes, resumes and partitions. The padding-invariance bound is JAX's
+own (2e-4 on bf16 compute with padding moved).
 """
 import argparse
 import dataclasses
@@ -148,8 +148,6 @@ def test_max_new_tokens_exceeding_max_len_fails_loudly(tmp_path):
 
 
 @pytest.mark.parametrize('flag,kw', [
-    ('--hf-dir', {'hf_dir': '/nonexistent'}),
-    ('--tokenizer', {'tokenizer': '/nonexistent/tokenizer.json'}),
     ('--mesh', {'mesh': {'tensor': 2}})])
 def test_unported_flags_refused_by_name(tmp_path, flag, kw):
     inp = str(tmp_path / 'in.jsonl')

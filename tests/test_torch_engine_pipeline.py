@@ -639,7 +639,16 @@ def test_disconnected_stream_frees_its_slot(stack):
     ('/v1/completions', {'prompt': ['hi', 'yo']}, 'batched prompts'),
     ('/v1/completions', {'prompt': [[1, 2], [3]]}, 'batched prompts'),
     ('/v1/chat/completions',
-     {'messages': [{'role': 'user', 'content': 'hi'}]}, 'chat completions'),
+     {'messages': [{'role': 'user', 'content': 'hi'}], 'max_tokens': 4,
+      'n': 2}, 'n > 1'),
+    ('/v1/chat/completions',
+     {'messages': [{'role': 'user', 'content': 'hi'}], 'max_tokens': 4,
+      'best_of': 1}, 'best_of is not supported'),
+    ('/v1/chat/completions',
+     {'messages': [{'role': 'hacker', 'content': 'hi'}]}, 'role'),
+    ('/v1/chat/completions',
+     {'messages': [{'role': 'user', 'content': 'hi'}], 'logprobs': 3},
+     'chat logprobs must be a boolean'),
     ('/v1/completions', {'prompt': 'hi', 'logprobs': 6}, 'top logprobs'),
     ('/v1/completions', {'prompt': 'hi', 'presence_penalty': 2.5},
      'presence_penalty'),

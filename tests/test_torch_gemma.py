@@ -192,11 +192,12 @@ def test_attention_takes_the_plain_version_for_any_switch(monkeypatch):
 def test_paged_kernel_gate_matches_jax_pallas_ok():
     """Kernel B takes exactly what the JAX kernel's guard takes: no
     softcap, no window (a global layer's inactive one included), no
-    sinks."""
-    assert paged_attention.kernel_takes()
+    sinks (here at gemma-7b's decode shape, which B takes)."""
+    shapes = ((8, 1, 16, 256), (65, 64, 16, 256))
+    assert paged_attention.kernel_takes(*shapes)
     for kw in (dict(logit_softcap=50.0), dict(window=4096),
                dict(sinks=torch.zeros(4))):
-        assert not paged_attention.kernel_takes(**kw)
+        assert not paged_attention.kernel_takes(*shapes, **kw)
 
 
 def _pool(seed, s, n_pages=12, psz=8, kh=2, hd=16, maxp=4):

@@ -189,11 +189,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q96, k96 = _rand(gen, 1, 8, 2, 96), _rand(gen, 1, 8, 2, 96)
     with pytest.raises(ValueError):
         fa.flash_attention_lse(q96, k96, k96)
-    pool = _rand(gen, 3, 16, 2, 64)
+    # head_dim 96: not one of B's (64, 128, 256).
+    pool = _rand(gen, 3, 16, 2, 96)
     table = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
     length = torch.zeros((1,), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):
-        pa.paged_decode_attention(_rand(gen, 1, 1, 4, 64), pool, pool, table,
+    with pytest.raises(ValueError, match='head_dim'):
+        pa.paged_decode_attention(_rand(gen, 1, 1, 4, 96), pool, pool, table,
                                   length)
     # g*S = 72 rows per kv head: above the kernel's 64, refused with no
     # fallback.
@@ -468,6 +469,90 @@ def test_paged_kernel_matches_plain_at_256(cuda, s, h, kh, psz):
     assert torch.equal(out, again)
 
 
+# Kernel B at head_dim 64, (S, H, KH, psz): llama3.2-1b's heads (32/8,
+# g = 4) at decode and verify widths on its engine's 64-token pages;
+# then g = 4 and 8 on 16-token pages, up to g*S = 64.
+PAGED64_CASES = [(1, 32, 8, 64), (4, 32, 8, 64), (1, 8, 2, 16),
+                 (8, 32, 4, 16)]
+
+
+@pytest.mark.parametrize('s,h,kh,psz', PAGED64_CASES)
+def test_paged_kernel_matches_plain_at_64(cuda, s, h, kh, psz):
+    q, kp, vp, table_t, length_t = _paged_inputs(cuda, s, h, kh, hd=64,
+                                                 psz=psz)
+    before = pa.KERNEL.launches
+    out = pa.paged_decode_attention(q, kp, vp, table_t, length_t)
+    again = pa.paged_decode_attention(q, kp, vp, table_t, length_t)
+    assert pa.KERNEL.launches == before + 2
+    qf, kf, vf = _prescaled_fp32(q, kp, vp)
+    ref = pa.paged_decode_attention_ref(qf, kf, vf, table_t, length_t,
+                                        softmax_scale=1.0)
+    torch.cuda.synchronize()
+    _assert_o_close(out, ref)
+    assert torch.equal(out, again)
+
+
+def _paged_step(cuda, s, h, kh, hd, psz):
+    """One paged decode/verify step's inputs: the pools of
+    ``_paged_inputs`` with S new K/V rows a row, written at each row's
+    positions [length, length + S)."""
+    q, kp, vp, table_t, length_t = _paged_inputs(cuda, s, h, kh, hd=hd,
+                                                 psz=psz)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b = q.shape[0]
+    k_new, v_new = _rand(gen, b, s, kh, hd), _rand(gen, b, s, kh, hd)
+    pos = length_t[:, None].long() + torch.arange(s, device=cuda)
+    pid = torch.gather(table_t.long(), 1, pos // psz)
+    max_len = table_t.shape[1] * psz
+    return (q, kp, vp, table_t, length_t, k_new, v_new, pid, pos % psz,
+            max_len)
+
+
+@pytest.mark.parametrize('s', [1, 4])
+def test_paged_step_at_head_dim_64_runs_kernel_b(cuda, s):
+    """A dense model with head_dim 64 (llama3.2-1b: 32/8 heads, g = 4)
+    decodes and verifies through kernel B, against the fused plain step
+    on the same pools. Before B took head_dim 64 the gate still sent it
+    there, and this step raised ValueError ('head_dim in (128, 256)')."""
+    (q, kp, vp, table_t, length_t, k_new, v_new, pid, off,
+     max_len) = _paged_step(cuda, s, 32, 8, 64, 64)
+    kp_ref, vp_ref = kp.clone(), vp.clone()
+    before = pa.KERNEL.launches
+    out, kp2, vp2 = pa.paged_attention_step(
+        q, kp, vp, table_t, length_t, k_new, v_new, pid, off,
+        max_len=max_len)
+    assert pa.KERNEL.launches == before + 1
+    ref, kp_ref, vp_ref = pa.paged_attention_step_ref(
+        q.float(), kp_ref.float(), vp_ref.float(), table_t, length_t,
+        k_new.float(), v_new.float(), pid, off, max_len=max_len)
+    torch.cuda.synchronize()
+    assert kp2 is kp and vp2 is vp
+    assert torch.equal(kp.float(), kp_ref) and torch.equal(vp.float(),
+                                                           vp_ref)
+    _assert_o_close(out, ref)
+
+
+@pytest.mark.parametrize('hd,psz', [(96, 64), (64, 60)])
+def test_paged_step_at_a_shape_b_refuses_takes_the_fused_path(cuda, hd,
+                                                              psz):
+    """A head_dim or page size kernel B does not take never reaches it:
+    the step runs the fused formulation and launches nothing."""
+    (q, kp, vp, table_t, length_t, k_new, v_new, pid, off,
+     max_len) = _paged_step(cuda, 1, 8, 2, hd, psz)
+    assert not pa.kernel_takes(q.shape, kp.shape)
+    kp_ref, vp_ref = kp.clone(), vp.clone()
+    before = pa.KERNEL.launches
+    out, _, _ = pa.paged_attention_step(q, kp, vp, table_t, length_t,
+                                        k_new, v_new, pid, off,
+                                        max_len=max_len)
+    ref, _, _ = pa.paged_attention_step_ref(q, kp_ref, vp_ref, table_t,
+                                            length_t, k_new, v_new, pid,
+                                            off, max_len=max_len)
+    assert pa.KERNEL.launches == before
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
 def _gemma_layer_run(cuda, plain, **switches):
     """Prefill and one paged decode step of a one-layer model with
     gemma-7b's head shape (head_dim 256, 16/16 heads narrowed to 4/4,
@@ -625,20 +710,27 @@ def test_plain_paged_step_captures_into_a_graph(cuda, switches):
                           device=cuda)
     q, k_new, v_new = (_rand(gen, b, s, h, hd), _rand(gen, b, s, kh, hd),
                        _rand(gen, b, s, kh, hd))
-    pc = paging.PagedKV(kp0.clone(), vp0.clone(), table, length)
+    # PagedKV holds [L, pages, psz, KH, hd] pools (page_size is read from
+    # their third axis): one layer here, stepped through its views.
+    pc = paging.PagedKV(kp0.clone()[None], vp0.clone()[None], table, length)
+    kp, vp = pc.k[0], pc.v[0]
     pid, off = paging._write_indices(
         pc, length[:, None].long() + torch.arange(s, device=cuda),
         torch.tensor([True, True, False], device=cuda))
+    # Each active row writes its own slots; the inactive row the trash
+    # page, where its positions past the table clamp onto one slot.
+    assert pid.tolist() == [[1] * 4, [6, 6, 7, 7], [0] * 4]
+    assert off.tolist() == [[5, 6, 7, 8], [14, 15, 0, 1], [14, 15, 15, 15]]
     kw = dict(max_len=max_len, **{
         n: (v.to(cuda) if torch.is_tensor(v) else v)
         for n, v in switches.items()})
 
     def call():
-        return pa.paged_attention_step_ref(q, pc.k, pc.v, table, length,
+        return pa.paged_attention_step_ref(q, kp, vp, table, length,
                                            k_new, v_new, pid, off, **kw)[0]
 
     want = call().clone()
-    want_k, want_v = pc.k.clone(), pc.v.clone()
+    want_k, want_v = kp.clone(), vp.clone()
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -647,14 +739,14 @@ def test_plain_paged_step_captures_into_a_graph(cuda, switches):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=stream):
         out = call()
-    pc.k.copy_(kp0)
-    pc.v.copy_(vp0)
+    kp.copy_(kp0)
+    vp.copy_(vp0)
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, want)
-    assert torch.equal(pc.k[1:], want_k[1:])
-    assert torch.equal(pc.v[1:], want_v[1:])
-    assert not torch.equal(pc.k[1:], kp0[1:])    # the step wrote pages
+    assert torch.equal(kp[1:], want_k[1:])
+    assert torch.equal(vp[1:], want_v[1:])
+    assert not torch.equal(kp[1:], kp0[1:])    # the step wrote pages
 
 
 def test_engine_decodes_through_graphs(cuda, monkeypatch):

@@ -1,6 +1,8 @@
 """Import hygiene of the PyTorch port: skypilot_tpu_torch, chip_smoke.py
 and kernel_ab.py import neither jax nor the JAX package (skypilot_tpu),
-and the engine runs on the card unless asked for the CPU."""
+nor any library the card's machine lacks (safetensors, transformers,
+aiohttp; tokenizers only inside ``HFTokenizer``), and the engine runs on
+the card unless asked for the CPU."""
 import ast
 import inspect
 import os
@@ -53,15 +55,65 @@ def test_port_sources_import_no_jax_and_no_jax_package():
     assert bad == []
 
 
+# Libraries the card's machine does not have: never imported by the
+# port, except tokenizers, inside data/tokenizer.py's HFTokenizer only.
+ABSENT_ON_CARD = ('safetensors', 'transformers', 'aiohttp', 'tokenizers')
+
+
+def _absent(module: str) -> bool:
+    return any(module == root or module.startswith(root + '.')
+               for root in ABSENT_ON_CARD)
+
+
+def _imports_with_scope(path):
+    """(module, names of the enclosing classes and functions) for every
+    import in ``path``."""
+    def walk(node, scope):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                for alias in child.names:
+                    yield alias.name, scope
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module, scope
+            inner = scope
+            if isinstance(child, (ast.ClassDef, ast.FunctionDef,
+                                  ast.AsyncFunctionDef)):
+                inner = scope + (child.name,)
+            yield from walk(child, inner)
+    yield from walk(ast.parse(path.read_text(), str(path)), ())
+
+
+def test_port_imports_no_library_the_card_lacks():
+    """safetensors, transformers and aiohttp nowhere in the port;
+    tokenizers only inside HFTokenizer (data/tokenizer.py), which raises
+    by name without it."""
+    bad, allowed = [], []
+    for p in _port_files():
+        for module, scope in _imports_with_scope(p):
+            if not _absent(module):
+                continue
+            rel = str(p.relative_to(ROOT))
+            if module == 'tokenizers' and \
+                    rel == 'skypilot_tpu_torch/data/tokenizer.py' and \
+                    scope[:1] == ('HFTokenizer',):
+                allowed.append((rel, scope))
+                continue
+            bad.append((rel, module, scope))
+    assert bad == []
+    assert allowed == [('skypilot_tpu_torch/data/tokenizer.py',
+                        ('HFTokenizer', '__init__'))]
+
+
 def test_every_port_module_imports_with_jax_blocked():
-    """Each module imports in a fresh interpreter where importing jax or
-    skypilot_tpu fails."""
+    """Each module imports in a fresh interpreter where importing jax,
+    skypilot_tpu or a library the card lacks fails."""
     mods = sorted(
         '.'.join(p.relative_to(ROOT).with_suffix('').parts)
         .removesuffix('.__init__') for p in PORT.rglob('*.py'))
     code = (
         'import sys, importlib\n'
-        "for m in ('jax', 'jaxlib', 'skypilot_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'skypilot_tpu', 'safetensors', "
+        "'transformers', 'aiohttp', 'tokenizers'):\n"
         '    sys.modules[m] = None\n'
         f'for m in {mods!r} + ["chip_smoke", "kernel_ab"]:\n'
         '    importlib.import_module(m)\n'

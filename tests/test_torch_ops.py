@@ -201,6 +201,33 @@ def test_kernel_b_row_limit(h, kh, s, ok):
         paged_attention._check_kernel_inputs(q, pool, pool, table, length)
 
 
+@pytest.mark.parametrize('hd,psz,s,ok', [
+    (64, 64, 1, True), (128, 64, 1, True), (256, 64, 1, True),
+    (64, 60, 1, False), (128, 60, 1, False), (256, 60, 1, False),
+    (96, 64, 1, False), (64, 64, 16, True), (64, 64, 17, False),
+    (64, 136, 1, False)])
+def test_kernel_b_gate_takes_exactly_the_kernel_shapes(hd, psz, s, ok):
+    """Kernel B's gate names the shapes the kernel takes: head_dim 64,
+    128 or 256, pages a multiple of 8 up to 128 tokens, g*S <= 64 (here
+    g = 4, llama3.2-1b's 32/8 heads). A shape it takes passes the
+    wrapper's own checks (and stops here only because CPU tensors are
+    not on the card); a shape it declines is one the wrapper raises on,
+    so paged_attention_step never hands B a shape B refuses."""
+    q_shape, pool_shape = (2, s, 32, hd), (5, psz, 8, hd)
+    assert paged_attention.kernel_takes(q_shape, pool_shape) is ok
+    for switch in (dict(logit_softcap=30.0), dict(window=64),
+                   dict(sinks=torch.zeros(32))):
+        assert not paged_attention.kernel_takes(q_shape, pool_shape,
+                                                **switch)
+    q = torch.zeros(q_shape, dtype=torch.bfloat16)
+    pool = torch.zeros(pool_shape, dtype=torch.bfloat16)
+    table = torch.zeros(2, 3, dtype=torch.int32)
+    length = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError) as err:
+        paged_attention._check_kernel_inputs(q, pool, pool, table, length)
+    assert ('must all lie on the card' in str(err.value)) is ok
+
+
 def _paged_step_both(rng, kp, vp, table, length, s, active):
     """One paged step through JAX paged_attention_step(impl='fused') and
     the port's CPU step on the same inputs: (out, kp2, vp2, jout, jkp,

@@ -274,7 +274,7 @@ def test_trainer_defaults_to_cuda_and_refuses_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize('flags', [
-    ['--mesh', 'data=2'], ['--lora-rank', '4'], ['--hf-dir', '/x'],
+    ['--mesh', 'data=2'], ['--lora-rank', '4'],
     ['--sft-data', 'c.jsonl'], ['--data-service', 'h:1'],
     ['--model', 'moe-debug', '--mesh', 'expert=2'],
     ['--model', 'GPT_OSS-20b', '--lora-rank', '4']])
