@@ -183,7 +183,41 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  --ckpt-dir` as a subprocess (no --device): /health and
                  one chat; then qwen2.5-1.5b (qkv biases) exported and
                  imported bit for bit. Its files live in the git-ignored
-                 .smoke_hf/ and are removed.
+                 .smoke_hf/ and are removed (llama3.2-1b's HF directory
+                 after lora and grpo);
+ 22. lora      — LoRA on llama3.2-1b whole from that HF directory
+                 (exported here when hf does not run): `trainer --hf-dir
+                 --lora-rank 16 --lora-dir`, 3 steps of 4 x 2048 (A 96,
+                 C 48, D 48 launches), the first loss against the base's
+                 cross-entropy on batch 0 (TOL_LORA_CE), the trainer's
+                 base bit-equal to the import after the steps, the
+                 adapters' size; the state restored from adapters.npz
+                 (step, count and non-zero moments from disk), a save
+                 timed, the restored adapters' grads against the plain
+                 attention in bf16 and fp32 (TOL_GRAD), the trainer
+                 resumed for step 4 (saved count 4); `lora_merge` (main, on the card) and the merged
+                 directory re-imported: targeted leaves == merge_into,
+                 the rest == the base, bit for bit; one step of the
+                 restored adapters profiled; the merged tree
+                 served by the engine (params, byte tokenizer): 3
+                 /generate, A and B launch, greedy tokens against
+                 decode.generate;
+ 23. grpo      — GRPOTrainer on llama3.2-1b whole (fp32 masters from the
+                 HF directory): 4 prompts x group 8, 64-token prompts
+                 (ragged at the first iteration), 64 new tokens at
+                 temperature 1, kl_coef 0.04 against a reference copy,
+                 2 iterations (A 5 x layers each: prefill, behaviour and
+                 reference scoring, the update's forward and recompute;
+                 C, D once a layer); the first mean_ratio 1 within
+                 TOL_RATIO; the first iteration's rows scored after its
+                 update differ from their behaviour log-probs; rollout
+                 and update ms, peak memory, frac_clipped; a third
+                 iteration profiled; the first iteration again from the
+                 same seeds, its differences by stage printed, and
+                 between its rollout and its update A on generate's
+                 ragged prefill and on the scoring (TOL_MODEL) and the
+                 update's grads (TOL_GRAD) against the plain attention
+                 in bf16 and fp32.
 Then it prints the card's name and power limit, one {"kernels": [...]}
 line, and as its last line {"ok": true, "device": {...}}.
 
@@ -310,6 +344,11 @@ def time_ms(fn, iters: int = 20, repeats: int = 5) -> float:
         torch.cuda.synchronize()
         samples.append(start.elapsed_time(end) / iters)
     return statistics.median(samples)
+
+
+def launch_counts(build) -> dict:
+    """Each kernel's launches since the last build.reset_launches()."""
+    return {n: k.launches for n, k in build.kernels().items()}
 
 
 def max_err(a, b) -> float:
@@ -1460,20 +1499,43 @@ def step_cost(torch, decode, p, cfg, tok_t, len_t, width: int) -> dict:
             'work_gb': work, 'alone_gb': tree + work, 'out': out}
 
 
+def a_vs_plain(torch, fn, cfg, params, params32, tag: str,
+               what: str):
+    """``fn(cfg, params)`` three ways, without grad: with kernel A
+    (``cfg``, 'auto'), with the plain attention in bf16, and with the
+    plain attention in fp32 on ``params32``. A's max |diff| to fp32 must
+    be no more than TOL_MODEL x the plain bf16 path's. Returns (the
+    ratio, A's output)."""
+    import dataclasses
+    cfg_x = dataclasses.replace(cfg, attention_impl='xla')
+    cfg32 = dataclasses.replace(cfg_x, dtype=torch.float32)
+    with torch.no_grad():
+        a, x, f = fn(cfg, params), fn(cfg_x, params), fn(cfg32, params32)
+    if not bool(torch.isfinite(a).all()):
+        fail(f'{tag} kernel A {what}: non-finite')
+    std = float(f.std())
+    e_a = float((a - f).abs().max()) / std
+    e_x = float((x - f).abs().max()) / std
+    log(f'{tag} kernel A, {what}: max|diff|/std(fp32): A {e_a:.3e}, plain '
+        f'bf16 {e_x:.3e}, ratio {e_a / e_x:.3f} (tol {TOL_MODEL})')
+    if e_a > TOL_MODEL * e_x:
+        fail(f'{tag} kernel A {what}: max|diff|/std to fp32 {e_a:.3e} > '
+             f'{TOL_MODEL} x the plain bf16 path\'s {e_x:.3e}')
+    return e_a / e_x, a
+
+
 def kernel_a_at_batch(torch, cfg, params, decode, batch_infer, batches,
                       padded, emb_recs) -> float:
     """Kernel A at the shapes batch_infer.run gave it: the first and the
     last batch (BI_BATCH of the file's own ragged rows, widths 512 and
     1024). generate's prefill logits (prefill_cache) and embed's pooled
-    rows (batch_infer._pooled_hidden through llama.forward), with A
-    ('auto'), against the same with the plain attention in bf16 and in
-    fp32 (the weights upcast): A's max |diff| to fp32 must be no more
-    than TOL_MODEL x the plain bf16 path's. The pooled rows with A must
-    also be the file's embed records. Returns the worst ratio."""
+    rows (batch_infer._pooled_hidden through llama.forward) held against
+    the plain attention (a_vs_plain, the weights upcast for fp32). The
+    pooled rows with A must also be the file's embed records. Returns
+    the worst ratio."""
     import dataclasses
-    cfg_x = dataclasses.replace(cfg, attention_impl='xla')
-    cfg32 = dataclasses.replace(cfg_x, dtype=torch.float32)
-    params32 = decode.cast_params_for_decode(params, cfg32)
+    params32 = decode.cast_params_for_decode(
+        params, dataclasses.replace(cfg, dtype=torch.float32))
     by_id = {r['id']: r['embedding'] for r in emb_recs}
     worst = 0.0
     for i in (0, len(padded) - 1):
@@ -1484,20 +1546,10 @@ def kernel_a_at_batch(torch, cfg, params, decode, batch_infer, batches,
             'embed rows': lambda c, p: batch_infer._pooled_hidden(
                 p, tok_t, len_t, cfg=c, pool='mean')}
         for what, fn in runs.items():
-            with torch.no_grad():
-                a, x, f = fn(cfg, params), fn(cfg_x, params), \
-                    fn(cfg32, params32)
-            if not bool(torch.isfinite(a).all()):
-                fail(f'batch_infer: kernel A {what} non-finite at B='
-                     f'{tok_t.shape[0]} width {width}')
-            std = float(f.std())
-            e_a = float((a - f).abs().max()) / std
-            e_x = float((x - f).abs().max()) / std
-            worst = max(worst, e_a / e_x)
-            if e_a > TOL_MODEL * e_x:
-                fail(f'batch_infer: kernel A {what} at B={tok_t.shape[0]} '
-                     f'width {width}: max|diff|/std to fp32 {e_a:.3e} > '
-                     f'{TOL_MODEL} x the plain bf16 path\'s {e_x:.3e}')
+            ratio, a = a_vs_plain(
+                torch, fn, cfg, params, params32, '[batch_infer]',
+                f'batch {i} (B={tok_t.shape[0]}, width {width}), {what}')
+            worst = max(worst, ratio)
             if what == 'embed rows':
                 file_rows = torch.tensor([by_id[it['id']]
                                           for it in batches[i]])
@@ -1505,10 +1557,6 @@ def kernel_a_at_batch(torch, cfg, params, decode, batch_infer, batches,
                 if d > 1e-6 * float(file_rows.abs().max()):
                     fail(f'batch_infer: batch {i} embed records differ '
                          f'from _pooled_hidden with kernel A by {d:.3e}')
-            log(f'[batch_infer] kernel A, batch {i} (B={tok_t.shape[0]}, '
-                f'width {width}), {what}: max|diff|/std(fp32): A '
-                f'{e_a:.3e}, plain bf16 {e_x:.3e}, ratio {e_a / e_x:.3f} '
-                f'(tol {TOL_MODEL}) ok')
     del params32
     return worst
 
@@ -1643,7 +1691,7 @@ def phase_batch_infer(torch, cfg, params, decode, paging, pa, build,
         torch.cuda.reset_peak_memory_stats()
         build.reset_launches()
         stats, secs = timed(torch, lambda: batch_infer.run(args(mode, out)))
-        launched = {n: k.launches for n, k in build.kernels().items()}
+        launched = launch_counts(build)
         for n, c in launched.items():
             counted[n] = counted.get(n, 0) + c
         want_a = cfg.n_layers * n_batches
@@ -2379,11 +2427,11 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
                     check_stream(d, f.result())
             return time.perf_counter() - t1
 
-        at_health = {n: k.launches for n, k in build.kernels().items()}
+        at_health = launch_counts(build)
         captured = build.captured()
         calls0 = dict(eng.calls)
         wall = burst()
-        launches = {n: k.launches for n, k in build.kernels().items()}
+        launches = launch_counts(build)
         in_burst = {n: launches[n] - at_health[n] for n in launches}
         calls = {key: n - calls0.get(key, 0) for key, n in eng.calls.items()
                  if n > calls0.get(key, 0)}
@@ -2441,7 +2489,7 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
         # The admission burst on the defaults: timed, then profiled.
         watch = Watch(eng, build)
         admit = {'on': admission_burst(eng, base, watch, 31, tag)}
-        launches = {n: k.launches for n, k in build.kernels().items()}
+        launches = launch_counts(build)
         admit['on']['peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
         b0 = build.kernels()['paged_decode'].launches
         prof = profile_device(torch, lambda: admission_burst(
@@ -2516,7 +2564,7 @@ def train_checked(torch, build, tcfg, cfg, tag: str, plain: bool = True):
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     hist = trainer.train(tcfg)
-    launches = {n: k.launches for n, k in build.kernels().items()}
+    launches = launch_counts(build)
     peak = torch.cuda.max_memory_allocated() / 1e9
     layers, n = cfg.n_layers, tcfg.total_steps
     k = layers * n if takes_kernels(cfg) else 0
@@ -2632,19 +2680,25 @@ def profile_step(torch, cfg, params, batch) -> None:
     profile_device(torch, lambda: step_fn(state, batch))
 
 
-def step_grads(torch, cfg, params, batch, routes=None):
+def step_grads(torch, cfg, params, batch, routes=None, loss_fn=None):
     """The grads of CE + router aux (train_lib's step) on ``params`` and
-    ``batch`` under ``cfg``, aligned with train_lib.leaves(params) (None
-    for a leaf off the path). ``routes``, a RouteLog, is installed over
-    the forward and the backward both: under remat 'full' the backward
-    recomputes each layer, its routing included."""
+    ``batch`` under ``cfg``, or of ``loss_fn(cfg, params)`` where given,
+    aligned with train_lib.leaves(params) (None for a leaf off the
+    path). ``routes``, a RouteLog, is installed over the forward and the
+    backward both: under remat 'full' the backward recomputes each
+    layer, its routing included."""
     from skypilot_tpu_torch.train import train_lib
-    tokens = batch['tokens']
     with routes or contextlib.nullcontext():
-        logits, aux = train_lib.forward_with_aux(cfg, params, tokens[:, :-1])
-        loss, _ = train_lib.cross_entropy_loss(logits, tokens[:, 1:])
-        del logits
-        return torch.autograd.grad(loss + aux, train_lib.leaves(params),
+        if loss_fn is not None:
+            loss = loss_fn(cfg, params)
+        else:
+            tokens = batch['tokens']
+            logits, aux = train_lib.forward_with_aux(cfg, params,
+                                                     tokens[:, :-1])
+            loss = train_lib.cross_entropy_loss(logits, tokens[:, 1:])[0] \
+                + aux
+            del logits
+        return torch.autograd.grad(loss, train_lib.leaves(params),
                                    allow_unused=True)
 
 
@@ -2668,9 +2722,9 @@ def forced_routes(torch, moe, cfg, rec):
 
 
 def check_grads(torch, cfg, params, batch, tag: str, bound=None,
-                force_routes: bool = False) -> float:
-    """One step's grads (CE + router aux) three ways on ``params`` and
-    ``batch``: the default route (bf16; through the kernels where the
+                force_routes: bool = False, loss_fn=None) -> float:
+    """One step's grads (CE + router aux, or ``loss_fn``: step_grads)
+    three ways on ``params`` and ``batch``: the default route (bf16; through the kernels where the
     config lets them), plain attention in bf16, plain attention in fp32.
     Per leaf, the default route's relative error (Frobenius) against
     fp32 may be at most TOL_GRAD times the plain bf16 path's. With
@@ -2682,17 +2736,17 @@ def check_grads(torch, cfg, params, batch, tag: str, bound=None,
     import dataclasses
     from skypilot_tpu_torch.models import moe, weights
     rec = RouteLog(moe, no_drop=True) if force_routes else None
-    g_kern = step_grads(torch, cfg, params, batch, rec)
+    g_kern = step_grads(torch, cfg, params, batch, rec, loss_fn)
 
     def routes():
         return forced_routes(torch, moe, cfg, rec) if force_routes else None
 
     g_plain = (None if bound is not None else step_grads(
         torch, dataclasses.replace(cfg, attention_impl='xla'), params,
-        batch, routes()))
+        batch, routes(), loss_fn))
     g_ref = step_grads(torch, dataclasses.replace(
         cfg, attention_impl='xla', dtype=torch.float32), params, batch,
-        routes())
+        routes(), loss_fn)
     names = [p for p, _ in weights.tree_paths(params)]
     worst = 0.0
     for i, (name, gk, gr) in enumerate(zip(names, g_kern, g_ref)):
@@ -2984,6 +3038,15 @@ HF_CHAT = {'messages': [{'role': 'system', 'content': 'be brief'},
            'max_tokens': 16, 'temperature': 0}
 
 
+def bits_equal(torch, a, b) -> bool:
+    """Same dtype, shape and bits (bf16 compared as int16)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+    return torch.equal(a, b)
+
+
 def hf_round_trip(torch, cfg, out: str, tag: str, eos=None) -> None:
     """Random bf16 params of ``cfg`` exported with the port's
     save_hf_checkpoint into ``out``: its config must import equal to the
@@ -3010,8 +3073,7 @@ def hf_round_trip(torch, cfg, out: str, tag: str, eos=None) -> None:
     if [p for p, _ in mine] != [p for p, _ in theirs]:
         fail(f'{tag} imported tree {[p for p, _ in theirs]}')
     for (path, a), (_, b) in zip(mine, theirs):
-        if b.dtype != a.dtype or b.device.type != 'cuda' or \
-                not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+        if b.device.type != 'cuda' or not bits_equal(torch, a, b):
             fail(f'{tag} leaf {path}: {b.dtype} {tuple(b.shape)} on '
                  f'{b.device} is not the exported {a.dtype} bit for bit')
     if eos is not None and hf_import.hf_eos_ids(out) != [eos]:
@@ -3144,7 +3206,7 @@ def hf_serve(torch, build, engine_lib, decode, cfg, ck: str) -> dict:
                 text != c['message']['content']:
             fail(f'{tag} chat stream {events[:2]} ... {events[-1:]}: text '
                  f'{text!r} vs {c["message"]["content"]!r}')
-        launches = {n: k.launches for n, k in build.kernels().items()}
+        launches = launch_counts(build)
         log(f'{tag} 4 /generate (17/130/300/700 tokens, {HF_NEW} new), a '
             f'chat completion (prompt {doc["usage"]["prompt_tokens"]} '
             f'tokens) and its stream ({len(events)} events, same text): '
@@ -3209,8 +3271,9 @@ def phase_hf(torch, build, engine_lib, decode) -> dict:
     """Real checkpoints: hf_round_trip of llama3.2-1b, hf_finetune from
     its HF directory, hf_serve and hf_cli on the trainer's checkpoint,
     then hf_round_trip of qwen2.5-1.5b; every file under the git-ignored
-    .smoke_hf/, removed at the end. Returns the launch counts of the
-    paths 'train_hf' and 'serve_hf'."""
+    .smoke_hf/, which the caller removes, and all but llama3.2-1b's HF
+    directory (lora and grpo start from it) removed here. Returns the
+    launch counts of the paths 'train_hf' and 'serve_hf'."""
     import shutil
     from skypilot_tpu_torch import config
     t0 = time.perf_counter()
@@ -3219,22 +3282,444 @@ def phase_hf(torch, build, engine_lib, decode) -> dict:
     hf_dir = os.path.join(root, 'Llama-3.2-1B')
     ck = os.path.join(root, 'ck')
     paths = {}
-    try:
-        cfg = config.get_config(HF_MODEL)
-        hf_round_trip(torch, cfg, hf_dir, '[hf]', eos=HF_EOS)
-        paths['train_hf'] = hf_finetune(torch, build, cfg, hf_dir, ck)
-        free_card(torch)
-        paths['serve_hf'] = hf_serve(torch, build, engine_lib, decode, cfg,
-                                     ck)
-        free_card(torch)
-        hf_cli(ck)
-        shutil.rmtree(hf_dir)
-        hf_round_trip(torch, config.get_config(HF_QWEN),
-                      os.path.join(root, 'Qwen2.5-1.5B'), '[hf qwen]')
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    cfg = config.get_config(HF_MODEL)
+    hf_round_trip(torch, cfg, hf_dir, '[hf]', eos=HF_EOS)
+    paths['train_hf'] = hf_finetune(torch, build, cfg, hf_dir, ck)
+    free_card(torch)
+    paths['serve_hf'] = hf_serve(torch, build, engine_lib, decode, cfg, ck)
+    free_card(torch)
+    hf_cli(ck)
+    shutil.rmtree(ck)
+    qwen = os.path.join(root, 'Qwen2.5-1.5B')
+    hf_round_trip(torch, config.get_config(HF_QWEN), qwen, '[hf qwen]')
+    shutil.rmtree(qwen)
     log(f'[hf] phase took {time.perf_counter() - t0:.1f}s')
     return paths
+
+
+# The lora and grpo phases: llama3.2-1b whole from the HF directory the
+# hf phase exports (exported here when hf does not run). LoRA: rank 16 on
+# the attention projections, LORA_STEPS steps of HF_B x TRAIN_S, one more
+# after a resume, the merge, the merged tree served. GRPO: GRPO_PROMPTS
+# prompts of GRPO_S tokens (ragged lengths GRPO_LENS at the first
+# iteration), groups of GRPO_G, GRPO_NEW new tokens at temperature 1,
+# the k3 KL against a reference copy, GRPO_ITERS iterations at lr
+# GRPO_LR with no warmup (so that the first update moves the policy).
+LORA_RANK, LORA_STEPS, LORA_NEW = 16, 3, 16
+# The first LoRA loss (B = 0: the merged tree is the base, bit for bit)
+# against the base's CE on batch 0: the trainer logs 4 decimals.
+TOL_LORA_CE = 1e-4
+GRPO_PROMPTS, GRPO_G, GRPO_S, GRPO_NEW = 4, 8, 64, 64
+GRPO_LENS, GRPO_KL, GRPO_ITERS, GRPO_LR = (64, 41, 17, 53), 0.04, 2, 1e-5
+# The first iteration's mean ratio: the behaviour scoring and the update
+# score the same rows with the same weights (JAX's ragged test's bound).
+TOL_RATIO = 1e-3
+
+
+def llama_hf_dir(torch) -> str:
+    """llama3.2-1b's HF directory under .smoke_hf/: the hf phase's
+    export, or a new one (hf_round_trip) when that phase did not run."""
+    from skypilot_tpu_torch import config
+    hf_dir = os.path.join(HERE, '.smoke_hf', 'Llama-3.2-1B')
+    if not os.path.exists(os.path.join(hf_dir, 'model.safetensors')):
+        hf_round_trip(torch, config.get_config(HF_MODEL), hf_dir, '[lora]',
+                      eos=HF_EOS)
+    return hf_dir
+
+
+def lora_train(torch, build, cfg, base, tcfg) -> dict:
+    """The trainer from --hf-dir with --lora-rank (train_checked: A 2 x
+    layers x steps, C and D layers x steps), its first loss against the
+    base's CE on batch 0 (TOL_LORA_CE), and the base the trainer read
+    bit-equal to ``base`` (the import) after the steps, no leaf taking a
+    grad. Returns the launch counts."""
+    from skypilot_tpu_torch.data import loader
+    from skypilot_tpu_torch.data_service import spec as spec_lib
+    from skypilot_tpu_torch.models import hf_import, weights
+    from skypilot_tpu_torch.train import train_lib
+    batch = loader.to_device(spec_lib.load_source(spec_lib.DatasetSpec(
+        HF_B, TRAIN_S, cfg.vocab_size)).batch_at_step(0), 'cuda')
+    with torch.no_grad():
+        tokens = batch['tokens']
+        logits, _ = train_lib.forward_with_aux(cfg, base, tokens[:, :-1])
+        ce = float(train_lib.cross_entropy_loss(logits, tokens[:, 1:])[0])
+    del logits, batch
+    free_card(torch)
+    seen = []
+    real = hf_import.load_hf_checkpoint
+
+    def keep(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(out[1])
+        return out
+    hf_import.load_hf_checkpoint = keep     # the trainer's own base
+    try:
+        t0 = time.perf_counter()
+        hist, launches = train_checked(torch, build, tcfg, cfg, '[lora]',
+                                       plain=False)
+        secs = time.perf_counter() - t0
+    finally:
+        hf_import.load_hf_checkpoint = real
+    mine, theirs = weights.tree_paths(seen[0]), weights.tree_paths(base)
+    bad = [p for (p, a), (_, b) in zip(mine, theirs)
+           if a.requires_grad or not bits_equal(torch, a, b)]
+    diff = abs(hist[0]['loss'] - ce)
+    nbytes = os.path.getsize(os.path.join(tcfg.lora_dir, 'adapters.npz'))
+    log(f'[lora] --hf-dir --lora-rank {LORA_RANK} run of {LORA_STEPS} steps '
+        f'with its save: {secs:.1f}s; first loss {hist[0]["loss"]} vs the '
+        f'base\'s cross-entropy {ce:.4f} on batch 0: |diff| {diff:.5f} (tol '
+        f'{TOL_LORA_CE}); the trainer\'s base {len(mine) - len(bad)} of '
+        f'{len(mine)} leaves bit-equal to the import after the steps; '
+        f'adapters.npz {nbytes / 1e6:.2f} MB')
+    if diff > TOL_LORA_CE:
+        fail(f'[lora] first loss departs from the base\'s CE by {diff}')
+    if bad or len(mine) != len(theirs):
+        fail(f'[lora] base leaves changed or taking grads: {bad}')
+    return launches
+
+
+def lora_grads(torch, cfg, base, adapters, lcfg, batch) -> None:
+    """The adapters' grads of the LoRA step's loss (CE + aux of the
+    forward on merge_into(base, adapters)) on ``batch``, held against
+    the plain attention in bf16 and in fp32 (the base upcast) by
+    check_grads: A, C and D at the trainer's shapes."""
+    import dataclasses
+    from skypilot_tpu_torch.models import decode
+    from skypilot_tpu_torch.train import lora, train_lib
+    base32 = decode.cast_params_for_decode(
+        base, dataclasses.replace(cfg, dtype=torch.float32))
+    tokens = batch['tokens']
+
+    def loss_fn(c, ad):
+        merged = lora.merge_into(base32 if c.dtype == torch.float32
+                                 else base, ad, lcfg)
+        logits, aux = train_lib.forward_with_aux(c, merged, tokens[:, :-1])
+        return train_lib.cross_entropy_loss(logits, tokens[:, 1:])[0] + aux
+    check_grads(torch, cfg, adapters, None, '[lora]', loss_fn=loss_fn)
+    del base32
+    free_card(torch)
+
+
+def lora_resume(torch, build, cfg, base, tcfg, lcfg) -> None:
+    """The adapters left after LORA_STEPS steps, restored from disk: the
+    step, the optimizer count and every first-moment leaf non-zero (a
+    fresh tx.init gives zeros); a save of them timed; their grads held
+    against the plain attention (lora_grads); one step of them over
+    ``base`` profiled; then the trainer resumed for one more step
+    (A 2 x layers, C and D x layers), after which the saved step and
+    count are LORA_STEPS + 1 (from a fresh init the count would be
+    1)."""
+    import dataclasses
+    import shutil
+    from skypilot_tpu_torch.data import loader
+    from skypilot_tpu_torch.data_service import spec as spec_lib
+    from skypilot_tpu_torch.train import lora, train_lib, trainer
+    tx = train_lib.default_optimizer(learning_rate=tcfg.learning_rate,
+                                     warmup_steps=tcfg.warmup_steps,
+                                     total_steps=tcfg.total_steps)
+    t0 = time.perf_counter()
+    state = lora.resume_state(tx, tcfg.lora_dir, lcfg, 'cuda')
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    mu = train_lib.leaves(state.opt_state.mu)
+    mu_min = min(float(m.abs().max()) for m in mu)
+    if state.step != LORA_STEPS or state.opt_state.count != LORA_STEPS or \
+            mu_min == 0:
+        fail(f'[lora] restored step {state.step}, count '
+             f'{state.opt_state.count}, smallest max|mu| {mu_min}')
+    copy = tcfg.lora_dir + '_copy'
+    t0 = time.perf_counter()
+    lora.save_adapters(copy, state, lcfg)
+    t_save = time.perf_counter() - t0
+    shutil.rmtree(copy)
+    # One step of the restored state on the next batch (run once first,
+    # so that nothing is built inside the window) under the profiler.
+    batch = loader.to_device(spec_lib.load_source(spec_lib.DatasetSpec(
+        HF_B, TRAIN_S, cfg.vocab_size)).batch_at_step(LORA_STEPS), 'cuda')
+    lora_grads(torch, cfg, base, state.adapters, lcfg, batch)
+    step_fn = lora.make_lora_train_step(cfg, tx, lcfg)
+    step_fn(state, base, batch)
+    log('[lora] one step of the restored adapters under the profiler:')
+    profile_device(torch, lambda: step_fn(state, base, batch))
+    del state, batch
+    free_card(torch)
+    build.reset_launches()
+    hist = trainer.train(dataclasses.replace(tcfg,
+                                             total_steps=LORA_STEPS + 1))
+    launches = launch_counts(build)
+    _, _, step, opt_leaves = lora.load_adapters(tcfg.lora_dir)
+    n = cfg.n_layers
+    want = {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
+            'paged_decode': 0}
+    log(f'[lora] restored {len(mu)} moment leaves of step {LORA_STEPS} in '
+        f'{t_restore:.2f}s (count {LORA_STEPS}, smallest max|mu| '
+        f'{mu_min:.3e}: from disk, not a fresh init); a save of the state '
+        f'{t_save:.2f}s; the resumed run {[r["step"] for r in hist]}, loss '
+        f'{[r["loss"] for r in hist]}, launches {launches}; saved step '
+        f'{step}, count {int(opt_leaves[0])}')
+    if [r['step'] for r in hist] != [LORA_STEPS + 1] or launches != want or \
+            step != LORA_STEPS + 1 or int(opt_leaves[0]) != LORA_STEPS + 1:
+        fail(f'[lora] resume ran {hist}, launches {launches} (want {want}), '
+             f'saved step {step}, count {int(opt_leaves[0])}')
+
+
+def lora_merge_check(torch, base, hf_dir: str, lora_dir: str,
+                     out: str) -> dict:
+    """`python -m skypilot_tpu_torch.train.lora_merge` (main, no
+    --device: the card) into ``out``, re-imported: each targeted leaf
+    bit-equal to the in-process merge_into of the saved adapters and
+    changed from the base, every other leaf bit-equal to the base.
+    Returns the merged params (bf16, on the card)."""
+    from skypilot_tpu_torch.models import hf_import, weights
+    from skypilot_tpu_torch.train import lora, lora_merge
+    t0 = time.perf_counter()
+    lora_merge.main(['--hf-dir', hf_dir, '--lora-dir', lora_dir,
+                     '--out', out])
+    t_merge = time.perf_counter() - t0
+    _, merged = hf_import.load_hf_checkpoint(out, device='cuda')
+    adapters, lcfg, step, _ = lora.load_adapters(lora_dir, 'cuda')
+    with torch.no_grad():
+        want = lora.merge_into(base, adapters, lcfg)
+    targeted = {path for path, _ in weights.tree_paths(base)
+                if weights.slash_key(path) in adapters}
+    bad, changed = [], 0
+    for (path, got), (_, w), (_, b) in zip(weights.tree_paths(merged),
+                                           weights.tree_paths(want),
+                                           weights.tree_paths(base)):
+        if not bits_equal(torch, got, w if path in targeted else b):
+            bad.append(path)
+        changed += path in targeted and not bits_equal(torch, got, b)
+    log(f'[lora] lora_merge of step {step} in {t_merge:.1f}s (load, merge, '
+        f'export); re-imported: {len(targeted)} targeted leaves == '
+        f'merge_into bit for bit ({changed} changed from the base), the '
+        f'other {len(weights.tree_paths(merged)) - len(targeted)} == the base '
+        f'bit for bit; bad {bad}')
+    if bad or changed != len(targeted):
+        fail(f'[lora] merged leaves off: {bad}, {changed} of '
+             f'{len(targeted)} targeted changed')
+    return merged
+
+
+def lora_serve(torch, build, engine_lib, decode, cfg, params) -> dict:
+    """The merged tree served: InferenceEngine(params=..., the byte
+    tokenizer) behind build_app, 3 greedy /generate; kernels A and B
+    must launch; the greedy tokens against decode.generate. Returns the
+    launch counts from the engine's construction on."""
+    from skypilot_tpu_torch.models import llama
+    tag = '[lora serve]'
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    eng = engine_lib.InferenceEngine(HF_MODEL, cfg=cfg, params=params,
+                                     device='cuda', seed=0)
+    eng, server, base = serve_engine(eng, engine_lib, tag)
+    try:
+        rng = np.random.default_rng(17)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in (23, 300, 700)]
+        answers = [doc['tokens'] for _, doc in generate_all(
+            base, [{'tokens': p, 'max_new_tokens': LORA_NEW}
+                   for p in prompts], cfg.vocab_size)]
+        launches = launch_counts(build)
+        log(f'{tag} the merged llama3.2-1b built and warm in '
+            f'{time.perf_counter() - t0:.1f}s; 3 /generate (23/300/700 '
+            f'tokens, {LORA_NEW} new) ok; launches {launches}; peak '
+            f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
+        if not launches.get('flash_fwd') or \
+                not launches.get('paged_decode'):
+            fail(f'{tag} kernels A and B must launch: {launches}')
+    finally:
+        stop_engine(eng, server)
+    held_against_generate(torch, decode, llama, eng.cfg, eng.params,
+                          prompts, answers, tag)
+    del eng, server
+    return launches
+
+
+def phase_lora(torch, build, engine_lib, decode, hf_dir: str) -> dict:
+    """LoRA on llama3.2-1b whole from ``hf_dir``: lora_train, lora_resume,
+    lora_merge_check, lora_serve; the adapters and the merged directory
+    live beside ``hf_dir`` and are removed. Returns the launch counts of
+    the paths 'train_lora' and 'serve_lora'."""
+    import shutil
+    from skypilot_tpu_torch.models import hf_import
+    from skypilot_tpu_torch.train import lora, trainer
+    t0 = time.perf_counter()
+    root = os.path.dirname(hf_dir)
+    lora_dir = os.path.join(root, 'adapters')
+    merged_dir = os.path.join(root, 'merged')
+    paths = {}
+    try:
+        cfg, base = hf_import.load_hf_checkpoint(hf_dir, device='cuda')
+        tcfg = trainer.TrainerConfig(
+            model=HF_MODEL, hf_dir=hf_dir, batch_size=HF_B, seq_len=TRAIN_S,
+            total_steps=LORA_STEPS, warmup_steps=TRAIN_WARMUP, log_every=1,
+            lora_rank=LORA_RANK, lora_dir=lora_dir, ckpt_every=LORA_STEPS,
+            device='cuda')
+        paths['train_lora'] = lora_train(torch, build, cfg, base, tcfg)
+        free_card(torch)
+        lora_resume(torch, build, cfg, base, tcfg,
+                    lora.LoRAConfig(rank=LORA_RANK))
+        free_card(torch)
+        merged = lora_merge_check(torch, base, hf_dir, lora_dir, merged_dir)
+        del base
+        free_card(torch)
+        paths['serve_lora'] = lora_serve(torch, build, engine_lib, decode,
+                                         cfg, merged)
+        del merged
+    finally:
+        shutil.rmtree(lora_dir, ignore_errors=True)
+        shutil.rmtree(merged_dir, ignore_errors=True)
+    log(f'[lora] phase took {time.perf_counter() - t0:.1f}s')
+    return paths
+
+
+def even_share(prompt, completion) -> float:
+    """GRPO's reward here: the share of even token ids in the completion
+    (a spread in every group, so advantages and grads are non-zero)."""
+    return float((np.asarray(completion) % 2 == 0).mean())
+
+
+def grpo_vs_plain(torch, tr, ro, prompts, lens) -> None:
+    """Kernels A, C and D at the shapes GRPO gives them, held against the
+    plain attention in bf16 and in fp32 on the trainer's weights (its
+    fp32 masters): generate's prefill logits on the group-major ragged
+    ``prompts`` (a_vs_plain at B = prompts x group, S = GRPO_S, lengths
+    ``lens``), token_logprobs on ``ro``'s packed rows (B = prompts x
+    group, L = GRPO_S + GRPO_NEW - 1), and the grads of one update's
+    loss on ``ro`` (check_grads on grpo.grpo_loss). Call it before the
+    first update, while the masters hold the imported bf16 values: the
+    fp32 path then runs the weights the bf16 paths round to, not an
+    update smaller than their ulp."""
+    import dataclasses
+    from skypilot_tpu_torch.models import decode
+    from skypilot_tpu_torch.train import grpo
+    cfg, gcfg, params = tr.cfg, tr.gcfg, tr.state.params
+    rep = prompts.to('cuda').repeat_interleave(gcfg.group_size, dim=0)
+    rep_lens = lens.to('cuda').repeat_interleave(gcfg.group_size)
+    max_len = rep.shape[1] + gcfg.max_new_tokens
+    p16 = decode.cast_params_for_decode(params, cfg)
+    p32 = decode.cast_params_for_decode(
+        params, dataclasses.replace(cfg, dtype=torch.float32))
+    a_vs_plain(torch, lambda c, p: decode.prefill_cache(
+        p, rep, c, max_len, lengths=rep_lens)[0], cfg, p16, p32, '[grpo]',
+        f'generate\'s prefill logits (B={rep.shape[0]}, S={rep.shape[1]}, '
+        f'ragged lengths {lens.tolist()} x {gcfg.group_size})')
+    del p16
+    a_vs_plain(torch, lambda c, p: grpo.token_logprobs(
+        p, ro.seq, c, tr.mod, gcfg.temperature)[0], cfg, params, p32,
+        '[grpo]', f'token_logprobs on the packed rows (B={ro.seq.shape[0]}, '
+        f'L={ro.seq.shape[1] - 1})')
+    del p32
+    free_card(torch)
+
+    def loss_fn(c, p):
+        return grpo.grpo_loss(p, c, gcfg, tr.mod, ro.seq, ro.comp_idx,
+                              ro.behavior_lp, ro.adv, ro.mask, ro.ref_lp)[0]
+    check_grads(torch, cfg, params, None, '[grpo]', loss_fn=loss_fn)
+    free_card(torch)
+
+
+def phase_grpo(torch, build, hf_dir: str) -> dict:
+    """GRPO on llama3.2-1b whole (fp32 masters from ``hf_dir``) through
+    GRPOTrainer: GRPO_ITERS iterations, each a rollout (generate's
+    prefill through A, the behaviour and reference scoring through A)
+    and an update (A twice a layer with remat, C and D once), timed;
+    the first on ragged prompts, its mean_ratio 1 within TOL_RATIO; the
+    first iteration's rows scored again after its update must differ
+    from their behaviour log-probs (the next rollout samples the moved
+    policy); peak memory. Then the first iteration again from the same
+    seeds on a second trainer, its differences printed; between its
+    rollout and its update, A, C and D at these shapes against the plain
+    attention (grpo_vs_plain). Returns the launch counts of the main
+    run."""
+    from skypilot_tpu_torch.models import hf_import, weights
+    from skypilot_tpu_torch.train import grpo, train_lib
+    t_phase = time.perf_counter()
+    cfg, p32 = hf_import.load_hf_checkpoint(hf_dir, dtype=torch.float32,
+                                            device='cuda')
+    again = weights.tree_unflatten(p32, [t.clone() for t in
+                                         train_lib.leaves(p32)])
+    eos = hf_import.hf_eos_ids(hf_dir)[0]
+    gcfg = grpo.GRPOConfig(group_size=GRPO_G, max_new_tokens=GRPO_NEW,
+                           temperature=1.0, kl_coef=GRPO_KL)
+    rng = np.random.default_rng(19)
+    prompts = [torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (GRPO_PROMPTS, GRPO_S)).astype(np.int32))
+        for _ in range(GRPO_ITERS)]
+    lens = torch.tensor(GRPO_LENS, dtype=torch.int32)
+
+    def make(params):
+        return grpo.GRPOTrainer(
+            cfg, gcfg, even_share, eos_id=eos, init_params=params, seed=0,
+            device='cuda', tx=train_lib.default_optimizer(
+                learning_rate=GRPO_LR, warmup_steps=0, total_steps=100))
+
+    def timed_iteration(tr, i):
+        t0 = time.perf_counter()
+        ro = tr.rollout(prompts[i], lens if i == 0 else None)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = tr.update(ro)
+        torch.cuda.synchronize()
+        return ro, m, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    tr = make(p32)
+    del p32
+    build.reset_launches()
+    ro1, m1, roll_ms, upd_ms = timed_iteration(tr, 0)
+    log(f'[grpo] iteration 1 (ragged prompts {list(GRPO_LENS)}): rollout '
+        f'{roll_ms:.1f} ms, update {upd_ms:.1f} ms; {json.dumps(m1)}')
+    before = launch_counts(build)
+    with torch.no_grad():
+        lp, _ = grpo.token_logprobs(tr.state.params, ro1.seq, cfg, tr.mod)
+        moved = float((lp.gather(1, ro1.comp_idx) -
+                       ro1.behavior_lp).abs().max())
+    extra = {k: v - before[k] for k, v in launch_counts(build).items()}
+    for i in range(1, GRPO_ITERS):
+        _, m, roll_ms, upd_ms = timed_iteration(tr, i)
+        log(f'[grpo] iteration {i + 1}: rollout {roll_ms:.1f} ms, update '
+            f'{upd_ms:.1f} ms; {json.dumps(m)}')
+    launches = {k: v - extra[k] for k, v in launch_counts(build).items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = cfg.n_layers * GRPO_ITERS
+    want = {'flash_fwd': 5 * n, 'flash_dq': n, 'flash_dkv': n,
+            'paged_decode': 0}
+    log(f'[grpo] llama3.2-1b, {GRPO_PROMPTS} prompts x group {GRPO_G}, '
+        f'{GRPO_S}-token prompts, {GRPO_NEW} new, kl {GRPO_KL}, '
+        f'{GRPO_ITERS} iterations: launches {launches} (want {want}); peak '
+        f'memory {peak:.2f} GB; first mean_ratio {m1["mean_ratio"]!r} (tol '
+        f'{TOL_RATIO}); iteration 1\'s rows after its update: max|lp - '
+        f'behaviour lp| {moved:.3e} (the next rollout samples a moved '
+        f'policy)')
+    if launches != want:
+        fail(f'[grpo] launches {launches} != {want}')
+    if abs(m1['mean_ratio'] - 1.0) > TOL_RATIO or moved == 0 or \
+            not all(np.isfinite(v) for v in m1.values()):
+        fail(f'[grpo] first iteration {m1}, moved {moved}')
+    log('[grpo] one more iteration (rollout and update) under the '
+        'profiler:')
+    profile_device(torch, lambda: tr.iteration(prompts[-1]))
+    del tr
+    free_card(torch)
+    tr = make(again)
+    del again
+    ro = tr.rollout(prompts[0], lens)
+    grpo_vs_plain(torch, tr, ro, prompts[0], lens)
+    m = tr.update(ro)
+    diffs = {'completions_equal': bool(torch.equal(ro.completions,
+                                                   ro1.completions)),
+             'behavior_lp': float((ro.behavior_lp - ro1.behavior_lp)
+                                  .abs().max()),
+             'ref_lp': float((ro.ref_lp - ro1.ref_lp).abs().max()),
+             **{k: abs(m[k] - m1[k]) for k in m1}}
+    log(f'[grpo] the first iteration again from the same seeds, |diff| by '
+        f'stage: {json.dumps(diffs)}')
+    del tr, ro, ro1
+    free_card(torch)
+    log(f'[grpo] phase took {time.perf_counter() - t_phase:.1f}s')
+    return launches
 
 
 def free_card(torch) -> None:
@@ -3302,7 +3787,8 @@ def main() -> None:
                         'serve_gemma,'
                         'gemma_switches,model_moe,serve_moe,serve_gptoss,'
                         'model_mla,serve_mla,serve_deepseek_v2,'
-                        'train_gemma,train,train_moe,train_mla,hf',
+                        'train_gemma,train,train_moe,train_mla,hf,lora,'
+                        'grpo',
                         help='comma-separated '
                         'subset (for '
                         'debugging; the full run is the check)')
@@ -3488,11 +3974,23 @@ def main() -> None:
         by_path['train_mla'] = phase_train_mla(torch, build)
         free_card(torch)
     lap('train_mla')
-    if 'hf' in phases:
-        by_path.update(phase_hf(torch, build, engine_lib, decode))
-        free_card(torch)
-
-    lap('hf')
+    try:
+        if 'hf' in phases:
+            by_path.update(phase_hf(torch, build, engine_lib, decode))
+            free_card(torch)
+        lap('hf')
+        if 'lora' in phases:
+            by_path.update(phase_lora(torch, build, engine_lib, decode,
+                                      llama_hf_dir(torch)))
+            free_card(torch)
+        lap('lora')
+        if 'grpo' in phases:
+            by_path['grpo'] = phase_grpo(torch, build, llama_hf_dir(torch))
+            free_card(torch)
+        lap('grpo')
+    finally:
+        import shutil
+        shutil.rmtree(os.path.join(HERE, '.smoke_hf'), ignore_errors=True)
     replaces = {
         'flash_fwd': 'skypilot_tpu/ops/pallas/flash_attention.py:63',
         'flash_dq': 'skypilot_tpu/ops/pallas/flash_attention.py:159',
@@ -3506,7 +4004,9 @@ def main() -> None:
              'batch_infer': ('flash_fwd',),
              'train': TRAIN_KERNELS, 'train_gemma': TRAIN_KERNELS,
              'train_moe': TRAIN_KERNELS, 'train_mla': TRAIN_KERNELS,
-             'train_hf': TRAIN_KERNELS, 'serve_hf': SERVE_KERNELS}
+             'train_hf': TRAIN_KERNELS, 'serve_hf': SERVE_KERNELS,
+             'train_lora': TRAIN_KERNELS, 'serve_lora': SERVE_KERNELS,
+             'grpo': TRAIN_KERNELS}
     rows = []
     for name, kern in build.kernels().items():
         t = times.get(name, {})

@@ -8,6 +8,10 @@ exactly that layout (models/llama.py multiplies ``h @ w``), so the
 bridge is a per-leaf copy with a dtype and a device; nothing is
 transposed.
 
+LoRA adapters are ``{key: {'a', 'b'}}`` in both packages (key the
+'/'-joined path of the adapted leaf, e.g. 'layers/wq'), bridged by
+:func:`adapters_from_jax` and :func:`adapters_to_numpy`.
+
 The JAX train state is ``TrainState(step, params, opt_state)`` with the
 optax state of ``default_optimizer``: ``(EmptyState(),
 (ScaleByAdamState(count, mu, nu), EmptyState(),
@@ -87,18 +91,63 @@ def tree_paths(tree: Mapping[str, Any], prefix: str = ''
     return out
 
 
-def train_state_leaves(state) -> List[Tuple[str, Any]]:
-    """The port's TrainState as the JAX TrainState flattens: (checkpoint
-    path, leaf) in order; a leaf is a tensor, or an int for the step and
-    the two optax counts (both the port's ``opt_state.count``)."""
-    opt = state.opt_state
-    out = [('.step', state.step)]
-    out += [('.params' + p, t) for p, t in tree_paths(state.params)]
-    out.append((f'{ADAM_PATH}.count', opt.count))
+def slash_key(path: str) -> str:
+    """A :func:`tree_paths` path (``"['layers']['wq']"``) as the
+    '/'-joined key the JAX package's LoRA adapters use
+    (``'layers/wq'``)."""
+    return '/'.join(path[2:-2].split("']['"))
+
+
+def tree_unflatten(template: Mapping[str, Any], leaves: List[Any]) -> dict:
+    """The nested dict shaped like ``template`` whose leaves are
+    ``leaves`` taken in :func:`tree_paths` order (the inverse of
+    flattening a tree of that structure)."""
+    want = len(tree_paths(template))
+    if len(leaves) != want:
+        raise ValueError(f'{len(leaves)} leaves for a tree of {want}')
+    it = iter(leaves)
+
+    def build(tree):
+        return {key: build(tree[key]) if isinstance(tree[key], Mapping)
+                else next(it) for key in sorted(tree)}
+    return build(template)
+
+
+def opt_state_leaves(opt) -> List[Tuple[str, Any]]:
+    """The port's OptState as the optax state of ``default_optimizer``
+    flattens (``jax.tree.leaves`` order): the adam count, the mu leaves,
+    the nu leaves (each tree in sorted-key order), the schedule count;
+    (path, leaf) pairs, the two counts the int ``opt.count``."""
+    out = [(f'{ADAM_PATH}.count', opt.count)]
     out += [(f'{ADAM_PATH}.mu' + p, t) for p, t in tree_paths(opt.mu)]
     out += [(f'{ADAM_PATH}.nu' + p, t) for p, t in tree_paths(opt.nu)]
     out.append((SCHEDULE_COUNT_PATH, opt.count))
     return out
+
+
+def train_state_leaves(state) -> List[Tuple[str, Any]]:
+    """The port's TrainState as the JAX TrainState flattens: (checkpoint
+    path, leaf) in order; a leaf is a tensor, or an int for the step and
+    the two optax counts (both the port's ``opt_state.count``)."""
+    out = [('.step', state.step)]
+    out += [('.params' + p, t) for p, t in tree_paths(state.params)]
+    return out + opt_state_leaves(state.opt_state)
+
+
+def adapters_from_jax(adapters: Mapping[str, Mapping[str, Any]],
+                      device='cuda') -> dict:
+    """LoRA adapters ``{key: {'a', 'b'}}`` of numpy arrays (the JAX
+    package's ``init_adapters`` or ``load_adapters`` tree, through
+    ``jax.device_get``) → the same tree of fp32 tensors on ``device``."""
+    return {key: {part: torch.from_numpy(np.array(a, dtype=np.float32)).to(
+        device) for part, a in ab.items()} for key, ab in adapters.items()}
+
+
+def adapters_to_numpy(adapters: Mapping[str, Mapping[str, Any]]) -> dict:
+    """The port's adapters → ``{key: {'a', 'b'}}`` of fp32 numpy arrays,
+    the tree the JAX package's ``merge_into`` and train step take."""
+    return {key: {part: t.detach().float().cpu().numpy()
+                  for part, t in ab.items()} for key, ab in adapters.items()}
 
 
 def leaf_spec(leaf: Any) -> Tuple[Tuple[int, ...], str]:

@@ -7,6 +7,9 @@ checkpoints (port of skypilot_tpu/train/trainer.py on one card).
     python -m skypilot_tpu_torch.train.trainer --hf-dir ./Llama-3.2-1B \\
         --batch-size 4 --seq-len 2048 --steps 100 --ckpt-dir ./ft
 
+    python -m skypilot_tpu_torch.train.trainer --hf-dir ./Llama-3.2-1B \\
+        --lora-rank 16 --lora-dir ./adapters --batch-size 4 --seq-len 2048
+
 Step-indexed input (data_service/spec.py: the synthetic stream, or a
 corpus with ``--data``), periodic async checkpoints in the JAX
 package's format, resume from the newest step, and a final save on
@@ -16,10 +19,15 @@ aux joins the loss; train/train_lib.py). ``--hf-dir`` fine-tunes an HF
 checkpoint (models/hf_import.py): its config replaces the preset (the
 overrides still apply), and its weights, read in fp32 as the masters,
 start a fresh run only; a resumed run restores its own checkpoint and
-never reads them. The trainer runs on the card (``--device cuda``, the
-default) and raises without one; tests pass ``device='cpu'``.
+never reads them. ``--lora-rank`` trains LoRA adapters over a frozen
+base (train/lora.py): the base is the ``--hf-dir`` checkpoint at its
+stored dtype, else the preset's seed-0 init; adapters, moments and step
+save to and resume from ``--lora-dir`` (exclusive with ``--ckpt-dir``
+and ``--grad-accum``, as in JAX); evaluation runs on the merged params.
+The trainer runs on the card (``--device cuda``, the default) and
+raises without one; tests pass ``device='cpu'``.
 
-Not ported yet, and refused by name: meshes (``--mesh``), LoRA,
+Not ported yet, and refused by name: meshes (``--mesh``),
 ``--sft-data`` and ``--data-service``. Failpoints, spans and the
 batch-wait histogram wait for a later slice too (ROADMAP Queue 1 item
 5).
@@ -31,6 +39,7 @@ import contextlib
 import dataclasses
 import json
 import logging
+import os
 import signal
 import threading
 import time
@@ -41,8 +50,8 @@ import torch
 from skypilot_tpu_torch import config
 from skypilot_tpu_torch.data import loader
 from skypilot_tpu_torch.data_service import spec as spec_lib
-from skypilot_tpu_torch.models import hf_import
-from skypilot_tpu_torch.train import checkpoints, train_lib
+from skypilot_tpu_torch.models import hf_import, module_for
+from skypilot_tpu_torch.train import checkpoints, lora, train_lib
 
 logger = logging.getLogger('skypilot_tpu_torch.train.trainer')
 
@@ -72,7 +81,10 @@ class TrainerConfig:
     eval_every: int = 50
     eval_batches: int = 8
     lora_rank: int = 0
+    lora_alpha: float = 32.0
+    lora_targets: Optional[List[str]] = None    # None → lora.DEFAULT_TARGETS
     hf_dir: Optional[str] = None
+    lora_dir: Optional[str] = None
     sft_data_path: Optional[str] = None
     data_service: Optional[str] = None
     device: str = 'cuda'
@@ -82,7 +94,6 @@ class TrainerConfig:
 # ROADMAP Queue 1 item that brings it.
 _UNPORTED = (
     ('mesh', '--mesh', 'item 8 (parallelism and multi-process)'),
-    ('lora_rank', '--lora-rank (LoRA)', 'item 7 (fine-tuning and RL)'),
     ('sft_data_path', '--sft-data', 'item 5 (training: SFT data)'),
     ('data_service', '--data-service',
      'item 5 (training: the data-service client)'),
@@ -147,7 +158,8 @@ def train(tcfg: TrainerConfig,
     norm, seconds per step, eval loss). ``params`` seeds a fresh run (no
     checkpoint to resume): bridged JAX params, say; default the
     ``hf_dir`` checkpoint's weights, else random from seed 0. The run
-    updates them in place."""
+    updates them in place. With ``lora_rank`` they are the frozen base,
+    read only."""
     _refuse_unported(tcfg)
     device = torch.device(tcfg.device)
     if device.type == 'cuda' and not torch.cuda.is_available():
@@ -171,6 +183,15 @@ def train(tcfg: TrainerConfig,
     else:
         cfg = _model_config(tcfg)
     config.check_supported(cfg)
+    lora_mode = tcfg.lora_rank > 0
+    if lora_mode and tcfg.ckpt_dir:
+        raise ValueError('--lora-rank and --ckpt-dir are exclusive: LoRA '
+                         'persists adapters to --lora-dir instead.')
+    if lora_mode and tcfg.grad_accum_steps > 1:
+        raise ValueError('--grad-accum is not supported with --lora-rank '
+                         'yet; lower --batch-size instead (LoRA peak '
+                         'memory is dominated by activations, same as the '
+                         'full step).')
     if tcfg.batch_size % tcfg.grad_accum_steps != 0:
         raise ValueError(f'batch_size={tcfg.batch_size} must be divisible '
                          f'by grad_accum_steps={tcfg.grad_accum_steps}')
@@ -179,16 +200,50 @@ def train(tcfg: TrainerConfig,
                                      total_steps=tcfg.total_steps)
     ckpt = None
     start_step = 0
-    if load_base is not None and (
-            not tcfg.ckpt_dir or
-            checkpoints.Checkpointer(tcfg.ckpt_dir).latest_step() is None):
-        params = load_base()
-    if tcfg.ckpt_dir:
-        state, start_step, ckpt = checkpoints.restore_or_init(
-            tcfg.ckpt_dir, cfg, tx, device, params)
+    if lora_mode:
+        lcfg = lora.LoRAConfig(
+            rank=tcfg.lora_rank, alpha=tcfg.lora_alpha,
+            targets=tuple(tcfg.lora_targets or lora.DEFAULT_TARGETS))
+        if tcfg.hf_dir:
+            # The frozen base keeps its stored dtype: merge_into does
+            # its math in fp32 and casts back.
+            params = hf_import.load_hf_checkpoint(tcfg.hf_dir,
+                                                  device=device)[1]
+        elif params is None:
+            params = module_for(cfg).init_params(
+                cfg, torch.Generator(device=device).manual_seed(0), device)
+        base = params
+        if tcfg.lora_dir and os.path.exists(os.path.join(
+                os.path.expanduser(tcfg.lora_dir), 'adapters.npz')):
+            state = lora.resume_state(tx, tcfg.lora_dir, lcfg, device)
+            start_step = state.step
+            logger.info('Resumed LoRA adapters at step %d from %s.',
+                        start_step, tcfg.lora_dir)
+        else:
+            state = lora.init_lora_state(
+                torch.Generator(device=device).manual_seed(1), base, lcfg,
+                tx)
+        lora_step = lora.make_lora_train_step(cfg, tx, lcfg)
+
+        def step_fn(s, b):
+            return lora_step(s, base, b)
+
+        def eval_params():
+            return lora.merge_into(base, state.adapters, lcfg)
     else:
-        state = train_lib.init_train_state(cfg, tx, device, params=params)
-    step_fn = train_lib.make_train_step(cfg, tx, tcfg.grad_accum_steps)
+        if load_base is not None and (
+                not tcfg.ckpt_dir or
+                checkpoints.Checkpointer(tcfg.ckpt_dir).latest_step() is None):
+            params = load_base()
+        if tcfg.ckpt_dir:
+            state, start_step, ckpt = checkpoints.restore_or_init(
+                tcfg.ckpt_dir, cfg, tx, device, params)
+        else:
+            state = train_lib.init_train_state(cfg, tx, device, params=params)
+        step_fn = train_lib.make_train_step(cfg, tx, tcfg.grad_accum_steps)
+
+        def eval_params():
+            return state.params
     batches = _batch_iter(tcfg, cfg.vocab_size, start_step, device)
 
     eval_fn = None
@@ -199,13 +254,21 @@ def train(tcfg: TrainerConfig,
         def eval_fn() -> float:
             # Fixed batches 0..K-1 of the eval corpus: comparable across
             # steps and across resumed runs.
+            with torch.no_grad():
+                p = eval_params()
             total = 0.0
             for i in range(tcfg.eval_batches):
                 eb = loader.batch_at_step(eval_tokens, i, tcfg.batch_size,
                                           tcfg.seq_len)
-                total += float(eval_step(state.params, loader.to_device(
+                total += float(eval_step(p, loader.to_device(
                     {'tokens': eb}, device)))
             return total / tcfg.eval_batches
+
+    def save_adapters() -> bool:
+        if lora_mode and tcfg.lora_dir:
+            lora.save_adapters(tcfg.lora_dir, state, lcfg)
+            return True
+        return False
 
     history: List[Dict[str, float]] = []
     t_last = time.perf_counter()
@@ -242,16 +305,22 @@ def train(tcfg: TrainerConfig,
                 if ckpt is not None and save_due:
                     ckpt.save(state, step + 1)
                     t_last_save = time.monotonic()
+                if save_due and save_adapters():
+                    t_last_save = time.monotonic()
                 if watch.preempted:
                     # Preemption notice: one synchronous final save.
                     if ckpt is not None:
                         ckpt.save(state, step + 1, wait=True)
+                    saved = save_adapters()
                     logger.info(json.dumps(
                         {'step': step + 1, 'preempted': True,
-                         'final_checkpoint': ckpt is not None}))
+                         'final_checkpoint': ckpt is not None or saved}))
                     return history
             if ckpt is not None:
                 ckpt.save(state, tcfg.total_steps)
+            if tcfg.total_steps % tcfg.ckpt_every != 0:
+                # The in-loop cadence already saved on aligned totals.
+                save_adapters()
     finally:
         if ckpt is not None:
             ckpt.close()     # async saves are durable before we return
@@ -300,9 +369,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--hf-dir', default=None,
                         help='HF checkpoint to fine-tune from (config and '
                              'base weights; the preset is ignored).')
+    parser.add_argument('--lora-rank', type=int, default=0,
+                        help='>0 trains LoRA adapters instead of full '
+                             'params (train/lora.py).')
+    parser.add_argument('--lora-alpha', type=float, default=32.0)
+    parser.add_argument('--lora-targets', default=None,
+                        help='Comma list of leaf names to adapt '
+                             '(default: wq,wk,wv,wo).')
+    parser.add_argument('--lora-dir', default=None,
+                        help='Directory for adapters.npz (save/resume).')
     # Flags of the JAX trainer that the port refuses by name.
     parser.add_argument('--mesh', default='')
-    parser.add_argument('--lora-rank', type=int, default=0)
     parser.add_argument('--sft-data', default=None)
     parser.add_argument('--data-service', default=None)
     return parser
@@ -326,7 +403,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         ckpt_time_interval=args.ckpt_time_interval,
         grad_accum_steps=args.grad_accum, eval_data_path=args.eval_data,
         eval_every=args.eval_every, eval_batches=args.eval_batches,
-        lora_rank=args.lora_rank, hf_dir=args.hf_dir,
+        lora_rank=args.lora_rank, lora_alpha=args.lora_alpha,
+        lora_targets=([t.strip() for t in args.lora_targets.split(',')
+                       if t.strip()] if args.lora_targets else None),
+        hf_dir=args.hf_dir, lora_dir=args.lora_dir,
         sft_data_path=args.sft_data, data_service=args.data_service,
         device=args.device))
 

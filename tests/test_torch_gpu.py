@@ -1163,3 +1163,74 @@ def test_int8_engine_burst(cuda):
         eng.stop()
     assert all(len(t) == 16 and max(t) < cfg.vocab_size for t in burst)
     assert pa.KERNEL.launches > b0
+
+
+def _hd64_cfg():
+    """llama3.2-1b's attention shape (head_dim 64, GQA 4) at 2 narrow
+    layers and a narrow vocab: kernels A, C and D take it."""
+    cfg = dataclasses.replace(config.get_config('llama3.2-1b'), n_layers=2,
+                              vocab_size=512, dim=512, n_heads=8,
+                              n_kv_heads=2, ffn_dim=256)
+    assert cfg.remat == 'full' and cfg.hd == 64
+    return cfg
+
+
+def test_lora_step_on_card_launches_a_c_d(cuda):
+    """One LoRA step over a bf16 base (as an HF checkpoint is read) with
+    B non-zero: A twice a layer (forward, recompute), C and D once; the
+    base's bits unchanged, every adapter leaf moved, loss finite."""
+    from skypilot_tpu_torch.train import lora
+    cfg = _hd64_cfg()
+    base = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             cuda, dtype=torch.bfloat16)
+    before = [t.clone() for t in train_lib.leaves(base)]
+    lcfg = lora.LoRAConfig(rank=8)
+    tx = train_lib.default_optimizer(warmup_steps=0, total_steps=10)
+    state = lora.init_lora_state(torch.Generator(device=cuda).manual_seed(1),
+                                 base, lcfg, tx)
+    with torch.no_grad():
+        for ab in state.adapters.values():
+            ab['b'].normal_(0, 0.02, generator=torch.Generator(
+                device=cuda).manual_seed(2))
+    start = [t.detach().clone() for t in train_lib.leaves(state.adapters)]
+    tokens = torch.randint(0, cfg.vocab_size, (2, 257), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(3))
+    build.reset_launches()
+    _, m = lora.make_lora_train_step(cfg, tx, lcfg)(state, base,
+                                                    {'tokens': tokens})
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert {k: v.launches for k, v in build.kernels().items()} == \
+        {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
+         'paged_decode': 0}
+    assert np.isfinite(float(m['loss'])) and float(m['grad_norm']) > 0
+    for a, b in zip(train_lib.leaves(base), before):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    for a, b in zip(train_lib.leaves(state.adapters), start):
+        assert not torch.equal(a.detach(), b)
+
+
+def test_grpo_iteration_on_card_launches_a_c_d(cuda):
+    """One GRPO iteration on ragged prompts with a KL reference: A once a
+    layer in generate's prefill, in the behaviour and the reference
+    scoring, twice in the update (remat); C and D once a layer; the
+    first iteration's mean_ratio 1 within 1e-3."""
+    from skypilot_tpu_torch.train import grpo
+    cfg = _hd64_cfg()
+    tr = grpo.GRPOTrainer(
+        cfg, grpo.GRPOConfig(group_size=4, max_new_tokens=8, kl_coef=0.1),
+        lambda p, c: float((np.asarray(c) % 2 == 0).mean()),
+        tx=train_lib.default_optimizer(learning_rate=1e-3, warmup_steps=0,
+                                       total_steps=10), seed=0, device=cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 16), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(4))
+    build.reset_launches()
+    m = tr.iteration(prompts, torch.tensor([16, 9], dtype=torch.int32))
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert {k: v.launches for k, v in build.kernels().items()} == \
+        {'flash_fwd': 5 * n, 'flash_dq': n, 'flash_dkv': n,
+         'paged_decode': 0}
+    assert m['mean_ratio'] == pytest.approx(1.0, abs=1e-3), m
+    assert all(np.isfinite(v) for v in m.values()), m

@@ -842,7 +842,8 @@ def test_trainer_hf_dir_resume_never_reads_the_hf_weights(
                         lambda *a, **kw: pytest.fail('resume read HF weights'))
     trainer.main(argv + ['--steps', '3'])
     assert checkpoints.Checkpointer(str(tmp_path)).latest_step() == 3
-    with pytest.raises(NotImplementedError, match='--lora-rank.*ROADMAP'):
+    with pytest.raises(ValueError, match='--lora-rank and --ckpt-dir are '
+                       'exclusive'):
         trainer.main(argv + ['--steps', '4', '--lora-rank', '4'])
 
 

@@ -50,6 +50,8 @@ def test_forbidden_matches_the_package_not_the_prefix():
 def test_port_sources_import_no_jax_and_no_jax_package():
     files = _port_files()
     assert len(files) > 10
+    for name in ('lora', 'lora_merge', 'grpo'):
+        assert PORT / 'train' / f'{name}.py' in files
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if forbidden(m)]
     assert bad == []

@@ -274,15 +274,30 @@ def test_trainer_defaults_to_cuda_and_refuses_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize('flags', [
-    ['--mesh', 'data=2'], ['--lora-rank', '4'],
+    ['--mesh', 'data=2'], ['--lora-rank', '4', '--mesh', 'data=2'],
     ['--sft-data', 'c.jsonl'], ['--data-service', 'h:1'],
     ['--model', 'moe-debug', '--mesh', 'expert=2'],
-    ['--model', 'GPT_OSS-20b', '--lora-rank', '4']])
+    ['--model', 'GPT_OSS-20b', '--lora-rank', '4', '--mesh', 'expert=2']])
 def test_unported_flags_refused_by_name(flags):
     """The flags the port lacks, on a dense model and on the families
-    that train now."""
+    that train now, LoRA among them (a LoRA run on a mesh waits for the
+    mesh)."""
     with pytest.raises(NotImplementedError, match=f'{flags[-2]}.*ROADMAP'):
         trainer.main(flags + ['--device', 'cpu'])
+
+
+@pytest.mark.parametrize('flags,match', [
+    (['--lora-rank', '4', '--ckpt-dir', 'ck'],
+     '--lora-rank and --ckpt-dir are exclusive'),
+    (['--model', 'moe-debug', '--lora-rank', '4', '--grad-accum', '2'],
+     '--grad-accum is not supported with --lora-rank')])
+def test_lora_exclusivity_refused_as_in_jax(flags, match, tmp_path):
+    """The JAX trainer's two LoRA exclusivity errors, raised before any
+    weight is made (the checkpoint directory is never created)."""
+    flags = [str(tmp_path / f) if f == 'ck' else f for f in flags]
+    with pytest.raises(ValueError, match=match):
+        trainer.main(flags + ['--device', 'cpu'])
+    assert not (tmp_path / 'ck').exists()
 
 
 def _main_records(caplog, argv):
