@@ -184,8 +184,30 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  one chat; then qwen2.5-1.5b (qkv biases) exported and
                  imported bit for bit. Its files live in the git-ignored
                  .smoke_hf/ and are removed (llama3.2-1b's HF directory
-                 after lora and grpo);
- 22. lora      — LoRA on llama3.2-1b whole from that HF directory
+                 after sft, lora and grpo);
+ 22. sft       — real text: the port's own tokenizer.json reader on the
+                 committed fixtures of tests/data (a Llama-3-style and a
+                 Qwen2/ChatML-style byte-level BPE): the golden ids of
+                 the tokenizers library for every golden text with and
+                 without specials, decode(encode(t)) == t, vocab_size,
+                 load seconds and encode tokens/s; then chat SFT on
+                 llama3.2-1b whole from that HF directory with the
+                 Llama-3-style fixture as its tokenizer.json: `trainer
+                 --hf-dir --sft-data tests/data/torch_sft_chat.jsonl
+                 --lora-rank 16`, 3 steps of 4 x 2048 (A 96, C 48, D 48
+                 launches), the first batch's tokens and loss_mask
+                 digest as the JAX package's, the first loss against
+                 the base's masked cross-entropy through the kernels
+                 (TOL_LORA_CE) and the plain attention, the adapters'
+                 grads under the SFT mask against the plain attention in
+                 bf16 and fp32 (TOL_GRAD); `lora_merge` (tokenizer.json
+                 carried); the engine on the merged --hf-dir in-process:
+                 family llama3, <|eot_id|> an eos id, a chat completion
+                 as JSON and SSE with the templated prompt ids equal to
+                 the golden ones (A and B launch); then `python -m
+                 skypilot_tpu_torch.serve.engine --hf-dir MERGED` as a
+                 subprocess: /health and one chat;
+ 23. lora      — LoRA on llama3.2-1b whole from that HF directory
                  (exported here when hf does not run): `trainer --hf-dir
                  --lora-rank 16 --lora-dir`, 3 steps of 4 x 2048 (A 96,
                  C 48, D 48 launches), the first loss against the base's
@@ -202,7 +224,7 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  served by the engine (params, byte tokenizer): 3
                  /generate, A and B launch, greedy tokens against
                  decode.generate;
- 23. grpo      — GRPOTrainer on llama3.2-1b whole (fp32 masters from the
+ 24. grpo      — GRPOTrainer on llama3.2-1b whole (fp32 masters from the
                  HF directory): 4 prompts x group 8, 64-token prompts
                  (ragged at the first iteration), 64 new tokens at
                  temperature 1, kl_coef 0.04 against a reference copy,
@@ -230,6 +252,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import hashlib
 import json
 import os
 import socket
@@ -3222,26 +3245,25 @@ def hf_serve(torch, build, engine_lib, decode, cfg, ck: str) -> dict:
     return launches
 
 
-def hf_cli(ck: str) -> None:
-    """``python -m skypilot_tpu_torch.serve.engine --model HF_MODEL
-    --ckpt-dir ck`` as a user starts it (no --device: the card): /health
-    must answer 200, then one chat completion; the process is stopped
-    and waited for. Its output goes to chiprun_out/hf_cli.log."""
+def engine_cli(flags: list, tag: str, log_name: str, chat=HF_CHAT) -> None:
+    """``python -m skypilot_tpu_torch.serve.engine`` with ``flags``, as a
+    user starts it (no --device: the card): /health must answer 200,
+    then one chat completion of ``chat``; the process is stopped and
+    waited for. Its output goes to chiprun_out/``log_name``."""
     port = free_port()
     base = f'http://127.0.0.1:{port}'
-    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.serve.engine',
-           '--model', HF_MODEL, '--ckpt-dir', ck, '--host', '127.0.0.1',
-           '--port', str(port)]
+    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.serve.engine', *flags,
+           '--host', '127.0.0.1', '--port', str(port)]
     t0 = time.perf_counter()
-    with open(os.path.join(OUT_DIR, 'hf_cli.log'), 'w') as out:
+    with open(os.path.join(OUT_DIR, log_name), 'w') as out:
         proc = subprocess.Popen(cmd, cwd=HERE, stdout=out,
                                 stderr=subprocess.STDOUT)
         try:
             while True:
                 if proc.poll() is not None:
-                    fail(f'[hf cli] {" ".join(cmd[1:])} exited '
+                    fail(f'{tag} {" ".join(cmd[1:])} exited '
                          f'{proc.returncode} before /health (see '
-                         f'chiprun_out/hf_cli.log)')
+                         f'chiprun_out/{log_name})')
                 try:
                     code, _ = http(base + '/health', timeout=5)
                 except (urllib.error.URLError, OSError):
@@ -3249,12 +3271,12 @@ def hf_cli(ck: str) -> None:
                 if code == 200:
                     break
                 if time.perf_counter() - t0 > 300:
-                    fail(f'[hf cli] /health not 200 after 300 s: {code}')
+                    fail(f'{tag} /health not 200 after 300 s: {code}')
                 time.sleep(0.5)
             up = time.perf_counter() - t0
-            code, doc = http(base + '/v1/chat/completions', HF_CHAT)
+            code, doc = http(base + '/v1/chat/completions', chat)
             if code != 200 or doc['choices'][0]['finish_reason'] != 'length':
-                fail(f'[hf cli] chat answered {code}: {doc}')
+                fail(f'{tag} chat answered {code}: {doc}')
         finally:
             proc.terminate()
             try:
@@ -3262,17 +3284,17 @@ def hf_cli(ck: str) -> None:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait()
-    log(f'[hf cli] {" ".join(cmd[1:6])} (no --device) up in {up:.1f}s, '
-        f'a chat completion answered ({doc["usage"]}), stopped: exit '
-        f'{proc.returncode}')
+    log(f'{tag} {" ".join(cmd[1:3 + len(flags)])} (no --device) up in '
+        f'{up:.1f}s, a chat completion answered ({doc["usage"]}), stopped: '
+        f'exit {proc.returncode}')
 
 
 def phase_hf(torch, build, engine_lib, decode) -> dict:
     """Real checkpoints: hf_round_trip of llama3.2-1b, hf_finetune from
-    its HF directory, hf_serve and hf_cli on the trainer's checkpoint,
+    its HF directory, hf_serve and engine_cli on the trainer's checkpoint,
     then hf_round_trip of qwen2.5-1.5b; every file under the git-ignored
     .smoke_hf/, which the caller removes, and all but llama3.2-1b's HF
-    directory (lora and grpo start from it) removed here. Returns the
+    directory (sft, lora and grpo start from it) removed here. Returns the
     launch counts of the paths 'train_hf' and 'serve_hf'."""
     import shutil
     from skypilot_tpu_torch import config
@@ -3288,7 +3310,8 @@ def phase_hf(torch, build, engine_lib, decode) -> dict:
     free_card(torch)
     paths['serve_hf'] = hf_serve(torch, build, engine_lib, decode, cfg, ck)
     free_card(torch)
-    hf_cli(ck)
+    engine_cli(['--model', HF_MODEL, '--ckpt-dir', ck], '[hf cli]',
+               'hf_cli.log')
     shutil.rmtree(ck)
     qwen = os.path.join(root, 'Qwen2.5-1.5B')
     hf_round_trip(torch, config.get_config(HF_QWEN), qwen, '[hf qwen]')
@@ -3378,24 +3401,27 @@ def lora_train(torch, build, cfg, base, tcfg) -> dict:
     return launches
 
 
-def lora_grads(torch, cfg, base, adapters, lcfg, batch) -> None:
-    """The adapters' grads of the LoRA step's loss (CE + aux of the
-    forward on merge_into(base, adapters)) on ``batch``, held against
-    the plain attention in bf16 and in fp32 (the base upcast) by
-    check_grads: A, C and D at the trainer's shapes."""
+def lora_grads(torch, cfg, base, adapters, lcfg, batch,
+               tag: str = '[lora]') -> None:
+    """The adapters' grads of the LoRA step's loss (CE, under the batch's
+    loss_mask where it has one, + aux of the forward on
+    merge_into(base, adapters)) on ``batch``, held against the plain
+    attention in bf16 and in fp32 (the base upcast) by check_grads: A,
+    C and D at the trainer's shapes."""
     import dataclasses
     from skypilot_tpu_torch.models import decode
     from skypilot_tpu_torch.train import lora, train_lib
     base32 = decode.cast_params_for_decode(
         base, dataclasses.replace(cfg, dtype=torch.float32))
-    tokens = batch['tokens']
+    tokens, mask = batch['tokens'], batch.get('loss_mask')
 
     def loss_fn(c, ad):
         merged = lora.merge_into(base32 if c.dtype == torch.float32
                                  else base, ad, lcfg)
         logits, aux = train_lib.forward_with_aux(c, merged, tokens[:, :-1])
-        return train_lib.cross_entropy_loss(logits, tokens[:, 1:])[0] + aux
-    check_grads(torch, cfg, adapters, None, '[lora]', loss_fn=loss_fn)
+        return train_lib.cross_entropy_loss(logits, tokens[:, 1:],
+                                             mask)[0] + aux
+    check_grads(torch, cfg, adapters, None, tag, loss_fn=loss_fn)
     del base32
     free_card(torch)
 
@@ -3463,8 +3489,8 @@ def lora_resume(torch, build, cfg, base, tcfg, lcfg) -> None:
              f'saved step {step}, count {int(opt_leaves[0])}')
 
 
-def lora_merge_check(torch, base, hf_dir: str, lora_dir: str,
-                     out: str) -> dict:
+def lora_merge_check(torch, base, hf_dir: str, lora_dir: str, out: str,
+                     tag: str = '[lora]') -> dict:
     """`python -m skypilot_tpu_torch.train.lora_merge` (main, no
     --device: the card) into ``out``, re-imported: each targeted leaf
     bit-equal to the in-process merge_into of the saved adapters and
@@ -3489,13 +3515,13 @@ def lora_merge_check(torch, base, hf_dir: str, lora_dir: str,
         if not bits_equal(torch, got, w if path in targeted else b):
             bad.append(path)
         changed += path in targeted and not bits_equal(torch, got, b)
-    log(f'[lora] lora_merge of step {step} in {t_merge:.1f}s (load, merge, '
+    log(f'{tag} lora_merge of step {step} in {t_merge:.1f}s (load, merge, '
         f'export); re-imported: {len(targeted)} targeted leaves == '
         f'merge_into bit for bit ({changed} changed from the base), the '
         f'other {len(weights.tree_paths(merged)) - len(targeted)} == the base '
         f'bit for bit; bad {bad}')
     if bad or changed != len(targeted):
-        fail(f'[lora] merged leaves off: {bad}, {changed} of '
+        fail(f'{tag} merged leaves off: {bad}, {changed} of '
              f'{len(targeted)} targeted changed')
     return merged
 
@@ -3571,6 +3597,293 @@ def phase_lora(torch, build, engine_lib, decode, hf_dir: str) -> dict:
         shutil.rmtree(lora_dir, ignore_errors=True)
         shutil.rmtree(merged_dir, ignore_errors=True)
     log(f'[lora] phase took {time.perf_counter() - t0:.1f}s')
+    return paths
+
+
+# The sft phase: the Llama-3-style fixture as llama3.2-1b's tokenizer.json
+# (a directory beside the hf phase's export, its other files linked),
+# SFT_STEPS steps of HF_B x TRAIN_S of the committed chat JSONL with
+# LoRA rank LORA_RANK, the merge, and the merged directory served with
+# its tokenizer (SFT_NEW greedy tokens of the golden file's chat). The
+# fixtures and the golden file (the tokenizers library's ids, the JAX
+# package's SFT digests, the chat, seq_len and batch) are those of
+# tests/data/make_torch_tokenizer_fixtures.py.
+SFT_STEPS, SFT_NEW = 3, 16
+FIXTURE_DIR = os.path.join(HERE, 'tests', 'data')
+SFT_TOKENIZERS = {'llama3': os.path.join(FIXTURE_DIR, 'torch_tok_llama3.json'),
+                  'qwen2': os.path.join(FIXTURE_DIR, 'torch_tok_qwen2.json')}
+SFT_JSONL = os.path.join(FIXTURE_DIR, 'torch_sft_chat.jsonl')
+SFT_GOLDEN = os.path.join(FIXTURE_DIR, 'torch_tokenizer_golden.json')
+
+
+def digest(*arrays) -> str:
+    """The fixture maker's digest of numpy arrays: dtype, shape, bytes."""
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(str((a.dtype.str, a.shape)).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def sft_tokenizer(golden) -> None:
+    """Each committed fixture read by the port's reader: its ids for
+    every golden text with and without specials, and its decodes, equal
+    to the library's in the golden file; decode(encode(t)) == t (NFC of
+    t under the Qwen2-style normalizer) for every text without added
+    tokens; vocab_size. Prints the load seconds (the Unicode classes
+    are built once, before) and the encode rate of the chat JSONL's
+    messages from a cold cache."""
+    import unicodedata
+    from skypilot_tpu_torch.data import tokenizer as tokenizer_lib
+    from skypilot_tpu_torch.data import tokenizer_json
+    t0 = time.perf_counter()
+    tokenizer_json.unicode_classes()
+    log(f'[sft] \\p{{L}}, \\p{{N}} and \\s classes built in '
+        f'{time.perf_counter() - t0:.2f}s')
+    with open(SFT_JSONL, encoding='utf-8') as f:
+        corpus = [m['content'] for line in f if line.strip()
+                  for m in json.loads(line)['messages']]
+    plain = [t for t in golden['texts'] if '<|' not in t and '<tool' not in t]
+    for name, path in sorted(SFT_TOKENIZERS.items()):
+        want = golden['fixtures'][name]
+        t0 = time.perf_counter()
+        tok = tokenizer_lib.load_tokenizer(path)
+        t_load = time.perf_counter() - t0
+        bad = [t for t, row in zip(golden['texts'], want['rows'])
+               if tok.encode(t) != row['ids'] or
+               tok.encode(t, add_special_tokens=False) != row['ids_raw'] or
+               tok.decode(row['ids']) != row['decoded']]
+        nfc = name == 'qwen2'
+        trips = [t for t in plain if tok.decode(tok.encode(t)) != (
+            unicodedata.normalize('NFC', t) if nfc else t)]
+        t0 = time.perf_counter()
+        n = sum(len(tok.encode(t, add_special_tokens=False))
+                for t in corpus)
+        secs = time.perf_counter() - t0
+        log(f'[sft] {os.path.basename(path)}: vocab_size {tok.vocab_size} '
+            f'(golden {want["vocab_size"]}), family {tok.chat_family}, '
+            f'loaded in {t_load:.3f}s; {len(want["rows"])} golden texts x 2 '
+            f'flags: {len(bad)} off the library; round trips of '
+            f'{len(plain)}: {len(trips)} off; {n} tokens of the chat JSONL '
+            f'in {secs:.3f}s from a cold cache: {n / secs:.0f} tokens/s')
+        if bad or trips or tok.vocab_size != want['vocab_size']:
+            fail(f'[sft] {name}: ids or decodes off the library for '
+                 f'{bad[:3]}, round trips off for {trips[:3]}, vocab_size '
+                 f'{tok.vocab_size}')
+
+
+def sft_train(torch, build, cfg, base, tcfg, golden) -> dict:
+    """The trainer with ``tcfg`` (--hf-dir, --sft-data, --lora-rank:
+    train_checked: A 2 x layers x steps, C and D layers x steps); the
+    first batch of the trainer's own source digested against the JAX
+    package's; the first loss (B = 0: the base) against the base's
+    masked cross-entropy on that batch through the kernels (TOL_LORA_CE)
+    and through the plain attention; the saved adapters' grads under
+    the mask against the plain attention (lora_grads). Returns the
+    launch counts."""
+    import dataclasses
+    from skypilot_tpu_torch.data import loader
+    from skypilot_tpu_torch.data_service import spec as spec_lib
+    from skypilot_tpu_torch.train import lora, train_lib
+    sources = []
+    real = spec_lib.load_source
+
+    def keep(spec):
+        sources.append(real(spec))
+        return sources[-1]
+    spec_lib.load_source = keep     # the trainer's own source
+    try:
+        t0 = time.perf_counter()
+        hist, launches = train_checked(torch, build, tcfg, cfg, '[sft]',
+                                       plain=False)
+        secs = time.perf_counter() - t0
+    finally:
+        spec_lib.load_source = real
+    first = sources[0].batch_at_step(0)
+    got = digest(first['tokens'], first['loss_mask'])
+    want = golden['sft']['llama3']['first_batch']
+    share = float(first['loss_mask'].mean())
+    batch = loader.to_device(first, 'cuda')
+    tokens, mask = batch['tokens'], batch['loss_mask']
+    ce = {}
+    with torch.no_grad():
+        for impl in ('auto', 'xla'):
+            c = dataclasses.replace(cfg, attention_impl=impl)
+            logits, _ = train_lib.forward_with_aux(c, base, tokens[:, :-1])
+            ce[impl] = float(train_lib.cross_entropy_loss(
+                logits, tokens[:, 1:], mask)[0])
+            del logits
+    free_card(torch)
+    d_k, d_p = abs(hist[0]['loss'] - ce['auto']), abs(hist[0]['loss'] -
+                                                      ce['xla'])
+    log(f'[sft] --hf-dir --sft-data --lora-rank {LORA_RANK} run of '
+        f'{SFT_STEPS} steps with its save: {secs:.1f}s; the first batch: '
+        f'{tokens.shape[0]} rows of {tokens.shape[1]}, masked share '
+        f'{share:.4f} (golden {golden["sft"]["llama3"]["masked_share"]:.4f})'
+        f', digest {got[:16]} (JAX {want[:16]}); first loss '
+        f'{hist[0]["loss"]} vs the base\'s masked cross-entropy '
+        f'{ce["auto"]:.5f} through the kernels (|diff| {d_k:.5f}, tol '
+        f'{TOL_LORA_CE}) and {ce["xla"]:.5f} through the plain attention '
+        f'(|diff| {d_p:.5f}, tol {TOL_LOSS})')
+    if got != want:
+        fail('[sft] the first batch differs from the JAX package\'s')
+    # Through the plain attention: the kernels' bf16 rounding apart from
+    # the plain path's (train_checked holds whole runs of the two within
+    # TOL_LOSS).
+    if d_k > TOL_LORA_CE or d_p > TOL_LOSS:
+        fail(f'[sft] first loss departs from the base\'s masked CE: '
+             f'{d_k} (kernels), {d_p} (plain attention)')
+    adapters, lcfg, _, _ = lora.load_adapters(tcfg.lora_dir, 'cuda')
+    for leaf in train_lib.leaves(adapters):
+        leaf.requires_grad_(True)
+    lora_grads(torch, cfg, base, adapters, lcfg, batch, tag='[sft]')
+    return launches
+
+
+def sft_serve(torch, build, engine_lib, merged_dir: str, golden) -> dict:
+    """InferenceEngine(hf_dir=merged_dir) behind build_app: its tokenizer
+    the fixture (family llama3, <|eot_id|> among the eos ids); the
+    golden chat as JSON and as SSE at temperature 0, the ids the engine
+    tokenized for it equal to the golden ones, the stream's completion
+    ids and text equal to the JSON's, the text the decode of those ids;
+    A and B must launch. Then the completion ids against decode.generate
+    from the golden prompt ids (held_against_generate). Returns the
+    launch counts from the engine's construction on."""
+    from skypilot_tpu_torch.models import decode, llama
+    tag = '[sft serve]'
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    eng = engine_lib.InferenceEngine(hf_dir=merged_dir, device='cuda',
+                                     seed=0)
+    tok = eng.tokenizer
+    eot = tok.token_to_id('<|eot_id|>')
+    log(f'{tag} engine on {os.path.basename(merged_dir)} built in '
+        f'{time.perf_counter() - t0:.1f}s; tokenizer family '
+        f'{tok.chat_family}, eos ids {tok.eos_ids}, vocab_size '
+        f'{tok.vocab_size}')
+    if tok.chat_family != 'llama3' or eot not in tok.eos_ids:
+        fail(f'{tag} tokenizer family {tok.chat_family}, eos {tok.eos_ids}')
+    seen = []
+    encode = tok.encode
+
+    def recorded(text, add_special_tokens=True):
+        seen.append(encode(text, add_special_tokens=add_special_tokens))
+        return seen[-1]
+    tok.encode = recorded
+    futures = []
+    submit = eng.submit
+
+    def kept(*args, **kwargs):
+        futures.append(submit(*args, **kwargs))
+        return futures[-1]
+    eng.submit = kept
+    eng, server, base = serve_engine(eng, engine_lib, tag)
+    chat = {'messages': golden['sft_chat'], 'max_tokens': SFT_NEW,
+            'temperature': 0}
+    want = golden['chat_prompt_ids']
+    try:
+        seen.clear()
+        futures.clear()
+        code, doc = http(base + '/v1/chat/completions', chat)
+        c = doc.get('choices', [{}])[0] if code == 200 else {}
+        if code != 200 or c['message']['role'] != 'assistant' or \
+                doc['usage']['completion_tokens'] > SFT_NEW:
+            fail(f'{tag} chat answered {code}: {doc}')
+        prompt_ids = list(seen)
+        events = sse(base + '/v1/chat/completions', dict(chat, stream=True))
+        text = ''.join(e['choices'][0]['delta'].get('content', '')
+                       for e in events[1:])
+        launches = launch_counts(build)
+        if len(futures) != 2:
+            fail(f'{tag} {len(futures)} requests reached the engine, not 2')
+        out, stream_out = (f.result()[0] for f in futures)
+        log(f'{tag} chat completion: prompt {doc["usage"]["prompt_tokens"]} '
+            f'tokens under the llama3 template, the engine\'s ids '
+            f'{"==" if prompt_ids == [want] else "!="} the golden ones; '
+            f'{doc["usage"]["completion_tokens"]} new ({c["finish_reason"]}),'
+            f' ids {out}, text {c["message"]["content"]!r}; its stream '
+            f'({len(events)} events) ids {"==" if stream_out == out else "!="}'
+            f' these, the same text; launches {launches}; '
+            f'peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
+        if events[0]['choices'][0]['delta'] != {'role': 'assistant',
+                                                'content': ''} or \
+                events[-1]['choices'][0]['finish_reason'] != \
+                c['finish_reason'] or text != c['message']['content'] or \
+                stream_out != out or tok.decode(out) != text or \
+                len(out) != doc['usage']['completion_tokens']:
+            fail(f'{tag} chat stream {events[:2]} ... {events[-1:]}: ids '
+                 f'{stream_out} vs {out}, text {text!r} vs '
+                 f'{c["message"]["content"]!r}')
+        if prompt_ids != [want] or \
+                doc['usage']['prompt_tokens'] != len(want):
+            fail(f'{tag} prompt ids {prompt_ids} != golden {want}')
+        if not launches['flash_fwd'] or not launches['paged_decode']:
+            fail(f'{tag} kernels A and B must launch: {launches}')
+    finally:
+        stop_engine(eng, server)
+    held_against_generate(torch, decode, llama, eng.cfg, eng.params, [want],
+                          [out], tag)
+    del eng, server
+    return launches
+
+
+def phase_sft(torch, build, engine_lib, hf_dir: str) -> dict:
+    """Real text: sft_tokenizer; then, in a directory beside ``hf_dir``
+    holding links to its files and the Llama-3-style fixture as
+    tokenizer.json, sft_train, lora_merge_check (the merge carries the
+    tokenizer.json), sft_serve and the engine's CLI on the merged
+    directory (engine_cli); every file of the phase is removed. Returns
+    the launch counts of the paths 'train_sft' and 'serve_sft'."""
+    import shutil
+    from skypilot_tpu_torch.models import hf_import
+    from skypilot_tpu_torch.train import trainer
+    t0 = time.perf_counter()
+    with open(SFT_GOLDEN, encoding='utf-8') as f:
+        golden = json.load(f)
+    sft_tokenizer(golden)
+    root = os.path.join(os.path.dirname(hf_dir), 'sft')
+    chat_dir = os.path.join(root, 'Llama-3.2-1B-chat')
+    lora_dir = os.path.join(root, 'adapters')
+    merged_dir = os.path.join(root, 'merged')
+    paths = {}
+    try:
+        os.makedirs(chat_dir)
+        for name in os.listdir(hf_dir):
+            if name != 'tokenizer.json':
+                os.symlink(os.path.join(hf_dir, name),
+                           os.path.join(chat_dir, name))
+        shutil.copyfile(SFT_TOKENIZERS['llama3'],
+                        os.path.join(chat_dir, 'tokenizer.json'))
+        cfg, base = hf_import.load_hf_checkpoint(chat_dir, device='cuda')
+        tcfg = trainer.TrainerConfig(
+            model=HF_MODEL, hf_dir=chat_dir,
+            sft_data_path=SFT_JSONL, batch_size=golden['sft_batch'],
+            seq_len=golden['sft']['llama3']['seq_len'], total_steps=SFT_STEPS,
+            warmup_steps=TRAIN_WARMUP, log_every=1, lora_rank=LORA_RANK,
+            lora_dir=lora_dir, ckpt_every=SFT_STEPS, device='cuda')
+        paths['train_sft'] = sft_train(torch, build, cfg, base, tcfg,
+                                       golden)
+        free_card(torch)
+        merged = lora_merge_check(torch, base, chat_dir, lora_dir,
+                                  merged_dir, tag='[sft]')
+        del merged, base
+        free_card(torch)
+        with open(SFT_TOKENIZERS['llama3'], 'rb') as a, \
+                open(os.path.join(merged_dir, 'tokenizer.json'), 'rb') as b:
+            if a.read() != b.read():
+                fail('[sft] the merged directory\'s tokenizer.json is not '
+                     'the fixture')
+        paths['serve_sft'] = sft_serve(torch, build, engine_lib, merged_dir,
+                                       golden)
+        free_card(torch)
+        engine_cli(['--hf-dir', merged_dir], '[sft cli]', 'sft_cli.log',
+                   chat={'messages': golden['sft_chat'],
+                         'max_tokens': SFT_NEW, 'temperature': 0})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f'[sft] phase took {time.perf_counter() - t0:.1f}s')
     return paths
 
 
@@ -3787,8 +4100,8 @@ def main() -> None:
                         'serve_gemma,'
                         'gemma_switches,model_moe,serve_moe,serve_gptoss,'
                         'model_mla,serve_mla,serve_deepseek_v2,'
-                        'train_gemma,train,train_moe,train_mla,hf,lora,'
-                        'grpo',
+                        'train_gemma,train,train_moe,train_mla,hf,sft,'
+                        'lora,grpo',
                         help='comma-separated '
                         'subset (for '
                         'debugging; the full run is the check)')
@@ -3979,6 +4292,11 @@ def main() -> None:
             by_path.update(phase_hf(torch, build, engine_lib, decode))
             free_card(torch)
         lap('hf')
+        if 'sft' in phases:
+            by_path.update(phase_sft(torch, build, engine_lib,
+                                     llama_hf_dir(torch)))
+            free_card(torch)
+        lap('sft')
         if 'lora' in phases:
             by_path.update(phase_lora(torch, build, engine_lib, decode,
                                       llama_hf_dir(torch)))
@@ -4006,6 +4324,7 @@ def main() -> None:
              'train_moe': TRAIN_KERNELS, 'train_mla': TRAIN_KERNELS,
              'train_hf': TRAIN_KERNELS, 'serve_hf': SERVE_KERNELS,
              'train_lora': TRAIN_KERNELS, 'serve_lora': SERVE_KERNELS,
+             'train_sft': TRAIN_KERNELS, 'serve_sft': SERVE_KERNELS,
              'grpo': TRAIN_KERNELS}
     rows = []
     for name, kern in build.kernels().items():

@@ -6,9 +6,11 @@ continues the exact token stream (the checkpoint/resume contract of
 train/checkpoints.py), and the stream equals the JAX package's batch
 for batch.
 
-Tokenization is byte-level (vocab 256). The JAX loader's
-``transformers.AutoTokenizer`` waits for a later slice (the card's
-machine has no transformers). ``.bin`` corpora read as a uint16
+Tokenization is byte-level (vocab 256) by default; ``--tokenizer``
+names a local checkpoint directory or ``tokenizer.json``, read by the
+port's own reader (data/tokenizer_json.py) where the JAX loader runs
+``transformers.AutoTokenizer``, with the same ids (its post-processor,
+Llama 3's BOS say, included). ``.bin`` corpora read as a uint16
 memmap: the JAX package's native C++ core gives the same batches from
 the same file, so it is not ported. ``to_device`` takes the place of ``shard_batch``: one card, no
 mesh.
@@ -21,24 +23,33 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.data import tokenizer as tokenizer_lib
+
 BYTE_VOCAB = 256
 
 
 def tokenize_text(text: str, tokenizer: Optional[str] = None) -> np.ndarray:
-    """Text → int32 token ids: raw UTF-8 bytes (vocab 256)."""
-    if tokenizer is not None:
-        raise NotImplementedError(
-            f'tokenizer {tokenizer!r}: the data loader\'s HF tokenizer '
-            f'(transformers.AutoTokenizer in the JAX package) is not '
-            f'ported; it waits for ROADMAP Queue 1 item 6 (model I/O: the '
-            f'loader\'s --tokenizer). The port tokenizes text as bytes.')
-    return np.frombuffer(text.encode('utf-8'), dtype=np.uint8).astype(
-        np.int32)
+    """Text → int32 token ids: raw UTF-8 bytes (vocab 256), or through
+    ``tokenizer``, a checkpoint directory or a ``tokenizer.json`` path,
+    with its special tokens added. A hub name is refused: nothing is
+    downloaded."""
+    if tokenizer is None:
+        return np.frombuffer(text.encode('utf-8'), dtype=np.uint8).astype(
+            np.int32)
+    path = os.path.expanduser(tokenizer)
+    if not os.path.exists(path):
+        raise ValueError(
+            f'tokenizer {tokenizer!r} is not a local directory or '
+            f'tokenizer.json: the port reads tokenizer.json from disk and '
+            f'downloads nothing (the JAX loader\'s AutoTokenizer can take '
+            f'a hub name; the card has no network)')
+    return np.asarray(tokenizer_lib.load_tokenizer(path).encode(text),
+                      dtype=np.int32)
 
 
 def load_tokens(path: str, tokenizer: Optional[str] = None) -> np.ndarray:
     """Load a corpus: .npy (memmap) and .bin (uint16 memmap) are
-    pre-tokenized; anything else is text, tokenized as bytes."""
+    pre-tokenized; anything else is text (tokenize_text)."""
     path = os.path.expanduser(path)
     if path.endswith('.npy'):
         return np.load(path, mmap_mode='r')

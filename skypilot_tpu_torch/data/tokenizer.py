@@ -4,12 +4,12 @@
 
   - ``ByteTokenizer`` (vocab 256) is the hermetic default: an engine
     with no checkpoint directory needs no download.
-  - ``HFTokenizer`` loads an HF checkpoint's ``tokenizer.json`` through
-    the ``tokenizers`` library, imported inside its constructor and
-    nowhere else, so every other module imports without it; a missing
-    library raises by name, with no fallback to bytes. It detects the
-    chat family (llama3 headers, ChatML) from the special tokens and
-    adds the family's stop specials to the checkpoint's eos ids.
+  - ``HFTokenizer`` reads an HF checkpoint's ``tokenizer.json`` with the
+    port's own reader (data/tokenizer_json.py: byte-level BPE as Llama
+    3, Qwen2 and GPT-2 ship it, ids equal to the tokenizers library's,
+    which the card's machine does not have). It detects the chat family
+    (llama3 headers, ChatML) from the special tokens and adds the
+    family's stop specials to the checkpoint's eos ids.
   - Chat templates are hand-written per family instead of running the
     checkpoint's Jinja template: a serve replica must not run template
     code from a model directory.
@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import os
 from typing import Dict, Iterable, List, Optional, Sequence
+
+from skypilot_tpu_torch.data import tokenizer_json
 
 
 class ByteTokenizer:
@@ -42,8 +44,8 @@ class ByteTokenizer:
 
 
 class HFTokenizer:
-    """A ``tokenizer.json`` (HF fast BPE) loaded by the tokenizers
-    library. ``eos_extra``: the checkpoint's eos ids
+    """A ``tokenizer.json`` (HF fast BPE) read by
+    data/tokenizer_json.py. ``eos_extra``: the checkpoint's eos ids
     (models/hf_import.py ``hf_eos_ids``), merged with the family's stop
     specials."""
 
@@ -55,16 +57,9 @@ class HFTokenizer:
     )
 
     def __init__(self, path: str, eos_extra: Iterable[int] = ()):
-        try:
-            from tokenizers import Tokenizer
-        except ImportError as e:
-            raise ImportError(
-                f'{path}: reading tokenizer.json needs the tokenizers '
-                f'library, which is not installed; there is no byte '
-                f'fallback for an HF checkpoint') from e
-        self._tok = Tokenizer.from_file(path)
+        self._tok = tokenizer_json.load(path)
         self.name = path
-        self.vocab_size = self._tok.get_vocab_size()
+        self.vocab_size = self._tok.vocab_size
         self.chat_family = 'plain'
         eos = set(int(i) for i in eos_extra)
         for family, specials in self._FAMILIES:
@@ -81,12 +76,11 @@ class HFTokenizer:
         Llama-3's automatic BOS): needed whenever ``text`` carries its
         specials literally (a chat template), where it would add a
         second BOS."""
-        return list(self._tok.encode(
-            text, add_special_tokens=add_special_tokens).ids)
+        return self._tok.encode(text, add_special_tokens=add_special_tokens)
 
     def decode(self, ids: Sequence[int]) -> str:
         # Stop and eos specials never leak into the text.
-        return self._tok.decode(list(ids), skip_special_tokens=True)
+        return self._tok.decode(ids, skip_special_tokens=True)
 
     def token_to_id(self, token: str) -> Optional[int]:
         return self._tok.token_to_id(token)

@@ -10,10 +10,14 @@ checkpoints (port of skypilot_tpu/train/trainer.py on one card).
     python -m skypilot_tpu_torch.train.trainer --hf-dir ./Llama-3.2-1B \\
         --lora-rank 16 --lora-dir ./adapters --batch-size 4 --seq-len 2048
 
-Step-indexed input (data_service/spec.py: the synthetic stream, or a
-corpus with ``--data``), periodic async checkpoints in the JAX
-package's format, resume from the newest step, and a final save on
-SIGTERM (a spot preemption notice). Every family the port serves
+    python -m skypilot_tpu_torch.train.trainer --hf-dir ./Llama-3.2-1B \\
+        --sft-data chats.jsonl --lora-rank 16 --lora-dir ./adapters
+
+Step-indexed input (data_service/spec.py: the synthetic stream, a corpus
+with ``--data``, or chat conversations with ``--sft-data``, trained on
+the assistant turns alone: data/sft.py), periodic async checkpoints in
+the JAX package's format, resume from the newest step, and a final save
+on SIGTERM (a spot preemption notice). Every family the port serves
 trains: dense Llama/Qwen2 and Gemma, MoE and MLA/DeepSeek (their router
 aux joins the loss; train/train_lib.py). ``--hf-dir`` fine-tunes an HF
 checkpoint (models/hf_import.py): its config replaces the preset (the
@@ -24,13 +28,14 @@ base (train/lora.py): the base is the ``--hf-dir`` checkpoint at its
 stored dtype, else the preset's seed-0 init; adapters, moments and step
 save to and resume from ``--lora-dir`` (exclusive with ``--ckpt-dir``
 and ``--grad-accum``, as in JAX); evaluation runs on the merged params.
-The trainer runs on the card (``--device cuda``, the default) and
-raises without one; tests pass ``device='cpu'``.
+``--sft-data`` with ``--hf-dir`` and no ``--tokenizer`` tokenizes with
+the directory's tokenizer.json, which must exist: an HF fine-tune never
+falls back to bytes. The trainer runs on the card (``--device cuda``,
+the default) and raises without one; tests pass ``device='cpu'``.
 
-Not ported yet, and refused by name: meshes (``--mesh``),
-``--sft-data`` and ``--data-service``. Failpoints, spans and the
-batch-wait histogram wait for a later slice too (ROADMAP Queue 1 item
-5).
+Not ported yet, and refused by name: meshes (``--mesh``) and
+``--data-service``. Failpoints, spans and the batch-wait histogram wait
+for a later slice too (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -85,7 +90,10 @@ class TrainerConfig:
     lora_targets: Optional[List[str]] = None    # None → lora.DEFAULT_TARGETS
     hf_dir: Optional[str] = None
     lora_dir: Optional[str] = None
+    # Chat JSONL: train on the assistant turns (data/sft.py); exclusive
+    # with data_path. chat_family None: the tokenizer's own.
     sft_data_path: Optional[str] = None
+    chat_family: Optional[str] = None
     data_service: Optional[str] = None
     device: str = 'cuda'
 
@@ -94,7 +102,6 @@ class TrainerConfig:
 # ROADMAP Queue 1 item that brings it.
 _UNPORTED = (
     ('mesh', '--mesh', 'item 8 (parallelism and multi-process)'),
-    ('sft_data_path', '--sft-data', 'item 5 (training: SFT data)'),
     ('data_service', '--data-service',
      'item 5 (training: the data-service client)'),
 )
@@ -140,12 +147,26 @@ def _model_config(tcfg: TrainerConfig) -> config.LlamaConfig:
     return cfg
 
 
-def _batch_iter(tcfg: TrainerConfig, vocab_size: int, start_step: int,
-                device) -> Iterator[Dict[str, torch.Tensor]]:
-    source = spec_lib.load_source(spec_lib.DatasetSpec(
+def _dataset_spec(tcfg: TrainerConfig,
+                  vocab_size: int) -> spec_lib.DatasetSpec:
+    """The trainer's input pipeline. With --sft-data and --hf-dir but no
+    --tokenizer, the directory's tokenizer.json: load_tokenizer then
+    raises if it is missing, rather than training the checkpoint on
+    bytes."""
+    tokenizer = tcfg.tokenizer
+    if tcfg.sft_data_path and tokenizer is None and tcfg.hf_dir:
+        tokenizer = os.path.join(os.path.expanduser(tcfg.hf_dir),
+                                 'tokenizer.json')
+    return spec_lib.DatasetSpec(
         batch_size=tcfg.batch_size, seq_len=tcfg.seq_len,
         vocab_size=vocab_size, data_path=tcfg.data_path,
-        tokenizer=tcfg.tokenizer))
+        tokenizer=tokenizer, sft_data_path=tcfg.sft_data_path,
+        chat_family=tcfg.chat_family)
+
+
+def _batch_iter(tcfg: TrainerConfig, vocab_size: int, start_step: int,
+                device) -> Iterator[Dict[str, torch.Tensor]]:
+    source = spec_lib.load_source(_dataset_spec(tcfg, vocab_size))
     step = start_step
     while True:
         yield loader.to_device(source.batch_at_step(step), device)
@@ -183,6 +204,9 @@ def train(tcfg: TrainerConfig,
     else:
         cfg = _model_config(tcfg)
     config.check_supported(cfg)
+    if tcfg.sft_data_path and tcfg.data_path:
+        raise ValueError('--sft-data and --data are exclusive (chat SFT vs '
+                         'plain-corpus LM).')
     lora_mode = tcfg.lora_rank > 0
     if lora_mode and tcfg.ckpt_dir:
         raise ValueError('--lora-rank and --ckpt-dir are exclusive: LoRA '
@@ -378,9 +402,15 @@ def build_parser() -> argparse.ArgumentParser:
                              '(default: wq,wk,wv,wo).')
     parser.add_argument('--lora-dir', default=None,
                         help='Directory for adapters.npz (save/resume).')
+    parser.add_argument('--sft-data', default=None,
+                        help='JSONL of {"messages": [...]} conversations '
+                             '(assistant-only loss, data/sft.py).')
+    parser.add_argument('--chat-family', default=None,
+                        choices=('llama3', 'chatml', 'plain'),
+                        help="Chat template (default: from the "
+                             "tokenizer's special tokens).")
     # Flags of the JAX trainer that the port refuses by name.
     parser.add_argument('--mesh', default='')
-    parser.add_argument('--sft-data', default=None)
     parser.add_argument('--data-service', default=None)
     return parser
 
@@ -407,7 +437,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         lora_targets=([t.strip() for t in args.lora_targets.split(',')
                        if t.strip()] if args.lora_targets else None),
         hf_dir=args.hf_dir, lora_dir=args.lora_dir,
-        sft_data_path=args.sft_data, data_service=args.data_service,
+        sft_data_path=args.sft_data, chat_family=args.chat_family,
+        data_service=args.data_service,
         device=args.device))
 
 

@@ -488,11 +488,22 @@ def test_stream_decoder_is_utf8_safe_over_an_hf_tokenizer(llama_hf):
 
 def test_missing_tokenizer_or_library_raises_by_name(tmp_path, llama_hf,
                                                      monkeypatch):
+    """A directory without tokenizer.json raises by name. The tokenizers
+    library is not needed (the card's machine lacks it): with it blocked
+    the port's reader loads the checkpoint's tokenizer.json and gives
+    the library's ids, decodes, family and eos ids."""
     with pytest.raises(FileNotFoundError, match='tokenizer.json'):
         tokenizer.load_tokenizer(str(tmp_path))
+    want = jtokenizer.load_tokenizer(llama_hf[0])
+    text = '<|start_header_id|>user<|end_header_id|>\n\nhé 東京 12345'
     monkeypatch.setitem(sys.modules, 'tokenizers', None)
-    with pytest.raises(ImportError, match='tokenizers library'):
-        tokenizer.load_tokenizer(llama_hf[0])
+    got = tokenizer.load_tokenizer(llama_hf[0])
+    for special in (True, False):
+        ids = got.encode(text, add_special_tokens=special)
+        assert ids == want.encode(text, add_special_tokens=special)
+        assert got.decode(ids) == want.decode(ids)
+    assert (got.vocab_size, got.chat_family, got.eos_ids) == \
+        (want.vocab_size, want.chat_family, want.eos_ids)
 
 
 # ---------------------------------------------------------------- engine

@@ -1,7 +1,7 @@
 """Import hygiene of the PyTorch port: skypilot_tpu_torch, chip_smoke.py
 and kernel_ab.py import neither jax nor the JAX package (skypilot_tpu),
 nor any library the card's machine lacks (safetensors, transformers,
-aiohttp; tokenizers only inside ``HFTokenizer``), and the engine runs on
+aiohttp, tokenizers, regex), and the engine runs on
 the card unless asked for the CPU."""
 import ast
 import inspect
@@ -58,8 +58,9 @@ def test_port_sources_import_no_jax_and_no_jax_package():
 
 
 # Libraries the card's machine does not have: never imported by the
-# port, except tokenizers, inside data/tokenizer.py's HFTokenizer only.
-ABSENT_ON_CARD = ('safetensors', 'transformers', 'aiohttp', 'tokenizers')
+# port (tokenizer.json is read by data/tokenizer_json.py).
+ABSENT_ON_CARD = ('safetensors', 'transformers', 'aiohttp', 'tokenizers',
+                  'regex')
 
 
 def _absent(module: str) -> bool:
@@ -86,24 +87,16 @@ def _imports_with_scope(path):
 
 
 def test_port_imports_no_library_the_card_lacks():
-    """safetensors, transformers and aiohttp nowhere in the port;
-    tokenizers only inside HFTokenizer (data/tokenizer.py), which raises
-    by name without it."""
-    bad, allowed = [], []
+    """safetensors, transformers, aiohttp, tokenizers and regex nowhere
+    in the port, at any scope."""
+    bad = []
     for p in _port_files():
         for module, scope in _imports_with_scope(p):
-            if not _absent(module):
-                continue
-            rel = str(p.relative_to(ROOT))
-            if module == 'tokenizers' and \
-                    rel == 'skypilot_tpu_torch/data/tokenizer.py' and \
-                    scope[:1] == ('HFTokenizer',):
-                allowed.append((rel, scope))
-                continue
-            bad.append((rel, module, scope))
+            if _absent(module):
+                bad.append((str(p.relative_to(ROOT)), module, scope))
     assert bad == []
-    assert allowed == [('skypilot_tpu_torch/data/tokenizer.py',
-                        ('HFTokenizer', '__init__'))]
+    assert _absent('regex') and _absent('tokenizers.models')
+    assert not _absent('regexp') and not _absent('tokenizer')
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -115,7 +108,7 @@ def test_every_port_module_imports_with_jax_blocked():
     code = (
         'import sys, importlib\n'
         "for m in ('jax', 'jaxlib', 'skypilot_tpu', 'safetensors', "
-        "'transformers', 'aiohttp', 'tokenizers'):\n"
+        "'transformers', 'aiohttp', 'tokenizers', 'regex'):\n"
         '    sys.modules[m] = None\n'
         f'for m in {mods!r} + ["chip_smoke", "kernel_ab"]:\n'
         '    importlib.import_module(m)\n'

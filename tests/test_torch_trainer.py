@@ -275,13 +275,14 @@ def test_trainer_defaults_to_cuda_and_refuses_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize('flags', [
     ['--mesh', 'data=2'], ['--lora-rank', '4', '--mesh', 'data=2'],
-    ['--sft-data', 'c.jsonl'], ['--data-service', 'h:1'],
+    ['--sft-data', 'c.jsonl', '--data-service', 'h:1'],
+    ['--data-service', 'h:1'],
     ['--model', 'moe-debug', '--mesh', 'expert=2'],
     ['--model', 'GPT_OSS-20b', '--lora-rank', '4', '--mesh', 'expert=2']])
 def test_unported_flags_refused_by_name(flags):
     """The flags the port lacks, on a dense model and on the families
-    that train now, LoRA among them (a LoRA run on a mesh waits for the
-    mesh)."""
+    that train now, LoRA and SFT among them (a LoRA run on a mesh waits
+    for the mesh, SFT input through the data service for its client)."""
     with pytest.raises(NotImplementedError, match=f'{flags[-2]}.*ROADMAP'):
         trainer.main(flags + ['--device', 'cpu'])
 
