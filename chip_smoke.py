@@ -68,7 +68,22 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  tok/s, idle share, peak memory side by side, also in
                  chiprun_out/admission_<model>.json), and a 1000-token
                  prompt's logits after the 4 chunks are held against
-                 one-shot prefills (bf16 kernel, bf16 plain, fp32);
+                 one-shot prefills (bf16 kernel, bf16 plain, fp32). The
+                 llama-1b engine is also checked as a serve-plane
+                 replica: /metrics scraped before and after the first
+                 burst (every family the fleet scraper stores; tokens
+                 and TTFT/TPOT counts equal to what the burst
+                 received), GET / answering 200, /debug/flight holding
+                 dispatch and collect events; then, after the
+                 admission burst, an engine.admit fault that the
+                 request survives (resurrected once, tokens held
+                 against decode.generate), engine.step faults (every 3,
+                 at most 2) under 8 concurrent requests, each answering
+                 200 or the structured retriable 503, with no graph
+                 recaptured, no page leaked and the next request's
+                 tokens held against decode.generate, and a greedy
+                 n = 2 completion whose two choices are equal and held
+                 against decode.generate;
   7b. batch_infer — offline batch inference on llama-1b whole (bf16,
                  random weights from seed 0) through batch_infer.run in
                  process: 64 records of random bytes, 16-1000 tokens, in
@@ -180,8 +195,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  (A and B launch), the greedy tokens against
                  decode.generate; then `python -m
                  skypilot_tpu_torch.serve.engine --model llama3.2-1b
-                 --ckpt-dir` as a subprocess (no --device): /health and
-                 one chat; then qwen2.5-1.5b (qkv biases) exported and
+                 --ckpt-dir` as a subprocess (no --device) with
+                 SKYTPU_ENGINE_MAX_BATCH=16: /health reporting the pool
+                 of 16 slots, GET / and one chat; then qwen2.5-1.5b (qkv biases) exported and
                  imported bit for bit. Its files live in the git-ignored
                  .smoke_hf/ and are removed (llama3.2-1b's HF directory
                  after sft, lora and grpo);
@@ -2059,6 +2075,184 @@ def check_stream(d, events) -> None:
         fail(f'stream without top logprobs: {lps[:2]}')
 
 
+# The families the serve plane's fleet scraper stores from every replica
+# (skypilot_tpu/observe/scrape.py STORED_FAMILIES), and the saturation
+# gauges its snapshot falls back on.
+REPLICA_FAMILIES = (
+    'skytpu_engine_ttft_seconds', 'skytpu_engine_tpot_seconds',
+    'skytpu_engine_class_ttft_seconds', 'skytpu_engine_class_tpot_seconds',
+    'skytpu_engine_goodput_total', 'skytpu_engine_queue_depth',
+    'skytpu_engine_in_flight', 'skytpu_engine_kv_pages_free',
+    'skytpu_engine_requests_total', 'skytpu_engine_tokens_total',
+    'skytpu_engine_prefix_requests_total')
+SATURATION_GAUGES = ('skytpu_engine_queue_depth', 'skytpu_engine_in_flight',
+                     'skytpu_engine_kv_pages_free')
+
+
+def scrape(base: str):
+    """GET /metrics: ({family: type}, {sample with its labels: value})."""
+    with urllib.request.urlopen(base + '/metrics', timeout=60) as r:
+        if r.status != 200:
+            fail(f'/metrics answered {r.status}')
+        text = r.read().decode()
+    types, samples = {}, {}
+    for line in text.splitlines():
+        if line.startswith('# TYPE '):
+            _, _, name, kind = line.split(' ', 3)
+            types[name] = kind
+        elif line and not line.startswith('#'):
+            key, val = line.rsplit(' ', 1)
+            samples[key] = float(val)
+    return types, samples
+
+
+def replica_surface(base: str, before: dict, received: int, requests: int,
+                    tag: str) -> None:
+    """What the serve plane reads of a replica, after a burst of
+    ``requests`` that received ``received`` tokens, against the scrape
+    ``before`` it: every stored family present, the token and TTFT/TPOT
+    counts moved by exactly the burst, the saturation gauges present;
+    GET / answering 200; /debug/flight holding dispatch and collect
+    events."""
+    types, after = scrape(base)
+    missing = [f for f in REPLICA_FAMILIES if f not in types]
+    if missing:
+        fail(f'{tag} /metrics lacks the stored families {missing}')
+
+    def moved(key: str) -> float:
+        return after.get(key, 0.0) - before.get(key, 0.0)
+
+    got = {'tokens': moved('skytpu_engine_tokens_total'),
+           'ttft': moved('skytpu_engine_ttft_seconds_count'),
+           'tpot': moved('skytpu_engine_tpot_seconds_count')}
+    if got != {'tokens': received, 'ttft': requests, 'tpot': requests}:
+        fail(f'{tag} /metrics moved by {got} over the burst, want '
+             f'{received} tokens and {requests} TTFT/TPOT observations')
+    absent = [g for g in SATURATION_GAUGES if g not in after]
+    if absent:
+        fail(f'{tag} /metrics lacks the saturation gauges {absent}')
+    code, doc = http(base + '/')
+    if code != 200 or doc.get('status') != 'ok':
+        fail(f'{tag} GET / answered {code}: {doc}')
+    code, flight = http(base + '/debug/flight?limit=0')
+    kinds = {e['event'] for e in flight.get('events', [])}
+    if code != 200 or not {'dispatch', 'collect'} <= kinds:
+        fail(f'{tag} /debug/flight answered {code} with events {kinds}')
+    log(f'{tag} replica surface: {len(REPLICA_FAMILIES)} stored families '
+        f'present, over the burst tokens_total +{got["tokens"]:.0f}, '
+        f'TTFT/TPOT counts +{got["ttft"]:.0f}/+{got["tpot"]:.0f}; GET / '
+        f'200; /debug/flight {flight["count"]} events {sorted(kinds)}')
+
+
+def wait_idle(eng, tag: str) -> None:
+    t0 = time.perf_counter()
+    while eng.in_flight() or eng.queue_depth():
+        if time.perf_counter() - t0 > 120:
+            fail(f'{tag} the engine did not go idle')
+        time.sleep(0.01)
+
+
+def replica_faults(torch, eng, base, engine_lib, build, decode, tag) -> dict:
+    """Containment on the card, with the loop running: an engine.admit
+    fault that the request survives (resurrected once, its greedy tokens
+    held against decode.generate); engine.step faults (every 3, at most
+    2) under 8 concurrent greedy requests, each answering 200 or the
+    structured retriable 503 within its timeout, then the next request's
+    tokens held against decode.generate, no graph captured and every
+    page not held by the prefix store free; then a greedy n = 2
+    completion over HTTP (two equal choices) and through the same
+    fan-out in process (two equal token lists, held against
+    decode.generate)."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.utils import failpoints
+    rng = np.random.default_rng(14)
+    vocab = eng.cfg.vocab_size
+    graphs, captured, resets0 = dict(eng.graphs), build.captured(), \
+        eng._resets
+    t0 = time.perf_counter()
+    prompt = rng.integers(0, vocab, 24).tolist()
+    failpoints.arm('engine.admit', once=True)
+    try:
+        code, doc = http(base + '/generate', {'tokens': prompt,
+                                              'max_new_tokens': 16},
+                         timeout=120)
+    finally:
+        failpoints.reset()
+    _, samples = scrape(base)
+    resurrected = samples.get('skytpu_engine_resurrected_total')
+    if code != 200 or len(doc['tokens']) != 16 or \
+            eng.resurrected_total != 1 or resurrected != 1:
+        fail(f'{tag} after an engine.admit fault: {code} {doc}, '
+             f'resurrected {eng.resurrected_total} (metric {resurrected})')
+    held_against_generate(torch, decode, llama, eng.cfg, eng.params,
+                          [prompt], [doc['tokens']], tag + ' resurrected')
+    docs = [{'tokens': rng.integers(0, vocab, n).tolist(),
+             'max_new_tokens': 24} for n in (8, 12, 17, 20, 25, 33, 40, 50)]
+    failpoints.arm('engine.step', every=3, max_fires=2)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(docs)) as ex:
+            answers = list(ex.map(
+                lambda d: http(base + '/generate', d, timeout=120), docs))
+    finally:
+        failpoints.reset()
+    outcome = {'ok': 0, 'reset': 0}
+    for code, doc in answers:
+        err = doc.get('error') if code == 503 else None
+        if code == 200 and len(doc['tokens']) == 24:
+            outcome['ok'] += 1
+        elif isinstance(err, dict) and err['type'] == 'engine_reset_error' \
+                and err['retriable'] is True and \
+                isinstance(err['tokens_emitted'], int):
+            outcome['reset'] += 1
+        else:
+            fail(f'{tag} under engine.step faults: {code} {doc}')
+    resets = eng._resets - resets0
+    if not resets:
+        fail(f'{tag} engine.step faults armed but no reset ran')
+    after = rng.integers(0, vocab, 30).tolist()
+    code, doc = http(base + '/generate', {'tokens': after,
+                                          'max_new_tokens': 16})
+    if code != 200:
+        fail(f'{tag} the request after the resets answered {code}: {doc}')
+    held_against_generate(torch, decode, llama, eng.cfg, eng.params,
+                          [after], [doc['tokens']], tag + ' after resets')
+    wait_idle(eng, tag)
+    held = sum(len(v) for v in eng._prefix_store.values())
+    if eng.graphs != graphs or build.captured() != captured or \
+            eng.alloc.used_count != held:
+        fail(f'{tag} after the resets: {len(eng.graphs)} graphs (had '
+             f'{len(graphs)}), captured {build.captured()} (had '
+             f'{captured}), {eng.alloc.used_count} pages used, {held} held '
+             f'by the prefix store')
+    fan = rng.integers(0, vocab, 20).tolist()
+    code, doc = http(base + '/v1/completions', {
+        'prompt': fan, 'max_tokens': 16, 'temperature': 0, 'n': 2,
+        'ignore_eos': True, 'logprobs': 0})
+    ch = doc.get('choices', []) if code == 200 else []
+    if len(ch) != 2 or [c['index'] for c in ch] != [0, 1] or \
+            ch[0]['text'] != ch[1]['text'] or \
+            ch[0]['logprobs']['token_logprobs'] != \
+            ch[1]['logprobs']['token_logprobs'] or \
+            doc['usage']['completion_tokens'] != 32:
+        fail(f'{tag} greedy n=2 completion answered {code}: {doc}')
+    results, n_out = engine_lib._submit_many(
+        eng, [fan], 16, (0.0, None, None, 0.0, 0.0), (), 2, 2, False,
+        'other')
+    if n_out != 32 or results[0][0] != results[1][0]:
+        fail(f'{tag} greedy n=2 fan-out: {results[0][0]} vs '
+             f'{results[1][0]} ({n_out} tokens)')
+    held_against_generate(torch, decode, llama, eng.cfg, eng.params,
+                          [fan], [results[0][0]], tag + ' n=2')
+    out = {'resets': resets, **outcome,
+           'seconds': time.perf_counter() - t0}
+    log(f'{tag} containment on the card: engine.admit fault resurrected '
+        f'to completion; engine.step faults: {resets} reset(s), '
+        f'{outcome["ok"]} answered 200 and {outcome["reset"]} the '
+        f'structured 503, no graph recaptured, no page leaked; n=2 '
+        f'choices equal; {out["seconds"]:.1f}s')
+    return out
+
+
 def generate_all(base, docs, vocab: int) -> list:
     """POST every /generate body at once; each answer must be 200 with
     max_new_tokens finite-logprob tokens in the vocabulary."""
@@ -2450,6 +2644,9 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
                     check_stream(d, f.result())
             return time.perf_counter() - t1
 
+        replica = model == 'llama-1b'
+        if replica:
+            before = scrape(base)[1]
         at_health = launch_counts(build)
         captured = build.captured()
         calls0 = dict(eng.calls)
@@ -2471,6 +2668,11 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
                 not any(key[2] for key in calls):
             fail(f'{tag} the burst ran no penalized or no top-logprobs '
                  f'call: {calls}')
+        if replica:
+            replica_surface(base, before,
+                            sum(d['max_new_tokens'] for d in reqs) +
+                            sum(d['max_tokens'] for d in streams),
+                            len(reqs) + len(streams), tag)
         timings = list(eng.timings)
         ttft = [t[0] for t in timings]
         tpot = [t[1] for t in timings]
@@ -2509,6 +2711,8 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
                      b_launches_device=b_device,
                      peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         log(f'{tag} ' + json.dumps(stats))
+        log(f'{tag} burst TPOT median {stats["tpot_ms_median"]:.3f} ms, '
+            f'idle share {stats["idle_share"]:.3f} on {gpu_line()}')
         # The admission burst on the defaults: timed, then profiled.
         watch = Watch(eng, build)
         admit = {'on': admission_burst(eng, base, watch, 31, tag)}
@@ -2531,6 +2735,9 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
                  f'device (the config takes kernels: {kernels})')
         admit['on'].update(idle_share=prof['idle_share'],
                            b_launches_device=b_device)
+        if replica:
+            admit['replica_faults'] = replica_faults(
+                torch, eng, base, engine_lib, build, decode, tag)
         if build.captured() != captured:
             fail(f'{tag} a kernel was captured after warm-up: '
                  f'{build.captured()} vs {captured}')
@@ -3245,19 +3452,31 @@ def hf_serve(torch, build, engine_lib, decode, cfg, ck: str) -> dict:
     return launches
 
 
-def engine_cli(flags: list, tag: str, log_name: str, chat=HF_CHAT) -> None:
+# The engine's prefix-cache entries and pages a slot at max_len 2048
+# (the pool's default size is (slots + min(entries, slots)) x pages).
+ENGINE_PREFIX, ENGINE_SLOT_PAGES = 4, 2048 // 64
+
+
+def engine_cli(flags: list, tag: str, log_name: str, chat=HF_CHAT,
+               slots: int = 0) -> None:
     """``python -m skypilot_tpu_torch.serve.engine`` with ``flags``, as a
     user starts it (no --device: the card): /health must answer 200,
     then one chat completion of ``chat``; the process is stopped and
-    waited for. Its output goes to chiprun_out/``log_name``."""
+    waited for. Its output goes to chiprun_out/``log_name``. With
+    ``slots``, it runs under SKYTPU_ENGINE_MAX_BATCH=``slots``, and
+    /health must report the free pages of that many slots at max_len
+    2048 and GET / answer 200."""
     port = free_port()
     base = f'http://127.0.0.1:{port}'
     cmd = [sys.executable, '-m', 'skypilot_tpu_torch.serve.engine', *flags,
            '--host', '127.0.0.1', '--port', str(port)]
+    env = dict(os.environ)
+    if slots:
+        env['SKYTPU_ENGINE_MAX_BATCH'] = str(slots)
     t0 = time.perf_counter()
     with open(os.path.join(OUT_DIR, log_name), 'w') as out:
         proc = subprocess.Popen(cmd, cwd=HERE, stdout=out,
-                                stderr=subprocess.STDOUT)
+                                stderr=subprocess.STDOUT, env=env)
         try:
             while True:
                 if proc.poll() is not None:
@@ -3274,6 +3493,18 @@ def engine_cli(flags: list, tag: str, log_name: str, chat=HF_CHAT) -> None:
                     fail(f'{tag} /health not 200 after 300 s: {code}')
                 time.sleep(0.5)
             up = time.perf_counter() - t0
+            if slots:
+                free = (slots + min(ENGINE_PREFIX, slots)) * \
+                    ENGINE_SLOT_PAGES
+                code, health = http(base + '/health')
+                if code != 200 or health['kv_pages_free'] != free:
+                    fail(f'{tag} /health under SKYTPU_ENGINE_MAX_BATCH='
+                         f'{slots}: {code} {health}, want {free} free pages')
+                code, root = http(base + '/')
+                if code != 200 or root['kv_pages_free'] != free:
+                    fail(f'{tag} GET / answered {code}: {root}')
+                log(f'{tag} SKYTPU_ENGINE_MAX_BATCH={slots}: /health and '
+                    f'GET / report {free} free pages ({slots} slots)')
             code, doc = http(base + '/v1/chat/completions', chat)
             if code != 200 or doc['choices'][0]['finish_reason'] != 'length':
                 fail(f'{tag} chat answered {code}: {doc}')
@@ -3311,7 +3542,7 @@ def phase_hf(torch, build, engine_lib, decode) -> dict:
     paths['serve_hf'] = hf_serve(torch, build, engine_lib, decode, cfg, ck)
     free_card(torch)
     engine_cli(['--model', HF_MODEL, '--ckpt-dir', ck], '[hf cli]',
-               'hf_cli.log')
+               'hf_cli.log', slots=16)
     shutil.rmtree(ck)
     qwen = os.path.join(root, 'Qwen2.5-1.5B')
     hf_round_trip(torch, config.get_config(HF_QWEN), qwen, '[hf qwen]')

@@ -12,13 +12,16 @@ kernel takes none: :func:`attention` sends a call with any of them to
 the plain version on every device, decided from its arguments before
 anything is launched (the JAX ``attention`` gate).
 
-``impl='auto'`` sends any other CUDA call through the flash autograd
-function (ops/flash_attention.py: kernel A forward, kernels C and D
-backward), which serves prefill at every prompt bucket and training at
-every length, and raises on what it does not take (dtypes other than
-bf16, head dims other than 64, 128 and 256, a backward at 256); a CPU
-tensor takes the plain version. ``impl='xla'`` asks for the plain
-version on any device, differentiable by autograd.
+``impl='auto'`` sends any other CUDA call that kernel A takes
+(``flash_attention.flash_takes``: bf16 q/k/v at a head dim of 64, 128
+or 256, and a backward kernels C and D take where a gradient is
+wanted) through the flash autograd function (ops/flash_attention.py:
+kernel A forward, kernels C and D backward), which serves prefill at
+every prompt bucket and training at every length; everything else,
+and every CPU tensor, takes the plain version, as the JAX ``_flash_ok``
+sends what its kernel does not take to XLA. ``impl='flash'`` asks for
+the kernel and raises on what it does not take. ``impl='xla'`` asks for
+the plain version on any device, differentiable by autograd.
 """
 from __future__ import annotations
 
@@ -142,11 +145,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention by ``impl``: 'auto', 'flash' or 'xla'. A call that
     is not trivial (:func:`is_trivial`) takes the plain version whatever
-    ``impl`` asks for, as in the JAX package."""
+    ``impl`` asks for, as in the JAX package; under 'auto' so does a
+    call kernel A does not take (``flash_attention.flash_takes``)."""
     trivial = is_trivial(q_offset, kv_offset, segment_ids, logit_softcap,
                          window, sinks)
     if impl == 'auto':
-        impl = 'flash' if (q.is_cuda and trivial) else 'xla'
+        impl = 'xla'
+        if q.is_cuda and trivial:
+            from skypilot_tpu_torch.ops import flash_attention
+            wants_grad = torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v))
+            if flash_attention.flash_takes(q, k, v, wants_grad):
+                impl = 'flash'
     elif impl == 'flash' and not trivial:
         impl = 'xla'
     if impl == 'xla':

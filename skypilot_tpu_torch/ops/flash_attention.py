@@ -132,6 +132,24 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
         raise ValueError('q, k and v must all lie on the card')
 
 
+def flash_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                wants_grad: bool) -> bool:
+    """Kernel A's gate (the JAX ``_flash_ok``), decided from the
+    arguments before anything launches: bf16 q/k/v on the card at a
+    head dim in FWD_HEAD_DIMS and the shapes ``_check_kernel_inputs``
+    accepts, and, where a gradient is wanted, a head dim kernels C and
+    D take (:func:`backward_refused`). ``attention(impl='auto')`` sends
+    every other call to the plain version; the wrappers called directly
+    still raise on it."""
+    if not q.is_cuda:
+        return False
+    try:
+        _check_kernel_inputs(q, k, v)
+    except (TypeError, ValueError):
+        return False
+    return not backward_refused(q.shape[-1], True, wants_grad)
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 

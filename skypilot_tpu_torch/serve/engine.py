@@ -63,10 +63,37 @@ models/hf_import.py, the model named after the directory, its
 messages for the tokenizer's chat family (llama3, ChatML, or plain for
 the byte tokenizer) and answers as JSON or SSE.
 
-What waits (ROADMAP Queue 1 item 4): ``n`` / ``best_of`` and batched
-prompts (each refused with 400 by name), metrics and the flight
-recorder, failure resurrection, the spill tier and int8 KV, disagg,
-meshes (an expert axis among them) and multi-host.
+A replica behind the serve plane (the JAX engine's surface): ``GET
+/health`` and ``GET /`` answer 503 while warming, 500 after a loop
+error and 200 with the saturation doc (queue depth, in-flight rows,
+free pages); ``GET /metrics`` renders every ``skytpu_engine_*`` family
+of the JAX engine whose feature the port has, from the engine's own
+registry (observe/metrics.py); ``GET /debug/flight?limit=N`` dumps the
+flight ring (observe/flight.py: dispatch, collect, admit, finish,
+spec, reset, cancel and chunk events). The request class comes from
+``X-Skytpu-Class`` (observe/request_class.py) and goodput is counted
+per class at publish. A failed admit, chunk, step or collect is
+contained as in JAX ``_fail_all``: rows that finished resolve, requests
+that never sampled go back to the front of the hold queue (at most
+``SKYTPU_ENGINE_RESURRECT_MAX`` times), and only rows that had emitted
+tokens fail, with the retriable :class:`EngineResetError` (a structured
+503 over HTTP); the device state is zeroed in place, so the captured
+graphs replay after a reset with no recapture. A sticky CUDA fault is
+not contained: the reset itself raises, the loop dies and ``/health``
+answers 500, and the replica manager restarts the replica. Failpoint
+sites (utils/failpoints.py) sit at JAX's points: ``engine.admit``,
+``engine.step`` and ``engine.collect``. ``/v1/completions`` takes
+``n``, ``best_of`` (candidates ranked by mean token logprob) and
+batched prompts; chat takes ``n``.
+
+The knobs are the JAX engine's, read under its names and defaults
+(utils/knobs.py). Those whose feature waits are refused by name at
+construction, citing the ROADMAP item: ``SKYTPU_ENGINE_PAGED=0`` and
+``SKYTPU_ENGINE_ATTN=gather`` (Queue 1 item 3), a role, a positive
+handoff port or warm disagg (item 4 (f)), the host spill tier (item 4
+(e)). What waits besides (ROADMAP Queue 1 item 4): the spill tier and
+int8 KV, disagg, request spans, meshes (an expert axis among them) and
+multi-host.
 
 The HTTP server is the standard library's ThreadingHTTPServer; the
 batch loop runs in its own thread and owns all device state. Request
@@ -95,6 +122,7 @@ import queue
 import threading
 import time
 import traceback
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -109,21 +137,31 @@ from skypilot_tpu_torch.data.tokenizer import StreamDecoder
 from skypilot_tpu_torch.kernels import build
 from skypilot_tpu_torch.models import (decode, hf_import, mla, module_for,
                                        paging)
+from skypilot_tpu_torch.observe import flight as flight_lib
+from skypilot_tpu_torch.observe import metrics as metrics_lib
+from skypilot_tpu_torch.observe import request_class
+from skypilot_tpu_torch.ops import paged_attention
 from skypilot_tpu_torch.train import checkpoints
+from skypilot_tpu_torch.utils import failpoints
+from skypilot_tpu_torch.utils import knobs
 
 logger = logging.getLogger(__name__)
 
-
-def _env_int(name: str, default: int) -> int:
-    return int(os.environ.get(name, str(default)))
-
-
-MAX_BATCH = 8
-PAGE_SIZE = 64
-MAX_QUEUE = 64
+# The JAX engine's knobs, under its names and with its defaults
+# (utils/knobs.py), read at import as JAX reads them. Each is an
+# instance attribute too, which tests may set before warm-up.
+# Decode slots, tokens per KV page (a power of two dividing
+# PREFIX_MIN_TOKENS), and the bounded admission queue (overflow: 429).
+MAX_BATCH = knobs.get_int('SKYTPU_ENGINE_MAX_BATCH')
+PAGE_SIZE = knobs.get_int('SKYTPU_ENGINE_PAGE_SIZE')
+MAX_QUEUE = knobs.get_int('SKYTPU_ENGINE_MAX_QUEUE')
+# Times a request that never sampled a token is resubmitted after a
+# failure reset before it fails: an admission that faults every time
+# must surface an error, not loop.
+RESURRECT_MAX = knobs.get_int('SKYTPU_ENGINE_RESURRECT_MAX')
 # Decode steps fused into one device call when no request waits to join
 # (the JAX knob of the same name): the two step widths are 1 and this.
-MAX_STEP_CHUNK = _env_int('SKYTPU_ENGINE_STEP_CHUNK', 8)
+MAX_STEP_CHUNK = knobs.get_int('SKYTPU_ENGINE_STEP_CHUNK')
 # Top-N alternative logprobs computed per token (OpenAI ``logprobs=N``):
 # only in the step variants some active row asked for, always at admit.
 TOP_LOGPROBS_K = 5
@@ -132,18 +170,16 @@ TOP_LOGPROBS_K = 5
 CTRL_ROWS = 6
 # Calls in flight at most (one collected while the next one runs).
 MAX_INFLIGHT = 2
-# The JAX engine's knobs, under its names and with its defaults. Each is
-# an instance attribute too, which tests may set before warm-up.
 # Prefix cache: LRU entries (0 disables). A prompt sharing a snapshotted
 # prefix prefills only its suffix, over the snapshot's own pages.
-PREFIX_CACHE_ENTRIES = _env_int('SKYTPU_ENGINE_PREFIX_CACHE', 4)
+PREFIX_CACHE_ENTRIES = knobs.get_int('SKYTPU_ENGINE_PREFIX_CACHE')
 # int8 K/V pools ('int8'; JAX default 'none'): refused, not ported yet.
-KV_QUANT = os.environ.get('SKYTPU_ENGINE_KV_QUANT', 'none')
+KV_QUANT = knobs.get_enum('SKYTPU_ENGINE_KV_QUANT')
 # Prompts shorter than this are never snapshotted; snapshots are powers
 # of two, so the page size must divide it.
 PREFIX_MIN_TOKENS = 64
 # Speculative decoding: tokens proposed per verify round (0 disables).
-SPEC_K = _env_int('SKYTPU_ENGINE_SPEC_K', 4)
+SPEC_K = knobs.get_int('SKYTPU_ENGINE_SPEC_K')
 # Longest n-gram of the row's own context matched when drafting, and the
 # trailing window scanned (host-side Python on the decode loop).
 SPEC_NGRAM = 3
@@ -152,19 +188,181 @@ SPEC_LOOKUP_WINDOW = 512
 # speculation for SPEC_COOLDOWN collected calls; a probe that finds no
 # draft (or a row without verify headroom) for SPEC_NO_DRAFT_COOLDOWN.
 SPEC_MIN_ACCEPT = 0.25
-SPEC_COOLDOWN = _env_int('SKYTPU_ENGINE_SPEC_COOLDOWN', 16)
+SPEC_COOLDOWN = knobs.get_int('SKYTPU_ENGINE_SPEC_COOLDOWN')
 SPEC_NO_DRAFT_COOLDOWN = 4
 # Pool pages, the trash page included; 0: every slot's worst case plus
 # the prefix cache's headroom.
-KV_PAGES = _env_int('SKYTPU_ENGINE_KV_PAGES', 0)
+KV_PAGES = knobs.get_int('SKYTPU_ENGINE_KV_PAGES')
 # Prompts longer than this prefill in chunks of this many tokens (a power
 # of two >= 16), one chunk per scheduling round.
-PREFILL_CHUNK = _env_int('SKYTPU_ENGINE_PREFILL_CHUNK', 256)
+PREFILL_CHUNK = knobs.get_int('SKYTPU_ENGINE_PREFILL_CHUNK')
 
 
 class EngineOverloaded(Exception):
     """The bounded admission queue is full (answered with 429)."""
 
+
+class EngineResetError(Exception):
+    """A device admit/step serving this request failed and the device
+    state was rebuilt after it had emitted tokens (the JAX class of the
+    same name). Structured and retriable: the engine serves again, and
+    ``tokens_emitted`` tells a streaming client how many tokens it
+    already holds. Answered with a 503 of type ``engine_reset_error``,
+    ``retriable: true`` and ``Retry-After: 1``."""
+
+    def __init__(self, msg: str, tokens_emitted: int = 0):
+        super().__init__(msg)
+        self.tokens_emitted = tokens_emitted
+        self.retriable = True
+
+
+# Latency histogram buckets of the JAX engine (seconds).
+_TTFT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                 10.0, 30.0, 60.0)
+_TPOT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                 0.25, 0.5, 1.0, 2.5)
+_WAIT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
+# The attention backends the gauge labels (the JAX label set).
+ATTN_BACKENDS = ('fused', 'pallas', 'gather')
+
+
+class EngineMetrics:
+    """The JAX engine's ``skytpu_engine_*`` families whose feature the
+    port has, under the same names, types, labels and buckets, in one
+    registry per engine (so two engines in one process never share a
+    count). Waiting with their features: ``_handoff_total`` and
+    ``_handoff_staged`` (disagg), ``_kv_pages_spilled``,
+    ``_spill_seconds``, ``_wake_seconds`` and ``_kv_sessions_peak``
+    (the host spill tier)."""
+
+    def __init__(self):
+        reg = self.registry = metrics_lib.Registry()
+        self.step_seconds = reg.histogram(
+            'skytpu_engine_step_seconds',
+            'Decode-step latency by pipeline phase (dispatch = host time '
+            'to enqueue the fused device call, collect = transfer + '
+            'bookkeeping)', labels={'phase': ('dispatch', 'collect')})
+        self.admit_seconds = reg.histogram(
+            'skytpu_engine_admit_seconds',
+            'Grouped-prefill admission latency (one device call per '
+            'group)')
+        self.host_sync_seconds = reg.histogram(
+            'skytpu_engine_host_sync_seconds',
+            'Time the decode loop blocks on device→host transfers')
+        self.queue_depth = reg.gauge(
+            'skytpu_engine_queue_depth',
+            'Requests waiting in the admission queue')
+        self.in_flight = reg.gauge(
+            'skytpu_engine_in_flight', 'Requests occupying decode slots')
+        self.steps = reg.counter(
+            'skytpu_engine_steps_total',
+            'Decode steps executed (fused steps count each token)')
+        self.tokens = reg.counter(
+            'skytpu_engine_tokens_total',
+            'Tokens generated and delivered to requests')
+        self.requests = reg.counter(
+            'skytpu_engine_requests_total',
+            'Requests accepted into the admission queue')
+        self.rejected = reg.counter(
+            'skytpu_engine_rejected_total',
+            'Requests rejected with 429 (admission queue full)')
+        self.resurrected = reg.counter(
+            'skytpu_engine_resurrected_total',
+            'Requests internally resubmitted after a device failure reset '
+            '(they had not sampled a token, so nothing was lost)')
+        self.prefix = reg.counter(
+            'skytpu_engine_prefix_requests_total',
+            'Prefix (system-prompt) cache lookups at admission',
+            labels={'outcome': ('hit', 'miss')})
+        self.prefix_hits = reg.counter(
+            'skytpu_engine_prefix_hits_total',
+            'Prefix-cache hits (suffix-only prefills)')
+        self.spec_rounds = reg.counter(
+            'skytpu_engine_spec_rounds_total', 'Speculative verify rounds')
+        self.spec_proposed = reg.counter(
+            'skytpu_engine_spec_proposed_total',
+            'Draft tokens proposed to the verifier')
+        self.spec_accepted = reg.counter(
+            'skytpu_engine_spec_accepted_total',
+            'Draft tokens accepted by the verifier')
+        self.ttft = reg.histogram(
+            'skytpu_engine_ttft_seconds',
+            'Time to first token: request submit to first sampled token '
+            '(queue wait + prefill)', buckets=_TTFT_BUCKETS)
+        self.tpot = reg.histogram(
+            'skytpu_engine_tpot_seconds',
+            'Time per output token after the first (mean per request)',
+            buckets=_TPOT_BUCKETS)
+        self.class_ttft = reg.histogram(
+            'skytpu_engine_class_ttft_seconds',
+            'Time to first token by request class (declared via '
+            'X-Skytpu-Class, clamped to the closed class registry)',
+            labels={'cls': request_class.CLASSES}, buckets=_TTFT_BUCKETS)
+        self.class_tpot = reg.histogram(
+            'skytpu_engine_class_tpot_seconds',
+            'Time per output token after the first by request class',
+            labels={'cls': request_class.CLASSES}, buckets=_TPOT_BUCKETS)
+        self.goodput = reg.counter(
+            'skytpu_engine_goodput_total',
+            'Finished requests by class and whether they met their '
+            'class\'s latency objective (good = TTFT and TPOT at/under the '
+            'request_class.OBJECTIVES bounds; slow = completed but missed '
+            'them)',
+            labels={'cls': request_class.CLASSES,
+                    'outcome': ('good', 'slow')})
+        self.pages_free = reg.gauge(
+            'skytpu_engine_kv_pages_free',
+            'Free KV cache pages in the pool (paged mode; excludes the '
+            'trash page)')
+        self.pages_used = reg.gauge(
+            'skytpu_engine_kv_pages_used',
+            'KV cache pages held by live requests and shared prefix '
+            'entries (paged mode)')
+        self.page_alloc = reg.counter(
+            'skytpu_engine_kv_page_alloc_total',
+            'Page-reservation attempts at admission: ok = pages granted, '
+            'wait = the request stayed queued for lack of free pages',
+            labels={'outcome': ('ok', 'wait')})
+        self.admit_wait = reg.histogram(
+            'skytpu_engine_admission_wait_seconds',
+            'Request submit to admission (queue wait, incl. waiting on '
+            'free KV pages)', buckets=_WAIT_BUCKETS)
+        self.attn_backend = reg.gauge(
+            'skytpu_engine_attn_backend',
+            'Info gauge: 1 on the attention backend this replica serves '
+            'the paged hot path with, 0 elsewhere',
+            labels={'backend': ATTN_BACKENDS})
+        self.cache_read = reg.counter(
+            'skytpu_engine_cache_bytes_read_total',
+            'KV-cache bytes read by the decode step/verify programs '
+            '(shape-derived proxy: attention reads of the [B, max_len] '
+            'span)')
+        self.cache_written = reg.counter(
+            'skytpu_engine_cache_bytes_written_total',
+            'KV-cache bytes written by the decode step/verify programs '
+            '(shape-derived proxy: the new token positions)')
+        self.kv_pages_quantized = reg.gauge(
+            'skytpu_engine_kv_pages_quantized',
+            'Device pool pages holding int8-quantized KV (0 on fp pools)')
+
+    def reset(self) -> None:
+        """Zero every family, then seed the counter zeros (JAX
+        ``_seed_counter_zeros``: every counter series exists from birth,
+        so rate() and absent() alerts see it before its first event)."""
+        self.registry.reset_for_tests()
+        for metric in (self.steps, self.tokens, self.requests,
+                       self.rejected, self.prefix_hits, self.spec_rounds,
+                       self.spec_proposed, self.spec_accepted,
+                       self.cache_read, self.cache_written):
+            metric.inc(0)
+        for outcome in ('hit', 'miss'):
+            self.prefix.inc(0, outcome=outcome)
+        for outcome in ('ok', 'wait'):
+            self.page_alloc.inc(0, outcome=outcome)
+        for cls in request_class.CLASSES:
+            for outcome in ('good', 'slow'):
+                self.goodput.inc(0, cls=cls, outcome=outcome)
 
 @dataclasses.dataclass
 class Request:
@@ -180,6 +378,12 @@ class Request:
     future: Optional[concurrent.futures.Future] = None
     stream: Optional['queue.Queue'] = None
     t_submit: float = 0.0
+    # The request's class, clamped through request_class.normalize.
+    cls: str = request_class.DEFAULT_CLASS
+    # Times resubmitted after a failure reset (bounded by RESURRECT_MAX).
+    resurrects: int = 0
+    # Counted once in kv_page_alloc_total{outcome="wait"}.
+    waited: bool = False
 
 
 @dataclasses.dataclass
@@ -216,6 +420,21 @@ class _InFlightStep:
         self.lps = stage.lps[:k]
         self.tis = stage.tis[:k] if want_tops else None
         self.tvs = stage.tvs[:k] if want_tops else None
+
+
+def _resolve(fut: Optional[concurrent.futures.Future], result=None,
+             exc: Optional[BaseException] = None) -> None:
+    """Resolve a request's future unless it is already done (a handler
+    may cancel a queued one at any moment)."""
+    if fut is None or fut.done():
+        return
+    try:
+        if exc is not None:
+            fut.set_exception(exc)
+        else:
+            fut.set_result(result)
+    except concurrent.futures.InvalidStateError:
+        pass
 
 
 def _tops_list(ti, tv) -> list:
@@ -316,6 +535,9 @@ class InferenceEngine:
         self.spec_cooldown = SPEC_COOLDOWN
         self.prefill_chunk = PREFILL_CHUNK
         self.kv_pages = KV_PAGES
+        self.max_queue = MAX_QUEUE
+        self.resurrect_max = RESURRECT_MAX
+        self._refuse_waiting_knobs()
         self._check_knobs()
         self.seed = seed
         if params is None:
@@ -344,7 +566,8 @@ class InferenceEngine:
                         self.tokenizer.eos_ids)
         else:
             self.tokenizer = tokenizer_lib.ByteTokenizer()
-        self._queue: 'queue.Queue[Request]' = queue.Queue(maxsize=MAX_QUEUE)
+        self._queue: 'queue.Queue[Request]' = queue.Queue(
+            maxsize=self.max_queue)
         self._hold: List[Request] = []
         self._pending_cancels: collections.deque = collections.deque()
         self._stop = threading.Event()
@@ -352,6 +575,19 @@ class InferenceEngine:
         self.warm = False
         self.loop_error: Optional[BaseException] = None
         self.step_count = 0
+        # Tokens generated, and resurrections and resets after a failure
+        # (the JAX engine's attributes, kept by the batch loop alone;
+        # warm-up zeroes the token count).
+        self.tokens_generated = 0
+        self.resurrected_total = 0
+        self._resets = 0
+        # The hot loop's telemetry: flight-ring tuples (no lock, no
+        # device sync) and this engine's metric families, rendered at
+        # /metrics.
+        self.flight = flight_lib.FlightRecorder()
+        self.metrics = EngineMetrics()
+        self.metrics.reset()
+        self._admit_t0 = 0.0
         # Fused calls dispatched, by variant (k, use_pen, want_tops), and
         # speculative verify calls, by want_tops.
         self.calls: collections.Counter = collections.Counter()
@@ -371,6 +607,44 @@ class InferenceEngine:
         self.slots: List[Optional[Dict[str, Any]]] = [None] * self.max_batch
         self._prefix_store: 'collections.OrderedDict[tuple, List[int]]' = \
             collections.OrderedDict()
+
+    def _refuse_waiting_knobs(self) -> None:
+        """Refuse by name, at construction, a non-default value of each
+        JAX engine knob whose feature the port does not have yet. The
+        paged step the port computes is the JAX 'fused' path (kernel B
+        on the card, its 'pallas'), so ``SKYTPU_ENGINE_ATTN`` takes
+        either; 'gather' is the view baseline, not ported."""
+        waiting = []
+        if not knobs.get_bool('SKYTPU_ENGINE_PAGED'):
+            waiting.append(('SKYTPU_ENGINE_PAGED=0', 'the contiguous '
+                            'slabs', 'item 3'))
+        if knobs.get_enum('SKYTPU_ENGINE_ATTN') == 'gather':
+            waiting.append(('SKYTPU_ENGINE_ATTN=gather', 'the gather view '
+                            'baseline', 'item 3'))
+        role = knobs.get_enum('SKYTPU_ENGINE_ROLE')
+        if role:
+            waiting.append((f'SKYTPU_ENGINE_ROLE={role}',
+                            'disaggregated prefill/decode', 'item 4 (f)'))
+        handoff = knobs.get_int('SKYTPU_ENGINE_HANDOFF_PORT')
+        if handoff > 0:
+            waiting.append((f'SKYTPU_ENGINE_HANDOFF_PORT={handoff}',
+                            'the KV handoff listener', 'item 4 (f)'))
+        if knobs.get_bool('SKYTPU_ENGINE_WARM_DISAGG'):
+            waiting.append(('SKYTPU_ENGINE_WARM_DISAGG=1', 'the page '
+                            'export/adopt programs', 'item 4 (f)'))
+        host_mb = knobs.get_int('SKYTPU_ENGINE_KV_HOST_MB')
+        if host_mb:
+            waiting.append((f'SKYTPU_ENGINE_KV_HOST_MB={host_mb}',
+                            'the host-RAM spill tier', 'item 4 (e)'))
+        idle = knobs.get_float('SKYTPU_ENGINE_KV_IDLE_SPILL_S')
+        if idle:
+            waiting.append((f'SKYTPU_ENGINE_KV_IDLE_SPILL_S={idle}',
+                            'the idle spill sweep', 'item 4 (e)'))
+        if waiting:
+            setting, feature, item = waiting[0]
+            raise NotImplementedError(
+                f'{setting}: {feature} is not ported yet; it waits for '
+                f'ROADMAP Queue 1 {item}')
 
     def _check_knobs(self) -> None:
         """The JAX engine's checks of its paging knobs."""
@@ -433,6 +707,12 @@ class InferenceEngine:
         psz, b, dev = self.page_size, self.max_batch, self.device
         self.cache = self._decode.init_page_pool(
             self.cfg, self.n_pages, psz, b, self._max_pages, device=dev)
+        # The cache-traffic proxy's inputs (host arithmetic on static
+        # shapes, never a device sync): one position's bytes across
+        # layers, and the whole [B, max_len] span's.
+        self._tok_bytes = sum(p[:, 0, 0].numel() * p.element_size()
+                              for p in paging._pools(self.cache).values())
+        self._view_bytes = b * self.max_len * self._tok_bytes
         # Per-slot previous token, device-resident: the fused calls carry
         # it, so a lookahead call is dispatched with no host sync;
         # self.last is its host mirror, kept at admit and collect.
@@ -524,6 +804,8 @@ class InferenceEngine:
         runs (an uncollected call may be copying into a stage), then
         zero the pool, table, lengths, ``last`` and counts IN PLACE (the
         graphs keep their addresses) and reset the host state."""
+        self.flight.record(flight_lib.RESET, 0, self._resets)
+        self._resets += 1
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         for t in (*paging._pools(self.cache).values(), self.cache.table,
@@ -532,6 +814,33 @@ class InferenceEngine:
         if self.spec_k > 0:
             self._spec_dev.zero_()
         self._reset_host_state()
+
+    def attn_backend_served(self) -> str:
+        """The JAX backend label of the paged step this replica serves:
+        'pallas' where kernel B (the hand-written counterpart of the
+        Pallas kernel) runs every decode step, 'fused' where the plain
+        in-place formulation does (the CPU, MLA, a softcap, window or
+        sinks, or a shape B does not take)."""
+        cfg = self.cfg
+        if self.device.type != 'cuda' or self._decode is mla or \
+                cfg.dtype != torch.bfloat16:
+            return 'fused'
+        hd = cfg.head_dim or cfg.dim // cfg.n_heads
+        takes = paged_attention.kernel_takes(
+            (self.max_batch, 1, cfg.n_heads, hd),
+            (self.n_pages, self.page_size, cfg.n_kv_heads, hd),
+            cfg.attn_logit_softcap, cfg.sliding_window,
+            True if cfg.attn_sinks else None)
+        return 'pallas' if takes else 'fused'
+
+    def _count_cache_traffic(self, n_attend: int, n_tokens: int) -> None:
+        """One step or verify call's KV-cache bytes into the
+        ``cache_bytes_*`` counters, derived from shapes on the host (the
+        JAX proxy): ``n_attend`` passes over the [B, max_len] span, and
+        ``n_tokens`` new positions written per row."""
+        self.metrics.cache_read.inc(n_attend * self._view_bytes)
+        self.metrics.cache_written.inc(
+            n_tokens * self.max_batch * self._tok_bytes)
 
     def _refresh_table(self) -> None:
         """Push the host page-table mirror to the device if dirty. Only
@@ -565,7 +874,9 @@ class InferenceEngine:
         while not self.alloc.can_fit(n) and self._prefix_store:
             _, pids = self._prefix_store.popitem(last=False)
             self.alloc.unref_all(pids)
-        return self.alloc.alloc(n)
+        pids = self.alloc.alloc(n)
+        self.metrics.page_alloc.inc(outcome='ok')
+        return pids
 
     def _reserve_slot_pages(self, slot: int, pids: List[int]) -> None:
         self._table_np[slot, :len(pids)] = pids
@@ -623,44 +934,56 @@ class InferenceEngine:
                top_p: Optional[float] = None, presence: float = 0.0,
                frequency: float = 0.0, stop_ids: Tuple[int, ...] = (),
                want_tops: bool = False,
-               stream: Optional['queue.Queue'] = None
+               stream: Optional['queue.Queue'] = None,
+               cls: str = request_class.DEFAULT_CLASS
                ) -> concurrent.futures.Future:
         """Enqueue a request; the future resolves to (tokens,
         finish_reason, chosen-token logprobs, per-token top-5 lists —
         empty lists unless ``want_tops``; the first token's are always
-        there). ``stream`` (a queue.Queue) receives (token, logprob,
-        tops) per token and None at the end. Raises EngineOverloaded
-        when the bounded queue is full."""
+        there), or raises EngineResetError. ``stream`` (anything with a
+        ``put``) receives (token, logprob, tops) per token and None at
+        the end. ``cls`` is the request's declared class, clamped here.
+        Raises EngineOverloaded when the bounded queue is full."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
         req = Request(list(tokens), int(max_new), float(temperature), top_k,
                       top_p, float(presence), float(frequency),
                       tuple(stop_ids), bool(want_tops), fut, stream,
-                      time.perf_counter())
+                      time.perf_counter(), request_class.normalize(cls))
         try:
             self._queue.put_nowait(req)
         except queue.Full:
+            self.metrics.rejected.inc()
             raise EngineOverloaded(
-                f'admission queue full ({MAX_QUEUE} waiting)') from None
+                f'admission queue full ({self.max_queue} waiting)') \
+                from None
+        self.metrics.requests.inc()
+        self.metrics.queue_depth.set(self.queue_depth())
         return fut
 
     def cancel(self, fut: concurrent.futures.Future) -> None:
-        """Abort the admitted request owning ``fut`` (a stream whose
-        client went away, or a stop string matched mid-stream).
-        Deferred: the batch loop applies it at its next drained point,
-        never racing a call in flight. A request still queued is
-        skipped at admission once ``fut.cancel()`` succeeded."""
+        """Abort the request owning ``fut`` (a stream whose client went
+        away, a stop string matched mid-stream, or a fan-out whose
+        sibling failed). Deferred: the batch loop applies it at its next
+        drained point, never racing a call in flight. A request still
+        queued is skipped at admission once ``fut.cancel()`` succeeded;
+        one resurrected into the hold queue is dropped from it here."""
         self._pending_cancels.append(fut)
 
     def _process_cancels(self) -> None:
         """Apply deferred cancels (drained points only). Marks only: the
-        slot (a prefilling one too) frees at the next publish."""
+        slot (a prefilling one too) frees at the next publish. A held
+        request that was admitted once (its future already running, so
+        ``fut.cancel()`` cannot reach it) leaves the hold queue."""
         while self._pending_cancels:
             fut = self._pending_cancels.popleft()
-            for s in self.slots:
+            for i, s in enumerate(self.slots):
                 if s is not None and s['req'].future is fut:
                     if s['finish'] is None:
                         s['finish'] = 'stop'
+                        self.flight.record(flight_lib.CANCEL, i)
                     break
+            else:
+                self._hold = [r for r in self._hold if r.future is not fut]
 
     # -- admission -------------------------------------------------------------
     def _drain_admissible(self) -> List[Request]:
@@ -681,11 +1004,22 @@ class InferenceEngine:
             return True
 
         def live(req: Request) -> bool:
-            return (req.future is None or
+            # A resurrected request's future is running already.
+            return (req.future is None or req.future.running() or
                     req.future.set_running_or_notify_cancel())
+
+        def hold(req: Request) -> None:
+            self._hold.append(req)
+            if not req.waited:
+                # Counted once a request: admission found the pool
+                # short of pages.
+                req.waited = True
+                self.metrics.page_alloc.inc(outcome='wait')
 
         held, self._hold = self._hold, []
         for req in held:
+            if req.future is not None and req.future.cancelled():
+                continue                 # cancelled while waiting
             if len(items) < free_slots and fits(req):
                 if live(req):
                     items.append(req)
@@ -694,11 +1028,13 @@ class InferenceEngine:
         while (not self._hold and len(items) < free_slots and
                not self._queue.empty()):
             req = self._queue.get_nowait()
+            if req.future is not None and req.future.cancelled():
+                continue                 # cancelled while queued
             if fits(req):
                 if live(req):
                     items.append(req)
             else:
-                self._hold.append(req)
+                hold(req)
         return items
 
     def _admit_groups(self, items: List[Request]) -> List[List[Request]]:
@@ -747,8 +1083,11 @@ class InferenceEngine:
         self.last_dev[slots_t] = first
         self.counts[slots_t] = 0
         self.counts[slots_t, first.long()] += 1
-        return (first.cpu().numpy(), first_lp.cpu().numpy(),
-                tis.cpu().numpy(), tvs.cpu().numpy())
+        t_sync = time.perf_counter()
+        out = (first.cpu().numpy(), first_lp.cpu().numpy(),
+               tis.cpu().numpy(), tvs.cpu().numpy())
+        self.metrics.host_sync_seconds.observe(time.perf_counter() - t_sync)
+        return out
 
     def _admit_group(self, items: List[Request]) -> None:
         """Admit requests at a drained point. Once warm with the prefix
@@ -760,6 +1099,12 @@ class InferenceEngine:
         freshly allocated pages; each first token is sampled and, once
         warm, each prompt's prefix snapshotted."""
         assert not self._inflight, 'admission with a call in flight'
+        # Fault sites fire only once warm: warm-up drives the same
+        # methods with no containment around them.
+        if failpoints.ACTIVE and self.warm:
+            failpoints.fire('engine.admit')
+        t_admit = time.perf_counter()
+        self._admit_t0 = t_admit
         self._ensure_state()
         if self.warm and self.prefix_cache > 0:
             rest = []
@@ -791,6 +1136,10 @@ class InferenceEngine:
             self._reserve_slot_pages(
                 slot, self._alloc_pages(self._pages_needed(req)))
         self._refresh_table()
+        if self.warm and self.prefix_cache > 0:
+            # Every request reaching the grouped prefill missed the
+            # prefix cache (hits took _admit_with_prefix above).
+            self.metrics.prefix.inc(len(items), outcome='miss')
         dev = self.device
         slots_t = torch.tensor(slots, dtype=torch.int64, device=dev)
         lengths_t = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -809,10 +1158,19 @@ class InferenceEngine:
                                _tops_list(tis[i], tvs[i]), now)
             if self.warm:
                 self._prefix_capture(req.tokens, slots[i])
+        self.metrics.admit_seconds.observe(time.perf_counter() - t_admit)
 
     def _finish_admit(self, req: Request, slot: int, first: int,
                       first_lp: float, tops: list, now: float) -> None:
+        """Turn ``slot`` into a decoding row holding its first token.
+        The hot loop records a flight tuple here; the admission wait
+        (submit to the enclosing admit's start, or a chunked row's first
+        chunk) is observed once a request."""
         self.last[slot] = first
+        self.flight.record(flight_lib.ADMIT, slot,
+                           decode.bucket_size(len(req.tokens)))
+        self.metrics.admit_wait.observe(max(0.0,
+                                            self._admit_t0 - req.t_submit))
         # ctx = prompt ++ generated: the draft's source, and the host
         # view of the row's cache length (len(ctx) - 1).
         entry = {'req': req, 'out': [], 'lps': [], 'tops': [],
@@ -825,6 +1183,8 @@ class InferenceEngine:
             entry['out'].append(first)
             entry['lps'].append(first_lp)
             entry['tops'].append(tops)
+            self.tokens_generated += 1
+            self.metrics.tokens.inc()
             if len(entry['out']) >= req.max_new:
                 entry['finish'] = 'length'
         self.slots[slot] = entry
@@ -898,6 +1258,8 @@ class InferenceEngine:
                 self.cache, self.cfg, slot=slot, p=p, lengths=len(suffix))
             first, first_lp, tis, tvs = self._sample_first(logits, [slot])
         self.prefix_hits += 1
+        self.metrics.prefix_hits.inc()
+        self.metrics.prefix.inc(outcome='hit')
         self._finish_admit(req, slot, int(first[0]), float(first_lp[0]),
                            _tops_list(tis[0], tvs[0]), time.perf_counter())
         self._prefix_capture(req.tokens, slot)
@@ -921,6 +1283,8 @@ class InferenceEngine:
         """Claim a slot, reserve all of the row's pages now and run the
         first chunk; the batch loop runs the rest, one per round."""
         assert not self._inflight, 'chunk start with a call in flight'
+        if failpoints.ACTIVE and self.warm:
+            failpoints.fire('engine.admit')
         self._ensure_state()
         slot = self._free_slot()
         self._set_sampling(slot, req)
@@ -928,7 +1292,8 @@ class InferenceEngine:
             slot, self._alloc_pages(self._pages_needed(req)))
         self.slots[slot] = {'req': req, 'out': [], 'lps': [], 'tops': [],
                             'finish': None, 'stop': frozenset(req.stop_ids),
-                            'sent': 0, 'prefill': {'pos': 0}}
+                            'sent': 0, 'prefill': {
+                                'pos': 0, 't_admit': time.perf_counter()}}
         self._advance_chunk(slot)
 
     def _advance_chunk(self, slot: int) -> None:
@@ -944,6 +1309,7 @@ class InferenceEngine:
         assert not self._inflight, 'chunk with a call in flight'
         req, pos, c = s['req'], s['prefill']['pos'], self.prefill_chunk
         remaining = len(req.tokens) - pos
+        t0 = time.perf_counter()
         self._refresh_table()
         dev = self.device
         with torch.no_grad():
@@ -954,6 +1320,8 @@ class InferenceEngine:
                     self.cache, self.cfg, slot=slot, p=pos, lengths=c)
                 s['prefill']['pos'] = pos + c
                 self.prefill_chunks += 1
+                self.flight.record(flight_lib.CHUNK, slot, pos + c)
+                self.metrics.admit_seconds.observe(time.perf_counter() - t0)
                 return
             s2 = decode.bucket_size(remaining)
             logits = self._decode.paged_prefill_extend(
@@ -963,9 +1331,14 @@ class InferenceEngine:
                 self.cache, self.cfg, slot=slot, p=pos, lengths=remaining)
             first, first_lp, tis, tvs = self._sample_first(logits, [slot])
         self.prefill_chunks += 1
+        # The admission anchor is the first chunk: chunk rounds count as
+        # prefill, not as queue wait.
+        self._admit_t0 = s['prefill']['t_admit']
         self._finish_admit(req, slot, int(first[0]), float(first_lp[0]),
                            _tops_list(tis[0], tvs[0]), time.perf_counter())
+        self.flight.record(flight_lib.CHUNK, slot, len(req.tokens))
         self._prefix_capture(req.tokens, slot)
+        self.metrics.admit_seconds.observe(time.perf_counter() - t0)
 
     # -- the fused k-step program ----------------------------------------------
     def _step_body(self, k: int, use_pen: bool, want_tops: bool) -> None:
@@ -1146,6 +1519,10 @@ class InferenceEngine:
         the host. Rows already finished are masked out of ``active``."""
         if len(self._inflight) >= MAX_INFLIGHT:
             raise RuntimeError('dispatch with the pipeline full')
+        # On the host, before anything is enqueued (no graph replay).
+        if failpoints.ACTIVE and self.warm:
+            failpoints.fire('engine.step')
+        t0 = time.perf_counter()
         use_pen = bool(self.pres.any() or self.freq.any())
         want_tops = (bool(want_tops_force) if want_tops_force is not None
                      else any(self._row_active(s) and s['req'].want_tops
@@ -1171,6 +1548,11 @@ class InferenceEngine:
             stage.tvs[:k].copy_(self._out_tvs[:k], non_blocking=True)
         handle = _InFlightStep(k, want_tops, stage, self._record())
         self._inflight.append(handle)
+        self._count_cache_traffic(k, k)
+        # Ring only on the hot path (seq = step width).
+        self.flight.record(flight_lib.DISPATCH, 0, k)
+        self.metrics.step_seconds.observe(time.perf_counter() - t0,
+                                          phase='dispatch')
         return handle
 
     def _record(self):
@@ -1193,6 +1575,8 @@ class InferenceEngine:
         s['lps'].append(lp)
         s['tops'].append(tops)
         s['ctx'].append(tok)
+        self.tokens_generated += 1
+        self.metrics.tokens.inc()
         if len(s['out']) >= s['req'].max_new:
             s['finish'] = 'length'
             return True
@@ -1205,13 +1589,21 @@ class InferenceEngine:
         ``_fix_last`` re-pins it to the host mirror. One speculation
         cooldown tick per collected call."""
         assert self._inflight, 'collect with no step in flight'
+        if failpoints.ACTIVE and self.warm:
+            failpoints.fire('engine.collect')
         h = self._inflight.pop(0)
+        t0 = time.perf_counter()
         if h.event is not None:
             h.event.synchronize()
         toks, lps = h.toks.numpy().copy(), h.lps.numpy().copy()
         if h.want_tops:
             tis, tvs = h.tis.numpy().copy(), h.tvs.numpy().copy()
+        self.metrics.host_sync_seconds.observe(time.perf_counter() - t0)
+        # After the wait: dispatch → collect is the call's device and
+        # transfer time.
+        self.flight.record(flight_lib.COLLECT, 0, h.k)
         self.step_count += h.k
+        self.metrics.steps.inc(h.k)
         fixups = []
         for i, s in enumerate(self.slots):
             if not self._row_active(s):
@@ -1232,6 +1624,8 @@ class InferenceEngine:
             self._fix_last(h.stage, fixups)
         if self._spec_cool > 0:
             self._spec_cool -= 1
+        self.metrics.step_seconds.observe(time.perf_counter() - t0,
+                                          phase='collect')
 
     def _fix_last(self, stage: _Stage, rows: List[int]) -> None:
         """Re-sync the device ``last`` with the host mirror on ``rows``
@@ -1308,13 +1702,18 @@ class InferenceEngine:
             st.tis.copy_(self._ver_tis, non_blocking=True)
             st.tvs.copy_(self._ver_tvs, non_blocking=True)
         event = self._record()
+        t_sync = time.perf_counter()
         if event is not None:
             event.synchronize()
         greedy, lps = st.toks.numpy().copy(), st.lps.numpy().copy()
         if want_tops:
             tis, tvs = st.tis.numpy().copy(), st.tvs.numpy().copy()
+        self.metrics.host_sync_seconds.observe(time.perf_counter() - t_sync)
+        self._count_cache_traffic(1, k)
         self.step_count += 1
         self.spec_rounds += 1
+        self.metrics.steps.inc()
+        self.metrics.spec_rounds.inc()
         adv = np.zeros(self.max_batch, np.int32)
         round_prop = round_acc = 0
         for i in active:
@@ -1348,6 +1747,9 @@ class InferenceEngine:
                                         self.last_dev))
         self.spec_proposed += round_prop
         self.spec_accepted += round_acc
+        self.flight.record(flight_lib.SPEC, 0, round_acc)
+        self.metrics.spec_proposed.inc(round_prop)
+        self.metrics.spec_accepted.inc(round_acc)
         if round_prop and round_acc < SPEC_MIN_ACCEPT * round_prop:
             self._spec_cool = self.spec_cooldown
         return True
@@ -1375,7 +1777,6 @@ class InferenceEngine:
         slots and return their pages at once; clear the row's sampler
         and penalty params (the penalized variants key off any nonzero
         penalty)."""
-        now = time.perf_counter()
         for i, s in enumerate(self.slots):
             if s is None:
                 continue
@@ -1387,14 +1788,9 @@ class InferenceEngine:
                 s['sent'] = len(s['out'])
             if s['finish'] is None:
                 continue
-            n = len(s['out'])
-            if 't_first' in s:          # not a row cancelled mid-prefill
-                self.timings.append((
-                    s['t_first'] - req.t_submit,
-                    (now - s['t_first']) / (n - 1) if n > 1 else 0.0, n))
-            if req.future is not None and not req.future.done():
-                req.future.set_result((s['out'], s['finish'], s['lps'],
-                                       s['tops']))
+            self._finish_timing(i, s)
+            _resolve(req.future, (s['out'], s['finish'], s['lps'],
+                                  s['tops']))
             if q is not None:
                 q.put(None)                  # end-of-stream sentinel
             self.slots[i] = None
@@ -1403,26 +1799,123 @@ class InferenceEngine:
             self.pres[i] = self.freq[i] = 0
             self._samp_dirty = True
 
-    def _fail(self, err: Exception, extra: List[Request]) -> None:
-        """Contain an admit/step failure: fail every request on the
-        device (prefilling ones too) and the group being admitted, drop
-        the calls in flight, then reset device state. Requests still
-        queued or held are untouched."""
-        logger.error('engine step/admit failed; resetting: %s\n%s', err,
-                     traceback.format_exc())
-        reqs = [s['req'] for s in self.slots if s is not None]
-        seen = {id(r) for r in reqs}
-        reqs += [r for r in extra if id(r) not in seen]
-        self._reset_device_state()
-        for req in reqs:
-            if req.future is not None and not req.future.done():
-                req.future.set_exception(err)
-            if req.stream is not None:
-                req.stream.put(None)
+    def _finish_timing(self, slot: int, s: Dict[str, Any]) -> None:
+        """A finished row's TTFT and TPOT from the host timestamps its
+        entry carries: one observation of each per request at publish,
+        never per token and never with a device sync; goodput judged
+        against its class's objective. A row cancelled mid-prefill has
+        no first token and records only its flight event."""
+        self.flight.record(flight_lib.FINISH, slot, len(s['out']))
+        if 't_first' not in s:
+            return
+        req, n = s['req'], len(s['out'])
+        now = time.perf_counter()
+        ttft = s['t_first'] - req.t_submit
+        tpot = (now - s['t_first']) / (n - 1) if n > 1 else None
+        self.timings.append((ttft, tpot or 0.0, n))
+        m = self.metrics
+        m.ttft.observe(ttft)
+        m.class_ttft.observe(ttft, cls=req.cls)
+        if tpot is not None:
+            m.tpot.observe(tpot)
+            m.class_tpot.observe(tpot, cls=req.cls)
+        m.goodput.inc(cls=req.cls, outcome=(
+            'good' if request_class.is_good(req.cls, ttft, tpot)
+            else 'slow'))
+
+    def _fail_all(self, err: Exception, extra: List[Request] = ()) -> None:
+        """Contain a failed admit, chunk, step or collect with the
+        smallest blast radius (JAX ``_fail_all``), then rebuild the
+        device state in place:
+          * rows that finished before the failure resolve normally;
+          * requests that never sampled a token (the group whose admit
+            failed, rows mid-chunked-prefill) go back to the front of
+            the hold queue, oldest first, at most ``resurrect_max``
+            times each;
+          * only rows that had emitted tokens fail, with a retriable
+            EngineResetError carrying ``tokens_emitted``.
+        Every disposition is delivered after the rebuild lands, so a
+        client that retries never meets the old state. The calls in
+        flight and their stages are dropped with the host state.
+        Requests still queued or held are untouched. If the rebuild
+        itself raises (a sticky device fault), everything set aside
+        fails and the error propagates: the loop dies."""
+        logger.warning('engine admit/step failed; resetting the device '
+                       'state: %s\n%s', err, traceback.format_exc())
+        deliver: List[Callable[[], None]] = []
+        resurrected: List[Request] = []
+
+        def fail(req: Request, n_emitted: int) -> None:
+            def apply() -> None:
+                if req.stream is not None:
+                    req.stream.put(None)
+                if req.future is not None and not req.future.done():
+                    reset = EngineResetError(
+                        f'engine reset after device failure '
+                        f'({type(err).__name__}: {err}); request state '
+                        f'lost', tokens_emitted=n_emitted)
+                    reset.__cause__ = err
+                    _resolve(req.future, exc=reset)
+            deliver.append(apply)
+
+        def try_resurrect(req: Request) -> bool:
+            if req.future is None or req.future.done() or \
+                    req.resurrects >= self.resurrect_max:
+                return False
+            req.resurrects += 1
+            resurrected.append(req)
+            return True
+
+        handled = set()
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            req = s['req']
+            handled.add(id(req))
+            if s['finish'] is not None:
+                self._finish_timing(i, s)
+
+                def apply(s=s, req=req) -> None:
+                    if req.stream is not None:
+                        for j in range(s['sent'], len(s['out'])):
+                            req.stream.put((s['out'][j], s['lps'][j],
+                                            s['tops'][j]))
+                        req.stream.put(None)
+                    _resolve(req.future, (s['out'], s['finish'], s['lps'],
+                                          s['tops']))
+                deliver.append(apply)
+                continue
+            emitted = len(s['out'])
+            if emitted == 0 and s['sent'] == 0 and try_resurrect(req):
+                continue
+            fail(req, emitted)
+        for req in extra:
+            if id(req) in handled:
+                continue                 # admitted: the slot loop had it
+            if not try_resurrect(req):
+                fail(req, 0)
+        try:
+            self._reset_device_state()
+        except BaseException:
+            for req in resurrected:
+                fail(req, 0)
+            for apply in deliver:
+                apply()
+            raise
+        for apply in deliver:
+            apply()
+        if resurrected:
+            self._hold[:0] = resurrected
+            self.resurrected_total += len(resurrected)
+            self.metrics.resurrected.inc(len(resurrected))
+            logger.info('Resurrected %d request(s) that had not sampled a '
+                        'token; %d held for re-admission.', len(resurrected),
+                        len(self._hold))
 
     def _admit_pending(self) -> None:
         """Admit what fits: grouped prefills first, then the chunked
-        starts."""
+        starts. A failure is contained (:meth:`_fail_all`) and the rest
+        admit against the rebuilt state."""
         items = self._drain_admissible()
         grouped = [r for r in items if not self._should_chunk(r)]
         chunked = [r for r in items if self._should_chunk(r)]
@@ -1430,12 +1923,12 @@ class InferenceEngine:
             try:
                 self._admit_group(group)
             except Exception as e:  # pylint: disable=broad-except
-                self._fail(e, group)
+                self._fail_all(e, group)
         for req in chunked:
             try:
                 self._start_chunked(req)
             except Exception as e:  # pylint: disable=broad-except
-                self._fail(e, [req])
+                self._fail_all(e, [req])
 
     def warmup(self) -> None:
         """Build the device state, then run the whole variant matrix —
@@ -1474,10 +1967,20 @@ class InferenceEngine:
         self.timings.clear()
         self.calls.clear()
         self.verify_calls.clear()
-        self.step_count = 0
+        self.step_count = self.tokens_generated = 0
         self.prefix_hits = self.prefill_chunks = 0
         self.spec_rounds = self.spec_proposed = self.spec_accepted = 0
         self._spec_cool = 0
+        # Warm-up's synthetic admits and steps pollute neither the
+        # metrics (its capture times would wreck the histograms) nor
+        # the flight ring (a dump starts at real traffic).
+        self.metrics.reset()
+        backend = self.attn_backend_served()
+        for b in ATTN_BACKENDS:
+            self.metrics.attn_backend.set(1.0 if b == backend else 0.0,
+                                          backend=b)
+        self.metrics.kv_pages_quantized.set(0)
+        self.flight.clear()
         self.warm = True
 
     def _step_round(self) -> None:
@@ -1537,7 +2040,7 @@ class InferenceEngine:
                 try:
                     self._advance_chunk(slot)
                 except Exception as e:  # pylint: disable=broad-except
-                    self._fail(e, [])
+                    self._fail_all(e)
                     continue
                 self._publish()
             if not any(self._row_active(s) for s in self.slots):
@@ -1545,7 +2048,7 @@ class InferenceEngine:
             try:
                 self._step_round()
             except Exception as e:  # pylint: disable=broad-except
-                self._fail(e, [])
+                self._fail_all(e)
                 continue
             self._publish()
 
@@ -1694,37 +2197,106 @@ def _completion_logprobs(tokenizer, out, lps, text, tops=None):
             'text_offset': offsets}
 
 
-def _resolve_prompt(engine: InferenceEngine, prompt) -> List[int]:
-    """OpenAI ``prompt`` → one token-id list: a string or a token-id
-    list. A list of prompts waits for a later slice."""
+def _resolve_prompts(engine: InferenceEngine, prompt) -> List[List[int]]:
+    """OpenAI ``prompt`` → one token-id list per prompt: a string, a
+    token-id list, a list of strings or a list of token-id lists (the
+    batched forms eval harnesses send; each is its own choice), as JAX
+    ``_resolve_prompts``."""
+    def encode(p) -> List[int]:
+        if isinstance(p, list):
+            if not all(isinstance(t, int) for t in p):
+                raise ValueError('a prompt list must be all token ids')
+            return [int(t) for t in p]
+        return [int(t) for t in engine.tokenizer.encode(str(p))]
+
+    if isinstance(prompt, list) and prompt and all(
+            isinstance(t, int) for t in prompt):
+        return [encode(prompt)]
     if isinstance(prompt, list):
-        if prompt and all(isinstance(t, int) for t in prompt):
-            return [int(t) for t in prompt]
-        if prompt:
-            raise ValueError('batched prompts are not supported by this '
-                             'engine yet')
-        return []
-    return engine.tokenizer.encode(str(prompt))
+        if not prompt:
+            raise ValueError('empty prompt list')
+        return [encode(p) for p in prompt]
+    return [encode(prompt)]
 
 
-def _refuse_fanout(body, chat: bool = False) -> None:
-    """``n`` > 1 and ``best_of`` > 1 wait for a later slice; chat has no
-    ``best_of`` at all, as in JAX."""
-    if chat and body.get('best_of') is not None:
-        raise ValueError('best_of is not supported on /v1/chat/completions')
-    for field in ('n', 'best_of'):
-        val = body.get(field)
-        if val is not None and int(val) != 1:
-            raise ValueError(f'{field} > 1 is not supported by this engine '
-                             f'yet')
+def _parse_n(body, max_batch: int) -> Tuple[int, int]:
+    """OpenAI ``n`` / ``best_of``: n samples returned, best_of generated
+    and ranked by mean token logprob; both bounded by the slot pool
+    (JAX ``_parse_n``)."""
+    n = body.get('n')
+    n = 1 if n is None else int(n)
+    best_of = body.get('best_of')
+    best_of = n if best_of is None else int(best_of)
+    if not 1 <= n <= max_batch:
+        raise ValueError(f'n must be in [1, {max_batch}]')
+    if not n <= best_of <= max_batch:
+        raise ValueError(f'best_of must be in [n, {max_batch}]')
+    return n, best_of
+
+
+def _wait(engine: InferenceEngine, fut: concurrent.futures.Future):
+    """A request's result, checking every second that the batch loop is
+    still alive: a dead or stopped loop raises instead of leaving the
+    handler waiting forever."""
+    while True:
+        try:
+            return fut.result(timeout=1.0)
+        except concurrent.futures.TimeoutError:
+            if engine.loop_error is not None or engine._stop.is_set():
+                raise RuntimeError(
+                    f'engine stopped: {engine.loop_error}') from None
+
+
+def _cancel_all(engine: InferenceEngine, futs) -> None:
+    """Cut every unfinished request of a fan-out: a queued one is
+    skipped at admission, an admitted or held one is cancelled at the
+    next drained point."""
+    for f in futs:
+        if not f.done():
+            engine.cancel(f)
+            f.cancel()
+
+
+def _submit_many(engine: InferenceEngine, prompts, max_new: int, sampling,
+                 stop_ids, n: int, best_of: int, want_tops: bool,
+                 cls: str):
+    """Fan prompts × best_of out into the continuous batcher, rank each
+    prompt's candidates by mean token logprob and keep n per prompt
+    (JAX ``_submit_many``): (results, every token generated, the
+    discarded candidates' too). Enqueue is all or nothing: a 429 in
+    the middle cancels the siblings already enqueued; a reset cancels
+    the siblings still running, resurrected ones included."""
+    futs = []
+    try:
+        for tokens in prompts:
+            for _ in range(best_of):
+                futs.append(engine.submit(tokens, max_new, *sampling,
+                                          stop_ids=stop_ids,
+                                          want_tops=want_tops, cls=cls))
+    except EngineOverloaded:
+        _cancel_all(engine, futs)
+        raise
+    try:
+        all_res = [_wait(engine, f) for f in futs]
+    except Exception:
+        _cancel_all(engine, futs)
+        raise
+    generated = sum(len(r[0]) for r in all_res)
+    results = []
+    for p in range(len(prompts)):
+        cand = all_res[p * best_of:(p + 1) * best_of]
+        if best_of > n:
+            cand.sort(key=lambda r: -(sum(r[2]) / max(len(r[2]), 1)))
+        results.extend(cand[:n])
+    return results, generated
 
 
 def _completion_chunks(meta, top_n: int, tokenizer):
-    """The SSE payloads of one /v1/completions choice:
-    ``make(delta, finish, first=False, lp=None)`` yields the events for
-    one token's text (with its logprob info), the finish, or the stream's
+    """The SSE payloads of /v1/completions choices: ``make(delta,
+    finish, first=False, lp=None, index=0)`` yields the events for one
+    token's text (with its logprob info), the finish, or the stream's
     opening (none)."""
-    def make(delta, finish, first=False, lp=None):
+    def make(delta, finish, first=False, lp=None, index=0):
         if first:
             return
         lp_obj = None
@@ -1736,20 +2308,21 @@ def _completion_chunks(meta, top_n: int, tokenizer):
                            for i, v in tops}] if top_n else None,
                       'text_offset': [off]}
         yield {**meta, 'choices': [
-            {'text': delta or '', 'index': 0, 'logprobs': lp_obj,
+            {'text': delta or '', 'index': index, 'logprobs': lp_obj,
              'finish_reason': finish}]}
     return make
 
 
 def _chat_chunks(meta, top_n: int, tokenizer):
-    """The SSE payloads of one /v1/chat/completions choice (JAX
+    """The SSE payloads of /v1/chat/completions choices (JAX
     ``openai_chat``'s ``make_chunks``): the opening delta with the role,
     a content delta per token (chat-format logprobs), then an empty
     delta with the finish reason."""
-    def make(delta, finish, first=False, lp=None):
+    def make(delta, finish, first=False, lp=None, index=0):
         if first:
             yield {**meta, 'choices': [{
-                'index': 0, 'delta': {'role': 'assistant', 'content': ''},
+                'index': index, 'delta': {'role': 'assistant',
+                                          'content': ''},
                 'finish_reason': None}]}
             return
         if delta is not None or lp is not None:
@@ -1763,11 +2336,11 @@ def _chat_chunks(meta, top_n: int, tokenizer):
                          'logprob': round(v, 6)}
                         for i, v in tops] if top_n else None}]}
             yield {**meta, 'choices': [{
-                'index': 0, 'delta': {'content': delta or ''},
+                'index': index, 'delta': {'content': delta or ''},
                 'logprobs': lp_obj, 'finish_reason': None}]}
         if finish is not None:
             yield {**meta, 'choices': [{
-                'index': 0, 'delta': {}, 'finish_reason': finish}]}
+                'index': index, 'delta': {}, 'finish_reason': finish}]}
     return make
 
 
@@ -1787,12 +2360,27 @@ def _chat_logprobs(tokenizer, out, lps, text, tops, top_n: int) -> dict:
     return {'content': content}
 
 
-class _SseState:
-    """One streamed choice: incremental detokenization, the stop-string
-    holdback buffer (pieces paired with their token's logprob info) and
-    the text offset."""
+class _ChoiceQueue:
+    """One streamed choice's end of the handler's merged queue: the
+    engine puts (token, logprob, tops) and None, the handler reads
+    (choice index, item) as the batcher steps the pool."""
 
-    def __init__(self, tokenizer):
+    __slots__ = ('merged', 'idx')
+
+    def __init__(self, merged: 'queue.Queue', idx: int):
+        self.merged, self.idx = merged, idx
+
+    def put(self, item) -> None:
+        self.merged.put((self.idx, item))
+
+
+class _SseChoice:
+    """One streamed choice: its index and future, incremental
+    detokenization, the stop-string holdback buffer (pieces paired with
+    their token's logprob info) and the text offset."""
+
+    def __init__(self, tokenizer, idx: int, fut):
+        self.idx, self.fut = idx, fut
         self.decoder = StreamDecoder(tokenizer)
         self.pend: List[list] = []    # [piece_text, lp, tops]
         self.pend_chars = 0
@@ -1800,17 +2388,26 @@ class _SseState:
         self.stopped = False
 
 
-def _usage(tokens: List[int], out: List[int]) -> Dict[str, int]:
-    return {'prompt_tokens': len(tokens), 'completion_tokens': len(out),
-            'total_tokens': len(tokens) + len(out)}
+def _usage(n_prompt: int, n_out: int) -> Dict[str, int]:
+    return {'prompt_tokens': n_prompt, 'completion_tokens': n_out,
+            'total_tokens': n_prompt + n_out}
+
+
+def _reset_doc(e: EngineResetError) -> Dict[str, Any]:
+    """JAX's structured body of a reset: retriable, with the count of
+    tokens the request had emitted."""
+    return {'error': {'message': str(e), 'type': 'engine_reset_error',
+                      'retriable': True,
+                      'tokens_emitted': e.tokens_emitted}}
 
 
 def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
               port: int = 0) -> ThreadingHTTPServer:
-    """A ThreadingHTTPServer bound to (host, port) serving ``/health``,
-    ``/generate``, ``/v1/completions`` and ``/v1/chat/completions``
-    (JSON or SSE) and ``/v1/models``;
-    the caller runs ``serve_forever`` (in a thread) and
+    """A ThreadingHTTPServer bound to (host, port) serving ``GET
+    /health`` (and ``/``, the serve spec's default readiness path),
+    ``/metrics``, ``/debug/flight`` and ``/v1/models``, and ``POST
+    /generate``, ``/v1/completions`` and ``/v1/chat/completions`` (JSON
+    or SSE); the caller runs ``serve_forever`` (in a thread) and
     ``shutdown``/``server_close`` when done."""
 
     class Handler(BaseHTTPRequestHandler):
@@ -1819,17 +2416,27 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
         def log_message(self, fmt, *args):  # quiet: no per-request lines
             del fmt, args
 
-        def _json(self, status: int, doc: Dict[str, Any]) -> None:
-            body = json.dumps(doc).encode()
+        def _send(self, status: int, body: bytes, ctype: str,
+                  headers: Optional[Dict[str, str]] = None) -> None:
             self.send_response(status)
-            self.send_header('Content-Type', 'application/json')
+            self.send_header('Content-Type', ctype)
             self.send_header('Content-Length', str(len(body)))
+            for name, value in (headers or {}).items():
+                self.send_header(name, value)
             self.end_headers()
             self.wfile.write(body)
+
+        def _json(self, status: int, doc: Dict[str, Any],
+                  headers: Optional[Dict[str, str]] = None) -> None:
+            self._send(status, json.dumps(doc).encode(), 'application/json',
+                       headers)
 
         def _openai_error(self, msg: str, status: int = 400,
                           err_type: str = 'invalid_request_error') -> None:
             self._json(status, {'error': {'message': msg, 'type': err_type}})
+
+        def _reset_error(self, e: EngineResetError) -> None:
+            self._json(503, _reset_doc(e), {'Retry-After': '1'})
 
         def _body(self) -> Dict[str, Any]:
             n = int(self.headers.get('Content-Length', 0))
@@ -1839,21 +2446,51 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
             return body
 
         def do_GET(self):  # noqa: N802 (http.server naming)
-            if self.path == '/v1/models':
+            url = urllib.parse.urlsplit(self.path)
+            if url.path == '/v1/models':
                 return self._json(200, {'object': 'list', 'data': [
                     {'id': engine.model_name, 'object': 'model',
                      'owned_by': 'skytpu'}]})
-            if self.path != '/health':
+            if url.path == '/metrics':
+                return self._metrics()
+            if url.path == '/debug/flight':
+                return self._flight(url.query)
+            if url.path not in ('/health', '/'):
                 return self._json(404, {'error': 'not found'})
             if engine.loop_error is not None:
                 return self._json(500, {'status': 'failed',
                                         'error': str(engine.loop_error)})
             if not engine.warm:
                 return self._json(503, {'status': 'warming'})
+            # The saturation doc the fleet scraper reads.
             return self._json(200, {
                 'status': 'ok', 'queue_depth': engine.queue_depth(),
                 'in_flight': engine.in_flight(),
                 'kv_pages_free': engine.alloc.free_count})
+
+        def _metrics(self) -> None:
+            """The text exposition of the engine's registry, its gauges
+            sampled now."""
+            m = engine.metrics
+            m.queue_depth.set(engine.queue_depth())
+            m.in_flight.set(engine.in_flight())
+            if engine.alloc is not None:
+                m.pages_free.set(engine.alloc.free_count)
+                m.pages_used.set(engine.alloc.used_count)
+            self._send(200, m.registry.render().encode(),
+                       'text/plain; charset=utf-8')
+
+        def _flight(self, query: str) -> None:
+            """The flight ring, newest last: ``?limit=N`` keeps the newest
+            N (default 4096; 0 means all)."""
+            try:
+                limit = int(urllib.parse.parse_qs(query).get(
+                    'limit', ['4096'])[0])
+            except ValueError:
+                return self._json(400, {'error': 'bad limit'})
+            events = engine.flight.dump(limit if limit > 0 else None)
+            return self._json(200, {'capacity': engine.flight.capacity,
+                                    'count': len(events), 'events': events})
 
         def do_POST(self):  # noqa: N802
             if self.path == '/generate':
@@ -1863,6 +2500,9 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
             if self.path == '/v1/chat/completions':
                 return self._chat()
             return self._json(404, {'error': 'not found'})
+
+        def _cls(self) -> str:
+            return request_class.from_headers(self.headers)
 
         def _generate(self) -> None:
             try:
@@ -1886,11 +2526,13 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
                 return self._json(400, {'error': msg})
             try:
                 fut = engine.submit(tokens, max_new, *sampling,
-                                    stop_ids=stop_ids)
+                                    stop_ids=stop_ids, cls=self._cls())
             except EngineOverloaded as e:
                 return self._json(429, {'error': str(e)})
             try:
-                out, finish, lps, _ = fut.result()
+                out, finish, lps, _ = _wait(engine, fut)
+            except EngineResetError as e:
+                return self._reset_error(e)
             except Exception as e:  # pylint: disable=broad-except
                 return self._json(503, {'error': f'engine failure: {e}'})
             resp = {'tokens': out, 'finish_reason': finish, 'logprobs': lps}
@@ -1899,16 +2541,17 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
             return self._json(200, resp)
 
         def _completions(self) -> None:
-            """OpenAI completions for one prompt (text or token ids):
+            """OpenAI completions (JAX ``openai_completions``): a prompt
+            (text or token ids) or a batch of them, n and best_of,
             max_tokens, temperature (default 1.0), top_k, top_p, both
             penalties, logprobs = N <= 5, stop, stop_token_ids,
-            ignore_eos and stream (SSE)."""
+            ignore_eos and stream (SSE, one indexed choice per prompt ×
+            n; best_of > n is refused with it)."""
             try:
                 body = self._body()
-                tokens = _resolve_prompt(engine, body.get('prompt', ''))
-                if not tokens:
+                prompts = _resolve_prompts(engine, body.get('prompt', ''))
+                if any(not t for t in prompts):
                     raise ValueError('empty prompt')
-                _refuse_fanout(body)
                 max_new = int(body.get('max_tokens', 16))
                 if max_new < 1:
                     raise ValueError('max_tokens must be >= 1')
@@ -1916,42 +2559,53 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
                 stop_ids = _parse_stop_ids(body, engine.tokenizer)
                 stops = _stop_list(body.get('stop'))
                 want_logprobs, top_n = _parse_logprobs(body)
+                n, best_of = _parse_n(body, engine.max_batch)
+                if body.get('stream') and best_of > n:
+                    raise ValueError('best_of > n is not supported with '
+                                     'stream=true')
             except (TypeError, ValueError) as e:
                 return self._openai_error(f'invalid request: {e}')
+            for tokens in prompts:
+                msg = engine.check_len(tokens, max_new)
+                if msg:
+                    return self._openai_error(msg)
             meta = {'id': f'cmpl-{time.time_ns()}',
                     'object': 'text_completion', 'created': int(time.time()),
                     'model': body.get('model', engine.model_name)}
-            got = self._submit(body, tokens, max_new, sampling, stop_ids,
-                               want_logprobs and top_n > 0)
+            want_tops = want_logprobs and top_n > 0
+            if body.get('stream'):
+                return self._stream(
+                    [t for t in prompts for _ in range(n)], max_new,
+                    sampling, stop_ids, want_tops, stops, want_logprobs,
+                    top_n, _completion_chunks(meta, top_n, engine.tokenizer))
+            got = self._fan_out(prompts, max_new, sampling, stop_ids, n,
+                                best_of, want_tops)
             if got is None:
                 return None
-            fut, stream = got
-            if stream is not None:
-                return self._sse(fut, stream, stops, want_logprobs, top_n,
-                                 _completion_chunks(meta, top_n,
-                                                    engine.tokenizer))
-            res = self._result(fut, stops)
-            if res is None:
-                return None
-            out, finish, lps, tops, text = res
-            lp_obj = None
-            if want_logprobs:
-                lp_obj = _completion_logprobs(
-                    engine.tokenizer, out, lps, text,
-                    tops=[t[:top_n] for t in tops] if top_n else None)
-            return self._json(200, {**meta, 'choices': [
-                {'text': text, 'index': 0, 'logprobs': lp_obj,
-                 'finish_reason': finish}],
-                'usage': _usage(tokens, out)})
+            results, n_out = got
+            choices = []
+            for idx, (out, finish, lps, tops) in enumerate(results):
+                text, finish = self._cut(out, finish, stops)
+                lp_obj = None
+                if want_logprobs:
+                    lp_obj = _completion_logprobs(
+                        engine.tokenizer, out, lps, text,
+                        tops=[t[:top_n] for t in tops] if top_n else None)
+                choices.append({'text': text, 'index': idx,
+                                'logprobs': lp_obj, 'finish_reason': finish})
+            return self._json(200, {
+                **meta, 'choices': choices,
+                'usage': _usage(sum(len(t) for t in prompts), n_out)})
 
         def _chat(self) -> None:
             """OpenAI chat completions (JAX ``openai_chat``): the
             messages templated for the tokenizer's chat family, encoded
             with add_special_tokens=False (the template carries its
-            specials); max_tokens or max_completion_tokens (default
-            256), temperature (default 1.0), top_k, top_p, penalties,
-            logprobs=true with top_logprobs <= 5, stop, stop_token_ids,
-            ignore_eos and stream (SSE)."""
+            specials); n (best_of is refused), max_tokens or
+            max_completion_tokens (default 256), temperature (default
+            1.0), top_k, top_p, penalties, logprobs=true with
+            top_logprobs <= 5, stop, stop_token_ids, ignore_eos and
+            stream (SSE)."""
             try:
                 body = self._body()
                 prompt = tokenizer_lib.apply_chat_template(
@@ -1969,66 +2623,68 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
                 stop_ids = _parse_stop_ids(body, engine.tokenizer)
                 stops = _stop_list(body.get('stop'))
                 want_logprobs, top_n = _parse_logprobs(body, chat=True)
-                _refuse_fanout(body, chat=True)
+                if body.get('best_of') is not None:
+                    raise ValueError('best_of is not supported on '
+                                     '/v1/chat/completions; use n')
+                n, _ = _parse_n(body, engine.max_batch)
             except (TypeError, ValueError) as e:
                 return self._openai_error(f'invalid request: {e}')
-            meta = {'id': f'chatcmpl-{time.time_ns()}',
-                    'object': 'chat.completion', 'created': int(time.time()),
-                    'model': body.get('model', engine.model_name)}
-            got = self._submit(body, tokens, max_new, sampling, stop_ids,
-                               want_logprobs and top_n > 0)
-            if got is None:
-                return None
-            fut, stream = got
-            if stream is not None:
-                return self._sse(fut, stream, stops, want_logprobs, top_n,
-                                 _chat_chunks({**meta, 'object':
-                                               'chat.completion.chunk'},
-                                              top_n, engine.tokenizer))
-            res = self._result(fut, stops)
-            if res is None:
-                return None
-            out, finish, lps, tops, text = res
-            lp_obj = (_chat_logprobs(engine.tokenizer, out, lps, text, tops,
-                                     top_n) if want_logprobs else None)
-            return self._json(200, {**meta, 'choices': [
-                {'index': 0, 'message': {'role': 'assistant',
-                                         'content': text},
-                 'logprobs': lp_obj, 'finish_reason': finish}],
-                'usage': _usage(tokens, out)})
-
-        def _submit(self, body, tokens, max_new, sampling, stop_ids,
-                    want_tops: bool):
-            """Check the length and enqueue: (future, the token queue
-            when streaming, else None), or None after answering 400 or
-            429."""
             msg = engine.check_len(tokens, max_new)
             if msg:
                 return self._openai_error(msg)
-            stream = queue.Queue() if body.get('stream') else None
+            meta = {'id': f'chatcmpl-{time.time_ns()}',
+                    'object': 'chat.completion', 'created': int(time.time()),
+                    'model': body.get('model', engine.model_name)}
+            want_tops = want_logprobs and top_n > 0
+            if body.get('stream'):
+                return self._stream(
+                    [tokens] * n, max_new, sampling, stop_ids, want_tops,
+                    stops, want_logprobs, top_n,
+                    _chat_chunks({**meta, 'object': 'chat.completion.chunk'},
+                                 top_n, engine.tokenizer))
+            got = self._fan_out([tokens], max_new, sampling, stop_ids, n, n,
+                                want_tops)
+            if got is None:
+                return None
+            results, n_out = got
+            choices = []
+            for idx, (out, finish, lps, tops) in enumerate(results):
+                text, finish = self._cut(out, finish, stops)
+                lp_obj = (_chat_logprobs(engine.tokenizer, out, lps, text,
+                                         tops, top_n)
+                          if want_logprobs else None)
+                choices.append({'index': idx,
+                                'message': {'role': 'assistant',
+                                            'content': text},
+                                'logprobs': lp_obj, 'finish_reason': finish})
+            return self._json(200, {**meta, 'choices': choices,
+                                    'usage': _usage(len(tokens), n_out)})
+
+        def _fan_out(self, prompts, max_new, sampling, stop_ids, n, best_of,
+                     want_tops: bool):
+            """_submit_many's (results, tokens generated), or None after
+            answering 429 or 503."""
             try:
-                fut = engine.submit(tokens, max_new, *sampling,
-                                    stop_ids=stop_ids, want_tops=want_tops,
-                                    stream=stream)
+                return _submit_many(engine, prompts, max_new, sampling,
+                                    stop_ids, n, best_of, want_tops,
+                                    self._cls())
             except EngineOverloaded as e:
                 return self._openai_error(str(e), status=429,
                                           err_type='overloaded_error')
-            return fut, stream
-
-        def _result(self, fut, stops: List[str]):
-            """A finished request's (tokens, finish, logprobs, tops,
-            text cut at the first stop string), or None after answering
-            503."""
-            try:
-                out, finish, lps, tops = fut.result()
+            except EngineResetError as e:
+                return self._reset_error(e)
             except Exception as e:  # pylint: disable=broad-except
                 return self._openai_error(f'engine failure: {e}', 503,
                                           'server_error')
+
+        @staticmethod
+        def _cut(out, finish, stops: List[str]):
+            """(text cut at the first stop string, finish reason)."""
             text = engine.tokenizer.decode(out)
             cut = _stop_scan(text, stops)
             if cut is not None:
                 text, finish = text[:cut], 'stop'
-            return out, finish, lps, tops, text
+            return text, finish
 
         # -- SSE ------------------------------------------------------------
         def _chunk(self, data: bytes) -> None:
@@ -2037,75 +2693,102 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
         def _event(self, payload) -> None:
             self._chunk(b'data: ' + json.dumps(payload).encode() + b'\n\n')
 
-        def _sse(self, fut, stream: 'queue.Queue', stops: List[str],
-                 want_logprobs: bool, top_n: int, make_chunks) -> None:
-            """Stream one choice as server-sent events over chunked
-            transfer: ``make_chunks``' opening events, its events for
-            each token (with its logprob info when asked), its final
-            events with the finish_reason, then ``data: [DONE]``. Stop
-            strings are held back by len(longest) - 1 characters so a
-            match split across tokens never leaks; on a match the
-            request is cancelled. A failed write (the client went away)
-            cancels it too."""
+        def _stream(self, prompts, max_new, sampling, stop_ids,
+                    want_tops: bool, stops: List[str], want_logprobs: bool,
+                    top_n: int, make_chunks) -> None:
+            """Enqueue one streamed choice per prompt, all or nothing (a
+            429 in the middle cancels the siblings enqueued), then
+            stream them."""
+            merged: 'queue.Queue' = queue.Queue()
+            choices: List[_SseChoice] = []
+            cls = self._cls()
+            try:
+                for idx, tokens in enumerate(prompts):
+                    fut = engine.submit(tokens, max_new, *sampling,
+                                        stop_ids=stop_ids,
+                                        want_tops=want_tops,
+                                        stream=_ChoiceQueue(merged, idx),
+                                        cls=cls)
+                    choices.append(_SseChoice(engine.tokenizer, idx, fut))
+            except EngineOverloaded as e:
+                _cancel_all(engine, [ch.fut for ch in choices])
+                return self._openai_error(str(e), status=429,
+                                          err_type='overloaded_error')
+            return self._sse(choices, merged, stops, want_logprobs, top_n,
+                             make_chunks)
+
+        def _sse(self, choices: List[_SseChoice], merged: 'queue.Queue',
+                 stops: List[str], want_logprobs: bool, top_n: int,
+                 make_chunks) -> None:
+            """Stream the choices as server-sent events over chunked
+            transfer, their tokens interleaved as the batcher steps the
+            pool: ``make_chunks``' opening events for each choice, its
+            events for each token (with its logprob info when asked),
+            each choice's final events with its finish_reason, then
+            ``data: [DONE]``. Stop strings are held back by len(longest)
+            - 1 characters so a match split across tokens never leaks;
+            on a match that choice is cancelled. A reset ends the stream
+            with JAX's structured error event; a failed write (the
+            client went away) cancels every choice."""
             hold = max((len(s) for s in stops), default=0) - 1
-            st = _SseState(engine.tokenizer)
             self.close_connection = True
 
-            def send(text, lp=None, finish=None, first=False) -> None:
+            def send(ch: _SseChoice, text, lp=None, finish=None,
+                     first=False) -> None:
                 for payload in make_chunks(text, finish, first=first,
-                                           lp=lp):
+                                           lp=lp, index=ch.idx):
                     self._event(payload)
 
-            def emit_piece(piece: str, lp, tops) -> None:
-                lp_info = ((piece, lp, tops[:top_n], st.emitted)
+            def emit_piece(ch: _SseChoice, piece: str, lp, tops) -> None:
+                lp_info = ((piece, lp, tops[:top_n], ch.emitted)
                            if want_logprobs and lp is not None else None)
                 if not piece and lp_info is None:
                     return
-                send(piece, lp_info)
-                st.emitted += len(piece)
+                send(ch, piece, lp_info)
+                ch.emitted += len(piece)
 
-            def emit_until(cut: int) -> None:
+            def emit_until(ch: _SseChoice, cut: int) -> None:
                 remaining = cut
-                for p_text, p_lp, p_tops in st.pend:
+                for p_text, p_lp, p_tops in ch.pend:
                     if remaining <= 0:
                         break
-                    emit_piece(p_text[:min(len(p_text), remaining)], p_lp,
-                               p_tops)
+                    emit_piece(ch, p_text[:min(len(p_text), remaining)],
+                               p_lp, p_tops)
                     remaining -= len(p_text)
 
-            def on_token(item) -> None:
+            def on_token(ch: _SseChoice, item) -> None:
                 tok, lp, tops = item
-                piece = st.decoder.feed([tok])
-                st.pend.append([piece, lp, tops])
-                st.pend_chars += len(piece)
-                cut = _stop_scan(''.join(p[0] for p in st.pend), stops)
+                piece = ch.decoder.feed([tok])
+                ch.pend.append([piece, lp, tops])
+                ch.pend_chars += len(piece)
+                cut = _stop_scan(''.join(p[0] for p in ch.pend), stops)
                 if cut is not None:
-                    engine.cancel(fut)
-                    emit_until(cut)
-                    st.pend, st.stopped = [], True
+                    engine.cancel(ch.fut)
+                    emit_until(ch, cut)
+                    ch.pend, ch.stopped = [], True
                     return
-                while st.pend and st.pend_chars - len(st.pend[0][0]) >= hold:
-                    p_text, p_lp, p_tops = st.pend.pop(0)
-                    st.pend_chars -= len(p_text)
-                    emit_piece(p_text, p_lp, p_tops)
+                while ch.pend and ch.pend_chars - len(ch.pend[0][0]) >= hold:
+                    p_text, p_lp, p_tops = ch.pend.pop(0)
+                    ch.pend_chars -= len(p_text)
+                    emit_piece(ch, p_text, p_lp, p_tops)
 
-            def finish_choice() -> None:
-                _, finish, _, _ = fut.result()
-                if st.stopped:
+            def finish_choice(ch: _SseChoice) -> None:
+                _, finish, _, _ = _wait(engine, ch.fut)
+                if ch.stopped:
                     finish = 'stop'
                 else:
-                    tail = st.decoder.flush()
+                    tail = ch.decoder.flush()
                     if tail:
-                        if st.pend:
-                            st.pend[-1][0] += tail
+                        if ch.pend:
+                            ch.pend[-1][0] += tail
                         else:
-                            st.pend.append([tail, None, []])
-                    joined = ''.join(p[0] for p in st.pend)
+                            ch.pend.append([tail, None, []])
+                    joined = ''.join(p[0] for p in ch.pend)
                     cut = _stop_scan(joined, stops)
                     if cut is not None:
                         finish = 'stop'
-                    emit_until(len(joined) if cut is None else cut)
-                send(None, finish=finish)
+                    emit_until(ch, len(joined) if cut is None else cut)
+                send(ch, None, finish=finish)
 
             try:
                 self.send_response(200)
@@ -2114,10 +2797,12 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
                 self.send_header('Transfer-Encoding', 'chunked')
                 self.end_headers()
                 try:
-                    send(None, first=True)
-                    while True:
+                    for ch in choices:
+                        send(ch, None, first=True)
+                    live = len(choices)
+                    while live:
                         try:
-                            item = stream.get(timeout=1.0)
+                            idx, item = merged.get(timeout=1.0)
                         except queue.Empty:
                             if engine.loop_error is not None or \
                                     engine._stop.is_set():
@@ -2125,27 +2810,28 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
                                     'engine stopped: '
                                     f'{engine.loop_error}') from None
                             continue
+                        ch = choices[idx]
                         if item is None:
-                            finish_choice()
-                            break
-                        if not st.stopped:
-                            on_token(item)
+                            finish_choice(ch)
+                            live -= 1
+                        elif not ch.stopped:
+                            on_token(ch, item)
                     self._chunk(b'data: [DONE]\n\n')
                 except (ConnectionError, OSError):
                     raise
                 except Exception as e:  # pylint: disable=broad-except
                     # The status line went out: an error event is the
-                    # only signal left.
+                    # only signal left, structured for a reset.
                     logger.warning('SSE stream aborted: %s', e)
-                    self._event({'error': {'message': str(e),
+                    self._event(_reset_doc(e)
+                                if isinstance(e, EngineResetError) else
+                                {'error': {'message': str(e),
                                            'type': 'server_error'}})
                 self._chunk(b'')
             except (ConnectionError, OSError):
                 pass                      # the client went away
             finally:
-                if not fut.done():
-                    engine.cancel(fut)
-                    fut.cancel()
+                _cancel_all(engine, [ch.fut for ch in choices])
 
     server = ThreadingHTTPServer((host, port), Handler)
     server.daemon_threads = True

@@ -1,0 +1,178 @@
+"""The port's typed ``SKYTPU_*`` knobs: the rows of the JAX package's
+registry (skypilot_tpu/utils/knobs.py) that the port reads, under the
+same names, types, defaults and enum choices, with the same parse
+grammar and the same typed accessors.
+
+It holds only the engine's rows, ``SKYTPU_FLIGHT_CAPACITY`` and
+``SKYTPU_FAILPOINTS``. An accessor reads the environment per call (a
+knob read at import stays read at import: the call site decides) and
+fails with :class:`KnobError`, naming the knob, on a malformed value
+or an undeclared name. Empty counts as unset, except where ``''`` is
+itself an enum choice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Dict, Tuple
+
+TYPES = ('int', 'float', 'bool', 'str', 'enum')
+
+_TRUE = frozenset({'1', 'true', 'yes', 'on'})
+_FALSE = frozenset({'0', 'false', 'no', 'off'})
+
+
+class KnobError(ValueError):
+    """A malformed or undeclared knob; the message names it."""
+
+
+@dataclasses.dataclass(frozen=True)
+class Knob:
+    name: str
+    type: str
+    default: Any
+    subsystem: str
+    doc: str
+    choices: Tuple[str, ...] = ()
+
+
+REGISTRY: Dict[str, Knob] = {}
+
+
+def _declare(name: str, type: str, default: Any, subsystem: str,
+             doc: str, *, choices: Tuple[str, ...] = ()) -> None:
+    # pylint: disable=redefined-builtin
+    if type not in TYPES:
+        raise ValueError(f'{name}: unknown knob type {type!r}')
+    if type == 'enum' and not choices:
+        raise ValueError(f'{name}: enum knob needs choices')
+    if name in REGISTRY:
+        raise ValueError(f'duplicate knob declaration {name}')
+    REGISTRY[name] = Knob(name, type, default, subsystem, doc, choices)
+
+
+# ----------------------------------------------------------- engine
+_declare('SKYTPU_ENGINE_MAX_BATCH', 'int', 8, 'engine',
+         'Decode batch slots (engine admission width).')
+_declare('SKYTPU_ENGINE_STEP_CHUNK', 'int', 8, 'engine',
+         'Decode steps fused per host-loop iteration.')
+_declare('SKYTPU_ENGINE_MAX_QUEUE', 'int', 64, 'engine',
+         'Admission queue depth before 429 shedding.')
+_declare('SKYTPU_ENGINE_PREFIX_CACHE', 'int', 4, 'engine',
+         'Prefix-snapshot cache entries (0 disables).')
+_declare('SKYTPU_ENGINE_SPEC_K', 'int', 4, 'engine',
+         'Speculative-decoding draft length (0 disables).')
+_declare('SKYTPU_ENGINE_SPEC_COOLDOWN', 'int', 16, 'engine',
+         'Calls speculation sits out after a low-acceptance round.')
+_declare('SKYTPU_ENGINE_PAGED', 'bool', True, 'engine',
+         'Paged KV cache (the only layout the port serves).')
+_declare('SKYTPU_ENGINE_PAGE_SIZE', 'int', 64, 'engine',
+         'Tokens per KV page.')
+_declare('SKYTPU_ENGINE_KV_PAGES', 'int', 0, 'engine',
+         'Total KV pages (0 = every slot\'s worst case plus prefix '
+         'headroom).')
+_declare('SKYTPU_ENGINE_PREFILL_CHUNK', 'int', 256, 'engine',
+         'Chunked-prefill chunk length (tokens).')
+_declare('SKYTPU_ENGINE_RESURRECT_MAX', 'int', 2, 'engine',
+         'Times a request that never sampled may be resubmitted after a '
+         'failure reset before it fails.')
+_declare('SKYTPU_ENGINE_ROLE', 'enum', '', 'engine',
+         'Disaggregation role of this engine process.',
+         choices=('', 'prefill', 'decode'))
+_declare('SKYTPU_ENGINE_WARM_DISAGG', 'bool', False, 'engine',
+         'Warm the page export/adopt programs (disagg pools).')
+_declare('SKYTPU_ENGINE_HANDOFF_PORT', 'int', -1, 'engine',
+         'KV-handoff listener port (-1 = HTTP port + 1000 convention, '
+         '0 = disabled).')
+_declare('SKYTPU_ENGINE_ATTN', 'enum', 'fused', 'engine',
+         'Paged attention backend.',
+         choices=('fused', 'pallas', 'gather'))
+_declare('SKYTPU_ENGINE_KV_QUANT', 'enum', 'none', 'engine',
+         'KV page-pool representation.',
+         choices=('none', 'int8'))
+_declare('SKYTPU_ENGINE_KV_IDLE_SPILL_S', 'float', 0.0, 'engine',
+         'Seconds a prefix snapshot may sit unused before it spills to '
+         'the host tier (0 disables).')
+_declare('SKYTPU_ENGINE_KV_HOST_MB', 'int', 0, 'engine',
+         'Host-RAM KV spill-tier budget in MiB (0 disables).')
+
+# ---------------------------------------------------------- observe
+_declare('SKYTPU_FLIGHT_CAPACITY', 'int', 65536, 'observe',
+         'Flight-recorder ring capacity (events).')
+
+# ------------------------------------------------------------ utils
+_declare('SKYTPU_FAILPOINTS', 'str', '', 'utils',
+         'Failpoint arming schedule (site=spec;...).')
+
+
+def _lookup(name: str, want_type: str) -> Knob:
+    knob = REGISTRY.get(name)
+    if knob is None:
+        raise KnobError(f'{name} is not a declared knob of the port '
+                        f'(skypilot_tpu_torch/utils/knobs.py)')
+    if knob.type != want_type:
+        raise KnobError(f'{name} is declared {knob.type!r} but was read '
+                        f'with the {want_type!r} accessor')
+    return knob
+
+
+def _parse(knob: Knob, raw: str) -> Any:
+    """``raw`` (non-empty) → the typed value, or KnobError naming the
+    knob."""
+    if knob.type == 'int':
+        try:
+            return int(raw)
+        except ValueError:
+            raise KnobError(f'{knob.name}={raw!r} is not an integer') \
+                from None
+    if knob.type == 'float':
+        try:
+            return float(raw)
+        except ValueError:
+            raise KnobError(f'{knob.name}={raw!r} is not a number') \
+                from None
+    if knob.type == 'bool':
+        low = raw.strip().lower()
+        if low in _TRUE:
+            return True
+        if low in _FALSE:
+            return False
+        raise KnobError(f'{knob.name}={raw!r} is not a boolean (want one '
+                        f'of 1/0/true/false/yes/no/on/off)')
+    if knob.type == 'enum':
+        val = raw.strip()
+        if val not in knob.choices:
+            raise KnobError(f'{knob.name}={raw!r} must be one of '
+                            f'{knob.choices}')
+        return val
+    return raw
+
+
+def _get(name: str, want_type: str) -> Any:
+    knob = _lookup(name, want_type)
+    raw = os.environ.get(name)
+    if raw is None or raw == '':
+        if raw == '' and knob.type == 'enum' and '' in knob.choices:
+            return ''
+        return knob.default
+    return _parse(knob, raw)
+
+
+def get_int(name: str) -> int:
+    return _get(name, 'int')
+
+
+def get_float(name: str) -> float:
+    return _get(name, 'float')
+
+
+def get_bool(name: str) -> bool:
+    return _get(name, 'bool')
+
+
+def get_str(name: str) -> str:
+    return _get(name, 'str')
+
+
+def get_enum(name: str) -> str:
+    return _get(name, 'enum')

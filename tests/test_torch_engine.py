@@ -171,8 +171,10 @@ def test_more_requests_than_slots_queue_and_all_finish(stack):
 
 def test_failed_step_answers_503_and_the_engine_recovers(stack,
                                                         monkeypatch):
-    """A decode step that raises fails the requests on the card with a
-    503, rebuilds the device state, and the next request is served."""
+    """A decode step that raises fails the request on the card, which
+    had emitted its first token, with the structured retriable 503 of a
+    reset, rebuilds the device state, and the next request is
+    served."""
     eng, base, _, _ = stack
     real = decode.paged_decode_step
     calls = []
@@ -186,7 +188,11 @@ def test_failed_step_answers_503_and_the_engine_recovers(stack,
     monkeypatch.setattr(decode, 'paged_decode_step', flaky)
     code, doc = _http(base + '/generate',
                       {'tokens': [5, 6, 7], 'max_new_tokens': 4})
-    assert code == 503 and 'injected step fault' in doc['error']
+    assert code == 503
+    assert doc['error']['type'] == 'engine_reset_error'
+    assert doc['error']['retriable'] is True
+    assert doc['error']['tokens_emitted'] == 1
+    assert 'injected step fault' in doc['error']['message']
     code, doc = _http(base + '/generate',
                       {'tokens': [5, 6, 7], 'max_new_tokens': 4})
     assert code == 200 and len(doc['tokens']) == 4

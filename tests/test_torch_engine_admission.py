@@ -381,7 +381,7 @@ def test_failure_reset_drops_the_store_without_unref(bridge):
     e._admit_group([engine_lib.Request([(i * 9) % 250 + 1
                                         for i in range(70)], 4)])
     assert e._prefix_store and e.alloc.used_count > 0
-    e._fail(RuntimeError('injected'), [])
+    e._fail_all(RuntimeError('injected'))
     assert not e._prefix_store and e.alloc.used_count == 0
     assert all(s is None for s in e.slots)
 

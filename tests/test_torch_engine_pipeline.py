@@ -419,8 +419,9 @@ def test_cancel_while_lookahead_in_flight_drains_cleanly(stack):
 
 
 def test_failure_while_pipelined_resets_and_recovers(stack, monkeypatch):
-    """A failure at collect time fails the request on the device with a
-    503, drops the call in flight, resets the device state, and the next
+    """A failure at collect time fails the request on the device, which
+    had emitted tokens, with the structured retriable 503 of a reset,
+    drops the call in flight, resets the device state, and the next
     request is served."""
     eng, base = stack
     orig = engine_lib.InferenceEngine._collect_step
@@ -435,7 +436,11 @@ def test_failure_while_pipelined_resets_and_recovers(stack, monkeypatch):
     monkeypatch.setattr(engine_lib.InferenceEngine, '_collect_step', failing)
     code, doc = _http(base + '/generate', {'tokens': [6] * 8,
                                            'max_new_tokens': 24})
-    assert code == 503 and 'injected device failure' in doc['error']
+    assert code == 503
+    assert doc['error']['type'] == 'engine_reset_error'
+    assert doc['error']['retriable'] is True
+    assert doc['error']['tokens_emitted'] >= 1
+    assert 'injected device failure' in doc['error']['message']
     code, doc = _http(base + '/generate', {'tokens': [6] * 8,
                                            'max_new_tokens': 3})
     assert code == 200 and len(doc['tokens']) == 3
@@ -634,13 +639,19 @@ def test_disconnected_stream_frees_its_slot(stack):
 
 
 @pytest.mark.parametrize('path,body,needle', [
-    ('/v1/completions', {'prompt': 'hi', 'n': 2}, 'n > 1'),
-    ('/v1/completions', {'prompt': 'hi', 'best_of': 3}, 'best_of > 1'),
-    ('/v1/completions', {'prompt': ['hi', 'yo']}, 'batched prompts'),
-    ('/v1/completions', {'prompt': [[1, 2], [3]]}, 'batched prompts'),
+    ('/v1/completions', {'prompt': 'hi', 'n': 0}, 'n must be in [1, 8]'),
+    ('/v1/completions', {'prompt': 'hi', 'n': 2, 'best_of': 1},
+     'best_of must be in [n, 8]'),
+    ('/v1/completions', {'prompt': 'hi', 'best_of': 9},
+     'best_of must be in [n, 8]'),
+    ('/v1/completions', {'prompt': 'hi', 'best_of': 2, 'stream': True},
+     'not supported with stream=true'),
+    ('/v1/completions', {'prompt': []}, 'empty prompt list'),
+    ('/v1/completions', {'prompt': [[1, 2], 'yo', [3, 'x']]},
+     'all token ids'),
     ('/v1/chat/completions',
      {'messages': [{'role': 'user', 'content': 'hi'}], 'max_tokens': 4,
-      'n': 2}, 'n > 1'),
+      'n': 9}, 'n must be in [1, 8]'),
     ('/v1/chat/completions',
      {'messages': [{'role': 'user', 'content': 'hi'}], 'max_tokens': 4,
       'best_of': 1}, 'best_of is not supported'),

@@ -1234,3 +1234,83 @@ def test_grpo_iteration_on_card_launches_a_c_d(cuda):
          'paged_decode': 0}
     assert m['mean_ratio'] == pytest.approx(1.0, abs=1e-3), m
     assert all(np.isfinite(v) for v in m.values()), m
+
+
+@pytest.mark.parametrize('dtype,d,grad,takes', [
+    (torch.bfloat16, 64, False, True), (torch.bfloat16, 128, False, True),
+    (torch.bfloat16, 256, False, True), (torch.bfloat16, 128, True, True),
+    (torch.float32, 128, False, False), (torch.bfloat16, 16, False, False),
+    (torch.bfloat16, 96, False, False), (torch.bfloat16, 96, True, False)])
+def test_kernel_a_gate_on_the_card(cuda, monkeypatch, dtype, d, grad, takes):
+    """flash_takes on card tensors: true for bf16 at head dims 64, 128
+    and 256; false for fp32, head dims 16 and 96, and a call wanting a
+    grad at a head dim kernels C and D do not take (256 taken out of
+    their dims here)."""
+    q = torch.zeros(1, 8, 4, d, dtype=dtype, device=cuda)
+    kv = torch.zeros(1, 8, 2, d, dtype=dtype, device=cuda)
+    assert fa.flash_takes(q, kv, kv, grad) is takes
+    if takes and d == 128:
+        monkeypatch.setattr(fa, 'BWD_HEAD_DIMS', (64,))
+        assert fa.flash_takes(q, kv, kv, True) is False
+        assert fa.flash_takes(q, kv, kv, False) is True
+
+
+def _tokens(cuda, vocab, b=2, s=33, seed=1):
+    return torch.randint(0, vocab, (b, s), device=cuda, dtype=torch.int32,
+                         generator=torch.Generator(device=cuda)
+                         .manual_seed(seed))
+
+
+def test_llama_debug_prefill_and_train_step_run_under_auto(cuda):
+    """llama-debug (head_dim 16, bf16) under attention_impl='auto' on the
+    card: kernel A does not take its head dim, so the prefill and one
+    train step take the plain attention (no launch, nothing raised) and
+    equal 'xla' on the same weights and batch."""
+    out = {}
+    for impl in ('auto', 'xla'):
+        cfg = dataclasses.replace(config.PRESETS['llama-debug'],
+                                  attention_impl=impl)
+        params = llama.init_params(
+            cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+        tok = _tokens(cuda, cfg.vocab_size)
+        build.reset_launches()
+        logits, ks, _ = decode.prefill(
+            decode.cast_params_for_decode(params, cfg), tok[:, :-1], cfg,
+            64, lengths=torch.tensor([32, 20], dtype=torch.int32,
+                                     device=cuda), attention_impl=impl)
+        tx = train_lib.default_optimizer(warmup_steps=0, total_steps=10)
+        state = train_lib.init_train_state(cfg, tx, cuda, params=params)
+        _, m = train_lib.make_train_step(cfg, tx)(state,
+                                                  {'tokens': tok.long()})
+        torch.cuda.synchronize()
+        assert all(n == 0 for n in launch_counts().values()), impl
+        out[impl] = (logits, ks, float(m['loss']), float(m['grad_norm']))
+    a, x = out['auto'], out['xla']
+    assert torch.equal(a[0], x[0]) and torch.equal(a[1], x[1])
+    assert a[2:] == x[2:] and np.isfinite(a[2:]).all()
+
+
+def test_fp32_dense_forward_runs_under_auto(cuda):
+    """A dense model in fp32 (head_dim 128, a dim kernel A takes in
+    bf16) under 'auto': the plain attention, no launch, logits equal
+    'xla'."""
+    got = {}
+    for impl in ('auto', 'xla'):
+        cfg = dataclasses.replace(
+            config.PRESETS['llama-debug'], dim=256, n_heads=4, n_kv_heads=2,
+            head_dim=128, ffn_dim=512, dtype=torch.float32,
+            attention_impl=impl)
+        params = llama.init_params(
+            cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+        build.reset_launches()
+        with torch.no_grad():
+            got[impl] = llama.forward(params, _tokens(cuda, cfg.vocab_size)
+                                      .long(), cfg)
+        torch.cuda.synchronize()
+        assert all(n == 0 for n in launch_counts().values()), impl
+    assert got['auto'].isfinite().all()
+    assert torch.equal(got['auto'], got['xla'])
+
+
+def launch_counts():
+    return {n: k.launches for n, k in build.kernels().items()}

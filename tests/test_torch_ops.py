@@ -319,3 +319,32 @@ def test_wrappers_take_plain_version_on_cpu_and_launch_nothing():
     for k in kernels.values():
         assert k.launches == 0
         assert k._fn is None                 # never built or loaded
+
+
+@pytest.mark.parametrize('dtype,d,grad,takes', [
+    (torch.bfloat16, 64, False, True), (torch.bfloat16, 128, False, True),
+    (torch.bfloat16, 256, False, True), (torch.bfloat16, 128, True, True),
+    (torch.float32, 128, False, False), (torch.bfloat16, 16, False, False),
+    (torch.bfloat16, 96, False, False), (torch.bfloat16, 96, True, False)])
+def test_kernel_a_gate_decision_table(monkeypatch, dtype, d, grad, takes):
+    """Kernel A's gate (the JAX ``_flash_ok``): bf16 q/k/v at a head dim
+    in FWD_HEAD_DIMS. A call it takes passes the wrapper's own checks
+    and stops only because CPU tensors are not on the card; a call it
+    declines is one the wrapper raises on, by type or by head dim, so
+    attention(impl='auto') never hands A a call A refuses. A call that
+    wants a gradient at a head dim kernels C and D do not take is
+    declined too (here with 256 taken out of their dims). On the CPU
+    the gate is always false and 'auto' takes the plain version."""
+    q = torch.zeros(1, 8, 4, d, dtype=dtype)
+    kv = torch.zeros(1, 8, 2, d, dtype=dtype)
+    with pytest.raises((TypeError, ValueError)) as err:
+        flash_attention._check_kernel_inputs(q, kv, kv)
+    assert ('must all lie on the card' in str(err.value)) is takes
+    assert not flash_attention.flash_takes(q, kv, kv, grad)
+    if takes:
+        assert not flash_attention.backward_refused(d, True, grad)
+        monkeypatch.setattr(flash_attention, 'BWD_HEAD_DIMS', (64, 128))
+        assert flash_attention.backward_refused(256, True, grad) is grad
+    qf, kf = q.float(), kv.float()
+    assert torch.equal(attention.attention(qf, kf, kf),
+                       attention.xla_attention(qf, kf, kf))
