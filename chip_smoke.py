@@ -99,6 +99,23 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  the fp32 masters vs bf16: first-logit error (< 0.1), ms
                  a replayed step at B=32, peak memory
                  (chiprun_out/batch_infer.json);
+  7c. disagg  — disaggregated prefill/decode and the KV host tier on
+                 llama-1b whole (the same random bf16 weights; ~2 GB,
+                 shared by two engines with ~1 GiB K/V pools each): a
+                 decode replica with its handoff receiver (spec_k 0, the
+                 host tier on, a 1 s idle sweep) and a prefill replica
+                 (spec_k 0, no prefix cache); 700/130/40-token /generate
+                 prompts and a 300-token streamed /v1/completions through
+                 /disagg/prefill (kernel A > 0 launches there) and
+                 /disagg/continue (kernel B > 0 launches in the step
+                 graphs there), tokens and streamed text equal to the
+                 decode replica alone; export, send and adopt ms per
+                 handoff and the blob bytes; both allocators back to
+                 every page free; then a 512-token system prompt swept
+                 to the host and woken as a prefix hit, its tokens and
+                 logprobs equal to the resident hit's and its tokens to
+                 the cold run's; kv_spill and kv_wake in the journal;
+                 spill and wake ms (chiprun_out/disagg.json);
   8. model_gemma — gemma-7b at full width cut to 14 of its 28 layers
                  (dim 3072, 16/16 heads, hd 256, vocab 256000; random
                  bf16 weights from seed 0, ~9.7 GB): prefill + 8 paged decode steps
@@ -122,14 +139,14 @@ Phases (any failure exits non-zero; nothing is swallowed):
  12. serve_moe — the port's engine on moe-1b, checked as in serve but
                  with no speculation (spec_k 0 for MoE, as in JAX: 8
                  graphs, no verify) and no chunked-logits check;
- 13. serve_gptoss — the engine on gpt-oss-20b at full width cut to 12
+ 13. serve_gptoss — the engine on gpt-oss-20b at full width cut to 8
                  of its 24 layers (dim 2880, 64/8 heads, hd 64, 32
                  experts top-4, vocab 201088, sinks, a 128-token window
                  on every other layer, YaRN, clamped SwiGLU, qkv bias;
-                 random bf16 weights drawn leaf by leaf, ~21 GB), the
+                 random bf16 weights drawn leaf by leaf, ~15 GB), the
                  same bursts: A and B launch zero times (sinks: the
                  plain route);
- 14. model_mla — deepseek-v2-lite at full width cut to 14 of its 27
+ 14. model_mla — deepseek-v2-lite at full width cut to 10 of its 27
                  layers (dim 2048, 16 heads, latent r 512, dn 128, dr 64, dv 128,
                  ffn 10944, vocab 102400; random bf16 weights from seed
                  0): prefill + 8 paged decode steps over the paged
@@ -1873,10 +1890,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def http(url: str, doc=None, timeout: float = 600.0):
+def http(url: str, doc=None, timeout: float = 600.0, headers=None):
     data = json.dumps(doc).encode() if doc is not None else None
-    req = urllib.request.Request(url, data=data,
-                                 headers={'Content-Type': 'application/json'})
+    req = urllib.request.Request(url, data=data, headers={
+        'Content-Type': 'application/json', **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             return r.status, json.loads(r.read())
@@ -2782,6 +2799,249 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
     return launches
 
 
+# The disagg phase: four greedy requests of distinct prompt buckets (so
+# that no two share a grouped prefill), the 700-token one chunked, one
+# streamed through /v1/completions; then a 512-token system prompt with
+# two 40-token tails for the spill tier. The host tier's budget and idle
+# threshold of the decode replica.
+DISAGG_LENS, DISAGG_STREAM_LEN, DISAGG_NEW = (700, 130, 40), 300, 32
+DISAGG_HOST_MB, DISAGG_IDLE_S = 1024, 1.0
+
+
+class Timed:
+    """Wall seconds of each call of ``obj.name`` (an instance or module
+    attribute), the card synchronised before the clock stops; ``note``
+    may record something about each call's result."""
+
+    def __init__(self, torch, obj, name: str, note=None):
+        self.obj, self.name, self.orig = obj, name, getattr(obj, name)
+        self.seconds, self.notes = [], []
+
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.orig(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            if note is not None:
+                self.notes.append(note(out))
+            return out
+        setattr(obj, name, wrapper)
+
+    def restore(self) -> None:
+        setattr(self.obj, self.name, self.orig)
+
+    def ms(self) -> list:
+        return [round(s * 1e3, 3) for s in self.seconds]
+
+
+def wait_for(cond, tag: str, what: str, timeout: float = 30.0) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            fail(f'{tag} {what} did not happen within {timeout:.0f}s')
+        time.sleep(0.02)
+
+
+def phase_disagg(torch, cfg, params, engine_lib, build) -> dict:
+    """Disaggregated prefill/decode and the host spill tier on llama-1b at
+    full width (the serve phase's random bf16 weights, shared by both
+    engines). A decode replica (handoff receiver, spec_k 0, the host
+    tier at DISAGG_HOST_MB with a DISAGG_IDLE_S idle sweep) and a
+    prefill replica (spec_k 0, no prefix cache). The reference: each
+    prompt's greedy tokens by /generate (or /v1/completions) on the
+    decode replica alone. Then each prompt through /disagg/prefill on
+    the prefill replica (kernel A: its launches counted there from 0)
+    and /disagg/continue on the decode replica, all four at once
+    (kernel B in the step graphs: its launches counted there from 0):
+    tokens (and the streamed text) equal to the reference; export, send
+    and adopt ms per handoff and the blob bytes. Both allocators back to
+    every page free once the idle sweep has spilled the decode side's
+    prefix entries. Then the spill tier: a system prompt + tail a cold
+    (captured), + tail b a device-tier hit, swept to the host, + tail b
+    again woken as a prefix hit: its tokens and logprobs equal the
+    resident hit's and the cold run's (tail b on the prefill replica,
+    whose 256-token chunks compute what the hit computes); kv_spill and
+    kv_wake in the journal; spill and wake seconds. Returns the launch
+    counts of the disagg run."""
+    import tempfile
+    from skypilot_tpu_torch.observe import journal
+    from skypilot_tpu_torch.serve.disagg import handoff as handoff_lib
+    tag = '[disagg]'
+    db_dir = tempfile.mkdtemp(prefix='smoke_journal_')
+    old_db = os.environ.get('SKYTPU_OBSERVE_DB')
+    os.environ['SKYTPU_OBSERVE_DB'] = os.path.join(db_dir, 'journal.db')
+    t_phase = time.perf_counter()
+    dec = engine_lib.InferenceEngine('llama-1b', cfg=cfg, params=params,
+                                     device='cuda', seed=0)
+    dec.handoff_port = free_port()
+    dec, dsrv, dbase = serve_engine(
+        dec, engine_lib, tag + ' decode', spec_k=0,
+        kv_host_mb=DISAGG_HOST_MB, kv_idle_spill_s=DISAGG_IDLE_S)
+    pre, psrv, pbase = start_engine('llama-1b', cfg, params, engine_lib,
+                                    tag + ' prefill', spec_k=0,
+                                    prefix_cache=0)
+    timers = []
+    try:
+        rng = np.random.default_rng(17)
+        vocab = cfg.vocab_size
+        gens = [{'tokens': rng.integers(0, vocab, size=n).tolist(),
+                 'max_new_tokens': DISAGG_NEW} for n in DISAGG_LENS]
+        stream = {'prompt': rng.integers(0, vocab,
+                                         size=DISAGG_STREAM_LEN).tolist(),
+                  'max_tokens': DISAGG_NEW, 'temperature': 0,
+                  'ignore_eos': True}
+        # The reference, one request at a time on the decode replica.
+        ref = [http(dbase + '/generate', d) for d in gens]
+        ref.append(http(dbase + '/v1/completions', stream))
+        if any(code != 200 for code, _ in ref):
+            fail(f'{tag} reference answered {[c for c, _ in ref]}')
+        want = [doc['tokens'] for _, doc in ref[:-1]]
+        want_text = ref[-1][1]['choices'][0]['text']
+        wait_idle(dec, tag)
+        exports = Timed(torch, pre, '_export_slot', note=lambda blob: sum(
+            t.numel() * t.element_size() for t in (blob['a'], blob['b'])))
+        sends = Timed(torch, handoff_lib, 'send')
+        adopts = Timed(torch, dec, '_admit_adopted')
+        timers = [exports, sends, adopts]
+        target = {'X-Skytpu-Handoff-Target':
+                  f'127.0.0.1:{dec.handoff_port}'}
+        stage1 = [('/generate', d) for d in gens] + \
+            [('/v1/completions', {**stream, 'stream': True})]
+        build.reset_launches()
+        with concurrent.futures.ThreadPoolExecutor(len(stage1)) as ex:
+            firsts = list(ex.map(lambda od: http(
+                f'{pbase}/disagg/prefill?orig={od[0]}', od[1],
+                headers=target), stage1))
+        at_prefill = launch_counts(build)
+        bad = [(c, d) for c, d in firsts if c != 200 or 'handoff' not in d]
+        if bad:
+            fail(f'{tag} /disagg/prefill answered {bad}')
+        build.reset_launches()
+
+        def cont(i):
+            hid = firsts[i][1]['handoff']['id']
+            orig = stage1[i][0]
+            if orig == '/v1/completions':
+                return sse(f'{dbase}/disagg/continue?orig={orig}',
+                           {'handoff_id': hid, 'stream': True})
+            return http(f'{dbase}/disagg/continue?orig={orig}',
+                        {'handoff_id': hid})
+
+        with concurrent.futures.ThreadPoolExecutor(len(stage1)) as ex:
+            seconds = list(ex.map(cont, range(len(stage1))))
+        at_decode = launch_counts(build)
+        got = []
+        for code, doc in seconds[:-1]:
+            if code != 200:
+                fail(f'{tag} /disagg/continue answered {code}: {doc}')
+            got.append(doc['tokens'])
+        got_text = ''.join(e['choices'][0]['text'] for e in seconds[-1])
+        finish = seconds[-1][-1]['choices'][0]['finish_reason']
+        if got != want or got_text != want_text or finish != 'length':
+            fail(f'{tag} two-stage tokens differ from one engine\'s: '
+                 f'{got} vs {want}; stream {got_text!r} ({finish}) vs '
+                 f'{want_text!r}')
+        if any(f[1]['handoff']['first_token'] != w[0]
+               for f, w in zip(firsts, want)):
+            fail(f'{tag} first tokens {firsts} vs {want}')
+        kinds = ('flash_fwd', 'paged_decode')
+        launches = {n: at_prefill[n] + at_decode[n] for n in at_prefill}
+        log(f'{tag} 4 requests ({DISAGG_LENS} tokens by /generate, '
+            f'{DISAGG_STREAM_LEN} streamed by /v1/completions, '
+            f'{DISAGG_NEW} new each) through /disagg/prefill and '
+            f'/disagg/continue: tokens and streamed text equal to the '
+            f'decode replica alone; launches on the prefill replica '
+            f'{ {k: at_prefill[k] for k in kinds} }, on the decode replica '
+            f'{ {k: at_decode[k] for k in kinds} }')
+        if at_prefill['flash_fwd'] <= 0 or at_decode['paged_decode'] <= 0:
+            fail(f'{tag} kernel A on the prefill replica '
+                 f'{at_prefill["flash_fwd"]}x, B on the decode replica '
+                 f'{at_decode["paged_decode"]}x: both must launch')
+        for t in timers:
+            t.restore()
+        timers = []
+        blob = exports.notes
+        log(f'{tag} per handoff: export ms {exports.ms()}, send ms '
+            f'{sends.ms()}, adopt ms {adopts.ms()}, blob bytes {blob} on '
+            f'{gpu_line()}')
+        # Pages: every page of both pools back once the decode side's
+        # prefix entries (the reference's captures) have been swept to
+        # the host tier.
+        wait_idle(pre, tag)
+        wait_for(lambda: not dec._prefix_store and not dec.in_flight(),
+                 tag, 'the idle sweep of the decode replica')
+        free = {'prefill': (pre.alloc.free_count, pre.n_pages - 1),
+                'decode': (dec.alloc.free_count, dec.n_pages - 1)}
+        if any(a != b for a, b in free.values()):
+            fail(f'{tag} pages not conserved (free, baseline): {free}')
+        log(f'{tag} pages conserved (free, baseline): {free}; host tier '
+            f'{dec.host_store.occupancy()}')
+        # The spill tier on the decode replica.
+        system = rng.integers(0, vocab, size=512).tolist()
+        tail_a = rng.integers(0, vocab, size=40).tolist()
+        tail_b = rng.integers(0, vocab, size=40).tolist()
+        spills = Timed(torch, dec, '_spill_entry')
+        wakes = Timed(torch, dec, '_wake_prefix_entry')
+        timers = [spills, wakes]
+
+        def gen(base, tokens):
+            code, doc = http(base + '/generate', {
+                'tokens': tokens, 'max_new_tokens': DISAGG_NEW})
+            if code != 200:
+                fail(f'{tag} /generate answered {code}: {doc}')
+            return doc['tokens'], doc['logprobs']
+
+        key = tuple(system)
+        hits0 = dec.prefix_hits
+        gen(dbase, system + tail_a)
+        resident = gen(dbase, system + tail_b)
+        if dec.prefix_hits != hits0 + 1:
+            fail(f'{tag} the resent system prompt was not a prefix hit')
+        wait_for(lambda: key in dec.host_store and
+                 key not in dec._prefix_store, tag,
+                 'the idle sweep of the system prompt')
+        host_pages = dec.host_store.pages_spilled()
+        woken = gen(dbase, system + tail_b)
+        cold = gen(pbase, system + tail_b)
+        if dec.prefix_hits != hits0 + 2 or not wakes.seconds:
+            fail(f'{tag} the spilled system prompt was not woken as a hit '
+                 f'({dec.prefix_hits - hits0} hits, {len(wakes.seconds)} '
+                 f'wakes)')
+        if woken != resident or woken[0] != cold[0]:
+            fail(f'{tag} woken tokens {woken[0]} vs resident hit '
+                 f'{resident[0]} vs cold {cold[0]}')
+        kinds_j = {e['kind'] for e in journal.query(since=0)}
+        if not {'kv_spill', 'kv_wake'} <= kinds_j:
+            fail(f'{tag} journal kinds {kinds_j}')
+        log(f'{tag} spill tier: the 512-token system prompt swept to the '
+            f'host (the tier then held {host_pages} pages) after '
+            f'{DISAGG_IDLE_S}s idle and '
+            f'woken as a prefix hit: tokens and logprobs equal to the '
+            f'resident hit, tokens equal to the cold run; journal kinds '
+            f'{sorted(kinds_j)}; spill ms {spills.ms()}, wake ms '
+            f'{wakes.ms()} on {gpu_line()}')
+        log(f'{tag} phase {time.perf_counter() - t_phase:.1f}s')
+        with open(os.path.join(OUT_DIR, 'disagg.json'), 'w') as f:
+            json.dump({'export_ms': exports.ms(), 'send_ms': sends.ms(),
+                       'adopt_ms': adopts.ms(), 'blob_bytes': blob,
+                       'spill_ms': spills.ms(), 'wake_ms': wakes.ms(),
+                       'launches_prefill': at_prefill,
+                       'launches_decode': at_decode, 'card': gpu_line()},
+                      f, indent=1)
+    finally:
+        for t in timers:
+            t.restore()
+        stop_engine(dec, dsrv)
+        stop_engine(pre, psrv)
+        if old_db is None:
+            os.environ.pop('SKYTPU_OBSERVE_DB', None)
+        else:
+            os.environ['SKYTPU_OBSERVE_DB'] = old_db
+        import shutil
+        shutil.rmtree(db_dir, ignore_errors=True)
+    return launches
+
+
 def train_checked(torch, build, tcfg, cfg, tag: str, plain: bool = True):
     """The port's trainer with ``tcfg`` from launch counts of 0: with
     remat 'full', kernel A twice and C and D once per layer per step
@@ -3076,9 +3336,10 @@ def phase_train_gemma(torch, build) -> dict:
 GPTOSS_TRAIN_LAYERS = 2
 # Depth cuts that keep the whole script well inside its time limit on a
 # slow host (every check stands at any depth; full depth was checked
-# before): gemma-7b's model and serve phases, deepseek-v2-lite's model
-# and serve phases, and moe-1b's training, each at half its layers.
-GEMMA_SERVE_DEPTH, MLA_SERVE_DEPTH, MOE_TRAIN_DEPTH = 14, 14, 6
+# before): gemma-7b's model and serve phases and moe-1b's training, each
+# at half its layers, and deepseek-v2-lite's model and serve phases at
+# 10 of 27 (the latent family runs no kernel).
+GEMMA_SERVE_DEPTH, MLA_SERVE_DEPTH, MOE_TRAIN_DEPTH = 14, 10, 6
 # train_mla: deepseek-v2-lite whole (27 layers, 2.607 B params, 41.7 GB of
 # fp32 state), MLA_TRAIN_B x TRAIN_S, MLA_TRAIN_STEPS steps; no kernel
 # (the latent attention is plain PyTorch, as in JAX). Batch 4: at batch 2
@@ -4292,10 +4553,10 @@ SWITCH_DEPTHS = {'gemma2-9b': 2, 'gemma3-12b': 6}
 # gpt-oss-20b's model check at full width, cut in depth so that its fp32
 # copy fits beside the bf16 one (24 layers would take 84 GB in fp32).
 GPTOSS_MODEL_DEPTH = 4
-# gpt-oss-20b's serve phase at full width, cut to 12 of its 24 layers
-# (six windowed, six global; ~21 GB of bf16 weights) so that the whole
-# script keeps a margin inside its time limit.
-GPTOSS_SERVE_DEPTH = 12
+# gpt-oss-20b's serve phase at full width, cut to 8 of its 24 layers
+# (four windowed, four global; ~15 GB of bf16 weights; sinks: no
+# kernel) so that the whole script keeps a margin inside its time limit.
+GPTOSS_SERVE_DEPTH = 8
 
 
 def phase_gemma_switches(torch, config, decode, paging, pa, build) -> None:
@@ -4327,7 +4588,7 @@ def gpu_line() -> str:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--phases', default='build,flash,paged,flash_bwd,'
-                        'timing,model,serve,batch_infer,model_gemma,'
+                        'timing,model,serve,batch_infer,disagg,model_gemma,'
                         'serve_gemma,'
                         'gemma_switches,model_moe,serve_moe,serve_gptoss,'
                         'model_mla,serve_mla,serve_deepseek_v2,'
@@ -4386,7 +4647,7 @@ def main() -> None:
     if 'timing' in phases:
         times = phase_timing(torch, fa, pa, paging)
     lap('timing')
-    if phases & {'model', 'serve', 'batch_infer'}:
+    if phases & {'model', 'serve', 'batch_infer', 'disagg'}:
         cfg = config.get_config('llama-1b')
         params = bf16_params(torch, cfg)
         if 'model' in phases:
@@ -4400,9 +4661,14 @@ def main() -> None:
         if 'batch_infer' in phases:
             by_path['batch_infer'] = phase_batch_infer(
                 torch, cfg, params, decode, paging, pa, build, card)
+            free_card(torch)
+        lap('model+serve+batch_infer')
+        if 'disagg' in phases:
+            by_path['disagg'] = phase_disagg(torch, cfg, params, engine_lib,
+                                             build)
         del params
         free_card(torch)
-    lap('model+serve+batch_infer')
+    lap('disagg')
     if 'model_gemma' in phases or 'serve_gemma' in phases:
         import dataclasses
         cfg = dataclasses.replace(config.get_config('gemma-7b'),
@@ -4550,7 +4816,7 @@ def main() -> None:
     paths = {'serve': SERVE_KERNELS, 'serve_gemma': SERVE_KERNELS,
              'serve_moe': SERVE_KERNELS, 'serve_gptoss': SERVE_KERNELS,
              'serve_mla': SERVE_KERNELS, 'serve_deepseek_v2': SERVE_KERNELS,
-             'batch_infer': ('flash_fwd',),
+             'batch_infer': ('flash_fwd',), 'disagg': SERVE_KERNELS,
              'train': TRAIN_KERNELS, 'train_gemma': TRAIN_KERNELS,
              'train_moe': TRAIN_KERNELS, 'train_mla': TRAIN_KERNELS,
              'train_hf': TRAIN_KERNELS, 'serve_hf': SERVE_KERNELS,

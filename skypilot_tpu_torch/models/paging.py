@@ -2,7 +2,7 @@
 refcounted allocator (port of skypilot_tpu/models/paging.py:
 ``PagedKV``, ``PagedLatent``, ``_pools``, ``pages_for``,
 ``_write_indices``, ``scatter_prefill``, ``gather_prefix``,
-``PageAllocator``).
+``adopt_rows``, ``export_pages``, ``import_pages``, ``PageAllocator``).
 
 Two cache families share one page-table contract: ``PagedKV`` pools the
 dense/GQA/MoE K/V (models/decode.py), ``PagedLatent`` the MLA latents
@@ -130,6 +130,58 @@ def gather_prefix(pcache, slot: int, p: int) -> Tuple[torch.Tensor, ...]:
     off = pos % psz
     return tuple(pool[:, pid, off][:, None]
                  for pool in _pools(pcache).values())
+
+
+def adopt_rows(pcache, a: torch.Tensor, b: torch.Tensor, slot: int, s: int,
+               new_len: int):
+    """Write a HANDED-OFF row into ``slot``'s own pages, in place:
+    ``(a, b)`` are [L, 1, >=s, ...] contiguous per-token rows in
+    :func:`gather_prefix` order, as a prefill replica exported them
+    (serve/disagg/handoff.py); positions [0, s) land in the pages the
+    slot's table covers (the adopter reserved them through its own
+    allocator: page ids never cross the wire, only contents), and
+    length[slot] = new_len, so the pad past the prompt is never
+    attended. Rows on another device are moved to the pool's. A
+    page-aligned ``s`` (export buckets are) scatters whole pages, s /
+    page_size indices instead of s. The exact inverse of the export
+    gather: adopt then gather_prefix round-trips bit for bit."""
+    psz = pcache.page_size
+    pools = _pools(pcache)
+    table = pcache.table[slot].long()
+    for pool, rows in zip(pools.values(), (a, b)):
+        tok = rows[:, 0, :s].to(pool.device)               # [L, s, ...]
+        if s % psz == 0:
+            n = s // psz
+            pool[:, table[:n]] = tok.reshape(tok.shape[0], n, psz,
+                                             *tok.shape[2:])
+        else:
+            pos = torch.arange(s, device=pool.device)
+            pool[:, table[pos // psz], pos % psz] = tok
+    pcache.length[slot] = new_len
+    return pcache
+
+
+def export_pages(pcache, pids) -> Dict[str, torch.Tensor]:
+    """The exact contents of pages ``pids``, one [L, n, psz, ...] tensor
+    per pool field, for the host spill tier: no cast, so spill then
+    :func:`import_pages` round-trips bit for bit."""
+    pools = _pools(pcache)
+    idx = torch.as_tensor(pids, dtype=torch.long,
+                          device=pcache.table.device)
+    return {name: pool[:, idx] for name, pool in pools.items()}
+
+
+def import_pages(pcache, arrays: Dict[str, torch.Tensor], pids):
+    """Inverse of :func:`export_pages`, in place: land spilled page
+    contents (tensors, moved to the pool's device) in the freshly
+    allocated pages ``pids``. Tables and lengths are untouched; the
+    caller re-admits through the normal paths."""
+    pools = _pools(pcache)
+    idx = torch.as_tensor(pids, dtype=torch.long,
+                          device=pcache.table.device)
+    for name, pool in pools.items():
+        pool[:, idx] = torch.as_tensor(arrays[name]).to(pool.device)
+    return pcache
 
 
 class PagesExhausted(Exception):

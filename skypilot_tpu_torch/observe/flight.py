@@ -1,7 +1,6 @@
 """Engine flight recorder: a fixed-size, lock-free hot-loop event ring (a
-copy of skypilot_tpu/observe/flight.py: ``FlightRecorder`` and the
-event codes; the JAX ``snapshot_to_journal`` waits with the sqlite
-journal, which the port does not have).
+copy of skypilot_tpu/observe/flight.py: ``FlightRecorder``, the event
+codes and ``snapshot_to_journal``).
 
 The decode loop records no span and takes no lock per token: it stores
 ``(monotonic_ns, event_code, slot, seq)`` tuples into a preallocated
@@ -9,7 +8,10 @@ ring, one atomic counter bump (``itertools.count``) plus one list-slot
 store each, and never a device sync. ``GET /debug/flight`` on the
 engine dumps the ring, newest last, with the codes decoded; per-request
 TTFT and TPOT come from host timestamps taken at admit and publish,
-never from per-token telemetry.
+never from per-token telemetry. A failure reset snapshots the ring into
+the event journal (observe/journal.py, kind ``flight_snapshot``), so a
+post-mortem has the loop's last events whether or not anyone scraped
+``/debug/flight`` in time.
 """
 from __future__ import annotations
 
@@ -94,3 +96,23 @@ class FlightRecorder:
         self._buf = [None] * self.capacity
         self._ctr = itertools.count()
 
+
+
+def snapshot_to_journal(recorder: FlightRecorder, *,
+                        reason: Optional[str] = None,
+                        entity: Optional[str] = None,
+                        max_events: Optional[int] = None) -> bool:
+    """Persist the ring into the event journal (kind=flight_snapshot),
+    newest ``max_events`` when given; False for an empty ring or a
+    failed write (best-effort like every journal write)."""
+    entries = recorder.snapshot()
+    if not entries:
+        return False
+    if max_events is not None and max_events > 0:
+        entries = entries[-max_events:]
+    from skypilot_tpu_torch.observe import journal
+    return journal.record_event(
+        'flight_snapshot', entity=entity, reason=reason,
+        data={'events': [list(e) for e in entries],
+              'columns': ['t_ns', 'code', 'slot', 'seq'],
+              'codes': {str(k): v for k, v in CODE_NAMES.items()}})

@@ -86,14 +86,38 @@ sites (utils/failpoints.py) sit at JAX's points: ``engine.admit``,
 ``n``, ``best_of`` (candidates ranked by mean token logprob) and
 batched prompts; chat takes ``n``.
 
+The KV memory hierarchy (the JAX engine's): with
+``SKYTPU_ENGINE_KV_HOST_MB`` > 0 a prefix entry that page pressure or
+the LRU bound evicts, or that sat unused for
+``SKYTPU_ENGINE_KV_IDLE_SPILL_S`` seconds (the sweep at the loop's
+drained points), spills: its pages are exported (models/paging.py
+``export_pages``) into the host tier (serve/host_store.py) and the
+device refs freed. A spilled key still counts as a prefix hit: the
+admission wakes it into fresh pages (``import_pages``) and extends it as
+any hit. ``kv_spill`` and ``kv_wake`` land in the event journal
+(observe/journal.py), and a failure reset snapshots the flight ring
+there too.
+
+Disaggregated prefill/decode (the JAX engine's): ``POST
+/disagg/prefill?orig=<endpoint>`` prefills a request (kernel A on the
+card) and samples its first token, exports the row (``gather_prefix``
+of its bucket), finishes it with reason ``'handoff'`` (its pages free
+at the next publish) and ships the rows and the sampler state to the
+decode replica named by ``X-Skytpu-Handoff-Target``
+(serve/disagg/handoff.py); that replica's framed-TCP receiver (on
+``handoff_port``: ``--handoff-port``, by default the HTTP port + 1000)
+stages it, and ``POST /disagg/continue?orig=<endpoint>`` adopts the
+rows into pages of its own allocator (``paging.adopt_rows``) and decodes
+in the captured step graphs (kernel B) like any other row, answering in
+the original endpoint's shape, SSE included.
+
 The knobs are the JAX engine's, read under its names and defaults
 (utils/knobs.py). Those whose feature waits are refused by name at
 construction, citing the ROADMAP item: ``SKYTPU_ENGINE_PAGED=0`` and
-``SKYTPU_ENGINE_ATTN=gather`` (Queue 1 item 3), a role, a positive
-handoff port or warm disagg (item 4 (f)), the host spill tier (item 4
-(e)). What waits besides (ROADMAP Queue 1 item 4): the spill tier and
-int8 KV, disagg, request spans, meshes (an expert axis among them) and
-multi-host.
+``SKYTPU_ENGINE_ATTN=gather`` (Queue 1 item 3), and
+``SKYTPU_ENGINE_KV_QUANT=int8`` (item 3, int8 KV). What waits besides
+(ROADMAP Queue 1 item 4): request spans, meshes (an expert axis among
+them) and multi-host.
 
 The HTTP server is the standard library's ThreadingHTTPServer; the
 batch loop runs in its own thread and owns all device state. Request
@@ -107,6 +131,9 @@ streaming, a per-request queue.
     python -m skypilot_tpu_torch.serve.engine --model llama3.2-1b \\
         --ckpt-dir ./ck      # a trainer checkpoint (e.g. from --hf-dir)
     python -m skypilot_tpu_torch.serve.engine --hf-dir ./Llama-3.2-1B
+    # a decode replica (handoff receiver on 9300) and a prefill replica:
+    python -m skypilot_tpu_torch.serve.engine --port 8300 --handoff-port 9300
+    python -m skypilot_tpu_torch.serve.engine --port 8301 --handoff-port 0
 """
 from __future__ import annotations
 
@@ -138,11 +165,15 @@ from skypilot_tpu_torch.kernels import build
 from skypilot_tpu_torch.models import (decode, hf_import, mla, module_for,
                                        paging)
 from skypilot_tpu_torch.observe import flight as flight_lib
+from skypilot_tpu_torch.observe import journal
 from skypilot_tpu_torch.observe import metrics as metrics_lib
 from skypilot_tpu_torch.observe import request_class
 from skypilot_tpu_torch.ops import paged_attention
+from skypilot_tpu_torch.serve.disagg import handoff as handoff_lib
+from skypilot_tpu_torch.serve.host_store import HostPageStore
 from skypilot_tpu_torch.train import checkpoints
 from skypilot_tpu_torch.utils import failpoints
+from skypilot_tpu_torch.utils import framed
 from skypilot_tpu_torch.utils import knobs
 
 logger = logging.getLogger(__name__)
@@ -196,6 +227,16 @@ KV_PAGES = knobs.get_int('SKYTPU_ENGINE_KV_PAGES')
 # Prompts longer than this prefill in chunks of this many tokens (a power
 # of two >= 16), one chunk per scheduling round.
 PREFILL_CHUNK = knobs.get_int('SKYTPU_ENGINE_PREFILL_CHUNK')
+# The host spill tier: prefix entries idle this long spill at the batch
+# loop's drained points (0: no idle sweep; pressure and the LRU bound
+# still spill while the tier is on), and its byte budget (0: no tier,
+# an evicted entry just drops).
+KV_IDLE_SPILL_S = knobs.get_float('SKYTPU_ENGINE_KV_IDLE_SPILL_S')
+KV_HOST_MB = knobs.get_int('SKYTPU_ENGINE_KV_HOST_MB')
+# Disagg markers and export blobs kept at most (a backlog that outgrows
+# them loses its oldest, as in JAX).
+MAX_MARKS = 4096
+MAX_EXPORTS = 256
 
 
 class EngineOverloaded(Exception):
@@ -228,13 +269,9 @@ ATTN_BACKENDS = ('fused', 'pallas', 'gather')
 
 
 class EngineMetrics:
-    """The JAX engine's ``skytpu_engine_*`` families whose feature the
-    port has, under the same names, types, labels and buckets, in one
-    registry per engine (so two engines in one process never share a
-    count). Waiting with their features: ``_handoff_total`` and
-    ``_handoff_staged`` (disagg), ``_kv_pages_spilled``,
-    ``_spill_seconds``, ``_wake_seconds`` and ``_kv_sessions_peak``
-    (the host spill tier)."""
+    """The JAX engine's ``skytpu_engine_*`` families, under the same
+    names, types, labels and buckets, in one registry per engine (so
+    two engines in one process never share a count)."""
 
     def __init__(self):
         reg = self.registry = metrics_lib.Registry()
@@ -345,6 +382,35 @@ class EngineMetrics:
         self.kv_pages_quantized = reg.gauge(
             'skytpu_engine_kv_pages_quantized',
             'Device pool pages holding int8-quantized KV (0 on fp pools)')
+        self.handoff = reg.counter(
+            'skytpu_engine_handoff_total',
+            'KV page handoff operations by stage (export = gather + copy '
+            'to the host of a prefilled row, send = framed-TCP ship to the '
+            'decode replica, adopt = scatter into the local page pool) and '
+            'outcome.',
+            labels={'stage': ('export', 'send', 'adopt'),
+                    'outcome': ('ok', 'error')})
+        self.handoff_staged = reg.gauge(
+            'skytpu_engine_handoff_staged',
+            'Handoffs received and staged (host memory) but not yet '
+            'continued by a /disagg/continue call (sampled at scrape).')
+        self.kv_pages_spilled = reg.gauge(
+            'skytpu_engine_kv_pages_spilled',
+            'KV pages\' worth of cache parked in the host-RAM spill tier '
+            '(SKYTPU_ENGINE_KV_HOST_MB; sampled at scrape)')
+        self.spill_seconds = reg.histogram(
+            'skytpu_engine_spill_seconds',
+            'Host time to spill one prefix entry to the host tier (page '
+            'export + copy to the host + framed encode)')
+        self.wake_seconds = reg.histogram(
+            'skytpu_engine_wake_seconds',
+            'Host time to wake one spilled prefix entry (framed decode + '
+            'page alloc + scatter into fresh pages)')
+        self.kv_sessions_peak = reg.gauge(
+            'skytpu_engine_kv_sessions_peak',
+            'Peak count of session prefix entries resident in the KV '
+            'hierarchy (device prefix store + host spill tier) since the '
+            'last reset')
 
     def reset(self) -> None:
         """Zero every family, then seed the counter zeros (JAX
@@ -537,6 +603,11 @@ class InferenceEngine:
         self.kv_pages = KV_PAGES
         self.max_queue = MAX_QUEUE
         self.resurrect_max = RESURRECT_MAX
+        # The KV hierarchy's knobs (tests may set them before warm-up):
+        # the host tier is built with the host state.
+        self.kv_idle_spill_s = KV_IDLE_SPILL_S
+        self.kv_host_mb = KV_HOST_MB
+        self.host_store: Optional[HostPageStore] = None
         self._refuse_waiting_knobs()
         self._check_knobs()
         self.seed = seed
@@ -607,6 +678,27 @@ class InferenceEngine:
         self.slots: List[Optional[Dict[str, Any]]] = [None] * self.max_batch
         self._prefix_store: 'collections.OrderedDict[tuple, List[int]]' = \
             collections.OrderedDict()
+        # The idle sweep's clock: key -> time.monotonic() of the entry's
+        # last capture or hit.
+        self._prefix_last_used: Dict[tuple, float] = {}
+        self._kv_sessions_peak = 0
+        # Disaggregated serving: markers keyed by the request's future,
+        # set before it is queued — {'mode': 'export'} turns an
+        # admission into a prefill-only one (its row exported, no
+        # decode), {'mode': 'adopt', 'meta', 'arrays'} admits a
+        # handed-off request by adopting the rows instead of prefilling
+        # — and the export blobs the /disagg/prefill handler pops.
+        self._marks_lock = threading.Lock()
+        self._disagg_marks: Dict[concurrent.futures.Future,
+                                 Dict[str, Any]] = {}
+        self._exports: 'collections.OrderedDict' = collections.OrderedDict()
+        # The decode side, started by build_app when handoff_port is set:
+        # the framed-TCP receiver and its staged (meta, arrays) store
+        # (host memory; pages are reserved at adoption).
+        self.role = knobs.get_enum('SKYTPU_ENGINE_ROLE')
+        self.handoff_port: Optional[int] = None
+        self.handoff_store: Optional[handoff_lib.HandoffStore] = None
+        self._handoff_receiver: Optional[handoff_lib.HandoffReceiver] = None
 
     def _refuse_waiting_knobs(self) -> None:
         """Refuse by name, at construction, a non-default value of each
@@ -621,25 +713,6 @@ class InferenceEngine:
         if knobs.get_enum('SKYTPU_ENGINE_ATTN') == 'gather':
             waiting.append(('SKYTPU_ENGINE_ATTN=gather', 'the gather view '
                             'baseline', 'item 3'))
-        role = knobs.get_enum('SKYTPU_ENGINE_ROLE')
-        if role:
-            waiting.append((f'SKYTPU_ENGINE_ROLE={role}',
-                            'disaggregated prefill/decode', 'item 4 (f)'))
-        handoff = knobs.get_int('SKYTPU_ENGINE_HANDOFF_PORT')
-        if handoff > 0:
-            waiting.append((f'SKYTPU_ENGINE_HANDOFF_PORT={handoff}',
-                            'the KV handoff listener', 'item 4 (f)'))
-        if knobs.get_bool('SKYTPU_ENGINE_WARM_DISAGG'):
-            waiting.append(('SKYTPU_ENGINE_WARM_DISAGG=1', 'the page '
-                            'export/adopt programs', 'item 4 (f)'))
-        host_mb = knobs.get_int('SKYTPU_ENGINE_KV_HOST_MB')
-        if host_mb:
-            waiting.append((f'SKYTPU_ENGINE_KV_HOST_MB={host_mb}',
-                            'the host-RAM spill tier', 'item 4 (e)'))
-        idle = knobs.get_float('SKYTPU_ENGINE_KV_IDLE_SPILL_S')
-        if idle:
-            waiting.append((f'SKYTPU_ENGINE_KV_IDLE_SPILL_S={idle}',
-                            'the idle spill sweep', 'item 4 (e)'))
         if waiting:
             setting, feature, item = waiting[0]
             raise NotImplementedError(
@@ -779,15 +852,23 @@ class InferenceEngine:
         self._graph_pool = None
 
     def _reset_host_state(self) -> None:
-        """The allocator, slots, the prefix store and every host mirror,
-        as new. The store is emptied without unref'ing its ids: they
-        belonged to the allocator this replaces."""
+        """The allocator, slots, the prefix store, the host spill tier
+        and every host mirror, as new. The store is emptied without
+        unref'ing its ids: they belonged to the allocator this replaces;
+        the host tier is built anew (a failure reset distrusts the
+        parked blobs with everything else)."""
         self.alloc = paging.PageAllocator(self.n_pages)
         self._table_np = np.zeros((self.max_batch, self._max_pages),
                                   np.int32)
         self._table_dirty = True
         self.slots = [None] * self.max_batch
         self._prefix_store = collections.OrderedDict()
+        self._prefix_last_used = {}
+        self.host_store = (HostPageStore(self.kv_host_mb)
+                           if self.kv_host_mb > 0 else None)
+        self._kv_sessions_peak = 0
+        self.metrics.kv_sessions_peak.set(0)
+        self.metrics.kv_pages_spilled.set(0)
         self.last = np.zeros(self.max_batch, np.int32)
         self.temp = np.zeros(self.max_batch, np.float32)
         self.topk = np.zeros(self.max_batch, np.int32)
@@ -799,11 +880,16 @@ class InferenceEngine:
         self._spec_cool = 0
         self._chunk_rr = 0
 
-    def _reset_device_state(self) -> None:
-        """After a failed admit/step: wait out whatever the card still
-        runs (an uncollected call may be copying into a stage), then
-        zero the pool, table, lengths, ``last`` and counts IN PLACE (the
-        graphs keep their addresses) and reset the host state."""
+    def _reset_device_state(self, reason: Optional[str] = None) -> None:
+        """After a failed admit/step: snapshot the flight ring into the
+        event journal (the loop's history as it stood at the failure),
+        wait out whatever the card still runs (an uncollected call may
+        be copying into a stage), then zero the pool, table, lengths,
+        ``last`` and counts IN PLACE (the graphs keep their addresses)
+        and reset the host state."""
+        flight_lib.snapshot_to_journal(
+            self.flight, reason=reason or 'device state reset',
+            entity=f'engine/{self.model_name}')
         self.flight.record(flight_lib.RESET, 0, self._resets)
         self._resets += 1
         if self.device.type == 'cuda':
@@ -870,10 +956,16 @@ class InferenceEngine:
     def _alloc_pages(self, n: int) -> List[int]:
         """Reserve n pages, evicting prefix entries, oldest first, while
         the free list is short (a cached prefix is worth less than an
-        admitted request)."""
+        admitted request). With the host tier on, an evicted entry
+        spills there instead of dropping (the same pages free either
+        way)."""
+        spills = []
         while not self.alloc.can_fit(n) and self._prefix_store:
-            _, pids = self._prefix_store.popitem(last=False)
-            self.alloc.unref_all(pids)
+            key, pids = self._prefix_store.popitem(last=False)
+            info = self._spill_entry(key, pids)
+            if info is not None:
+                spills.append(info)
+        self._journal_spill(spills)
         pids = self.alloc.alloc(n)
         self.metrics.page_alloc.inc(outcome='ok')
         return pids
@@ -900,11 +992,118 @@ class InferenceEngine:
                 self.slots[i] = None
 
     def _clear_prefix_store(self) -> None:
-        """Empty the prefix store, returning its page refs (a reset
-        rebuilds the allocator and drops the store instead)."""
+        """Empty the prefix store, returning its page refs, and the host
+        tier (a reset rebuilds the allocator and drops the store
+        instead)."""
         while self._prefix_store:
             _, pids = self._prefix_store.popitem(last=False)
             self.alloc.unref_all(pids)
+        self._prefix_last_used.clear()
+        if self.host_store is not None:
+            self.host_store.clear()
+
+    # -- the KV hierarchy: the host spill tier (serve/host_store.py) --------
+    def _spill_entry(self, key, pids: List[int]) -> Optional[Tuple[int, bool]]:
+        """Spill one prefix entry the caller already popped: export its
+        pages into the host tier (when on), then drop the store's refs.
+        Prefix pages are read-only after capture, so the contents are
+        final even while a live row still shares them. Drained points
+        only. ``kv.spill`` fires between 'entry chosen' and 'pages
+        parked'. Returns (pages, stored) for the caller's
+        :meth:`_journal_spill`, or None with the tier off."""
+        spilled = None
+        if self.host_store is not None:
+            if failpoints.ACTIVE and self.warm:
+                failpoints.fire('kv.spill')
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = paging.export_pages(self.cache, pids)
+            arrays = {name: a.cpu() for name, a in out.items()}
+            ok = self.host_store.put(key, arrays, n_pages=len(pids))
+            self.metrics.spill_seconds.observe(time.perf_counter() - t0)
+            spilled = (len(pids), bool(ok))
+        self.alloc.unref_all(pids)
+        self._prefix_last_used.pop(key, None)
+        return spilled
+
+    def _journal_spill(self, spills: List[Tuple[int, bool]]) -> None:
+        """One ``kv_spill`` journal event for a whole spill run (a
+        pressure eviction, an LRU overflow or one idle sweep)."""
+        if not spills or self.host_store is None:
+            return
+        journal.record_event(
+            'kv_spill', entity=f'engine/{self.model_name}',
+            data={'entries': len(spills),
+                  'pages': sum(p for p, _ in spills),
+                  'stored': sum(1 for _, ok in spills if ok),
+                  'host_pages': self.host_store.pages_spilled()})
+
+    def _spill_key(self, key) -> Optional[Tuple[int, bool]]:
+        """Spill the named prefix entry (the idle sweep's step)."""
+        pids = self._prefix_store.pop(key, None)
+        if pids is None:
+            return None
+        return self._spill_entry(key, pids)
+
+    def _wake_prefix_entry(self, key) -> None:
+        """Bring a spilled entry back to the device: fresh pages from the
+        allocator, the blob's contents imported into them, the entry
+        restored to the prefix store (newest: the caller is about to hit
+        it). Waking pops the host blob. ``kv.wake`` fires before the
+        device work: a failure propagates out of the admission into
+        :meth:`_fail_all`, which resurrects the interrupted request."""
+        if failpoints.ACTIVE and self.warm:
+            failpoints.fire('kv.wake')
+        t0 = time.perf_counter()
+        arrays = self.host_store.pop(key)
+        if arrays is None:
+            return
+        pids = self._alloc_pages(len(key) // self.page_size)
+        with torch.no_grad():
+            paging.import_pages(self.cache, arrays, pids)
+        self._prefix_store[key] = pids
+        self._prefix_last_used[key] = time.monotonic()
+        self.metrics.wake_seconds.observe(time.perf_counter() - t0)
+        journal.record_event(
+            'kv_wake', entity=f'engine/{self.model_name}',
+            data={'pages': len(pids),
+                  'host_pages': self.host_store.pages_spilled()})
+
+    def _note_kv_residency(self) -> None:
+        """High-water mark of sessions resident in the KV hierarchy
+        (device prefix entries + host-tier entries)."""
+        resident = len(self._prefix_store)
+        if self.host_store is not None:
+            resident += len(self.host_store)
+        if resident > self._kv_sessions_peak:
+            self._kv_sessions_peak = resident
+            self.metrics.kv_sessions_peak.set(resident)
+
+    def _sweep_due(self) -> bool:
+        """Whether some prefix entry idled past the spill threshold (the
+        loop's cheap check before :meth:`_sweep_idle_prefixes`)."""
+        if (self.host_store is None or self.kv_idle_spill_s <= 0 or
+                not self._prefix_store):
+            return False
+        now = time.monotonic()
+        return any(now - ts >= self.kv_idle_spill_s
+                   for ts in self._prefix_last_used.values())
+
+    def _sweep_idle_prefixes(self) -> None:
+        """Spill every prefix entry untouched for ``kv_idle_spill_s``
+        (drained points), journalled as one run."""
+        if (self.host_store is None or self.kv_idle_spill_s <= 0 or
+                not self._prefix_store):
+            return
+        now = time.monotonic()
+        spills = []
+        for key in list(self._prefix_store):
+            ts = self._prefix_last_used.get(key)
+            if ts is not None and now - ts >= self.kv_idle_spill_s:
+                info = self._spill_key(key)
+                if info is not None:
+                    spills.append(info)
+        self._journal_spill(spills)
 
     # -- observability -----------------------------------------------------
     def queue_depth(self) -> int:
@@ -935,7 +1134,9 @@ class InferenceEngine:
                frequency: float = 0.0, stop_ids: Tuple[int, ...] = (),
                want_tops: bool = False,
                stream: Optional['queue.Queue'] = None,
-               cls: str = request_class.DEFAULT_CLASS
+               cls: str = request_class.DEFAULT_CLASS,
+               prefill_export: bool = False,
+               _adopt: Optional[Dict[str, Any]] = None
                ) -> concurrent.futures.Future:
         """Enqueue a request; the future resolves to (tokens,
         finish_reason, chosen-token logprobs, per-token top-5 lists —
@@ -943,15 +1144,24 @@ class InferenceEngine:
         there), or raises EngineResetError. ``stream`` (anything with a
         ``put``) receives (token, logprob, tops) per token and None at
         the end. ``cls`` is the request's declared class, clamped here.
-        Raises EngineOverloaded when the bounded queue is full."""
+        ``prefill_export`` makes it prefill-only
+        (:meth:`mark_prefill_export`); :meth:`submit_adopted` passes its
+        adoption marker. A marker is set before the request is queued:
+        the batch loop may admit it at once. Raises EngineOverloaded
+        when the bounded queue is full."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
         req = Request(list(tokens), int(max_new), float(temperature), top_k,
                       top_p, float(presence), float(frequency),
                       tuple(stop_ids), bool(want_tops), fut, stream,
                       time.perf_counter(), request_class.normalize(cls))
+        if prefill_export:
+            self.mark_prefill_export(fut)
+        elif _adopt is not None:
+            self._mark(fut, _adopt)
         try:
             self._queue.put_nowait(req)
         except queue.Full:
+            self._unmark(fut)
             self.metrics.rejected.inc()
             raise EngineOverloaded(
                 f'admission queue full ({self.max_queue} waiting)') \
@@ -959,6 +1169,156 @@ class InferenceEngine:
         self.metrics.requests.inc()
         self.metrics.queue_depth.set(self.queue_depth())
         return fut
+
+    # -- disaggregated serving (serve/disagg) ----------------------------------
+    def mark_prefill_export(self, fut: concurrent.futures.Future) -> None:
+        """Turn the request owning ``fut`` into a PREFILL-ONLY admission:
+        it prefills (grouped, chunked or over a prefix hit) and samples
+        its first token like any other, then its row is exported to the
+        host, the slot finishes with reason ``'handoff'`` and its pages
+        free at the next publish; the blob waits in :meth:`pop_export`.
+        It must be marked before it is admitted: ``submit(...,
+        prefill_export=True)`` marks before queueing."""
+        self._mark(fut, {'mode': 'export'})
+
+    def submit_adopted(self, meta: Dict[str, Any], arrays: Dict[str, Any],
+                       stream: Optional['queue.Queue'] = None
+                       ) -> concurrent.futures.Future:
+        """Enqueue a HANDED-OFF request (decode side): admission adopts
+        the shipped rows into pages of this replica's allocator
+        (``paging.adopt_rows``) instead of prefilling, seeds the sampler
+        state from ``meta`` and decodes on as if this replica had
+        prefilled the prompt (greedy tokens equal a monolithic run's).
+        EngineOverloaded on a full queue, as :meth:`submit`."""
+        return self.submit(
+            list(meta['tokens']), int(meta['max_new']),
+            float(meta['temperature']), int(meta['top_k']) or None,
+            float(meta['top_p']) or None, float(meta['presence_penalty']),
+            float(meta['frequency_penalty']),
+            stop_ids=tuple(int(i) for i in meta['stop_ids']),
+            want_tops=bool(meta['want_tops']), stream=stream,
+            cls=str(meta.get('cls', request_class.DEFAULT_CLASS)),
+            _adopt={'mode': 'adopt', 'meta': meta, 'arrays': arrays})
+
+    def _mark(self, fut: concurrent.futures.Future,
+              mark: Dict[str, Any]) -> None:
+        with self._marks_lock:
+            self._disagg_marks[fut] = mark
+            while len(self._disagg_marks) > MAX_MARKS:
+                self._disagg_marks.pop(next(iter(self._disagg_marks)))
+
+    def _unmark(self, fut: Optional[concurrent.futures.Future]) -> None:
+        with self._marks_lock:
+            self._disagg_marks.pop(fut, None)
+
+    def _mode_of(self, req: Request) -> Optional[str]:
+        with self._marks_lock:
+            mark = self._disagg_marks.get(req.future)
+        return mark.get('mode') if mark else None
+
+    def pop_export(self, fut: concurrent.futures.Future
+                   ) -> Optional[Dict[str, Any]]:
+        """The prefill-only request's exported rows and geometry, taken
+        ONCE by the /disagg/prefill handler owning ``fut``; None when the
+        request completed at admission (its first token a stop id, or
+        max_new 1): no decode phase remains, so nothing ships."""
+        with self._marks_lock:
+            return self._exports.pop(fut, None)
+
+    def handoff_validate(self, meta: Dict[str, Any]) -> Optional[str]:
+        """The receiver's compatibility check, before staging: a prefill
+        pool paired with an incompatible decode pool refuses (kind
+        'spec'), never adopts garbage."""
+        family = self.cache_family()
+        if meta['family'] != family:
+            return (f'cache family mismatch: handoff {meta["family"]}, '
+                    f'replica {family}')
+        if int(meta['vocab_size']) != self.cfg.vocab_size:
+            return (f'vocab mismatch: handoff {meta["vocab_size"]}, '
+                    f'replica {self.cfg.vocab_size}')
+        if str(meta['model']) != self.model_name:
+            return (f'model mismatch: handoff {meta["model"]!r}, '
+                    f'replica {self.model_name!r}')
+        n = len(meta['tokens'])
+        if n < 1:
+            return 'handoff with empty prompt'
+        bucket = decode.bucket_size(n)
+        if int(meta['bucket']) != bucket:
+            return (f'bucket mismatch: handoff {meta["bucket"]}, '
+                    f'replica computes {bucket} for {n} tokens')
+        if bucket + int(meta['max_new']) > self.max_len:
+            return (f'bucketed prompt ({bucket}) + max_new '
+                    f'({meta["max_new"]}) exceeds replica max_len '
+                    f'{self.max_len}')
+        return None
+
+    def _export_slot(self, slot: int, tokens: List[int]) -> Dict[str, Any]:
+        """The freshly prefilled row's first bucket-many positions,
+        gathered out of the pool onto the host (the handoff payload),
+        inside the admission at a drained point. ``prefill.flush`` fires
+        between 'prefill done' and 'rows exported'."""
+        if failpoints.ACTIVE and self.warm:
+            failpoints.fire('prefill.flush')
+        p = decode.bucket_size(len(tokens))
+        try:
+            with torch.no_grad():
+                a, b = paging.gather_prefix(self.cache, slot, p)
+            t_sync = time.perf_counter()
+            a, b = a.cpu(), b.cpu()
+            self.metrics.host_sync_seconds.observe(time.perf_counter() -
+                                                   t_sync)
+        except BaseException:
+            self.metrics.handoff.inc(stage='export', outcome='error')
+            raise
+        self.metrics.handoff.inc(stage='export', outcome='ok')
+        return {'a': a, 'b': b, 'bucket': p, 'length': len(tokens)}
+
+    def _admit_adopted(self, req: Request) -> int:
+        """Admit one handed-off request (drained points only): reserve
+        its pages through this replica's allocator, adopt the shipped
+        rows into them, seed the sampler state, the penalty counts and
+        the device ``last`` from the meta and turn the slot into a
+        decoding row holding the first token (sampled on the prefill
+        replica; it streams at the next publish). A lost marker falls
+        back to a local prefill. Returns the slot (-1 on the fallback)."""
+        assert not self._inflight, 'adopt with a call in flight'
+        with self._marks_lock:
+            mark = self._disagg_marks.get(req.future) or {}
+        meta, arrays = mark.get('meta'), mark.get('arrays')
+        if meta is None:
+            logger.warning('adopt marker lost; falling back to a local '
+                           'prefill admission')
+            self._admit_group([req])
+            return -1
+        if failpoints.ACTIVE and self.warm:
+            failpoints.fire('engine.admit')
+        t0 = self._admit_t0 = time.perf_counter()
+        self._ensure_state()
+        slot = self._free_slot()
+        self._set_sampling(slot, req)
+        self._reserve_slot_pages(
+            slot, self._alloc_pages(self._pages_needed(req)))
+        self._refresh_table()
+        first = int(meta['first_token'])
+        try:
+            with torch.no_grad():
+                paging.adopt_rows(self.cache, torch.as_tensor(arrays['a']),
+                                  torch.as_tensor(arrays['b']), slot,
+                                  decode.bucket_size(len(req.tokens)),
+                                  len(req.tokens))
+                self.last_dev[slot] = first
+                self.counts[slot] = 0
+                self.counts[slot, first] += 1
+        except BaseException:
+            self.metrics.handoff.inc(stage='adopt', outcome='error')
+            raise
+        self._finish_admit(req, slot, first, float(meta['first_lp']),
+                           [tuple(t) for t in meta.get('first_tops') or []],
+                           time.perf_counter())
+        self._unmark(req.future)
+        self.metrics.handoff.inc(stage='adopt', outcome='ok')
+        self.metrics.admit_seconds.observe(time.perf_counter() - t0)
+        return slot
 
     def cancel(self, fut: concurrent.futures.Future) -> None:
         """Abort the request owning ``fut`` (a stream whose client went
@@ -984,6 +1344,7 @@ class InferenceEngine:
                     break
             else:
                 self._hold = [r for r in self._hold if r.future is not fut]
+                self._unmark(fut)
 
     # -- admission -------------------------------------------------------------
     def _drain_admissible(self) -> List[Request]:
@@ -1019,6 +1380,7 @@ class InferenceEngine:
         held, self._hold = self._hold, []
         for req in held:
             if req.future is not None and req.future.cancelled():
+                self._unmark(req.future)
                 continue                 # cancelled while waiting
             if len(items) < free_slots and fits(req):
                 if live(req):
@@ -1029,6 +1391,7 @@ class InferenceEngine:
                not self._queue.empty()):
             req = self._queue.get_nowait()
             if req.future is not None and req.future.cancelled():
+                self._unmark(req.future)
                 continue                 # cancelled while queued
             if fits(req):
                 if live(req):
@@ -1188,17 +1551,35 @@ class InferenceEngine:
             if len(entry['out']) >= req.max_new:
                 entry['finish'] = 'length'
         self.slots[slot] = entry
+        # Prefill-only (disaggregated serving): the row's job ends at its
+        # first token. Export BEFORE marking it finished, so a failed
+        # export leaves the row unfinished and _fail_all answers the
+        # structured retriable error; a row that finished outright
+        # (stop id, max_new 1) exports nothing.
+        if self._mode_of(req) == 'export':
+            self._unmark(req.future)
+            if entry['finish'] is None:
+                blob = self._export_slot(slot, req.tokens)
+                with self._marks_lock:
+                    self._exports[req.future] = blob
+                    while len(self._exports) > MAX_EXPORTS:
+                        self._exports.popitem(last=False)
+                entry['finish'] = 'handoff'
 
     # -- the prefix cache --------------------------------------------------------
     def _prefix_match(self, tokens: List[int]) -> Optional[int]:
         """The longest snapshotted power-of-two prefix of ``tokens``
         leaving at least one suffix token, whose prefix + bucketed
-        suffix fits max_len; None: a full prefill."""
-        if not self._prefix_store:
+        suffix fits max_len; None: a full prefill. A spilled entry
+        counts: :meth:`_admit_with_prefix` wakes it before extending."""
+        has_host = self.host_store is not None and len(self.host_store)
+        if not self._prefix_store and not has_host:
             return None
         p, best = PREFIX_MIN_TOKENS, None
         while p < len(tokens):
-            if (tuple(tokens[:p]) in self._prefix_store and
+            key = tuple(tokens[:p])
+            if ((key in self._prefix_store or
+                 (has_host and key in self.host_store)) and
                     p + decode.bucket_size(len(tokens) - p) <= self.max_len):
                 best = p
             p *= 2
@@ -1218,6 +1599,7 @@ class InferenceEngine:
         key = tuple(tokens[:p])
         if key in self._prefix_store:
             self._prefix_store.move_to_end(key)
+            self._prefix_last_used[key] = time.monotonic()
             return
         pids = [int(x) for x in self._table_np[slot, :p // self.page_size]]
         if not pids or 0 in pids:
@@ -1225,9 +1607,16 @@ class InferenceEngine:
         for pid in pids:
             self.alloc.ref(pid)
         self._prefix_store[key] = pids
+        self._prefix_last_used[key] = time.monotonic()
+        spills = []
         while len(self._prefix_store) > self.prefix_cache:
-            _, old = self._prefix_store.popitem(last=False)
-            self.alloc.unref_all(old)
+            # The LRU overflow spills (host tier on) or drops.
+            old_key, old = self._prefix_store.popitem(last=False)
+            info = self._spill_entry(old_key, old)
+            if info is not None:
+                spills.append(info)
+        self._journal_spill(spills)
+        self._note_kv_residency()
 
     def _admit_with_prefix(self, req: Request, p: int) -> None:
         """Admit one request over a stored prefix: its table points at
@@ -1241,8 +1630,14 @@ class InferenceEngine:
         s2 = decode.bucket_size(len(suffix))
         self._set_sampling(slot, req)
         key = tuple(req.tokens[:p])
+        if key not in self._prefix_store and self.host_store is not None:
+            # A host-tier hit wakes into the device tier first; a wake
+            # failure reaches _fail_all, which resurrects this request
+            # (it has not sampled).
+            self._wake_prefix_entry(key)
         shared = list(self._prefix_store[key])
         self._prefix_store.move_to_end(key)
+        self._prefix_last_used[key] = time.monotonic()
         # Ref the shared pages before allocating: an eviction under page
         # pressure may then drop the entry, never the pages.
         for pid in shared:
@@ -1793,8 +2188,10 @@ class InferenceEngine:
                                   s['tops']))
             if q is not None:
                 q.put(None)                  # end-of-stream sentinel
-            self.slots[i] = None
+            # Pages first: a thread that sees the slot free (in_flight)
+            # sees its pages back too.
             self._release_slot_pages(i)
+            self.slots[i] = None
             self.temp[i] = self.topk[i] = self.topp[i] = 0
             self.pres[i] = self.freq[i] = 0
             self._samp_dirty = True
@@ -1846,6 +2243,8 @@ class InferenceEngine:
         resurrected: List[Request] = []
 
         def fail(req: Request, n_emitted: int) -> None:
+            self._unmark(req.future)
+
             def apply() -> None:
                 if req.stream is not None:
                     req.stream.put(None)
@@ -1895,7 +2294,7 @@ class InferenceEngine:
             if not try_resurrect(req):
                 fail(req, 0)
         try:
-            self._reset_device_state()
+            self._reset_device_state(reason=f'{type(err).__name__}: {err}')
         except BaseException:
             for req in resurrected:
                 fail(req, 0)
@@ -1913,12 +2312,20 @@ class InferenceEngine:
                         len(self._hold))
 
     def _admit_pending(self) -> None:
-        """Admit what fits: grouped prefills first, then the chunked
-        starts. A failure is contained (:meth:`_fail_all`) and the rest
-        admit against the rebuilt state."""
+        """Admit what fits: handed-off requests by adoption (they carry
+        their K/V), then grouped prefills, then the chunked starts. A
+        failure is contained (:meth:`_fail_all`) and the rest admit
+        against the rebuilt state."""
         items = self._drain_admissible()
-        grouped = [r for r in items if not self._should_chunk(r)]
-        chunked = [r for r in items if self._should_chunk(r)]
+        adopted = [r for r in items if self._mode_of(r) == 'adopt']
+        rest = [r for r in items if self._mode_of(r) != 'adopt']
+        grouped = [r for r in rest if not self._should_chunk(r)]
+        chunked = [r for r in rest if self._should_chunk(r)]
+        for req in adopted:
+            try:
+                self._admit_adopted(req)
+            except Exception as e:  # pylint: disable=broad-except
+                self._fail_all(e, [req])
         for group in self._admit_groups(grouped):
             try:
                 self._admit_group(group)
@@ -1957,6 +2364,8 @@ class InferenceEngine:
                 self._spec_dev[:self.spec_k + 1].zero_()
                 self._variant(('verify', want_tops))()
         self._drop_all_slots()
+        if knobs.get_bool('SKYTPU_ENGINE_WARM_DISAGG'):
+            self._warm_disagg_grid()
         self._clear_prefix_store()
         self.cache.length.zero_()
         self.last_dev.zero_()
@@ -1980,8 +2389,47 @@ class InferenceEngine:
             self.metrics.attn_backend.set(1.0 if b == backend else 0.0,
                                           backend=b)
         self.metrics.kv_pages_quantized.set(0)
+        # The KV-hierarchy gauges from live state; warm-up's synthetic
+        # captures do not count towards the sessions peak.
+        self.metrics.kv_pages_spilled.set(
+            self.host_store.pages_spilled() if self.host_store else 0)
+        self._kv_sessions_peak = 0
+        self.metrics.kv_sessions_peak.set(0)
         self.flight.clear()
         self.warm = True
+
+    def all_buckets(self) -> List[int]:
+        """Every prompt bucket a request can take: powers of two from
+        16 below max_len."""
+        out, b = [], decode.bucket_size(1)
+        while b < self.max_len:
+            out.append(b)
+            b *= 2
+        return out
+
+    def _warm_disagg_grid(self) -> None:
+        """``SKYTPU_ENGINE_WARM_DISAGG``: run the adopt (scatter) and the
+        export (gather + copy to the host) once per prompt bucket through
+        the real code path — reserve a free slot's pages, adopt zero
+        rows, export them back, release — so that the first handoff of
+        each bucket allocates nothing new. The slot is never activated."""
+        pools = list(paging._pools(self.cache).values())
+        for b in self.all_buckets():
+            need = paging.pages_for(b, self.page_size)
+            if not self.alloc.can_fit(need):
+                continue
+            slot = self._free_slot()
+            self._reserve_slot_pages(slot, self._alloc_pages(need))
+            self._refresh_table()
+            rows = [torch.zeros((p.shape[0], 1, b, *p.shape[3:]),
+                                dtype=p.dtype, device=self.device)
+                    for p in pools]
+            with torch.no_grad():
+                paging.adopt_rows(self.cache, *rows, slot, b, b)
+                for t in paging.gather_prefix(self.cache, slot, b):
+                    t.cpu()
+            self.cache.length[slot] = 0
+            self._release_slot_pages(slot)
 
     def _step_round(self) -> None:
         """One scheduling round of device work: a speculative round when
@@ -2021,6 +2469,14 @@ class InferenceEngine:
         while not self._stop.is_set():
             # Drained point: no call in flight.
             self._process_cancels()
+            if self._sweep_due():
+                # The idle wait below polls every 50 ms, so cold
+                # sessions spill even when no request arrives.
+                try:
+                    self._sweep_idle_prefixes()
+                except Exception as e:  # pylint: disable=broad-except
+                    self._fail_all(e)
+                    continue
             if not any(s is not None for s in self.slots) and \
                     not self._hold:
                 try:
@@ -2407,8 +2863,11 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
     /health`` (and ``/``, the serve spec's default readiness path),
     ``/metrics``, ``/debug/flight`` and ``/v1/models``, and ``POST
     /generate``, ``/v1/completions`` and ``/v1/chat/completions`` (JSON
-    or SSE); the caller runs ``serve_forever`` (in a thread) and
-    ``shutdown``/``server_close`` when done."""
+    or SSE), ``/disagg/prefill`` and ``/disagg/continue``; with
+    ``engine.handoff_port`` set it also starts the KV handoff receiver
+    on (host, handoff_port). The caller runs ``serve_forever`` (in a
+    thread) and ``shutdown``/``server_close`` when done (the latter
+    stops the receiver)."""
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = 'HTTP/1.1'
@@ -2463,10 +2922,19 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
             if not engine.warm:
                 return self._json(503, {'status': 'warming'})
             # The saturation doc the fleet scraper reads.
-            return self._json(200, {
-                'status': 'ok', 'queue_depth': engine.queue_depth(),
-                'in_flight': engine.in_flight(),
-                'kv_pages_free': engine.alloc.free_count})
+            doc = {'status': 'ok', 'queue_depth': engine.queue_depth(),
+                   'in_flight': engine.in_flight(),
+                   'kv_pages_free': engine.alloc.free_count}
+            if engine.host_store is not None:
+                # The host tier's occupancy: the headroom the KV
+                # hierarchy adds.
+                doc['kv_host'] = engine.host_store.occupancy()
+            if engine.role:
+                doc['role'] = engine.role
+            if engine.handoff_store is not None:
+                doc['handoff_port'] = engine.handoff_port
+                doc['handoff_staged'] = len(engine.handoff_store)
+            return self._json(200, doc)
 
         def _metrics(self) -> None:
             """The text exposition of the engine's registry, its gauges
@@ -2477,6 +2945,10 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
             if engine.alloc is not None:
                 m.pages_free.set(engine.alloc.free_count)
                 m.pages_used.set(engine.alloc.used_count)
+            if engine.host_store is not None:
+                m.kv_pages_spilled.set(engine.host_store.pages_spilled())
+            if engine.handoff_store is not None:
+                m.handoff_staged.set(len(engine.handoff_store))
             self._send(200, m.registry.render().encode(),
                        'text/plain; charset=utf-8')
 
@@ -2493,12 +2965,19 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
                                     'count': len(events), 'events': events})
 
         def do_POST(self):  # noqa: N802
-            if self.path == '/generate':
+            url = urllib.parse.urlsplit(self.path)
+            if url.path == '/generate':
                 return self._generate()
-            if self.path == '/v1/completions':
+            if url.path == '/v1/completions':
                 return self._completions()
-            if self.path == '/v1/chat/completions':
+            if url.path == '/v1/chat/completions':
                 return self._chat()
+            if url.path in ('/disagg/prefill', '/disagg/continue'):
+                orig = urllib.parse.parse_qs(url.query).get(
+                    'orig', ['/generate'])[0]
+                if url.path == '/disagg/prefill':
+                    return self._disagg_prefill(orig)
+                return self._disagg_continue(orig)
             return self._json(404, {'error': 'not found'})
 
         def _cls(self) -> str:
@@ -2677,6 +3156,224 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
                 return self._openai_error(f'engine failure: {e}', 503,
                                           'server_error')
 
+        # -- disaggregated prefill/decode (serve/disagg) ---------------------
+        def _disagg_done_doc(self, orig: str, body, out, finish, lps,
+                             n_prompt: int) -> Dict[str, Any]:
+            """The answer, in the ORIGINAL endpoint's shape, of a request
+            that completed on this replica."""
+            if orig == '/v1/completions':
+                return {'id': f'cmpl-{time.time_ns()}',
+                        'object': 'text_completion',
+                        'created': int(time.time()),
+                        'model': body.get('model', engine.model_name),
+                        'choices': [{'text': engine.tokenizer.decode(out),
+                                     'index': 0, 'logprobs': None,
+                                     'finish_reason': finish}],
+                        'usage': _usage(n_prompt, len(out))}
+            doc = {'tokens': out, 'finish_reason': finish, 'logprobs': lps}
+            if 'text' in body:
+                doc['text'] = engine.tokenizer.decode(out)
+            return doc
+
+        def _disagg_prefill(self, orig: str) -> None:
+            """Stage 1 of the two-stage pipeline (the LB drives it):
+            prefill the prompt and sample its first token here, export
+            the row, ship it npy-framed to the decode replica named by
+            ``X-Skytpu-Handoff-Target`` and answer with the handoff id
+            the LB passes to /disagg/continue — or ``{'done': ...}``
+            when the request completed at admission. The body is the
+            ORIGINAL endpoint's (``?orig=`` names it: /generate or a
+            single-choice /v1/completions)."""
+            target = self.headers.get('X-Skytpu-Handoff-Target',
+                                      '').strip()
+            if not target:
+                return self._json(400, {
+                    'error': 'missing X-Skytpu-Handoff-Target header'})
+            try:
+                body = self._body()
+            except ValueError:
+                return self._json(400, {'error': 'bad json'})
+            want_tops = False
+            try:
+                if orig == '/v1/completions':
+                    prompts = _resolve_prompts(engine,
+                                               body.get('prompt', ''))
+                    if len(prompts) != 1 or not prompts[0]:
+                        raise ValueError('disagg prefill serves exactly '
+                                         'one non-empty prompt')
+                    tokens = prompts[0]
+                    max_new = int(body.get('max_tokens', 16))
+                    sampling = _parse_sampling(body,
+                                               default_temperature=1.0)
+                    stop_ids = _parse_stop_ids(body, engine.tokenizer)
+                    want_logprobs, top_n = _parse_logprobs(body)
+                    want_tops = want_logprobs and top_n > 0
+                    if _parse_n(body, engine.max_batch) != (1, 1):
+                        raise ValueError('disagg prefill serves '
+                                         'single-choice requests (n=1)')
+                elif orig == '/generate':
+                    if 'text' in body:
+                        tokens = [int(t) for t in engine.tokenizer.encode(
+                            str(body['text']))]
+                    else:
+                        tokens = [int(t) for t in body['tokens']]
+                    if not tokens:
+                        raise ValueError('empty prompt')
+                    max_new = int(body.get('max_new_tokens', 64))
+                    sampling = _parse_sampling(body)
+                    stop_ids = tuple(int(i)
+                                     for i in body.get('stop_token_ids', ()))
+                else:
+                    raise ValueError(f'unsupported orig endpoint {orig!r}')
+                if max_new < 1:
+                    raise ValueError('max new tokens must be >= 1')
+            except (TypeError, ValueError, KeyError) as e:
+                return self._json(400, {'error': f'invalid request: {e}'})
+            msg = engine.check_len(tokens, max_new)
+            if msg:
+                return self._json(400, {'error': msg})
+            cls = self._cls()
+            try:
+                fut = engine.submit(tokens, max_new, *sampling,
+                                    stop_ids=stop_ids, want_tops=want_tops,
+                                    cls=cls, prefill_export=True)
+            except EngineOverloaded as e:
+                return self._json(429, {'error': str(e)})
+            try:
+                out, finish, lps, tops = _wait(engine, fut)
+            except EngineResetError as e:
+                return self._reset_error(e)
+            except Exception as e:  # pylint: disable=broad-except
+                return self._json(503, {'error': f'engine failure: {e}'})
+            blob = engine.pop_export(fut)
+            if finish != 'handoff':
+                # Completed at admission: nothing to hand off.
+                return self._json(200, {'done': self._disagg_done_doc(
+                    orig, body, out, finish, lps, len(tokens))})
+            if blob is None:
+                return self._json(503, {'error': {
+                    'message': 'export blob lost before send',
+                    'type': 'handoff_send_error', 'retriable': True}},
+                    {'Retry-After': '1'})
+            temperature, top_k, top_p, pres, freq = sampling
+            arrays = {'a': blob['a'], 'b': blob['b']}
+            meta = handoff_lib.build_meta(
+                handoff_id=handoff_lib.new_handoff_id(),
+                model=engine.model_name, vocab_size=engine.cfg.vocab_size,
+                page_size=engine.page_size, family=engine.cache_family(),
+                bucket=blob['bucket'], tokens=tokens, max_new=max_new,
+                first_token=int(out[0]),
+                first_lp=float(lps[0]) if lps else 0.0,
+                first_tops=[list(t) for t in tops[0]] if tops else [],
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                presence_penalty=pres, frequency_penalty=freq,
+                stop_ids=list(stop_ids), want_tops=want_tops, cls=cls,
+                kv_sha256=handoff_lib.kv_fingerprint(arrays))
+            try:
+                handoff_lib.send(framed.parse_addr(target), meta, arrays)
+            except handoff_lib.HandoffError as e:
+                engine.metrics.handoff.inc(stage='send', outcome='error')
+                return self._json(
+                    503 if e.retriable else 400,
+                    {'error': {'message': str(e),
+                               'type': 'handoff_send_error',
+                               'kind': e.kind, 'retriable': e.retriable}},
+                    {'Retry-After': '1'} if e.retriable else None)
+            engine.metrics.handoff.inc(stage='send', outcome='ok')
+            return self._json(200, {'handoff': {
+                'id': meta['handoff_id'], 'first_token': int(out[0]),
+                'prompt_tokens': len(tokens)}})
+
+        def _disagg_continue(self, orig: str) -> None:
+            """Stage 2: adopt the staged rows into this replica's pool
+            and decode, answering in the ORIGINAL endpoint's shape
+            (``?orig=``), SSE included (the completions chunk shape). A
+            missing handoff (expired, consumed, or never received) is a
+            structured retriable 503: the LB re-runs the pipeline."""
+            if engine.handoff_store is None:
+                return self._json(501, {'error': {
+                    'message': 'no handoff receiver on this replica (set '
+                               '--handoff-port)',
+                    'type': 'handoff_unsupported'}})
+            try:
+                body = self._body()
+            except ValueError:
+                return self._json(400, {'error': 'bad json'})
+            hid = str(body.get('handoff_id', ''))
+            entry = engine.handoff_store.pop(hid) if hid else None
+            engine.metrics.handoff_staged.set(len(engine.handoff_store))
+            if entry is None:
+                return self._json(503, {'error': {
+                    'message': f'handoff {hid!r} not staged (expired, '
+                               f'consumed, or never received)',
+                    'type': 'handoff_missing', 'retriable': True}},
+                    {'Retry-After': '0'})
+            meta, arrays = entry
+            if not body.get('stream'):
+                try:
+                    fut = engine.submit_adopted(meta, arrays)
+                except EngineOverloaded as e:
+                    return self._json(429, {'error': str(e)})
+                try:
+                    out, finish, lps, _ = _wait(engine, fut)
+                except EngineResetError as e:
+                    return self._reset_error(e)
+                except Exception as e:  # pylint: disable=broad-except
+                    return self._json(503,
+                                      {'error': f'engine failure: {e}'})
+                return self._json(200, self._disagg_done_doc(
+                    orig, body, out, finish, lps, len(meta['tokens'])))
+            q: 'queue.Queue' = queue.Queue()
+            try:
+                fut = engine.submit_adopted(meta, arrays, stream=q)
+            except EngineOverloaded as e:
+                return self._json(429, {'error': str(e)})
+            head = {'id': f'cmpl-{time.time_ns()}',
+                    'object': 'text_completion', 'created': int(time.time()),
+                    'model': body.get('model', engine.model_name)}
+
+            def chunk(text: str, finish=None) -> Dict[str, Any]:
+                return {**head, 'choices': [{
+                    'text': text, 'index': 0, 'logprobs': None,
+                    'finish_reason': finish}]}
+
+            self.close_connection = True
+            decoder = StreamDecoder(engine.tokenizer)
+            try:
+                self.send_response(200)
+                self.send_header('Content-Type', 'text/event-stream')
+                self.send_header('Cache-Control', 'no-cache')
+                self.send_header('Transfer-Encoding', 'chunked')
+                self.end_headers()
+                while True:
+                    try:
+                        item = q.get(timeout=1.0)
+                    except queue.Empty:
+                        if engine.loop_error is not None or \
+                                engine._stop.is_set():
+                            break
+                        continue
+                    if item is None:
+                        break
+                    piece = decoder.feed([item[0]])
+                    if piece:
+                        self._event(chunk(piece))
+                try:
+                    _, finish, _, _ = _wait(engine, fut)
+                except EngineResetError as e:
+                    # The structured event is the truncation marker:
+                    # [DONE] never arrives.
+                    self._event(_reset_doc(e))
+                except Exception as e:  # pylint: disable=broad-except
+                    self._event({'error': {'message': str(e),
+                                           'type': 'server_error'}})
+                else:
+                    self._event(chunk(decoder.flush(), finish))
+                    self._chunk(b'data: [DONE]\n\n')
+                self._chunk(b'')
+            except (ConnectionError, OSError):
+                engine.cancel(fut)
+
         @staticmethod
         def _cut(out, finish, stops: List[str]):
             """(text cut at the first stop string, finish reason)."""
@@ -2833,9 +3530,35 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
             finally:
                 _cancel_all(engine, [ch.fut for ch in choices])
 
-    server = ThreadingHTTPServer((host, port), Handler)
-    server.daemon_threads = True
+    server = _EngineServer((host, port), Handler)
+    if engine.handoff_port:
+        # The decode side's KV handoff listener (framed TCP) beside the
+        # HTTP port: any engine with a handoff port can adopt, and it
+        # still serves monolithic traffic.
+        engine.handoff_store = handoff_lib.HandoffStore()
+        engine._handoff_receiver = handoff_lib.HandoffReceiver(
+            host, engine.handoff_port, engine.handoff_store,
+            validate=engine.handoff_validate).start()
+        server.receiver = engine._handoff_receiver
     return server
+
+
+class _EngineServer(ThreadingHTTPServer):
+    """The engine's HTTP server; ``server_close`` also stops the KV
+    handoff receiver it started."""
+
+    daemon_threads = True
+    # The listen backlog: socketserver's default of 5 resets connections
+    # of a burst that arrives while the accept loop lags; aiohttp, which
+    # the JAX engine serves on, listens with 128.
+    request_queue_size = 128
+    receiver: Optional[handoff_lib.HandoffReceiver] = None
+
+    def server_close(self) -> None:
+        super().server_close()
+        if self.receiver is not None:
+            self.receiver.stop()
+            self.receiver = None
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -2862,7 +3585,21 @@ def build_parser() -> argparse.ArgumentParser:
                              'families).')
     parser.add_argument('--port', type=int, default=8300)
     parser.add_argument('--host', default='0.0.0.0')
+    # The framed-TCP port this replica takes KV page handoffs on: -1 is
+    # the HTTP port + HANDOFF_PORT_OFFSET (the convention the LB derives
+    # decode targets from), 0 disables the receiver.
+    parser.add_argument('--handoff-port', type=int,
+                        default=knobs.get_int('SKYTPU_ENGINE_HANDOFF_PORT'),
+                        help='KV handoff listener port (-1: HTTP port + '
+                             f'{handoff_lib.HANDOFF_PORT_OFFSET}; 0: none).')
     return parser
+
+
+def handoff_port_for(handoff_port: int, http_port: int) -> Optional[int]:
+    """--handoff-port → the receiver's port, or None for none."""
+    if handoff_port < 0:
+        return http_port + handoff_lib.HANDOFF_PORT_OFFSET
+    return handoff_port or None
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -2873,6 +3610,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         ckpt_dir=args.ckpt_dir, hf_dir=args.hf_dir,
         tokenizer_path=args.tokenizer, max_len=args.max_len,
         device=args.device, seed=args.seed, quantize=args.quantize)
+    engine.handoff_port = handoff_port_for(args.handoff_port, args.port)
     server = build_app(engine, args.host, args.port)
     engine.start()
     try:

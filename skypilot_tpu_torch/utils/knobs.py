@@ -3,8 +3,10 @@ registry (skypilot_tpu/utils/knobs.py) that the port reads, under the
 same names, types, defaults and enum choices, with the same parse
 grammar and the same typed accessors.
 
-It holds only the engine's rows, ``SKYTPU_FLIGHT_CAPACITY`` and
-``SKYTPU_FAILPOINTS``. An accessor reads the environment per call (a
+It holds only the engine's rows, the KV handoff's two
+(``SKYTPU_HANDOFF_TIMEOUT``, ``SKYTPU_HANDOFF_TTL``), the journal's two
+(``SKYTPU_OBSERVE_DB``, ``SKYTPU_DISABLE_JOURNAL``),
+``SKYTPU_FLIGHT_CAPACITY`` and ``SKYTPU_FAILPOINTS``. An accessor reads the environment per call (a
 knob read at import stays read at import: the call site decides) and
 fails with :class:`KnobError`, naming the knob, on a malformed value
 or an undeclared name. Empty counts as unset, except where ``''`` is
@@ -96,9 +98,19 @@ _declare('SKYTPU_ENGINE_KV_IDLE_SPILL_S', 'float', 0.0, 'engine',
 _declare('SKYTPU_ENGINE_KV_HOST_MB', 'int', 0, 'engine',
          'Host-RAM KV spill-tier budget in MiB (0 disables).')
 
+# ----------------------------------------------------------- disagg
+_declare('SKYTPU_HANDOFF_TIMEOUT', 'float', 30.0, 'disagg',
+         'Whole-exchange deadline for one KV handoff send.')
+_declare('SKYTPU_HANDOFF_TTL', 'float', 120.0, 'disagg',
+         'Sweep age for staged handoffs whose continue never came.')
+
 # ---------------------------------------------------------- observe
 _declare('SKYTPU_FLIGHT_CAPACITY', 'int', 65536, 'observe',
          'Flight-recorder ring capacity (events).')
+_declare('SKYTPU_OBSERVE_DB', 'str', '~/.skytpu/observe/journal.db',
+         'observe', 'Journal/span sqlite path.')
+_declare('SKYTPU_DISABLE_JOURNAL', 'bool', False, 'observe',
+         'Drop journal writes (hermetic tests).')
 
 # ------------------------------------------------------------ utils
 _declare('SKYTPU_FAILPOINTS', 'str', '', 'utils',

@@ -189,7 +189,9 @@ def test_port_knobs_have_the_jax_names_types_and_defaults():
     from skypilot_tpu.utils import knobs as jknobs
     assert set(knobs.REGISTRY) == {
         n for n in jknobs.REGISTRY if n.startswith('SKYTPU_ENGINE_')} | {
-        'SKYTPU_FLIGHT_CAPACITY', 'SKYTPU_FAILPOINTS'}
+        'SKYTPU_FLIGHT_CAPACITY', 'SKYTPU_FAILPOINTS',
+        'SKYTPU_HANDOFF_TIMEOUT', 'SKYTPU_HANDOFF_TTL',
+        'SKYTPU_OBSERVE_DB', 'SKYTPU_DISABLE_JOURNAL'}
     for name, knob in knobs.REGISTRY.items():
         j = jknobs.REGISTRY[name]
         assert (knob.type, knob.default, knob.choices) == \
@@ -240,12 +242,6 @@ def test_engine_reads_its_knobs_under_the_jax_names(monkeypatch):
 @pytest.mark.parametrize('name,value,needle', [
     ('SKYTPU_ENGINE_PAGED', '0', 'item 3'),
     ('SKYTPU_ENGINE_ATTN', 'gather', 'item 3'),
-    ('SKYTPU_ENGINE_ROLE', 'prefill', 'item 4 (f)'),
-    ('SKYTPU_ENGINE_ROLE', 'decode', 'item 4 (f)'),
-    ('SKYTPU_ENGINE_HANDOFF_PORT', '9300', 'item 4 (f)'),
-    ('SKYTPU_ENGINE_WARM_DISAGG', '1', 'item 4 (f)'),
-    ('SKYTPU_ENGINE_KV_HOST_MB', '64', 'item 4 (e)'),
-    ('SKYTPU_ENGINE_KV_IDLE_SPILL_S', '2.5', 'item 4 (e)'),
 ])
 def test_waiting_knobs_are_refused_by_name(bridge, monkeypatch, name, value,
                                            needle):
@@ -253,6 +249,77 @@ def test_waiting_knobs_are_refused_by_name(bridge, monkeypatch, name, value,
     with pytest.raises(NotImplementedError) as err:
         _engine(bridge)
     assert name in str(err.value) and needle in str(err.value)
+
+
+def _fresh_engine(env, expr):
+    """``expr`` evaluated on a new llama-debug engine (its state built)
+    in a fresh process with ``env`` set: the knobs read at import."""
+    code = (
+        'from skypilot_tpu_torch.serve import engine as e\n'
+        'import dataclasses, torch\n'
+        'from skypilot_tpu_torch import config\n'
+        "cfg = dataclasses.replace(config.PRESETS['llama-debug'], "
+        'dtype=torch.float32)\n'
+        "eng = e.InferenceEngine('llama-debug', cfg=cfg, device='cpu', "
+        'max_len=64)\n'
+        'eng._ensure_state()\n'
+        f'print({expr})\n')
+    out = subprocess.run([sys.executable, '-c', code],
+                         env=dict(os.environ, PYTHONPATH=ROOT, **env),
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    return out.stdout.split()
+
+
+# The knobs of the KV hierarchy (ROADMAP Queue 1 item 4 (e)) and of
+# disaggregated serving (item 4 (f)), refused by name before they were
+# ported: each now takes effect.
+@pytest.mark.parametrize('name,value', [
+    ('SKYTPU_ENGINE_ROLE', 'prefill'),
+    ('SKYTPU_ENGINE_ROLE', 'decode'),
+    ('SKYTPU_ENGINE_HANDOFF_PORT', '9300'),
+    ('SKYTPU_ENGINE_WARM_DISAGG', '1'),
+    ('SKYTPU_ENGINE_KV_HOST_MB', '64'),
+    ('SKYTPU_ENGINE_KV_IDLE_SPILL_S', '2.5'),
+])
+def test_kv_and_disagg_knobs_now_work(bridge, monkeypatch, name, value):
+    monkeypatch.setenv(name, value)
+    if name == 'SKYTPU_ENGINE_ROLE':
+        eng = _engine(bridge)
+        assert eng.role == value
+        server, th, base = _serve(eng)
+        try:
+            assert _http(base + '/health')[1]['role'] == value
+        finally:
+            _close(eng, server, th)
+    elif name == 'SKYTPU_ENGINE_HANDOFF_PORT':
+        args = engine_lib.build_parser().parse_args([])
+        assert args.handoff_port == 9300
+        assert engine_lib.handoff_port_for(args.handoff_port,
+                                           args.port) == 9300
+        assert engine_lib.handoff_port_for(-1, 8300) == 9300
+        assert engine_lib.handoff_port_for(0, 8300) is None
+    elif name == 'SKYTPU_ENGINE_WARM_DISAGG':
+        eng = _engine(bridge, spec_k=0)
+        seen = []
+        orig = engine_lib.paging.adopt_rows
+
+        def adopt(pcache, a, b, slot, s, new_len):
+            seen.append(s)
+            return orig(pcache, a, b, slot, s, new_len)
+        monkeypatch.setattr(engine_lib.paging, 'adopt_rows', adopt)
+        eng.warmup()
+        # Once per bucket below max_len, and every page back.
+        assert seen == [16, 32, 64]
+        assert eng.alloc.free_count == eng.n_pages - 1
+    elif name == 'SKYTPU_ENGINE_KV_HOST_MB':
+        assert _fresh_engine({name: value}, 'e.KV_HOST_MB, eng.kv_host_mb, '
+                             'eng.host_store.occupancy()["budget_bytes"]') \
+            == ['64', '64', str(64 << 20)]
+    else:
+        assert _fresh_engine({name: value}, 'e.KV_IDLE_SPILL_S, '
+                             'eng.kv_idle_spill_s') == ['2.5', '2.5']
 
 
 @pytest.mark.parametrize('name,value', [
@@ -473,9 +540,14 @@ def test_collect_fault_drops_both_calls_in_flight(bridge, stack):
 def test_failpoint_sites_sit_at_the_jax_points():
     sites = failpoints.scan_sites()
     where = sorted((s['name'], s['path']) for s in sites)
-    assert where == [('engine.admit', 'serve/engine.py')] * 2 + [
+    assert where == [('engine.admit', 'serve/engine.py')] * 3 + [
         ('engine.collect', 'serve/engine.py'),
-        ('engine.step', 'serve/engine.py')]
+        ('engine.step', 'serve/engine.py'),
+        ('handoff.recv', 'serve/disagg/handoff.py'),
+        ('handoff.send', 'serve/disagg/handoff.py'),
+        ('kv.spill', 'serve/engine.py'),
+        ('kv.wake', 'serve/engine.py'),
+        ('prefill.flush', 'serve/engine.py')]
 
 
 def test_concurrent_submits_lose_no_count(stack):
@@ -618,11 +690,9 @@ def test_spec_metrics_exposed(bridge):
     assert 'spec' in {e['event'] for e in eng.flight.dump()}
 
 
-# The JAX families whose feature waits (disagg and the host spill tier).
-WAITING_FAMILIES = {
-    'skytpu_engine_handoff_total', 'skytpu_engine_handoff_staged',
-    'skytpu_engine_kv_pages_spilled', 'skytpu_engine_spill_seconds',
-    'skytpu_engine_wake_seconds', 'skytpu_engine_kv_sessions_peak'}
+# The JAX families whose feature waits: none since the disagg and the
+# host spill tier families came with their features.
+WAITING_FAMILIES = set()
 
 
 def _family_spec(m):

@@ -1314,3 +1314,140 @@ def test_fp32_dense_forward_runs_under_auto(cuda):
 
 def launch_counts():
     return {n: k.launches for n, k in build.kernels().items()}
+
+
+# ---------------------------------------------------------------------------
+# The KV hierarchy and disaggregated serving on the card
+# ---------------------------------------------------------------------------
+
+def _bf16_pool(cuda, family):
+    """A seeded bf16 pool of ``family`` on the card and its CPU copy:
+    3 slots, 4 pages of 16 tokens each a slot, 13 pages."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    table = torch.tensor([[3, 1, 0, 0], [2, 5, 7, 4], [9, 0, 0, 0]],
+                         dtype=torch.int32, device=cuda)
+    length = torch.tensor([9, 30, 3], dtype=torch.int32, device=cuda)
+    if family == 'kv':
+        pools = (_rand(gen, 2, 13, 16, 2, 128), _rand(gen, 2, 13, 16, 2, 128))
+        card = paging.PagedKV(*pools, table, length)
+    else:
+        pools = (_rand(gen, 2, 13, 16, 512), _rand(gen, 2, 13, 16, 64))
+        card = paging.PagedLatent(*pools, table, length)
+    host = type(card)(*(t.cpu().clone() for t in (*pools, table, length)))
+    return card, host
+
+
+def _same_bits(a, b):
+    return torch.equal(a.cpu().view(torch.int16), b.cpu().view(torch.int16))
+
+
+@pytest.mark.parametrize('family', ['kv', 'latent'])
+def test_spill_wake_on_card_bit_identical_to_plain(cuda, family):
+    """export_pages → the host tier's framed blob (bf16 as raw words) →
+    import_pages into other pages, on the card, lands the bits the same
+    moves give on the CPU copy of the pool."""
+    from skypilot_tpu_torch.serve.host_store import HostPageStore
+    card, host = _bf16_pool(cuda, family)
+    store = HostPageStore(64)
+    for pc in (card, host):
+        out = paging.export_pages(pc, [7, 2, 11])
+        assert store.put(('k',), {n: a.cpu() for n, a in out.items()}, 3)
+        back = store.pop(('k',))
+        assert all(t.dtype == torch.bfloat16 for t in back.values())
+        paging.import_pages(pc, back, [12, 6, 10])
+    for name, pool in paging._pools(card).items():
+        assert _same_bits(pool, paging._pools(host)[name])
+        assert _same_bits(pool[:, [12, 6, 10]], pool[:, [7, 2, 11]])
+
+
+@pytest.mark.parametrize('family', ['kv', 'latent'])
+@pytest.mark.parametrize('s', [64, 37])
+def test_adopt_rows_on_card_bit_identical_to_plain(cuda, family, s):
+    card, host = _bf16_pool(cuda, family)
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    rows = [_rand(gen, p.shape[0], 1, 64, *p.shape[3:]).cpu()
+            for p in paging._pools(card).values()]
+    paging.adopt_rows(card, *rows, 1, s, s - 1)      # CPU rows, card pool
+    paging.adopt_rows(host, *rows, 1, s, s - 1)
+    for name, pool in paging._pools(card).items():
+        assert _same_bits(pool, paging._pools(host)[name])
+    assert int(card.length[1]) == s - 1
+    for got, want in zip(paging.gather_prefix(card, 1, s), rows):
+        assert _same_bits(got, want[:, :, :s])
+
+
+def test_engine_spill_then_wake_restores_the_pages_bits(cuda):
+    """The engine's own spill and wake on the card (no loop running): a
+    captured prefix's pages spill to the host tier and wake into other
+    pages holding the same bits; the allocator balances."""
+    from skypilot_tpu_torch.serve import engine as engine_lib
+    cfg, params = _hd128_model(cuda)
+    eng = engine_lib.InferenceEngine('llama-debug', cfg=cfg, params=params,
+                                     device='cuda', max_len=256)
+    eng.spec_k, eng.kv_host_mb = 0, 64
+    eng.warmup()
+    prompt = [(i * 5) % 500 + 1 for i in range(70)]
+    eng._admit_group([engine_lib.Request(prompt, 4)])
+    key = tuple(prompt[:64])
+    pids = list(eng._prefix_store[key])
+    before = {n: t.clone() for n, t in
+              paging.export_pages(eng.cache, pids).items()}
+    assert eng._spill_key(key) == (len(pids), True)
+    assert key in eng.host_store and key not in eng._prefix_store
+    eng._drop_all_slots()
+    eng._wake_prefix_entry(key)
+    woken = list(eng._prefix_store[key])
+    assert woken != pids
+    for name, t in paging.export_pages(eng.cache, woken).items():
+        assert _same_bits(t, before[name])
+    eng._clear_prefix_store()
+    assert eng.alloc.used_count == 0
+
+
+def test_adopted_request_decodes_in_the_captured_graphs(cuda):
+    """A prefill-only request's exported rows, through the framed wire
+    (bf16 as raw words) and adopted by the same engine, decode by
+    replaying the captured step graphs (kernel B inside, nothing
+    captured after warm-up) to the monolithic run's greedy tokens."""
+    from skypilot_tpu_torch.serve import engine as engine_lib
+    from skypilot_tpu_torch.serve.disagg import handoff
+    from skypilot_tpu_torch.utils import framed
+    cfg, params = _hd128_model(cuda)
+    eng = engine_lib.InferenceEngine('llama-debug', cfg=cfg, params=params,
+                                     device='cuda', max_len=256)
+    eng.spec_k = 0
+    eng.warmup()
+    captured = build.captured()
+    prompt = [(i * 5) % 500 + 1 for i in range(40)]
+    eng.start()
+    try:
+        mono = eng.submit(prompt, 16).result(timeout=300)[0]
+        fut = eng.submit(prompt, 16, prefill_export=True)
+        out, finish, lps, _ = fut.result(timeout=300)
+        assert finish == 'handoff' and out == mono[:1]
+        blob = eng.pop_export(fut)
+        _, arrays = framed._decode_payload(framed._encode_payload(
+            {}, {'a': blob['a'], 'b': blob['b']}))
+        assert arrays['a'].dtype == torch.bfloat16
+        meta = handoff.build_meta(
+            handoff_id='h', model=eng.model_name,
+            vocab_size=cfg.vocab_size, page_size=eng.page_size,
+            family=eng.cache_family(), bucket=blob['bucket'],
+            tokens=prompt, max_new=16, first_token=out[0],
+            first_lp=lps[0], first_tops=[], temperature=0.0, top_k=None,
+            top_p=None, presence_penalty=0.0, frequency_penalty=0.0,
+            stop_ids=[], want_tops=False, cls='other',
+            kv_sha256=handoff.kv_fingerprint(arrays))
+        assert eng.handoff_validate(meta) is None
+        b0, calls0 = pa.KERNEL.launches, dict(eng.calls)
+        adopted = eng.submit_adopted(meta, arrays).result(timeout=300)[0]
+    finally:
+        eng.stop()
+    assert adopted == mono
+    assert build.captured() == captured
+    replays = {key: n - calls0.get(key, 0) for key, n in eng.calls.items()}
+    assert sum(replays.values()) > 0
+    assert pa.KERNEL.launches - b0 == sum(
+        n * eng._graph_launches[key]['paged_decode']
+        for key, n in replays.items())
+    assert eng.alloc.used_count == 0

@@ -1,7 +1,7 @@
 """Import hygiene of the PyTorch port: skypilot_tpu_torch, chip_smoke.py
 and kernel_ab.py import neither jax nor the JAX package (skypilot_tpu),
 nor any library the card's machine lacks (safetensors, transformers,
-aiohttp, tokenizers, regex), and the engine runs on
+aiohttp, tokenizers, regex, ml_dtypes), and the engine runs on
 the card unless asked for the CPU."""
 import ast
 import inspect
@@ -58,9 +58,10 @@ def test_port_sources_import_no_jax_and_no_jax_package():
 
 
 # Libraries the card's machine does not have: never imported by the
-# port (tokenizer.json is read by data/tokenizer_json.py).
+# port (tokenizer.json is read by data/tokenizer_json.py; bf16 crosses
+# the framed wire as torch.bfloat16, utils/framed.py).
 ABSENT_ON_CARD = ('safetensors', 'transformers', 'aiohttp', 'tokenizers',
-                  'regex')
+                  'regex', 'ml_dtypes')
 
 
 def _absent(module: str) -> bool:
@@ -87,8 +88,8 @@ def _imports_with_scope(path):
 
 
 def test_port_imports_no_library_the_card_lacks():
-    """safetensors, transformers, aiohttp, tokenizers and regex nowhere
-    in the port, at any scope."""
+    """safetensors, transformers, aiohttp, tokenizers, regex and
+    ml_dtypes nowhere in the port, at any scope."""
     bad = []
     for p in _port_files():
         for module, scope in _imports_with_scope(p):
@@ -96,6 +97,7 @@ def test_port_imports_no_library_the_card_lacks():
                 bad.append((str(p.relative_to(ROOT)), module, scope))
     assert bad == []
     assert _absent('regex') and _absent('tokenizers.models')
+    assert _absent('ml_dtypes')
     assert not _absent('regexp') and not _absent('tokenizer')
 
 
@@ -108,7 +110,7 @@ def test_every_port_module_imports_with_jax_blocked():
     code = (
         'import sys, importlib\n'
         "for m in ('jax', 'jaxlib', 'skypilot_tpu', 'safetensors', "
-        "'transformers', 'aiohttp', 'tokenizers', 'regex'):\n"
+        "'transformers', 'aiohttp', 'tokenizers', 'regex', 'ml_dtypes'):\n"
         '    sys.modules[m] = None\n'
         f'for m in {mods!r} + ["chip_smoke", "kernel_ab"]:\n'
         '    importlib.import_module(m)\n'

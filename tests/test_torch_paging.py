@@ -104,3 +104,112 @@ def test_scatter_prefill_matches():
     np.testing.assert_array_equal(t.k.numpy(), np.asarray(j2.k))
     np.testing.assert_array_equal(t.v.numpy(), np.asarray(j2.v))
     np.testing.assert_array_equal(t.length.numpy(), np.asarray(j2.length))
+
+
+# ---------------------------------------------------------------------------
+# Page moves: export_pages / import_pages (the host spill tier) and
+# adopt_rows (the disagg handoff), both families, fp pools.
+# ---------------------------------------------------------------------------
+
+PSZ, MAXP, NPAGES = 8, 4, 13
+
+
+def _family(kind, seed=0, layers=2):
+    """The same seeded pool as a JAX and a torch cache of family
+    ``kind`` ('kv': PagedKV [L, P, psz, KH, hd]; 'latent': PagedLatent
+    c_kv [L, P, psz, r], k_rope [L, P, psz, dr]); slot 1's table covers
+    pages 2, 5, 7, 4."""
+    rng = np.random.default_rng(seed)
+    table = np.zeros((3, MAXP), np.int32)
+    table[0, :2] = [3, 1]
+    table[1, :4] = [2, 5, 7, 4]
+    table[2, :1] = [9]
+    length = np.array([9, 30, 3], np.int32)
+    shapes = ((2, 4), (2, 4)) if kind == 'kv' else ((6,), (3,))
+    a, b = (rng.standard_normal((layers, NPAGES, PSZ, *s)).astype(np.float32)
+            for s in shapes)
+    jcls, tcls = ((jpaging.PagedKV, paging.PagedKV) if kind == 'kv' else
+                  (jpaging.PagedLatent, paging.PagedLatent))
+    j = jcls(jnp.asarray(a), jnp.asarray(b), jnp.asarray(table),
+             jnp.asarray(length))
+    t = tcls(torch.from_numpy(a.copy()), torch.from_numpy(b.copy()),
+             torch.from_numpy(table.copy()), torch.from_numpy(length.copy()))
+    return rng, j, t
+
+
+def _same_pools(t, j):
+    for name, pool in paging._pools(t).items():
+        np.testing.assert_array_equal(pool.numpy(),
+                                      np.asarray(jpaging._pools(j)[name]))
+    np.testing.assert_array_equal(t.length.numpy(), np.asarray(j.length))
+
+
+@pytest.mark.parametrize('kind', ['kv', 'latent'])
+def test_export_import_pages_bit_identical_and_match_jax(kind):
+    _, j, t = _family(kind, seed=2)
+    pids = [7, 2, 11]
+    out = paging.export_pages(t, pids)
+    jout = jpaging.export_pages(j, jnp.asarray(pids, jnp.int32))
+    assert set(out) == set(jout) == set(paging._pools(t))
+    for name in out:
+        assert tuple(out[name].shape) == (2, 3, PSZ) + \
+            tuple(paging._pools(t)[name].shape[3:])
+        np.testing.assert_array_equal(out[name].numpy(),
+                                      np.asarray(jout[name]))
+    # Wake into other (fresh) pages: exactly the exported contents there,
+    # everything else untouched; the JAX import lands the same.
+    before = {n: p.clone() for n, p in paging._pools(t).items()}
+    fresh = [12, 6, 10]
+    host = {n: a.clone() for n, a in out.items()}
+    assert paging.import_pages(t, host, fresh) is t
+    j2 = jpaging.import_pages(j, {n: jnp.asarray(a.numpy())
+                                  for n, a in host.items()},
+                              jnp.asarray(fresh, jnp.int32))
+    _same_pools(t, j2)
+    for name, pool in paging._pools(t).items():
+        assert torch.equal(pool[:, fresh], out[name])
+        keep = [p for p in range(NPAGES) if p not in fresh]
+        assert torch.equal(pool[:, keep], before[name][:, keep])
+    back = paging.export_pages(t, fresh)
+    for name in out:
+        assert torch.equal(back[name], out[name])
+
+
+@pytest.mark.parametrize('kind', ['kv', 'latent'])
+@pytest.mark.parametrize('s', [32, 21])      # page-aligned, per-token
+def test_adopt_rows_round_trips_and_matches_jax(kind, s):
+    rng, j, t = _family(kind, seed=3)
+    pools = paging._pools(t)
+    rows = [rng.standard_normal((p.shape[0], 1, 32, *p.shape[3:]))
+            .astype(np.float32) for p in pools.values()]
+    assert paging.adopt_rows(t, torch.from_numpy(rows[0]),
+                             torch.from_numpy(rows[1]), 1, s, s - 2) is t
+    j2 = jpaging.adopt_rows(j, jnp.asarray(rows[0]), jnp.asarray(rows[1]),
+                            1, s, s - 2)
+    _same_pools(t, j2)
+    assert int(t.length[1]) == s - 2
+    back = paging.gather_prefix(t, 1, s)
+    jback = jpaging.gather_prefix(j2, 1, s)
+    for got, want, jwant in zip(back, rows, jback):
+        np.testing.assert_array_equal(got.numpy(), want[:, :, :s])
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jwant))
+    # Only slot 1's pages moved.
+    _, _, fresh = _family(kind, seed=3)
+    others = [p for p in range(NPAGES) if p not in (2, 5, 7, 4)]
+    for name, pool in pools.items():
+        assert torch.equal(pool[:, others],
+                           paging._pools(fresh)[name][:, others])
+
+
+def test_adopt_rows_takes_non_contiguous_rows():
+    """Rows arrive as CPU tensors in any layout: a strided view adopts
+    as its contiguous copy would."""
+    rng, _, t = _family('kv', seed=4)
+    a = torch.from_numpy(rng.standard_normal((2, 1, 16, 2, 4))
+                         .astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, 1, 16, 4, 2))
+                         .astype(np.float32)).transpose(3, 4)
+    assert not b.is_contiguous()
+    paging.adopt_rows(t, a, b, 0, 16, 16)
+    ka, kb = paging.gather_prefix(t, 0, 16)
+    assert torch.equal(ka, a) and torch.equal(kb, b.contiguous())
