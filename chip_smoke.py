@@ -139,14 +139,14 @@ Phases (any failure exits non-zero; nothing is swallowed):
  12. serve_moe — the port's engine on moe-1b, checked as in serve but
                  with no speculation (spec_k 0 for MoE, as in JAX: 8
                  graphs, no verify) and no chunked-logits check;
- 13. serve_gptoss — the engine on gpt-oss-20b at full width cut to 8
+ 13. serve_gptoss — the engine on gpt-oss-20b at full width cut to 2
                  of its 24 layers (dim 2880, 64/8 heads, hd 64, 32
                  experts top-4, vocab 201088, sinks, a 128-token window
                  on every other layer, YaRN, clamped SwiGLU, qkv bias;
-                 random bf16 weights drawn leaf by leaf, ~15 GB), the
+                 random bf16 weights drawn leaf by leaf), the
                  same bursts: A and B launch zero times (sinks: the
                  plain route);
- 14. model_mla — deepseek-v2-lite at full width cut to 10 of its 27
+ 14. model_mla — deepseek-v2-lite at full width cut to 4 of its 27
                  layers (dim 2048, 16 heads, latent r 512, dn 128, dr 64, dv 128,
                  ffn 10944, vocab 102400; random bf16 weights from seed
                  0): prefill + 8 paged decode steps over the paged
@@ -167,8 +167,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  checks at 2 layers with capacity for every token (no
                  routed choice dropped) and the forwards' and fp32
                  path's routes forced to the default path's; then the
-                 engine at 4 of 60 layers (160 experts top-6 + 2
-                 shared; random bf16 weights, 34.5 GB), spec_k 0,
+                 engine at 2 of 60 layers (160 experts top-6 + 2
+                 shared; random bf16 weights), spec_k 0,
                  checked as in serve_moe; A and B launched zero times;
  17. train_gemma — the port's trainer on gemma-7b at full width cut to
                  4 layers, 4 steps of 2 x 2048 tokens: A twice and C, D
@@ -183,6 +183,26 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  step; grads against the plain and fp32 paths, the loss
                  against the plain-attention trainer, a resume at step
                  3; one step under torch.profiler;
+ 18b. ring     — context-parallel training: (a) kernels C and D's fp32
+                 mode at a ring block's shape (sq = tk = 2048, B=2;
+                 llama-1b's, gemma-7b's and llama3.2-1b's heads, causal
+                 and not) against the plain backward (TOL_BWD) and,
+                 rounded to bf16, bit-equal to the bf16 mode, each
+                 mode's launch timed; (b) two ranks sharing the card
+                 over gloo (this script with --ring-worker): llama-1b's
+                 attention at global S = 8192, both layouts, the ring's
+                 output and q/k/v grads against kernels A, C and D over
+                 the whole sequence in one process, A and C, D (fp32)
+                 once a visible block, fwd+bwd ms; what gloo does with
+                 CUDA tensors (all_reduce, send/recv) and what a grad
+                 bucket and a ring message cost; (c) `python -m
+                 skypilot_tpu_torch.train.trainer --mesh sequence=2`
+                 with zigzag ring as two processes with the gang env,
+                 llama-1b whole, 3 steps of 2 x 4096: launches per rank
+                 (A twice, C and D fp32 once per block per layer per
+                 step), both replicas' params sha256 equal, ms/step and
+                 peak memory per rank, the losses against the
+                 single-process trainer on the same batches (TOL_LOSS);
  19. train_moe — the trainer on moe-1b at full width cut to 6 of its 12
                  layers (8 experts top-2, hd 128), checked as in train:
                  A 72, C 36 and D 36 launches in 6 steps; the grads (CE + router aux) at
@@ -405,6 +425,11 @@ def time_ms(fn, iters: int = 20, repeats: int = 5) -> float:
 def launch_counts(build) -> dict:
     """Each kernel's launches since the last build.reset_launches()."""
     return {n: k.launches for n, k in build.kernels().items()}
+
+
+def want_launches(build, **counts) -> dict:
+    """Every kernel's expected launches: ``counts``, 0 for the rest."""
+    return {n: counts.get(n, 0) for n in build.kernels()}
 
 
 def max_err(a, b) -> float:
@@ -676,22 +701,26 @@ def fwd_launch(torch, fa, b, shape=TIMING_SHAPE):
     return (q, k, v), lambda: (held, fa.KERNEL.launch(*args))
 
 
-def bwd_launches(torch, fa, b=BWD_TIMING_B, shape=TIMING_SHAPE):
+def bwd_launches(torch, fa, b=BWD_TIMING_B, shape=TIMING_SHAPE,
+                 f32=False):
     """Kernels C and D's inputs at batch ``b`` and ``shape`` (o and lse
     from kernel A, delta from the delta op) and a callable launching
-    each alone."""
+    each alone: the bf16 mode, or with ``f32`` the fp32 mode."""
     s, h, kh, d = (shape[x] for x in ('s', 'h', 'kh', 'd'))
     qs, k, v, o, lse, do, _ = bwd_inputs(torch, fa, b, s, h, kh, d, True,
                                          False, seed=2)
     delta = fa._delta(o, do, None)
-    dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
+    out = torch.float32 if f32 else qs.dtype
+    dq = torch.empty_like(qs, dtype=out)
+    dk, dv = torch.empty_like(k, dtype=out), torch.empty_like(v, dtype=out)
     ptrs = (qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
     dims = (b, s, s, h, kh, d, 1, torch.cuda.current_stream().cuda_stream)
+    kdq, kdkv = ((fa.DQ_F32_KERNEL, fa.DKV_F32_KERNEL) if f32 else
+                 (fa.DQ_KERNEL, fa.DKV_KERNEL))
     return ((qs, k, v, o, lse, do),
-            lambda: fa.DQ_KERNEL.launch(*ptrs, dq.data_ptr(), *dims),
-            lambda: fa.DKV_KERNEL.launch(*ptrs, dk.data_ptr(), dv.data_ptr(),
-                                         *dims))
+            lambda: kdq.launch(*ptrs, dq.data_ptr(), *dims),
+            lambda: kdkv.launch(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims))
 
 
 def paged_launch(torch, pa, paging, s=1, **heads):
@@ -859,10 +888,19 @@ def phase_timing(torch, fa, pa, paging) -> dict:
                                               s=4)
     res.update({f'{n} hd64': r for n, r in time_flash_bwd(
         torch, fa, BWD_TIMING_B, TIMING_SHAPE_64).items()})
+    # C and D in their fp32 mode (ring attention's block grads) at the
+    # same three shapes.
+    res.update(time_flash_bwd(torch, fa, f32=True))
+    res.update({f'{n} hd256': r for n, r in time_flash_bwd(
+        torch, fa, BWD_TIMING_B_256, TIMING_SHAPE_256, f32=True).items()})
+    res.update({f'{n} hd64': r for n, r in time_flash_bwd(
+        torch, fa, BWD_TIMING_B, TIMING_SHAPE_64, f32=True).items()})
     for name, r in res.items():
+        lib = ('none' if r['library_ms'] is None else
+               f'{r["library_ms"]:.4f} ms')
         log(f'[timing] {name} {r["shape"]}: kernel {r["ms"]:.4f} ms, '
-            f'plain {r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} '
-            f'ms, bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}), '
+            f'plain {r["plain_ms"]:.4f} ms, library {lib}, bound '
+            f'{r["bound_ms"]:.4f} ms ({r["bound_by"]}), '
             f'{r["bound_ms"] / r["ms"]:.1%} of bound')
     return res
 
@@ -887,39 +925,50 @@ def sdpa_bwd_backends(torch, qt, kt, vt, go) -> dict:
     return out
 
 
-def time_flash_bwd(torch, fa, b=BWD_TIMING_B, shape=TIMING_SHAPE) -> dict:
+def time_flash_bwd(torch, fa, b=BWD_TIMING_B, shape=TIMING_SHAPE,
+                   f32=False) -> dict:
     """Kernels C and D at batch ``b`` and ``shape`` (by default llama-1b
-    training: B=4, S=T=2048, H=16, KH=8, D=128; causal, bf16), each
-    launched alone on inputs that kernel A and the delta op made. The
-    plain backward and SDPA's backward compute dq, dk and dv in one
-    call: their times are the pair's and stand on both rows. SDPA runs
-    under each backend that takes it; the fastest is the row's library
-    time, named."""
+    training: B=4, S=T=2048, H=16, KH=8, D=128; causal, bf16 in), each
+    launched alone on inputs that kernel A and the delta op made, in the
+    bf16 mode or (``f32``) the fp32 mode. The plain backward and SDPA's
+    backward compute dq, dk and dv in one call: their times are the
+    pair's and stand on both rows. SDPA runs under each backend that
+    takes it; the fastest is the row's library time, named. The fp32
+    mode has no library time: no PyTorch call writes fp32 grads of bf16
+    operands (SDPA's backward writes the operands' dtype)."""
     s, h, kh, d = (shape[x] for x in ('s', 'h', 'kh', 'd'))
     (qs, k, v, o, lse, do), launch_dq, launch_dkv = bwd_launches(
-        torch, fa, b, shape)
+        torch, fa, b, shape, f32)
     ms_dq = time_ms(launch_dq)
     ms_dkv = time_ms(launch_dkv)
-    plain = time_ms(lambda: fa.flash_attention_bwd_ref(qs, k, v, o, lse, do,
-                                                       causal=True), iters=3)
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (qs, k, v))
-    go = do.transpose(1, 2).contiguous()
-    libs = sdpa_bwd_backends(torch, qt, kt, vt, go)
-    log(f'[timing] SDPA backward at D={d}: ' + ', '.join(
-        f'{n} {ms:.4f} ms' for n, ms in libs.items()))
-    lib_name = min(libs, key=libs.get) if libs else None
+    grad_dtype = torch.float32 if f32 else None
+    plain = time_ms(lambda: fa.flash_attention_bwd_ref(
+        qs, k, v, o, lse, do, causal=True, grad_dtype=grad_dtype), iters=3)
+    if f32:
+        lib = dict(library_ms=None, library='none')
+    else:
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (qs, k, v))
+        go = do.transpose(1, 2).contiguous()
+        libs = sdpa_bwd_backends(torch, qt, kt, vt, go)
+        log(f'[timing] SDPA backward at D={d}: ' + ', '.join(
+            f'{n} {ms:.4f} ms' for n, ms in libs.items()))
+        lib_name = min(libs, key=libs.get) if libs else None
+        lib = dict(library_ms=libs.get(lib_name), library=f'SDPA {lib_name}')
     # Matrix-product FLOPs, halved for causal: dq 3 products (s, dp,
     # ds k), dkv 4 (s, dp, p^T do, ds^T q), each 2*B*H*S*T*D.
     prod = 2 * b * h * s * s * d / 2
     n_in = 2 * (2 * b * s * h * d + 2 * b * s * kh * d) + 4 * 2 * b * h * s
-    shape = f'B={b} S=T={s} H={h} KH={kh} D={d} causal bf16'
-    lib = dict(library_ms=libs.get(lib_name), library=f'SDPA {lib_name}')
+    out_b = 4 if f32 else 2
+    mode = 'fp32' if f32 else 'bf16'
+    shape = f'B={b} S=T={s} H={h} KH={kh} D={d} causal bf16 in, {mode} out'
+    sfx = '_f32' if f32 else ''
     return {
-        'flash_dq': dict(ms=ms_dq, plain_ms=plain, shape=shape, **lib,
-                         **bound(3 * prod, n_in + 2 * b * s * h * d)),
-        'flash_dkv': dict(ms=ms_dkv, plain_ms=plain, shape=shape, **lib,
-                          **bound(4 * prod, n_in + 4 * b * s * kh * d))}
+        f'flash_dq{sfx}': dict(ms=ms_dq, plain_ms=plain, shape=shape, **lib,
+                               **bound(3 * prod, n_in + out_b * b * s * h * d)),
+        f'flash_dkv{sfx}': dict(ms=ms_dkv, plain_ms=plain, shape=shape,
+                                **lib, **bound(4 * prod, n_in +
+                                               2 * out_b * b * s * kh * d))}
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -1217,9 +1266,11 @@ TOL_MLA_SELF = 1e-3
 # no routed choice drops in any grouping (random routers send most of a
 # group's tokens to a few experts), and the whole-sequence forward and
 # prefill + steps, once their expert ids are forced to the default
-# path's, route alike. deepseek-v2 serves at 4 of its 60 layers (34.5 GB
-# of bf16 weights; all 60 take 488 GB).
-DSV2_MODEL_DEPTH, DSV2_SERVE_DEPTH = 2, 4
+# path's, route alike. deepseek-v2 serves at 2 of its 60 layers (all 60
+# take 488 GB; 2, since the ring phase came, so that the whole script
+# keeps a margin inside its time limit: the latent family runs no
+# kernel).
+DSV2_MODEL_DEPTH, DSV2_SERVE_DEPTH = 2, 2
 
 
 def mla_sequences(torch, tok_t, len_t, toks):
@@ -3058,8 +3109,7 @@ def train_checked(torch, build, tcfg, cfg, tag: str, plain: bool = True):
     peak = torch.cuda.max_memory_allocated() / 1e9
     layers, n = cfg.n_layers, tcfg.total_steps
     k = layers * n if takes_kernels(cfg) else 0
-    want = {'flash_fwd': 2 * k, 'flash_dq': k, 'flash_dkv': k,
-            'paged_decode': 0}
+    want = want_launches(build, flash_fwd=2 * k, flash_dq=k, flash_dkv=k)
     log(f'{tag} {tcfg.model}, {layers} layers, remat {cfg.remat}, batch '
         f'{tcfg.batch_size}x{tcfg.seq_len}, {n} steps: launches {launches} '
         f'(want {want}); peak memory {peak:.2f} GB')
@@ -3338,8 +3388,8 @@ GPTOSS_TRAIN_LAYERS = 2
 # slow host (every check stands at any depth; full depth was checked
 # before): gemma-7b's model and serve phases and moe-1b's training, each
 # at half its layers, and deepseek-v2-lite's model and serve phases at
-# 10 of 27 (the latent family runs no kernel).
-GEMMA_SERVE_DEPTH, MLA_SERVE_DEPTH, MOE_TRAIN_DEPTH = 14, 10, 6
+# 4 of 27 (the latent family runs no kernel).
+GEMMA_SERVE_DEPTH, MLA_SERVE_DEPTH, MOE_TRAIN_DEPTH = 14, 4, 6
 # train_mla: deepseek-v2-lite whole (27 layers, 2.607 B params, 41.7 GB of
 # fp32 state), MLA_TRAIN_B x TRAIN_S, MLA_TRAIN_STEPS steps; no kernel
 # (the latent attention is plain PyTorch, as in JAX). Batch 4: at batch 2
@@ -3967,8 +4017,7 @@ def lora_resume(torch, build, cfg, base, tcfg, lcfg) -> None:
     launches = launch_counts(build)
     _, _, step, opt_leaves = lora.load_adapters(tcfg.lora_dir)
     n = cfg.n_layers
-    want = {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
-            'paged_decode': 0}
+    want = want_launches(build, flash_fwd=2 * n, flash_dq=n, flash_dkv=n)
     log(f'[lora] restored {len(mu)} moment leaves of step {LORA_STEPS} in '
         f'{t_restore:.2f}s (count {LORA_STEPS}, smallest max|mu| '
         f'{mu_min:.3e}: from disk, not a fresh init); a save of the state '
@@ -4489,8 +4538,7 @@ def phase_grpo(torch, build, hf_dir: str) -> dict:
     launches = {k: v - extra[k] for k, v in launch_counts(build).items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
     n = cfg.n_layers * GRPO_ITERS
-    want = {'flash_fwd': 5 * n, 'flash_dq': n, 'flash_dkv': n,
-            'paged_decode': 0}
+    want = want_launches(build, flash_fwd=5 * n, flash_dq=n, flash_dkv=n)
     log(f'[grpo] llama3.2-1b, {GRPO_PROMPTS} prompts x group {GRPO_G}, '
         f'{GRPO_S}-token prompts, {GRPO_NEW} new, kl {GRPO_KL}, '
         f'{GRPO_ITERS} iterations: launches {launches} (want {want}); peak '
@@ -4553,10 +4601,10 @@ SWITCH_DEPTHS = {'gemma2-9b': 2, 'gemma3-12b': 6}
 # gpt-oss-20b's model check at full width, cut in depth so that its fp32
 # copy fits beside the bf16 one (24 layers would take 84 GB in fp32).
 GPTOSS_MODEL_DEPTH = 4
-# gpt-oss-20b's serve phase at full width, cut to 8 of its 24 layers
-# (four windowed, four global; ~15 GB of bf16 weights; sinks: no
-# kernel) so that the whole script keeps a margin inside its time limit.
-GPTOSS_SERVE_DEPTH = 8
+# gpt-oss-20b's serve phase at full width, cut to 2 of its 24 layers
+# (one windowed, one global; sinks: no kernel) so that the whole script
+# keeps a margin inside its time limit.
+GPTOSS_SERVE_DEPTH = 2
 
 
 def phase_gemma_switches(torch, config, decode, paging, pa, build) -> None:
@@ -4573,6 +4621,431 @@ def phase_gemma_switches(torch, config, decode, paging, pa, build) -> None:
                     f'{name} ({depth} layers)', LONG_SHAPE, kernels=False)
         del params
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The ring phase: context-parallel training
+# ---------------------------------------------------------------------------
+
+# (a) Kernels C and D's fp32 mode at a ring block's shape (sq = tk =
+# 2048, B=2): llama-1b's heads (16/8, D=128), gemma-7b's (16/16,
+# D=256), llama3.2-1b's (32/8, D=64), causal and not, the last two with
+# an lse cotangent (the ring's -delta rides in as one).
+RING_F32_CASES = [(2, 2048, 16, 8, 128, True, False),
+                  (2, 2048, 16, 8, 128, False, True),
+                  (2, 2048, 16, 16, 256, True, False),
+                  (2, 2048, 16, 16, 256, False, True),
+                  (2, 2048, 32, 8, 64, True, False),
+                  (2, 2048, 32, 8, 64, False, True)]
+# (b) The ring on two ranks sharing the card over gloo: llama-1b's
+# attention (16/8 heads, hd 128), B=1, global S=8192 (4096 a rank, so
+# 2048-token blocks), causal, both layouts; against kernels A, C and D
+# over the whole sequence in one process, at the JAX ring test's bounds
+# (tests/unit_tests/test_ring_attention.py): max |out - ref| < 3e-2,
+# each grad's max|err| / max|ref| < 2e-2.
+RING_B, RING_S, RING_RANKS = 1, 8192, 2
+TOL_RING_OUT, TOL_RING_GRAD = 3e-2, 2e-2
+# (c) The trainer CLI, two gang processes on the card: llama-1b whole,
+# remat 'full', 2 x 4096 tokens (2048 a rank), zigzag ring, 3 steps.
+RING_TRAIN_B, RING_TRAIN_S, RING_TRAIN_STEPS = 2, 4096, 3
+RING_KERNELS = ('flash_fwd', 'flash_dq_f32', 'flash_dkv_f32')
+
+
+def ring_f32_check(torch, fa, card: str) -> dict:
+    """(a): C and D's fp32 mode (``_bwd(grad_dtype=torch.float32)``)
+    against the plain backward in fp32 on the same bf16 inputs (TOL_BWD,
+    the existing C/D check's bound); its outputs rounded to bf16
+    bit-equal to the bf16 mode's (the same accumulation, rounded on
+    store or not); each mode's launch timed alone."""
+    worst = {'flash_dq_f32': 0.0, 'flash_dkv_f32': 0.0}
+    for i, (b, s, h, kh, d, causal, with_dlse) in enumerate(RING_F32_CASES):
+        qs, k, v, o, lse, do, dlse = bwd_inputs(torch, fa, b, s, h, kh, d,
+                                                causal, with_dlse,
+                                                seed=900 + i)
+        got = fa._bwd(qs, k, v, o, lse, do, dlse, causal,
+                      grad_dtype=torch.float32)
+        b16 = fa._bwd(qs, k, v, o, lse, do, dlse, causal)
+        ref = fa.flash_attention_bwd_ref(qs.float(), k.float(), v.float(),
+                                         o.float(), lse, do.float(), dlse,
+                                         causal=causal)
+        torch.cuda.synchronize()
+        rel, diff = [], []
+        for name, a, a16, r in zip(('dq', 'dk', 'dv'), got, b16, ref):
+            if a.dtype != torch.float32 or not bool(a.isfinite().all()):
+                fail(f'[ring] fp32 mode: {name} is {a.dtype} or non-finite '
+                     f'in case {i}')
+            rel.append(max_err(a, r) / float(r.abs().max()))
+            diff.append(max_err(a.to(torch.bfloat16), a16))
+        ok = max(rel) < TOL_BWD
+        same = max(diff) == 0.0
+        log(f'[ring] fp32 mode B={b} S=T={s} H={h} KH={kh} D={d} causal='
+            f'{causal} dlse={with_dlse}: max|err|/max|ref| dq {rel[0]:.3e} '
+            f'dk {rel[1]:.3e} dv {rel[2]:.3e} (tol {TOL_BWD}) '
+            f'{"ok" if ok else "MISMATCH"}; rounded to bf16 vs the bf16 '
+            f'mode: {"bit-equal" if same else f"max diff {max(diff):.3e}"}')
+        if not ok:
+            fail(f'[ring] the fp32 mode of C and D disagrees in case {i}')
+        if not same:
+            fail(f'[ring] the fp32 mode rounded to bf16 differs from the '
+                 f'bf16 mode in case {i} (max {max(diff)})')
+        worst['flash_dq_f32'] = max(worst['flash_dq_f32'],
+                                    max_err(got[0], ref[0]))
+        worst['flash_dkv_f32'] = max(worst['flash_dkv_f32'],
+                                     max_err(got[1], ref[1]),
+                                     max_err(got[2], ref[2]))
+        del got, b16, ref
+    for b, s, h, kh, d, causal, _ in RING_F32_CASES[::2]:
+        shape = dict(s=s, h=h, kh=kh, d=d)
+        ms = {}
+        for f32 in (False, True):
+            _, dq, dkv = bwd_launches(torch, fa, b, shape, f32)
+            ms[f32] = (time_ms(dq), time_ms(dkv))
+        log(f'[ring] C, D at B={b} S=T={s} H={h} KH={kh} D={d} causal: '
+            f'fp32 mode {ms[True][0]:.4f}, {ms[True][1]:.4f} ms; bf16 mode '
+            f'{ms[False][0]:.4f}, {ms[False][1]:.4f} ms | {card}')
+    return worst
+
+
+# Blocks a rank's causal ring over two ranks computes (each one launch
+# of A in the forward, and one of C and of D in the backward): the
+# visible (q chunk, kv chunk) pairs over its 2 steps. 'seq': rank 0
+# sees its own diagonal, rank 1 its diagonal and rank 0's chunk.
+# 'zigzag' (rank 0 holds chunks 0 and 3, rank 1 chunks 1 and 2): 3 pairs
+# of its own chunks and 2 of the other's, on either rank.
+RING_BLOCKS = {'seq': (1, 2), 'zigzag': (5, 5)}
+
+
+def ring_worker(rank: int, port: int) -> None:
+    """(b), one rank: the ring's forward and backward over this rank's
+    shard of the global sequence, both layouts, against kernels A, C and
+    D over the whole sequence in this process; launches from 0 around
+    the ring, ms of a forward + backward (both ranks on the card at
+    once); what the trainer's collectives cost here; whether gloo
+    all-reduces a CUDA tensor (the train step's reduction). Writes
+    chiprun_out/ring_rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    from skypilot_tpu_torch.kernels import build
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import ring_attention as ring
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh_lib.init_distributed(f'127.0.0.1:{port}', RING_RANKS, rank,
+                              'cuda:0', timeout_s=60)
+    n, sl = RING_RANKS, RING_S // RING_RANKS
+    g = torch.Generator(device='cuda').manual_seed(31)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device='cuda').bfloat16()
+    q, do = rand(RING_B, RING_S, 16, 128), rand(RING_B, RING_S, 16, 128)
+    k, v = rand(RING_B, RING_S, 8, 128), rand(RING_B, RING_S, 8, 128)
+    # One process, the whole sequence: kernels A, C, D.
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref_o = fa.flash_attention(*leaves, causal=True)
+    ref = (ref_o,) + torch.autograd.grad(ref_o, leaves, do)
+    result = {'rank': rank, 'layouts': {}}
+    for layout in ('seq', 'zigzag'):
+        def mine(x):
+            if layout == 'zigzag':
+                x = ring.zigzag_permute(x, n)
+            return x[:, rank * sl:(rank + 1) * sl].contiguous()
+
+        def run(ql, kl, vl, dol):
+            ql, kl, vl = (x.clone().requires_grad_() for x in (ql, kl, vl))
+            out = ring.ring_attention(ql, kl, vl, group=dist.group.WORLD,
+                                      causal=True, layout=layout)
+            return (out,) + torch.autograd.grad(out, (ql, kl, vl), dol)
+        local = [mine(x) for x in (q, k, v, do)]
+        build.reset_launches()
+        got = run(*local)
+        torch.cuda.synchronize()
+        launches = {nm: kern.launches for nm, kern in build.kernels().items()}
+        errs = {'out': max_err(got[0], mine(ref[0]))}
+        for name, a, r in zip(('dq', 'dk', 'dv'), got[1:], ref[1:]):
+            r = mine(r)
+            errs[name] = max_err(a, r) / float(r.abs().max())
+        times = []
+        for _ in range(3):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(*local)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        want = RING_BLOCKS[layout][rank]
+        result['layouts'][layout] = dict(
+            errs=errs, launches=launches, want=want,
+            ms=statistics.median(times))
+    probe = {}
+    t = torch.full((4,), float(rank + 1), device='cuda')
+    dist.all_reduce(t)
+    probe['gloo_all_reduce_cuda'] = (
+        'ok' if bool((t == n * (n + 1) / 2).all()) else f'wrong: {t}')
+    result['probe'] = probe
+
+    def timed_ms(fn):
+        samples = []
+        for _ in range(3):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(samples)
+    # What the trainer's collectives cost here: one 256 MiB grad bucket
+    # all-reduced (train_lib.BUCKET_BYTES), one 64 MiB ring message.
+    bucket = torch.ones(64 << 20, device='cuda')
+    msg = torch.ones(64 << 20, dtype=torch.uint8, device='cuda')
+    result['comm_ms'] = {
+        'all_reduce_256MiB': timed_ms(lambda: dist.all_reduce(bucket)),
+        'rotate_64MiB': timed_ms(lambda: ring._rotate([msg],
+                                                      dist.group.WORLD))}
+    del bucket, msg
+    with open(os.path.join(OUT_DIR, f'ring_rank{rank}.json'), 'w') as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+
+
+def gloo_p2p_probe(rank: int, port: int) -> None:
+    """One rank of a pair that tries gloo's send and recv of a tensor on
+    the card, as they are (the ring stages its messages through the
+    host instead). Writes the outcome to chiprun_out/gloo_p2p<r>.json;
+    the parent reports it, or the abort of this process, and never
+    fails on it."""
+    import torch
+    import torch.distributed as dist
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    mesh_lib.init_distributed(f'127.0.0.1:{port}', RING_RANKS, rank,
+                              'cuda:0', timeout_s=60)
+    path = os.path.join(OUT_DIR, f'gloo_p2p{rank}.json')
+    other = (rank + 1) % RING_RANKS
+    send = torch.full((4,), float(rank), device='cuda')
+    recv = torch.zeros(4, device='cuda')
+    try:
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, send, other),
+                dist.P2POp(dist.irecv, recv, other)]):
+            req.wait()
+        got = ('ok' if float(recv[0]) == other else
+               f'wrong data: {recv.tolist()}')
+    except (RuntimeError, ValueError) as e:
+        got = f'refused: {str(e).splitlines()[0][:160]}'
+    with open(path, 'w') as f:
+        json.dump({'gloo_p2p_cuda': got}, f)
+    dist.destroy_process_group()
+
+
+def spawn_ranks(cmds, envs, logs, timeout: float):
+    """Start one process a rank, wait for all (killing every one when a
+    rank fails or the time runs out); returns their exit codes."""
+    procs = []
+    try:
+        for cmd, env, path in zip(cmds, envs, logs):
+            f = open(path, 'w')
+            procs.append((subprocess.Popen(cmd, cwd=HERE, env=env, stdout=f,
+                                           stderr=subprocess.STDOUT), f))
+        deadline = time.monotonic() + timeout
+        # A rank that failed leaves the others waiting on it: stop them.
+        while any(p.poll() is None for p, _ in procs):
+            if time.monotonic() > deadline or any(
+                    p.poll() not in (None, 0) for p, _ in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            f.close()
+    return [p.returncode for p, _ in procs]
+
+
+def rank_env(rank: int, port: int) -> dict:
+    """The gang's environment for ``rank`` on this host, the ranks
+    sharing the card over gloo."""
+    return dict(os.environ, PYTHONPATH=HERE,
+                SKYTPU_COORDINATOR_ADDRESS=f'127.0.0.1:{port}',
+                SKYTPU_NUM_PROCESSES=str(RING_RANKS),
+                SKYTPU_NODE_RANK=str(rank),
+                SKYTPU_TORCH_DIST_BACKEND='gloo')
+
+
+def fresh(paths) -> None:
+    """Remove an earlier run's result and log files, so that a rank that
+    writes none is seen to have written none."""
+    for path in paths:
+        if os.path.exists(path):
+            os.remove(path)
+
+
+def ring_two_ranks(card: str) -> None:
+    """(b): two ring_worker processes on the card; every rank exits 0,
+    every error within its bound, launches as the blocks the ranks see.
+    Then a pair of gloo_p2p_probe processes, reported only."""
+    port = free_port()
+    logs = [os.path.join(OUT_DIR, f'ring_worker{r}.log')
+            for r in range(RING_RANKS)]
+    paths = [os.path.join(OUT_DIR, f'ring_rank{r}.json')
+             for r in range(RING_RANKS)]
+    fresh(logs + paths)
+    rcs = spawn_ranks(
+        [[sys.executable, os.path.join(HERE, 'chip_smoke.py'),
+          '--ring-worker', str(r), '--ring-port', str(port)]
+         for r in range(RING_RANKS)],
+        [rank_env(r, port) for r in range(RING_RANKS)], logs, 300)
+    for r in range(RING_RANKS):
+        if rcs[r] != 0 or not os.path.exists(paths[r]):
+            tail = ''.join(open(logs[r]).readlines()[-15:])
+            fail(f'[ring] rank {r} exited {rcs[r]} (result '
+                 f'{"written" if os.path.exists(paths[r]) else "missing"}):'
+                 f'\n{tail}')
+    for r in range(RING_RANKS):
+        with open(paths[r]) as f:
+            res = json.load(f)
+        for layout, lr in res['layouts'].items():
+            e, lc, want = lr['errs'], lr['launches'], lr['want']
+            ok = (e['out'] < TOL_RING_OUT and
+                  max(e['dq'], e['dk'], e['dv']) < TOL_RING_GRAD)
+            launch_ok = lc == {n: (want if n in RING_KERNELS else 0)
+                               for n in lc}
+            log(f'[ring] 2 ranks on one card (gloo), rank {r}, {layout}: '
+                f'S={RING_S} ({RING_S // RING_RANKS} a rank), 16/8 heads, '
+                f'hd 128: max|out err| {e["out"]:.3e} (tol {TOL_RING_OUT}), '
+                f'grads max|err|/max|ref| dq {e["dq"]:.3e} dk {e["dk"]:.3e} '
+                f'dv {e["dv"]:.3e} (tol {TOL_RING_GRAD}) '
+                f'{"ok" if ok else "MISMATCH"}; launches A '
+                f'{lc["flash_fwd"]}, C fp32 {lc["flash_dq_f32"]}, D fp32 '
+                f'{lc["flash_dkv_f32"]} (want {want} each), fwd+bwd '
+                f'{lr["ms"]:.1f} ms | {card}')
+            if not ok:
+                fail(f'[ring] rank {r} {layout}: the ring disagrees with '
+                     f'the one-process kernels')
+            if not launch_ok:
+                fail(f'[ring] rank {r} {layout}: launches {lc}, want '
+                     f'{want} of each of {RING_KERNELS}')
+        comm = res['comm_ms']
+        log(f'[ring] rank {r} gloo on the card: a 256 MiB all_reduce '
+            f'{comm["all_reduce_256MiB"]:.1f} ms, a 64 MiB ring message '
+            f'(host-staged) {comm["rotate_64MiB"]:.1f} ms | {card}')
+        log(f'[ring] rank {r} gloo all_reduce of a CUDA tensor: '
+            f'{res["probe"]["gloo_all_reduce_cuda"]}')
+        if res['probe']['gloo_all_reduce_cuda'] != 'ok':
+            fail(f'[ring] gloo all_reduce of a CUDA tensor: '
+                 f'{res["probe"]["gloo_all_reduce_cuda"]}')
+    port = free_port()
+    logs = [os.path.join(OUT_DIR, f'gloo_p2p{r}.log')
+            for r in range(RING_RANKS)]
+    paths = [os.path.join(OUT_DIR, f'gloo_p2p{r}.json')
+             for r in range(RING_RANKS)]
+    fresh(logs + paths)
+    rcs = spawn_ranks(
+        [[sys.executable, os.path.join(HERE, 'chip_smoke.py'),
+          '--gloo-probe', str(r), '--ring-port', str(port)]
+         for r in range(RING_RANKS)],
+        [rank_env(r, port) for r in range(RING_RANKS)], logs, 120)
+    for r in range(RING_RANKS):
+        got = f'the rank ended (rc {rcs[r]}) in the attempt'
+        if os.path.exists(paths[r]):
+            with open(paths[r]) as f:
+                got = json.load(f)['gloo_p2p_cuda']
+        log(f'[ring] rank {r} gloo send/recv of a CUDA tensor (reported '
+            f'only; the ring stages through the host): {got}')
+
+
+def ring_trainer(torch, card: str) -> dict:
+    """(c): ``python -m skypilot_tpu_torch.train.trainer --mesh
+    sequence=2`` with zigzag ring attention as two gang processes on the
+    card; the losses against the single-process trainer on the same
+    batches (TOL_LOSS), both replicas' params sha256 equal, every rank's
+    launches as its ring blocks (A twice a block under remat 'full', C
+    and D in their fp32 mode once), ms per step, each rank's peak
+    memory. Returns the ranks' launches, summed."""
+    from skypilot_tpu_torch.train import trainer
+    port = free_port()
+    logs = [os.path.join(OUT_DIR, f'ring_trainer{r}.log')
+            for r in range(RING_RANKS)]
+    fresh(logs)
+    flags = ['--model', 'llama-1b', '--batch-size', str(RING_TRAIN_B),
+             '--seq-len', str(RING_TRAIN_S), '--steps', str(RING_TRAIN_STEPS),
+             '--log-every', '1']
+    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.train.trainer', *flags,
+           '--mesh', f'sequence={RING_RANKS}',
+           '--model-override', 'attention_impl=ring',
+           '--model-override', 'ring_layout=zigzag']
+    t0 = time.perf_counter()
+    rcs = spawn_ranks([cmd] * RING_RANKS,
+                      [rank_env(r, port) for r in range(RING_RANKS)], logs,
+                      600)
+    wall = time.perf_counter() - t0
+    recs = []
+    for r in range(RING_RANKS):
+        with open(logs[r]) as f:
+            recs.append([json.loads(line) for line in f
+                         if line.startswith('{')])
+        if rcs[r] != 0:
+            tail = ''.join(open(logs[r]).readlines()[-15:])
+            fail(f'[ring] trainer rank {r} exited {rcs[r]}:\n{tail}')
+    hist = [x for x in recs[0] if 'loss' in x]
+    reps = [next(x for x in rs if 'replica' in x) for rs in recs]
+    if any('loss' in x for x in recs[1]):
+        fail('[ring] rank 1 wrote log records: rank 0 alone writes them')
+    digests = {x['params_sha256'] for x in reps}
+    layers = 16
+    launch_ok = True
+    for x in reps:
+        blocks = RING_BLOCKS['zigzag'][x['replica']]
+        want = {n: 0 for n in x['kernel_launches']}
+        want.update(flash_fwd=2 * blocks * layers * RING_TRAIN_STEPS,
+                    flash_dq_f32=blocks * layers * RING_TRAIN_STEPS,
+                    flash_dkv_f32=blocks * layers * RING_TRAIN_STEPS)
+        launch_ok &= x['kernel_launches'] == want
+        log(f'[ring] trainer rank {x["replica"]}: launches '
+            f'{x["kernel_launches"]} (want {want}); peak memory '
+            f'{x.get("peak_memory_gb")} GB; params sha256 '
+            f'{x["params_sha256"][:16]} | {card}')
+    sec = statistics.median(x['sec_per_step'] for x in hist[1:])
+    log(f'[ring] trainer --mesh sequence={RING_RANKS}, llama-1b, zigzag, '
+        f'{RING_TRAIN_B}x{RING_TRAIN_S}, {RING_TRAIN_STEPS} steps: losses '
+        f'{[x["loss"] for x in hist]}, {sec * 1e3:.1f} ms/step (median of '
+        f'steps 2-{RING_TRAIN_STEPS}), the two processes {wall:.1f}s from '
+        f'start to exit | {card}')
+    if len(digests) != 1:
+        fail(f'[ring] the replicas\' params differ: {digests}')
+    if not launch_ok:
+        fail('[ring] the trainer ranks\' launches are not their ring '
+             'blocks\'')
+    torch.cuda.reset_peak_memory_stats()
+    one = trainer.train(trainer.TrainerConfig(
+        model='llama-1b', batch_size=RING_TRAIN_B, seq_len=RING_TRAIN_S,
+        total_steps=RING_TRAIN_STEPS, log_every=1, device='cuda'))
+    diff = max(abs(a['loss'] - b['loss']) for a, b in zip(hist, one))
+    log(f'[ring] the single-process trainer (kernels A, C, D over the whole '
+        f'sequence): losses {[x["loss"] for x in one]}, '
+        f'{statistics.median(x["sec_per_step"] for x in one[1:]) * 1e3:.1f}'
+        f' ms/step, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; '
+        f'max |loss diff| {diff:.4f} (tol {TOL_LOSS}) | {card}')
+    if len(one) != len(hist) or diff > TOL_LOSS:
+        fail(f'[ring] the 2-rank trainer\'s losses depart from the '
+             f'single process\'s by {diff}')
+    return {n: sum(x['kernel_launches'][n] for x in reps)
+            for n in reps[0]['kernel_launches']}
+
+
+def phase_ring(torch, fa, build, card: str) -> dict:
+    """Context-parallel training: (a) C and D's fp32 mode, (b) the ring
+    on two ranks sharing the card, (c) the trainer's --mesh sequence=2.
+    Returns (the fp32 mode's errors, the trainer ranks' launches)."""
+    t0 = time.perf_counter()
+    errs = ring_f32_check(torch, fa, card)
+    free_card(torch)
+    t1 = time.perf_counter()
+    ring_two_ranks(card)
+    t2 = time.perf_counter()
+    launches = ring_trainer(torch, card)
+    log(f'[ring] parts: (a) {t1 - t0:.1f}s, (b) {t2 - t1:.1f}s, (c) '
+        f'{time.perf_counter() - t2:.1f}s')
+    return errs, launches
 
 
 def gpu_line() -> str:
@@ -4592,11 +5065,18 @@ def main() -> None:
                         'serve_gemma,'
                         'gemma_switches,model_moe,serve_moe,serve_gptoss,'
                         'model_mla,serve_mla,serve_deepseek_v2,'
-                        'train_gemma,train,train_moe,train_mla,hf,sft,'
+                        'train_gemma,train,ring,train_moe,train_mla,hf,sft,'
                         'lora,grpo',
                         help='comma-separated '
                         'subset (for '
                         'debugging; the full run is the check)')
+    # The ring phase's worker processes (one a rank): this script again.
+    parser.add_argument('--ring-worker', type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument('--ring-port', type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument('--gloo-probe', type=int, default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     t_main = time.perf_counter()
     phases = set(args.phases.split(','))
@@ -4616,6 +5096,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         sys.exit(3)
+    if args.ring_worker is not None:
+        ring_worker(args.ring_worker, args.ring_port)
+        return
+    if args.gloo_probe is not None:
+        gloo_p2p_probe(args.gloo_probe, args.ring_port)
+        return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
@@ -4776,6 +5262,11 @@ def main() -> None:
         by_path['train'] = phase_train(torch, build)
         free_card(torch)
     lap('train')
+    if 'ring' in phases:
+        ring_errs, by_path['ring'] = phase_ring(torch, fa, build, card)
+        errs.update(ring_errs)
+        free_card(torch)
+    lap('ring')
     if 'train_moe' in phases:
         by_path['train_moe'] = phase_train_moe(torch, build)
         free_card(torch)
@@ -4810,6 +5301,8 @@ def main() -> None:
         'flash_fwd': 'skypilot_tpu/ops/pallas/flash_attention.py:63',
         'flash_dq': 'skypilot_tpu/ops/pallas/flash_attention.py:159',
         'flash_dkv': 'skypilot_tpu/ops/pallas/flash_attention.py:196',
+        'flash_dq_f32': 'skypilot_tpu/ops/pallas/flash_attention.py:159',
+        'flash_dkv_f32': 'skypilot_tpu/ops/pallas/flash_attention.py:196',
         'paged_decode': 'skypilot_tpu/ops/pallas/paged_attention.py:48'}
     # Launches: each kernel's count on the main paths it belongs to
     # (serving: SERVE_KERNELS, training: TRAIN_KERNELS), summed.
@@ -4822,7 +5315,7 @@ def main() -> None:
              'train_hf': TRAIN_KERNELS, 'serve_hf': SERVE_KERNELS,
              'train_lora': TRAIN_KERNELS, 'serve_lora': SERVE_KERNELS,
              'train_sft': TRAIN_KERNELS, 'serve_sft': SERVE_KERNELS,
-             'grpo': TRAIN_KERNELS}
+             'grpo': TRAIN_KERNELS, 'ring': RING_KERNELS}
     rows = []
     for name, kern in build.kernels().items():
         t = times.get(name, {})

@@ -18,7 +18,10 @@ name: ``remat='dots'``; on an MoE config ``qk_norm`` and
 ``post_norms``, which the JAX MoE layer refuses too (its layers have no
 such norm params); and on an MLA config every dense switch its layers
 do not read (the JAX MLA layer ignores them), ring attention and
-pipeline stages, which the JAX MLA forward refuses.
+pipeline stages, which the JAX MLA forward refuses. Ring attention
+(``attention_impl='ring'``) runs for the dense family; an MoE config
+refuses it (its router aux would need a mean across sequence shards),
+and ``pipeline_stages > 1`` stays refused.
 """
 from __future__ import annotations
 
@@ -388,6 +391,12 @@ def check_supported(cfg: LlamaConfig) -> None:
                 raise NotImplementedError(
                     f'{name} is a dense ({family}) feature; MoE layers have '
                     f'no such norm params')
+        if cfg.attention_impl == 'ring':
+            raise NotImplementedError(
+                "attention_impl='ring' is not ported for MoE models: the "
+                'router aux loss would need a global mean across sequence '
+                'shards, which waits for ROADMAP Queue 1 item 8 '
+                '(parallelism: ring in MoE)')
     if isinstance(cfg, MLAConfig):
         for name, family in _NOT_IN_MLA:
             if getattr(cfg, name):

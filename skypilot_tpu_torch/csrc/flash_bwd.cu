@@ -1,5 +1,6 @@
-// Kernels C and D: flash-attention backward, bf16 q/k/v/o/do in, bf16
-// dq (kernel C) and dk, dv (kernel D) out.
+// Kernels C and D: flash-attention backward, bf16 q/k/v/o/do in, dq
+// (kernel C) and dk, dv (kernel D) out in bf16 or, for the ring
+// attention's per-step block grads, fp32 (the TPU _bwd's grad_dtype).
 //
 // Replaces: skypilot_tpu/ops/pallas/flash_attention.py::_dq_kernel and
 // ::_dkv_kernel (the two pl.pallas_call in _bwd). Both TPU kernels
@@ -75,6 +76,19 @@
 // kernels do. At D=256 dk and dv of one consumer's keys would be 256
 // registers a thread: flash_dkv256_kernel (below) gives the two
 // consumers one 64-key tile and one accumulator each.
+//
+// Output type (OutT, a template parameter of every kernel): bf16, or
+// float for the fp32 mode that ring attention asks for (the TPU _bwd's
+// grad_dtype=f32: each block grad is summed across ring steps, and a
+// bf16 rounding per step would compound with the ring's size). The
+// fp32 mode stores the fp32 accumulators as they are, 8 bytes a store;
+// everything before the store is the bf16 mode's code, so the fp32
+// outputs rounded to bf16 are the bf16 mode's outputs bit for bit. At
+// D <= 128 kernel C's bf16 mode stages dq through shared memory; an
+// fp32 staging tile would not fit beside the ring, so the fp32 mode
+// stores from registers as the D=256 path does.
+#include <type_traits>
+
 #include "common.cuh"
 
 using port::bf16;
@@ -134,17 +148,28 @@ __device__ __forceinline__ void rs_mn_tile(float (&acc)[D / 2],
   }
 }
 
+// Two neighbouring columns of an accumulator row to device memory in
+// the output type: 4 bytes (bf16, rounded to nearest even) or 8 (fp32,
+// as accumulated).
+__device__ __forceinline__ void store_pair(bf16* dst, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(dst) = port::pack_bf16x2(lo, hi);
+}
+
+__device__ __forceinline__ void store_pair(float* dst, float lo, float hi) {
+  *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+}
+
 // Accumulator element i of a 64 x N wgmma tile, in the thread of lane l
 // of warp w of its warpgroup: row 16w + l/4 + 8 * ((i / 2) % 2), column
 // 8 * (i / 4) + 2 * (l % 4) + i % 2.
 
 // One consumer warpgroup's 64 rows of dq.
-template <int D>
+template <int D, typename OutT>
 __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* bar_q,
                                            uint64_t* full, uint64_t* empty,
                                            const float* __restrict__ lse,
                                            const float* __restrict__ delta,
-                                           bf16* __restrict__ dq, int q0, int c,
+                                           OutT* __restrict__ dq, int q0, int c,
                                            int h, int b, int n_kv, int S, int T,
                                            int H, int causal) {
   using L = DqSmem<D>;
@@ -237,18 +262,17 @@ __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* bar_q,
   }
 
   const long q_pitch = (long)H * D;
-  if constexpr (D == 256) {
-    // dq in bf16 straight from registers, this lane's two rows, 4 bytes
-    // a store.
+  if constexpr (D == 256 || std::is_same_v<OutT, float>) {
+    // dq straight from registers, this lane's two rows, a column pair a
+    // store.
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int row = row0 + 8 * hr;
       if (row < S) {
-        bf16* dst = dq + ((long)b * S + row) * q_pitch + (long)h * D + 2 * t;
+        OutT* dst = dq + ((long)b * S + row) * q_pitch + (long)h * D + 2 * t;
 #pragma unroll
         for (int i = 0; i < D / 8; ++i)
-          *reinterpret_cast<uint32_t*>(dst + 8 * i) =
-              port::pack_bf16x2(acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
+          store_pair(dst + 8 * i, acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
       }
     }
   } else {
@@ -274,7 +298,7 @@ __device__ __forceinline__ void dq_consume(unsigned char* smem, uint64_t* bar_q,
   }
 }
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,D] pre-scaled
                 const __grid_constant__ CUtensorMap tm_k,    // [B,T,KH,D]
@@ -282,7 +306,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,D] pre-sc
                 const __grid_constant__ CUtensorMap tm_do,   // [B,S,H,D]
                 const float* __restrict__ lse,               // [B,H,S]
                 const float* __restrict__ delta,             // [B,H,S]
-                bf16* __restrict__ dq,                        // [B,S,H,D]
+                OutT* __restrict__ dq,                        // [B,S,H,D]
                 int S, int T, int H, int KH, int causal) {
   using L = DqSmem<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -338,7 +362,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,D] pre-sc
   } else {
     // ---- consumer warpgroups: 64 q rows each.
     port::setmaxnreg_inc<232>();
-    dq_consume<D>(smem, bar_q, full, empty, lse, delta, dq, q0, wg - 1, h, b,
+    dq_consume<D, OutT>(smem, bar_q, full, empty, lse, delta, dq, q0, wg - 1, h, b,
                   n_kv, S, T, H, causal);
   }
 }
@@ -423,7 +447,7 @@ __device__ __forceinline__ void dkv_produce(
   }
 }
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,D] pre-scaled
                  const __grid_constant__ CUtensorMap tm_k,    // [B,T,KH,D]
@@ -431,8 +455,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,D] pre-s
                  const __grid_constant__ CUtensorMap tm_do,   // [B,S,H,D]
                  const float* __restrict__ lse,               // [B,H,S]
                  const float* __restrict__ delta,             // [B,H,S]
-                 bf16* __restrict__ dk,                        // [B,T,KH,D]
-                 bf16* __restrict__ dv,                        // [B,T,KH,D]
+                 OutT* __restrict__ dk,                        // [B,T,KH,D]
+                 OutT* __restrict__ dv,                        // [B,T,KH,D]
                  int S, int T, int H, int KH, int causal) {
   using L = DkvSmem<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -590,7 +614,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,D] pre-s
       if (lane == 0) port::mbar_arrive(&empty[s]);
     }
 
-    // dk and dv in bf16, this lane's two keys, 4 bytes a store.
+    // dk and dv, this lane's two keys, a column pair a store.
     const long kv_pitch = (long)KH * D;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
@@ -599,10 +623,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,D] pre-s
         const long off = ((long)b * T + key) * kv_pitch + (long)kh * D + 2 * t;
 #pragma unroll
         for (int i = 0; i < D / 8; ++i) {
-          *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
-              port::pack_bf16x2(dka[4 * i + 2 * hr], dka[4 * i + 2 * hr + 1]);
-          *reinterpret_cast<uint32_t*>(dv + off + 8 * i) =
-              port::pack_bf16x2(dva[4 * i + 2 * hr], dva[4 * i + 2 * hr + 1]);
+          store_pair(dk + off + 8 * i, dka[4 * i + 2 * hr], dka[4 * i + 2 * hr + 1]);
+          store_pair(dv + off + 8 * i, dva[4 * i + 2 * hr], dva[4 * i + 2 * hr + 1]);
         }
       }
     }
@@ -655,10 +677,10 @@ struct Dkv256Smem {
 // One consumer of kernel D at D=256: the p side (P_SIDE: s^T, p^T, dv)
 // or the ds side (dp^T, ds^T, dk), each its own code so that neither
 // carries the other's registers. Writes its accumulator to `out`.
-template <bool P_SIDE>
+template <bool P_SIDE, typename OutT>
 __device__ __forceinline__ void dkv256_consume(
     unsigned char* smem, uint64_t* bar_kv, uint64_t* full, uint64_t* empty,
-    bf16* __restrict__ out, int k0, int kh, int b, int q_start, int n_qt,
+    OutT* __restrict__ out, int k0, int kh, int b, int q_start, int n_qt,
     int n_it, int S, int T, int KH, int causal) {
   using L = Dkv256Smem;
   constexpr int D = 256;
@@ -767,7 +789,7 @@ __device__ __forceinline__ void dkv256_consume(
     if (lane == 0) port::mbar_arrive(&empty[s]);
   }
 
-  // dv (p side) or dk (ds side) in bf16, this lane's two keys, 4 bytes a
+  // dv (p side) or dk (ds side), this lane's two keys, a column pair a
   // store.
   const long kv_pitch = (long)KH * D;
 #pragma unroll
@@ -777,12 +799,12 @@ __device__ __forceinline__ void dkv256_consume(
       const long off = ((long)b * T + key) * kv_pitch + (long)kh * D + 2 * t;
 #pragma unroll
       for (int i = 0; i < D / 8; ++i)
-        *reinterpret_cast<uint32_t*>(out + off + 8 * i) =
-            port::pack_bf16x2(acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
+        store_pair(out + off + 8 * i, acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
     }
   }
 }
 
+template <typename OutT>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_dkv256_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,256] pre-scaled
                     const __grid_constant__ CUtensorMap tm_k,    // [B,T,KH,256]
@@ -790,8 +812,8 @@ flash_dkv256_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,256] 
                     const __grid_constant__ CUtensorMap tm_do,   // [B,S,H,256]
                     const float* __restrict__ lse,               // [B,H,S]
                     const float* __restrict__ delta,             // [B,H,S]
-                    bf16* __restrict__ dk,                        // [B,T,KH,256]
-                    bf16* __restrict__ dv,                        // [B,T,KH,256]
+                    OutT* __restrict__ dk,                        // [B,T,KH,256]
+                    OutT* __restrict__ dv,                        // [B,T,KH,256]
                     int S, int T, int H, int KH, int causal) {
   using L = Dkv256Smem;
   constexpr int D = 256;
@@ -839,11 +861,11 @@ flash_dkv256_kernel(const __grid_constant__ CUtensorMap tm_q,    // [B,S,H,256] 
   // ---- consumer warpgroups: wg 1 the p side (dv), wg 2 the ds side (dk).
   port::setmaxnreg_inc<232>();
   if (wg == 1)
-    dkv256_consume<true>(smem, bar_kv, full, empty, dv, k0, kh, b, q_start,
-                         n_qt, n_it, S, T, KH, causal);
+    dkv256_consume<true, OutT>(smem, bar_kv, full, empty, dv, k0, kh, b,
+                               q_start, n_qt, n_it, S, T, KH, causal);
   else
-    dkv256_consume<false>(smem, bar_kv, full, empty, dk, k0, kh, b, q_start,
-                          n_qt, n_it, S, T, KH, causal);
+    dkv256_consume<false, OutT>(smem, bar_kv, full, empty, dk, k0, kh, b,
+                                q_start, n_qt, n_it, S, T, KH, causal);
 }
 
 template <typename Kernel>
@@ -852,7 +874,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int D>
+template <int D, typename OutT>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int S,
               int T, int H, int KH, int causal, cudaStream_t stream) {
@@ -864,17 +886,17 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   if (!err) err = port::map_rows_bf16(&tm_v, v, B, T, KH, D, DqSmem<D>::BK);
   if (err) return err;
   const size_t smem = DqSmem<D>::BYTES;
-  cudaError_t e = allow_smem(flash_dq_kernel<D>, smem);
+  cudaError_t e = allow_smem(flash_dq_kernel<D, OutT>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((S + DQ_BQ - 1) / DQ_BQ, H, B);
-  flash_dq_kernel<D><<<grid, WG_THREADS, smem, stream>>>(
+  flash_dq_kernel<D, OutT><<<grid, WG_THREADS, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), S, T, H, KH,
+      static_cast<const float*>(delta), static_cast<OutT*>(dq), S, T, H, KH,
       causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename OutT>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                int S, int T, int H, int KH, int causal, cudaStream_t stream) {
@@ -886,16 +908,17 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   if (!err) err = port::map_rows_bf16(&tm_v, v, B, T, KH, D, DK_BK);
   if (err) return err;
   const size_t smem = DkvSmem<D>::BYTES;
-  cudaError_t e = allow_smem(flash_dkv_kernel<D>, smem);
+  cudaError_t e = allow_smem(flash_dkv_kernel<D, OutT>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((T + DK_BK - 1) / DK_BK, KH, B);
-  flash_dkv_kernel<D><<<grid, WG_THREADS, smem, stream>>>(
+  flash_dkv_kernel<D, OutT><<<grid, WG_THREADS, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), S, T, H, KH, causal);
+      static_cast<const float*>(delta), static_cast<OutT*>(dk),
+      static_cast<OutT*>(dv), S, T, H, KH, causal);
   return (int)cudaGetLastError();
 }
 
+template <typename OutT>
 int launch_dkv256(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dk, void* dv, int B, int S, int T, int H, int KH,
@@ -907,13 +930,13 @@ int launch_dkv256(const void* q, const void* k, const void* v,
   if (!err) err = port::map_rows_bf16(&tm_v, v, B, T, KH, 256, DK256_BK);
   if (err) return err;
   const size_t smem = Dkv256Smem::BYTES;
-  cudaError_t e = allow_smem(flash_dkv256_kernel, smem);
+  cudaError_t e = allow_smem(flash_dkv256_kernel<OutT>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((T + DK256_BK - 1) / DK256_BK, KH, B);
-  flash_dkv256_kernel<<<grid, WG_THREADS, smem, stream>>>(
+  flash_dkv256_kernel<OutT><<<grid, WG_THREADS, smem, stream>>>(
       tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), S, T, H, KH, causal);
+      static_cast<const float*>(delta), static_cast<OutT*>(dk),
+      static_cast<OutT*>(dv), S, T, H, KH, causal);
   return (int)cudaGetLastError();
 }
 
@@ -921,21 +944,60 @@ bool bad_shape(int B, int S, int T, int H, int KH) {
   return B <= 0 || S <= 0 || T <= 0 || KH <= 0 || H % KH != 0;
 }
 
+template <typename OutT>
+int dq_at(const void* q, const void* k, const void* v, const void* dout,
+          const void* lse, const void* delta, void* dq, int B, int S, int T,
+          int H, int KH, int D, int causal, void* stream) {
+  if (bad_shape(B, S, T, H, KH)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return launch_dq<128, OutT>(q, k, v, dout, lse, delta, dq, B, S, T, H, KH,
+                                causal, st);
+  if (D == 256)
+    return launch_dq<256, OutT>(q, k, v, dout, lse, delta, dq, B, S, T, H, KH,
+                                causal, st);
+  if (D == 64)
+    return launch_dq<64, OutT>(q, k, v, dout, lse, delta, dq, B, S, T, H, KH,
+                               causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename OutT>
+int dkv_at(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dk, void* dv, int B,
+           int S, int T, int H, int KH, int D, int causal, void* stream) {
+  if (bad_shape(B, S, T, H, KH)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return launch_dkv<128, OutT>(q, k, v, dout, lse, delta, dk, dv, B, S, T,
+                                 H, KH, causal, st);
+  if (D == 256)
+    return launch_dkv256<OutT>(q, k, v, dout, lse, delta, dk, dv, B, S, T, H,
+                               KH, causal, st);
+  if (D == 64)
+    return launch_dkv<64, OutT>(q, k, v, dout, lse, delta, dk, dv, B, S, T, H,
+                                KH, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+// dq (kernel C) and dk, dv (kernel D) in bf16, or in fp32 (the _f32
+// entry points: the ring attention's block grads).
 extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dq, int B, int S, int T,
                              int H, int KH, int D, int causal, void* stream) {
-  if (bad_shape(B, S, T, H, KH)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, S, T, H, KH, causal, st);
-  if (D == 256)
-    return launch_dq<256>(q, k, v, dout, lse, delta, dq, B, S, T, H, KH, causal, st);
-  if (D == 64)
-    return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, S, T, H, KH, causal, st);
-  return (int)cudaErrorInvalidValue;
+  return dq_at<bf16>(q, k, v, dout, lse, delta, dq, B, S, T, H, KH, D, causal,
+                     stream);
+}
+
+extern "C" int flash_dq_f32(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, int B, int S, int T,
+                            int H, int KH, int D, int causal, void* stream) {
+  return dq_at<float>(q, k, v, dout, lse, delta, dq, B, S, T, H, KH, D, causal,
+                      stream);
 }
 
 extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v,
@@ -943,16 +1005,15 @@ extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v,
                               const void* delta, void* dk, void* dv, int B,
                               int S, int T, int H, int KH, int D, int causal,
                               void* stream) {
-  if (bad_shape(B, S, T, H, KH)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, S, T, H, KH,
-                           causal, st);
-  if (D == 256)
-    return launch_dkv256(q, k, v, dout, lse, delta, dk, dv, B, S, T, H, KH,
-                         causal, st);
-  if (D == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, S, T, H, KH,
-                          causal, st);
-  return (int)cudaErrorInvalidValue;
+  return dkv_at<bf16>(q, k, v, dout, lse, delta, dk, dv, B, S, T, H, KH, D,
+                      causal, stream);
+}
+
+extern "C" int flash_dkv_f32(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv, int B,
+                             int S, int T, int H, int KH, int D, int causal,
+                             void* stream) {
+  return dkv_at<float>(q, k, v, dout, lse, delta, dk, dv, B, S, T, H, KH, D,
+                       causal, stream);
 }

@@ -12,8 +12,8 @@ port's own reader (data/tokenizer_json.py) where the JAX loader runs
 ``transformers.AutoTokenizer``, with the same ids (its post-processor,
 Llama 3's BOS say, included). ``.bin`` corpora read as a uint16
 memmap: the JAX package's native C++ core gives the same batches from
-the same file, so it is not ported. ``to_device`` takes the place of ``shard_batch``: one card, no
-mesh.
+the same file, so it is not ported. ``to_device`` puts a batch on the
+one card (or the CPU); ``shard_batch`` keeps a mesh rank's rows of it.
 """
 from __future__ import annotations
 
@@ -102,3 +102,17 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """Host batch → tensors on ``device`` (the one card, or the CPU)."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh, device
+                ) -> Dict[str, torch.Tensor]:
+    """Every rank of a mesh (parallel/mesh.py) reads the same global
+    batch from the deterministic source; this keeps the rows of its
+    ('data', 'fsdp') coordinate, the 'batch' rule, at the full length,
+    on ``device``. Its sequence slots are cut by the train step after
+    the shift (the targets need the next slot's token, and zigzag
+    permutes the whole sequence first): train/train_lib.py."""
+    from skypilot_tpu_torch.parallel import sharding
+    return to_device({k: sharding.local_shard(torch.from_numpy(
+        np.ascontiguousarray(v)), 'batch', 0, mesh).numpy()
+        for k, v in batch.items()}, device)

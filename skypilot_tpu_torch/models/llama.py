@@ -9,7 +9,16 @@ computes in cfg.dtype; ``cfg.remat`` picks the layer recompute as the
 JAX ``_REMAT_POLICIES`` do: 'none' saves every activation, 'full'
 (``nothing_saveable``) recomputes each layer in the backward through
 ``torch.utils.checkpoint``; 'dots' is refused by
-:func:`config.check_supported`. No pipeline or ring.
+:func:`config.check_supported`. No pipeline.
+
+``attention_impl='ring'`` runs ring attention (ops/attention.py's
+'ring' branch, ops/ring_attention.py) over the current mesh's
+'sequence' group, in ``cfg.ring_layout``: the
+tokens are this rank's sequence slots and ``positions`` their global
+positions (train/train_lib.py cuts both), as the JAX forward's
+sequence-sharded arrays are. The switches the ring does not take
+(windows, softcaps, a local rope base, sinks) are refused by name, in
+the JAX package's words.
 
 The Gemma-2/3 and gpt-oss switches follow the JAX module: (1 + w)
 norms with zero-initialised w, the tanh-gelu or clamped-SwiGLU MLP,
@@ -23,7 +32,7 @@ where JAX traces a ``where`` inside its layer scan.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +42,7 @@ from skypilot_tpu_torch.config import LlamaConfig, check_supported
 from skypilot_tpu_torch.models.quant import _d
 from skypilot_tpu_torch.ops import norms, rotary
 from skypilot_tpu_torch.ops.attention import attention as _attention
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, object]
 
@@ -289,15 +299,40 @@ def embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig
     return x
 
 
+def check_ring(cfg: LlamaConfig) -> None:
+    """Refuse, in the JAX layer's words, the switches ring attention
+    does not take."""
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            'sliding_window (Gemma-2 local layers) with ring attention '
+            'is not supported: windowed shards would need neighbor-'
+            "bounded rings. Use attention_impl='auto'/'xla'.")
+    if cfg.attn_logit_softcap is not None:
+        raise NotImplementedError(
+            'attn_logit_softcap with ring attention is not supported '
+            "(the ring kernel does not cap logits); use 'auto'/'xla'.")
+    if cfg.local_rope_theta is not None:
+        raise NotImplementedError(
+            'local_rope_theta (dual rope bases) with ring attention '
+            "is not supported; use 'auto'/'xla'.")
+    if cfg.attn_sinks:
+        raise NotImplementedError(
+            'attn_sinks (gpt-oss) with ring attention is not '
+            'supported: the sink logit must join exactly one '
+            "shard's softmax denominator. Use 'auto'/'xla'.")
+
+
 def layer(x: torch.Tensor, lp, cfg: LlamaConfig, sin, cos,
           layer_idx: int) -> torch.Tensor:
-    """One decoder layer over a whole sequence (positions from 0):
-    attention by ``cfg.attention_impl`` (the plain version whenever the
-    layer has a softcap, a window or sinks), then the MLP block. sin/cos
-    are :func:`rope_tables`' (both bases where there are two)."""
+    """One decoder layer over a whole sequence, or with ring attention
+    over this rank's sequence shard: attention by ``cfg.attention_impl``
+    (the plain version whenever the layer has a softcap, a window or
+    sinks), then the MLP block. sin/cos are :func:`rope_tables`' (both
+    bases where there are two) at the tokens' positions."""
     sin, cos = select_rope(sin, cos, layer_idx, cfg)
     q, k, v = qkv(x, lp, cfg, sin, cos)
     out = _attention(q, k, v, impl=cfg.attention_impl, causal=True,
+                     layout=cfg.ring_layout,
                      **attention_switches(lp, cfg, layer_idx))
     x = x + wo_project(out, lp, cfg)
     return x + ffn(x, lp, cfg)
@@ -325,14 +360,33 @@ def apply_layers(params: Params, cfg: LlamaConfig, step, carry):
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-            return_hidden: bool = False) -> torch.Tensor:
+            return_hidden: bool = False,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens [B, S] → logits [B, S, vocab] (fp32), or the final-norm
-    hidden states [B, S, D] fp32 with ``return_hidden``. Under autograd
-    with ``cfg.remat == 'full'`` each layer is recomputed in the
-    backward (:func:`apply_layers`)."""
+    hidden states [B, S, D] fp32 with ``return_hidden``. ``positions``
+    [S] are the tokens' positions for RoPE (default 0..S-1); ring
+    attention over a sharded sequence, or in the zigzag layout, needs
+    them given. Under autograd with ``cfg.remat == 'full'`` each layer
+    is recomputed in the backward (:func:`apply_layers`)."""
     check_supported(cfg)
+    if cfg.attention_impl == 'ring':
+        check_ring(cfg)
+        if positions is None and cfg.ring_layout == 'zigzag':
+            raise ValueError(
+                "ring_layout='zigzag' needs zigzag-permuted tokens and "
+                "explicit `positions` (ops.ring_attention.zigzag_positions)"
+                " — contiguous tokens would be causally masked as if they "
+                "were zigzag chunks. train_lib's train/eval steps do the "
+                "permutation automatically.")
+        if (positions is None and
+                mesh_lib.current_mesh().shape['sequence'] > 1):
+            raise ValueError(
+                'ring attention over a sequence sharded on the mesh needs '
+                'the shard\'s global `positions`; train_lib\'s train/eval '
+                'steps pass them.')
     x = embed(params, tokens, cfg)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
     sin, cos = rope_tables(cfg, positions)
     x = apply_layers(params, cfg,
                      lambda h, lp, i: layer(h, lp, cfg, sin, cos, i), x)

@@ -22,6 +22,9 @@ and every CPU tensor, takes the plain version, as the JAX ``_flash_ok``
 sends what its kernel does not take to XLA. ``impl='flash'`` asks for
 the kernel and raises on what it does not take. ``impl='xla'`` asks for
 the plain version on any device, differentiable by autograd.
+``impl='ring'`` is ring attention (ops/ring_attention.py) over the
+current mesh's 'sequence' group (parallel/mesh.py ``use_mesh``), in the
+'seq' layout, as the JAX ``attention`` calls it.
 """
 from __future__ import annotations
 
@@ -142,11 +145,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               softmax_scale: Optional[float] = None,
               logit_softcap: Optional[float] = None,
               window: Optional[int] = None, window_active=None,
-              sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Self-attention by ``impl``: 'auto', 'flash' or 'xla'. A call that
-    is not trivial (:func:`is_trivial`) takes the plain version whatever
-    ``impl`` asks for, as in the JAX package; under 'auto' so does a
-    call kernel A does not take (``flash_attention.flash_takes``)."""
+              sinks: Optional[torch.Tensor] = None,
+              layout: str = 'seq') -> torch.Tensor:
+    """Self-attention by ``impl``: 'auto', 'flash', 'xla' or 'ring'. A
+    call that is not trivial (:func:`is_trivial`) takes the plain version
+    whatever 'auto' or 'flash' ask for, as in the JAX package; under
+    'auto' so does a call kernel A does not take
+    (``flash_attention.flash_takes``). 'ring' runs ring attention over
+    the current mesh's 'sequence' group, the sequence sharded in
+    ``layout`` ('seq' or 'zigzag'; JAX's branch has no layout and so
+    only 'seq'), and refuses a call that is not trivial."""
     trivial = is_trivial(q_offset, kv_offset, segment_ids, logit_softcap,
                          window, sinks)
     if impl == 'auto':
@@ -170,4 +178,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out, _ = flash_attention.flash_attention_lse(
             q, k, v, causal=causal, softmax_scale=softmax_scale)
         return out
+    if impl == 'ring':
+        if not trivial:
+            raise ValueError(
+                'ring attention takes no position offsets, segment ids, '
+                'logit softcap, window or sinks')
+        from skypilot_tpu_torch.ops import ring_attention
+        from skypilot_tpu_torch.parallel import mesh
+        return ring_attention.ring_attention(
+            q, k, v, group=mesh.current_mesh().group('sequence'),
+            causal=causal, softmax_scale=softmax_scale, layout=layout)
     raise ValueError(f'Unknown attention impl {impl!r}')

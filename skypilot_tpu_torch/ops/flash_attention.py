@@ -19,7 +19,9 @@ plain PyTorch op beside them, as the JAX package computes it outside
 Pallas. One difference from the JAX ``_bwd``: it writes per-q-head
 dk/dv in bf16 and sums the H/KH heads of a group in bf16; kernel D sums
 them in fp32 and rounds once (the tests hold the two within bf16
-tolerance).
+tolerance). ``_bwd(grad_dtype=torch.float32)`` is the JAX ``_bwd``'s
+``grad_dtype``: kernels C and D write fp32 dq/dk/dv (their ``_f32``
+entry points), which ring attention sums across its steps.
 
 Wrapper rule: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. There is no fallback.
@@ -42,6 +44,13 @@ DQ_KERNEL = build.Kernel(
     argtypes=('p',) * 7 + ('i',) * 7 + ('p',))
 DKV_KERNEL = build.Kernel(
     name='flash_dkv', source='flash_bwd.cu', symbol='flash_dkv_bf16',
+    argtypes=('p',) * 8 + ('i',) * 7 + ('p',))
+# The same kernels writing fp32 grads (``_bwd(grad_dtype=torch.float32)``).
+DQ_F32_KERNEL = build.Kernel(
+    name='flash_dq_f32', source='flash_bwd.cu', symbol='flash_dq_f32',
+    argtypes=('p',) * 7 + ('i',) * 7 + ('p',))
+DKV_F32_KERNEL = build.Kernel(
+    name='flash_dkv_f32', source='flash_bwd.cu', symbol='flash_dkv_f32',
     argtypes=('p',) * 8 + ('i',) * 7 + ('p',))
 
 # Head dims kernel A takes, and those kernels C and D take (Gemma's 256
@@ -73,17 +82,20 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             lse: torch.Tensor, do: torch.Tensor,
                             dlse: Optional[torch.Tensor] = None, *,
-                            causal: bool = True
+                            causal: bool = True,
+                            grad_dtype: Optional[torch.dtype] = None
                             ) -> Tuple[torch.Tensor, ...]:
     """Plain backward of kernels C and D, step by step: q (pre-scaled),
     o, do [B,S,H,D]; k, v [B,T,KH,D]; lse and dlse [B,H,S] fp32 →
-    (dq, dk, dv) in q.dtype. fp32 throughout, except that p and ds round
-    to q.dtype before their products, as the kernels (and the TPU
-    kernels) do; the group sum over the H/KH q heads is fp32."""
+    (dq, dk, dv) in ``grad_dtype`` (default q.dtype). fp32 throughout,
+    except that p and ds round to q.dtype before their products, as the
+    kernels (and the TPU kernels) do, in either output type; the group
+    sum over the H/KH q heads is fp32."""
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     g = h // kh
     dt = q.dtype
+    out_dt = grad_dtype or dt
     qh = q.float().transpose(1, 2)                              # [B,H,S,D]
     kh_ = k.float().transpose(1, 2).repeat_interleave(g, dim=1)  # [B,H,T,D]
     vh = v.float().transpose(1, 2).repeat_interleave(g, dim=1)
@@ -101,8 +113,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dq = ds_r @ kh_
     dk = (ds_r.transpose(-1, -2) @ qh).reshape(b, kh, g, t, d).sum(2)
     dv = (p_r.transpose(-1, -2) @ doh).reshape(b, kh, g, t, d).sum(2)
-    return (dq.transpose(1, 2).to(dt), dk.transpose(1, 2).to(dt),
-            dv.transpose(1, 2).to(dt))
+    return (dq.transpose(1, 2).to(out_dt), dk.transpose(1, 2).to(out_dt),
+            dv.transpose(1, 2).to(out_dt))
 
 
 def backward_refused(head_dim: int, on_card: bool, wants_grad: bool
@@ -174,12 +186,18 @@ def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
          lse: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor],
-         causal: bool) -> Tuple[torch.Tensor, ...]:
-    """(dq, dk, dv) of the pre-scaled q, k and v: kernels C and D on the
-    card, the plain version on the CPU."""
+         causal: bool, grad_dtype: Optional[torch.dtype] = None
+         ) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of the pre-scaled q, k and v, in ``grad_dtype``
+    (None: q's bf16; ``torch.float32``: the kernels' fp32 mode): kernels
+    C and D on the card, the plain version on the CPU."""
     if not q.is_cuda:
         return flash_attention_bwd_ref(q, k, v, o, lse, do, dlse,
-                                       causal=causal)
+                                       causal=causal, grad_dtype=grad_dtype)
+    if grad_dtype not in (None, q.dtype, torch.float32):
+        raise TypeError(f'kernels C and D write bf16 or fp32 grads, not '
+                        f'{grad_dtype}')
+    f32 = grad_dtype is torch.float32
     _check_kernel_inputs(q, k, v, BWD_HEAD_DIMS)
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
@@ -187,13 +205,16 @@ def _bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     do = do.to(q.dtype).contiguous()
     delta = _delta(o, do, dlse)
     lse = lse.contiguous()
-    dq = torch.empty_like(q)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    out_dt = torch.float32 if f32 else q.dtype
+    dq = torch.empty_like(q, dtype=out_dt)
+    dk = torch.empty_like(k, dtype=out_dt)
+    dv = torch.empty_like(v, dtype=out_dt)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
     dims = (b, s, t, h, kh, d, int(causal), _stream(q))
-    DQ_KERNEL.launch(*ptrs, dq.data_ptr(), *dims)
-    DKV_KERNEL.launch(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims)
+    (DQ_F32_KERNEL if f32 else DQ_KERNEL).launch(*ptrs, dq.data_ptr(), *dims)
+    (DKV_F32_KERNEL if f32 else DKV_KERNEL).launch(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims)
     return dq, dk, dv
 
 

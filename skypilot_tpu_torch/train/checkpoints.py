@@ -1,6 +1,6 @@
 """Step checkpoints of the port's TrainState, in the JAX package's
-on-disk format (port of skypilot_tpu/train/checkpoints.py, single
-process, one card).
+on-disk format (port of skypilot_tpu/train/checkpoints.py: one card, or
+the ranks of a mesh whose params are whole on every rank).
 
 Format (one directory per step), as the JAX ``Checkpointer`` writes it::
 
@@ -22,6 +22,14 @@ every chunk's sha256 and raises :class:`CheckpointCorruptError` on a
 truncated or altered file; :func:`restore_or_init` refuses a corrupt
 newest step loudly, falls back to an older complete one, and raises
 rather than re-initialising when none restores.
+
+Several processes (a torch.distributed world): every rank holds the
+same replicated state, so rank 0 alone writes each step, synchronously,
+and every rank then meets at a barrier, so no rank runs ahead of a
+half-written step (the JAX package's multi-process saves are
+synchronous and barrier too). Every rank restores, and the ranks check
+that they restored the same step: a directory that is not shared
+storage raises instead of letting the ranks diverge.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from skypilot_tpu_torch.config import LlamaConfig
 from skypilot_tpu_torch.models import module_for, weights
@@ -65,6 +74,25 @@ def abstract_train_state(cfg: LlamaConfig,
     params = module_for(cfg).init_params(cfg, None, 'meta')
     return train_lib.TrainState(step=0, params=params,
                                 opt_state=tx.init(params))
+
+
+def _world() -> int:
+    """The torch.distributed world's size (1 without one)."""
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
+def _agree(value: int, what: str, directory: str) -> None:
+    """Raise on every rank unless every rank holds the same ``value``."""
+    if _world() == 1:
+        return
+    seen: List[Any] = [None] * _world()
+    dist.all_gather_object(seen, value)
+    if len(set(seen)) > 1:
+        raise FileNotFoundError(
+            f'ranks disagree on the {what} under {directory!r}: {seen}; '
+            f'a multi-process run needs its checkpoint directory on '
+            f'storage every rank shares (a mounted bucket)')
 
 
 def _step_dirname(step: int) -> str:
@@ -114,10 +142,21 @@ class Checkpointer:
     def save(self, state: train_lib.TrainState, step: Optional[int] = None,
              *, wait: bool = False) -> int:
         """Snapshot ``state`` to host memory and persist it as ``step``
-        (default ``state.step``): in the background unless ``wait``."""
-        self._raise_pending_error()
+        (default ``state.step``): in the background unless ``wait``. In
+        a multi-process world rank 0 writes it synchronously and every
+        rank returns after the step is durable."""
         if step is None:
             step = state.step
+        if _world() > 1:
+            if dist.get_rank() == 0:
+                self._save(state, step, wait=True)
+            dist.barrier()
+            return step
+        return self._save(state, step, wait=wait)
+
+    def _save(self, state: train_lib.TrainState, step: int,
+              wait: bool) -> int:
+        self._raise_pending_error()
         # One snapshot in flight at most, and a synchronous save never
         # races the worker on the same temp dir.
         self._queue.join()
@@ -428,9 +467,12 @@ def restore_or_init(directory: str, cfg: LlamaConfig, tx: train_lib.AdamW,
     there is one, else a fresh state (``params`` if given, else random
     from seed 0). Returns (state, start_step, ckpt)."""
     ckpt = Checkpointer(directory)
-    if ckpt.latest_step() is not None:
+    latest = ckpt.latest_step()
+    _agree(latest, 'newest checkpoint step', directory)
+    if latest is not None:
         state, step = ckpt.restore_newest(abstract_train_state(cfg, tx),
                                           device)
+        _agree(step, 'restored checkpoint step', directory)
         logger.info('Resumed from checkpoint step %d in %s.', step,
                     directory)
         return state, step, ckpt

@@ -1,5 +1,6 @@
-"""Training step for the port (port of skypilot_tpu/train/train_lib.py,
-without meshes: one card or the CPU).
+"""Training step for the port (port of skypilot_tpu/train/train_lib.py):
+one card or the CPU, or one rank of a mesh (parallel/mesh.py) whose
+'data' and 'sequence' axes split the batch's rows and sequence slots.
 
 fp32 master params and bf16 compute, next-token cross entropy (plus
 the router load-balance aux of a model whose module sets ``HAS_AUX``:
@@ -9,6 +10,18 @@ adamw(warmup_cosine_decay_schedule(0, lr, warmup, max(total,
 warmup + 1)), b1=.9, b2=.95, eps=1e-8, weight_decay=wd))``. The step
 updates the state in place (params, moments), where the JAX step
 returns a new donated state; the numbers are the same.
+
+On a mesh, what GSPMD does for the JAX step is written out: every rank
+holds the whole params and the same global batch's rows of its
+('data', 'fsdp') coordinate; the step shifts them, lays the sequence
+out zigzag where the config asks for it (``_zigzag_shift``, as JAX
+does), and keeps this rank's sequence slots (and their global
+positions). The CE is the global masked mean: the token count is
+summed over the ranks before the division and the nll sums after. The
+parameter grads are summed over the ranks in flattened buckets, then
+the global-norm clip and AdamW run on every rank on the same numbers,
+so the replicas stay bit-equal. Parameter sharding ('fsdp', 'tensor'
+and 'expert' above 1) is not ported.
 """
 from __future__ import annotations
 
@@ -17,9 +30,13 @@ import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from skypilot_tpu_torch.config import LlamaConfig
 from skypilot_tpu_torch.models import module_for, weights
+from skypilot_tpu_torch.ops import ring_attention
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.parallel import sharding
 
 Batch = Dict[str, torch.Tensor]
 Params = Dict[str, object]
@@ -47,18 +64,27 @@ def leaves(tree: Params) -> List[torch.Tensor]:
     return [leaf for _, leaf in weights.tree_paths(tree)]
 
 
-def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+def cross_entropy_sums(logits: torch.Tensor, targets: torch.Tensor,
                        mask: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mean next-token CE over masked positions: (loss, token count).
-    logits [B,S,V] (computed in fp32), targets [B,S] ints."""
+    """(sum of the masked next-token nll, the mask's token count) of
+    logits [B,S,V] (computed in fp32) against targets [B,S] ints."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets.long()[..., None])[..., 0]
     nll = logz - gold
     mask = torch.ones_like(nll) if mask is None else mask.float()
-    denom = mask.sum().clamp(min=1.0)
-    return (nll * mask).sum() / denom, denom
+    return (nll * mask).sum(), mask.sum()
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean next-token CE over masked positions: (loss, token count).
+    logits [B,S,V] (computed in fp32), targets [B,S] ints."""
+    nll, count = cross_entropy_sums(logits, targets, mask)
+    denom = count.clamp(min=1.0)
+    return nll / denom, denom
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -164,39 +190,173 @@ def _shift(tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return tokens[:, :-1], tokens[:, 1:]
 
 
-def forward_with_aux(cfg: LlamaConfig, params: Params, inputs: torch.Tensor
+def _zigzag_seq_shards(cfg: LlamaConfig, mesh: mesh_lib.Mesh) -> int:
+    """0 when the config doesn't use zigzag ring attention; otherwise the
+    'sequence' mesh size (>=1) — the zigzag layout then applies to
+    tokens/targets/positions even at size 1 (identity permutation), so the
+    model's explicit-positions guard is always satisfied."""
+    if cfg.attention_impl == 'ring' and cfg.ring_layout == 'zigzag':
+        return max(1, mesh.shape['sequence'])
+    return 0
+
+
+def _zigzag_shift(tokens: torch.Tensor, mask: Optional[torch.Tensor],
+                  n_seq: int):
+    """Shift tokens into (inputs, targets) and lay the sequence dim out in
+    zigzag order so every 'sequence' shard does equal causal ring work
+    (ops/ring_attention.py). Returns (inputs, targets, mask, positions);
+    positions are the original sequence positions each layout slot holds —
+    forward() feeds them to RoPE, so the permutation is invisible to the
+    math (CE loss is a masked mean over positions, permutation-invariant).
+    n_seq == 0 means "not zigzag": no permutation, default positions.
+    """
+    inputs, targets = _shift(tokens)
+    if n_seq == 0:
+        return inputs, targets, mask, None
+    perm = torch.as_tensor(
+        ring_attention.zigzag_positions(inputs.shape[1], n_seq),
+        device=tokens.device)
+    inputs = inputs.index_select(1, perm)
+    targets = targets.index_select(1, perm)
+    if mask is not None:
+        mask = mask.index_select(1, perm)
+    return inputs, targets, mask, perm
+
+
+# Unported mesh axes, each refused by name.
+UNPORTED_AXES = ('stage', 'fsdp', 'expert', 'tensor')
+
+
+def check_mesh(cfg: LlamaConfig, mesh: mesh_lib.Mesh) -> None:
+    """Refuse what the port's step does not do on ``mesh``: parameter
+    sharding and the other unported axes, a sharded sequence without
+    ring attention, and a router aux (MoE, MLA-MoE) across ranks."""
+    big = [f'{ax}={mesh.shape[ax]}' for ax in UNPORTED_AXES
+           if mesh.shape[ax] > 1]
+    if big:
+        raise NotImplementedError(
+            f'mesh axes {", ".join(big)} over {mesh.size} ranks are not '
+            f'ported: parameter sharding (fsdp, which the default fsdp=-1 '
+            f'fills with the ranks left over) and the tensor, expert and '
+            f'stage axes wait for ROADMAP Queue 1 item 8 (parallelism). '
+            f'Pass data={mesh.size} or sequence={mesh.size} (or '
+            f'data=N,sequence=M with N*M={mesh.size}).')
+    if mesh.shape['sequence'] > 1 and cfg.attention_impl != 'ring':
+        raise ValueError(
+            f"a mesh with sequence={mesh.shape['sequence']} needs "
+            f"attention_impl='ring' (got {cfg.attention_impl!r}): other "
+            f'attention would see only its own shard')
+    if mesh.size > 1 and getattr(module_for(cfg), 'HAS_AUX', False):
+        raise NotImplementedError(
+            'a model with a router aux loss (MoE, MLA-MoE) is not ported '
+            'to a mesh: the aux would need a mean across ranks, which '
+            'waits for ROADMAP Queue 1 item 8 (parallelism: ring in MoE)')
+
+
+def _local_batch(cfg: LlamaConfig, mesh: mesh_lib.Mesh, tokens, mask):
+    """This rank's (inputs, targets, mask, positions) of its rows
+    [B_local, S+1]: shifted, zigzag-permuted where asked, cut to its
+    sequence slots. positions None: 0..S-1 (one sequence shard)."""
+    inputs, targets, mask, positions = _zigzag_shift(
+        tokens, mask, _zigzag_seq_shards(cfg, mesh))
+    if mesh.shape['sequence'] == 1:
+        return inputs, targets, mask, positions
+    if positions is None:
+        positions = torch.arange(inputs.shape[1], device=tokens.device)
+
+    def cut(x, dim):
+        return None if x is None else sharding.local_shard(x, 'seq', dim,
+                                                           mesh)
+    return cut(inputs, 1), cut(targets, 1), cut(mask, 1), cut(positions, 0)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum of ``x`` over ``group``'s ranks (``x`` itself without one)."""
+    if group is not None:
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+    return x
+
+
+# Grads are summed in flat buckets of about this many bytes: one
+# collective a bucket, not one a leaf.
+BUCKET_BYTES = 1 << 28
+
+
+def all_reduce_grads(grads: List[torch.Tensor], group) -> None:
+    """Sum each grad over ``group``'s ranks, in place, bucket by bucket
+    (consecutive leaves of one dtype, up to BUCKET_BYTES a bucket)."""
+    if group is None:
+        return
+    bucket: List[torch.Tensor] = []
+    size = 0
+
+    def flush():
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        dist.all_reduce(flat, group=group)
+        off = 0
+        for g in bucket:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+    for g in grads:
+        nbytes = g.numel() * g.element_size()
+        if bucket and (size + nbytes > BUCKET_BYTES or
+                       g.dtype != bucket[0].dtype):
+            flush()
+            bucket, size = [], 0
+        bucket.append(g)
+        size += nbytes
+    if bucket:
+        flush()
+
+
+def forward_with_aux(cfg: LlamaConfig, params: Params, inputs: torch.Tensor,
+                     positions: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(logits, the router aux to add to the loss): the model module's
     ``forward(return_aux=True)`` when it sets ``HAS_AUX``, else its
-    logits and 0."""
+    logits and 0. ``positions`` (the dense family's ring attention)
+    are passed on where given."""
     mod = module_for(cfg)
     if getattr(mod, 'HAS_AUX', False):
         return mod.forward(params, inputs, cfg, return_aux=True)
+    if positions is not None:
+        return mod.forward(params, inputs, cfg, positions=positions), 0.0
     return mod.forward(params, inputs, cfg), 0.0
 
 
-def make_train_step(cfg: LlamaConfig, tx: AdamW, grad_accum_steps: int = 1
+def make_train_step(cfg: LlamaConfig, tx: AdamW, grad_accum_steps: int = 1,
+                    mesh: Optional[mesh_lib.Mesh] = None
                     ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Dict[str, object]]]:
     """(state, batch) → (state, metrics); the state moves on in place.
 
     batch: {'tokens': int [B, S+1]}, shifted here; an optional
-    'loss_mask' [B, S] masks the target positions. grad_accum_steps > 1
+    'loss_mask' [B, S] masks the target positions. On a ``mesh`` the
+    batch is this rank's rows (data/loader.py ``shard_batch``) at the
+    full length; the step keeps its sequence slots. grad_accum_steps > 1
     splits the batch into that many microbatches run one after another
     before one update, weighting each microbatch's mean grad by its
     target-token count, so the update equals the dense step. The grads
     are those of the CE plus the router aux (each microbatch's own aux
-    inside its grads, as in the JAX scan). Metrics: loss (the CE alone),
-    grad_norm (of the unclipped grads), tokens (0-d tensors, not
-    synchronised) and step.
+    inside its grads, as in the JAX scan). Metrics: loss (the CE alone,
+    over the global batch), grad_norm (of the unclipped grads), tokens
+    (0-d tensors, not synchronised) and step.
     """
+    mesh = mesh or mesh_lib.single_device_mesh()
+    check_mesh(cfg, mesh)
+    group = mesh.group('data', 'fsdp', 'sequence')
 
     def grads_of(params, tokens, mask):
-        inputs, targets = _shift(tokens)
-        logits, aux = forward_with_aux(cfg, params, inputs)
-        loss, denom = cross_entropy_loss(logits, targets, mask)
-        grads = torch.autograd.grad(loss + aux, leaves(params))
-        return list(grads), loss.detach(), denom
+        inputs, targets, mask, positions = _local_batch(cfg, mesh, tokens,
+                                                        mask)
+        with mesh_lib.use_mesh(mesh):
+            logits, aux = forward_with_aux(cfg, params, inputs, positions)
+            nll, count = cross_entropy_sums(logits, targets, mask)
+            denom = _all_reduce(count.detach(), group).clamp(min=1.0)
+            loss = nll / denom
+            grads = torch.autograd.grad(loss + aux, leaves(params))
+        return list(grads), _all_reduce(loss.detach(), group), denom
 
     def step_fn(state: TrainState, batch: Batch):
         tokens = batch['tokens']
@@ -225,6 +385,7 @@ def make_train_step(cfg: LlamaConfig, tx: AdamW, grad_accum_steps: int = 1
             d_safe = d_sum.clamp(min=1.0)
             grads = [g / d_safe for g in grads]
             loss, denom = l_sum / d_safe, d_sum
+        all_reduce_grads(grads, group)
         gnorm = tx.update(grads, state.opt_state, state.params)
         metrics = {'loss': loss, 'grad_norm': gnorm, 'tokens': denom,
                    'step': state.step}
@@ -234,17 +395,24 @@ def make_train_step(cfg: LlamaConfig, tx: AdamW, grad_accum_steps: int = 1
     return step_fn
 
 
-def make_eval_step(cfg: LlamaConfig
+def make_eval_step(cfg: LlamaConfig, mesh: Optional[mesh_lib.Mesh] = None
                    ) -> Callable[[Params, Batch], torch.Tensor]:
-    """Forward-only loss: (params, batch) → 0-d mean CE, no grad (the
-    router aux is asked for and dropped, as in JAX)."""
+    """Forward-only loss: (params, batch) → 0-d mean CE over the global
+    batch, no grad (the router aux is asked for and dropped, as in JAX).
+    On a ``mesh``, as :func:`make_train_step` takes its batch."""
+    mesh = mesh or mesh_lib.single_device_mesh()
+    check_mesh(cfg, mesh)
+    group = mesh.group('data', 'fsdp', 'sequence')
 
     @torch.no_grad()
     def eval_fn(params, batch: Batch) -> torch.Tensor:
-        inputs, targets = _shift(batch['tokens'])
-        logits, _ = forward_with_aux(cfg, params, inputs)
-        loss, _ = cross_entropy_loss(logits, targets, batch.get('loss_mask'))
-        return loss
+        inputs, targets, mask, positions = _local_batch(
+            cfg, mesh, batch['tokens'], batch.get('loss_mask'))
+        with mesh_lib.use_mesh(mesh):
+            logits, _ = forward_with_aux(cfg, params, inputs, positions)
+        nll, count = cross_entropy_sums(logits, targets, mask)
+        return _all_reduce(nll, group) / _all_reduce(count, group).clamp(
+            min=1.0)
 
     return eval_fn
 

@@ -13,6 +13,13 @@ checkpoints (port of skypilot_tpu/train/trainer.py on one card).
     python -m skypilot_tpu_torch.train.trainer --hf-dir ./Llama-3.2-1B \\
         --sft-data chats.jsonl --lora-rank 16 --lora-dir ./adapters
 
+    # One process per node of a gang (SkyPilot sets the three variables):
+    SKYTPU_COORDINATOR_ADDRESS=host0:8476 SKYTPU_NUM_PROCESSES=2 \\
+    SKYTPU_NODE_RANK=$RANK python -m skypilot_tpu_torch.train.trainer \\
+        --model llama-1b --mesh sequence=2 --seq-len 65536 \\
+        --model-override attention_impl=ring \\
+        --model-override ring_layout=zigzag
+
 Step-indexed input (data_service/spec.py: the synthetic stream, a corpus
 with ``--data``, or chat conversations with ``--sft-data``, trained on
 the assistant turns alone: data/sft.py), periodic async checkpoints in
@@ -33,15 +40,29 @@ the directory's tokenizer.json, which must exist: an HF fine-tune never
 falls back to bytes. The trainer runs on the card (``--device cuda``,
 the default) and raises without one; tests pass ``device='cpu'``.
 
-Not ported yet, and refused by name: meshes (``--mesh``) and
-``--data-service``. Failpoints, spans and the batch-wait histogram wait
-for a later slice too (ROADMAP Queue 1 item 5).
+Several processes: :func:`maybe_init_distributed` joins the gang that
+SkyPilot's launch describes in ``SKYTPU_COORDINATOR_ADDRESS``,
+``SKYTPU_NUM_PROCESSES`` and ``SKYTPU_NODE_RANK`` (the JAX trainer's
+names; the backend from ``SKYTPU_TORCH_DIST_BACKEND``, parallel/mesh.py),
+and ``--mesh`` lays the ranks out as in JAX (``data=2,sequence=2``).
+The port splits the batch over 'data' and the sequence over 'sequence'
+(ring attention, ``--model-override attention_impl=ring``); a mesh
+whose 'fsdp', 'tensor', 'expert' or 'stage' comes to more than 1 (the
+JAX default ``fsdp=-1`` fills it with every rank) is refused by name.
+Every rank holds the whole state and restores it; rank 0 alone writes
+checkpoints and the log records, and at the end every rank checks that
+the replicas' params are bit-equal (one ``replica`` record a rank).
+
+Not ported yet, and refused by name: ``--data-service``, and
+``--lora-rank`` on a mesh. Failpoints, spans and the batch-wait
+histogram wait for a later slice too (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
 import logging
 import os
@@ -51,12 +72,16 @@ import time
 from typing import Any, Dict, Iterator, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from skypilot_tpu_torch import config
 from skypilot_tpu_torch.data import loader
 from skypilot_tpu_torch.data_service import spec as spec_lib
+from skypilot_tpu_torch.kernels import build
 from skypilot_tpu_torch.models import hf_import, module_for
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.train import checkpoints, lora, train_lib
+from skypilot_tpu_torch.utils import knobs
 
 logger = logging.getLogger('skypilot_tpu_torch.train.trainer')
 
@@ -101,7 +126,6 @@ class TrainerConfig:
 # What the JAX trainer has and the port does not yet, each with the
 # ROADMAP Queue 1 item that brings it.
 _UNPORTED = (
-    ('mesh', '--mesh', 'item 8 (parallelism and multi-process)'),
     ('data_service', '--data-service',
      'item 5 (training: the data-service client)'),
 )
@@ -140,6 +164,64 @@ class _PreemptionWatch(contextlib.AbstractContextManager):
         return self._flag.is_set()
 
 
+def maybe_init_distributed(device: torch.device) -> torch.device:
+    """Join the gang's torch.distributed world when the launch made one
+    (``SKYTPU_COORDINATOR_ADDRESS`` set and ``SKYTPU_NUM_PROCESSES`` >
+    1, this process ``SKYTPU_NODE_RANK``, the JAX trainer's knobs).
+    Returns this rank's device: on the card ``cuda:(LOCAL_RANK or 0) %
+    device_count``."""
+    coordinator = knobs.get_str('SKYTPU_COORDINATOR_ADDRESS')
+    num_procs = knobs.get_int('SKYTPU_NUM_PROCESSES')
+    if device.type == 'cuda' and device.index is None:
+        local = int(os.environ.get('LOCAL_RANK') or 0)
+        device = torch.device('cuda', local % torch.cuda.device_count())
+    if coordinator and num_procs > 1 and not dist.is_initialized():
+        mesh_lib.init_distributed(coordinator, num_procs,
+                                  knobs.get_int('SKYTPU_NODE_RANK'), device)
+    return device
+
+
+def _build_mesh(tcfg: TrainerConfig,
+                cfg: config.LlamaConfig) -> mesh_lib.Mesh:
+    """``--mesh`` over the world (JAX's ``MeshSpec(**mesh)``; default
+    ``MeshSpec()``), refused (``train_lib.check_mesh``) before any
+    process group is made where the port's step cannot run on it."""
+    spec = mesh_lib.MeshSpec(**tcfg.mesh) if tcfg.mesh else \
+        mesh_lib.MeshSpec()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    train_lib.check_mesh(cfg, mesh_lib.Mesh(spec.sizes(world), 0))
+    return mesh_lib.build_mesh(spec)
+
+
+def params_sha256(params: train_lib.Params) -> str:
+    """sha256 of the params' bytes, leaf by leaf in the JAX tree order:
+    equal on every rank exactly when the replicas are bit-equal."""
+    h = hashlib.sha256()
+    for leaf in train_lib.leaves(params):
+        h.update(leaf.detach().contiguous().cpu().numpy().data)
+    return h.hexdigest()
+
+
+def check_replicas(params: train_lib.Params, device) -> Dict[str, Any]:
+    """Every rank's params digest, peak memory and kernel launches, as
+    this rank's ``replica`` record; raises on every rank when the
+    replicas' params differ."""
+    digest = params_sha256(params)
+    seen: List[Any] = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, digest)
+    rec = {'replica': dist.get_rank(), 'params_sha256': digest,
+           'kernel_launches': {n: k.launches
+                               for n, k in build.kernels().items()}}
+    if torch.device(device).type == 'cuda':
+        rec['peak_memory_gb'] = round(
+            torch.cuda.max_memory_allocated(device) / 1e9, 3)
+    logger.info(json.dumps(rec))
+    if len(set(seen)) > 1:
+        raise RuntimeError(f'replicated params differ across ranks: '
+                           f'sha256 by rank {seen}')
+    return rec
+
+
 def _model_config(tcfg: TrainerConfig) -> config.LlamaConfig:
     cfg = config.get_config(tcfg.model)
     if tcfg.model_overrides:
@@ -165,11 +247,12 @@ def _dataset_spec(tcfg: TrainerConfig,
 
 
 def _batch_iter(tcfg: TrainerConfig, vocab_size: int, start_step: int,
-                device) -> Iterator[Dict[str, torch.Tensor]]:
+                device, mesh: mesh_lib.Mesh
+                ) -> Iterator[Dict[str, torch.Tensor]]:
     source = spec_lib.load_source(_dataset_spec(tcfg, vocab_size))
     step = start_step
     while True:
-        yield loader.to_device(source.batch_at_step(step), device)
+        yield loader.shard_batch(source.batch_at_step(step), mesh, device)
         step += 1
 
 
@@ -186,6 +269,18 @@ def train(tcfg: TrainerConfig,
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('no CUDA device: the trainer runs on the card '
                            "unless device='cpu' is asked for")
+    owns_world = not dist.is_initialized()
+    device = maybe_init_distributed(device)
+    owns_world = owns_world and dist.is_initialized()
+    try:
+        return _train(tcfg, params, device)
+    finally:
+        if owns_world:
+            dist.destroy_process_group()
+
+
+def _train(tcfg: TrainerConfig, params: Optional[train_lib.Params],
+           device: torch.device) -> List[Dict[str, float]]:
     load_base = None
     if tcfg.hf_dir:
         if params is not None:
@@ -204,6 +299,9 @@ def train(tcfg: TrainerConfig,
     else:
         cfg = _model_config(tcfg)
     config.check_supported(cfg)
+    mesh = _build_mesh(tcfg, cfg)
+    multi = mesh.size > 1
+    lead = mesh.rank == 0      # writes the log records
     if tcfg.sft_data_path and tcfg.data_path:
         raise ValueError('--sft-data and --data are exclusive (chat SFT vs '
                          'plain-corpus LM).')
@@ -216,9 +314,21 @@ def train(tcfg: TrainerConfig,
                          'yet; lower --batch-size instead (LoRA peak '
                          'memory is dominated by activations, same as the '
                          'full step).')
-    if tcfg.batch_size % tcfg.grad_accum_steps != 0:
+    if multi and lora_mode:
+        raise NotImplementedError(
+            '--lora-rank on a mesh is not ported: LoRA and GRPO meshes '
+            'wait for ROADMAP Queue 1 item 8 (parallelism)')
+    batch_shards = mesh.shape['data'] * mesh.shape['fsdp']
+    if tcfg.batch_size % batch_shards != 0:
+        raise ValueError(
+            f'batch_size={tcfg.batch_size} must be divisible by '
+            f'data*fsdp={batch_shards} (the batch-dim mesh axes).')
+    local_rows = tcfg.batch_size // batch_shards
+    if local_rows % tcfg.grad_accum_steps != 0:
         raise ValueError(f'batch_size={tcfg.batch_size} must be divisible '
-                         f'by grad_accum_steps={tcfg.grad_accum_steps}')
+                         f'by grad_accum_steps={tcfg.grad_accum_steps}'
+                         + (f' on each of data*fsdp={batch_shards} ranks'
+                            if batch_shards > 1 else ''))
     tx = train_lib.default_optimizer(learning_rate=tcfg.learning_rate,
                                      warmup_steps=tcfg.warmup_steps,
                                      total_steps=tcfg.total_steps)
@@ -264,16 +374,17 @@ def train(tcfg: TrainerConfig,
                 tcfg.ckpt_dir, cfg, tx, device, params)
         else:
             state = train_lib.init_train_state(cfg, tx, device, params=params)
-        step_fn = train_lib.make_train_step(cfg, tx, tcfg.grad_accum_steps)
+        step_fn = train_lib.make_train_step(cfg, tx, tcfg.grad_accum_steps,
+                                            mesh)
 
         def eval_params():
             return state.params
-    batches = _batch_iter(tcfg, cfg.vocab_size, start_step, device)
+    batches = _batch_iter(tcfg, cfg.vocab_size, start_step, device, mesh)
 
     eval_fn = None
     if tcfg.eval_data_path:
         eval_tokens = loader.load_tokens(tcfg.eval_data_path, tcfg.tokenizer)
-        eval_step = train_lib.make_eval_step(cfg)
+        eval_step = train_lib.make_eval_step(cfg, mesh)
 
         def eval_fn() -> float:
             # Fixed batches 0..K-1 of the eval corpus: comparable across
@@ -284,8 +395,8 @@ def train(tcfg: TrainerConfig,
             for i in range(tcfg.eval_batches):
                 eb = loader.batch_at_step(eval_tokens, i, tcfg.batch_size,
                                           tcfg.seq_len)
-                total += float(eval_step(p, loader.to_device(
-                    {'tokens': eb}, device)))
+                total += float(eval_step(p, loader.shard_batch(
+                    {'tokens': eb}, mesh, device)))
             return total / tcfg.eval_batches
 
     def save_adapters() -> bool:
@@ -308,7 +419,7 @@ def train(tcfg: TrainerConfig,
                 do_eval = (eval_fn is not None and
                            (step + 1) % tcfg.eval_every == 0)
                 if do_log or do_eval:
-                    rec = {'step': step + 1}
+                    rec: Dict[str, Any] = {'step': step + 1}
                     if do_log:
                         loss = float(metrics['loss'])   # device sync point
                         now = time.perf_counter()
@@ -322,29 +433,42 @@ def train(tcfg: TrainerConfig,
                     t_last = time.perf_counter()    # exclude eval time
                     steps_since_log = 0
                     history.append(rec)
-                    logger.info(json.dumps(rec))
-                save_due = (step + 1) % tcfg.ckpt_every == 0 or (
+                    if lead:
+                        logger.info(json.dumps(rec))
+                timed_save = (
                     tcfg.ckpt_time_interval > 0 and
                     time.monotonic() - t_last_save >= tcfg.ckpt_time_interval)
+                preempted = watch.preempted
+                if multi:
+                    # The ranks' clocks and signals differ: any rank's
+                    # flag holds for all, so they save and stop together.
+                    flags = torch.tensor([int(timed_save), int(preempted)],
+                                         device=device)
+                    dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+                    timed_save, preempted = (bool(f) for f in flags.tolist())
+                save_due = (step + 1) % tcfg.ckpt_every == 0 or timed_save
                 if ckpt is not None and save_due:
                     ckpt.save(state, step + 1)
                     t_last_save = time.monotonic()
                 if save_due and save_adapters():
                     t_last_save = time.monotonic()
-                if watch.preempted:
+                if preempted:
                     # Preemption notice: one synchronous final save.
                     if ckpt is not None:
                         ckpt.save(state, step + 1, wait=True)
                     saved = save_adapters()
-                    logger.info(json.dumps(
-                        {'step': step + 1, 'preempted': True,
-                         'final_checkpoint': ckpt is not None or saved}))
+                    if lead:
+                        logger.info(json.dumps(
+                            {'step': step + 1, 'preempted': True,
+                             'final_checkpoint': ckpt is not None or saved}))
                     return history
             if ckpt is not None:
                 ckpt.save(state, tcfg.total_steps)
             if tcfg.total_steps % tcfg.ckpt_every != 0:
                 # The in-loop cadence already saved on aligned totals.
                 save_adapters()
+        if multi:
+            check_replicas(state.params, device)
     finally:
         if ckpt is not None:
             ckpt.close()     # async saves are durable before we return
@@ -409,8 +533,10 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=('llama3', 'chatml', 'plain'),
                         help="Chat template (default: from the "
                              "tokenizer's special tokens).")
-    # Flags of the JAX trainer that the port refuses by name.
-    parser.add_argument('--mesh', default='')
+    parser.add_argument('--mesh', default='',
+                        help='Mesh axis sizes, e.g. data=2,sequence=4 '
+                             '(parallel/mesh.py MeshSpec).')
+    # A flag of the JAX trainer that the port refuses by name.
     parser.add_argument('--data-service', default=None)
     return parser
 

@@ -6,7 +6,12 @@ grammar and the same typed accessors.
 It holds only the engine's rows, the KV handoff's two
 (``SKYTPU_HANDOFF_TIMEOUT``, ``SKYTPU_HANDOFF_TTL``), the journal's two
 (``SKYTPU_OBSERVE_DB``, ``SKYTPU_DISABLE_JOURNAL``),
-``SKYTPU_FLIGHT_CAPACITY`` and ``SKYTPU_FAILPOINTS``. An accessor reads the environment per call (a
+``SKYTPU_FLIGHT_CAPACITY``, ``SKYTPU_FAILPOINTS``, ring attention's two
+(``SKYTPU_RING_BWD_CHUNK``, ``SKYTPU_RING_BWD_FLASH``) and the gang's
+three (``SKYTPU_COORDINATOR_ADDRESS``, ``SKYTPU_NUM_PROCESSES``,
+``SKYTPU_NODE_RANK``), plus one row of the port's own,
+``SKYTPU_TORCH_DIST_BACKEND``: the JAX package has no process-group
+backend to choose. An accessor reads the environment per call (a
 knob read at import stays read at import: the call site decides) and
 fails with :class:`KnobError`, naming the knob, on a malformed value
 or an undeclared name. Empty counts as unset, except where ``''`` is
@@ -115,6 +120,27 @@ _declare('SKYTPU_DISABLE_JOURNAL', 'bool', False, 'observe',
 # ------------------------------------------------------------ utils
 _declare('SKYTPU_FAILPOINTS', 'str', '', 'utils',
          'Failpoint arming schedule (site=spec;...).')
+
+# -------------------------------------------------------------- ops
+_declare('SKYTPU_RING_BWD_CHUNK', 'int', 1024, 'ops',
+         'Ring-attention backward KV chunk (HBM peak bound).')
+_declare('SKYTPU_RING_BWD_FLASH', 'enum', '', 'ops',
+         'Flash-kernel backward dispatch: auto / force / einsum-only.',
+         choices=('', '1', '0'))
+
+# --------------------------------------------- skylet / gang runtime
+_declare('SKYTPU_NODE_RANK', 'int', 0, 'skylet',
+         'Global rank of this gang member.')
+_declare('SKYTPU_COORDINATOR_ADDRESS', 'str', None, 'skylet',
+         'jax.distributed coordinator host:port.')
+_declare('SKYTPU_NUM_PROCESSES', 'int', 1, 'skylet',
+         'Total processes across all slices.')
+
+# ---------------------------------------------------- the port's own
+_declare('SKYTPU_TORCH_DIST_BACKEND', 'enum', '', 'parallel',
+         "torch.distributed backend ('' = nccl on a card, gloo on the "
+         'CPU; gloo lets ranks share one card).',
+         choices=('', 'nccl', 'gloo'))
 
 
 def _lookup(name: str, want_type: str) -> Knob:

@@ -187,12 +187,19 @@ def _idle(eng):
 
 def test_port_knobs_have_the_jax_names_types_and_defaults():
     from skypilot_tpu.utils import knobs as jknobs
-    assert set(knobs.REGISTRY) == {
+    port_only = {'SKYTPU_TORCH_DIST_BACKEND'}     # no JAX counterpart
+    assert set(knobs.REGISTRY) - port_only == {
         n for n in jknobs.REGISTRY if n.startswith('SKYTPU_ENGINE_')} | {
         'SKYTPU_FLIGHT_CAPACITY', 'SKYTPU_FAILPOINTS',
         'SKYTPU_HANDOFF_TIMEOUT', 'SKYTPU_HANDOFF_TTL',
-        'SKYTPU_OBSERVE_DB', 'SKYTPU_DISABLE_JOURNAL'}
+        'SKYTPU_OBSERVE_DB', 'SKYTPU_DISABLE_JOURNAL',
+        'SKYTPU_RING_BWD_CHUNK', 'SKYTPU_RING_BWD_FLASH',
+        'SKYTPU_COORDINATOR_ADDRESS', 'SKYTPU_NUM_PROCESSES',
+        'SKYTPU_NODE_RANK'}
+    assert not port_only & set(jknobs.REGISTRY)
     for name, knob in knobs.REGISTRY.items():
+        if name in port_only:
+            continue
         j = jknobs.REGISTRY[name]
         assert (knob.type, knob.default, knob.choices) == \
             (j.type, j.default, j.choices), name

@@ -240,7 +240,8 @@ def test_model_step_runs_both_kernels(cuda):
         launches = {n: k.launches for n, k in build.kernels().items()}
         want = 0 if plain else cfg.n_layers
         assert launches == {'flash_fwd': want, 'paged_decode': want,
-                            'flash_dq': 0, 'flash_dkv': 0}
+                            'flash_dq': 0, 'flash_dkv': 0,
+                            'flash_dq_f32': 0, 'flash_dkv_f32': 0}
         outs.append((logits, step))
     for a, b in zip(outs[0], outs[1]):
         assert a.isfinite().all()
@@ -416,7 +417,8 @@ def test_model_backward_gives_every_param_a_grad(cuda):
         launches = {n: k.launches for n, k in build.kernels().items()}
         n = cfg.n_layers if impl == 'auto' else 0
         assert launches == {'flash_fwd': 2 * n, 'flash_dq': n,
-                            'flash_dkv': n, 'paged_decode': 0}
+                            'flash_dkv': n, 'paged_decode': 0,
+                            'flash_dq_f32': 0, 'flash_dkv_f32': 0}
     for (name, _), g, ref in zip(weights.tree_paths(params), *grads):
         assert g is not None and g.isfinite().all(), name
         assert float((g - ref).norm()) < 5e-2 * float(ref.norm()), name
@@ -598,7 +600,8 @@ def test_gemma_7b_layer_launches_kernels_a_and_b(cuda):
     model phases; the two bf16 paths round at different points)."""
     launches, got = _gemma_layer_run(cuda, False)
     assert launches == {'flash_fwd': 1, 'paged_decode': 1, 'flash_dq': 0,
-                        'flash_dkv': 0}
+                        'flash_dkv': 0, 'flash_dq_f32': 0,
+                        'flash_dkv_f32': 0}
     assert got.isfinite().all()
     _, ref = _gemma_layer_run(cuda, True)
     _, f32 = _gemma_layer_run(cuda, True, dtype=torch.float32)
@@ -647,7 +650,8 @@ def test_flash_autograd_at_256_matches_plain_autograd(cuda, causal):
     o = fa.flash_attention(q, k, v, causal=causal)
     got = torch.autograd.grad((o.float() * w).sum(), (q, k, v))
     assert {n: kern.launches for n, kern in build.kernels().items()} == \
-        {'flash_fwd': 1, 'flash_dq': 1, 'flash_dkv': 1, 'paged_decode': 0}
+        {'flash_fwd': 1, 'flash_dq': 1, 'flash_dkv': 1, 'flash_dq_f32': 0,
+         'flash_dkv_f32': 0, 'paged_decode': 0}
     q32, k32, v32 = (x.detach().float().requires_grad_() for x in (q, k, v))
     ref_o = attention.xla_attention(q32, k32, v32, causal=causal)
     want = torch.autograd.grad((ref_o * w).sum(), (q32, k32, v32))
@@ -683,7 +687,7 @@ def test_gemma_model_backward_runs_kernels_a_c_d(cuda):
         n = cfg.n_layers if impl == 'auto' else 0
         assert {n_: k.launches for n_, k in build.kernels().items()} == \
             {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
-             'paged_decode': 0}
+             'flash_dq_f32': 0, 'flash_dkv_f32': 0, 'paged_decode': 0}
     for (name, _), g, ref in zip(weights.tree_paths(params), *grads):
         assert g.isfinite().all(), name
         assert float((g - ref).norm()) < 5e-2 * float(ref.norm()), name
@@ -1076,7 +1080,7 @@ def test_moe_1b_attention_shape_launches_a_c_d(cuda):
     n = cfg.n_layers
     assert {k: v.launches for k, v in build.kernels().items()} == \
         {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
-         'paged_decode': 0}
+         'flash_dq_f32': 0, 'flash_dkv_f32': 0, 'paged_decode': 0}
     assert np.isfinite(float(m['loss'])) and np.isfinite(float(m['grad_norm']))
 
 
@@ -1203,7 +1207,7 @@ def test_lora_step_on_card_launches_a_c_d(cuda):
     n = cfg.n_layers
     assert {k: v.launches for k, v in build.kernels().items()} == \
         {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
-         'paged_decode': 0}
+         'flash_dq_f32': 0, 'flash_dkv_f32': 0, 'paged_decode': 0}
     assert np.isfinite(float(m['loss'])) and float(m['grad_norm']) > 0
     for a, b in zip(train_lib.leaves(base), before):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
@@ -1231,7 +1235,7 @@ def test_grpo_iteration_on_card_launches_a_c_d(cuda):
     n = cfg.n_layers
     assert {k: v.launches for k, v in build.kernels().items()} == \
         {'flash_fwd': 5 * n, 'flash_dq': n, 'flash_dkv': n,
-         'paged_decode': 0}
+         'flash_dq_f32': 0, 'flash_dkv_f32': 0, 'paged_decode': 0}
     assert m['mean_ratio'] == pytest.approx(1.0, abs=1e-3), m
     assert all(np.isfinite(v) for v in m.values()), m
 
@@ -1451,3 +1455,103 @@ def test_adopted_request_decodes_in_the_captured_graphs(cuda):
         n * eng._graph_launches[key]['paged_decode']
         for key, n in replays.items())
     assert eng.alloc.used_count == 0
+
+
+# ---------------------------------------------------------------------------
+# Context parallelism: kernels C and D's fp32 mode, the ring on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('d,h,kh', [(64, 8, 2), (128, 4, 2), (256, 4, 4)])
+@pytest.mark.parametrize('causal', [True, False])
+def test_flash_bwd_f32_mode_matches_plain(cuda, d, h, kh, causal):
+    """``_bwd(grad_dtype=torch.float32)`` launches C and D's fp32 mode:
+    fp32 grads within 2e-2 of the largest of the plain backward in fp32
+    on the same bf16 inputs, and, rounded to bf16, bit-equal to the bf16
+    mode's (the same accumulation, rounded on store or not)."""
+    gen = torch.Generator(device=cuda).manual_seed(d + causal)
+    b, s = 2, 300
+    q = _rand(gen, b, s, h, d)
+    k, v = _rand(gen, b, s, kh, d), _rand(gen, b, s, kh, d)
+    qs = (q * d ** -0.5).bfloat16()
+    o, lse = fa._fwd(qs, k, v, causal)
+    do = _rand(gen, b, s, h, d)
+    dlse = torch.randn(lse.shape, generator=gen, device=cuda)
+    before = (fa.DQ_F32_KERNEL.launches, fa.DKV_F32_KERNEL.launches)
+    got = fa._bwd(qs, k, v, o, lse, do, dlse, causal,
+                  grad_dtype=torch.float32)
+    assert (fa.DQ_F32_KERNEL.launches, fa.DKV_F32_KERNEL.launches) == \
+        (before[0] + 1, before[1] + 1)
+    b16 = fa._bwd(qs, k, v, o, lse, do, dlse, causal)
+    ref = fa.flash_attention_bwd_ref(qs.float(), k.float(), v.float(),
+                                     o.float(), lse, do.float(), dlse,
+                                     causal=causal, grad_dtype=torch.float32)
+    for a, a16, r in zip(got, b16, ref):
+        assert a.dtype == torch.float32 and a.isfinite().all()
+        assert float((a - r).abs().max()) < 2e-2 * float(r.abs().max())
+        assert torch.equal(a.to(torch.bfloat16), a16)
+
+
+# Blocks each rank's causal ring over two ranks computes: rank 0 and
+# rank 1 ('seq': the own diagonal, and rank 1 also rank 0's chunk;
+# 'zigzag': 3 pairs of its own chunks 0,3 or 1,2 and 2 of the other's).
+RING_BLOCKS = {'seq': (1, 2), 'zigzag': (5, 5)}
+
+
+@pytest.mark.parametrize('h,kh,d', [(16, 8, 128), (32, 8, 64)],
+                         ids=['llama-1b', 'hd64'])
+def test_ring_two_ranks_on_one_card_match_one_process(cuda, tmp_path, h,
+                                                      kh, d):
+    """Two gloo ranks sharing the card (tests/torch_dist_worker.py), both
+    layouts, causal, 1024 tokens (256-token blocks: the kernels' route),
+    llama-1b's 16/8 heads at hd 128 and llama3.2-1b's 32/8 at hd 64:
+    each rank's output within 3e-2 and grads within 2e-2 of the largest
+    (the JAX ring test's bounds) of kernels A, C and D over the whole
+    sequence in this process; each rank launched A, C and D (fp32 mode)
+    once a visible block."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    from skypilot_tpu_torch.ops import ring_attention as ring
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rng = np.random.default_rng(0)
+    arrays = {'q': rng.standard_normal((1, 1024, h, d)),
+              'k': rng.standard_normal((1, 1024, kh, d)),
+              'v': rng.standard_normal((1, 1024, kh, d)),
+              'do': rng.standard_normal((1, 1024, h, d))}
+    arrays = {n: a.astype(np.float32) for n, a in arrays.items()}
+    jobs = {layout: dict(kind='ring', world=2, layout=layout, causal=True,
+                         dtype='bfloat16', device='cuda', **arrays)
+            for layout in ('seq', 'zigzag')}
+    with open(tmp_path / 'jobs.pkl', 'wb') as f:
+        pickle.dump(jobs, f)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, 'tests', 'torch_dist_worker.py'),
+         str(tmp_path / 'jobs.pkl'), str(r), '2', str(tmp_path / 'init'),
+         str(tmp_path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs
+    q, k, v, do = (torch.from_numpy(arrays[n]).to(cuda, torch.bfloat16)
+                   for n in ('q', 'k', 'v', 'do'))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True)
+    ref = [out.detach()] + list(torch.autograd.grad(out, leaves, do))
+    for r in range(2):
+        with open(tmp_path / f'rank{r}.pkl', 'rb') as f:
+            res = pickle.load(f)
+        for layout, got in res.items():
+            def mine(x):
+                if layout == 'zigzag':
+                    x = ring.zigzag_permute(x, 2)
+                return x[:, r * 512:(r + 1) * 512].float().cpu().numpy()
+            blocks = RING_BLOCKS[layout][r]
+            for name in ('flash_fwd', 'flash_dq_f32', 'flash_dkv_f32'):
+                assert got['launches'][name] == blocks, (layout, r, got)
+            assert got['launches']['flash_dq'] == 0
+            o, *grads = got['arrays']
+            assert float(np.abs(o - mine(ref[0])).max()) < 3e-2
+            for g, w in zip(grads, ref[1:]):
+                w = mine(w)
+                assert float(np.abs(g - w).max()) < 2e-2 * float(
+                    np.abs(w).max())

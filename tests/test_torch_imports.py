@@ -52,6 +52,9 @@ def test_port_sources_import_no_jax_and_no_jax_package():
     assert len(files) > 10
     for name in ('lora', 'lora_merge', 'grpo'):
         assert PORT / 'train' / f'{name}.py' in files
+    for path in (('parallel', 'mesh.py'), ('parallel', 'sharding.py'),
+                 ('parallel', '__init__.py'), ('ops', 'ring_attention.py')):
+        assert PORT.joinpath(*path) in files
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if forbidden(m)]
     assert bad == []

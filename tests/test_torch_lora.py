@@ -394,8 +394,8 @@ def test_trainer_lora_evaluates_the_merged_params(tmp_path, caplog,
     seen = []
     real = train_lib.make_eval_step
 
-    def spy(cfg):
-        step = real(cfg)
+    def spy(cfg, mesh=None):
+        step = real(cfg, mesh)
 
         def wrapped(params, batch):
             seen.append(params['layers']['wq'])

@@ -315,7 +315,7 @@ def test_wrappers_take_plain_version_on_cpu_and_launch_nothing():
                        attention.xla_attention(fq, fk, fv))
     kernels = build.kernels()
     assert set(kernels) == {'flash_fwd', 'flash_dq', 'flash_dkv',
-                            'paged_decode'}
+                            'flash_dq_f32', 'flash_dkv_f32', 'paged_decode'}
     for k in kernels.values():
         assert k.launches == 0
         assert k._fn is None                 # never built or loaded

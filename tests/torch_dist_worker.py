@@ -1,0 +1,104 @@
+"""One rank of a gloo process group on the CPU, for the port's
+context-parallel tests (tests/test_torch_ring.py).
+
+    python tests/torch_dist_worker.py JOBS.pkl RANK WORLD INIT_FILE OUT_DIR
+
+Joins the world through ``file://INIT_FILE``, runs every job of
+JOBS.pkl whose world is WORLD, and writes OUT_DIR/rank<RANK>.pkl: {job
+name: result}. Inputs and results are numpy, made from seeds by the
+test; this process imports torch and the port only, never JAX.
+"""
+import os
+import pickle
+import sys
+
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from skypilot_tpu_torch import config  # noqa: E402
+from skypilot_tpu_torch.models import weights  # noqa: E402
+from skypilot_tpu_torch.ops import ring_attention as ring  # noqa: E402
+from skypilot_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
+from skypilot_tpu_torch.train import train_lib  # noqa: E402
+
+DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
+
+def ring_job(job, rank, world):
+    """The ring over this rank's shard on ``job['device']`` (default the
+    CPU): {'arrays': (out, dq, dk, dv) as fp32 numpy, 'launches': each
+    kernel's launches in it}, with the backward knobs ``chunk`` /
+    ``flash`` set for this job."""
+    from skypilot_tpu_torch.kernels import build
+    n, layout = world, job['layout']
+    dt = DTYPES[job['dtype']]
+    ring._BWD_KV_CHUNK = job.get('chunk', 1024)
+    ring._BWD_FLASH = job.get('flash', '')
+    q, k, v, do = (torch.from_numpy(job[x]).to(job.get('device', 'cpu'), dt)
+                   for x in ('q', 'k', 'v', 'do'))
+    if layout == 'zigzag':
+        q, k, v, do = (ring.zigzag_permute(x, n) for x in (q, k, v, do))
+    sl = q.shape[1] // n
+    q, k, v, do = (x[:, rank * sl:(rank + 1) * sl].contiguous()
+                   for x in (q, k, v, do))
+    for x in (q, k, v):
+        x.requires_grad_()
+    build.reset_launches()
+    out = ring.ring_attention(q, k, v, group=dist.group.WORLD,
+                              causal=job['causal'], layout=layout)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    return {'arrays': [t.detach().float().cpu().numpy()
+                       for t in (out,) + grads],
+            'launches': {name: kern.launches
+                         for name, kern in build.kernels().items()}}
+
+
+def train_job(job, rank, world):
+    """Train steps of ``job['model']`` with ``job['overrides']`` on a
+    mesh of ``job['mesh']``, from the bridged params, one a batch of
+    ``job['tokens']``, with no warmup (so the first step moves the
+    params too): (losses, grad norms, the new params' leaves in the JAX
+    order)."""
+    import dataclasses
+    from skypilot_tpu_torch.data import loader
+    cfg = dataclasses.replace(config.get_config(job['model']),
+                              **job['overrides'])
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(**job['mesh']))
+    tx = train_lib.default_optimizer(warmup_steps=0)
+    params = weights.params_from_jax(job['params'], cfg, device='cpu')
+    state = train_lib.init_train_state(cfg, tx, 'cpu', params=params)
+    step = train_lib.make_train_step(cfg, tx, mesh=mesh)
+    losses, gnorms = [], []
+    for tokens in job['tokens']:
+        batch = loader.shard_batch({'tokens': tokens}, mesh, 'cpu')
+        state, metrics = step(state, batch)
+        losses.append(float(metrics['loss']))
+        gnorms.append(float(metrics['grad_norm']))
+    return losses, gnorms, [leaf.detach().numpy() for leaf in
+                            train_lib.leaves(state.params)]
+
+
+def main():
+    jobs_path, rank, world, init_file, out_dir = sys.argv[1:]
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    dist.init_process_group('gloo', init_method=f'file://{init_file}',
+                            rank=rank, world_size=world)
+    with open(jobs_path, 'rb') as f:
+        jobs = pickle.load(f)
+    out = {}
+    for name, job in jobs.items():
+        if job['world'] != world:
+            continue
+        fn = train_job if job['kind'] == 'train' else ring_job
+        out[name] = fn(job, rank, world)
+    with open(os.path.join(out_dir, f'rank{rank}.pkl'), 'wb') as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+if __name__ == '__main__':
+    main()
