@@ -292,7 +292,38 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  between its rollout and its update A on generate's
                  ragged prefill and on the scoring (TOL_MODEL) and the
                  update's grads (TOL_GRAD) against the plain attention
-                 in bf16 and fp32.
+                 in bf16 and fp32;
+ 25. harvest   — harvested RL on llama-1b whole (fp32 masters from seed
+                 0) through train/rollout/harness.run_harvest: the
+                 dispatcher and the learner in this process, two
+                 workers as `python -m skypilot_tpu_torch.train.rollout
+                 worker` subprocesses on the card; groups of 8 x (64 +
+                 64) tokens at temperature 1 rewarded by the fraction
+                 of even token ids (every group's rewards vary), 1 s of
+                 pacing a group, 2 groups a step, kl_coef 0.04, 28
+                 steps, a snapshot at the start and after the last
+                 step; one worker SIGKILLed after step 4 (a lease
+                 holder), a fresh one spawned after step 6: every step
+                 completes, the kill journaled rollout_worker_lost and
+                 its leases rollout_lease_reassign, every worker's
+                 stats file there, the fresh worker's first group
+                 between the degraded and the post-rejoin windows,
+                 some group's advantages non-zero; kernel A 2 x layers
+                 a group in each worker (prefill, behaviour scoring;
+                 its own counts from --stats-file) and, in the learner,
+                 A 3 x layers and C, D once a layer a step plus the
+                 warm-up's update; replay_losses bit-equal to the live
+                 losses; on the last logged batch, A on the learner's
+                 scoring (B=16) and the worker's prefill and scoring on
+                 its compute cast (B=8) (TOL_MODEL), and the update's
+                 grads (TOL_GRAD), against the plain attention; a lease
+                 generated twice against the newest snapshot
+                 byte-identical, another lease different; run_harvest's
+                 samples/s before the kill, degraded and after the
+                 rejoin, s/step, publish and restore seconds of the
+                 3.89 GB snapshot, peak memory of the learner and each
+                 worker. Scratch in the git-ignored .smoke_harvest/
+                 (removed).
 Then it prints the card's name and power limit, one {"kernels": [...]}
 line, and as its last line {"ok": true, "device": {...}}.
 
@@ -1607,12 +1638,13 @@ def step_cost(torch, decode, p, cfg, tok_t, len_t, width: int) -> dict:
 
 
 def a_vs_plain(torch, fn, cfg, params, params32, tag: str,
-               what: str):
+               what: str, whole: bool = False):
     """``fn(cfg, params)`` three ways, without grad: with kernel A
     (``cfg``, 'auto'), with the plain attention in bf16, and with the
     plain attention in fp32 on ``params32``. A's max |diff| to fp32 must
-    be no more than TOL_MODEL x the plain bf16 path's. Returns (the
-    ratio, A's output)."""
+    be no more than TOL_MODEL x the plain bf16 path's; with ``whole``,
+    its error over all elements (Frobenius) instead, the max printed.
+    Returns (the ratio held, A's output)."""
     import dataclasses
     cfg_x = dataclasses.replace(cfg, attention_impl='xla')
     cfg32 = dataclasses.replace(cfg_x, dtype=torch.float32)
@@ -1623,6 +1655,16 @@ def a_vs_plain(torch, fn, cfg, params, params32, tag: str,
     std = float(f.std())
     e_a = float((a - f).abs().max()) / std
     e_x = float((x - f).abs().max()) / std
+    if whole:
+        fro = float((a - f).norm()) / float((x - f).norm())
+        log(f'{tag} kernel A, {what}: |diff| to fp32 over all elements, A '
+            f'/ plain bf16 {fro:.3f} (tol {TOL_MODEL}); max|diff|/std '
+            f'A {e_a:.3e}, plain bf16 {e_x:.3e}, ratio {e_a / e_x:.3f} '
+            f'(not held)')
+        if fro > TOL_MODEL:
+            fail(f'{tag} kernel A {what}: error over all elements {fro:.3f}'
+                 f' x the plain bf16 path\'s > {TOL_MODEL}')
+        return fro, a
     log(f'{tag} kernel A, {what}: max|diff|/std(fp32): A {e_a:.3e}, plain '
         f'bf16 {e_x:.3e}, ratio {e_a / e_x:.3f} (tol {TOL_MODEL})')
     if e_a > TOL_MODEL * e_x:
@@ -4575,6 +4617,373 @@ def phase_grpo(torch, build, hf_dir: str) -> dict:
     return launches
 
 
+# The harvest phase: harvested RL on llama-1b whole (fp32 masters from
+# seed 0), through train/rollout/harness.run_harvest in this process
+# (dispatcher and learner) with its workers as real subprocesses sharing
+# the card: prompts of HARVEST_S tokens, HARVEST_NEW new tokens at
+# temperature 1, groups of HARVEST_G rewarded by harness.even_token_reward
+# (about half of any completion's tokens are even, so every group's
+# rewards vary on random weights), HARVEST_GROUPS groups a step, kl_coef
+# HARVEST_KL, HARVEST_STEPS steps. A snapshot at the start and one after
+# the last step (HARVEST_PUBLISH, 2 kept), so that no restore falls in a
+# rate window. Each group costs a worker HARVEST_DELAY_S more (the
+# harness's pacing), so that the fleet, not the learner, sets the pace
+# and a kill shows in it. Two workers; one SIGKILLed after step
+# HARVEST_KILL_AT, one fresh worker after step HARVEST_RESPAWN_AT. The
+# rates are run_harvest's windows: before the kill steps 3-4, degraded
+# steps 6-10 (before the fresh worker can have booted and restored), after
+# the rejoin the last 4 steps; the fresh worker's first group must fall
+# between the two. Scratch lives in the git-ignored .smoke_harvest/.
+HARVEST_S, HARVEST_NEW, HARVEST_G, HARVEST_GROUPS = 64, 64, 8, 2
+HARVEST_KL, HARVEST_STEPS, HARVEST_PUBLISH, HARVEST_LR = 0.04, 28, 28, 1e-5
+HARVEST_KILL_AT, HARVEST_RESPAWN_AT, HARVEST_HEARTBEAT_S = 4, 6, 3.0
+HARVEST_DELAY_S, HARVEST_WORKERS = 1.0, 2
+
+
+@contextlib.contextmanager
+def first_kernel_inputs(fa):
+    """Records, cloned, the arguments of the first kernel A call
+    (``fa._fwd``: ``rec['fwd']``) and the first C and D call
+    (``fa._bwd``: ``rec['bwd']``) made while it is active: the inputs a
+    path gives the kernels, to hold them against the plain versions."""
+    rec = {}
+    fwd, bwd = fa._fwd, fa._bwd
+
+    def keep(key, args):
+        if key not in rec:
+            rec[key] = tuple(x.detach().clone() if hasattr(x, 'detach')
+                             else x for x in args)
+
+    def spy_fwd(*args):
+        keep('fwd', args)
+        return fwd(*args)
+
+    def spy_bwd(*args, **kw):
+        keep('bwd', args)
+        return bwd(*args, **kw)
+    fa._fwd, fa._bwd = spy_fwd, spy_bwd
+    try:
+        yield rec
+    finally:
+        fa._fwd, fa._bwd = fwd, bwd
+
+
+def hold_kernel_inputs(torch, fa, rec: dict, tag: str, what: str) -> None:
+    """Kernel A, and C and D where recorded, again on the inputs
+    first_kernel_inputs took from a path, against the plain versions in
+    fp32 on the same bf16 inputs: o elementwise (o_ok), lse within
+    TOL_LSE, each grad's max|err| / max|ref| under TOL_BWD."""
+    qs, k, v, causal = rec['fwd']
+    o, lse = fa._fwd(qs, k, v, causal)
+    o_ref, lse_ref = fa.flash_attention_ref(qs.float(), k.float(),
+                                            v.float(), causal=causal,
+                                            softmax_scale=1.0)
+    el = max_err(lse.transpose(1, 2), lse_ref)
+    ok = o_ok(o, o_ref) and el <= TOL_LSE
+    log(f'{tag} kernel A on its first call\'s inputs in {what} (q '
+        f'{list(qs.shape)}, k {list(k.shape)}): o err '
+        f'{max_err(o, o_ref):.3e} (tol {TOL_O}'
+        f' + 2^-8|o|), lse err {el:.3e} (tol {TOL_LSE}) '
+        f'{"ok" if ok else "MISMATCH"}')
+    if not ok:
+        fail(f'{tag} kernel A disagrees with the plain attention on '
+             f'{what}\'s inputs')
+    if 'bwd' not in rec:
+        return
+    qs, k, v, o, lse, do, dlse, causal = rec['bwd'][:8]
+    do = do.to(qs.dtype)
+    got = fa._bwd(qs, k, v, o, lse, do, dlse, causal)
+    ref = fa.flash_attention_bwd_ref(qs.float(), k.float(), v.float(),
+                                     o.float(), lse, do.float(), dlse,
+                                     causal=causal)
+    rel = [max_err(a, r) / float(r.abs().max()) for a, r in zip(got, ref)]
+    ok = all(bool(a.isfinite().all()) for a in got) and max(rel) < TOL_BWD
+    log(f'{tag} kernels C, D on their first call\'s inputs in {what} '
+        f'(the last layer\'s backward): '
+        f'max|err|/max|ref| dq {rel[0]:.3e} dk {rel[1]:.3e} dv '
+        f'{rel[2]:.3e} (tol {TOL_BWD}) {"ok" if ok else "MISMATCH"}')
+    if not ok:
+        fail(f'{tag} kernels C, D disagree with the plain backward on '
+             f'{what}\'s inputs')
+
+
+def harvest_vs_plain(torch, spec, traj_path: str, tag: str) -> None:
+    """Kernels A, C and D on the harvest's path, against the plain
+    attention, over the batch of one logged step (``traj_path``) on the
+    fp32 masters from ``spec.seed``: the learner's scoring
+    (token_logprobs, B = groups x group, S = prompt + new - 1), the
+    update's grads (check_grads on grpo.grpo_loss, TOL_GRAD) and, on the
+    worker's compute cast (decode.cast_params_for_compute), generate's
+    prefill of one group's prompts (B = group, S = prompt) and that
+    group's behaviour scoring. Each is held twice: the kernels on the
+    inputs the path gave them (hold_kernel_inputs: the kernel
+    tolerances), and the path's output against the plain attention in
+    bf16 and fp32 (a_vs_plain over all elements, TOL_MODEL: the max of
+    one log-prob's error moves with the data, either way, more than the
+    kernels do)."""
+    import dataclasses
+    from skypilot_tpu_torch.models import decode
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train import grpo, train_lib
+    from skypilot_tpu_torch.train.rollout import learner as learner_lib
+    cfg, mod, gcfg, _, _, ref_lp_fn = learner_lib._grpo_pieces(
+        spec, None, HARVEST_LR, HARVEST_STEPS)
+    params = mod.init_params(
+        cfg, torch.Generator(device='cuda').manual_seed(spec.seed), 'cuda')
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    with torch.no_grad():
+        p32 = decode.cast_params_for_decode(params, cfg32)
+        p16 = decode.cast_params_for_compute(params, cfg)
+    batch = learner_lib._assemble_batch(
+        spec, gcfg, learner_lib._read_log_step(traj_path), 'cuda')
+    seq, comp_idx, behavior_lp, adv, mask = batch
+    ref_lp = learner_lib._ref_logprobs(ref_lp_fn, params, batch)
+    b, L = seq.shape       # token_logprobs attends over L - 1 tokens
+    g, s = spec.group_size, spec.prompt_len
+    runs = [
+        (f'the learner\'s scoring (B={b}, S={L - 1})', params,
+         lambda c, p: grpo.token_logprobs(p, seq, c, mod,
+                                          spec.temperature)[0]),
+        (f'the worker\'s prefill on its compute cast (B={g}, S={s})', p16,
+         lambda c, p: decode.prefill_cache(p, seq[:g, :s], c, L)[0]),
+        (f'the worker\'s behaviour scoring on its compute cast (B={g}, '
+         f'S={L - 1})', p16,
+         lambda c, p: grpo.token_logprobs(p, seq[:g], c, mod,
+                                          spec.temperature)[0])]
+    for what, tree, fn in runs:
+        with torch.no_grad(), first_kernel_inputs(fa) as rec:
+            fn(cfg, tree)
+        hold_kernel_inputs(torch, fa, rec, tag, what)
+        a_vs_plain(torch, fn, cfg, tree, p32, tag, what, whole=True)
+    del p16, p32, rec
+    free_card(torch)
+    for leaf in train_lib.leaves(params):
+        leaf.requires_grad_(True)
+
+    def loss_fn(c, p):
+        return grpo.grpo_loss(p, c, gcfg, mod, seq, comp_idx, behavior_lp,
+                              adv, mask, ref_lp)[0]
+    what = f'the update on the logged batch (B={b}, S={L - 1})'
+    log(f'{tag} {what}, max |advantage| {float(adv.abs().max()):.3f}: '
+        f'grads against the plain attention')
+    with first_kernel_inputs(fa) as rec:
+        check_grads(torch, cfg, params, None, tag, loss_fn=loss_fn)
+    hold_kernel_inputs(torch, fa, rec, tag, what)
+    del params, batch, ref_lp, rec
+    free_card(torch)
+
+
+def phase_harvest(torch, build, card: str) -> dict:
+    """Harvested RL at llama-1b's full width: run_harvest with the kill
+    and the rejoin; every step completes; the killed worker journaled
+    rollout_worker_lost and its leases rollout_lease_reassign; every
+    spawned worker left its stats file, and the fresh one generated its
+    first group after the degraded window and before the post-rejoin
+    one; some group's rewards vary (the advantages are not all 0);
+    kernel A exactly 2 x layers x groups generated in each worker
+    (prefill, behaviour scoring) and, in the learner, A 3 x layers a step
+    (the reference scoring, the update's forward and its recompute) and
+    C, D once a layer, plus one update of the warm-up; then, outside the
+    counted run, replay_losses over the trajectory log bit-equal to the
+    live losses, A, C and D at the run's shapes against the plain
+    attention (harvest_vs_plain), and one lease generated twice against
+    the newest snapshot byte-identical (a second lease differs). Prints
+    run_harvest's samples/s before the kill, degraded and after the
+    rejoin, s/step, publish and restore seconds of the fp32 snapshot,
+    peak memory of the learner and of each worker, with the card.
+    Returns the run's launch counts (learner + workers)."""
+    import glob
+    import shutil
+    from skypilot_tpu_torch import config
+    from skypilot_tpu_torch.observe import journal
+    from skypilot_tpu_torch.train.rollout import harness
+    from skypilot_tpu_torch.train.rollout import learner as learner_lib
+    from skypilot_tpu_torch.train.rollout import worker as worker_lib
+    tag = '[harvest]'
+    t_phase = time.perf_counter()
+    run_dir = os.path.join(HERE, '.smoke_harvest')
+    shutil.rmtree(run_dir, ignore_errors=True)
+    stats_dir = os.path.join(run_dir, 'stats')
+    old_db = os.environ.get('SKYTPU_OBSERVE_DB')
+    os.environ['SKYTPU_OBSERVE_DB'] = os.path.join(run_dir, 'journal.db')
+    cfg = config.get_config('llama-1b')
+    n_l = cfg.n_layers
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        art = harness.run_harvest(
+            run_dir, n_workers=HARVEST_WORKERS, total_steps=HARVEST_STEPS,
+            kill_at_step=HARVEST_KILL_AT, kill_count=1,
+            respawn_at_step=HARVEST_RESPAWN_AT,
+            groups_per_step=HARVEST_GROUPS, publish_every=HARVEST_PUBLISH,
+            max_staleness=2, learning_rate=HARVEST_LR,
+            heartbeat_timeout=HARVEST_HEARTBEAT_S, lease_timeout=120.0,
+            stall_budget_s=300.0, tag='smoke', device='cuda',
+            stats_dir=stats_dir, snapshot_max_to_keep=2,
+            spec_overrides=dict(
+                model='llama-1b', reward=harness.EVEN_TOKEN_REWARD,
+                vocab_size=cfg.vocab_size, prompt_len=HARVEST_S,
+                group_size=HARVEST_G, max_new_tokens=HARVEST_NEW,
+                temperature=1.0, kl_coef=HARVEST_KL, seed=0,
+                rollout_delay_s=HARVEST_DELAY_S))
+        torch.cuda.synchronize()
+        learner_launches = launch_counts(build)
+        learner_peak = torch.cuda.max_memory_allocated() / 1e9
+        spec = art['spec']
+        workers = {}
+        for wid in art['workers']:
+            path = os.path.join(stats_dir, f'{wid}.json')
+            if not os.path.exists(path):
+                fail(f'{tag} worker {wid} left no stats file: it never '
+                     f'restored a snapshot')
+            with open(path) as f:
+                workers[wid] = json.load(f)
+        history = art['history']
+        log(f'{tag} llama-1b whole, {HARVEST_GROUPS} groups of '
+            f'{HARVEST_G} x ({HARVEST_S} + {HARVEST_NEW}) tokens a step, '
+            f'kl {HARVEST_KL}, {HARVEST_DELAY_S}s pacing a group: '
+            f'{art["steps"]} of {HARVEST_STEPS} steps in '
+            f'{art["duration_s"]:.1f}s; killed {art["killed"]} after step '
+            f'{HARVEST_KILL_AT}, workers {art["workers"]}; report '
+            f'{json.dumps(art["report"])}')
+        if art['steps'] != HARVEST_STEPS or len(art['killed']) != 1:
+            fail(f'{tag} steps {art["steps"]}, killed {art["killed"]}')
+        lost_ev = journal.query(kind='rollout_worker_lost', limit=100)
+        lost = [e['entity'] for e in lost_ev]
+        moved = [e for e in journal.query(kind='rollout_lease_reassign',
+                                          limit=100)
+                 if e['entity'] in art['killed']]
+        # Journal stamps are wall-clock, the step stamps monotonic.
+        last_step = art['step_walls'][-1] + (time.time() - time.monotonic())
+        when = [(e['entity'], round(e['ts'] - last_step, 2)) for e in lost_ev]
+        log(f'{tag} journal: rollout_worker_lost {when} (s after the last '
+            f'step); '
+            f'rollout_lease_reassign of the killed worker '
+            f'{[(e["reason"], e["data"]) for e in moved]}')
+        for wid in art['killed']:
+            if wid not in lost or not any(e['entity'] == wid and
+                                          e['data']['leases']
+                                          for e in moved):
+                fail(f'{tag} no loss or reassignment journaled for {wid}')
+        # Launches: the learner in this process, each worker in its own.
+        want = want_launches(build, flash_fwd=n_l * (2 + 3 * HARVEST_STEPS),
+                             flash_dq=n_l * (1 + HARVEST_STEPS),
+                             flash_dkv=n_l * (1 + HARVEST_STEPS))
+        log(f'{tag} learner launches {learner_launches} (want {want})')
+        if learner_launches != want:
+            fail(f'{tag} learner launches {learner_launches} != {want}')
+        launches = dict(learner_launches)
+        for wid, st in workers.items():
+            got = st['kernel_launches']
+            w_want = {n: (2 * n_l * st['generated'] if n == 'flash_fwd'
+                          else 0) for n in got}
+            gen_s = (f'{statistics.median(st["generate_s"]):.3f}'
+                     if st['generate_s'] else 'none')
+            log(f'{tag} worker {wid}: {st["generated"]} groups generated, '
+                f'launches {got} (want {w_want}); restore s '
+                f'{[round(x, 3) for x in st["restore_s"]]}; generate s '
+                f'(median, pacing included) {gen_s}; peak memory '
+                f'{st["peak_memory_gb"]:.2f} GB | {card}')
+            if got != w_want:
+                fail(f'{tag} worker {wid} launches {got} != {w_want}')
+            for n, c in got.items():
+                launches[n] = launches.get(n, 0) + c
+        if sum(st['generated'] for st in workers.values()) < \
+                HARVEST_STEPS * HARVEST_GROUPS:
+            fail(f'{tag} workers generated fewer groups than the learner '
+                 f'consumed: {workers}')
+        # The fresh worker: its first group after the degraded window
+        # (steps HARVEST_KILL_AT + 1 .. + 6) and before the last 5 step
+        # stamps, which the post-rejoin rate spans.
+        walls = art['step_walls']
+        fresh = art['workers'][HARVEST_WORKERS:]
+        for wid in fresh:
+            done = workers[wid]['generated_at']
+            if not done:
+                fail(f'{tag} the fresh worker {wid} generated no group in '
+                     f'{HARVEST_STEPS} steps')
+            log(f'{tag} fresh worker {wid}: first group '
+                f'{done[0] - art["respawn_wall"]:.2f}s after its spawn; '
+                f'degraded window ends '
+                f'{walls[HARVEST_KILL_AT + 5] - art["respawn_wall"]:.2f}s, '
+                f'post-rejoin window starts '
+                f'{walls[-5] - art["respawn_wall"]:.2f}s after it')
+            if not walls[HARVEST_KILL_AT + 5] < done[0] < walls[-5]:
+                fail(f'{tag} the fresh worker\'s first group falls outside '
+                     f'the gap between the degraded and the post-rejoin '
+                     f'windows: the rates would not measure what they '
+                     f'are named')
+        log(f'{tag} samples/s (run_harvest\'s windows): whole run '
+            f'{art["samples_per_sec"]!r}; before the kill '
+            f'{art["pre_kill_sps"]!r}, degraded {art["degraded_sps"]!r}, '
+            f'after the rejoin {art["post_rejoin_sps"]!r}; recovery to '
+            f'90% of the pre-kill rate {art["recovery_s"]!r} s after the '
+            f'kill | {card}')
+        log(f'{tag} s/step {[h["sec_per_step"] for h in history]}; losses '
+            f'{art["losses"]}; mean rewards '
+            f'{[round(h["mean_reward"], 4) for h in history]}')
+        logged = sorted(glob.glob(os.path.join(art['traj_log_dir'],
+                                               'traj_*.npz')))
+        varied = sum(int(np.var(g['rewards']) > 0) for p in logged
+                     for g in learner_lib._read_log_step(p))
+        log(f'{tag} groups whose rewards vary (non-zero advantages): '
+            f'{varied} of {len(logged) * HARVEST_GROUPS}')
+        if varied == 0:
+            fail(f'{tag} every group\'s rewards are equal: every advantage '
+                 f'is 0 and the update trains on the KL term alone')
+        snap_gb = cfg.num_params * 4 / 1e9
+        restores = [x for st in workers.values() for x in st['restore_s']]
+        log(f'{tag} snapshot {snap_gb:.2f} GB fp32: publish s '
+            f'{[round(x, 3) for x in art["report"]["publish_s"]]}, worker '
+            f'restore s {[round(x, 3) for x in restores]}; learner peak '
+            f'memory {learner_peak:.2f} GB | {card}')
+
+        # Replay, outside the counted run: the same update code on the
+        # same log from the same seed, bit for bit.
+        t0 = time.perf_counter()
+        replayed = learner_lib.replay_losses(
+            spec, art['traj_log_dir'], learning_rate=HARVEST_LR,
+            total_steps=HARVEST_STEPS, device='cuda')
+        log(f'{tag} replay of the trajectory log: {replayed} in '
+            f'{time.perf_counter() - t0:.1f}s; bit-equal to the live '
+            f'losses: {replayed == art["losses"]}')
+        if replayed != art['losses']:
+            fail(f'{tag} replay {replayed} != live {art["losses"]}')
+        free_card(torch)
+        harvest_vs_plain(torch, spec, logged[-1], tag)
+        # One lease twice against the newest snapshot, and another.
+        w = worker_lib.RolloutWorker(('127.0.0.1', 1),
+                                     worker_id='smoke-regen', device='cuda')
+        w._spec, w._latest_version = spec, art['report']['snapshot_version']
+        t0 = time.perf_counter()
+        if not (w._ensure_model() and w._ensure_snapshot()):
+            fail(f'{tag} the regeneration worker restored no snapshot')
+        t_restore = time.perf_counter() - t0
+        lease = 1000
+        first, again, other = (w._generate(lease), w._generate(lease),
+                               w._generate(lease + 1))
+        same = {k: first[k].tobytes() == again[k].tobytes() for k in first}
+        differ = first['completions'].tobytes() != \
+            other['completions'].tobytes()
+        log(f'{tag} lease {lease} twice against snapshot '
+            f'v{w._held_version} (restored in this process in '
+            f'{t_restore:.2f}s): byte-identical {same}; lease {lease + 1} '
+            f'differs: {differ}')
+        if not all(same.values()) or not differ:
+            fail(f'{tag} same-lease regeneration {same}, differ {differ}')
+        w.stop()
+        del w
+    finally:
+        if old_db is None:
+            os.environ.pop('SKYTPU_OBSERVE_DB', None)
+        else:
+            os.environ['SKYTPU_OBSERVE_DB'] = old_db
+        shutil.rmtree(run_dir, ignore_errors=True)
+    free_card(torch)
+    log(f'{tag} phase took {time.perf_counter() - t_phase:.1f}s')
+    return launches
+
+
 def free_card(torch) -> None:
     """Collect what an ended phase left in reference cycles (an engine
     and its server threads hold each other) and give the cached blocks
@@ -5066,7 +5475,7 @@ def main() -> None:
                         'gemma_switches,model_moe,serve_moe,serve_gptoss,'
                         'model_mla,serve_mla,serve_deepseek_v2,'
                         'train_gemma,train,ring,train_moe,train_mla,hf,sft,'
-                        'lora,grpo',
+                        'lora,grpo,harvest',
                         help='comma-separated '
                         'subset (for '
                         'debugging; the full run is the check)')
@@ -5297,6 +5706,9 @@ def main() -> None:
     finally:
         import shutil
         shutil.rmtree(os.path.join(HERE, '.smoke_hf'), ignore_errors=True)
+    if 'harvest' in phases:
+        by_path['harvest'] = phase_harvest(torch, build, card)
+    lap('harvest')
     replaces = {
         'flash_fwd': 'skypilot_tpu/ops/pallas/flash_attention.py:63',
         'flash_dq': 'skypilot_tpu/ops/pallas/flash_attention.py:159',
@@ -5315,7 +5727,8 @@ def main() -> None:
              'train_hf': TRAIN_KERNELS, 'serve_hf': SERVE_KERNELS,
              'train_lora': TRAIN_KERNELS, 'serve_lora': SERVE_KERNELS,
              'train_sft': TRAIN_KERNELS, 'serve_sft': SERVE_KERNELS,
-             'grpo': TRAIN_KERNELS, 'ring': RING_KERNELS}
+             'grpo': TRAIN_KERNELS, 'ring': RING_KERNELS,
+             'harvest': TRAIN_KERNELS}
     rows = []
     for name, kern in build.kernels().items():
         t = times.get(name, {})

@@ -175,6 +175,13 @@ def train_state_from_arrays(template, arrays: Mapping[str, np.ndarray],
             tree_from_arrays(opt.nu, arrays, f'{ADAM_PATH}.nu', device))
 
 
+def _writable(a) -> np.ndarray:
+    """``a`` as a writable numpy array, copied only when it is not one
+    (torch.from_numpy shares the memory)."""
+    a = np.asarray(a)
+    return a if a.flags.writeable else np.array(a)
+
+
 def tree_from_arrays(template: Mapping[str, Any],
                      arrays: Mapping[str, np.ndarray], prefix: str,
                      device) -> dict:
@@ -185,5 +192,5 @@ def tree_from_arrays(template: Mapping[str, Any],
         path = f"{prefix}['{key}']"
         out[key] = (tree_from_arrays(val, arrays, path, device)
                     if isinstance(val, Mapping) else
-                    torch.from_numpy(np.array(arrays[path])).to(device))
+                    torch.from_numpy(_writable(arrays[path])).to(device))
     return out

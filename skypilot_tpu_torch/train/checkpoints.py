@@ -1,6 +1,7 @@
-"""Step checkpoints of the port's TrainState, in the JAX package's
-on-disk format (port of skypilot_tpu/train/checkpoints.py: one card, or
-the ranks of a mesh whose params are whole on every rank).
+"""Step checkpoints of the port's TrainState, or of a bare params tree,
+in the JAX package's on-disk format (port of
+skypilot_tpu/train/checkpoints.py: one card, or the ranks of a mesh
+whose params are whole on every rank).
 
 Format (one directory per step), as the JAX ``Checkpointer`` writes it::
 
@@ -11,7 +12,10 @@ Format (one directory per step), as the JAX ``Checkpointer`` writes it::
 
 The manifest's ``path`` keys and ``dtype`` strings are the ones the JAX
 package writes for the same state (models/weights.py names them), so a
-step saved by either package restores in the other. The port writes one
+step saved by either package restores in the other. A bare params tree
+(the harvested-RL learner's policy snapshots, train/rollout/) is saved
+at its own paths, ``['embed']``, ``['layers']['wq']``..., with no
+``.params`` prefix, as the JAX ``Checkpointer`` writes ``state.params``. The port writes one
 chunk per array; it reads steps of any chunking (a JAX run on a mesh
 writes one chunk per shard) and checks that the chunks tile the array.
 
@@ -99,14 +103,38 @@ def _step_dirname(step: int) -> str:
     return f'step_{step:08d}'
 
 
-def _npy_bytes(array: np.ndarray) -> bytes:
-    buf = io.BytesIO()
-    np.save(buf, array, allow_pickle=False)
-    return buf.getvalue()
+class _HashingWriter:
+    """A file's ``write`` that hashes what goes through it: np.save
+    streams a multi-GB leaf in bounded chunks, hashed as written, with
+    no whole-file copy in memory."""
+
+    def __init__(self, f):
+        self._f = f
+        self.sha256 = hashlib.sha256()
+
+    def write(self, data) -> int:
+        self.sha256.update(data)
+        return self._f.write(data)
+
+
+def _save_npy(path: str, array: np.ndarray) -> str:
+    """Write ``array`` as the .npy file np.save makes; its sha256."""
+    with open(path, 'wb') as f:
+        writer = _HashingWriter(f)
+        np.save(writer, array, allow_pickle=False)
+    return writer.sha256.hexdigest()
 
 
 def _sha256(data: bytes) -> str:
     return hashlib.sha256(data).hexdigest()
+
+
+def _leaves(tree) -> List[Tuple[str, Any]]:
+    """(checkpoint path, leaf) of a TrainState, or of a bare params tree
+    (its paths without the ``.params`` prefix)."""
+    if isinstance(tree, train_lib.TrainState):
+        return weights.train_state_leaves(tree)
+    return weights.tree_paths(tree)
 
 
 def _host(leaf: Any) -> np.ndarray:
@@ -139,9 +167,10 @@ class Checkpointer:
         self._swept_stale = False
 
     # ------------------------------------------------------------------
-    def save(self, state: train_lib.TrainState, step: Optional[int] = None,
+    def save(self, state, step: Optional[int] = None,
              *, wait: bool = False) -> int:
-        """Snapshot ``state`` to host memory and persist it as ``step``
+        """Snapshot ``state`` (a TrainState, or a params tree, which then
+        needs ``step``) to host memory and persist it as ``step``
         (default ``state.step``): in the background unless ``wait``. In
         a multi-process world rank 0 writes it synchronously and every
         rank returns after the step is durable."""
@@ -154,8 +183,7 @@ class Checkpointer:
             return step
         return self._save(state, step, wait=wait)
 
-    def _save(self, state: train_lib.TrainState, step: int,
-              wait: bool) -> int:
+    def _save(self, state, step: int, wait: bool) -> int:
         self._raise_pending_error()
         # One snapshot in flight at most, and a synchronous save never
         # races the worker on the same temp dir.
@@ -163,8 +191,7 @@ class Checkpointer:
         self._raise_pending_error()
         if os.path.isdir(os.path.join(self.directory, _step_dirname(step))):
             return step                # already complete: no snapshot
-        arrays = [(path, _host(leaf))
-                  for path, leaf in weights.train_state_leaves(state)]
+        arrays = [(path, _host(leaf)) for path, leaf in _leaves(state)]
         if not wait:
             self._ensure_worker()
             self._queue.put((step, arrays))
@@ -220,15 +247,13 @@ class Checkpointer:
         records = []
         for i, (path, data) in enumerate(arrays):
             fname = f'arrays/a{i:04d}.p0000.c00.npy'
-            raw = _npy_bytes(data)
-            with open(os.path.join(tmp_dir, fname), 'wb') as f:
-                f.write(raw)
+            digest = _save_npy(os.path.join(tmp_dir, fname), data)
             records.append({
                 'path': path, 'shape': list(data.shape),
                 'dtype': str(data.dtype), 'spec': None,
                 'chunks': [{'file': fname, 'start': [0] * data.ndim,
                             'shape': list(data.shape),
-                            'sha256': _sha256(raw)}]})
+                            'sha256': digest}]})
         manifest = {'format': FORMAT_VERSION, 'step': step,
                     'time': time.time(), 'process_count': 1,
                     'mesh_axes': None, 'arrays': records}
@@ -251,14 +276,16 @@ class Checkpointer:
                           ignore_errors=True)
 
     # ------------------------------------------------------------------
-    def restore_tree(self, template: train_lib.TrainState, step: int,
-                     device='cuda') -> train_lib.TrainState:
+    def restore_tree(self, template, step: int, device='cuda'):
         """Restore ``step`` into a TrainState shaped like ``template``
-        (see :func:`abstract_train_state`), on ``device``. Verifies the
-        manifest and every chunk digest (CheckpointCorruptError); a
-        tree, shape or dtype mismatch is a config mismatch (ValueError),
-        not corruption."""
-        arrays = self._read_arrays(step, weights.train_state_leaves(template))
+        (see :func:`abstract_train_state`), or into a params tree shaped
+        like a params ``template`` (e.g. ``init_params(cfg, None,
+        'meta')``), on ``device``. Verifies the manifest and every chunk
+        digest (CheckpointCorruptError); a tree, shape or dtype mismatch
+        is a config mismatch (ValueError), not corruption."""
+        arrays = self._read_arrays(step, _leaves(template))
+        if not isinstance(template, train_lib.TrainState):
+            return weights.tree_from_arrays(template, arrays, '', device)
         st, params, count, mu, nu = weights.train_state_from_arrays(
             template, arrays, device)
         for leaf in train_lib.leaves(params):
@@ -346,12 +373,14 @@ class Checkpointer:
                 f'{FORMAT_VERSION}.')
         return manifest
 
-    def restore_newest(self, template: train_lib.TrainState, device='cuda'
-                       ) -> Tuple[Optional[train_lib.TrainState],
-                                  Optional[int]]:
-        """Walk complete steps newest→oldest; refuse corrupt steps loudly
-        and fall back. (None, None) when there are no steps; raises
-        CheckpointCorruptError when steps exist but none restores."""
+    def restore_newest(self, template, device='cuda'
+                       ) -> Tuple[Optional[Any], Optional[int]]:
+        """(tree, step) of the newest step that restores into
+        ``template`` (a TrainState or a params tree, as
+        :meth:`restore_tree`). Walks complete steps newest→oldest,
+        refusing corrupt steps loudly and falling back. (None, None)
+        when there are no steps; raises CheckpointCorruptError when
+        steps exist but none restores."""
         steps = self.all_steps()
         if not steps:
             return None, None
@@ -432,7 +461,7 @@ def _assemble_array(step_dir: str, step: int,
                 raise CheckpointCorruptError(
                     f'step {step}: chunks {boxes[a][0]} and {boxes[b][0]} '
                     f'of {rec["path"]} overlap.')
-    out = np.empty(shape, np.dtype(rec['dtype']))
+    out = None
     for chunk in rec['chunks']:
         try:
             with open(os.path.join(step_dir, chunk['file']), 'rb') as f:
@@ -455,9 +484,13 @@ def _assemble_array(step_dir: str, step: int,
             raise CheckpointCorruptError(
                 f'step {step}: chunk {chunk["file"]} shape {data.shape} != '
                 f'manifest {chunk["shape"]}.')
+        if len(rec['chunks']) == 1 and data.dtype == np.dtype(rec['dtype']):
+            return data      # one chunk tiles the array: no copy
+        if out is None:
+            out = np.empty(shape, np.dtype(rec['dtype']))
         out[tuple(slice(s, s + d) for s, d in
                   zip(chunk['start'], data.shape))] = data
-    return out
+    return out if out is not None else np.empty(shape, np.dtype(rec['dtype']))
 
 
 def restore_or_init(directory: str, cfg: LlamaConfig, tx: train_lib.AdamW,

@@ -10,8 +10,10 @@ GRPO (group-relative policy optimization):
     estimator exp(d) - d - 1, d = logp_ref - logp), added per token.
 
 Rollouts go through the contiguous-cache ``generate`` of
-models/decode.py (models/mla.py's for an MLAConfig), from a bf16 cast of
-the fp32 policy made anew each iteration, so rollout i + 1 samples from
+models/decode.py (models/mla.py's for an MLAConfig), from a compute
+cast of the fp32 policy made anew each iteration
+(``decode.cast_params_for_compute``: the same bits as casting at use,
+as JAX's generate on the fp32 policy), so rollout i + 1 samples from
 the policy the update i left; the prefill runs kernel A on the card.
 Behaviour and reference log-probs and the update run the family's
 forward (A in the forward, C and D in the update's backward) on the
@@ -228,8 +230,8 @@ class GRPOTrainer:
         rep_lens = (prompt_lengths.to(dev).repeat_interleave(g)
                     if prompt_lengths is not None else None)
         dec = mla if isinstance(cfg, config.MLAConfig) else decode
-        gen = dec.generate(decode.cast_params_for_decode(self.state.params,
-                                                         cfg),
+        gen = dec.generate(decode.cast_params_for_compute(self.state.params,
+                                                          cfg),
                            rep, cfg, t, max_len=s + t,
                            temperature=gcfg.temperature, eos_id=self.eos_id,
                            prompt_lengths=rep_lens, generator=self.generator)

@@ -24,7 +24,8 @@ Step-indexed input (data_service/spec.py: the synthetic stream, a corpus
 with ``--data``, or chat conversations with ``--sft-data``, trained on
 the assistant turns alone: data/sft.py), periodic async checkpoints in
 the JAX package's format, resume from the newest step, and a final save
-on SIGTERM (a spot preemption notice). Every family the port serves
+on SIGTERM (a spot preemption notice, or the ``trainer.preempt``
+failpoint). Every family the port serves
 trains: dense Llama/Qwen2 and Gemma, MoE and MLA/DeepSeek (their router
 aux joins the loss; train/train_lib.py). ``--hf-dir`` fine-tunes an HF
 checkpoint (models/hf_import.py): its config replaces the preset (the
@@ -54,8 +55,9 @@ checkpoints and the log records, and at the end every rank checks that
 the replicas' params are bit-equal (one ``replica`` record a rank).
 
 Not ported yet, and refused by name: ``--data-service``, and
-``--lora-rank`` on a mesh. Failpoints, spans and the batch-wait
-histogram wait for a later slice too (ROADMAP Queue 1 item 5).
+``--lora-rank`` on a mesh. The train.batch_wait span and the
+batch-wait histogram wait for a later slice too (ROADMAP Queue 1 item
+5).
 """
 from __future__ import annotations
 
@@ -81,7 +83,7 @@ from skypilot_tpu_torch.kernels import build
 from skypilot_tpu_torch.models import hf_import, module_for
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.train import checkpoints, lora, train_lib
-from skypilot_tpu_torch.utils import knobs
+from skypilot_tpu_torch.utils import failpoints, knobs
 
 logger = logging.getLogger('skypilot_tpu_torch.train.trainer')
 
@@ -140,10 +142,12 @@ def _refuse_unported(tcfg: TrainerConfig) -> None:
 
 
 class _PreemptionWatch(contextlib.AbstractContextManager):
-    """SIGTERM (how a spot preemption notice reaches the task) → a flag
-    the step loop checks at step boundaries, so the trainer writes one
-    final checkpoint and exits cleanly. Installed only on the main
-    thread (signal.signal raises elsewhere)."""
+    """SIGTERM (how a spot preemption notice reaches the task) and the
+    deterministic ``trainer.preempt`` failpoint (chaos schedules) → a
+    flag the step loop checks at step boundaries, so the trainer (or the
+    rollout learner) writes one final checkpoint and exits cleanly.
+    Installed only on the main thread (signal.signal raises
+    elsewhere)."""
 
     def __init__(self):
         self._flag = threading.Event()
@@ -161,7 +165,15 @@ class _PreemptionWatch(contextlib.AbstractContextManager):
 
     @property
     def preempted(self) -> bool:
-        return self._flag.is_set()
+        if self._flag.is_set():
+            return True
+        if failpoints.ACTIVE:
+            try:
+                failpoints.fire('trainer.preempt')
+            except failpoints.FailpointError:
+                self._flag.set()
+                return True
+        return False
 
 
 def maybe_init_distributed(device: torch.device) -> torch.device:

@@ -1,12 +1,13 @@
 """Versioned framed-TCP transport with npy array payloads (a copy of
 skypilot_tpu/utils/framed.py, wire format byte for byte: ``send_msg``,
-``recv_msg``, ``request``, ``parse_addr``, ``FramedServer``,
-``Deadline`` and the error classes).
+``recv_msg``, ``request``, ``parse_addr``, ``FramedClient``,
+``FramedServer``, ``Deadline`` and the error classes).
 
 The disaggregated serving plane ships KV cache rows between prefill
-and decode replicas over it (serve/disagg/handoff.py), and the host
-spill tier parks page blobs in its payload encoding
-(serve/host_store.py). One frame = a 12-byte header (magic ``SKDT``,
+and decode replicas over it (serve/disagg/handoff.py), the host spill
+tier parks page blobs in its payload encoding (serve/host_store.py),
+and the harvested-RL plane's workers and learner speak the rollout
+dispatcher's protocol over it (train/rollout/). One frame = a 12-byte header (magic ``SKDT``,
 protocol version, payload length) followed by the payload: a
 u32-prefixed JSON control object plus zero or more u32-prefixed npy
 arrays. npy (not pickle) is the wire format for arrays, read with
@@ -278,6 +279,52 @@ def parse_addr(text: str, default_port: int = 0) -> Tuple[str, int]:
         host, _, port = text.rpartition(':')
         return host or '127.0.0.1', int(port)
     return text, default_port
+
+
+class FramedClient:
+    """Persistent framed connection with lazy (re)connect.
+
+    One TCP connection serves many request/reply exchanges
+    (:class:`FramedServer` keeps a connection open until idle-timeout),
+    so a hot path (a heartbeat every interval, a collect per step) pays
+    the handshake only after a failure. Any protocol or socket error
+    closes the socket so the next request reconnects fresh. NOT
+    thread-safe: each thread owns its own client (a torn half-exchange
+    on a shared socket would desync framing).
+    """
+
+    def __init__(self, addr: Tuple[str, int]):
+        self._addr = addr
+        self._sock: Optional[socket.socket] = None
+
+    def request(self, obj: Dict[str, Any],
+                arrays: Optional[Arrays] = None,
+                timeout: float = 10.0) -> Tuple[Dict[str, Any], Arrays]:
+        deadline = Deadline(timeout)
+        if self._sock is None:
+            self._sock = socket.create_connection(
+                self._addr, timeout=deadline.remaining())
+        # Re-arm per request: the connect timeout must not linger as
+        # the op timeout of every later exchange on this socket.
+        self._sock.settimeout(deadline.remaining())
+        try:
+            send_msg(self._sock, obj, arrays,
+                     timeout=deadline.remaining())
+            reply, reply_arrays = recv_msg(
+                self._sock, timeout=deadline.remaining())
+        except (ProtocolError, OSError):
+            self.close()
+            raise
+        # Outside the except-close: a structured error reply is a
+        # healthy exchange, and the connection stays usable.
+        return raise_if_error(reply), reply_arrays
+
+    def close(self) -> None:
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            finally:
+                self._sock = None
 
 
 class FramedServer:

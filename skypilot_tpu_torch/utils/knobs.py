@@ -7,7 +7,8 @@ It holds only the engine's rows, the KV handoff's two
 (``SKYTPU_HANDOFF_TIMEOUT``, ``SKYTPU_HANDOFF_TTL``), the journal's two
 (``SKYTPU_OBSERVE_DB``, ``SKYTPU_DISABLE_JOURNAL``),
 ``SKYTPU_FLIGHT_CAPACITY``, ``SKYTPU_FAILPOINTS``, ring attention's two
-(``SKYTPU_RING_BWD_CHUNK``, ``SKYTPU_RING_BWD_FLASH``) and the gang's
+(``SKYTPU_RING_BWD_CHUNK``, ``SKYTPU_RING_BWD_FLASH``), the rollout
+plane's five (``SKYTPU_ROLLOUT_*``) and the gang's
 three (``SKYTPU_COORDINATOR_ADDRESS``, ``SKYTPU_NUM_PROCESSES``,
 ``SKYTPU_NODE_RANK``), plus one row of the port's own,
 ``SKYTPU_TORCH_DIST_BACKEND``: the JAX package has no process-group
@@ -116,6 +117,18 @@ _declare('SKYTPU_OBSERVE_DB', 'str', '~/.skytpu/observe/journal.db',
          'observe', 'Journal/span sqlite path.')
 _declare('SKYTPU_DISABLE_JOURNAL', 'bool', False, 'observe',
          'Drop journal writes (hermetic tests).')
+
+# ---------------------------------------------------------- rollout
+_declare('SKYTPU_ROLLOUT_HEARTBEAT_TIMEOUT', 'float', 10.0, 'rollout',
+         'Dispatcher marks a rollout worker LOST after this silence.')
+_declare('SKYTPU_ROLLOUT_LEASE_TIMEOUT', 'float', 120.0, 'rollout',
+         'Prompt-lease reassignment age.')
+_declare('SKYTPU_ROLLOUT_MAX_OUTSTANDING', 'int', 32, 'rollout',
+         'Max outstanding leases per worker pool.')
+_declare('SKYTPU_ROLLOUT_RESULT_CAP', 'int', 64, 'rollout',
+         'Completed-trajectory buffer cap at the dispatcher.')
+_declare('SKYTPU_ROLLOUT_STALL_BUDGET', 'float', 120.0, 'rollout',
+         'Learner stall budget waiting on trajectory batches.')
 
 # ------------------------------------------------------------ utils
 _declare('SKYTPU_FAILPOINTS', 'str', '', 'utils',

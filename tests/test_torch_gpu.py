@@ -1555,3 +1555,100 @@ def test_ring_two_ranks_on_one_card_match_one_process(cuda, tmp_path, h,
                 w = mine(w)
                 assert float(np.abs(g - w).max()) < 2e-2 * float(
                     np.abs(w).max())
+
+
+# --- The harvested-RL plane (train/rollout/) on the card --------------------
+
+def _harvest_spec(monkeypatch, tmp_path, **overrides):
+    """A rollout spec on llama-1b at full width cut to 2 layers (the
+    worker and learner read the preset through config.get_config),
+    rewarded by harness.even_token_reward, whose groups vary on random
+    weights."""
+    from skypilot_tpu_torch.train.rollout import harness
+    from skypilot_tpu_torch.train.rollout import spec as spec_lib
+    real = config.get_config
+    monkeypatch.setattr(config, 'get_config', lambda name: dataclasses.replace(
+        real(name), n_layers=2) if name == 'llama-1b' else real(name))
+    cfg = config.get_config('llama-1b')
+    fields = dict(model='llama-1b', reward=harness.EVEN_TOKEN_REWARD,
+                  snapshot_dir=str(tmp_path / 'snapshots'),
+                  vocab_size=cfg.vocab_size, prompt_len=64, group_size=8,
+                  max_new_tokens=64, temperature=1.0, seed=0)
+    fields.update(overrides)
+    return cfg, spec_lib.RolloutSpec(**fields)
+
+
+def test_rollout_same_lease_is_byte_identical_on_the_card(cuda, tmp_path,
+                                                          monkeypatch):
+    """One lease generated twice against one snapshot gives the same
+    completions, rewards and behaviour log-probs, bytes and all (the
+    step graph draws from the lease's generator); another lease
+    differs; A launches twice a layer a group (prefill, scoring)."""
+    from skypilot_tpu_torch.models import module_for
+    from skypilot_tpu_torch.train import checkpoints
+    from skypilot_tpu_torch.train.rollout import worker as worker_lib
+    cfg, spec = _harvest_spec(monkeypatch, tmp_path)
+    with checkpoints.Checkpointer(spec.snapshot_dir) as ck:
+        ck.save(module_for(cfg).init_params(
+            cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda'), 0,
+            wait=True)
+    w = worker_lib.RolloutWorker(('127.0.0.1', 1), worker_id='gpu',
+                                 device='cuda')
+    w._spec, w._latest_version = spec, 0
+    assert w._ensure_model() and w._ensure_snapshot()
+    build.reset_launches()
+    a, b, c = w._generate(3), w._generate(3), w._generate(4)
+    assert build.kernels()['flash_fwd'].launches == 3 * 2 * cfg.n_layers
+    for key in ('completions', 'rewards', 'behavior_lp'):
+        assert a[key].tobytes() == b[key].tobytes(), key
+    assert a['completions'].tobytes() != c['completions'].tobytes()
+    assert np.isfinite(a['behavior_lp']).all()
+    assert (a['behavior_lp'] <= 0).all()
+
+
+def test_rollout_two_step_replay_is_bit_equal_on_the_card(cuda, tmp_path,
+                                                          monkeypatch):
+    """The learner trains two steps (a KL reference) on groups a worker
+    generated on the card; replay_losses over its trajectory log gives
+    the live losses bit for bit; A 3 x layers and C, D once a layer a
+    step."""
+    from skypilot_tpu_torch.train.rollout import dispatcher as disp_lib
+    from skypilot_tpu_torch.train.rollout import learner as learner_lib
+    from skypilot_tpu_torch.train.rollout import worker as worker_lib
+    monkeypatch.setenv('SKYTPU_OBSERVE_DB', str(tmp_path / 'journal.db'))
+    cfg, spec = _harvest_spec(monkeypatch, tmp_path, kl_coef=0.04)
+    d = disp_lib.RolloutDispatcher(str(tmp_path / 'd.db')).start()
+    learner = None
+    try:
+        learner = learner_lib.RolloutLearner(
+            spec, d.addr, total_steps=2, groups_per_step=2, warmup=False,
+            learning_rate=1e-4, traj_log_dir=str(tmp_path / 'traj'),
+            device='cuda')
+        learner.start()                    # publishes v0
+        w = worker_lib.RolloutWorker(d.addr, worker_id='gpu',
+                                     device='cuda')
+        w._spec, w._latest_version = spec, 0
+        assert w._ensure_model() and w._ensure_snapshot()
+        for lease_id in range(4):
+            learner._queue.put({'lease_id': lease_id, 'version': 0,
+                                **w._generate(lease_id)})
+        del w
+        build.reset_launches()
+        history = learner.run()
+        launches = {n: k.launches for n, k in build.kernels().items()}
+    finally:
+        if learner is not None:
+            learner.close()
+        d.stop()
+    live = [rec['loss'] for rec in history]
+    assert len(live) == 2 and all(np.isfinite(live))
+    # The advantages are not all 0: the policy-gradient term is replayed.
+    assert any(np.var(g['rewards']) > 0 for g in learner_lib._read_log_step(
+        learner_lib._log_path(str(tmp_path / 'traj'), 0)))
+    n = 2 * cfg.n_layers
+    assert launches['flash_fwd'] == 3 * n
+    assert launches['flash_dq'] == launches['flash_dkv'] == n
+    replayed = learner_lib.replay_losses(
+        spec, str(tmp_path / 'traj'), learning_rate=1e-4, total_steps=2,
+        device='cuda')
+    assert replayed == live

@@ -53,7 +53,13 @@ def test_port_sources_import_no_jax_and_no_jax_package():
     for name in ('lora', 'lora_merge', 'grpo'):
         assert PORT / 'train' / f'{name}.py' in files
     for path in (('parallel', 'mesh.py'), ('parallel', 'sharding.py'),
-                 ('parallel', '__init__.py'), ('ops', 'ring_attention.py')):
+                 ('parallel', '__init__.py'), ('ops', 'ring_attention.py'),
+                 ('utils', 'backoff.py'), ('utils', 'sqlite_utils.py'),
+                 ('analysis', '__init__.py'),
+                 ('analysis', 'state_machines.py')) + tuple(
+            ('train', 'rollout', f'{name}.py') for name in (
+                '__init__', '__main__', 'spec', 'telemetry', 'dispatcher',
+                'worker', 'learner', 'harness')):
         assert PORT.joinpath(*path) in files
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imports(p) if forbidden(m)]
@@ -125,6 +131,24 @@ def test_every_port_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith('ok')
+
+
+def test_rollout_roles_default_to_cuda():
+    """The rollout plane's worker and learner run on the card unless
+    asked for the CPU: their constructors, replay and CLI default to
+    cuda (tests/test_torch_rollout.py holds the refusal)."""
+    from skypilot_tpu_torch.train.rollout import __main__ as cli
+    from skypilot_tpu_torch.train.rollout import harness, learner, worker
+    for fn in (worker.RolloutWorker, learner.RolloutLearner,
+               learner.replay_losses, harness.run_harvest,
+               harness.spawn_worker):
+        assert inspect.signature(fn).parameters['device'].default == 'cuda'
+    parser = cli.build_parser()
+    assert parser.parse_args(['worker', '--dispatcher', 'h:1']).device == \
+        'cuda'
+    assert parser.parse_args(['learner', '--dispatcher', 'h:1', '--reward',
+                              'length', '--snapshot-dir', 'd']).device == \
+        'cuda'
 
 
 def test_engine_defaults_to_cuda_and_refuses_without_a_card(monkeypatch):
