@@ -116,7 +116,25 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  logprobs equal to the resident hit's and its tokens to
                  the cold run's; kv_spill and kv_wake in the journal;
                  spill and wake ms (chiprun_out/disagg.json);
-  8. model_gemma — gemma-7b at full width cut to 14 of its 28 layers
+  7d. tp_serve — one replica over a gang: llama-1b whole (bf16, random
+                 weights from seed 0) at --mesh tensor=2, two ranks
+                 sharing the card over gloo (this script with
+                 --tp-worker, each running the engine's main with the
+                 gang flags; 8/4 heads, ffn 3584, 16384 vocabulary rows
+                 a rank): A at S 700 and 256 and B at S 1 and 4 at those
+                 heads against their plain versions; 700- and 20-token
+                 /generate at once, a 600-token one, its first 512
+                 tokens resent (a prefix hit), a streamed completion;
+                 A and B launched on each rank during that traffic; then
+                 the leader SIGTERMed (the follower gets 'stop'), both
+                 ranks exit 0 after a teacher-forced prefill + 8 paged
+                 steps (A 16, B 128 a rank, both ranks' logits the same
+                 bits) and 16 free greedy steps in lockstep, against the
+                 one-process path and fp32 (TOL_MODEL); TPOT, the
+                 collectives' ms a step, boot, peak memory and launches
+                 a rank. --tp-model, --tp-ranks and --tp-backend nccl
+                 run it a card a rank on a host with that many cards;
+  8. model_gemma — gemma-7b at full width cut to 6 of its 28 layers
                  (dim 3072, 16/16 heads, hd 256, vocab 256000; random
                  bf16 weights from seed 0, ~9.7 GB): prefill + 8 paged decode steps
                  through kernels A and B vs the plain and fp32 paths;
@@ -126,7 +144,7 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  card vs fp32, with kernels A and B launched zero times
                  (softcaps, windows: the plain route, as in JAX);
  11. model_moe — gpt-oss-20b at full width cut to 4 layers, then moe-1b
-                 at full width and depth (12 layers, dim 1024, 8/4
+                 at full width cut to 6 of its 12 layers (dim 1024, 8/4
                  heads, hd 128, 8 experts top-2, ffn 4096, vocab 32768,
                  tied; random bf16 weights from seed 0): prefill + 8
                  paged decode steps by the default routing (moe-1b
@@ -146,7 +164,7 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  random bf16 weights drawn leaf by leaf), the
                  same bursts: A and B launch zero times (sinks: the
                  plain route);
- 14. model_mla — deepseek-v2-lite at full width cut to 4 of its 27
+ 14. model_mla — deepseek-v2-lite at full width cut to 2 of its 27
                  layers (dim 2048, 16 heads, latent r 512, dn 128, dr 64, dv 128,
                  ffn 10944, vocab 102400; random bf16 weights from seed
                  0): prefill + 8 paged decode steps over the paged
@@ -198,22 +216,23 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  bucket and a ring message cost; (c) `python -m
                  skypilot_tpu_torch.train.trainer --mesh sequence=2`
                  with zigzag ring as two processes with the gang env,
-                 llama-1b whole, 3 steps of 2 x 4096: launches per rank
+                 llama-1b whole, 2 steps of 2 x 4096: launches per rank
                  (A twice, C and D fp32 once per block per layer per
                  step), both replicas' params sha256 equal, ms/step and
                  peak memory per rank, the losses against the
                  single-process trainer on the same batches (TOL_LOSS);
- 19. train_moe — the trainer on moe-1b at full width cut to 6 of its 12
-                 layers (8 experts top-2, hd 128), checked as in train:
-                 A 72, C 36 and D 36 launches in 6 steps; the grads (CE + router aux) at
+ 19. train_moe — the trainer on moe-1b at full width cut to 4 of its 12
+                 layers (8 experts top-2, hd 128),
+                 checked as in train: A 48, C 24 and D 24 launches in 6
+                 steps; the grads (CE + router aux) at
                  capacity for every choice, the plain and fp32 runs
                  teacher-forced onto the default run's routes in the
                  forward and in the remat recompute; then gpt-oss-20b at
                  full width cut to 2 layers, one step with no kernel, its
                  grads finite and those of the sinks, the q/k/v biases
                  and the clamped experts non-zero;
- 20. train_mla — the trainer on deepseek-v2-lite whole (27 layers, r 512,
-                 vocab 102400), 4 steps of 4 x 2048, no kernel launched
+ 20. train_mla — the trainer on deepseek-v2-lite at full width cut to 14
+                 of its 27 layers (r 512, vocab 102400), 4 steps of 4 x 2048, no kernel launched
                  (the latent attention is plain PyTorch, as in JAX);
                  finite losses and grads, each leaf's bf16 grad within
                  TOL_GRAD_MLA of fp32; one step profiled, peak memory;
@@ -339,6 +358,7 @@ import contextlib
 import hashlib
 import json
 import os
+import signal
 import socket
 import statistics
 import subprocess
@@ -3426,17 +3446,22 @@ def phase_train_gemma(torch, build) -> dict:
 # cut to GPTOSS_TRAIN_LAYERS (one window layer, one full, sinks on both:
 # no kernel), one step of 1 x TRAIN_S (44.9 GB of fp32 state).
 GPTOSS_TRAIN_LAYERS = 2
-# Depth cuts that keep the whole script well inside its time limit on a
-# slow host (every check stands at any depth; full depth was checked
-# before): gemma-7b's model and serve phases and moe-1b's training, each
-# at half its layers, and deepseek-v2-lite's model and serve phases at
-# 4 of 27 (the latent family runs no kernel).
-GEMMA_SERVE_DEPTH, MLA_SERVE_DEPTH, MOE_TRAIN_DEPTH = 14, 4, 6
-# train_mla: deepseek-v2-lite whole (27 layers, 2.607 B params, 41.7 GB of
-# fp32 state), MLA_TRAIN_B x TRAIN_S, MLA_TRAIN_STEPS steps; no kernel
-# (the latent attention is plain PyTorch, as in JAX). Batch 4: at batch 2
-# the trainer's peak was 49.04 GB (H100 80GB HBM3), leaving room.
-MLA_TRAIN_B, MLA_TRAIN_STEPS = 4, 4
+# Depth cuts that keep the whole script inside its time limit on a slow
+# host (every check stands at any depth; full depth was checked before):
+# gemma-7b's model and serve phases at 6 of 28 layers, moe-1b's at 6 of
+# 12 and its training at 4, deepseek-v2-lite's model and serve phases at
+# 2 of 27 (the latent family runs no kernel). Each was cut further (from
+# 14, 12, 6 and 4) when the tp_serve phase joined: the whole script read
+# 1220.5 s on a slow H100 host at the earlier depths.
+GEMMA_SERVE_DEPTH, MLA_SERVE_DEPTH, MOE_TRAIN_DEPTH = 6, 2, 4
+MOE_SERVE_DEPTH = 6
+# train_mla: deepseek-v2-lite at full width (2.607 B params and 41.7 GB
+# of fp32 state whole) cut to MLA_TRAIN_DEPTH of its 27 layers since the
+# tp_serve phase joined the script (no kernel runs on this path, and it
+# trained whole before), MLA_TRAIN_B x TRAIN_S, MLA_TRAIN_STEPS steps;
+# no kernel (the latent attention is plain PyTorch, as in JAX). Batch 4:
+# at batch 2 the whole model's peak was 49.04 GB (H100 80GB HBM3).
+MLA_TRAIN_B, MLA_TRAIN_STEPS, MLA_TRAIN_DEPTH = 4, 4, 14
 # Its grads: per leaf, the bf16 step's relative error (Frobenius) against
 # the fp32 step at most this. There is no second bf16 path to hold it
 # against (no kernel); llama-1b's 16 layers give at most 2.6e-2 a leaf,
@@ -3525,17 +3550,21 @@ def gptoss_train_step(torch, build) -> None:
 
 
 def phase_train_mla(torch, build) -> dict:
-    """The port's trainer on deepseek-v2-lite whole (remat 'full') through
-    train_checked, with no kernel launched and no plain-attention rerun
+    """The port's trainer on deepseek-v2-lite at MLA_TRAIN_DEPTH layers
+    (remat 'full') through train_checked, with no kernel launched and no plain-attention rerun
     (the one path is the plain one); then one step's grads, bf16 against
     fp32, each leaf's error at most TOL_GRAD_MLA; one step profiled.
     Its resume is held on the CPU (tests/test_torch_trainer.py): a
     checkpoint here would be 31 GB. Returns the launch counts (all 0)."""
+    import dataclasses
     from skypilot_tpu_torch import config
     from skypilot_tpu_torch.train import trainer
-    cfg = config.get_config('deepseek-v2-lite')
+    cfg = dataclasses.replace(config.get_config('deepseek-v2-lite'),
+                              n_layers=MLA_TRAIN_DEPTH)
     tcfg = trainer.TrainerConfig(
-        model='deepseek-v2-lite', batch_size=MLA_TRAIN_B, seq_len=TRAIN_S,
+        model='deepseek-v2-lite',
+        model_overrides={'n_layers': MLA_TRAIN_DEPTH},
+        batch_size=MLA_TRAIN_B, seq_len=TRAIN_S,
         total_steps=MLA_TRAIN_STEPS, warmup_steps=TRAIN_WARMUP,
         log_every=1, device='cuda')
     free_card(torch)
@@ -5056,7 +5085,7 @@ RING_B, RING_S, RING_RANKS = 1, 8192, 2
 TOL_RING_OUT, TOL_RING_GRAD = 3e-2, 2e-2
 # (c) The trainer CLI, two gang processes on the card: llama-1b whole,
 # remat 'full', 2 x 4096 tokens (2048 a rank), zigzag ring, 3 steps.
-RING_TRAIN_B, RING_TRAIN_S, RING_TRAIN_STEPS = 2, 4096, 3
+RING_TRAIN_B, RING_TRAIN_S, RING_TRAIN_STEPS = 2, 4096, 2
 RING_KERNELS = ('flash_fwd', 'flash_dq_f32', 'flash_dkv_f32')
 
 
@@ -5457,6 +5486,367 @@ def phase_ring(torch, fa, build, card: str) -> dict:
     return errs, launches
 
 
+# ---------------------------------------------------------------------------
+# The tp_serve phase: one replica over a gang of two ranks
+# ---------------------------------------------------------------------------
+
+# By default llama-1b whole (bf16, random weights from seed 0) at --mesh
+# tensor=2, two ranks sharing the card over gloo: each holds 8 of 16 q
+# heads, 4 of 8 kv heads, 3584 of 7168 ffn units and 16384 of 32768
+# vocabulary rows. --tp-model, --tp-ranks and --tp-backend nccl run the
+# same phase with a rank a card (LOCAL_RANK r) on a host of that many.
+TP_MODEL, TP_RANKS, TP_BACKEND = 'llama-1b', 2, 'gloo'
+TP_DIR = os.path.join(HERE, '.smoke_tp')
+# The traffic: a 700-token prompt (3 chunks of 256) beside a short one,
+# a 600-token prompt, then a request resending its first 512 tokens
+# (a prefix hit), then one streamed completion.
+TP_NEW = 16
+TP_FREE_STEPS = 16
+
+
+def tp_worker(rank: int, port: int, http_port: int, model: str,
+              ranks: int) -> None:
+    """One rank of the gang: ``engine.main`` with the gang flags, the
+    launch counters zeroed when its warm-up ends (just before traffic).
+    After the leader's 'stop' both ranks hold, in lockstep on the
+    engine's own sharded params and mesh, model_prompts' prefill + 8
+    paged decode steps fed their own greedy tokens (then 8 more with
+    every collective timed), and TP_FREE_STEPS free greedy steps.
+    Writes chiprun_out/tp_rank<r>.json; rank 0 also the logits and
+    tokens under .smoke_tp/."""
+    t_start = time.perf_counter()
+    import torch
+    import torch.distributed as dist
+    from skypilot_tpu_torch.kernels import build
+    from skypilot_tpu_torch.models import decode, paging
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    from skypilot_tpu_torch.serve import engine as engine_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state = {}
+    warmup = engine_lib.InferenceEngine.warmup
+
+    def counted_warmup(self, buckets=None):
+        warmup(self, buckets)
+        torch.cuda.synchronize()
+        state['engine'] = self
+        state['boot_s'] = time.perf_counter() - t_start
+        build.reset_launches()
+    engine_lib.InferenceEngine.warmup = counted_warmup
+    engine_lib.main(['--model', model, '--mesh', f'tensor={ranks}',
+                     '--num-processes', str(ranks), '--process-id',
+                     str(rank), '--coordinator', f'127.0.0.1:{port}',
+                     '--host', '127.0.0.1', '--port', str(http_port),
+                     '--warm-buckets', '16'])
+    served = launch_counts(build)
+    eng = state['engine']
+    cfg = eng.cfg
+    tok_t, len_t = model_prompts(torch, cfg.vocab_size,
+                                 np.random.default_rng(5))
+    spent = [0.0]
+    collectives = (dist.all_reduce, dist.all_gather)
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+        return run
+
+    with eng.on_mesh(), torch.no_grad():
+        build.reset_launches()
+        logits, pc = prefilled_pool(torch, decode, paging, eng.params, cfg,
+                                    tok_t, len_t, 'auto')
+        out, toks, step_ms = [logits], [], []
+        for _ in range(8):
+            nxt = torch.argmax(out[-1], dim=-1).to(torch.int32)
+            toks.append(nxt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, pc = decode.paged_decode_step(
+                eng.params, nxt, pc, cfg, max_len=MODEL_SHAPE['max_len'],
+                attention_fn=pa.paged_attention_step)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits)
+        forced = launch_counts(build)
+        dist.all_reduce, dist.all_gather = (timed(f) for f in collectives)
+        try:
+            nxt = toks[-1]
+            for _ in range(8):
+                logits, pc = decode.paged_decode_step(
+                    eng.params, nxt, pc, cfg,
+                    max_len=MODEL_SHAPE['max_len'],
+                    attention_fn=pa.paged_attention_step)
+        finally:
+            dist.all_reduce, dist.all_gather = collectives
+        logits = torch.stack(out).float()
+        free = free_greedy(torch, decode, paging, pa, eng.params, cfg, tok_t,
+                           len_t)
+    result = {
+        'rank': rank, 'boot_s': state['boot_s'], 'launches': served,
+        'forced_launches': forced,
+        'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+        'step_ms': statistics.median(step_ms),
+        'collective_ms_per_step': spent[0] * 1e3 / 8,
+        'logits_sha256': hashlib.sha256(
+            logits.cpu().numpy().tobytes()).hexdigest(),
+        'tpot_ms': [t[1] * 1e3 for t in eng.timings if t[2] > 1],
+        'requests': len(eng.timings)}
+    if rank == 0:
+        np.save(os.path.join(TP_DIR, 'logits.npy'), logits.cpu().numpy())
+        np.save(os.path.join(TP_DIR, 'toks.npy'),
+                torch.stack(toks).cpu().numpy())
+        np.save(os.path.join(TP_DIR, 'free.npy'), free)
+    with open(os.path.join(OUT_DIR, f'tp_rank{rank}.json'), 'w') as f:
+        json.dump(result, f)
+
+
+def free_greedy(torch, decode, paging, pa, params, cfg, tok_t, len_t):
+    """TP_FREE_STEPS greedy paged decode steps from model_prompts'
+    prefill through kernels A and B: the tokens, [steps + 1, B]."""
+    logits, pc = prefilled_pool(torch, decode, paging, params, cfg, tok_t,
+                                len_t, 'auto')
+    toks = [torch.argmax(logits, dim=-1).to(torch.int32)]
+    for _ in range(TP_FREE_STEPS):
+        logits, pc = decode.paged_decode_step(
+            params, toks[-1], pc, cfg, max_len=MODEL_SHAPE['max_len'],
+            attention_fn=pa.paged_attention_step)
+        toks.append(torch.argmax(logits, dim=-1).to(torch.int32))
+    return torch.stack(toks).cpu().numpy()
+
+
+def tp_kernels_at_local_shapes(torch, fa, pa, paging, cfg,
+                               ranks: int) -> dict:
+    """(b): kernel A at a rank's prompt shapes (B=2 at S 700 and 256,
+    causal) and kernel B at its decode and verify widths (S 1 and 4),
+    at a rank's heads (llama-1b at tensor=2: 8 q heads over 4 kv heads
+    at hd 128), against their plain versions at the script's
+    tolerances. Returns each kernel's worst error."""
+    h, kh, d = cfg.n_heads // ranks, cfg.n_kv_heads // ranks, cfg.hd
+    worst = {'flash_fwd': 0.0, 'paged_decode': 0.0}
+    for i, s in enumerate((700, 256)):
+        q, k, v = flash_inputs(torch, 2, s, h, kh, d, seed=1300 + i)
+        o, lse = fa.flash_attention_lse(q, k, v, causal=True)
+        o_ref, lse_ref = fa.flash_attention_ref(*prescaled_fp32(q, k, v),
+                                                causal=True,
+                                                softmax_scale=1.0)
+        torch.cuda.synchronize()
+        ok = o_ok(o, o_ref) and max_err(lse, lse_ref) <= TOL_LSE
+        log(f'[tp_serve] A at a rank\'s shape B=2 S=T={s} H={h} KH={kh} '
+            f'D={d}: o err {max_err(o, o_ref):.3e}, lse err '
+            f'{max_err(lse, lse_ref):.3e} {"ok" if ok else "MISMATCH"}')
+        if not ok:
+            fail(f'[tp_serve] kernel A disagrees at S={s}, H={h}, KH={kh}')
+        worst['flash_fwd'] = max(worst['flash_fwd'], max_err(o, o_ref))
+    for s in (1, 4):
+        q, kp, vp, table, length, _ = paged_inputs(
+            torch, pa, paging, s, seed=1310 + s, h=h, kh=kh, edges=True)
+        out = pa.paged_decode_attention(q, kp, vp, table, length)
+        ref = pa.paged_decode_attention_ref(*prescaled_fp32(q, kp, vp),
+                                            table, length, softmax_scale=1.0)
+        torch.cuda.synchronize()
+        ok = o_ok(out, ref)
+        log(f'[tp_serve] B at a rank\'s shape S={s} H={h} KH={kh} hd={d}: '
+            f'out err {max_err(out, ref):.3e} {"ok" if ok else "MISMATCH"}')
+        if not ok:
+            fail(f'[tp_serve] kernel B disagrees at S={s}, H={h}, KH={kh}')
+        worst['paged_decode'] = max(worst['paged_decode'], max_err(out, ref))
+    return worst
+
+
+def tp_traffic(base: str, vocab: int) -> int:
+    """4 /generate (700 and 20 tokens at once, then 600, then its first
+    512 tokens resent with a new tail) and a streamed /v1/completions;
+    every answer checked. Returns the prefix hits /metrics counts."""
+    rng = np.random.default_rng(21)
+
+    def prompt(n):
+        return [int(t) for t in rng.integers(1, vocab, n)]
+    system = prompt(600)
+    docs = [{'tokens': prompt(700), 'max_new_tokens': TP_NEW},
+            {'tokens': prompt(20), 'max_new_tokens': TP_NEW}]
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        answers = list(pool.map(lambda d: http(base + '/generate', d),
+                                docs))
+    docs += [{'tokens': system, 'max_new_tokens': TP_NEW},
+             {'tokens': system[:512] + prompt(40), 'max_new_tokens': TP_NEW}]
+    answers += [http(base + '/generate', d) for d in docs[2:]]
+    for d, (code, doc) in zip(docs, answers):
+        if code != 200 or len(doc.get('tokens', ())) != TP_NEW:
+            fail(f'[tp_serve] /generate of {len(d["tokens"])} tokens '
+                 f'answered {code}: {str(doc)[:300]}')
+    events = sse(base + '/v1/completions', {
+        'prompt': 'A gang of ranks serves one replica.', 'max_tokens': TP_NEW,
+        'temperature': 0, 'stream': True})
+    if not events or events[-1]['choices'][0].get('finish_reason') is None:
+        fail('[tp_serve] the streamed completion did not finish')
+    with urllib.request.urlopen(base + '/metrics', timeout=30) as r:
+        text = r.read().decode()
+    return int(float(next(line.split()[1] for line in text.splitlines()
+                          if line.startswith(
+                              'skytpu_engine_prefix_hits_total'))))
+
+
+def phase_tp_serve(torch, fa, pa, paging, decode, build, config,
+                   card: str, model: str = TP_MODEL, ranks: int = TP_RANKS,
+                   backend: str = TP_BACKEND) -> dict:
+    """One replica over ``ranks`` ranks (by default two sharing the card
+    over gloo; with 'nccl' a card each): (a) A and B launch
+    on each rank while it serves the traffic, (b) both match their
+    plain versions at a rank's shapes, (c) the gang's teacher-forced
+    logits lie within TOL_MODEL of the one-process engine path's error
+    against fp32, (d) every rank exits 0 and writes a fresh result.
+    Returns (the kernels' errors at these shapes, the ranks' launches
+    on the traffic, summed)."""
+    import dataclasses
+    import secrets
+    import shutil
+    cfg = config.get_config(model)
+    errs = tp_kernels_at_local_shapes(torch, fa, pa, paging, cfg, ranks)
+    free_card(torch)
+    logs = [os.path.join(OUT_DIR, f'tp_rank{r}.log') for r in range(ranks)]
+    paths = [os.path.join(OUT_DIR, f'tp_rank{r}.json')
+             for r in range(ranks)]
+    fresh(logs + paths)
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    port, http_port = free_port(), free_port()
+    token = secrets.token_hex(16)
+    procs = []
+    try:
+        for r in reversed(range(ranks)):
+            env = dict(rank_env(r, port), SKYTPU_MH_TOKEN=token,
+                       SKYTPU_NUM_PROCESSES=str(ranks),
+                       SKYTPU_TORCH_DIST_BACKEND=backend,
+                       LOCAL_RANK=str(r if backend == 'nccl' else 0))
+            with open(logs[r], 'w') as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.join(HERE, 'chip_smoke.py'),
+                     '--tp-worker', str(r), '--ring-port', str(port),
+                     '--tp-http', str(http_port), '--tp-model', model,
+                     '--tp-ranks', str(ranks)], cwd=HERE, env=env,
+                    stdout=f, stderr=subprocess.STDOUT))
+        leader = procs[-1]
+        base = f'http://127.0.0.1:{http_port}'
+        t0 = time.perf_counter()
+        status = None
+        while time.perf_counter() - t0 < 300:
+            if any(p.poll() is not None for p in procs):
+                break
+            try:
+                status = http(base + '/health', timeout=5)[0]
+            except OSError:
+                pass
+            # 200: warm; 500: the leader's loop died (a rank failed).
+            if status in (200, 500):
+                break
+            time.sleep(1)
+        if status != 200:
+            fail(f'[tp_serve] the gang never answered /health 200 (last '
+                 f'{status}): ' + ''.join(open(logs[0]).readlines()[-15:]))
+        boot_wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        hits = tp_traffic(base, cfg.vocab_size)
+        traffic_s = time.perf_counter() - t1
+        leader.send_signal(signal.SIGTERM)
+        deadline = time.monotonic() + 300
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = []
+    for r in range(ranks):
+        rc = procs[ranks - 1 - r].returncode
+        if rc != 0 or not os.path.exists(paths[r]):
+            tail = ''.join(open(logs[r]).readlines()[-20:])
+            fail(f'[tp_serve] rank {r} exited {rc} (result '
+                 f'{"written" if os.path.exists(paths[r]) else "missing"}):'
+                 f'\n{tail}')
+        with open(paths[r]) as f:
+            res.append(json.load(f))
+    if hits < 1:
+        fail(f'[tp_serve] the resent prefix made {hits} prefix hits')
+    layers, steps = cfg.n_layers, 8
+    for x in res:
+        lc, fc = x['launches'], x['forced_launches']
+        log(f'[tp_serve] rank {x["rank"]}: launches on the traffic A '
+            f'{lc["flash_fwd"]}, B {lc["paged_decode"]}; on the forced path '
+            f'A {fc["flash_fwd"]}, B {fc["paged_decode"]}; boot '
+            f'{x["boot_s"] * 1e3:.0f} ms; peak memory {x["peak_gb"]:.2f} GB;'
+            f' a forced decode step {x["step_ms"]:.2f} ms, of which the '
+            f'all-reduces and the all-gather {x["collective_ms_per_step"]:.2f}'
+            f' ms | {card}')
+        if lc['flash_fwd'] <= 0 or lc['paged_decode'] <= 0:
+            fail(f'[tp_serve] rank {x["rank"]} served without A or B: {lc}')
+        if fc != want_launches(build, flash_fwd=layers,
+                               paged_decode=layers * steps):
+            fail(f'[tp_serve] rank {x["rank"]} forced-path launches {fc}')
+    if len({x['logits_sha256'] for x in res}) != 1:
+        fail('[tp_serve] the ranks\' gathered logits differ')
+    tpot = statistics.median(res[0]['tpot_ms'])
+    where = ('one card' if backend == 'gloo' else f'{ranks} cards')
+    log(f'[tp_serve] {model} at tensor={ranks} on {where} ({backend}): '
+        f'{res[0]["requests"]} requests in {traffic_s:.1f} s, TPOT median '
+        f'{tpot:.2f} ms over {len(res[0]["tpot_ms"])} requests, the gang '
+        f'healthy {boot_wall:.1f} s after its start, prefix hits {hits} | '
+        f'{card}')
+    gang = torch.from_numpy(np.load(os.path.join(TP_DIR, 'logits.npy')))
+    feed = torch.from_numpy(np.load(os.path.join(TP_DIR, 'toks.npy'))).cuda()
+    gang_free = np.load(os.path.join(TP_DIR, 'free.npy'))
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    params = bf16_params(torch, cfg)
+    tok_t, len_t = model_prompts(torch, cfg.vocab_size,
+                                 np.random.default_rng(5))
+
+    def run(cfg_run, params_run, impl, fn):
+        logits, pc = prefilled_pool(torch, decode, paging, params_run,
+                                    cfg_run, tok_t, len_t, impl)
+        out = [logits]
+        for nxt in feed:
+            logits, pc = decode.paged_decode_step(
+                params_run, nxt, pc, cfg_run, max_len=MODEL_SHAPE['max_len'],
+                attention_fn=fn)
+            out.append(logits)
+        return torch.stack(out).float().cpu()
+    with torch.no_grad():
+        one = run(cfg, params, 'auto', pa.paged_attention_step)
+        free = free_greedy(torch, decode, paging, pa, params, cfg, tok_t,
+                           len_t)
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        params32 = decode.cast_params_for_decode(params, cfg32)
+        del params
+        ref = run(cfg32, params32, 'xla', pa.paged_attention_step_ref)
+        del params32
+    worst = 0.0
+    for i in range(gang.shape[0]):
+        std = float(ref[i].std())
+        e_g = float((gang[i] - ref[i]).abs().max()) / std
+        e_o = float((one[i] - ref[i]).abs().max()) / std
+        worst = max(worst, e_g / e_o)
+        log(f'[tp_serve] step {i} ({"prefill" if i == 0 else "decode"}): '
+            f'max|diff|/std(fp32 logits): gang-fp32 {e_g:.3e}, one '
+            f'process-fp32 {e_o:.3e}, gang-one process '
+            f'{float((gang[i] - one[i]).abs().max()) / std:.3e}')
+    agree = [int(np.argmax(np.append(gang_free[:, r] != free[:, r], True)))
+             for r in range(free.shape[1])]
+    log(f'[tp_serve] free greedy decoding, gang vs one process: tokens '
+        f'that agree before the first divergence, per row: {agree} of '
+        f'{free.shape[0]}')
+    log(f'[tp_serve] gang/one-process error ratio against fp32, worst '
+        f'{worst:.3f} (tol {TOL_MODEL}) {"ok" if worst <= TOL_MODEL else "MISMATCH"}')
+    if worst > TOL_MODEL:
+        fail(f'[tp_serve] the gang\'s logits err {worst:.2f}x the one-process '
+             f'path\'s > {TOL_MODEL}x')
+    launches = {n: sum(x['launches'][n] for x in res) for n in res[0]['launches']}
+    return errs, launches
+
+
 def gpu_line() -> str:
     try:
         return subprocess.run(
@@ -5470,7 +5860,8 @@ def gpu_line() -> str:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--phases', default='build,flash,paged,flash_bwd,'
-                        'timing,model,serve,batch_infer,disagg,model_gemma,'
+                        'timing,model,serve,batch_infer,disagg,tp_serve,'
+                        'model_gemma,'
                         'serve_gemma,'
                         'gemma_switches,model_moe,serve_moe,serve_gptoss,'
                         'model_mla,serve_mla,serve_deepseek_v2,'
@@ -5486,6 +5877,20 @@ def main() -> None:
                         help=argparse.SUPPRESS)
     parser.add_argument('--gloo-probe', type=int, default=None,
                         help=argparse.SUPPRESS)
+    # The tp_serve phase's ranks (this script again, engine.main inside).
+    parser.add_argument('--tp-worker', type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument('--tp-http', type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument('--tp-model', default=TP_MODEL,
+                        help='the tp_serve phase\'s model')
+    parser.add_argument('--tp-ranks', type=int, default=TP_RANKS,
+                        help='the tp_serve phase\'s ranks (--mesh tensor=N)')
+    parser.add_argument('--tp-backend', choices=('gloo', 'nccl'),
+                        default=TP_BACKEND,
+                        help="the tp_serve phase's process group: 'gloo' "
+                             "(the ranks share card 0) or 'nccl' (a card "
+                             'a rank)')
     args = parser.parse_args()
     t_main = time.perf_counter()
     phases = set(args.phases.split(','))
@@ -5510,6 +5915,10 @@ def main() -> None:
         return
     if args.gloo_probe is not None:
         gloo_p2p_probe(args.gloo_probe, args.ring_port)
+        return
+    if args.tp_worker is not None:
+        tp_worker(args.tp_worker, args.ring_port, args.tp_http,
+                  args.tp_model, args.tp_ranks)
         return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5564,6 +5973,14 @@ def main() -> None:
         del params
         free_card(torch)
     lap('disagg')
+    if 'tp_serve' in phases:
+        tp_errs, by_path['tp_serve'] = phase_tp_serve(
+            torch, fa, pa, paging, decode, build, config, card,
+            args.tp_model, args.tp_ranks, args.tp_backend)
+        for name, e in tp_errs.items():
+            errs[name] = max(errs.get(name, 0.0), e)
+        free_card(torch)
+    lap('tp_serve')
     if 'model_gemma' in phases or 'serve_gemma' in phases:
         import dataclasses
         cfg = dataclasses.replace(config.get_config('gemma-7b'),
@@ -5599,16 +6016,18 @@ def main() -> None:
         free_card(torch)
     lap('model_moe')
     if 'model_moe' in phases or 'serve_moe' in phases:
-        cfg = config.get_config('moe-1b')
+        import dataclasses
+        cfg = dataclasses.replace(config.get_config('moe-1b'),
+                                  n_layers=MOE_SERVE_DEPTH)
         params = bf16_params(torch, cfg)
         if 'model_moe' in phases:
             phase_model(torch, cfg, params, decode, paging, pa, build,
-                        'moe-1b')
+                        f'moe-1b ({MOE_SERVE_DEPTH} of 12 layers)')
             free_card(torch)
         if 'serve_moe' in phases:
-            by_path['serve_moe'] = phase_serve(torch, 'moe-1b', cfg, params,
-                                               engine_lib, build, decode,
-                                               paging)
+            by_path['serve_moe'] = phase_serve(
+                torch, 'moe-1b', cfg, params, engine_lib, build, decode,
+                paging, label=f'moe-1b ({MOE_SERVE_DEPTH} of 12 layers)')
         del params
         free_card(torch)
     lap('model_moe+serve_moe')
@@ -5722,6 +6141,7 @@ def main() -> None:
              'serve_moe': SERVE_KERNELS, 'serve_gptoss': SERVE_KERNELS,
              'serve_mla': SERVE_KERNELS, 'serve_deepseek_v2': SERVE_KERNELS,
              'batch_infer': ('flash_fwd',), 'disagg': SERVE_KERNELS,
+             'tp_serve': SERVE_KERNELS,
              'train': TRAIN_KERNELS, 'train_gemma': TRAIN_KERNELS,
              'train_moe': TRAIN_KERNELS, 'train_mla': TRAIN_KERNELS,
              'train_hf': TRAIN_KERNELS, 'serve_hf': SERVE_KERNELS,

@@ -139,9 +139,10 @@ def cast_params_for_compute(params, cfg: LlamaConfig, device=None):
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                device='cuda') -> KVCache:
-    """Zeroed [L, batch, max_len, KH, hd] K/V in cfg.dtype, zero
-    lengths."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    """Zeroed [L, batch, max_len, KH, hd] K/V in cfg.dtype (this rank's
+    kv heads under a tensor mesh), zero lengths."""
+    shape = (cfg.n_layers, batch, max_len, llama.local_kv_heads(cfg),
+             cfg.hd)
     return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
                    v=torch.zeros(shape, dtype=cfg.dtype, device=device),
                    length=torch.zeros((batch,), dtype=torch.int32,
@@ -164,9 +165,12 @@ def _ffn(x: torch.Tensor, lp, cfg: LlamaConfig) -> torch.Tensor:
 def init_page_pool(cfg: LlamaConfig, n_pages: int, page_size: int,
                    batch: int, max_pages: int, device='cuda'
                    ) -> paging.PagedKV:
-    """fp [L, n_pages, page_size, KH, hd] pools, a zeroed
-    [batch, max_pages] int32 table (0 = trash) and zero lengths."""
-    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    """fp [L, n_pages, page_size, KH, hd] pools (KH: this rank's kv
+    heads under a tensor mesh, as the JAX ``paged_pspecs`` put them on
+    'tensor'), a zeroed [batch, max_pages] int32 table (0 = trash) and
+    zero lengths."""
+    shape = (cfg.n_layers, n_pages, page_size, llama.local_kv_heads(cfg),
+             cfg.hd)
     return paging.PagedKV(
         k=torch.zeros(shape, dtype=cfg.dtype, device=device),
         v=torch.zeros(shape, dtype=cfg.dtype, device=device),

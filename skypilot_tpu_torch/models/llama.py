@@ -28,6 +28,20 @@ sliding window (every ``sliding_window_pattern``-th layer global) with
 its own local rope base, and sinks. A layer's index is a Python int,
 so :func:`window_active` and :func:`select_rope` are plain branches
 where JAX traces a ``where`` inside its layer scan.
+
+Tensor parallelism (a serving gang, serve/engine.py ``--mesh
+tensor=N``): under a mesh whose 'tensor' axis holds N > 1 ranks
+(``parallel.mesh.use_mesh``), each rank holds the shard of the tree
+that :func:`param_axes` names (parallel/sharding.py ``shard_params``,
+the JAX ``param_specs``): q/k/v and the gate/up columns, the wo and
+w_down rows and a slice of the vocabulary. The forward then runs on
+H/N q heads, KH/N kv heads and F/N hidden units; the wo and w_down
+products are summed over the group (fp32 partials, one all-reduce each,
+before the Gemma-2 post norms), the embedding is a masked local lookup
+summed over the group, and the fp32 logits of each vocabulary slice are
+gathered to the whole vocabulary before the final softcap, so every
+rank holds the same hidden states and logits. With no such mesh the
+code is the unsharded forward, unchanged.
 """
 from __future__ import annotations
 
@@ -35,6 +49,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
@@ -137,6 +152,70 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     return params
 
 
+def param_axes(cfg: LlamaConfig) -> Params:
+    """The logical axis names of every dim of :func:`init_params`' leaves,
+    in its tree (the JAX ``param_specs`` before the rules map them to
+    mesh axes): heads, kv_heads, mlp and vocab go over 'tensor' by the
+    default rules (parallel/sharding.py)."""
+    layers = {
+        'attn_norm': ('layers', 'norm'),
+        'wq': ('layers', 'embed', 'heads'),
+        'wk': ('layers', 'embed', 'kv_heads'),
+        'wv': ('layers', 'embed', 'kv_heads'),
+        'wo': ('layers', 'heads', 'embed'),
+        'mlp_norm': ('layers', 'norm'),
+        'w_gate': ('layers', 'embed', 'mlp'),
+        'w_up': ('layers', 'embed', 'mlp'),
+        'w_down': ('layers', 'mlp', 'embed'),
+    }
+    if cfg.qkv_bias:
+        layers['bq'] = ('layers', 'heads')
+        layers['bk'] = ('layers', 'kv_heads')
+        layers['bv'] = ('layers', 'kv_heads')
+    if cfg.post_norms:
+        layers['post_attn_norm'] = ('layers', 'norm')
+        layers['post_mlp_norm'] = ('layers', 'norm')
+    if cfg.qk_norm:
+        layers['q_norm'] = ('layers', 'norm')
+        layers['k_norm'] = ('layers', 'norm')
+    if cfg.attn_sinks:
+        layers['sink'] = ('layers', 'heads')
+    axes: Params = {'embed': ('vocab', 'embed'), 'layers': layers,
+                    'final_norm': ('norm',)}
+    if not cfg.tie_embeddings:
+        axes['lm_head'] = ('embed', 'vocab')
+    return axes
+
+
+def validate_divisibility(cfg: LlamaConfig, mesh_shape: Dict[str, int]):
+    """Raise if the model dims don't divide the mesh axes they shard over."""
+    tp = mesh_shape.get('tensor', 1)
+    fsdp = mesh_shape.get('fsdp', 1)
+    checks = [
+        ('n_heads', cfg.n_heads, tp), ('n_kv_heads', cfg.n_kv_heads, tp),
+        ('ffn_dim', cfg.ffn_dim, tp), ('vocab_size', cfg.vocab_size, tp),
+        ('dim', cfg.dim, fsdp),
+    ]
+    for name, val, ax in checks:
+        if ax > 1 and val % ax != 0:
+            raise ValueError(f'{name}={val} not divisible by mesh axis '
+                             f'size {ax}')
+
+
+def tensor_parallel() -> Tuple[Optional[object], int, int]:
+    """(group, this rank's index in it, its size) of the current mesh's
+    'tensor' axis; the group is None where the axis holds one rank."""
+    mesh = mesh_lib.current_mesh()
+    return (mesh.group('tensor'), mesh.index('tensor'),
+            mesh.shape['tensor'])
+
+
+def local_kv_heads(cfg: LlamaConfig) -> int:
+    """The kv heads this rank holds: all of them, or 1/N under a tensor
+    mesh of N ranks (the paged pools and caches hold these)."""
+    return cfg.n_kv_heads // tensor_parallel()[2]
+
+
 def layer_params(params: Params, i: int) -> Dict[str, torch.Tensor]:
     """Layer i's slice of the stacked [L, ...] leaves (views)."""
     return {k: v[i] for k, v in params['layers'].items()}
@@ -206,19 +285,36 @@ def qkv(x: torch.Tensor, lp, cfg: LlamaConfig, sin, cos):
         q = q + lp['bq'].to(cfg.dtype)
         k = k + lp['bk'].to(cfg.dtype)
         v = v + lp['bv'].to(cfg.dtype)
-    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    # This rank's heads: all of them, or a shard's (the columns it holds).
+    q = q.reshape(b, s, q.shape[-1] // cfg.hd, cfg.hd)
+    k = k.reshape(b, s, k.shape[-1] // cfg.hd, cfg.hd)
+    v = v.reshape(b, s, v.shape[-1] // cfg.hd, cfg.hd)
     if cfg.qk_norm:
         q = _norm(q, lp['q_norm'], cfg)
         k = _norm(k, lp['k_norm'], cfg)
     return rotary.apply_rope(q, sin, cos), rotary.apply_rope(k, sin, cos), v
 
 
+def _row_parallel(x: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
+    """x @ w, for w whose input rows a tensor mesh may shard: unsharded
+    the product as it is; sharded each rank's fp32 partial product
+    (:func:`logits_matmul`, no rounding to the compute dtype) summed
+    over the group in one all-reduce, then cast once, so the sum rounds
+    where the unsharded product does."""
+    w = _d(w, cfg.dtype)
+    group = tensor_parallel()[0]
+    if group is None:
+        return x @ w
+    y = logits_matmul(x, w)
+    dist.all_reduce(y, group=group)
+    return y.to(cfg.dtype)
+
+
 def wo_project(out: torch.Tensor, lp, cfg: LlamaConfig) -> torch.Tensor:
-    """Attention output projection (+ the Gemma-2 post-attention norm)."""
+    """Attention output projection (+ the Gemma-2 post-attention norm,
+    after the sum over a tensor mesh)."""
     b, s = out.shape[:2]
-    y = out.reshape(b, s, cfg.n_heads * cfg.hd) @ _d(lp['wo'], cfg.dtype)
+    y = _row_parallel(out.reshape(b, s, -1), lp['wo'], cfg)
     if cfg.post_norms:
         y = _norm(y, lp['post_attn_norm'], cfg)
     return y
@@ -226,11 +322,11 @@ def wo_project(out: torch.Tensor, lp, cfg: LlamaConfig) -> torch.Tensor:
 
 def ffn(x: torch.Tensor, lp, cfg: LlamaConfig) -> torch.Tensor:
     """Post-attention gated MLP block (pre-norm; + the Gemma-2
-    post-MLP norm)."""
+    post-MLP norm, after the sum over a tensor mesh)."""
     h = _norm(x, lp['mlp_norm'], cfg)
     gate = h @ _d(lp['w_gate'], cfg.dtype)
     up = h @ _d(lp['w_up'], cfg.dtype)
-    down = cfg.glu(gate, up) @ _d(lp['w_down'], cfg.dtype)
+    down = _row_parallel(cfg.glu(gate, up), lp['w_down'], cfg)
     if cfg.post_norms:
         down = _norm(down, lp['post_mlp_norm'], cfg)
     return down
@@ -276,11 +372,17 @@ def logits_matmul(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 def unembed(x: torch.Tensor, params: Params, cfg: LlamaConfig
             ) -> torch.Tensor:
     """final norm → head; fp32 logits from the bf16 operands (the JAX
-    einsum's preferred_element_type), then the Gemma-2 final softcap on
+    einsum's preferred_element_type), gathered over a tensor mesh from
+    each rank's vocabulary slice, then the Gemma-2 final softcap on
     them."""
     x = final_norm(x, params, cfg)
     head = params['embed'].T if cfg.tie_embeddings else params['lm_head']
     logits = logits_matmul(x, head.to(cfg.dtype))
+    group, _, n = tensor_parallel()
+    if group is not None:
+        parts = [torch.empty_like(logits) for _ in range(n)]
+        dist.all_gather(parts, logits.contiguous(), group=group)
+        logits = torch.cat(parts, dim=-1)
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)
@@ -291,8 +393,28 @@ def embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig
           ) -> torch.Tensor:
     """Token embeddings in cfg.dtype; Gemma scales them by sqrt(dim),
     rounded to cfg.dtype before the multiply (55.5 in bf16 at dim 3072),
-    as the JAX package does."""
-    x = params['embed'][tokens.long()].to(cfg.dtype)
+    as the JAX package does. Under a tensor mesh each rank looks up the
+    tokens of its vocabulary slice (zeros for the rest) and the group
+    sums the rows: one rank's row and zeros, exact in fp32."""
+    table = params['embed']
+    group, index, _ = tensor_parallel()
+    if group is None:
+        if table.shape[0] != cfg.vocab_size:
+            raise ValueError(
+                f'the params hold {table.shape[0]} of {cfg.vocab_size} '
+                f'vocabulary rows (a tensor shard) but no tensor mesh is '
+                f'current: run the forward under parallel.mesh.use_mesh')
+        x = table[tokens.long()].to(cfg.dtype)
+    else:
+        rows = table.shape[0]
+        local = tokens.long() - index * rows
+        mine = (local >= 0) & (local < rows)
+        # Contiguous: NCCL reduces nothing else (a verify's tokens are a
+        # transposed view, and the product keeps their strides).
+        x = (table[local.clamp(0, rows - 1)].float() *
+             mine[..., None]).contiguous()
+        dist.all_reduce(x, group=group)
+        x = x.to(cfg.dtype)
     if cfg.embed_scale:
         x = x * torch.full((), cfg.dim ** 0.5, dtype=cfg.dtype,
                            device=x.device)

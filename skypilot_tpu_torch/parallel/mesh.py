@@ -23,6 +23,7 @@ import contextlib
 import dataclasses
 import datetime
 import math
+import os
 from typing import Dict, FrozenSet, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -79,6 +80,17 @@ def dist_backend(device) -> str:
     if chosen:
         return chosen
     return 'nccl' if torch.device(device).type == 'cuda' else 'gloo'
+
+
+def rank_device(device) -> torch.device:
+    """This rank's device: on the card ``cuda:(LOCAL_RANK or 0) %
+    device_count`` (the gang's ranks on one host take a card each, or
+    share it), else ``device`` as given."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        local = int(os.environ.get('LOCAL_RANK') or 0)
+        device = torch.device('cuda', local % torch.cuda.device_count())
+    return device
 
 
 def init_distributed(address: str, world_size: int, rank: int, device,

@@ -5,9 +5,11 @@ Model code names tensor dims with logical axes ('batch', 'seq', ...); a
 rule maps each to zero or more mesh axes. Where the JAX package hands
 the resulting ``PartitionSpec`` to GSPMD, the port cuts this rank's
 slice itself (:func:`local_shard`): 'batch' over ('data', 'fsdp') gives
-a rank its rows, 'seq' over 'sequence' its sequence slots. Parameters
-stay whole on every rank in this port (no 'fsdp' or 'tensor' above 1),
-so the parameter rules are carried but not applied.
+a rank its rows, 'seq' over 'sequence' its sequence slots, and
+:func:`shard_params` gives a rank its slice of every leaf of a param
+tree from the leaf's logical axes (models/llama.py ``param_axes``, the
+JAX ``param_specs``): a serving gang's 'tensor' shards. Training keeps
+its params whole on every rank (no 'fsdp' or 'tensor' above 1 there).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from skypilot_tpu_torch.models.quant import QuantizedWeight
 from skypilot_tpu_torch.parallel.mesh import Mesh
 
 AxisRule = Tuple[str, Union[None, str, Tuple[str, ...]]]
@@ -86,3 +89,38 @@ def local_shard(x: torch.Tensor, logical: str, dim: int, mesh: Mesh,
                          f'over {"x".join(axes)}={n}')
     part = size // n
     return x.narrow(dim, mesh.index(*axes) * part, part)
+
+
+def _shard_leaf(x: torch.Tensor, axes: Sequence[Optional[str]], mesh: Mesh,
+                rules: Rules) -> torch.Tensor:
+    """``x`` cut along every dim whose logical axis maps to mesh axes
+    larger than 1, copied out of the whole leaf (so that the whole tree
+    can be freed)."""
+    if len(axes) != x.dim():
+        raise ValueError(f'logical axes {tuple(axes)} for a leaf of shape '
+                         f'{tuple(x.shape)}')
+    out = x
+    for dim, logical in enumerate(axes):
+        if logical is not None:
+            out = local_shard(out, logical, dim, mesh, rules)
+    return out.clone() if out is not x else x
+
+
+def shard_params(params, axes, mesh: Mesh, rules: Optional[Rules] = None):
+    """This rank's shard of the param tree ``params``, leaf by leaf from
+    ``axes`` (the same tree holding each leaf's logical axis names, as
+    the JAX ``param_specs`` holds its PartitionSpecs). An int8
+    :class:`QuantizedWeight` follows the JAX engine's rule: its codes
+    take the leaf's axes and its per-channel scale drops the axis of
+    every size-1 dim, so a shard dequantizes on its own."""
+    rules = rules or Rules()
+    if isinstance(params, dict):
+        return {k: shard_params(v, axes[k], mesh, rules)
+                for k, v in params.items()}
+    if isinstance(params, QuantizedWeight):
+        scale_axes = [a if params.scale.shape[i] > 1 else None
+                      for i, a in enumerate(axes)]
+        return QuantizedWeight(q=_shard_leaf(params.q, axes, mesh, rules),
+                               scale=_shard_leaf(params.scale, scale_axes,
+                                                 mesh, rules))
+    return _shard_leaf(params, axes, mesh, rules)

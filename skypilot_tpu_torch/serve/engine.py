@@ -6,7 +6,9 @@ prefill and the shared-page prefix cache, prompt-lookup speculative
 decoding (``_lookup_draft``, ``_spec_once``), ``_publish``, ``cancel``,
 ``batch_loop`` / ``_step_round``, ``warmup``; ``build_app``'s
 ``/health``, ``/generate``, ``/v1/completions`` with SSE and
-``/v1/models``; ``main``).
+``/v1/models``; ``parse_mesh_arg``, ``_setup_mesh`` over 'tensor',
+``_bcast``, ``_page_fp`` / ``_check_page_fp``; ``main`` with its gang
+flags).
 
 What it keeps: ``MAX_BATCH`` slots over a block-paged K/V pool (page
 size 64, ``(MAX_BATCH + min(PREFIX_CACHE_ENTRIES, MAX_BATCH)) *
@@ -111,13 +113,29 @@ rows into pages of its own allocator (``paging.adopt_rows``) and decodes
 in the captured step graphs (kernel B) like any other row, answering in
 the original endpoint's shape, SSE included.
 
+One replica over a gang of ranks (the JAX engine's multi-host serving,
+serve/multihost.py): ``--mesh tensor=N --num-processes N --process-id R
+--coordinator HOST:PORT`` (the gang flags default from the gang env)
+runs one process a rank, each holding a 1/N shard of a dense model over
+'tensor' (``_setup_mesh``: parallel/sharding.py ``shard_params`` over
+models/llama.py ``param_axes``; the pools hold the rank's kv heads), so
+kernels A and B run at H/N q heads and KH/N kv heads on every rank. Rank
+0 answers HTTP and broadcasts every device-touching op before it runs it
+(``_bcast``: warmup, admit, chunkstart, chunk, spill, step, collect,
+reap, cancel, reset, stop); the followers replay each op through the
+same methods. On a tensor mesh the step and verify bodies run eagerly,
+decided at construction: gloo's collectives cannot be captured into a
+CUDA graph (capturing NCCL's waits for ROADMAP Queue 1 item 8).
+
 The knobs are the JAX engine's, read under its names and defaults
 (utils/knobs.py). Those whose feature waits are refused by name at
 construction, citing the ROADMAP item: ``SKYTPU_ENGINE_PAGED=0`` and
 ``SKYTPU_ENGINE_ATTN=gather`` (Queue 1 item 3), and
-``SKYTPU_ENGINE_KV_QUANT=int8`` (item 3, int8 KV). What waits besides
-(ROADMAP Queue 1 item 4): request spans, meshes (an expert axis among
-them) and multi-host.
+``SKYTPU_ENGINE_KV_QUANT=int8`` (item 3, int8 KV). What waits besides:
+request spans (ROADMAP Queue 1 item 4) and, on a serving mesh (item 8),
+the 'data', 'fsdp', 'stage', 'sequence' and 'expert' axes, the MoE and
+MLA families, a mesh in one process (one process holds one rank) and
+disaggregated serving on a gang, each refused by name.
 
 The HTTP server is the standard library's ThreadingHTTPServer; the
 batch loop runs in its own thread and owns all device state. Request
@@ -134,18 +152,25 @@ streaming, a per-request queue.
     # a decode replica (handoff receiver on 9300) and a prefill replica:
     python -m skypilot_tpu_torch.serve.engine --port 8300 --handoff-port 9300
     python -m skypilot_tpu_torch.serve.engine --port 8301 --handoff-port 0
+    # one replica over two ranks (SKYTPU_MH_TOKEN set in both; two ranks
+    # sharing one card also need SKYTPU_TORCH_DIST_BACKEND=gloo):
+    python -m skypilot_tpu_torch.serve.engine --model llama-1b \
+        --mesh tensor=2 --num-processes 2 --process-id R \
+        --coordinator 127.0.0.1:29500
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import logging
 import math
 import os
 import queue
+import signal
 import threading
 import time
 import traceback
@@ -162,13 +187,16 @@ from skypilot_tpu_torch.config import (DeepSeekMoEConfig, LlamaConfig,
 from skypilot_tpu_torch.data import tokenizer as tokenizer_lib
 from skypilot_tpu_torch.data.tokenizer import StreamDecoder
 from skypilot_tpu_torch.kernels import build
-from skypilot_tpu_torch.models import (decode, hf_import, mla, module_for,
-                                       paging)
+from skypilot_tpu_torch.models import (decode, hf_import, llama, mla,
+                                       module_for, paging)
 from skypilot_tpu_torch.observe import flight as flight_lib
 from skypilot_tpu_torch.observe import journal
 from skypilot_tpu_torch.observe import metrics as metrics_lib
 from skypilot_tpu_torch.observe import request_class
 from skypilot_tpu_torch.ops import paged_attention
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.parallel import sharding
+from skypilot_tpu_torch.serve import multihost
 from skypilot_tpu_torch.serve.disagg import handoff as handoff_lib
 from skypilot_tpu_torch.serve.host_store import HostPageStore
 from skypilot_tpu_torch.train import checkpoints
@@ -237,6 +265,50 @@ KV_HOST_MB = knobs.get_int('SKYTPU_ENGINE_KV_HOST_MB')
 # them loses its oldest, as in JAX).
 MAX_MARKS = 4096
 MAX_EXPORTS = 256
+# The instance knobs that steer the op stream of a gang: the leader ships
+# its values in the warmup op and every follower takes them, so that an
+# env skew across hosts cannot split the pool layout or the step widths.
+MIRRORED_KNOBS = ('max_batch', 'page_size', 'kv_pages', 'step_chunk',
+                  'prefix_cache', 'spec_k', 'spec_cooldown', 'prefill_chunk',
+                  'kv_host_mb')
+# A serving mesh shards over 'tensor' alone in this port.
+WAITING_MESH_AXES = ('data', 'stage', 'fsdp', 'sequence', 'expert')
+
+
+def parse_mesh_arg(mesh: str) -> mesh_lib.MeshSpec:
+    """'tensor=8' / 'data=2,tensor=4' → MeshSpec (the --mesh flag; the
+    JAX engine's parser)."""
+    kwargs = {}
+    for part in mesh.split(','):
+        if not part:
+            continue
+        if '=' not in part:
+            raise ValueError(f"--mesh entries are axis=N, got {part!r}")
+        k, v = part.split('=', 1)
+        kwargs[k.strip()] = int(v)
+    try:
+        return mesh_lib.MeshSpec(**kwargs)
+    except TypeError as e:
+        raise ValueError(f'bad --mesh axis name: {e}') from None
+
+
+def check_serving_mesh(cfg: LlamaConfig, shape: Dict[str, int]) -> None:
+    """Refuse by name what a serving mesh cannot do here yet (each
+    waits for ROADMAP Queue 1 item 8), then the JAX divisibility check:
+    ``shape`` maps axes to sizes (-1: filled from the world later)."""
+    for ax in WAITING_MESH_AXES:
+        if shape.get(ax, 1) > 1:
+            raise NotImplementedError(
+                f"--mesh {ax}={shape[ax]}: serving over the {ax!r} axis is "
+                f"not ported yet; the port's engine shards over 'tensor' "
+                f'only (it waits for ROADMAP Queue 1 item 8)')
+    if isinstance(cfg, (MoEConfig, MLAConfig)):
+        family = 'MLA' if isinstance(cfg, MLAConfig) else 'MoE'
+        raise NotImplementedError(
+            f'the {family} family on a serving mesh is not ported yet: '
+            f"the port's engine shards the dense family over 'tensor' "
+            f'(it waits for ROADMAP Queue 1 item 8)')
+    llama.validate_divisibility(cfg, shape)
 
 
 class EngineOverloaded(Exception):
@@ -544,7 +616,15 @@ class InferenceEngine:
     tensor a graph touches are built at warm-up (or at the first
     admission), after tests may have set ``page_size``, ``kv_pages``,
     ``prefix_cache``, ``prefill_chunk``, ``spec_k`` or
-    ``spec_cooldown``."""
+    ``spec_cooldown``.
+
+    ``mesh`` ('tensor=N', a MeshSpec or a built mesh over the
+    initialised process group) shards the params over 'tensor' as this
+    rank's slice (``_setup_mesh``); the engine then does its device work
+    under that mesh (:meth:`on_mesh`) and runs its step bodies eagerly.
+    ``seed`` draws the random weights and seeds the samplers; a gang's
+    leader may set ``seed`` anew before warm-up (the weights are drawn
+    by then) and ships it to the followers."""
 
     def __init__(self, model: Optional[str] = 'llama-1b', *,
                  cfg: Optional[LlamaConfig] = None, params=None,
@@ -552,7 +632,8 @@ class InferenceEngine:
                  hf_dir: Optional[str] = None,
                  tokenizer_path: Optional[str] = None,
                  max_len: Optional[int] = None, device: str = 'cuda',
-                 seed: int = 0, quantize: Optional[str] = None):
+                 seed: int = 0, quantize: Optional[str] = None,
+                 mesh=None):
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError('no CUDA device: the engine runs on the card '
@@ -627,6 +708,19 @@ class InferenceEngine:
         if quantize:
             logger.info('Serving with weight-only %s quantization.',
                         quantize)
+        # A gang's mesh (None: one process, the whole model), and the
+        # leader's control channel (serve/multihost.py; None elsewhere).
+        self.mesh: Optional[mesh_lib.Mesh] = None
+        self._leader: Optional[multihost.ControlLeader] = None
+        if mesh is not None:
+            self._setup_mesh(mesh, quantize)
+        # CUDA graphs of the step and verify bodies: on the card, unless
+        # the bodies hold collectives (a tensor mesh), which run eagerly.
+        self.use_graphs = self.device.type == 'cuda' and self.mesh is None
+        if self.device.type == 'cuda' and not self.use_graphs:
+            logger.info('On a tensor mesh the step and verify bodies run '
+                        'eagerly: their collectives are not captured into '
+                        'CUDA graphs (ROADMAP Queue 1 item 8).')
         if tokenizer_path:
             self.tokenizer = tokenizer_lib.load_tokenizer(tokenizer_path)
         elif hf_dir:
@@ -699,6 +793,82 @@ class InferenceEngine:
         self.handoff_port: Optional[int] = None
         self.handoff_store: Optional[handoff_lib.HandoffStore] = None
         self._handoff_receiver: Optional[handoff_lib.HandoffReceiver] = None
+        # The prompt buckets the batch loop's warm-up admits once each
+        # (``main``'s --warm-buckets).
+        self.warm_buckets: List[int] = []
+
+    def _setup_mesh(self, mesh, quantize: Optional[str]) -> None:
+        """Shard the params over ``mesh`` (JAX ``_setup_mesh``, 'tensor'
+        only): this rank keeps its slice of every leaf
+        (parallel/sharding.py ``shard_params`` over models/llama.py
+        ``param_axes``; int8 leaves after quantizing the whole tree, as
+        JAX shards them); the pools hold its kv heads once built under
+        :meth:`on_mesh`. A mesh spec is checked before any group is
+        made, then built over the process group's ranks."""
+        if isinstance(mesh, str):
+            mesh = parse_mesh_arg(mesh)
+        if isinstance(mesh, mesh_lib.MeshSpec):
+            check_serving_mesh(self.cfg, {ax: getattr(mesh, ax)
+                                          for ax in mesh_lib.MESH_AXES})
+            mesh = mesh_lib.build_mesh(mesh)
+        check_serving_mesh(self.cfg, mesh.shape)
+        if knobs.get_bool('SKYTPU_ENGINE_WARM_DISAGG'):
+            raise NotImplementedError(
+                'SKYTPU_ENGINE_WARM_DISAGG on a serving mesh: '
+                'disaggregated serving on a gang is not ported yet (it '
+                'waits for ROADMAP Queue 1 item 8)')
+        self.mesh = mesh
+        self.params = sharding.shard_params(
+            self.params, llama.param_axes(self.cfg), mesh)
+        logger.info('Serving on mesh %s: rank %d of %d%s.', dict(mesh.shape),
+                    mesh.rank, mesh.size,
+                    ' [int8 weights sharded]' if quantize else '')
+
+    def on_mesh(self):
+        """The context the engine's device work runs in: its mesh made
+        the current one (models/llama.py reads the 'tensor' group from
+        it), or nothing without one."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return mesh_lib.use_mesh(self.mesh)
+
+    def mirrored_knobs(self) -> Dict[str, Any]:
+        """This engine's :data:`MIRRORED_KNOBS`, for the warmup op."""
+        return {name: getattr(self, name) for name in MIRRORED_KNOBS}
+
+    def set_mirrored_knobs(self, values: Dict[str, Any]) -> None:
+        """A follower takes its leader's :meth:`mirrored_knobs`."""
+        unknown = set(values) - set(MIRRORED_KNOBS)
+        if unknown:
+            raise ValueError(f'unknown mirrored knobs {sorted(unknown)}')
+        for name, value in values.items():
+            setattr(self, name, value)
+
+    def _bcast(self, op: tuple) -> None:
+        """Leader → follower control broadcast (multi-host serving; a
+        no-op everywhere else), sent BEFORE the leader executes the op
+        so that every rank enters the same collective in the same
+        order."""
+        if self._leader is not None:
+            self._leader.send(op)
+
+    def _page_fp(self) -> Optional[tuple]:
+        """The allocator fingerprint shipped with admit, chunkstart and
+        spill ops: the gang's check that page assignments replay in
+        lockstep."""
+        return None if self.alloc is None else self.alloc.fingerprint()
+
+    def _check_page_fp(self, fp: Optional[tuple]) -> None:
+        """Follower side: the leader's fingerprint against ours BEFORE
+        replaying the op. A mismatch means the page assignments diverged
+        (KV corruption, not recoverable by retrying): raise, and the
+        follower loop exits the gang."""
+        if fp is None:
+            return
+        mine = self._page_fp()
+        if mine != tuple(fp):
+            raise RuntimeError(f'page allocator diverged from leader: '
+                               f'leader {tuple(fp)}, local {mine}')
 
     def _refuse_waiting_knobs(self) -> None:
         """Refuse by name, at construction, a non-default value of each
@@ -912,9 +1082,10 @@ class InferenceEngine:
                 cfg.dtype != torch.bfloat16:
             return 'fused'
         hd = cfg.head_dim or cfg.dim // cfg.n_heads
+        tp = 1 if self.mesh is None else self.mesh.shape['tensor']
         takes = paged_attention.kernel_takes(
-            (self.max_batch, 1, cfg.n_heads, hd),
-            (self.n_pages, self.page_size, cfg.n_kv_heads, hd),
+            (self.max_batch, 1, cfg.n_heads // tp, hd),
+            (self.n_pages, self.page_size, cfg.n_kv_heads // tp, hd),
             cfg.attn_logit_softcap, cfg.sliding_window,
             True if cfg.attn_sinks else None)
         return 'pallas' if takes else 'fused'
@@ -1100,6 +1271,9 @@ class InferenceEngine:
         for key in list(self._prefix_store):
             ts = self._prefix_last_used.get(key)
             if ts is not None and now - ts >= self.kv_idle_spill_s:
+                # Clock-driven, so leader-private: each spill is its own
+                # op for a gang's followers.
+                self._bcast(('spill', key, self._page_fp()))
                 info = self._spill_key(key)
                 if info is not None:
                     spills.append(info)
@@ -1338,13 +1512,21 @@ class InferenceEngine:
             fut = self._pending_cancels.popleft()
             for i, s in enumerate(self.slots):
                 if s is not None and s['req'].future is fut:
-                    if s['finish'] is None:
-                        s['finish'] = 'stop'
-                        self.flight.record(flight_lib.CANCEL, i)
+                    self._cancel_slot(i)
                     break
             else:
                 self._hold = [r for r in self._hold if r.future is not fut]
                 self._unmark(fut)
+
+    def _cancel_slot(self, slot: int) -> None:
+        """Mark the row in ``slot`` finished ('stop') unless it is; it
+        frees at the next publish. Broadcast: a follower marks the same
+        row at the same point of the op stream."""
+        s = self.slots[slot]
+        if s is not None and s['finish'] is None:
+            self._bcast(('cancel', slot))
+            s['finish'] = 'stop'
+            self.flight.record(flight_lib.CANCEL, slot)
 
     # -- admission -------------------------------------------------------------
     def _drain_admissible(self) -> List[Request]:
@@ -1811,8 +1993,9 @@ class InferenceEngine:
         a verify: on the CPU the body itself; on the card the replay of
         its CUDA graph, captured here the first time (warm-up drives
         every variant, so after it nothing is captured and nothing runs
-        eagerly)."""
-        if self.device.type != 'cuda':
+        eagerly). Without graphs (the CPU, a tensor mesh) the body
+        itself."""
+        if not self.use_graphs:
             return self._body(key)
         if key not in self.graphs:
             if self.warm:
@@ -2171,7 +2354,8 @@ class InferenceEngine:
         """Push new tokens to streaming consumers, resolve finished
         slots and return their pages at once; clear the row's sampler
         and penalty params (the penalized variants key off any nonzero
-        penalty)."""
+        penalty). A gang's followers reap at the same point."""
+        self._bcast(('reap',))
         for i, s in enumerate(self.slots):
             if s is None:
                 continue
@@ -2236,7 +2420,10 @@ class InferenceEngine:
         flight and their stages are dropped with the host state.
         Requests still queued or held are untouched. If the rebuild
         itself raises (a sticky device fault), everything set aside
-        fails and the error propagates: the loop dies."""
+        fails and the error propagates: the loop dies. A gang's
+        followers hit the same failure in the same op, and rebuild in
+        lockstep on the ('reset',) sent here."""
+        self._bcast(('reset',))
         logger.warning('engine admit/step failed; resetting the device '
                        'state: %s\n%s', err, traceback.format_exc())
         deliver: List[Callable[[], None]] = []
@@ -2327,25 +2514,39 @@ class InferenceEngine:
             except Exception as e:  # pylint: disable=broad-except
                 self._fail_all(e, [req])
         for group in self._admit_groups(grouped):
+            self._bcast(('admit', multihost.strip_items(group),
+                         self._page_fp()))
             try:
                 self._admit_group(group)
             except Exception as e:  # pylint: disable=broad-except
                 self._fail_all(e, group)
         for req in chunked:
+            self._bcast(('chunkstart', multihost.strip_items([req])[0],
+                         self._page_fp()))
             try:
                 self._start_chunked(req)
             except Exception as e:  # pylint: disable=broad-except
                 self._fail_all(e, [req])
 
-    def warmup(self) -> None:
+    def warmup(self, buckets: Optional[List[int]] = None) -> None:
         """Build the device state, then run the whole variant matrix —
         k ∈ {1, MAX_STEP_CHUNK} × penalties × top logprobs, the only
         calls ``_dispatch_step`` can make — through the real
         dispatch/collect path on one admitted request, and both verify
         variants with no row active, capturing each on the card; then
-        free the slot (no page leaks), empty the prefix store, reset
-        the counters and flip ``warm`` (``/health`` answers 200). A
-        capture that fails raises."""
+        admit one prompt of each bucket in ``buckets`` that a grouped
+        prefill serves (16 < b < max_len, b <= prefill_chunk: longer
+        prompts chunk), so that its first request allocates nothing new;
+        then free the slots (no page leaks), empty the prefix store,
+        reset the counters and flip ``warm`` (``/health`` answers 200).
+        A capture that fails raises. A gang's leader first ships the op
+        with its sampling seed and :meth:`mirrored_knobs`."""
+        self._bcast(('warmup', list(buckets or []), self.seed,
+                     self.mirrored_knobs()))
+        with self.on_mesh():
+            self._warmup(buckets or [])
+
+    def _warmup(self, buckets: List[int]) -> None:
         self._ensure_state()
         ks = sorted({self.step_chunk, 1}, reverse=True)
         steps = 4 * sum(ks)
@@ -2364,6 +2565,10 @@ class InferenceEngine:
                 self._spec_dev[:self.spec_k + 1].zero_()
                 self._variant(('verify', want_tops))()
         self._drop_all_slots()
+        for b in buckets:
+            if 16 < b < self.max_len and b <= self.prefill_chunk:
+                self._admit_group([Request(list(range(1, b + 1)), 1)])
+                self._drop_all_slots()
         if knobs.get_bool('SKYTPU_ENGINE_WARM_DISAGG'):
             self._warm_disagg_grid()
         self._clear_prefix_store()
@@ -2435,18 +2640,26 @@ class InferenceEngine:
         """One scheduling round of device work: a speculative round when
         it applies, else pipelined — dispatch call N, then, while
         ``_lookahead_k`` allows, dispatch call N+1 BEFORE collecting
-        call N, publishing after every collect."""
-        inflight = self._step_or_dispatch(self._choose_k())
+        call N, publishing after every collect. A gang's followers get
+        ('step', k) at every dispatch and ('collect',) before every
+        collect (('reap',) rides in every publish), so they replay the
+        same interleaving."""
+        k = self._choose_k()
+        self._bcast(('step', k))
+        inflight = self._step_or_dispatch(k)
         if inflight is None:
             return
         while True:
             k2 = self._lookahead_k(inflight.k)
             if k2 is None:
                 break
+            self._bcast(('step', k2))
             nxt = self._dispatch_step(k2)
+            self._bcast(('collect',))
             self._collect_step()
             self._publish()
             inflight = nxt
+        self._bcast(('collect',))
         self._collect_step()
 
     def batch_loop(self) -> None:
@@ -2456,7 +2669,8 @@ class InferenceEngine:
         admit/chunk/step (warm-up included) is kept in ``loop_error``
         and ``/health`` answers 500."""
         try:
-            self._batch_loop()
+            with self.on_mesh():
+                self._batch_loop()
         except Exception as e:  # pylint: disable=broad-except
             logger.error('engine batch loop died: %s\n%s', e,
                          traceback.format_exc())
@@ -2465,7 +2679,7 @@ class InferenceEngine:
 
     def _batch_loop(self) -> None:
         if not self.warm:
-            self.warmup()
+            self.warmup(self.warm_buckets)
         while not self._stop.is_set():
             # Drained point: no call in flight.
             self._process_cancels()
@@ -2493,6 +2707,7 @@ class InferenceEngine:
                 # rows: decoding rows keep decoding between chunks.
                 slot = pending[self._chunk_rr % len(pending)]
                 self._chunk_rr += 1
+                self._bcast(('chunk', slot))
                 try:
                     self._advance_chunk(slot)
                 except Exception as e:  # pylint: disable=broad-except
@@ -2518,11 +2733,17 @@ class InferenceEngine:
         self._thread.start()
 
     def stop(self, timeout: float = 30.0) -> None:
+        """Stop the batch loop; a gang's leader then sends ('stop',), on
+        which its followers return."""
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout)
             if self._thread.is_alive():
                 raise RuntimeError('engine batch loop did not stop')
+        if self._leader is not None:
+            self._bcast(('stop',))
+            self._leader.close()
+            self._leader = None
 
 
 # ---------------------------------------------------------------------------
@@ -2973,6 +3194,12 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
             if url.path == '/v1/chat/completions':
                 return self._chat()
             if url.path in ('/disagg/prefill', '/disagg/continue'):
+                if engine.mesh is not None:
+                    return self._json(501, {'error': {
+                        'message': 'disaggregated prefill/decode on a gang '
+                                   'of ranks is not ported yet (it waits '
+                                   'for ROADMAP Queue 1 item 8)',
+                        'type': 'handoff_unsupported'}})
                 orig = urllib.parse.parse_qs(url.query).get(
                     'orig', ['/generate'])[0]
                 if url.path == '/disagg/prefill':
@@ -3578,12 +3805,33 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--max-len', type=int, default=None)
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default) or 'cpu'.")
-    parser.add_argument('--seed', type=int, default=0,
-                        help='Seed of the random weights and the sampler.')
+    parser.add_argument('--seed', type=int, default=None,
+                        help='Seed of the random weights and the sampler '
+                             '(default 0; a gang\'s leader then draws the '
+                             'sampling seed and ships it).')
     parser.add_argument('--quantize', choices=['int8'], default=None,
                         help='Weight-only int8 (the dense Llama and MLA '
-                             'families).')
-    parser.add_argument('--port', type=int, default=8300)
+                             'families; composes with --mesh).')
+    parser.add_argument('--mesh', default=None,
+                        help="Shard the replica over a gang of ranks, "
+                             "'tensor=N' (with --num-processes N: one "
+                             'process a rank).')
+    parser.add_argument('--warm-buckets', default='all',
+                        help="Comma-separated prompt buckets to admit once "
+                             "in warm-up, or 'all' (the default).")
+    # One replica over a gang of processes: the defaults come from the
+    # gang env, so a gang launch needs no extra flags.
+    parser.add_argument('--coordinator',
+                        default=knobs.get_str('SKYTPU_COORDINATOR_ADDRESS'),
+                        help='The process group\'s host:port (rank 0 '
+                             'listens there; the control channel at port '
+                             f'+ {multihost.CONTROL_PORT_OFFSET}).')
+    parser.add_argument('--num-processes', type=int,
+                        default=knobs.get_int('SKYTPU_NUM_PROCESSES'))
+    parser.add_argument('--process-id', type=int,
+                        default=knobs.get_int('SKYTPU_NODE_RANK'))
+    parser.add_argument('--port', type=int,
+                        default=knobs.get_int('SKYTPU_SERVE_PORT'))
     parser.add_argument('--host', default='0.0.0.0')
     # The framed-TCP port this replica takes KV page handoffs on: -1 is
     # the HTTP port + HANDOFF_PORT_OFFSET (the convention the LB derives
@@ -3603,18 +3851,64 @@ def handoff_port_for(handoff_port: int, http_port: int) -> Optional[int]:
 
 
 def main(argv: Optional[List[str]] = None) -> None:
+    """The engine's CLI. With ``--num-processes`` > 1 and a coordinator,
+    one rank of a gang: rank 0 answers HTTP and leads, the others mirror
+    its ops (serve/multihost.py ``follower_serve``) and return on its
+    'stop'. SIGTERM stops the leader as Ctrl-C does: the server closes,
+    the loop stops and the followers get 'stop'."""
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
+    multihost_on = bool(args.coordinator) and args.num_processes > 1
+    if args.mesh and not multihost_on:
+        raise ValueError(
+            f'--mesh {args.mesh} needs --num-processes > 1 and '
+            f'--coordinator: one process holds one rank of the mesh in '
+            f'this port (a mesh in one process waits for ROADMAP Queue 1 '
+            f'item 8)')
+    device = args.device
+    if multihost_on:
+        multihost.require_token()   # refuse guessable tokens pre-boot
+        if not args.mesh:
+            raise ValueError('multi-host serving needs --mesh spanning the '
+                             'ranks (e.g. tensor=2 over 2 processes).')
+        device = mesh_lib.rank_device(device)
+        mesh_lib.init_distributed(args.coordinator, args.num_processes,
+                                  args.process_id, device)
     engine = InferenceEngine(
         args.model or (None if args.hf_dir else 'llama-1b'),
         ckpt_dir=args.ckpt_dir, hf_dir=args.hf_dir,
         tokenizer_path=args.tokenizer, max_len=args.max_len,
-        device=args.device, seed=args.seed, quantize=args.quantize)
-    engine.handoff_port = handoff_port_for(args.handoff_port, args.port)
+        device=str(device), seed=args.seed or 0, quantize=args.quantize,
+        mesh=args.mesh)
+    # A gang takes no KV handoff: page export across ranks waits.
+    engine.handoff_port = (None if multihost_on else
+                           handoff_port_for(args.handoff_port, args.port))
+    if args.warm_buckets == 'all':
+        engine.warm_buckets = engine.all_buckets()
+    else:
+        engine.warm_buckets = [int(b) for b in args.warm_buckets.split(',')
+                               if b]
+    if multihost_on and args.process_id != 0:
+        # Follower: mirror the leader's ops (warmup arrives first); no
+        # HTTP frontend.
+        multihost.follower_serve(engine, args.coordinator)
+        return
+    if multihost_on:
+        if args.seed is None:
+            # Every rank of THIS gang draws the same samples, but
+            # replicas and restarts must not correlate: the leader draws
+            # the sampling seed and ships it in the warmup op.
+            engine.seed = int(time.time_ns()) % (2 ** 31)
+        engine._leader = multihost.ControlLeader(args.coordinator,
+                                                 args.num_processes)
     server = build_app(engine, args.host, args.port)
+    signal.signal(signal.SIGTERM, lambda *_: threading.Thread(
+        target=server.shutdown, daemon=True).start())
     engine.start()
     try:
         server.serve_forever()
+    except KeyboardInterrupt:
+        pass
     finally:
         server.server_close()
         engine.stop()

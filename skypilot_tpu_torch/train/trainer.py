@@ -184,9 +184,7 @@ def maybe_init_distributed(device: torch.device) -> torch.device:
     device_count``."""
     coordinator = knobs.get_str('SKYTPU_COORDINATOR_ADDRESS')
     num_procs = knobs.get_int('SKYTPU_NUM_PROCESSES')
-    if device.type == 'cuda' and device.index is None:
-        local = int(os.environ.get('LOCAL_RANK') or 0)
-        device = torch.device('cuda', local % torch.cuda.device_count())
+    device = mesh_lib.rank_device(device)
     if coordinator and num_procs > 1 and not dist.is_initialized():
         mesh_lib.init_distributed(coordinator, num_procs,
                                   knobs.get_int('SKYTPU_NODE_RANK'), device)

@@ -8,9 +8,10 @@ It holds only the engine's rows, the KV handoff's two
 (``SKYTPU_OBSERVE_DB``, ``SKYTPU_DISABLE_JOURNAL``),
 ``SKYTPU_FLIGHT_CAPACITY``, ``SKYTPU_FAILPOINTS``, ring attention's two
 (``SKYTPU_RING_BWD_CHUNK``, ``SKYTPU_RING_BWD_FLASH``), the rollout
-plane's five (``SKYTPU_ROLLOUT_*``) and the gang's
-three (``SKYTPU_COORDINATOR_ADDRESS``, ``SKYTPU_NUM_PROCESSES``,
-``SKYTPU_NODE_RANK``), plus one row of the port's own,
+plane's five (``SKYTPU_ROLLOUT_*``), the gang's four
+(``SKYTPU_COORDINATOR_ADDRESS``, ``SKYTPU_NUM_PROCESSES``,
+``SKYTPU_NODE_RANK``, ``SKYTPU_JOB_ID``), ``SKYTPU_SERVE_PORT`` and the
+multi-host control channel's four (``SKYTPU_MH_*``), plus one row of the port's own,
 ``SKYTPU_TORCH_DIST_BACKEND``: the JAX package has no process-group
 backend to choose. An accessor reads the environment per call (a
 knob read at import stays read at import: the call site decides) and
@@ -148,6 +149,25 @@ _declare('SKYTPU_COORDINATOR_ADDRESS', 'str', None, 'skylet',
          'jax.distributed coordinator host:port.')
 _declare('SKYTPU_NUM_PROCESSES', 'int', 1, 'skylet',
          'Total processes across all slices.')
+_declare('SKYTPU_JOB_ID', 'str', None, 'skylet',
+         'Job id of the owning gang.')
+
+# ------------------------------------------------------------ serve
+_declare('SKYTPU_SERVE_PORT', 'int', 8000, 'serve',
+         'Engine HTTP port default for `skytpu serve`.')
+
+# ------------------------------------------------------- multi-host
+_declare('SKYTPU_MH_TOKEN', 'str', None, 'multihost',
+         'Per-job random secret for the multi-host serve control '
+         'channel; drawn once per gang by the slice driver.')
+_declare('SKYTPU_MH_ALLOW_INSECURE_TOKEN', 'bool', False, 'multihost',
+         'Loopback-debug escape hatch: accept the guessable job-id '
+         'token instead of refusing to start.')
+_declare('SKYTPU_MH_CONNECT_TIMEOUT', 'float', 120.0, 'multihost',
+         'Follower connect budget to the leader control channel.')
+_declare('SKYTPU_MH_SEND_TIMEOUT', 'float', 20.0, 'multihost',
+         'Per-broadcast send budget; a follower wedged this long '
+         'fails the replica.')
 
 # ---------------------------------------------------- the port's own
 _declare('SKYTPU_TORCH_DIST_BACKEND', 'enum', '', 'parallel',

@@ -195,7 +195,8 @@ def test_port_knobs_have_the_jax_names_types_and_defaults():
         'SKYTPU_OBSERVE_DB', 'SKYTPU_DISABLE_JOURNAL',
         'SKYTPU_RING_BWD_CHUNK', 'SKYTPU_RING_BWD_FLASH',
         'SKYTPU_COORDINATOR_ADDRESS', 'SKYTPU_NUM_PROCESSES',
-        'SKYTPU_NODE_RANK'} | {
+        'SKYTPU_NODE_RANK', 'SKYTPU_JOB_ID', 'SKYTPU_SERVE_PORT'} | {
+        n for n in jknobs.REGISTRY if n.startswith('SKYTPU_MH_')} | {
         n for n in jknobs.REGISTRY if n.startswith('SKYTPU_ROLLOUT_')}
     assert not port_only & set(jknobs.REGISTRY)
     for name, knob in knobs.REGISTRY.items():
@@ -555,6 +556,8 @@ def test_failpoint_sites_sit_at_the_jax_points():
         ('handoff.send', 'serve/disagg/handoff.py'),
         ('kv.spill', 'serve/engine.py'),
         ('kv.wake', 'serve/engine.py'),
+        ('multihost.recv', 'serve/multihost.py'),
+        ('multihost.send', 'serve/multihost.py'),
         ('prefill.flush', 'serve/engine.py'),
         ('rollout.generate', 'train/rollout/worker.py'),
         ('rollout.lease', 'train/rollout/dispatcher.py'),

@@ -1652,3 +1652,40 @@ def test_rollout_two_step_replay_is_bit_equal_on_the_card(cuda, tmp_path,
         spec, str(tmp_path / 'traj'), learning_rate=1e-4, total_steps=2,
         device='cuda')
     assert replayed == live
+
+
+# A rank's heads in a serving gang at --mesh tensor=N (serve/engine.py):
+# llama-1b's 16/8 at head dim 128 and gemma-7b's 16/16 at 256, at N = 2
+# and 4 (the group g = H/KH stays).
+TP_HEADS = [pytest.param(16 // n, kh // n, d, id=f'{name}-tensor{n}')
+            for name, kh, d in (('llama-1b', 8, 128), ('gemma-7b', 16, 256))
+            for n in (2, 4)]
+
+
+@pytest.mark.parametrize('h,kh,d', TP_HEADS)
+def test_flash_kernel_matches_plain_at_a_ranks_heads(cuda, h, kh, d):
+    gen = torch.Generator(device=cuda).manual_seed(h + kh + d)
+    q, k, v = _rand(gen, 2, 300, h, d), _rand(gen, 2, 300, kh, d), \
+        _rand(gen, 2, 300, kh, d)
+    before = fa.KERNEL.launches
+    o, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    assert fa.KERNEL.launches == before + 1
+    o_ref, lse_ref = fa.flash_attention_ref(*_prescaled_fp32(q, k, v),
+                                            causal=True, softmax_scale=1.0)
+    torch.cuda.synchronize()
+    _assert_o_close(o, o_ref)
+    assert float((lse - lse_ref).abs().max()) <= TOL_LSE
+
+
+@pytest.mark.parametrize('s', [1, 4])
+@pytest.mark.parametrize('h,kh,d', TP_HEADS)
+def test_paged_kernel_matches_plain_at_a_ranks_heads(cuda, h, kh, d, s):
+    q, kp, vp, table_t, length_t = _paged_inputs(cuda, s, h, kh, hd=d,
+                                                 psz=64)
+    before = pa.KERNEL.launches
+    out = pa.paged_decode_attention(q, kp, vp, table_t, length_t)
+    assert pa.KERNEL.launches == before + 1
+    ref = pa.paged_decode_attention_ref(*_prescaled_fp32(q, kp, vp),
+                                        table_t, length_t, softmax_scale=1.0)
+    torch.cuda.synchronize()
+    _assert_o_close(out, ref)

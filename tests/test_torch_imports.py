@@ -56,7 +56,8 @@ def test_port_sources_import_no_jax_and_no_jax_package():
                  ('parallel', '__init__.py'), ('ops', 'ring_attention.py'),
                  ('utils', 'backoff.py'), ('utils', 'sqlite_utils.py'),
                  ('analysis', '__init__.py'),
-                 ('analysis', 'state_machines.py')) + tuple(
+                 ('analysis', 'state_machines.py'),
+                 ('serve', 'multihost.py')) + tuple(
             ('train', 'rollout', f'{name}.py') for name in (
                 '__init__', '__main__', 'spec', 'telemetry', 'dispatcher',
                 'worker', 'learner', 'harness')):

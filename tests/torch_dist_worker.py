@@ -1,5 +1,6 @@
 """One rank of a gloo process group on the CPU, for the port's
-context-parallel tests (tests/test_torch_ring.py).
+context-parallel tests (tests/test_torch_ring.py) and its
+tensor-parallel forward (tests/test_torch_multihost_forward.py).
 
     python tests/torch_dist_worker.py JOBS.pkl RANK WORLD INIT_FILE OUT_DIR
 
@@ -19,9 +20,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from skypilot_tpu_torch import config  # noqa: E402
+from skypilot_tpu_torch.models import decode, llama, paging  # noqa: E402
 from skypilot_tpu_torch.models import weights  # noqa: E402
 from skypilot_tpu_torch.ops import ring_attention as ring  # noqa: E402
 from skypilot_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
+from skypilot_tpu_torch.parallel import sharding  # noqa: E402
 from skypilot_tpu_torch.train import train_lib  # noqa: E402
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
@@ -81,6 +84,57 @@ def train_job(job, rank, world):
                             train_lib.leaves(state.params)]
 
 
+def tp_config(job):
+    """The job's model config, computing in its dtype."""
+    import dataclasses
+    return dataclasses.replace(config.get_config(job['model']),
+                               dtype=DTYPES[job['dtype']], **job['overrides'])
+
+
+def paged_logits(params, cfg, job):
+    """Prefill the job's ragged prompts, scatter their K/V into its page
+    table, then one paged decode step per row of ``job['feed']`` with
+    ``job['active']``: every step's logits as fp32 numpy."""
+    tokens = torch.from_numpy(job['tokens'])
+    lengths = torch.from_numpy(job['lengths'])
+    table = torch.from_numpy(job['table'])
+    active = torch.from_numpy(job['active'])
+    b, s = tokens.shape
+    maxp, max_len = table.shape[1], job['max_len']
+    psz = max_len // maxp
+    logits, ks, vs = decode.prefill(params, tokens, cfg, max_len,
+                                    lengths=lengths)
+    pool = decode.init_page_pool(cfg, b * maxp + 1, psz, b, maxp,
+                                 device='cpu')
+    pool.table.copy_(table)
+    paging.scatter_prefill(pool, ks, vs, torch.arange(b), s, lengths)
+    out = [logits]
+    for tok in job['feed']:
+        logits, pool = decode.paged_decode_step(
+            params, torch.from_numpy(tok), pool, cfg, max_len=max_len,
+            active=active)
+        out.append(logits)
+    return [x.float().numpy() for x in out]
+
+
+def tp_job(job, rank, world):
+    """:func:`paged_logits` of the bridged params (int8 with
+    ``job['quantize']``, quantized whole, then sharded) on a mesh of
+    'tensor' = the world: each rank holds its shard; the logits are
+    every rank's gathered ones."""
+    cfg = tp_config(job)
+    params = decode.cast_params_for_decode(
+        weights.params_from_jax(job['params'], cfg, device='cpu'), cfg,
+        quantize=job.get('quantize'))
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(tensor=world))
+    params = sharding.shard_params(params, llama.param_axes(cfg), mesh)
+    with torch.no_grad(), mesh_lib.use_mesh(mesh):
+        return paged_logits(params, cfg, job)
+
+
+JOBS = {'ring': ring_job, 'train': train_job, 'tp': tp_job}
+
+
 def main():
     jobs_path, rank, world, init_file, out_dir = sys.argv[1:]
     rank, world = int(rank), int(world)
@@ -93,8 +147,7 @@ def main():
     for name, job in jobs.items():
         if job['world'] != world:
             continue
-        fn = train_job if job['kind'] == 'train' else ring_job
-        out[name] = fn(job, rank, world)
+        out[name] = JOBS[job['kind']](job, rank, world)
     with open(os.path.join(out_dir, f'rank{rank}.pkl'), 'wb') as f:
         pickle.dump(out, f)
     dist.destroy_process_group()
