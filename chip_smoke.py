@@ -116,7 +116,22 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  logprobs equal to the resident hit's and its tokens to
                  the cold run's; kv_spill and kv_wake in the journal;
                  spill and wake ms (chiprun_out/disagg.json);
-  7d. tp_serve — one replica over a gang: llama-1b whole (bf16, random
+  7d. kv_int8  — llama-1b whole on int8 K/V pools
+                 (SKYTPU_ENGINE_KV_QUANT=int8, the same weights): the
+                 JAX bench's quality protocol in bf16 on the int8 and
+                 the fp pool (NLL drift <= 0.05 held; argmax agreement
+                 printed); the pool's bytes against the fp pool's at
+                 385 pages; from launch counts of 0 the engine's
+                 warm-up (no B in any graph), the serve burst and the
+                 admission burst, every answer checked, A launched and
+                 B never (it declines int8 pools, as JAX's kernel does);
+                 TPOT, idle share and peak memory beside the serve
+                 phase's; a 512-token prefix spilled (codes and scales
+                 parked) and woken, its tokens and logprobs equal to
+                 the resident hit's; the k=1, k=8 and verify graph
+                 replays equal to their eager bodies bit for bit
+                 (chiprun_out/kv_int8.json);
+  7e. tp_serve — one replica over a gang: llama-1b whole (bf16, random
                  weights from seed 0) at --mesh tensor=2, two ranks
                  sharing the card over gloo (this script with
                  --tp-worker, each running the engine's main with the
@@ -196,7 +211,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  torch.profiler; then one step each of gemma2-9b (2
                  layers) and gemma3-12b (6 layers) with no kernel
                  launched, their grads against fp32;
- 18. train     — the port's trainer on llama-1b at full width, 6 steps
+ 18. train     — the port's trainer on llama-1b at full width (8 of its
+                 16 layers since PR 21), 6 steps
                  of 4 x 2048 tokens: A twice and C, D once per layer per
                  step; grads against the plain and fp32 paths, the loss
                  against the plain-attention trainer, a resume at step
@@ -216,7 +232,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  bucket and a ring message cost; (c) `python -m
                  skypilot_tpu_torch.train.trainer --mesh sequence=2`
                  with zigzag ring as two processes with the gang env,
-                 llama-1b whole, 2 steps of 2 x 4096: launches per rank
+                 llama-1b at full width cut to 8 of its 16 layers
+                 (since PR 21), 2 steps of 2 x 4096: launches per rank
                  (A twice, C and D fp32 once per block per layer per
                  step), both replicas' params sha256 equal, ms/step and
                  peak memory per rank, the losses against the
@@ -427,8 +444,11 @@ FLASH256_CASES = [(2, 16, 16, 16, True), (2, 100, 16, 16, True),
                   (1, 130, 16, 16, False), (2, 512, 16, 16, True),
                   (1, 300, 16, 8, False), (1, 2048, 16, 16, True)]
 TRAIN_KERNELS = ('flash_fwd', 'flash_dq', 'flash_dkv')
-# Train phase: llama-1b at full width, batch 4 x 2048, 6 steps.
+# Train phase: llama-1b at full width cut to TRAIN_DEPTH of its 16
+# layers (since the kv_int8 phase took its room: the resume's two
+# checkpoints were most of the phase), batch 4 x 2048, 6 steps.
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP = 4, 2048, 6, 2
+TRAIN_DEPTH = 8
 # Grads: per leaf, the kernel bf16 path's relative error (Frobenius)
 # against an fp32 plain-attention run of the same weights and batch,
 # over the plain bf16 path's: bf16 rounding through 16 layers dominates
@@ -2167,7 +2187,9 @@ def serve_engine(eng, engine_lib, tag, **knobs):
         if code != 503 or time.perf_counter() - t0 > 600:
             fail(f'{tag} /health never came up: {code} {doc}')
         time.sleep(0.1)
-    layers = eng.cfg.n_layers * takes_kernels(eng.cfg)
+    # Kernel B declines int8 pools: no graph of an int8 engine holds it.
+    layers = eng.cfg.n_layers * takes_kernels(eng.cfg) * \
+        (eng.kv_quant == 'none')
     want = {(k, p, t): k * layers for k in (1, engine_lib.MAX_STEP_CHUNK)
             for p in (False, True) for t in (False, True)}
     if eng.spec_k > 0:
@@ -2462,6 +2484,14 @@ class Watch:
         eng._finish_admit = finish_admit
         eng._admit_with_prefix = admit_with_prefix
 
+    @staticmethod
+    def detach(eng) -> None:
+        """Give the engine its own methods back (a wake from the host
+        tier admits a hit whose key the store does not hold yet)."""
+        for name in ('_advance_chunk', '_finish_admit',
+                     '_admit_with_prefix'):
+            delattr(eng, name)
+
 
 def admission_burst(eng, base, watch, seed: int, tag: str) -> dict:
     """The three waves on a running engine, checked: the long prompt's
@@ -2713,6 +2743,67 @@ def check_chunked_logits(torch, cfg, params, decode, paging, build,
     return {'chunked_vs_plain_error_ratio': ratio, **err}
 
 
+SERVE_NEW = 32
+# The serve phases' burst statistics by model (the kv_int8 phase prints
+# its own beside llama-1b's).
+SERVE_STATS = {}
+
+
+def serve_requests():
+    """The serve burst: 4 /generate (a short text, 130, 300 and 700
+    tokens, SERVE_NEW new each) and 2 streamed /v1/completions (a
+    penalized greedy one of 48 tokens, a logprobs=5 sampled one of
+    40)."""
+    rng = np.random.default_rng(11)
+    reqs = [{'text': 'The quick brown f', 'max_new_tokens': SERVE_NEW}]
+    for n in (130, 300, 700):
+        reqs.append({'tokens': rng.integers(0, 256, size=n).tolist(),
+                     'max_new_tokens': SERVE_NEW})
+    streams = [
+        {'prompt': rng.integers(0, 256, size=60).tolist(),
+         'max_tokens': 48, 'temperature': 0, 'presence_penalty': 0.5,
+         'frequency_penalty': 0.5, 'logprobs': 0, 'ignore_eos': True,
+         'stream': True},
+        {'prompt': 'Once upon a time', 'max_tokens': 40,
+         'temperature': 0.8, 'top_p': 0.9, 'logprobs': 5,
+         'ignore_eos': True, 'stream': True}]
+    return reqs, streams
+
+
+def run_burst(base, reqs, streams, vocab: int) -> float:
+    """Send every request at once, check every answer; seconds."""
+    t1 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(streams)) as ex:
+        sfuts = [ex.submit(sse, base + '/v1/completions', d)
+                 for d in streams]
+        generate_all(base, reqs, vocab)
+        for d, f in zip(streams, sfuts):
+            check_stream(d, f.result())
+    return time.perf_counter() - t1
+
+
+def burst_stats(eng, paging, wall: float, calls: dict) -> dict:
+    """A burst's end-to-end numbers from the engine's timings."""
+    timings = list(eng.timings)
+    ttft = [t[0] for t in timings]
+    tpot = [t[1] for t in timings]
+    by_k = {}
+    for key, n in calls.items():
+        by_k[key[0]] = by_k.get(key[0], 0) + n
+    return {'requests': len(timings),
+            'cache_family': eng.cache_family(),
+            'pool_bytes_per_token': sum(
+                p[:, 0, 0].numel() * p.element_size()
+                for p in paging.pool_tensors(eng.cache).values()),
+            'ttft_ms_median': statistics.median(ttft) * 1e3,
+            'ttft_ms_max': max(ttft) * 1e3,
+            'tpot_ms_median': statistics.median(tpot) * 1e3,
+            'tok_per_s': sum(t[2] for t in timings) / wall,
+            'decode_steps': eng.step_count,
+            'device_calls_by_k': by_k,
+            'graph_replays': sum(calls.values())}
+
+
 def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
                 paging, label=None) -> dict:
     """The port's engine on preset ``model`` with ``params`` and the
@@ -2748,31 +2839,11 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
     build.reset_launches()
     eng, server, base = start_engine(model, cfg, params, engine_lib, tag)
     try:
-        rng = np.random.default_rng(11)
-        max_new = 32
-        reqs = [{'text': 'The quick brown f', 'max_new_tokens': max_new}]
-        for n in (130, 300, 700):
-            reqs.append({'tokens': rng.integers(0, 256, size=n).tolist(),
-                         'max_new_tokens': max_new})
-        streams = [
-            {'prompt': rng.integers(0, 256, size=60).tolist(),
-             'max_tokens': 48, 'temperature': 0, 'presence_penalty': 0.5,
-             'frequency_penalty': 0.5, 'logprobs': 0, 'ignore_eos': True,
-             'stream': True},
-            {'prompt': 'Once upon a time', 'max_tokens': 40,
-             'temperature': 0.8, 'top_p': 0.9, 'logprobs': 5,
-             'ignore_eos': True, 'stream': True}]
+        max_new = SERVE_NEW
+        reqs, streams = serve_requests()
 
         def burst() -> float:
-            """Send every request at once, check every answer; seconds."""
-            t1 = time.perf_counter()
-            with concurrent.futures.ThreadPoolExecutor(len(streams)) as ex:
-                sfuts = [ex.submit(sse, base + '/v1/completions', d)
-                         for d in streams]
-                generate_all(base, reqs, cfg.vocab_size)
-                for d, f in zip(streams, sfuts):
-                    check_stream(d, f.result())
-            return time.perf_counter() - t1
+            return run_burst(base, reqs, streams, cfg.vocab_size)
 
         replica = model == 'llama-1b'
         if replica:
@@ -2803,25 +2874,7 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
                             sum(d['max_new_tokens'] for d in reqs) +
                             sum(d['max_tokens'] for d in streams),
                             len(reqs) + len(streams), tag)
-        timings = list(eng.timings)
-        ttft = [t[0] for t in timings]
-        tpot = [t[1] for t in timings]
-        n_tok = sum(t[2] for t in timings)
-        by_k = {}
-        for key, n in calls.items():
-            by_k[key[0]] = by_k.get(key[0], 0) + n
-        stats = {'requests': len(timings),
-                 'cache_family': eng.cache_family(),
-                 'pool_bytes_per_token': sum(
-                     p[:, 0, 0].numel() * p.element_size()
-                     for p in paging._pools(eng.cache).values()),
-                 'ttft_ms_median': statistics.median(ttft) * 1e3,
-                 'ttft_ms_max': max(ttft) * 1e3,
-                 'tpot_ms_median': statistics.median(tpot) * 1e3,
-                 'tok_per_s': n_tok / wall,
-                 'decode_steps': eng.step_count,
-                 'device_calls_by_k': by_k,
-                 'graph_replays': sum(calls.values())}
+        stats = burst_stats(eng, paging, wall, calls)
         # The same burst again under the profiler: how much of the wall
         # time the card spends running kernels, and kernel B's launches
         # counted on the device (the engine's count, captured launches
@@ -2843,6 +2896,7 @@ def phase_serve(torch, model, cfg, params, engine_lib, build, decode,
         log(f'{tag} ' + json.dumps(stats))
         log(f'{tag} burst TPOT median {stats["tpot_ms_median"]:.3f} ms, '
             f'idle share {stats["idle_share"]:.3f} on {gpu_line()}')
+        SERVE_STATS[model] = stats
         # The admission burst on the defaults: timed, then profiled.
         watch = Watch(eng, build)
         admit = {'on': admission_burst(eng, base, watch, 31, tag)}
@@ -3155,6 +3209,267 @@ def phase_disagg(torch, cfg, params, engine_lib, build) -> dict:
     return launches
 
 
+# The kv_int8 phase: llama-1b whole on int8 K/V pools
+# (SKYTPU_ENGINE_KV_QUANT=int8, JAX's other default knobs). The quality
+# protocol of the JAX bench (4 rows, a 24-token prompt, 16 forced steps,
+# pages of 8, 8 a row) in bf16 on the int8 and the fp pool; the pool's
+# bytes against the fp pool's at the same n_pages; the serve burst and
+# the admission burst (a chunked 1000-token prompt, prefix hits,
+# speculation) with kernel A counted and kernel B at 0 (it declines
+# int8 pools); a 512-token system prompt spilled to the host tier and
+# woken; then, the loop stopped, the step and verify graph replays
+# against their eager bodies, bit for bit.
+KV_INT8_HOST_MB, KV_INT8_IDLE_S = 1024, 1.0
+QUALITY_SHAPE = dict(rows=4, prompt=24, cont=16, page_size=8, max_pages=8)
+
+
+def int8_quality(torch, cfg, params, decode) -> dict:
+    """The teacher-forced protocol on the int8 and the fp pool: the NLL
+    drift (gated at the JAX band), and, reported, the teacher-forced
+    argmax agreement and the greedy chain's, with the fp run's top-2
+    margins where the argmax differs."""
+    from skypilot_tpu_torch.models import quality
+    q = QUALITY_SHAPE
+    rng = np.random.default_rng(19)
+    prompts, forced = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (q['rows'], n)).astype(np.int32)).cuda()
+        for n in (q['prompt'], q['cont']))
+    rows = {mode: quality.quality_family(
+        decode, params, cfg, prompts, forced, mode, q['page_size'],
+        q['max_pages']) for mode in ('none', 'int8')}
+    fp, i8 = rows['none'], rows['int8']
+    drift = abs(i8['nll'] - fp['nll'])
+    same = fp['tf_argmax'] == i8['tf_argmax']
+    out = {'nll_fp': fp['nll'], 'nll_int8': i8['nll'], 'nll_drift': drift,
+           'tf_argmax_agreement': float(same.float().mean()),
+           'greedy_agreement': quality.greedy_match(
+               i8['greedy_tokens'], fp['greedy_tokens']),
+           'fp_margins_where_argmax_differs':
+               fp['tf_margin'][~same].tolist(),
+           'fp_margin_median': float(fp['tf_margin'].median())}
+    log(f'[kv_int8] quality protocol (JAX bench: {q}) in bf16: '
+        f'{json.dumps(out)}; bands: NLL drift <= '
+        f'{quality.QUALITY_NLL_BAND} (held), greedy agreement >= '
+        f'{quality.QUALITY_GREEDY_MATCH_MIN} (reported)')
+    if not np.isfinite(i8['nll']) or drift > quality.QUALITY_NLL_BAND:
+        fail(f'[kv_int8] int8 NLL {i8["nll"]} vs fp {fp["nll"]}: drift '
+             f'{drift:.4f} > {quality.QUALITY_NLL_BAND}')
+    return out
+
+
+def int8_pool_bytes(torch, eng, decode, paging) -> dict:
+    """The int8 pool's bytes (codes and sidecars) against an fp pool of
+    the same n_pages (shapes only, on the meta device)."""
+    def nbytes(pool):
+        return sum(t.numel() * t.element_size()
+                   for t in paging.pool_tensors(pool).values())
+    i8 = nbytes(eng.cache)
+    fp = nbytes(decode.init_page_pool(eng.cfg, eng.n_pages, eng.page_size,
+                                      eng.max_batch, eng._max_pages,
+                                      device='meta'))
+    page_i8, page_fp = i8 // eng.n_pages, fp // eng.n_pages
+    out = {'n_pages': eng.n_pages, 'int8_bytes': i8, 'fp_bytes': fp,
+           'ratio': i8 / fp, 'int8_pages_in_fp_bytes': fp // page_i8,
+           'pages_per_gb_int8': 1e9 / page_i8,
+           'pages_per_gb_fp': 1e9 / page_fp}
+    hd = eng.cfg.hd
+    log(f'[kv_int8] pool: {json.dumps(out)} (predicted ratio '
+        f'{(hd + 4) / (2 * hd):.6f}: hd {hd} int8 codes + one fp32 scale '
+        f'against {hd} bf16 values)')
+    if i8 * 2 * hd != fp * (hd + 4) or not paging.quantized(eng.cache):
+        fail(f'[kv_int8] pool bytes {i8} vs fp {fp}: not the int8 layout')
+    return out
+
+
+def int8_graphs_vs_eager(torch, eng, engine_lib, paging, tag) -> dict:
+    """With the loop stopped, on four admitted rows: each of the k=1
+    greedy top-5 step, the k=MAX_STEP_CHUNK greedy step and the greedy
+    top-5 verify, replayed from its graph and then run as its eager
+    body from the same state (pool codes and scales, lengths, last,
+    counts; every row greedy, so no draw reaches an output): outputs
+    and every page but the trash page bit for bit."""
+    rng = np.random.default_rng(14)
+    for group in eng._admit_groups([
+            engine_lib.Request(rng.integers(0, 256, n).tolist(), 64)
+            for n in (17, 100, 250, 40)]):
+        eng._admit_group(group)
+    rows = [i for i, s in enumerate(eng.slots) if eng._row_active(s)]
+    pool = list(paging.pool_tensors(eng.cache).values())
+    n_pool = len(pool)
+    state = [*pool, eng.cache.length, eng.last_dev, eng.counts]
+    k = eng.spec_k
+    fed = torch.from_numpy(rng.integers(0, eng.cfg.vocab_size,
+                                        (eng.max_batch, k)).astype(np.int32))
+    out = {}
+    for key in ((1, False, True), (eng.step_chunk, False, False),
+                ('verify', True)):
+        snap = [t.clone() for t in state]
+        if key[0] == 'verify':
+            eng._spec_dev[:k].copy_(fed.cuda().t())
+            eng._spec_dev[0].copy_(eng.last_dev)
+            eng._spec_dev[k].zero_()
+            eng._spec_dev[k, rows] = 1
+            outs = (eng._ver_toks, eng._ver_lps, eng._ver_tis, eng._ver_tvs)
+            eng._variant(key)()
+        else:
+            outs = (eng._out_toks, eng._out_lps, eng._out_tis, eng._out_tvs)
+            h = eng._dispatch_step(key[0], want_tops_force=key[2])
+            h.event.synchronize()
+            eng._inflight.remove(h)
+        torch.cuda.synchronize()
+        replayed = [t.clone() for t in (*outs, *state)]
+        for t, v in zip(state, snap):
+            t.copy_(v)
+        eng._body(key)()
+        torch.cuda.synchronize()
+        eager = [t.clone() for t in (*outs, *state)]
+        # Page 0 of each pool tensor is the trash page, which the
+        # inactive rows write in an order no run defines.
+        trash = set(range(len(outs), len(outs) + n_pool))
+        differ = [i for i, (a, b) in enumerate(zip(replayed, eager))
+                  if not torch.equal(*((a[:, 1:], b[:, 1:]) if i in trash
+                                       else (a, b)))]
+        if differ:
+            fail(f'{tag} graph {key} vs its eager body: tensors {differ} '
+                 f'differ (outputs 0-3, then the pool, length, last, '
+                 f'counts)')
+        out[str(key)] = 'bit-equal'
+        for t, v in zip(state, snap):
+            t.copy_(v)
+    eng._reset_device_state()
+    log(f'{tag} graph replays == eager bodies bit for bit on {len(rows)} '
+        f'rows (outputs, int8 codes, fp32 scales, lengths, last, counts): '
+        f'{out}')
+    return out
+
+
+def int8_spill_wake(eng, base, vocab: int, tag: str) -> dict:
+    """A 512-token system prompt with two tails: the second a resident
+    prefix hit; the idle sweep then spills the entry to the host tier
+    (its blob: codes and scales of k and v); the second tail again is
+    woken as a hit and answers the resident hit's tokens and
+    logprobs."""
+    from skypilot_tpu_torch.utils import framed
+    rng = np.random.default_rng(21)
+    system = rng.integers(0, vocab, size=512).tolist()
+    tails = [rng.integers(0, vocab, size=40).tolist() for _ in range(2)]
+
+    def gen(tokens):
+        code, doc = http(base + '/generate', {'tokens': tokens,
+                                               'max_new_tokens': 32})
+        if code != 200:
+            fail(f'{tag} /generate answered {code}: {doc}')
+        return doc['tokens'], doc['logprobs']
+
+    key = tuple(system)
+    hits0 = eng.prefix_hits
+    gen(system + tails[0])
+    resident = gen(system + tails[1])
+    if eng.prefix_hits != hits0 + 1:
+        fail(f'{tag} the resent system prompt was not a prefix hit')
+    eng.kv_idle_spill_s = KV_INT8_IDLE_S
+    try:
+        wait_for(lambda: key in eng.host_store and
+                 key not in eng._prefix_store, tag,
+                 'the idle sweep of the system prompt')
+    finally:
+        eng.kv_idle_spill_s = 0.0
+    blob = eng.host_store._entries[key][0]
+    _, parked = framed._decode_payload(blob)
+    names = sorted(parked)
+    scale_bytes = sum(np.asarray(parked[n]).nbytes for n in names
+                      if n.endswith('scale'))
+    if names != ['k', 'k_scale', 'v', 'v_scale'] or \
+            any(np.asarray(parked[n]).dtype != np.int8 for n in ('k', 'v')):
+        fail(f'{tag} parked arrays {names}, dtypes '
+             f'{[str(np.asarray(parked[n]).dtype) for n in names]}')
+    woken = gen(system + tails[1])
+    if eng.prefix_hits != hits0 + 2 or woken != resident:
+        fail(f'{tag} woken hit ({eng.prefix_hits - hits0} hits): tokens '
+             f'{woken[0]} vs resident {resident[0]}')
+    out = {'blob_bytes': len(blob), 'scale_bytes': scale_bytes,
+           'pages': 512 // eng.page_size, 'arrays': names}
+    log(f'{tag} spill tier: the 512-token system prompt parked '
+        f'{json.dumps(out)} and woken as a prefix hit: tokens and '
+        f'logprobs equal to the resident hit')
+    return out
+
+
+def phase_kv_int8(torch, cfg, params, engine_lib, build, decode,
+                  paging) -> dict:
+    """llama-1b (the serve phase's random bf16 weights) on int8 K/V
+    pools: the quality protocol, then the int8 engine from launch
+    counts of 0: warm-up (eight step and two verify graphs, no kernel B
+    in any), the serve burst and the admission burst, each answer
+    checked, kernel A launched and B not; TPOT, idle share and peak
+    memory beside the fp serve phase's; the pool's bytes; the spill
+    tier; the graphs against their eager bodies. Returns the launch
+    counts of the main path (warm-up and both bursts)."""
+    tag = '[kv_int8]'
+    t_phase = time.perf_counter()
+    result = {'card': gpu_line(), 'quality': int8_quality(
+        torch, cfg, params, decode)}
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    # The main path starts here: every launch count from 0.
+    build.reset_launches()
+    eng, server, base = start_engine('llama-1b', cfg, params, engine_lib,
+                                     tag, kv_quant='int8',
+                                     kv_host_mb=KV_INT8_HOST_MB)
+    try:
+        result['pool'] = int8_pool_bytes(torch, eng, decode, paging)
+        reqs, streams = serve_requests()
+        calls0 = dict(eng.calls)
+        wall = run_burst(base, reqs, streams, cfg.vocab_size)
+        calls = {key: n - calls0.get(key, 0) for key, n in eng.calls.items()
+                 if n > calls0.get(key, 0)}
+        stats = burst_stats(eng, paging, wall, calls)
+        b0 = build.kernels()['paged_decode'].launches
+        prof = profile_device(torch, lambda: run_burst(
+            base, reqs, streams, cfg.vocab_size))
+        stats.update(idle_share=prof['idle_share'],
+                     b_launches_device=prof['kernel_counts'].get(
+                         'paged_decode', 0),
+                     b_launches_counted=build.kernels()[
+                         'paged_decode'].launches - b0,
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        watch = Watch(eng, build)
+        admit = admission_burst(eng, base, watch, 31, tag)
+        launches = launch_counts(build)
+        watch.detach(eng)
+        result.update(burst=stats, admission=admit, launches=launches)
+        fp = SERVE_STATS.get('llama-1b')
+        for name in ('tpot_ms_median', 'ttft_ms_median', 'tok_per_s',
+                     'idle_share', 'peak_gb'):
+            log(f'{tag} burst {name}: int8 {stats[name]} | fp serve '
+                f'{fp[name] if fp else "not run"}')
+        log(f'{tag} launches since 0 (warm-up, serve burst, admission '
+            f'burst) {launches}; B on the device in the profiled burst '
+            f'{stats["b_launches_device"]} on {gpu_line()}')
+        if launches['flash_fwd'] <= 0 or launches['paged_decode'] != 0 or \
+                stats['b_launches_device'] or stats['b_launches_counted']:
+            fail(f'{tag} kernel A {launches["flash_fwd"]}x (must launch), '
+                 f'B {launches["paged_decode"]}x counted and '
+                 f'{stats["b_launches_device"]}x on the device (must be 0: '
+                 f'it declines int8 pools)')
+        if admit['prefix_hits'] < 3 or admit['chunks'] < 4 or \
+                admit['spec_rounds'] <= 0:
+            fail(f'{tag} admission burst took the paths: {admit}')
+        result['spill'] = int8_spill_wake(eng, base, cfg.vocab_size, tag)
+        eng.stop()
+        result['graphs'] = int8_graphs_vs_eager(torch, eng, engine_lib,
+                                                paging, tag)
+    finally:
+        stop_engine(eng, server)
+    del eng, server, watch
+    free_card(torch)
+    result['seconds'] = time.perf_counter() - t_phase
+    log(f'{tag} phase {result["seconds"]:.1f}s')
+    with open(os.path.join(OUT_DIR, 'kv_int8.json'), 'w') as f:
+        json.dump(result, f, indent=1, default=str)
+    return launches
+
+
 def train_checked(torch, build, tcfg, cfg, tag: str, plain: bool = True):
     """The port's trainer with ``tcfg`` from launch counts of 0: with
     remat 'full', kernel A twice and C and D once per layer per step
@@ -3200,17 +3515,20 @@ def train_checked(torch, build, tcfg, cfg, tag: str, plain: bool = True):
 
 
 def phase_train(torch, build) -> dict:
-    """The port's trainer on llama-1b at full width (16 layers, dim
-    2048, vocab 32768, tied embeddings, remat 'full'): TRAIN_STEPS steps
+    """The port's trainer on llama-1b at full width (TRAIN_DEPTH of its 16
+    layers, dim 2048, vocab 32768, tied embeddings, remat 'full'): TRAIN_STEPS steps
     of batch TRAIN_B x TRAIN_S on the synthetic corpus, through the
     kernels (train_checked), a resume at step 3 (TOL_RESUME), one
     step's grads against the plain bf16 and fp32 paths (TOL_GRAD), one
     step profiled. Returns the main run's launch counts."""
+    import dataclasses
     from skypilot_tpu_torch import config
     from skypilot_tpu_torch.train import trainer
-    cfg = config.get_config('llama-1b')
+    cfg = dataclasses.replace(config.get_config('llama-1b'),
+                              n_layers=TRAIN_DEPTH)
     tcfg = trainer.TrainerConfig(
-        model='llama-1b', batch_size=TRAIN_B, seq_len=TRAIN_S,
+        model='llama-1b', model_overrides={'n_layers': TRAIN_DEPTH},
+        batch_size=TRAIN_B, seq_len=TRAIN_S,
         total_steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP, log_every=1,
         device='cuda')
     hist, launches = train_checked(torch, build, tcfg, cfg, '[train]')
@@ -5083,9 +5401,12 @@ RING_F32_CASES = [(2, 2048, 16, 8, 128, True, False),
 # each grad's max|err| / max|ref| < 2e-2.
 RING_B, RING_S, RING_RANKS = 1, 8192, 2
 TOL_RING_OUT, TOL_RING_GRAD = 3e-2, 2e-2
-# (c) The trainer CLI, two gang processes on the card: llama-1b whole,
-# remat 'full', 2 x 4096 tokens (2048 a rank), zigzag ring, 3 steps.
+# (c) The trainer CLI, two gang processes on the card: llama-1b at full
+# width cut to RING_TRAIN_DEPTH of its 16 layers (since the kv_int8
+# phase), remat 'full', 2 x 4096 tokens (2048 a rank), zigzag ring, 2
+# steps.
 RING_TRAIN_B, RING_TRAIN_S, RING_TRAIN_STEPS = 2, 4096, 2
+RING_TRAIN_DEPTH = 8
 RING_KERNELS = ('flash_fwd', 'flash_dq_f32', 'flash_dkv_f32')
 
 
@@ -5410,7 +5731,8 @@ def ring_trainer(torch, card: str) -> dict:
     cmd = [sys.executable, '-m', 'skypilot_tpu_torch.train.trainer', *flags,
            '--mesh', f'sequence={RING_RANKS}',
            '--model-override', 'attention_impl=ring',
-           '--model-override', 'ring_layout=zigzag']
+           '--model-override', 'ring_layout=zigzag',
+           '--model-override', f'n_layers={RING_TRAIN_DEPTH}']
     t0 = time.perf_counter()
     rcs = spawn_ranks([cmd] * RING_RANKS,
                       [rank_env(r, port) for r in range(RING_RANKS)], logs,
@@ -5429,7 +5751,7 @@ def ring_trainer(torch, card: str) -> dict:
     if any('loss' in x for x in recs[1]):
         fail('[ring] rank 1 wrote log records: rank 0 alone writes them')
     digests = {x['params_sha256'] for x in reps}
-    layers = 16
+    layers = RING_TRAIN_DEPTH
     launch_ok = True
     for x in reps:
         blocks = RING_BLOCKS['zigzag'][x['replica']]
@@ -5443,7 +5765,8 @@ def ring_trainer(torch, card: str) -> dict:
             f'{x.get("peak_memory_gb")} GB; params sha256 '
             f'{x["params_sha256"][:16]} | {card}')
     sec = statistics.median(x['sec_per_step'] for x in hist[1:])
-    log(f'[ring] trainer --mesh sequence={RING_RANKS}, llama-1b, zigzag, '
+    log(f'[ring] trainer --mesh sequence={RING_RANKS}, llama-1b '
+        f'({RING_TRAIN_DEPTH} of 16 layers), zigzag, '
         f'{RING_TRAIN_B}x{RING_TRAIN_S}, {RING_TRAIN_STEPS} steps: losses '
         f'{[x["loss"] for x in hist]}, {sec * 1e3:.1f} ms/step (median of '
         f'steps 2-{RING_TRAIN_STEPS}), the two processes {wall:.1f}s from '
@@ -5455,7 +5778,8 @@ def ring_trainer(torch, card: str) -> dict:
              'blocks\'')
     torch.cuda.reset_peak_memory_stats()
     one = trainer.train(trainer.TrainerConfig(
-        model='llama-1b', batch_size=RING_TRAIN_B, seq_len=RING_TRAIN_S,
+        model='llama-1b', model_overrides={'n_layers': RING_TRAIN_DEPTH},
+        batch_size=RING_TRAIN_B, seq_len=RING_TRAIN_S,
         total_steps=RING_TRAIN_STEPS, log_every=1, device='cuda'))
     diff = max(abs(a['loss'] - b['loss']) for a, b in zip(hist, one))
     log(f'[ring] the single-process trainer (kernels A, C, D over the whole '
@@ -5860,7 +6184,8 @@ def gpu_line() -> str:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--phases', default='build,flash,paged,flash_bwd,'
-                        'timing,model,serve,batch_infer,disagg,tp_serve,'
+                        'timing,model,serve,batch_infer,disagg,kv_int8,'
+                        'tp_serve,'
                         'model_gemma,'
                         'serve_gemma,'
                         'gemma_switches,model_moe,serve_moe,serve_gptoss,'
@@ -5951,7 +6276,7 @@ def main() -> None:
     if 'timing' in phases:
         times = phase_timing(torch, fa, pa, paging)
     lap('timing')
-    if phases & {'model', 'serve', 'batch_infer', 'disagg'}:
+    if phases & {'model', 'serve', 'batch_infer', 'disagg', 'kv_int8'}:
         cfg = config.get_config('llama-1b')
         params = bf16_params(torch, cfg)
         if 'model' in phases:
@@ -5970,9 +6295,13 @@ def main() -> None:
         if 'disagg' in phases:
             by_path['disagg'] = phase_disagg(torch, cfg, params, engine_lib,
                                              build)
+        lap('disagg')
+        if 'kv_int8' in phases:
+            by_path['kv_int8'] = phase_kv_int8(torch, cfg, params, engine_lib,
+                                               build, decode, paging)
         del params
         free_card(torch)
-    lap('disagg')
+    lap('kv_int8')
     if 'tp_serve' in phases:
         tp_errs, by_path['tp_serve'] = phase_tp_serve(
             torch, fa, pa, paging, decode, build, config, card,
@@ -6141,6 +6470,7 @@ def main() -> None:
              'serve_moe': SERVE_KERNELS, 'serve_gptoss': SERVE_KERNELS,
              'serve_mla': SERVE_KERNELS, 'serve_deepseek_v2': SERVE_KERNELS,
              'batch_infer': ('flash_fwd',), 'disagg': SERVE_KERNELS,
+             'kv_int8': ('flash_fwd',),
              'tp_serve': SERVE_KERNELS,
              'train': TRAIN_KERNELS, 'train_gemma': TRAIN_KERNELS,
              'train_moe': TRAIN_KERNELS, 'train_mla': TRAIN_KERNELS,

@@ -162,21 +162,39 @@ def _ffn(x: torch.Tensor, lp, cfg: LlamaConfig) -> torch.Tensor:
     return llama.ffn(x, lp, cfg)
 
 
+def check_kv_quant(quant: str) -> None:
+    """The pool representations: 'none' (cfg.dtype) or 'int8'."""
+    if quant not in ('none', 'int8'):
+        raise ValueError(f"kv quant must be 'none' or 'int8', got "
+                         f'{quant!r}')
+
+
 def init_page_pool(cfg: LlamaConfig, n_pages: int, page_size: int,
-                   batch: int, max_pages: int, device='cuda'
-                   ) -> paging.PagedKV:
-    """fp [L, n_pages, page_size, KH, hd] pools (KH: this rank's kv
-    heads under a tensor mesh, as the JAX ``paged_pspecs`` put them on
-    'tensor'), a zeroed [batch, max_pages] int32 table (0 = trash) and
-    zero lengths."""
+                   batch: int, max_pages: int, device='cuda', *,
+                   quant: str = 'none') -> paging.PagedKV:
+    """[L, n_pages, page_size, KH, hd] pools (KH: this rank's kv heads
+    under a tensor mesh, as the JAX ``paged_pspecs`` put them and their
+    sidecars on 'tensor'), a zeroed [batch, max_pages] int32 table
+    (0 = trash) and zero lengths. ``quant='int8'``
+    (SKYTPU_ENGINE_KV_QUANT) pools int8 codes with [L, n_pages,
+    page_size, KH] fp32 scale sidecars, two distinct tensors; 'none'
+    pools cfg.dtype values and no sidecars."""
+    check_kv_quant(quant)
     shape = (cfg.n_layers, n_pages, page_size, llama.local_kv_heads(cfg),
              cfg.hd)
+    int8 = quant == 'int8'
+    dt = torch.int8 if int8 else cfg.dtype
+
+    def scale():
+        return (torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                if int8 else None)
     return paging.PagedKV(
-        k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        k=torch.zeros(shape, dtype=dt, device=device),
+        v=torch.zeros(shape, dtype=dt, device=device),
         table=torch.zeros((batch, max_pages), dtype=torch.int32,
                           device=device),
-        length=torch.zeros((batch,), dtype=torch.int32, device=device))
+        length=torch.zeros((batch,), dtype=torch.int32, device=device),
+        k_scale=scale(), v_scale=scale())
 
 
 def _prefill_layers(params, tokens: torch.Tensor, cfg: LlamaConfig,
@@ -314,7 +332,10 @@ def paged_prefill_extend(params, tokens: torch.Tensor,
     At ``p == 0`` the attention is a plain prefill and takes kernel A
     on the card; at ``p > 0`` it carries an offset and takes the plain
     version (the JAX gate). A suffix reaching past the table's coverage
-    raises: the JAX gather would clamp it onto a live page."""
+    raises: the JAX gather would clamp it onto a live page. On an int8
+    pool the suffix attends its own DEQUANTIZED K/V (what later steps
+    read), the gathered prefix dequantizes per layer, and codes and
+    scales are written."""
     check_supported(cfg)
     b, s2 = tokens.shape
     psz, maxp = pcache.page_size, pcache.max_pages
@@ -334,17 +355,33 @@ def paged_prefill_extend(params, tokens: torch.Tensor,
                               device=dev).reshape(b)
     x = llama.embed(params, tokens, cfg)
     sin, cos = llama.rope_tables(cfg, suf_pos)
+    scales = paging._scale_pools(pcache)
     for i in range(cfg.n_layers):
         lp = llama.layer_params(params, i)
         q, k, v = llama.qkv(x, lp, cfg,
                             *llama.select_rope(sin, cos, i, cfg))
         kp, vp = pcache.k[i], pcache.v[i]
-        k_all = torch.cat([kp[pre_pid, pre_off][None].to(k.dtype), k], 1)
-        v_all = torch.cat([vp[pre_pid, pre_off][None].to(v.dtype), v], 1)
+        pk, pv = kp[pre_pid, pre_off][None], vp[pre_pid, pre_off][None]
+        if scales is not None:
+            ks, vs = scales['k'][i], scales['v'][i]
+            (kq, ks_new), (vq, vs_new) = (pa.quantize_values(k),
+                                          pa.quantize_values(v))
+            k = pa.dequantize_values(kq, ks_new, k.dtype)
+            v = pa.dequantize_values(vq, vs_new, v.dtype)
+            pk = pa.dequantize_values(pk, ks[pre_pid, pre_off][None],
+                                      k.dtype)
+            pv = pa.dequantize_values(pv, vs[pre_pid, pre_off][None],
+                                      v.dtype)
+        k_all = torch.cat([pk.to(k.dtype), k], 1)
+        v_all = torch.cat([pv.to(v.dtype), v], 1)
         out = _attention(q, k_all, v_all, impl=attention_impl, causal=True,
                          q_offset=p, **llama.attention_switches(lp, cfg, i))
-        kp[suf_pid, suf_off] = k[0].to(kp.dtype)
-        vp[suf_pid, suf_off] = v[0].to(vp.dtype)
+        if scales is None:
+            kp[suf_pid, suf_off] = k[0].to(kp.dtype)
+            vp[suf_pid, suf_off] = v[0].to(vp.dtype)
+        else:
+            kp[suf_pid, suf_off], ks[suf_pid, suf_off] = kq[0], ks_new[0]
+            vp[suf_pid, suf_off], vs[suf_pid, suf_off] = vq[0], vs_new[0]
         x = x + llama.wo_project(out, lp, cfg)
         x = x + _ffn(x, lp, cfg)
     idx = (lengths.long() - 1)[:, None, None].expand(b, 1, x.shape[-1])
@@ -361,7 +398,8 @@ def paged_verify_step(params, tokens: torch.Tensor, pcache: paging.PagedKV,
     in place. tokens [B, K] → logits [B, K, vocab] fp32. ``length``
     does NOT advance. ``attention_fn`` is the per-layer paged attention
     (the default dispatches on device; the model-path check passes the
-    plain formulation explicitly)."""
+    plain formulation explicitly). An int8 pool hands each layer its
+    scale sidecars, which the step reads and writes in place."""
     check_supported(cfg)
     kk = tokens.shape[1]
     length = pcache.length
@@ -370,14 +408,17 @@ def paged_verify_step(params, tokens: torch.Tensor, pcache: paging.PagedKV,
     pid, off = paging._write_indices(pcache, positions, active)
     x = llama.embed(params, tokens, cfg)
     sin, cos = llama.rope_tables(cfg, positions)
+    scales = paging._scale_pools(pcache)
     for i in range(cfg.n_layers):
         lp = llama.layer_params(params, i)
         q, k_new, v_new = llama.qkv(x, lp, cfg,
                                     *llama.select_rope(sin, cos, i, cfg))
-        out, _, _ = attention_fn(q, pcache.k[i], pcache.v[i], pcache.table,
-                                 length, k_new, v_new, pid, off,
-                                 max_len=max_len,
-                                 **llama.attention_switches(lp, cfg, i))
+        quant = {} if scales is None else {'k_scale': scales['k'][i],
+                                           'v_scale': scales['v'][i]}
+        out = attention_fn(q, pcache.k[i], pcache.v[i], pcache.table,
+                           length, k_new, v_new, pid, off, max_len=max_len,
+                           **llama.attention_switches(lp, cfg, i),
+                           **quant)[0]
         x = x + llama.wo_project(out, lp, cfg)
         x = x + _ffn(x, lp, cfg)
     return llama.unembed(x, params, cfg), pcache

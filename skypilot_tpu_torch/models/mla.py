@@ -38,8 +38,10 @@ CUDA graph on the card. Every projection reads its weight through
 the pages (fixed shapes, no host sync: the engine captures them into
 CUDA graphs), overlay the fed positions and attend; a position at or
 past the view is dropped, as the JAX scatter drops it. The pools are
-updated in place. Python loop over layers, each recomputed in the
-backward under ``remat='full'``; no pipeline, ring or mesh.
+updated in place; int8 pools (``init_page_pool(quant='int8')``) carry
+c_kv's and k_rope's scale sidecars through every paged function. Python
+loop over layers, each recomputed in the backward under
+``remat='full'``; no pipeline, ring or mesh.
 """
 from __future__ import annotations
 
@@ -53,7 +55,8 @@ from skypilot_tpu_torch.config import (DeepSeekMoEConfig, MLAConfig,
 from skypilot_tpu_torch.models import decode, llama, moe, paging
 from skypilot_tpu_torch.models.quant import _d
 from skypilot_tpu_torch.ops import norms, rotary
-from skypilot_tpu_torch.ops.paged_attention import gather_pages, write_pages
+from skypilot_tpu_torch.ops.paged_attention import (
+    dequantize_values, gather_pages, quantize_values, write_pages)
 
 Params = llama.Params
 
@@ -244,21 +247,31 @@ def forward(params: Params, tokens: torch.Tensor, cfg: MLAConfig,
 # ---------------------------------------------------------------------------
 
 def init_page_pool(cfg: MLAConfig, n_pages: int, page_size: int,
-                   batch: int, max_pages: int, device='cuda'
-                   ) -> paging.PagedLatent:
+                   batch: int, max_pages: int, device='cuda', *,
+                   quant: str = 'none') -> paging.PagedLatent:
     """Zeroed c_kv [L, n_pages, page_size, r] and k_rope [L, n_pages,
-    page_size, dr] pools in cfg.dtype, a zeroed [batch, max_pages]
-    int32 table (0 = trash) and zero lengths (no int8 variant: see
-    paging.PagedLatent)."""
+    page_size, dr] pools, a zeroed [batch, max_pages] int32 table
+    (0 = trash) and zero lengths. The pools are cfg.dtype, or with
+    ``quant='int8'`` (SKYTPU_ENGINE_KV_QUANT) int8 codes with
+    [L, n_pages, page_size] fp32 per-token scale sidecars, two distinct
+    tensors."""
+    decode.check_kv_quant(quant)
     shape = (cfg.n_layers, n_pages, page_size)
+    int8 = quant == 'int8'
+    dt = torch.int8 if int8 else cfg.dtype
+
+    def scale():
+        return (torch.zeros(shape, dtype=torch.float32, device=device)
+                if int8 else None)
     return paging.PagedLatent(
-        c_kv=torch.zeros(shape + (cfg.kv_lora_rank,), dtype=cfg.dtype,
+        c_kv=torch.zeros(shape + (cfg.kv_lora_rank,), dtype=dt,
                          device=device),
-        k_rope=torch.zeros(shape + (cfg.qk_rope_head_dim,), dtype=cfg.dtype,
+        k_rope=torch.zeros(shape + (cfg.qk_rope_head_dim,), dtype=dt,
                            device=device),
         table=torch.zeros((batch, max_pages), dtype=torch.int32,
                           device=device),
-        length=torch.zeros((batch,), dtype=torch.int32, device=device))
+        length=torch.zeros((batch,), dtype=torch.int32, device=device),
+        c_scale=scale(), r_scale=scale())
 
 
 @dataclasses.dataclass
@@ -406,7 +419,10 @@ def paged_prefill_extend(params, tokens: torch.Tensor,
     chunked-prefill and prefix-hit program of the engine. Returns the
     logits at the last content position, [1, vocab] fp32. A suffix
     reaching past the table's coverage raises: the JAX gather would
-    clamp it onto a live page."""
+    clamp it onto a live page. On an int8 pool c_kv and k_rope quantize
+    apart (``c_scale``, ``r_scale``): the suffix attends its own
+    dequantized latents, the gathered prefix dequantizes per layer into
+    the latents' dtype, and codes and scales are written."""
     check_supported(cfg)
     b, s2 = tokens.shape
     psz, maxp = pcache.page_size, pcache.max_pages
@@ -426,17 +442,31 @@ def paged_prefill_extend(params, tokens: torch.Tensor,
                               device=dev).reshape(b)
     x = llama.embed(params, tokens, cfg)
     sin, cos = rope_tables(cfg, suf_pos)
+    scales = paging._scale_pools(pcache)
     for i in range(cfg.n_layers):
         lp = llama.layer_params(params, i)
         q_nope, q_rope, c_new, kr_new = _latents(x, lp, cfg, sin, cos)
         cp, krp = pcache.c_kv[i], pcache.k_rope[i]
-        c_all = torch.cat([cp[pre_pid, pre_off][None].to(c_new.dtype),
-                           c_new], 1)
-        kr_all = torch.cat([krp[pre_pid, pre_off][None].to(kr_new.dtype),
-                            kr_new], 1)
+        pc, pkr = cp[pre_pid, pre_off][None], krp[pre_pid, pre_off][None]
+        if scales is not None:
+            cs, rs = scales['c_kv'][i], scales['k_rope'][i]
+            (cq, cs_new), (krq, rs_new) = (quantize_values(c_new),
+                                           quantize_values(kr_new))
+            c_new = dequantize_values(cq, cs_new, c_new.dtype)
+            kr_new = dequantize_values(krq, rs_new, kr_new.dtype)
+            pc = dequantize_values(pc, cs[pre_pid, pre_off][None],
+                                   c_new.dtype)
+            pkr = dequantize_values(pkr, rs[pre_pid, pre_off][None],
+                                    kr_new.dtype)
+        c_all = torch.cat([pc.to(c_new.dtype), c_new], 1)
+        kr_all = torch.cat([pkr.to(kr_new.dtype), kr_new], 1)
         out = _attend_latent(q_nope, q_rope, c_all, kr_all, lp, cfg, p)
-        cp[suf_pid, suf_off] = c_new[0].to(cp.dtype)
-        krp[suf_pid, suf_off] = kr_new[0].to(krp.dtype)
+        if scales is None:
+            cp[suf_pid, suf_off] = c_new[0].to(cp.dtype)
+            krp[suf_pid, suf_off] = kr_new[0].to(krp.dtype)
+        else:
+            cp[suf_pid, suf_off], cs[suf_pid, suf_off] = cq[0], cs_new[0]
+            krp[suf_pid, suf_off], rs[suf_pid, suf_off] = krq[0], rs_new[0]
         x = x + _wo(out, lp, cfg)
         x = x + _ffn(x, lp, cfg)[0]
     logits = _last_logits(x, lengths, params, cfg)
@@ -456,7 +486,10 @@ def paged_verify_step(params, tokens: torch.Tensor,
     overlay position at or past the view is dropped, as the JAX scatter
     drops it: it lands on the scratch position past the view, which the
     attention never reads. No shape depends on the data and nothing
-    syncs the host, so the step captures into a CUDA graph."""
+    syncs the host, so the step captures into a CUDA graph. On an int8
+    pool the fed latents quantize (c_kv and k_rope apart), the gathered
+    view dequantizes into the latents' dtype, the overlay holds the
+    dequantized fed latents, and codes and scales are written."""
     check_supported(cfg)
     b, kk = tokens.shape
     dev = tokens.device
@@ -469,18 +502,36 @@ def paged_verify_step(params, tokens: torch.Tensor,
                       1)
     x = llama.embed(params, tokens, cfg)
     sin, cos = rope_tables(cfg, positions)
+    scales = paging._scale_pools(pcache)
     for i in range(cfg.n_layers):
         lp = llama.layer_params(params, i)
         q_nope, q_rope, c_new, kr_new = _latents(x, lp, cfg, sin, cos)
         cp, krp = pcache.c_kv[i], pcache.k_rope[i]
         c_l = gather_pages(cp, table, max_len + 1)
         kr_l = gather_pages(krp, table, max_len + 1)
+        if scales is not None:
+            cs, rs = scales['c_kv'][i], scales['k_rope'][i]
+            (cq, cs_new), (krq, rs_new) = (quantize_values(c_new),
+                                           quantize_values(kr_new))
+            c_new = dequantize_values(cq, cs_new, c_new.dtype)
+            kr_new = dequantize_values(krq, rs_new, kr_new.dtype)
+            c_l = dequantize_values(c_l, gather_pages(cs, table, max_len + 1),
+                                    c_new.dtype)
+            kr_l = dequantize_values(kr_l,
+                                     gather_pages(rs, table, max_len + 1),
+                                     kr_new.dtype)
         c_l[rows, view_pos] = c_new.to(c_l.dtype)    # a fresh gather
         kr_l[rows, view_pos] = kr_new.to(kr_l.dtype)
         out = _attend_latent(q_nope, q_rope, c_l[:, :max_len],
                              kr_l[:, :max_len], lp, cfg, length)
-        write_pages(cp, c_new.to(cp.dtype), pid, off)
-        write_pages(krp, kr_new.to(krp.dtype), pid, off)
+        if scales is None:
+            write_pages(cp, c_new.to(cp.dtype), pid, off)
+            write_pages(krp, kr_new.to(krp.dtype), pid, off)
+        else:
+            write_pages(cp, cq, pid, off)
+            write_pages(krp, krq, pid, off)
+            write_pages(cs, cs_new, pid, off)
+            write_pages(rs, rs_new, pid, off)
         x = x + _wo(out, lp, cfg)
         x = x + _ffn(x, lp, cfg)[0]
     return llama.unembed(x, params, cfg), pcache

@@ -1,6 +1,7 @@
 """Block-paged KV cache: the device page pools and the host-side
 refcounted allocator (port of skypilot_tpu/models/paging.py:
-``PagedKV``, ``PagedLatent``, ``_pools``, ``pages_for``,
+``PagedKV``, ``PagedLatent``, ``_pools``, ``_SCALE_FIELD``,
+``_scale_pools``, ``quantized``, ``pages_for``,
 ``_write_indices``, ``scatter_prefill``, ``gather_prefix``,
 ``adopt_rows``, ``export_pages``, ``import_pages``, ``PageAllocator``).
 
@@ -11,6 +12,15 @@ dense/GQA/MoE K/V (models/decode.py), ``PagedLatent`` the MLA latents
 allocated; writes for inactive rows are routed to it so a freed page
 can never be corrupted by a stale step. The pools are updated in place
 (the JAX version returns new pytrees).
+
+int8 pools (``SKYTPU_ENGINE_KV_QUANT=int8``): the pools hold int8 codes
+and each has an fp32 SIDECAR of its shape minus the last axis, one
+scale per vector (:func:`_scale_pools`, named by :data:`_SCALE_FIELD`),
+so the scales travel with their pages. The cold paths quantize on the
+way in (:func:`scatter_prefill`, :func:`adopt_rows`) and
+:func:`gather_prefix` dequantizes to fp32 on the way out;
+:func:`export_pages` / :func:`import_pages` move codes and scales byte
+for byte.
 """
 from __future__ import annotations
 
@@ -19,6 +29,8 @@ import dataclasses
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
+
+from skypilot_tpu_torch.ops import paged_attention as pa
 
 TRASH_PAGE = 0
 
@@ -29,11 +41,15 @@ class PagedKV:
 
     k/v: [L, n_pages, page_size, KH, hd] — page id indexes axis 1.
     table: [B, max_pages] int32 page ids (0 = trash / unassigned).
-    length: [B] int32 valid token count per slot."""
+    length: [B] int32 valid token count per slot.
+    k_scale/v_scale: None on fp pools; on int8 pools (k/v hold codes)
+    the [L, n_pages, page_size, KH] fp32 per-vector scales."""
     k: torch.Tensor
     v: torch.Tensor
     table: torch.Tensor
     length: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def page_size(self) -> int:
@@ -48,21 +64,14 @@ class PagedKV:
 class PagedLatent:
     """Paged MLA latent pool + per-slot tables: c_kv [L, n_pages,
     page_size, r], k_rope [L, n_pages, page_size, dr]; table and length
-    as :class:`PagedKV`'s. The JAX pool's int8 variant (``c_scale`` /
-    ``r_scale`` sidecars) is refused by name: it comes with the dense
-    int8 pools."""
+    as :class:`PagedKV`'s. c_scale/r_scale: None on fp pools; on int8
+    pools the [L, n_pages, page_size] fp32 per-token scales."""
     c_kv: torch.Tensor
     k_rope: torch.Tensor
     table: torch.Tensor
     length: torch.Tensor
     c_scale: Optional[torch.Tensor] = None
     r_scale: Optional[torch.Tensor] = None
-
-    def __post_init__(self):
-        if self.c_scale is not None or self.r_scale is not None:
-            raise NotImplementedError(
-                'int8 latent pools (c_scale / r_scale sidecars) are not '
-                'ported yet: they wait for ROADMAP Queue 1 item 3 (int8 KV)')
 
     @property
     def page_size(self) -> int:
@@ -79,6 +88,38 @@ def _pools(pcache) -> Dict[str, torch.Tensor]:
     if isinstance(pcache, PagedKV):
         return {'k': pcache.k, 'v': pcache.v}
     return {'c_kv': pcache.c_kv, 'k_rope': pcache.k_rope}
+
+
+# Pool field -> its scale sidecar's field (the spill/export names too).
+_SCALE_FIELD = {'k': 'k_scale', 'v': 'v_scale',
+                'c_kv': 'c_scale', 'k_rope': 'r_scale'}
+
+
+def _scale_pools(pcache) -> Optional[Dict[str, torch.Tensor]]:
+    """The scale sidecars keyed like :func:`_pools`, or None on fp
+    pools (the two sidecars are always set together)."""
+    if isinstance(pcache, PagedKV):
+        if pcache.k_scale is None:
+            return None
+        return {'k': pcache.k_scale, 'v': pcache.v_scale}
+    if pcache.c_scale is None:
+        return None
+    return {'c_kv': pcache.c_scale, 'k_rope': pcache.r_scale}
+
+
+def quantized(pcache) -> bool:
+    """True when the pool holds int8 codes and scale sidecars."""
+    return _scale_pools(pcache) is not None
+
+
+def pool_tensors(pcache) -> Dict[str, torch.Tensor]:
+    """Every per-token tensor of the pool by its field name: the value
+    pools and, on int8 pools, their sidecars (what a reset zeroes and
+    what a page's bytes count)."""
+    out = dict(_pools(pcache))
+    for name, t in (_scale_pools(pcache) or {}).items():
+        out[_SCALE_FIELD[name]] = t
+    return out
 
 
 def pages_for(n_tokens: int, page_size: int) -> int:
@@ -105,13 +146,20 @@ def scatter_prefill(pcache, rows_a: torch.Tensor, rows_b: torch.Tensor,
     family's two row tensors, as its ``prefill`` returns them (PagedKV:
     k, v [L, N, >=s, KH, hd]; PagedLatent: c_kv [L, N, >=s, r], k_rope
     [L, N, >=s, dr]), land in the pages the admitted slots' table rows
-    cover; length[slots] = lengths."""
+    cover; length[slots] = lengths. int8 pools quantize the rows on the
+    way in, their scales landing in the sidecars at the same indices."""
     pos = torch.arange(s, device=pcache.table.device)
     psz = pcache.page_size
     pid = pcache.table.long()[slots.long()][:, pos // psz]     # [N, s]
     off = (pos % psz)[None, :].expand_as(pid)
-    for pool, rows in zip(_pools(pcache).values(), (rows_a, rows_b)):
-        pool[:, pid, off] = rows[:, :, :s]
+    scales = _scale_pools(pcache)
+    for (name, pool), rows in zip(_pools(pcache).items(), (rows_a, rows_b)):
+        tok = rows[:, :, :s]
+        if scales is None:
+            pool[:, pid, off] = tok
+        else:
+            pool[:, pid, off], scales[name][:, pid, off] = \
+                pa.quantize_values(tok)
     pcache.length[slots.long()] = lengths.to(pcache.length.dtype)
     return pcache
 
@@ -123,13 +171,20 @@ def gather_prefix(pcache, slot: int, p: int) -> Tuple[torch.Tensor, ...]:
     ``prefill_extend`` takes. A prefix hit's table points at shared
     pages, so this reads what every other holder reads. The engine
     extends in place instead (``paged_prefill_extend``); this is its
-    oracle."""
+    oracle, and the disagg export. int8 pools dequantize on the way out
+    to fp32 (the scales' precision), the fp contract either way."""
     psz = pcache.page_size
     pos = torch.arange(p, device=pcache.table.device)
     pid = pcache.table[slot].long()[pos // psz]
     off = pos % psz
-    return tuple(pool[:, pid, off][:, None]
-                 for pool in _pools(pcache).values())
+    scales = _scale_pools(pcache)
+    if scales is None:
+        return tuple(pool[:, pid, off][:, None]
+                     for pool in _pools(pcache).values())
+    return tuple(pa.dequantize_values(pool[:, pid, off][:, None],
+                                      scales[name][:, pid, off][:, None],
+                                      torch.float32)
+                 for name, pool in _pools(pcache).items())
 
 
 def adopt_rows(pcache, a: torch.Tensor, b: torch.Tensor, slot: int, s: int,
@@ -144,43 +199,50 @@ def adopt_rows(pcache, a: torch.Tensor, b: torch.Tensor, slot: int, s: int,
     attended. Rows on another device are moved to the pool's. A
     page-aligned ``s`` (export buckets are) scatters whole pages, s /
     page_size indices instead of s. The exact inverse of the export
-    gather: adopt then gather_prefix round-trips bit for bit."""
+    gather on fp pools: adopt then gather_prefix round-trips bit for
+    bit. An int8 adopter re-quantizes the rows its own way (codes and
+    scales in ITS representation, whatever the exporter's)."""
     psz = pcache.page_size
-    pools = _pools(pcache)
+    scales = _scale_pools(pcache)
     table = pcache.table[slot].long()
-    for pool, rows in zip(pools.values(), (a, b)):
+    for (name, pool), rows in zip(_pools(pcache).items(), (a, b)):
         tok = rows[:, 0, :s].to(pool.device)               # [L, s, ...]
         if s % psz == 0:
             n = s // psz
-            pool[:, table[:n]] = tok.reshape(tok.shape[0], n, psz,
-                                             *tok.shape[2:])
+            idx = (table[:n],)
+            tok = tok.reshape(tok.shape[0], n, psz, *tok.shape[2:])
         else:
             pos = torch.arange(s, device=pool.device)
-            pool[:, table[pos // psz], pos % psz] = tok
+            idx = (table[pos // psz], pos % psz)
+        if scales is None:
+            pool[(slice(None),) + idx] = tok
+        else:
+            pool[(slice(None),) + idx], scales[name][(slice(None),) + idx] \
+                = pa.quantize_values(tok)
     pcache.length[slot] = new_len
     return pcache
 
 
 def export_pages(pcache, pids) -> Dict[str, torch.Tensor]:
     """The exact contents of pages ``pids``, one [L, n, psz, ...] tensor
-    per pool field, for the host spill tier: no cast, so spill then
-    :func:`import_pages` round-trips bit for bit."""
-    pools = _pools(pcache)
+    per pool field, the scale sidecars of an int8 pool included (under
+    their :data:`_SCALE_FIELD` names), for the host spill tier: no cast
+    and no dequantization, so spill then :func:`import_pages`
+    round-trips bit for bit in either representation."""
     idx = torch.as_tensor(pids, dtype=torch.long,
                           device=pcache.table.device)
-    return {name: pool[:, idx] for name, pool in pools.items()}
+    return {name: t[:, idx] for name, t in pool_tensors(pcache).items()}
 
 
 def import_pages(pcache, arrays: Dict[str, torch.Tensor], pids):
     """Inverse of :func:`export_pages`, in place: land spilled page
-    contents (tensors, moved to the pool's device) in the freshly
-    allocated pages ``pids``. Tables and lengths are untouched; the
-    caller re-admits through the normal paths."""
-    pools = _pools(pcache)
+    contents (tensors, moved to the pool's device), sidecars included,
+    in the freshly allocated pages ``pids``. Tables and lengths are
+    untouched; the caller re-admits through the normal paths."""
     idx = torch.as_tensor(pids, dtype=torch.long,
                           device=pcache.table.device)
-    for name, pool in pools.items():
-        pool[:, idx] = torch.as_tensor(arrays[name]).to(pool.device)
+    for name, t in pool_tensors(pcache).items():
+        t[:, idx] = torch.as_tensor(arrays[name]).to(t.device)
     return pcache
 
 

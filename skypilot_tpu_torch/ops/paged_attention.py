@@ -26,6 +26,13 @@ tensors lie:
 
 Both update the pool IN PLACE (the JAX version returns new pools);
 the returned pools are the same tensors that were passed in.
+
+int8 pools (``SKYTPU_ENGINE_KV_QUANT=int8``): the pools hold int8 codes
+and ``k_scale`` / ``v_scale`` [n_pages, psz, KH] fp32 sidecars, one
+scale per vector (:func:`quantize_values`). Kernel B reads bf16 pools
+only, so a step with scales takes the fused formulation on every
+device, as JAX's ``impl == 'pallas' and k_scale is None`` gate sends
+it there: the gather dequantizes, the new K/V quantize on the way in.
 """
 from __future__ import annotations
 
@@ -132,6 +139,32 @@ def write_pages(pool_layer: torch.Tensor, new: torch.Tensor,
     return pool_layer
 
 
+# Guards all-zero vectors (fresh pages, padding tokens): the scale stays
+# finite and the round trip exactly zero.
+QUANT_EPS = 1e-8
+
+
+def quantize_values(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-vector int8 quantization over the LAST axis (the
+    head dim of the dense K/V, the latent width of MLA's): (codes int8,
+    scale fp32 of x's shape minus the last axis). JAX's order of
+    operations, so that codes and scales come out bit-equal: amax in
+    fp32, max(amax, QUANT_EPS) / 127 (a division), round half to even
+    of x / scale, clip to +-127. Error per element <= scale / 2."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp(amax, min=QUANT_EPS) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_values(q: torch.Tensor, scale: torch.Tensor,
+                      dtype) -> torch.Tensor:
+    """Inverse of :func:`quantize_values`: codes [..., d] with scale
+    [...] back to ``dtype``, the multiply in fp32 (one rounding)."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def paged_decode_attention_ref(q: torch.Tensor, kp: torch.Tensor,
                                vp: torch.Tensor, table: torch.Tensor,
                                length: torch.Tensor, *,
@@ -231,12 +264,20 @@ def paged_attention_step_ref(q: torch.Tensor, kp: torch.Tensor,
                              logit_softcap: Optional[float] = None,
                              window: Optional[int] = None,
                              window_active=None,
-                             sinks: Optional[torch.Tensor] = None):
+                             sinks: Optional[torch.Tensor] = None,
+                             k_scale: Optional[torch.Tensor] = None,
+                             v_scale: Optional[torch.Tensor] = None):
     """The fused overlay-then-attend formulation, on any device: gather
     this layer's view from the pre-write pool, overlay the new K/V at
     positions [length, length+S) of every row, attend with the plain
     reduction (with the softcap, window and sinks), then write the pool
-    in place."""
+    in place. Returns (out, kp, vp).
+
+    With ``k_scale`` / ``v_scale`` (int8 pools): the new K/V quantize,
+    the gathered view dequantizes into q's dtype, the overlay holds the
+    DEQUANTIZED new values (what every later gather of these positions
+    reads), and codes and scales are written in place. Returns (out,
+    kp, vp, k_scale, v_scale), JAX's 5-tuple."""
     b, s = q.shape[0], q.shape[1]
     rows = torch.arange(b, device=q.device)[:, None].expand(b, s)
     positions = length[:, None].long() + torch.arange(s, device=q.device)
@@ -246,18 +287,39 @@ def paged_attention_step_ref(q: torch.Tensor, kp: torch.Tensor,
     # two kept writes share a slot, and no shape depends on the data, so
     # the step captures into a CUDA graph.
     positions = torch.clamp(positions, max=max_len)
-    spare = torch.zeros_like(table[:, :1])
-    k_l = gather_pages(kp, torch.cat([table, spare], 1), max_len + 1)
-    v_l = gather_pages(vp, torch.cat([table, spare], 1), max_len + 1)
+    table = torch.cat([table, torch.zeros_like(table[:, :1])], 1)
+    k_l = gather_pages(kp, table, max_len + 1)
+    v_l = gather_pages(vp, table, max_len + 1)
+    quant = k_scale is not None
+    if quant:
+        kq, ks_new = quantize_values(k_new)
+        vq, vs_new = quantize_values(v_new)
+        k_l = dequantize_values(k_l, gather_pages(k_scale, table,
+                                                  max_len + 1), q.dtype)
+        v_l = dequantize_values(v_l, gather_pages(v_scale, table,
+                                                  max_len + 1), q.dtype)
+        k_new = dequantize_values(kq, ks_new, q.dtype)
+        v_new = dequantize_values(vq, vs_new, q.dtype)
     k_l[rows, positions] = k_new     # a fresh gather: safe to overlay
     v_l[rows, positions] = v_new
     out = xla_attention(q, k_l[:, :max_len], v_l[:, :max_len], causal=True,
                         q_offset=length, logit_softcap=logit_softcap,
                         window=window, window_active=window_active,
                         sinks=sinks)
-    write_pages(kp, k_new, pid, off)
-    write_pages(vp, v_new, pid, off)
-    return out, kp, vp
+    if not quant:
+        write_pages(kp, k_new, pid, off)
+        write_pages(vp, v_new, pid, off)
+        return out, kp, vp
+    write_pages(kp, kq, pid, off)
+    write_pages(vp, vq, pid, off)
+    write_pages(k_scale, ks_new, pid, off)
+    write_pages(v_scale, vs_new, pid, off)
+    return out, kp, vp, k_scale, v_scale
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether the step's tensors lie on the card (kernel B's device)."""
+    return t.is_cuda
 
 
 def kernel_takes(q_shape, pool_shape, logit_softcap=None, window=None,
@@ -287,7 +349,9 @@ def paged_attention_step(q: torch.Tensor, kp: torch.Tensor,
                          off: torch.Tensor, *, max_len: int,
                          logit_softcap: Optional[float] = None,
                          window: Optional[int] = None, window_active=None,
-                         sinks: Optional[torch.Tensor] = None):
+                         sinks: Optional[torch.Tensor] = None,
+                         k_scale: Optional[torch.Tensor] = None,
+                         v_scale: Optional[torch.Tensor] = None):
     """One layer of in-place paged decode/verify attention: q
     [B, S, H, hd] at offsets ``length`` [B], pools kp/vp
     [n_pages, psz, KH, hd], the step's new K/V [B, S, KH, hd] written at
@@ -295,13 +359,23 @@ def paged_attention_step(q: torch.Tensor, kp: torch.Tensor,
     in place. CUDA with none of ``logit_softcap``, ``window`` (whatever
     ``window_active`` says) and ``sinks``, at a shape kernel B takes:
     write the pool, then kernel B. Otherwise, and on the CPU: the fused
-    formulation."""
-    if not q.is_cuda or not kernel_takes(q.shape, kp.shape, logit_softcap,
-                                         window, sinks):
+    formulation.
+
+    ``k_scale`` / ``v_scale`` [n_pages, psz, KH] select the int8 pools:
+    kernel B declines them, as JAX's kernel declines them (its gate is
+    ``impl == 'pallas' and k_scale is None``; the kernel reads bf16
+    pages and has no dequantizing load), so such a step takes the fused
+    formulation on every device, the card included, and returns its
+    5-tuple (out, kp, vp, k_scale, v_scale)."""
+    if k_scale is not None or not _on_card(q) or \
+            not kernel_takes(q.shape, kp.shape, logit_softcap, window, sinks):
         return paged_attention_step_ref(
             q, kp, vp, table, length, k_new, v_new, pid, off,
             max_len=max_len, logit_softcap=logit_softcap, window=window,
-            window_active=window_active, sinks=sinks)
+            window_active=window_active, sinks=sinks, k_scale=k_scale,
+            v_scale=v_scale)
     write_pages(kp, k_new, pid, off)
     write_pages(vp, v_new, pid, off)
-    return paged_decode_attention(q, kp, vp, table, length), kp, vp
+    out, launch = kernel_call(q, kp, vp, table, length)
+    launch()
+    return out, kp, vp

@@ -88,6 +88,16 @@ sites (utils/failpoints.py) sit at JAX's points: ``engine.admit``,
 ``n``, ``best_of`` (candidates ranked by mean token logprob) and
 batched prompts; chat takes ``n``.
 
+int8 K/V pools (the JAX engine's ``SKYTPU_ENGINE_KV_QUANT=int8``,
+``kv_quant``): the pool holds int8 codes and fp32 scale sidecars
+(models/paging.py), about half the bytes a page at head_dim 128; every
+path above quantizes where it writes and dequantizes where it reads, the
+sidecars captured with the pools into the step and verify graphs. Kernel
+B declines int8 pools, as JAX's Pallas kernel does, so their steps run
+the fused in-place formulation on the card too; prefill still runs
+kernel A. ``/health`` names ``kv_quant``, and
+``skytpu_engine_kv_pages_quantized`` counts the pool's pages.
+
 The KV memory hierarchy (the JAX engine's): with
 ``SKYTPU_ENGINE_KV_HOST_MB`` > 0 a prefix entry that page pressure or
 the LRU bound evicts, or that sat unused for
@@ -130,8 +140,9 @@ CUDA graph (capturing NCCL's waits for ROADMAP Queue 1 item 8).
 The knobs are the JAX engine's, read under its names and defaults
 (utils/knobs.py). Those whose feature waits are refused by name at
 construction, citing the ROADMAP item: ``SKYTPU_ENGINE_PAGED=0`` and
-``SKYTPU_ENGINE_ATTN=gather`` (Queue 1 item 3), and
-``SKYTPU_ENGINE_KV_QUANT=int8`` (item 3, int8 KV). What waits besides:
+``SKYTPU_ENGINE_ATTN=gather`` (Queue 1 item 3); either beside
+``SKYTPU_ENGINE_KV_QUANT=int8`` is the JAX engine's ValueError. What
+waits besides:
 request spans (ROADMAP Queue 1 item 4) and, on a serving mesh (item 8),
 the 'data', 'fsdp', 'stage', 'sequence' and 'expert' axes, the MoE and
 MLA families, a mesh in one process (one process holds one rank) and
@@ -232,7 +243,10 @@ MAX_INFLIGHT = 2
 # Prefix cache: LRU entries (0 disables). A prompt sharing a snapshotted
 # prefix prefills only its suffix, over the snapshot's own pages.
 PREFIX_CACHE_ENTRIES = knobs.get_int('SKYTPU_ENGINE_PREFIX_CACHE')
-# int8 K/V pools ('int8'; JAX default 'none'): refused, not ported yet.
+# The device pages' representation: 'none' (JAX's default) keeps the
+# pools in the compute dtype; 'int8' stores per-vector int8 codes with
+# fp32 scale sidecars (models/paging.py), ~2x the pages per byte of
+# the card's memory, decode allclose to the fp pools.
 KV_QUANT = knobs.get_enum('SKYTPU_ENGINE_KV_QUANT')
 # Prompts shorter than this are never snapshotted; snapshots are powers
 # of two, so the page size must divide it.
@@ -689,6 +703,9 @@ class InferenceEngine:
         self.kv_idle_spill_s = KV_IDLE_SPILL_S
         self.kv_host_mb = KV_HOST_MB
         self.host_store: Optional[HostPageStore] = None
+        # The pool representation (tests may set it before warm-up).
+        self.kv_quant = KV_QUANT
+        self._check_kv_quant_combinations()
         self._refuse_waiting_knobs()
         self._check_knobs()
         self.seed = seed
@@ -870,6 +887,25 @@ class InferenceEngine:
             raise RuntimeError(f'page allocator diverged from leader: '
                                f'leader {tuple(fp)}, local {mine}')
 
+    def _check_kv_quant_combinations(self) -> None:
+        """The JAX engine's construction checks of int8 pools against
+        the other paging knobs, in its words: a bad combination fails
+        loudly, never serves degraded. They come before the refusals of
+        the knobs the port does not have (:meth:`_refuse_waiting_knobs`),
+        as JAX checks them before it builds anything."""
+        if self.kv_quant == 'none':
+            return
+        if not knobs.get_bool('SKYTPU_ENGINE_PAGED'):
+            raise ValueError(
+                'SKYTPU_ENGINE_KV_QUANT needs paged mode '
+                '(SKYTPU_ENGINE_PAGED=1): the contiguous layout '
+                'has no quantized pool variant')
+        if knobs.get_enum('SKYTPU_ENGINE_ATTN') == 'gather':
+            raise ValueError(
+                'SKYTPU_ENGINE_KV_QUANT=int8 is incompatible with '
+                'SKYTPU_ENGINE_ATTN=gather (the view baseline '
+                'cannot carry the scale sidecars); use fused')
+
     def _refuse_waiting_knobs(self) -> None:
         """Refuse by name, at construction, a non-default value of each
         JAX engine knob whose feature the port does not have yet. The
@@ -901,11 +937,7 @@ class InferenceEngine:
         if self.step_chunk < 1:
             raise ValueError(f'SKYTPU_ENGINE_STEP_CHUNK must be >= 1, got '
                              f'{self.step_chunk}')
-        if KV_QUANT not in ('', 'none'):
-            raise NotImplementedError(
-                f'SKYTPU_ENGINE_KV_QUANT={KV_QUANT!r}: int8 K/V pools are '
-                f'not ported yet; they wait for ROADMAP Queue 1 item 3 '
-                f'(int8 KV). Weight-only int8 is quantize=\'int8\'.')
+        decode.check_kv_quant(self.kv_quant)
 
     def cache_family(self) -> str:
         """'paged_kv' (dense/GQA/MoE) or 'paged_latent' (MLA): the
@@ -929,7 +961,8 @@ class InferenceEngine:
             raise ValueError(f'SKYTPU_ENGINE_KV_PAGES={n_pages} cannot hold '
                              f'one full-length request ({max_pages} pages + '
                              f'trash)')
-        layout = (self.page_size, n_pages, max(self.spec_k, 0))
+        layout = (self.page_size, n_pages, max(self.spec_k, 0),
+                  self.kv_quant)
         if layout == self._layout:
             return
         if self._layout is not None and self.graphs:
@@ -949,12 +982,15 @@ class InferenceEngine:
         pool, lengths, ``last`` and counts in place."""
         psz, b, dev = self.page_size, self.max_batch, self.device
         self.cache = self._decode.init_page_pool(
-            self.cfg, self.n_pages, psz, b, self._max_pages, device=dev)
+            self.cfg, self.n_pages, psz, b, self._max_pages, device=dev,
+            quant=self.kv_quant)
         # The cache-traffic proxy's inputs (host arithmetic on static
         # shapes, never a device sync): one position's bytes across
-        # layers, and the whole [B, max_len] span's.
-        self._tok_bytes = sum(p[:, 0, 0].numel() * p.element_size()
-                              for p in paging._pools(self.cache).values())
+        # layers, an int8 pool's scales included, and the whole
+        # [B, max_len] span's.
+        self._tok_bytes = sum(
+            p[:, 0, 0].numel() * p.element_size()
+            for p in paging.pool_tensors(self.cache).values())
         self._view_bytes = b * self.max_len * self._tok_bytes
         # Per-slot previous token, device-resident: the fused calls carry
         # it, so a lookahead call is dispatched with no host sync;
@@ -1064,8 +1100,9 @@ class InferenceEngine:
         self._resets += 1
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
-        for t in (*paging._pools(self.cache).values(), self.cache.table,
-                  self.cache.length, self.last_dev, self.counts):
+        for t in (*paging.pool_tensors(self.cache).values(),
+                  self.cache.table, self.cache.length, self.last_dev,
+                  self.counts):
             t.zero_()
         if self.spec_k > 0:
             self._spec_dev.zero_()
@@ -1075,11 +1112,11 @@ class InferenceEngine:
         """The JAX backend label of the paged step this replica serves:
         'pallas' where kernel B (the hand-written counterpart of the
         Pallas kernel) runs every decode step, 'fused' where the plain
-        in-place formulation does (the CPU, MLA, a softcap, window or
-        sinks, or a shape B does not take)."""
+        in-place formulation does (the CPU, MLA, int8 pools, a softcap,
+        window or sinks, or a shape B does not take)."""
         cfg = self.cfg
         if self.device.type != 'cuda' or self._decode is mla or \
-                cfg.dtype != torch.bfloat16:
+                cfg.dtype != torch.bfloat16 or self.kv_quant != 'none':
             return 'fused'
         hd = cfg.head_dim or cfg.dim // cfg.n_heads
         tp = 1 if self.mesh is None else self.mesh.shape['tensor']
@@ -2593,7 +2630,8 @@ class InferenceEngine:
         for b in ATTN_BACKENDS:
             self.metrics.attn_backend.set(1.0 if b == backend else 0.0,
                                           backend=b)
-        self.metrics.kv_pages_quantized.set(0)
+        self.metrics.kv_pages_quantized.set(
+            self.n_pages - 1 if self.kv_quant == 'int8' else 0)
         # The KV-hierarchy gauges from live state; warm-up's synthetic
         # captures do not count towards the sessions peak.
         self.metrics.kv_pages_spilled.set(
@@ -2618,6 +2656,9 @@ class InferenceEngine:
         the real code path — reserve a free slot's pages, adopt zero
         rows, export them back, release — so that the first handoff of
         each bucket allocates nothing new. The slot is never activated."""
+        # The rows a handoff ships: the pool's dtype, fp32 off an int8
+        # pool (gather_prefix dequantizes).
+        dtype = (torch.float32 if paging.quantized(self.cache) else None)
         pools = list(paging._pools(self.cache).values())
         for b in self.all_buckets():
             need = paging.pages_for(b, self.page_size)
@@ -2627,7 +2668,7 @@ class InferenceEngine:
             self._reserve_slot_pages(slot, self._alloc_pages(need))
             self._refresh_table()
             rows = [torch.zeros((p.shape[0], 1, b, *p.shape[3:]),
-                                dtype=p.dtype, device=self.device)
+                                dtype=dtype or p.dtype, device=self.device)
                     for p in pools]
             with torch.no_grad():
                 paging.adopt_rows(self.cache, *rows, slot, b, b)
@@ -3150,6 +3191,8 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
                 # The host tier's occupancy: the headroom the KV
                 # hierarchy adds.
                 doc['kv_host'] = engine.host_store.occupancy()
+            if engine.kv_quant != 'none':
+                doc['kv_quant'] = engine.kv_quant
             if engine.role:
                 doc['role'] = engine.role
             if engine.handoff_store is not None:

@@ -11,11 +11,12 @@ entry: fresh pages from the allocator, the blob scattered back in
 path.
 
 Entries are framed-npy blobs (utils/framed.py ``_encode_payload``): one
-npy block per pool field (k/v or c_kv/k_rope) with a JSON head holding
+npy block per pool field (k/v or c_kv/k_rope, and on an int8 pool their
+int8 codes' fp32 scale sidecars, four blocks) with a JSON head holding
 the page count and the content fingerprint
 (serve/disagg/handoff.py ``kv_fingerprint``); ``pop`` verifies it, so a
-corrupted blob raises instead of waking garbage KV. bf16 pools round-trip
-bit for bit. Keys are the engine's prefix-store keys (token tuples); one
+corrupted blob raises instead of waking garbage KV. bf16 pools, and
+int8 codes with their scales, round-trip bit for bit. Keys are the engine's prefix-store keys (token tuples); one
 copy of an entry lives at a time.
 
 Budget: LRU by BYTES against ``SKYTPU_ENGINE_KV_HOST_MB`` (0 disables the

@@ -1019,6 +1019,80 @@ def test_mla_paged_step_captures_into_a_graph(cuda, name):
     assert not torch.equal(pool.c_kv[:, 1:], snap[0][:, 1:])
 
 
+@pytest.mark.parametrize('name', ['moe-debug', 'mla-debug'])
+def test_int8_paged_steps_on_card_match_cpu(cuda, name):
+    """The int8 pools' paged steps (SKYTPU_ENGINE_KV_QUANT=int8) of an
+    MoE and an MLA preset in fp32 from the same weights and inputs on
+    the card and on the CPU: a ragged prefill scattered (quantized)
+    into pages, a verify of 3 tokens, 3 decode steps with one row
+    inactive, then a 16-token extend over a shared prefix. Logits
+    within 1e-4 of the CPU's largest at every call, scales within 1e-5
+    relative, codes off by one on at most 0.1% of entries (cuBLAS and
+    the CPU sum in other orders, so a K/V at a .5 boundary may round
+    apart; TF32 is off), every page but the trash page; kernel B is
+    never launched (it declines int8 pools, as JAX's kernel does)."""
+    from skypilot_tpu_torch.models import mla, module_for
+    cfg = dataclasses.replace(config.get_config(name), dtype=torch.float32)
+    prog = mla if hasattr(cfg, 'kv_lora_rank') else decode
+    params = module_for(cfg).init_params(cfg, torch.Generator().manual_seed(0),
+                                         'cpu', dtype=torch.float32)
+    rng = np.random.default_rng(3)
+    b, s, psz, max_len = 4, 16, 8, 64
+    maxp = max_len // psz
+    table = torch.from_numpy(rng.permutation(np.arange(1, b * maxp + 1))
+                             .reshape(b, maxp).astype(np.int32))
+    tokens = torch.from_numpy(rng.integers(0, 256, (3, s)).astype(np.int32))
+    lengths = torch.tensor([16, 9, 3], dtype=torch.int32)
+    ver = torch.from_numpy(rng.integers(0, 256, (b, 3)).astype(np.int32))
+    feed = torch.from_numpy(rng.integers(0, 256, (3, b)).astype(np.int32))
+    active = torch.tensor([True, False, True, False])
+    suffix = torch.from_numpy(rng.integers(0, 256, (1, 16)).astype(np.int32))
+
+    def run(dev):
+        p = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+                 else v.to(dev)) for k, v in params.items()}
+        pool = prog.init_page_pool(cfg, b * maxp + 1, psz, b, maxp, dev,
+                                   quant='int8')
+        pool.table.copy_(table)
+        out = []
+        with torch.no_grad():
+            logits, ra, rb = prog.prefill(p, tokens.to(dev), cfg, max_len,
+                                          lengths=lengths.to(dev))
+            paging.scatter_prefill(pool, ra, rb, torch.arange(3, device=dev),
+                                   s, lengths.to(dev))
+            out.append(logits)
+            out.append(prog.paged_verify_step(
+                p, ver.to(dev), pool, cfg, max_len=max_len,
+                active=active.to(dev))[0][active.to(dev)])
+            for tok in feed:
+                out.append(prog.paged_decode_step(
+                    p, tok.to(dev), pool, cfg, max_len=max_len,
+                    active=active.to(dev))[0][active.to(dev)])
+            pool.table[3, :2] = pool.table[0, :2]
+            out.append(prog.paged_prefill_extend(
+                p, suffix.to(dev), pool, cfg, slot=3, p=16, lengths=11))
+        return [t.cpu() for t in out], {
+            n: t.cpu() for n, t in paging.pool_tensors(pool).items()}
+
+    b0 = pa.KERNEL.launches
+    got, got_pool = run(cuda)
+    assert pa.KERNEL.launches == b0
+    want, want_pool = run('cpu')
+    for g, w in zip(got, want):
+        assert g.isfinite().all()
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    for n, w in want_pool.items():
+        # Page 0 is the trash page: inactive rows write it in an order
+        # neither device defines.
+        g, w = got_pool[n][:, 1:], w[:, 1:]
+        if w.dtype == torch.int8:
+            d = (g.int() - w.int()).abs()
+            assert int((d > 1).sum()) == 0
+            assert int((d == 1).sum()) <= 1e-3 * d.numel(), n
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-7)
+
+
 @pytest.mark.parametrize('name', ['moe-debug', 'deepseek-moe-debug'])
 def test_family_train_step_on_card_matches_cpu(cuda, name):
     """One train step (CE + router aux, then AdamW) of an MoE and an MLA

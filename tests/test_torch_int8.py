@@ -237,12 +237,3 @@ def test_engine_int8_refuses_moe_by_name():
                                    quantize='int8')
     parser = engine_lib.build_parser()
     assert parser.parse_args(['--quantize', 'int8']).quantize == 'int8'
-
-
-def test_engine_refuses_int8_kv_pools_by_name(monkeypatch):
-    """SKYTPU_ENGINE_KV_QUANT=int8 (the JAX engine's int8 K/V pools) is
-    refused by name, not served silently from bf16 pools."""
-    monkeypatch.setattr(engine_lib, 'KV_QUANT', 'int8')
-    with pytest.raises(NotImplementedError,
-                       match='SKYTPU_ENGINE_KV_QUANT'):
-        engine_lib.InferenceEngine('llama-debug', device='cpu')

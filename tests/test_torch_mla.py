@@ -9,8 +9,7 @@ orders); TOL_SELF (1e-5) where the port is held against itself (an
 extend against a full prefill, the absorbed attention against a naive
 one: the same products, other shapes). Covered:
   - the five presets field for field with ``num_params``, ``get_config``
-    and ``module_for``, the refusals by name (dense switches, int8
-    latent pools);
+    and ``module_for``, the refusals by name (dense switches);
   - ``init_params``' tree and the weight bridge on mla-debug and
     deepseek-moe-debug;
   - ``_attend_latent`` against a naive per-head attention and JAX's;
@@ -145,15 +144,6 @@ def test_dense_switches_refused_on_mla_by_name(switch, val):
             config.check_supported(cfg)
         with pytest.raises(NotImplementedError):
             mla.forward({}, torch.zeros((1, 4), dtype=torch.int32), cfg)
-
-
-@pytest.mark.parametrize('sidecar', ['c_scale', 'r_scale'])
-def test_int8_latent_pool_refused_by_name(sidecar):
-    pool = mla.init_page_pool(config.MLA_PRESETS['mla-debug'], 5, 8, 2, 2,
-                              device='cpu')
-    with pytest.raises(NotImplementedError, match='c_scale / r_scale'):
-        paging.PagedLatent(pool.c_kv, pool.k_rope, pool.table, pool.length,
-                           **{sidecar: torch.zeros(2, 5, 8)})
 
 
 # ------------------------------------------------------------------ params

@@ -15,7 +15,10 @@ switches (post norms, both softcaps, the embedding scale, tied
 embeddings, q/k norms; the zero-initialised leaves made random, as
 tests/test_torch_gemma.py makes them) and Qwen2's q/k/v biases. The
 int8-weight shard (quantized whole, then sharded as the JAX engine
-shards it) is held to the same bound against the one-rank int8 port.
+shards it) and the int8 K/V pools (each rank its kv heads' codes and
+scales) are held to the same bound against the one-rank port. A spied
+run records every all_reduce / all_gather input through a paged verify
+fed transposed tokens: all must be contiguous.
 Results are cached under a file lock in pytest's shared temp root, so
 xdist workers share one computation.
 """
@@ -67,7 +70,8 @@ def _tree(overrides, seed):
     return jcfg, tree
 
 
-def _job(name, overrides, seed, quantize=None):
+def _job(name, overrides, seed, quantize=None, kv_quant='none',
+         spy=False):
     rng = np.random.default_rng(seed)
     b, s, max_len, psz = 3, 16, 64, 8
     maxp = max_len // psz
@@ -80,14 +84,23 @@ def _job(name, overrides, seed, quantize=None):
                 table=rng.permutation(np.arange(1, b * maxp + 1)).reshape(
                     b, maxp).astype(np.int32),
                 feed=rng.integers(0, 256, (3, b)).astype(np.int32),
-                active=np.array([True, False, True]))
+                active=np.array([True, False, True]), kv_quant=kv_quant,
+                spy=spy, verify=(rng.integers(0, 256, (4, b)).astype(np.int32)
+                                 if spy else None))
 
 
 def _jobs():
     jobs = {name: _job(name, kw, seed) for seed, (name, kw)
             in enumerate(CASES.items())}
     jobs['int8'] = _job('int8', {}, 7, quantize='int8')
+    jobs['kv_int8'] = _job('kv_int8', {}, 8, kv_quant='int8')
+    jobs['contig'] = _job('contig', {}, 9, spy=True)
     return jobs
+
+
+# Held against the port on one rank, not JAX: int8 weights, int8 pools
+# and the spied run (whose verify JAX's reference does not take).
+ONE_RANK = ('int8', 'kv_int8', 'contig')
 
 
 def _jax_logits(job):
@@ -137,9 +150,8 @@ def _compute(tmp):
          os.path.join(tmp, 'init'), tmp], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
     try:
-        ref = {name: _jax_logits(job) for name, job in jobs.items()
-               if job['quantize'] is None}
-        ref['int8'] = _one_rank(jobs['int8'])
+        ref = {name: (_one_rank(job) if name in ONE_RANK else
+                      _jax_logits(job)) for name, job in jobs.items()}
         logs = [p.communicate(timeout=600)[0] for p in procs]
     finally:
         for p in procs:
@@ -172,12 +184,13 @@ def results(tmp_path_factory):
         return pickle.load(f)
 
 
-@pytest.mark.parametrize('name', [*CASES, 'int8'])
+@pytest.mark.parametrize('name', [*CASES, 'int8', 'kv_int8'])
 def test_sharded_prefill_and_paged_steps_match(results, name):
     """Both ranks' logits are the same bits, and within REL of the
     reference's std at the prefill and at every decode step (the
     inactive row's logits are not compared: its writes go to the trash
-    page)."""
+    page). 'kv_int8' runs on int8 pools, each rank holding its kv
+    heads' codes and scales."""
     active = results['jobs'][name]['active']
     ranks = results['port'][name]
     assert sorted(ranks) == list(range(WORLD))
@@ -189,3 +202,22 @@ def test_sharded_prefill_and_paged_steps_match(results, name):
         assert got.shape == want.shape
         err = float(np.abs(got[rows] - want[rows]).max())
         assert err <= REL * float(want[rows].std()), (step, err)
+
+
+def test_collective_inputs_are_contiguous(results):
+    """Every tensor the sharded forward hands all_reduce or all_gather
+    is contiguous (NCCL reduces nothing else), through a paged verify
+    fed tokens with transposed strides, as the engine feeds its verify;
+    the verify's logits equal the one-rank port's."""
+    ranks = results['port']['contig']
+    for r in range(WORLD):
+        calls = ranks[r]['collectives']
+        names = {name for name, _ in calls}
+        assert names == {'all_reduce', 'all_gather'}, names
+        assert all(ok for _, ok in calls), \
+            [i for i, (_, ok) in enumerate(calls) if not ok]
+    got, want = ranks[0]['logits'][-1], results['ref']['contig'][-1]
+    active = results['jobs']['contig']['active']
+    np.testing.assert_array_equal(ranks[1]['logits'][-1], got)
+    err = float(np.abs(got[active] - want[active]).max())
+    assert err <= REL * float(want[active].std())

@@ -9,6 +9,7 @@ JOBS.pkl whose world is WORLD, and writes OUT_DIR/rank<RANK>.pkl: {job
 name: result}. Inputs and results are numpy, made from seeds by the
 test; this process imports torch and the port only, never JAX.
 """
+import contextlib
 import os
 import pickle
 import sys
@@ -93,8 +94,11 @@ def tp_config(job):
 
 def paged_logits(params, cfg, job):
     """Prefill the job's ragged prompts, scatter their K/V into its page
-    table, then one paged decode step per row of ``job['feed']`` with
-    ``job['active']``: every step's logits as fp32 numpy."""
+    table (pools of ``job['kv_quant']``, default 'none'), then one paged
+    decode step per row of ``job['feed']`` with ``job['active']`` and,
+    with ``job['verify']`` [K, B], one paged verify step fed its
+    transpose (a [B, K] view with transposed strides, as the engine
+    feeds its verify): every step's logits as fp32 numpy."""
     tokens = torch.from_numpy(job['tokens'])
     lengths = torch.from_numpy(job['lengths'])
     table = torch.from_numpy(job['table'])
@@ -105,7 +109,8 @@ def paged_logits(params, cfg, job):
     logits, ks, vs = decode.prefill(params, tokens, cfg, max_len,
                                     lengths=lengths)
     pool = decode.init_page_pool(cfg, b * maxp + 1, psz, b, maxp,
-                                 device='cpu')
+                                 device='cpu',
+                                 quant=job.get('kv_quant', 'none'))
     pool.table.copy_(table)
     paging.scatter_prefill(pool, ks, vs, torch.arange(b), s, lengths)
     out = [logits]
@@ -114,22 +119,57 @@ def paged_logits(params, cfg, job):
             params, torch.from_numpy(tok), pool, cfg, max_len=max_len,
             active=active)
         out.append(logits)
+    if job.get('verify') is not None:
+        fed = torch.from_numpy(job['verify']).t()
+        assert not fed.is_contiguous()
+        logits, pool = decode.paged_verify_step(params, fed, pool, cfg,
+                                                max_len=max_len,
+                                                active=active)
+        out.append(logits)
     return [x.float().numpy() for x in out]
+
+
+@contextlib.contextmanager
+def contiguity_spy():
+    """Wrap ``dist.all_reduce`` and ``dist.all_gather`` inside the
+    block: each call's (name, whether every tensor it was handed is
+    contiguous) lands in the yielded list. NCCL reduces contiguous
+    memory only, so the sharded forward must hand it nothing else."""
+    calls = []
+    saved = {name: getattr(dist, name) for name in ('all_reduce',
+                                                    'all_gather')}
+    for name, orig in saved.items():
+
+        def wrapped(*args, _orig=orig, _name=name, **kwargs):
+            tensors = [t for a in args for t in
+                       (a if isinstance(a, (list, tuple)) else [a])
+                       if isinstance(t, torch.Tensor)]
+            calls.append((_name, all(t.is_contiguous() for t in tensors)))
+            return _orig(*args, **kwargs)
+        setattr(dist, name, wrapped)
+    try:
+        yield calls
+    finally:
+        for name, orig in saved.items():
+            setattr(dist, name, orig)
 
 
 def tp_job(job, rank, world):
     """:func:`paged_logits` of the bridged params (int8 with
     ``job['quantize']``, quantized whole, then sharded) on a mesh of
-    'tensor' = the world: each rank holds its shard; the logits are
-    every rank's gathered ones."""
+    'tensor' = the world: each rank holds its shard (and its kv heads'
+    pages); the logits are every rank's gathered ones. With
+    ``job['spy']`` the result is {'logits', 'collectives'}, the latter
+    :func:`contiguity_spy`'s record of the run."""
     cfg = tp_config(job)
     params = decode.cast_params_for_decode(
         weights.params_from_jax(job['params'], cfg, device='cpu'), cfg,
         quantize=job.get('quantize'))
     mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(tensor=world))
     params = sharding.shard_params(params, llama.param_axes(cfg), mesh)
-    with torch.no_grad(), mesh_lib.use_mesh(mesh):
-        return paged_logits(params, cfg, job)
+    with torch.no_grad(), mesh_lib.use_mesh(mesh), contiguity_spy() as calls:
+        out = paged_logits(params, cfg, job)
+    return {'logits': out, 'collectives': calls} if job.get('spy') else out
 
 
 JOBS = {'ring': ring_job, 'train': train_job, 'tp': tp_job}
