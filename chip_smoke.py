@@ -128,9 +128,28 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  TPOT, idle share and peak memory beside the serve
                  phase's; a 512-token prefix spilled (codes and scales
                  parked) and woken, its tokens and logprobs equal to
-                 the resident hit's; the k=1, k=8 and verify graph
-                 replays equal to their eager bodies bit for bit
+                 the resident hit's; every graph replay equal to its
+                 eager body bit for bit (codes and scales included)
                  (chiprun_out/kv_int8.json);
+  7f. layouts  — llama-1b whole (the same weights) on the fused paged
+                 pool, the contiguous slabs (SKYTPU_ENGINE_PAGED=0) and
+                 the gather view baseline (SKYTPU_ENGINE_ATTN=gather) in
+                 turn, each from launch counts of 0: warm-up captures
+                 the 8 step and 2 verify graphs (B inside the fused
+                 pool's only); 700- and 20-token /generate at once, 600
+                 tokens, its first 512 resent (a prefix hit), a
+                 speculative wave and a stream; A launched in every
+                 layout, B only on the fused pool (counted and on the
+                 device, in a profiled repeat of the 700- and 20-token
+                 wave, which gives the idle share); TPOT, TTFT short and
+                 long, peak memory and the cache-bytes counters per
+                 layout; every graph replay bit-equal to its eager
+                 body; 8 teacher-forced bf16 steps of each layout
+                 against fp32 within TOL_MODEL x the plain bf16 error
+                 (the largest over the steps); then fp32
+                 engines cut to 4 of the 16 layers give identical
+                 greedy streams in the three layouts
+                 (chiprun_out/layouts.json);
   7e. tp_serve — one replica over a gang: llama-1b whole (bf16, random
                  weights from seed 0) at --mesh tensor=2, two ranks
                  sharing the card over gloo (this script with
@@ -2187,9 +2206,12 @@ def serve_engine(eng, engine_lib, tag, **knobs):
         if code != 503 or time.perf_counter() - t0 > 600:
             fail(f'{tag} /health never came up: {code} {doc}')
         time.sleep(0.1)
-    # Kernel B declines int8 pools: no graph of an int8 engine holds it.
+    # Kernel B takes bf16 only, declines int8 pools and serves neither
+    # the contiguous slabs nor the gather view: no graph of those
+    # engines holds it.
     layers = eng.cfg.n_layers * takes_kernels(eng.cfg) * \
-        (eng.kv_quant == 'none')
+        (eng.kv_quant == 'none') * eng._fused() * \
+        (str(eng.cfg.dtype) == 'torch.bfloat16')
     want = {(k, p, t): k * layers for k in (1, engine_lib.MAX_STEP_CHUNK)
             for p in (False, True) for t in (False, True)}
     if eng.spec_k > 0:
@@ -3281,68 +3303,6 @@ def int8_pool_bytes(torch, eng, decode, paging) -> dict:
     return out
 
 
-def int8_graphs_vs_eager(torch, eng, engine_lib, paging, tag) -> dict:
-    """With the loop stopped, on four admitted rows: each of the k=1
-    greedy top-5 step, the k=MAX_STEP_CHUNK greedy step and the greedy
-    top-5 verify, replayed from its graph and then run as its eager
-    body from the same state (pool codes and scales, lengths, last,
-    counts; every row greedy, so no draw reaches an output): outputs
-    and every page but the trash page bit for bit."""
-    rng = np.random.default_rng(14)
-    for group in eng._admit_groups([
-            engine_lib.Request(rng.integers(0, 256, n).tolist(), 64)
-            for n in (17, 100, 250, 40)]):
-        eng._admit_group(group)
-    rows = [i for i, s in enumerate(eng.slots) if eng._row_active(s)]
-    pool = list(paging.pool_tensors(eng.cache).values())
-    n_pool = len(pool)
-    state = [*pool, eng.cache.length, eng.last_dev, eng.counts]
-    k = eng.spec_k
-    fed = torch.from_numpy(rng.integers(0, eng.cfg.vocab_size,
-                                        (eng.max_batch, k)).astype(np.int32))
-    out = {}
-    for key in ((1, False, True), (eng.step_chunk, False, False),
-                ('verify', True)):
-        snap = [t.clone() for t in state]
-        if key[0] == 'verify':
-            eng._spec_dev[:k].copy_(fed.cuda().t())
-            eng._spec_dev[0].copy_(eng.last_dev)
-            eng._spec_dev[k].zero_()
-            eng._spec_dev[k, rows] = 1
-            outs = (eng._ver_toks, eng._ver_lps, eng._ver_tis, eng._ver_tvs)
-            eng._variant(key)()
-        else:
-            outs = (eng._out_toks, eng._out_lps, eng._out_tis, eng._out_tvs)
-            h = eng._dispatch_step(key[0], want_tops_force=key[2])
-            h.event.synchronize()
-            eng._inflight.remove(h)
-        torch.cuda.synchronize()
-        replayed = [t.clone() for t in (*outs, *state)]
-        for t, v in zip(state, snap):
-            t.copy_(v)
-        eng._body(key)()
-        torch.cuda.synchronize()
-        eager = [t.clone() for t in (*outs, *state)]
-        # Page 0 of each pool tensor is the trash page, which the
-        # inactive rows write in an order no run defines.
-        trash = set(range(len(outs), len(outs) + n_pool))
-        differ = [i for i, (a, b) in enumerate(zip(replayed, eager))
-                  if not torch.equal(*((a[:, 1:], b[:, 1:]) if i in trash
-                                       else (a, b)))]
-        if differ:
-            fail(f'{tag} graph {key} vs its eager body: tensors {differ} '
-                 f'differ (outputs 0-3, then the pool, length, last, '
-                 f'counts)')
-        out[str(key)] = 'bit-equal'
-        for t, v in zip(state, snap):
-            t.copy_(v)
-    eng._reset_device_state()
-    log(f'{tag} graph replays == eager bodies bit for bit on {len(rows)} '
-        f'rows (outputs, int8 codes, fp32 scales, lengths, last, counts): '
-        f'{out}')
-    return out
-
-
 def int8_spill_wake(eng, base, vocab: int, tag: str) -> dict:
     """A 512-token system prompt with two tails: the second a resident
     prefix hit; the idle sweep then spills the entry to the host tier
@@ -3457,8 +3417,8 @@ def phase_kv_int8(torch, cfg, params, engine_lib, build, decode,
             fail(f'{tag} admission burst took the paths: {admit}')
         result['spill'] = int8_spill_wake(eng, base, cfg.vocab_size, tag)
         eng.stop()
-        result['graphs'] = int8_graphs_vs_eager(torch, eng, engine_lib,
-                                                paging, tag)
+        result['graphs_bit_equal'] = layout_graphs_vs_eager(
+            torch, eng, engine_lib, tag)
     finally:
         stop_engine(eng, server)
     del eng, server, watch
@@ -3468,6 +3428,354 @@ def phase_kv_int8(torch, cfg, params, engine_lib, build, decode,
     with open(os.path.join(OUT_DIR, 'kv_int8.json'), 'w') as f:
         json.dump(result, f, indent=1, default=str)
     return launches
+
+
+# The layouts phase: llama-1b whole (16 layers, dim 2048, 8 slots, page
+# 64, max_len 2048; the serve phase's random bf16 weights from seed 0)
+# on the fused paged pool, the contiguous slabs (SKYTPU_ENGINE_PAGED=0)
+# and the gather baseline (SKYTPU_ENGINE_ATTN=gather) in turn, each
+# served tp_serve's traffic (700 and 20 tokens at once, then 600, then
+# its first 512 resent with a new tail: a prefix hit) with a speculative
+# wave and a stream, LAYOUT_NEW tokens a request (32 in the wave).
+LAYOUTS = (('fused', True, 'fused'), ('contiguous', False, 'fused'),
+           ('gather', True, 'gather'))
+LAYOUT_NEW = 16
+# The fp32 greedy streams of the three layouts: llama-1b at full width
+# cut to 4 of its 16 layers (the only cut of this phase; three fp32
+# engines at 16 layers would take ~13 GB more and ~30 s).
+LAYOUT_F32_DEPTH = 4
+# Teacher-forced decode steps against fp32: four rows of one prompt
+# bucket (one admission group), 8 steps.
+LAYOUT_FORCED_LENS, LAYOUT_FORCED_STEPS = (200, 256, 130, 150), 8
+
+
+def layout_traffic(base: str, vocab: int, tag: str,
+                   first_wave: bool = False) -> list:
+    """The phase's requests, each answer checked: 700 and 20 tokens at
+    once (alone with ``first_wave``), 600, then its first 512 with a new
+    40-token tail, two self-repeating greedy prompts at once, a streamed
+    greedy /v1/completions. Returns every answer's tokens, the stream's
+    text pieces last."""
+    rng = np.random.default_rng(21)
+
+    def prompt(n):
+        return [int(t) for t in rng.integers(1, vocab, n)]
+
+    def body(tokens, n=LAYOUT_NEW):
+        return {'tokens': tokens, 'max_new_tokens': n}
+    system = prompt(600)
+    answers = generate_all(base, [body(prompt(700)), body(prompt(20))], vocab)
+    if first_wave:
+        return [doc['tokens'] for _, doc in answers]
+    answers += generate_all(base, [body(system)], vocab)
+    answers += generate_all(base, [body(system[:512] + prompt(40))], vocab)
+    answers += generate_all(base, [body(prompt(6) * 8, 2 * LAYOUT_NEW)
+                                   for _ in range(2)], vocab)
+    events = sse(base + '/v1/completions', {
+        'prompt': 'One replica, three layouts.', 'max_tokens': LAYOUT_NEW,
+        'temperature': 0, 'ignore_eos': True, 'stream': True})
+    if events[-1]['choices'][0].get('finish_reason') != 'length':
+        fail(f'{tag} the streamed completion did not finish: {events[-1]}')
+    return [doc['tokens'] for _, doc in answers] + \
+        [[e['choices'][0]['text'] for e in events]]
+
+
+def layout_state(eng) -> list:
+    """Every tensor a step or verify call reads and writes besides its
+    outputs: the cache (pool or slabs), lengths, ``last``, counts."""
+    return [*eng.kv_tensors().values(), eng.cache.length, eng.last_dev,
+            eng.counts]
+
+
+def layout_graphs_vs_eager(torch, eng, engine_lib, tag) -> int:
+    """With the loop stopped, on two admitted greedy rows (presence set,
+    for the penalized variants): every captured variant replayed from
+    its graph and run as its eager body from the same state; the two
+    rows' outputs, the cache, lengths, last and counts bit for bit (a
+    pool's trash page aside: inactive rows write it in no set order,
+    and on the fused pool they read it back, so their outputs are
+    left out too). Returns the number of variants held."""
+    rng = np.random.default_rng(15)
+    eng._admit_group([engine_lib.Request(rng.integers(0, 256, n).tolist(),
+                                         64) for n in (100, 120)])
+    b, k = eng.max_batch, eng.spec_k
+    act = torch.zeros(b, device='cuda')
+    act[:2] = 1
+    eng._ctrl.zero_()
+    eng._ctrl[0] = act
+    eng._ctrl[4, :2] = 0.5
+    fed = torch.from_numpy(rng.integers(0, eng.cfg.vocab_size,
+                                        (b, k)).astype(np.int32)).cuda()
+    fed[:, 0] = eng.last_dev
+    eng._spec_dev[:k].copy_(fed.t())
+    eng._spec_dev[k].copy_(act.int())
+    snap = [t.clone() for t in layout_state(eng)]
+    n_kv = len(eng.kv_tensors())
+    lo = 1 if eng.paged else 0
+    for key in sorted(eng.graphs, key=str):
+        if key[0] == 'verify':
+            outs = [x[:2] for x in (eng._ver_toks, eng._ver_lps,
+                                    eng._ver_tis, eng._ver_tvs)]
+        else:
+            outs = [x[:key[0], :2] for x in (eng._out_toks, eng._out_lps,
+                                             eng._out_tis, eng._out_tvs)]
+        runs = []
+        for run in (eng.graphs[key].replay, eng._body(key)):
+            for t, v in zip(layout_state(eng), snap):
+                t.copy_(v)
+            run()
+            torch.cuda.synchronize()
+            state = layout_state(eng)
+            runs.append([t.clone() for t in outs] +
+                        [t[:, lo:].clone() for t in state[:n_kv]] +
+                        [t.clone() for t in state[n_kv:]])
+        differ = [i for i, (x, y) in enumerate(zip(*runs))
+                  if not torch.equal(x, y)]
+        if differ:
+            fail(f'{tag} graph {key} vs its eager body: tensors {differ} '
+                 f'differ (outputs 0-3, then the cache, length, last, '
+                 f'counts)')
+    eng._reset_device_state()
+    log(f'{tag} {len(eng.graphs)} graph replays == their eager bodies bit '
+        f'for bit on 2 rows (outputs, cache, lengths, last, counts)')
+    return len(eng.graphs)
+
+
+def forced_prompts(torch, vocab: int):
+    """The teacher-forced rows: right-padded prompts [4, 256], lengths."""
+    rng = np.random.default_rng(16)
+    bucket = max(LAYOUT_FORCED_LENS)
+    tok = np.zeros((len(LAYOUT_FORCED_LENS), bucket), np.int32)
+    for i, n in enumerate(LAYOUT_FORCED_LENS):
+        tok[i, :n] = rng.integers(1, vocab, n)
+    return (torch.from_numpy(tok).cuda(),
+            torch.tensor(LAYOUT_FORCED_LENS, dtype=torch.int32,
+                         device='cuda'))
+
+
+def plain_forced(torch, decode, cfg, params, tok_t, len_t, max_len,
+                 feed=None):
+    """The contiguous plain path (plain prefill, plain steps) on the
+    forced rows: the logits of each of LAYOUT_FORCED_STEPS steps fed
+    ``feed`` (None: its own greedy tokens) and the tokens fed."""
+    import dataclasses
+    cfg = dataclasses.replace(cfg, attention_impl='xla')
+    with torch.no_grad():
+        logits, cache = decode.prefill_cache(params, tok_t, cfg, max_len,
+                                             lengths=len_t)
+        out, fed = [], []
+        for i in range(LAYOUT_FORCED_STEPS):
+            nxt = (feed[i] if feed is not None else
+                   torch.argmax(logits, dim=-1).to(torch.int32))
+            fed.append(nxt)
+            logits, cache = decode.decode_step(params, nxt, cache, cfg)
+            out.append(logits.float())
+    return out, fed
+
+
+def layout_forced(torch, eng, engine_lib, tok_t, len_t, feed) -> list:
+    """The engine's own step in its layout (``_step_logits`` on
+    ``_open_view``'s cache, the view scattered back) on the forced rows,
+    admitted as one group, fed ``feed``: the logits of each step."""
+    eng._reset_device_state()
+    eng._admit_group([engine_lib.Request(
+        tok_t[i, :int(n)].tolist(), 64) for i, n in enumerate(len_t)])
+    rows = len(LAYOUT_FORCED_LENS)
+    act = torch.zeros(eng.max_batch, dtype=torch.bool, device='cuda')
+    act[:rows] = True
+    out = []
+    with torch.no_grad():
+        for nxt in feed:
+            last = eng.last_dev.clone()
+            last[:rows] = nxt
+            view, start = eng._open_view()
+            logits = eng._step_logits(view, last, act)
+            eng._close_view(view, start, 1, act)
+            out.append(logits[:rows].float())
+    eng._reset_device_state()
+    return out
+
+
+def phase_layouts(torch, cfg, params, engine_lib, build, decode) -> dict:
+    """The port's engine on llama-1b in each of the three K/V layouts,
+    each from launch counts of 0 (warm-up: the eight step and two verify
+    graphs, k x layers B launches each on the fused pool and none on the
+    others; then the traffic): every answer checked, a prefix hit and
+    speculative rounds in each, chunks on the paged layouts only, kernel
+    A launched in every layout and B on the fused pool alone (counted,
+    and on the device in a profiled repeat of the first wave); TPOT,
+    TTFT short and long, the idle share (of that repeat), peak memory
+    and the cache-bytes counters per layout.
+    With the loop stopped: every graph against its eager body, and 8
+    teacher-forced steps of each layout against the fp32 plain path:
+    the largest error over the steps within TOL_MODEL x the plain bf16
+    path's. Then fp32 engines at
+    LAYOUT_F32_DEPTH layers serve the traffic again: the same greedy
+    streams in all three layouts. Returns kernel A's launches on the two
+    new layouts' main paths."""
+    import dataclasses
+    tag0 = '[layouts]'
+    t_phase = time.perf_counter()
+    result = {'card': gpu_line(), 'layouts': {}}
+    tok_t, len_t = forced_prompts(torch, cfg.vocab_size)
+    max_len = min(cfg.max_seq_len, 2048)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = decode.cast_params_for_decode(params, cfg32)
+    ref, feed = plain_forced(torch, decode, cfg32, params32, tok_t, len_t,
+                             max_len)
+    del params32
+    plain, _ = plain_forced(torch, decode, cfg, params, tok_t, len_t,
+                            max_len, feed)
+    free_card(torch)
+    new_a = 0
+    for name, paged, attn in LAYOUTS:
+        tag = f'{tag0} {name}'
+        t_layout = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        # This layout's main path starts here: every launch count from 0.
+        build.reset_launches()
+        eng = engine_lib.InferenceEngine('llama-1b', cfg=cfg, params=params,
+                                         device='cuda', seed=0)
+        eng.paged, eng.attn_backend = paged, attn
+        eng, server, base = serve_engine(eng, engine_lib, tag)
+        firsts = {}
+        finish = eng._finish_admit
+
+        def finish_admit(req, slot, *rest, finish=finish):
+            firsts.setdefault(len(req.tokens),
+                              time.perf_counter() - req.t_submit)
+            finish(req, slot, *rest)
+        eng._finish_admit = finish_admit
+        try:
+            c0 = {k: getattr(eng, k) for k in ('prefix_hits',
+                                               'prefill_chunks',
+                                               'spec_rounds')}
+            m = eng.metrics
+            r0, w0 = m.cache_read.value(), m.cache_written.value()
+            n_t = len(eng.timings)
+            t0 = time.perf_counter()
+            streams = layout_traffic(base, cfg.vocab_size, tag)
+            wall = time.perf_counter() - t0
+            launches = launch_counts(build)
+            d = {k: getattr(eng, k) - v for k, v in c0.items()}
+            timings = list(eng.timings)[n_t:]
+            stats = {
+                'wall_s': wall,
+                'tpot_ms_median': statistics.median(
+                    t[1] for t in timings if t[2] > 1) * 1e3,
+                'ttft_ms_short': firsts[20] * 1e3,
+                'ttft_ms_long': firsts[700] * 1e3,
+                'cache_bytes_read': m.cache_read.value() - r0,
+                'cache_bytes_written': m.cache_written.value() - w0,
+                'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+                'launches': launches, **d}
+            t_prof = time.perf_counter()
+            # The idle share of the first wave (700 and 20 tokens at
+            # once): the profiler's pass over the whole traffic's ~100k
+            # kernel events took ~20 s a layout.
+            prof = profile_device(torch, lambda: layout_traffic(
+                base, cfg.vocab_size, tag + ' profiled', first_wave=True))
+            stats['profiled_s'] = time.perf_counter() - t_prof
+            stats['idle_share'] = prof['idle_share']
+            stats['b_launches_device'] = prof['kernel_counts'].get(
+                'paged_decode', 0)
+            fused = name == 'fused'
+            if launches['flash_fwd'] <= 0 or \
+                    (launches['paged_decode'] > 0) != fused or \
+                    (stats['b_launches_device'] > 0) != fused:
+                fail(f'{tag} kernel A {launches["flash_fwd"]}x (must '
+                     f'launch), B {launches["paged_decode"]}x counted and '
+                     f'{stats["b_launches_device"]}x on the device (only '
+                     f'the fused pool runs B)')
+            if d['prefix_hits'] < 1 or d['spec_rounds'] < 1 or \
+                    (d['prefill_chunks'] > 0) != paged:
+                fail(f'{tag} the traffic took the paths {d} (a hit, '
+                     f'speculation, chunks on the paged layouts only)')
+            eng.stop()
+            t_checks = time.perf_counter()
+            stats['graphs_bit_equal'] = layout_graphs_vs_eager(
+                torch, eng, engine_lib, tag)
+            forced = layout_forced(torch, eng, engine_lib, tok_t, len_t,
+                                   feed)
+            stats['checks_s'] = time.perf_counter() - t_checks
+        finally:
+            stop_engine(eng, server)
+        # Each path's error against fp32 over the 8 steps (max|diff| /
+        # std of the fp32 logits, per step, then the max over steps), the
+        # layout's over the plain bf16 path's: the ratio of two maxima
+        # over one step swings by up to a third from step to step on the
+        # same path (the per-step lists logged below); over 8 it settles.
+        e_a, e_p = [], []
+        for i, (a, p, f) in enumerate(zip(forced, plain, ref)):
+            if not bool(torch.isfinite(a).all()):
+                fail(f'{tag} non-finite teacher-forced logits at step {i}')
+            std = float(f.std())
+            e_a.append(float((a - f).abs().max()) / std)
+            e_p.append(float((p - f).abs().max()) / std)
+        worst = max(e_a) / max(e_p)
+        log(f'{tag} teacher-forced steps, max|diff|/std(fp32 logits): '
+            f'{name} {[round(e, 5) for e in e_a]}, plain bf16 '
+            f'{[round(e, 5) for e in e_p]}')
+        stats['forced_error_ratio'] = worst
+        if worst > TOL_MODEL:
+            fail(f'{tag} teacher-forced bf16 logits {worst:.3f}x the plain '
+                 f'bf16 error against fp32 > {TOL_MODEL}')
+        stats['bf16_streams'] = streams
+        result['layouts'][name] = stats
+        if not fused:
+            new_a += launches['flash_fwd']
+        log(f'{tag} TPOT median {stats["tpot_ms_median"]:.3f} ms, TTFT '
+            f'short {stats["ttft_ms_short"]:.1f} / long '
+            f'{stats["ttft_ms_long"]:.1f} ms, idle share '
+            f'{stats["idle_share"]}, peak {stats["peak_gb"]:.2f} GB, cache '
+            f'bytes read {stats["cache_bytes_read"]:.0f} written '
+            f'{stats["cache_bytes_written"]:.0f}, launches A '
+            f'{launches["flash_fwd"]} B {launches["paged_decode"]} (B on '
+            f'the device {stats["b_launches_device"]}), hits '
+            f'{d["prefix_hits"]}, chunks {d["prefill_chunks"]}, spec '
+            f'rounds {d["spec_rounds"]}, teacher-forced error ratio '
+            f'{worst:.3f} (tol {TOL_MODEL}), {len(eng.graphs)} graphs '
+            f'bit-equal to eager, on {gpu_line()}; '
+            f'{time.perf_counter() - t_layout:.1f}s (traffic {wall:.1f}s, '
+            f'profiled {stats["profiled_s"]:.1f}s, checks '
+            f'{stats["checks_s"]:.1f}s)')
+        del eng, server
+        free_card(torch)
+    # fp32 greedy streams, LAYOUT_F32_DEPTH of 16 layers.
+    cut = dataclasses.replace(cfg, n_layers=LAYOUT_F32_DEPTH,
+                              dtype=torch.float32)
+    t_f32 = time.perf_counter()
+    p32 = decode.cast_params_for_decode(
+        {k: ({n: w[:LAYOUT_F32_DEPTH] for n, w in v.items()}
+             if k == 'layers' else v) for k, v in params.items()}, cut)
+    f32 = {}
+    for name, paged, attn in LAYOUTS:
+        eng = engine_lib.InferenceEngine('llama-1b', cfg=cut, params=p32,
+                                         device='cuda', seed=0)
+        eng.paged, eng.attn_backend = paged, attn
+        eng, server, base = serve_engine(eng, engine_lib,
+                                         f'{tag0} fp32 {name}')
+        try:
+            f32[name] = layout_traffic(base, cut.vocab_size,
+                                       f'{tag0} fp32 {name}')
+        finally:
+            stop_engine(eng, server)
+        del eng, server
+        free_card(torch)
+    del p32
+    if not f32['fused'] == f32['contiguous'] == f32['gather']:
+        fail(f'{tag0} fp32 greedy streams differ across the layouts: '
+             f'{json.dumps(f32)[:2000]}')
+    result['fp32_streams_identical'] = True
+    result['fp32_depth'] = LAYOUT_F32_DEPTH
+    result['seconds'] = time.perf_counter() - t_phase
+    log(f'{tag0} fp32 greedy streams of the three layouts identical '
+        f'({LAYOUT_F32_DEPTH} of 16 layers, {len(f32["fused"])} answers, '
+        f'{time.perf_counter() - t_f32:.1f}s); phase '
+        f'{result["seconds"]:.1f}s')
+    with open(os.path.join(OUT_DIR, 'layouts.json'), 'w') as f:
+        json.dump(result, f, indent=1, default=str)
+    return {'flash_fwd': new_a}
 
 
 def train_checked(torch, build, tcfg, cfg, tag: str, plain: bool = True):
@@ -6185,6 +6493,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--phases', default='build,flash,paged,flash_bwd,'
                         'timing,model,serve,batch_infer,disagg,kv_int8,'
+                        'layouts,'
                         'tp_serve,'
                         'model_gemma,'
                         'serve_gemma,'
@@ -6276,7 +6585,8 @@ def main() -> None:
     if 'timing' in phases:
         times = phase_timing(torch, fa, pa, paging)
     lap('timing')
-    if phases & {'model', 'serve', 'batch_infer', 'disagg', 'kv_int8'}:
+    if phases & {'model', 'serve', 'batch_infer', 'disagg', 'kv_int8',
+                 'layouts'}:
         cfg = config.get_config('llama-1b')
         params = bf16_params(torch, cfg)
         if 'model' in phases:
@@ -6299,9 +6609,14 @@ def main() -> None:
         if 'kv_int8' in phases:
             by_path['kv_int8'] = phase_kv_int8(torch, cfg, params, engine_lib,
                                                build, decode, paging)
+        lap('kv_int8')
+        if 'layouts' in phases:
+            free_card(torch)
+            by_path['layouts'] = phase_layouts(torch, cfg, params,
+                                               engine_lib, build, decode)
         del params
         free_card(torch)
-    lap('kv_int8')
+    lap('layouts')
     if 'tp_serve' in phases:
         tp_errs, by_path['tp_serve'] = phase_tp_serve(
             torch, fa, pa, paging, decode, build, config, card,
@@ -6470,7 +6785,7 @@ def main() -> None:
              'serve_moe': SERVE_KERNELS, 'serve_gptoss': SERVE_KERNELS,
              'serve_mla': SERVE_KERNELS, 'serve_deepseek_v2': SERVE_KERNELS,
              'batch_infer': ('flash_fwd',), 'disagg': SERVE_KERNELS,
-             'kv_int8': ('flash_fwd',),
+             'kv_int8': ('flash_fwd',), 'layouts': ('flash_fwd',),
              'tp_serve': SERVE_KERNELS,
              'train': TRAIN_KERNELS, 'train_gemma': TRAIN_KERNELS,
              'train_moe': TRAIN_KERNELS, 'train_mla': TRAIN_KERNELS,

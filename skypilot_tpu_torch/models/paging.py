@@ -1,9 +1,11 @@
 """Block-paged KV cache: the device page pools and the host-side
 refcounted allocator (port of skypilot_tpu/models/paging.py:
 ``PagedKV``, ``PagedLatent``, ``_pools``, ``_SCALE_FIELD``,
-``_scale_pools``, ``quantized``, ``pages_for``,
-``_write_indices``, ``scatter_prefill``, ``gather_prefix``,
-``adopt_rows``, ``export_pages``, ``import_pages``, ``PageAllocator``).
+``_scale_pools``, ``quantized``, ``pages_for``, ``gather_view``,
+``_write_indices``, ``scatter_steps``, ``_pools_of_view``,
+``scatter_prefill``, ``gather_prefix``, ``adopt_rows``,
+``scatter_suffix``, ``export_pages``, ``import_pages``,
+``PageAllocator``).
 
 Two cache families share one page-table contract: ``PagedKV`` pools the
 dense/GQA/MoE K/V (models/decode.py), ``PagedLatent`` the MLA latents
@@ -21,6 +23,14 @@ way in (:func:`scatter_prefill`, :func:`adopt_rows`) and
 :func:`gather_prefix` dequantizes to fp32 on the way out;
 :func:`export_pages` / :func:`import_pages` move codes and scales byte
 for byte.
+
+The gather baseline (``SKYTPU_ENGINE_ATTN=gather``): :func:`gather_view`
+materializes the contiguous per-row view of the pool, the family's
+contiguous step math runs on it, and :func:`scatter_steps` writes the
+stepped positions back; an extend reads its prefix through
+:func:`gather_prefix` and writes its suffix with :func:`scatter_suffix`.
+The default engine indexes the pages in place instead and never builds
+the view. These serve fp pools only, as in JAX.
 """
 from __future__ import annotations
 
@@ -127,6 +137,36 @@ def pages_for(n_tokens: int, page_size: int) -> int:
     return -(-n_tokens // page_size)
 
 
+def gather_view(pcache, max_len: int):
+    """The contiguous [L, B, max_len, ...] per-row view of the pool:
+    position ``p`` of row ``b`` reads ``pool[:, table[b, p // psz],
+    p % psz]`` (rows whose entries are 0 read the trash page: such rows
+    are inactive and their logits discarded). Returns the family's
+    contiguous cache (models/decode.py ``KVCache``, models/mla.py
+    ``LatentCache``) holding fresh tensors and the pool's own ``length``
+    tensor, so a step on the view advances the pool's lengths in place.
+    An int8 pool has no fp view to materialize: NotImplementedError, in
+    JAX's words."""
+    if quantized(pcache):
+        raise NotImplementedError(
+            'gather_view of an int8-quantized pool: the gather '
+            'baseline serves fp pools only (SKYTPU_ENGINE_KV_QUANT)')
+    table = pcache.table.long()
+
+    def g(a):
+        v = a[:, table]                          # [L, B, MAXP, psz, ...]
+        v = v.reshape(v.shape[0], v.shape[1], -1, *a.shape[3:])
+        return v[:, :, :max_len]
+
+    if isinstance(pcache, PagedKV):
+        from skypilot_tpu_torch.models import decode
+        return decode.KVCache(k=g(pcache.k), v=g(pcache.v),
+                              length=pcache.length)
+    from skypilot_tpu_torch.models import mla
+    return mla.LatentCache(c_kv=g(pcache.c_kv), k_rope=g(pcache.k_rope),
+                           length=pcache.length)
+
+
 def _write_indices(pcache, pos: torch.Tensor,
                    active: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -138,6 +178,49 @@ def _write_indices(pcache, pos: torch.Tensor,
     if active is not None:
         pid = torch.where(active[:, None], pid, torch.zeros_like(pid))
     return pid, pos % psz
+
+
+def scatter_steps(pcache, view, start: torch.Tensor, k: int,
+                  active: torch.Tensor):
+    """Write the k positions a step call produced on :func:`gather_view`'s
+    view back into the pool, in place: positions [start, start + k) of
+    each row (``start`` [B], the lengths before the call), read from the
+    view; inactive rows (``active`` [B] bool False) write the trash page.
+    Writes and reads are clamped as :func:`_write_indices` clamps them:
+    a position past the table writes its last slot, and a read past the
+    view reads its last position. ``length`` takes the view's.
+
+    Two writes can share a (page, offset) target, and only in two ways:
+    inactive rows all write page 0, whose contents nothing reads; and a
+    row's positions past the table all collapse onto its last slot, each
+    carrying the view's last position, one value. So the order of
+    duplicate writes (undefined for ``index_put_``) never shows."""
+    if quantized(pcache):
+        raise NotImplementedError(
+            'scatter_steps into an int8-quantized pool: the gather '
+            'baseline serves fp pools only (SKYTPU_ENGINE_KV_QUANT)')
+    dev = pcache.table.device
+    psz, maxp = pcache.page_size, pcache.max_pages
+    pos = start.long()[:, None] + torch.arange(k, device=dev)     # [B, k]
+    pid, off = _write_indices(pcache, pos, active)
+    pos = torch.clamp(pos, max=maxp * psz - 1)
+    views = _pools_of_view(view)
+    for name, pool in _pools(pcache).items():
+        va = views[name]
+        rows = torch.arange(va.shape[1], device=dev)[:, None]
+        tok = va[:, rows, torch.clamp(pos, max=va.shape[2] - 1)]
+        pool[:, pid, off] = tok.to(pool.dtype)         # [L, B, k, ...]
+    if view.length is not pcache.length:
+        pcache.length.copy_(view.length)
+    return pcache
+
+
+def _pools_of_view(view) -> Dict[str, torch.Tensor]:
+    """The per-token tensors of a contiguous cache (``KVCache`` or
+    ``LatentCache``), keyed as :func:`_pools` keys the pool's."""
+    if hasattr(view, 'k'):
+        return {'k': view.k, 'v': view.v}
+    return {'c_kv': view.c_kv, 'k_rope': view.k_rope}
 
 
 def scatter_prefill(pcache, rows_a: torch.Tensor, rows_b: torch.Tensor,
@@ -219,6 +302,34 @@ def adopt_rows(pcache, a: torch.Tensor, b: torch.Tensor, slot: int, s: int,
         else:
             pool[(slice(None),) + idx], scales[name][(slice(None),) + idx] \
                 = pa.quantize_values(tok)
+    pcache.length[slot] = new_len
+    return pcache
+
+
+def scatter_suffix(pcache, rows_a: torch.Tensor, rows_b: torch.Tensor,
+                   slot: int, p: int, s2: int, new_len):
+    """Write an extend's suffix into row ``slot``'s own pages, in place:
+    the family's two row tensors as its ``prefill_extend`` returns them
+    ([L, 1, >=s2, ...], the suffix alone) land at positions [p, p + s2),
+    leaving the (possibly shared) prefix pages untouched; length[slot] =
+    new_len. int8 pools quantize the rows on the way in, their scales
+    landing in the sidecars at the same indices. A suffix reaching past
+    the table raises: the JAX gather would clamp it onto a live page."""
+    psz, maxp = pcache.page_size, pcache.max_pages
+    if p + s2 > maxp * psz:
+        raise ValueError(f'scatter_suffix: prefix ({p}) + suffix ({s2}) '
+                         f'exceeds the table\'s {maxp} pages of {psz}')
+    pos = p + torch.arange(s2, device=pcache.table.device)
+    pid = pcache.table[slot].long()[pos // psz]
+    off = pos % psz
+    scales = _scale_pools(pcache)
+    for (name, pool), rows in zip(_pools(pcache).items(), (rows_a, rows_b)):
+        tok = rows[:, 0, :s2]                                # [L, s2, ...]
+        if scales is None:
+            pool[:, pid, off] = tok.to(pool.dtype)
+        else:
+            pool[:, pid, off], scales[name][:, pid, off] = \
+                pa.quantize_values(tok)
     pcache.length[slot] = new_len
     return pcache
 

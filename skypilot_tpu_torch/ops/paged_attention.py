@@ -357,9 +357,9 @@ def paged_attention_step(q: torch.Tensor, kp: torch.Tensor,
     [n_pages, psz, KH, hd], the step's new K/V [B, S, KH, hd] written at
     (pid, off). Returns (out [B, S, H, hd], kp, vp), the pools updated
     in place. CUDA with none of ``logit_softcap``, ``window`` (whatever
-    ``window_active`` says) and ``sinks``, at a shape kernel B takes:
-    write the pool, then kernel B. Otherwise, and on the CPU: the fused
-    formulation.
+    ``window_active`` says) and ``sinks``, bf16 q and pools, at a shape
+    kernel B takes: write the pool, then kernel B. Otherwise, and on the
+    CPU: the fused formulation.
 
     ``k_scale`` / ``v_scale`` [n_pages, psz, KH] select the int8 pools:
     kernel B declines them, as JAX's kernel declines them (its gate is
@@ -368,6 +368,7 @@ def paged_attention_step(q: torch.Tensor, kp: torch.Tensor,
     formulation on every device, the card included, and returns its
     5-tuple (out, kp, vp, k_scale, v_scale)."""
     if k_scale is not None or not _on_card(q) or \
+            q.dtype != torch.bfloat16 or kp.dtype != torch.bfloat16 or \
             not kernel_takes(q.shape, kp.shape, logit_softcap, window, sinks):
         return paged_attention_step_ref(
             q, kp, vp, table, length, k_new, v_new, pid, off,

@@ -137,16 +137,37 @@ same methods. On a tensor mesh the step and verify bodies run eagerly,
 decided at construction: gloo's collectives cannot be captured into a
 CUDA graph (capturing NCCL's waits for ROADMAP Queue 1 item 8).
 
+The JAX engine's two other K/V layouts, for every family (``paged``,
+``attn_backend``; tests may set them before warm-up):
+  - ``SKYTPU_ENGINE_PAGED=0``: contiguous ``[L, MAX_BATCH, max_len]``
+    slabs (models/decode.py ``init_cache``, models/mla.py's): no
+    allocator, no table, no host tier; a grouped prefill writes its
+    rows into ``cache[:, slots]``, nothing chunks (a long prompt takes
+    one bucket prefill through kernel A), a prefix snapshot is a copy
+    of the slot's first p positions (``.clone()``: a slice of the slab
+    would be overwritten by the slot's next occupant) and a hit
+    extends over it with ``prefill_extend``; the steps and the verify
+    are the contiguous ``decode_step`` / ``verify_step`` on the slab;
+    disaggregated serving answers "requires paged mode";
+  - ``SKYTPU_ENGINE_ATTN=gather``: the paged pool, but every step and
+    verify call materializes the per-row view (models/paging.py
+    ``gather_view``), runs the contiguous step math on it and writes
+    the stepped positions back (``scatter_steps``); an extend reads its
+    prefix with ``gather_prefix`` and writes its suffix with
+    ``scatter_suffix``.
+Both run the plain attention in every step (JAX's contiguous step is
+``impl='xla'``), never kernel B; kernel A still runs every grouped
+prefill. Their step and verify bodies are CUDA graphs as the fused
+ones are, the same control block, outputs and generator draws.
+
 The knobs are the JAX engine's, read under its names and defaults
-(utils/knobs.py). Those whose feature waits are refused by name at
-construction, citing the ROADMAP item: ``SKYTPU_ENGINE_PAGED=0`` and
-``SKYTPU_ENGINE_ATTN=gather`` (Queue 1 item 3); either beside
-``SKYTPU_ENGINE_KV_QUANT=int8`` is the JAX engine's ValueError. What
-waits besides:
-request spans (ROADMAP Queue 1 item 4) and, on a serving mesh (item 8),
-the 'data', 'fsdp', 'stage', 'sequence' and 'expert' axes, the MoE and
-MLA families, a mesh in one process (one process holds one rank) and
-disaggregated serving on a gang, each refused by name.
+(utils/knobs.py). ``SKYTPU_ENGINE_PAGED=0`` or
+``SKYTPU_ENGINE_ATTN=gather`` beside ``SKYTPU_ENGINE_KV_QUANT=int8`` is
+the JAX engine's ValueError. What waits is refused by name: request
+spans (ROADMAP Queue 1 item 4) and, on a serving mesh (item 8), the
+'data', 'fsdp', 'stage', 'sequence' and 'expert' axes, the MoE and MLA
+families, a mesh in one process (one process holds one rank), a layout
+other than the fused paged pool and disaggregated serving on a gang.
 
 The HTTP server is the standard library's ThreadingHTTPServer; the
 batch loop runs in its own thread and owns all device state. Request
@@ -155,6 +176,10 @@ streaming, a per-request queue.
 
     SKYTPU_ENGINE_STEP_CHUNK=8 python -m skypilot_tpu_torch.serve.engine \\
         --model llama-1b --port 8300
+    SKYTPU_ENGINE_PAGED=0 python -m skypilot_tpu_torch.serve.engine \\
+        --model llama-1b     # the contiguous slabs
+    SKYTPU_ENGINE_ATTN=gather python -m skypilot_tpu_torch.serve.engine \\
+        --model llama-1b     # the gather view baseline
     python -m skypilot_tpu_torch.serve.engine --model gpt-oss-20b
     python -m skypilot_tpu_torch.serve.engine --model deepseek-v2-lite
     python -m skypilot_tpu_torch.serve.engine --model llama3.2-1b \\
@@ -703,10 +728,13 @@ class InferenceEngine:
         self.kv_idle_spill_s = KV_IDLE_SPILL_S
         self.kv_host_mb = KV_HOST_MB
         self.host_store: Optional[HostPageStore] = None
-        # The pool representation (tests may set it before warm-up).
+        # The pool representation and the K/V layout: the paged pool
+        # (False: the contiguous slabs) and the paged step's attention
+        # ('gather': the view baseline). Tests may set them before
+        # warm-up.
         self.kv_quant = KV_QUANT
-        self._check_kv_quant_combinations()
-        self._refuse_waiting_knobs()
+        self.paged = knobs.get_bool('SKYTPU_ENGINE_PAGED')
+        self.attn_backend = knobs.get_enum('SKYTPU_ENGINE_ATTN')
         self._check_knobs()
         self.seed = seed
         if params is None:
@@ -783,8 +811,9 @@ class InferenceEngine:
         # Finished requests' (ttft_s, tpot_s, n_tokens), newest last.
         self.timings: collections.deque = collections.deque(maxlen=4096)
         self._inflight: List[_InFlightStep] = []
-        self.cache: Optional[Any] = None    # PagedKV or PagedLatent
-        self._layout: Optional[Tuple[int, int, int]] = None
+        # PagedKV or PagedLatent; KVCache or LatentCache when not paged.
+        self.cache: Optional[Any] = None
+        self._layout: Optional[tuple] = None
         self.alloc: Optional[paging.PageAllocator] = None
         self.slots: List[Optional[Dict[str, Any]]] = [None] * self.max_batch
         self._prefix_store: 'collections.OrderedDict[tuple, List[int]]' = \
@@ -821,7 +850,9 @@ class InferenceEngine:
         ``param_axes``; int8 leaves after quantizing the whole tree, as
         JAX shards them); the pools hold its kv heads once built under
         :meth:`on_mesh`. A mesh spec is checked before any group is
-        made, then built over the process group's ranks."""
+        made, then built over the process group's ranks; a layout other
+        than the fused paged pool is refused before either."""
+        self._check_layout(mesh)
         if isinstance(mesh, str):
             mesh = parse_mesh_arg(mesh)
         if isinstance(mesh, mesh_lib.MeshSpec):
@@ -888,45 +919,45 @@ class InferenceEngine:
                                f'leader {tuple(fp)}, local {mine}')
 
     def _check_kv_quant_combinations(self) -> None:
-        """The JAX engine's construction checks of int8 pools against
-        the other paging knobs, in its words: a bad combination fails
-        loudly, never serves degraded. They come before the refusals of
-        the knobs the port does not have (:meth:`_refuse_waiting_knobs`),
-        as JAX checks them before it builds anything."""
+        """The JAX engine's checks of int8 pools against the layout, in
+        its words: a bad combination fails loudly, never serves
+        degraded."""
         if self.kv_quant == 'none':
             return
-        if not knobs.get_bool('SKYTPU_ENGINE_PAGED'):
+        if not self.paged:
             raise ValueError(
                 'SKYTPU_ENGINE_KV_QUANT needs paged mode '
                 '(SKYTPU_ENGINE_PAGED=1): the contiguous layout '
                 'has no quantized pool variant')
-        if knobs.get_enum('SKYTPU_ENGINE_ATTN') == 'gather':
+        if self.attn_backend == 'gather':
             raise ValueError(
                 'SKYTPU_ENGINE_KV_QUANT=int8 is incompatible with '
                 'SKYTPU_ENGINE_ATTN=gather (the view baseline '
                 'cannot carry the scale sidecars); use fused')
 
-    def _refuse_waiting_knobs(self) -> None:
-        """Refuse by name, at construction, a non-default value of each
-        JAX engine knob whose feature the port does not have yet. The
-        paged step the port computes is the JAX 'fused' path (kernel B
-        on the card, its 'pallas'), so ``SKYTPU_ENGINE_ATTN`` takes
-        either; 'gather' is the view baseline, not ported."""
-        waiting = []
-        if not knobs.get_bool('SKYTPU_ENGINE_PAGED'):
-            waiting.append(('SKYTPU_ENGINE_PAGED=0', 'the contiguous '
-                            'slabs', 'item 3'))
-        if knobs.get_enum('SKYTPU_ENGINE_ATTN') == 'gather':
-            waiting.append(('SKYTPU_ENGINE_ATTN=gather', 'the gather view '
-                            'baseline', 'item 3'))
-        if waiting:
-            setting, feature, item = waiting[0]
-            raise NotImplementedError(
-                f'{setting}: {feature} is not ported yet; it waits for '
-                f'ROADMAP Queue 1 {item}')
+    def _check_layout(self, mesh=None) -> None:
+        """A serving mesh (``mesh``, else the engine's) takes the fused
+        paged pool alone: the gang's op stream and its page fingerprints
+        assume the pool, so the other layouts are refused by name
+        there."""
+        if (mesh if mesh is not None else self.mesh) is None or \
+                self._fused():
+            return
+        setting = ('SKYTPU_ENGINE_PAGED=0' if not self.paged else
+                   'SKYTPU_ENGINE_ATTN=gather')
+        raise NotImplementedError(
+            f'{setting} on a serving mesh: a gang serves the fused paged '
+            f'pool only (the other layouts wait for ROADMAP Queue 1 item '
+            f'8)')
+
+    def _fused(self) -> bool:
+        """Whether the steps and extends index the pages in place (the
+        default) rather than through a contiguous view or slab."""
+        return self.paged and self.attn_backend != 'gather'
 
     def _check_knobs(self) -> None:
-        """The JAX engine's checks of its paging knobs."""
+        """The JAX engine's checks of its paging knobs and of int8
+        pools against the layout."""
         psz, chunk = self.page_size, self.prefill_chunk
         if psz < 1 or psz & (psz - 1) or PREFIX_MIN_TOKENS % psz:
             raise ValueError(f'page size must be a power of two dividing '
@@ -938,6 +969,7 @@ class InferenceEngine:
             raise ValueError(f'SKYTPU_ENGINE_STEP_CHUNK must be >= 1, got '
                              f'{self.step_chunk}')
         decode.check_kv_quant(self.kv_quant)
+        self._check_kv_quant_combinations()
 
     def cache_family(self) -> str:
         """'paged_kv' (dense/GQA/MoE) or 'paged_latent' (MLA): the
@@ -951,18 +983,21 @@ class InferenceEngine:
         captured graphs hold these tensors' addresses: once a graph
         exists the layout may not change."""
         self._check_knobs()
-        max_pages = paging.pages_for(self.max_len, self.page_size)
-        n_pages = self.kv_pages
-        if n_pages <= 0:
-            n_pages = (self.max_batch + max(0, min(self.prefix_cache,
-                                                   self.max_batch))) \
-                * max_pages + 1
-        if n_pages < max_pages + 1:
-            raise ValueError(f'SKYTPU_ENGINE_KV_PAGES={n_pages} cannot hold '
-                             f'one full-length request ({max_pages} pages + '
-                             f'trash)')
-        layout = (self.page_size, n_pages, max(self.spec_k, 0),
-                  self.kv_quant)
+        self._check_layout()
+        max_pages = n_pages = 0
+        if self.paged:
+            max_pages = paging.pages_for(self.max_len, self.page_size)
+            n_pages = self.kv_pages
+            if n_pages <= 0:
+                n_pages = (self.max_batch + max(0, min(self.prefix_cache,
+                                                       self.max_batch))) \
+                    * max_pages + 1
+            if n_pages < max_pages + 1:
+                raise ValueError(f'SKYTPU_ENGINE_KV_PAGES={n_pages} cannot '
+                                 f'hold one full-length request '
+                                 f'({max_pages} pages + trash)')
+        layout = (self.paged, self.attn_backend == 'gather', self.page_size,
+                  n_pages, max(self.spec_k, 0), self.kv_quant)
         if layout == self._layout:
             return
         if self._layout is not None and self.graphs:
@@ -979,18 +1014,21 @@ class InferenceEngine:
         writes, once: CUDA graphs hold their addresses for the engine's
         lifetime, so a reset writes into these same tensors
         (:meth:`_reset_device_state`), and the eager extends write the
-        pool, lengths, ``last`` and counts in place."""
+        cache, lengths, ``last`` and counts in place."""
         psz, b, dev = self.page_size, self.max_batch, self.device
-        self.cache = self._decode.init_page_pool(
-            self.cfg, self.n_pages, psz, b, self._max_pages, device=dev,
-            quant=self.kv_quant)
+        if self.paged:
+            self.cache = self._decode.init_page_pool(
+                self.cfg, self.n_pages, psz, b, self._max_pages, device=dev,
+                quant=self.kv_quant)
+        else:
+            self.cache = self._decode.init_cache(self.cfg, b, self.max_len,
+                                                 device=dev)
         # The cache-traffic proxy's inputs (host arithmetic on static
         # shapes, never a device sync): one position's bytes across
         # layers, an int8 pool's scales included, and the whole
         # [B, max_len] span's.
-        self._tok_bytes = sum(
-            p[:, 0, 0].numel() * p.element_size()
-            for p in paging.pool_tensors(self.cache).values())
+        self._tok_bytes = sum(p[:, 0, 0].numel() * p.element_size()
+                              for p in self.kv_tensors().values())
         self._view_bytes = b * self.max_len * self._tok_bytes
         # Per-slot previous token, device-resident: the fused calls carry
         # it, so a lookahead call is dispatched with no host sync;
@@ -1063,15 +1101,17 @@ class InferenceEngine:
         unref'ing its ids: they belonged to the allocator this replaces;
         the host tier is built anew (a failure reset distrusts the
         parked blobs with everything else)."""
-        self.alloc = paging.PageAllocator(self.n_pages)
-        self._table_np = np.zeros((self.max_batch, self._max_pages),
-                                  np.int32)
-        self._table_dirty = True
+        self.alloc = (paging.PageAllocator(self.n_pages) if self.paged
+                      else None)
+        self._table_np = (np.zeros((self.max_batch, self._max_pages),
+                                   np.int32) if self.paged else None)
+        self._table_dirty = self.paged
         self.slots = [None] * self.max_batch
         self._prefix_store = collections.OrderedDict()
         self._prefix_last_used = {}
+        # The host tier spills pages: none without the pool.
         self.host_store = (HostPageStore(self.kv_host_mb)
-                           if self.kv_host_mb > 0 else None)
+                           if self.paged and self.kv_host_mb > 0 else None)
         self._kv_sessions_peak = 0
         self.metrics.kv_sessions_peak.set(0)
         self.metrics.kv_pages_spilled.set(0)
@@ -1092,7 +1132,7 @@ class InferenceEngine:
         wait out whatever the card still runs (an uncollected call may
         be copying into a stage), then zero the pool, table, lengths,
         ``last`` and counts IN PLACE (the graphs keep their addresses)
-        and reset the host state."""
+        and reset the host state (the contiguous slabs likewise)."""
         flight_lib.snapshot_to_journal(
             self.flight, reason=reason or 'device state reset',
             entity=f'engine/{self.model_name}')
@@ -1100,20 +1140,35 @@ class InferenceEngine:
         self._resets += 1
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
-        for t in (*paging.pool_tensors(self.cache).values(),
-                  self.cache.table, self.cache.length, self.last_dev,
-                  self.counts):
+        for t in (*self.kv_tensors().values(), self.cache.length,
+                  self.last_dev, self.counts):
             t.zero_()
+        if self.paged:
+            self.cache.table.zero_()
         if self.spec_k > 0:
             self._spec_dev.zero_()
         self._reset_host_state()
 
-    def attn_backend_served(self) -> str:
+    def kv_tensors(self) -> Dict[str, torch.Tensor]:
+        """Every per-token tensor of the cache by field name: the pool's,
+        an int8 pool's sidecars included (models/paging.py
+        ``pool_tensors``), or the contiguous slabs."""
+        if self.paged:
+            return paging.pool_tensors(self.cache)
+        return paging._pools_of_view(self.cache)
+
+    def attn_backend_served(self) -> Optional[str]:
         """The JAX backend label of the paged step this replica serves:
         'pallas' where kernel B (the hand-written counterpart of the
         Pallas kernel) runs every decode step, 'fused' where the plain
         in-place formulation does (the CPU, MLA, int8 pools, a softcap,
-        window or sinks, or a shape B does not take)."""
+        window or sinks, or a shape B does not take), 'gather' for the
+        view baseline; None for the contiguous slabs, which serve no
+        paged attention (JAX publishes no backend gauge there)."""
+        if not self.paged:
+            return None
+        if self.attn_backend == 'gather':
+            return 'gather'
         cfg = self.cfg
         if self.device.type != 'cuda' or self._decode is mla or \
                 cfg.dtype != torch.bfloat16 or self.kv_quant != 'none':
@@ -1131,10 +1186,16 @@ class InferenceEngine:
         """One step or verify call's KV-cache bytes into the
         ``cache_bytes_*`` counters, derived from shapes on the host (the
         JAX proxy): ``n_attend`` passes over the [B, max_len] span, and
-        ``n_tokens`` new positions written per row."""
-        self.metrics.cache_read.inc(n_attend * self._view_bytes)
-        self.metrics.cache_written.inc(
-            n_tokens * self.max_batch * self._tok_bytes)
+        ``n_tokens`` new positions written per row. The gather baseline
+        also pays the view (a pool read and a view write) and the
+        scatter back (a view read and a pool write)."""
+        read = n_attend * self._view_bytes
+        written = n_tokens * self.max_batch * self._tok_bytes
+        if self.paged and self.attn_backend == 'gather':
+            read += self._view_bytes + written
+            written += self._view_bytes
+        self.metrics.cache_read.inc(read)
+        self.metrics.cache_written.inc(written)
 
     def _refresh_table(self) -> None:
         """Push the host page-table mirror to the device if dirty. Only
@@ -1185,7 +1246,9 @@ class InferenceEngine:
 
     def _release_slot_pages(self, slot: int) -> None:
         """Drop the slot's refs: its own pages free, shared prefix pages
-        free when their last holder lets go."""
+        free when their last holder lets go (no pages: nothing)."""
+        if not self.paged:
+            return
         pids = [int(p) for p in self._table_np[slot] if p]
         if pids:
             self.alloc.unref_all(pids)
@@ -1200,12 +1263,13 @@ class InferenceEngine:
                 self.slots[i] = None
 
     def _clear_prefix_store(self) -> None:
-        """Empty the prefix store, returning its page refs, and the host
-        tier (a reset rebuilds the allocator and drops the store
-        instead)."""
+        """Empty the prefix store, returning its page refs (contiguous
+        snapshots just drop), and the host tier (a reset rebuilds the
+        allocator and drops the store instead)."""
         while self._prefix_store:
             _, pids = self._prefix_store.popitem(last=False)
-            self.alloc.unref_all(pids)
+            if self.paged:
+                self.alloc.unref_all(pids)
         self._prefix_last_used.clear()
         if self.host_store is not None:
             self.host_store.clear()
@@ -1439,7 +1503,11 @@ class InferenceEngine:
     def handoff_validate(self, meta: Dict[str, Any]) -> Optional[str]:
         """The receiver's compatibility check, before staging: a prefill
         pool paired with an incompatible decode pool refuses (kind
-        'spec'), never adopts garbage."""
+        'spec'), never adopts garbage; so does a replica on the
+        contiguous slabs, which has no pages to adopt into."""
+        if not self.paged:
+            return ('decode replica is not in paged mode (disagg '
+                    'requires SKYTPU_ENGINE_PAGED=1)')
         family = self.cache_family()
         if meta['family'] != family:
             return (f'cache family mismatch: handoff {meta["family"]}, '
@@ -1567,16 +1635,19 @@ class InferenceEngine:
 
     # -- admission -------------------------------------------------------------
     def _drain_admissible(self) -> List[Request]:
-        """Pop requests bounded by free slots and by free pages plus
-        what evicting unshared prefix entries would return, FIFO: once
-        one is held, nothing younger passes it. A cancelled request is
-        dropped here."""
+        """Pop requests bounded by free slots and, when paged, by free
+        pages plus what evicting unshared prefix entries would return,
+        FIFO: once one is held, nothing younger passes it. A cancelled
+        request is dropped here."""
         items: List[Request] = []
         free_slots = sum(1 for s in self.slots if s is None)
-        budget = self.alloc.free_count + self._evictable_pages()
+        budget = (self.alloc.free_count + self._evictable_pages()
+                  if self.paged else None)
 
         def fits(req: Request) -> bool:
             nonlocal budget
+            if budget is None:
+                return True
             n = self._pages_needed(req)
             if n > budget:
                 return False
@@ -1715,8 +1786,9 @@ class InferenceEngine:
             padded.append(req.tokens + [0] * (bucket - len(req.tokens)))
             lengths.append(len(req.tokens))
             self._set_sampling(slot, req)
-            self._reserve_slot_pages(
-                slot, self._alloc_pages(self._pages_needed(req)))
+            if self.paged:
+                self._reserve_slot_pages(
+                    slot, self._alloc_pages(self._pages_needed(req)))
         self._refresh_table()
         if self.warm and self.prefix_cache > 0:
             # Every request reaching the grouped prefill missed the
@@ -1730,8 +1802,11 @@ class InferenceEngine:
                 self.params,
                 torch.tensor(padded, dtype=torch.int32, device=dev),
                 self.cfg, self.max_len, lengths=lengths_t)
-            paging.scatter_prefill(self.cache, rows_a, rows_b, slots_t,
-                                   bucket, lengths_t)
+            if self.paged:
+                paging.scatter_prefill(self.cache, rows_a, rows_b, slots_t,
+                                       bucket, lengths_t)
+            else:
+                self._write_rows(slots_t, 0, (rows_a, rows_b), lengths_t)
             first, first_lp, tis, tvs = self._sample_first(logits, slots)
         now = time.perf_counter()
         for i, req in enumerate(items):
@@ -1741,6 +1816,53 @@ class InferenceEngine:
             if self.warm:
                 self._prefix_capture(req.tokens, slots[i])
         self.metrics.admit_seconds.observe(time.perf_counter() - t_admit)
+
+    def _write_rows(self, slots_t: torch.Tensor, p: int, rows,
+                    lengths_t: torch.Tensor) -> None:
+        """Contiguous slabs: the family's two row tensors ([L, N, s, ...],
+        as its ``prefill`` or ``prefill_extend`` returns them) land at
+        positions [p, p + s) of rows ``slots_t``, zeros after them (JAX
+        writes each admitted row whole), and length[slots] = p +
+        lengths."""
+        for t, r in zip(self.kv_tensors().values(), rows):
+            end = p + r.shape[2]
+            t[:, slots_t, p:end] = r.to(t.dtype)
+            t[:, slots_t, end:] = 0
+        self.cache.length[slots_t] = (lengths_t + p).to(
+            self.cache.length.dtype)
+
+    def _extend(self, slot: int, tokens: List[int], p: int,
+                n: int) -> torch.Tensor:
+        """Prefill ``tokens`` (``n`` real, then padding) at positions
+        [p, p + len(tokens)) of row ``slot`` over the p positions the row
+        holds, in place; length[slot] = p + n. Returns the logits at the
+        last real position, [1, vocab] fp32. The fused pool extends in
+        place (``paged_prefill_extend``); the gather baseline reads the
+        prefix out of the pages (``gather_prefix``), runs the family's
+        ``prefill_extend`` at max_len p + len(tokens) and writes the
+        suffix back (``scatter_suffix``); the contiguous slab reads the
+        prefix out of the row itself. Kernel A at p == 0 on the card."""
+        tok = torch.tensor([tokens], dtype=torch.int32, device=self.device)
+        s2 = len(tokens)
+        if self._fused():
+            return self._decode.paged_prefill_extend(
+                self.params, tok, self.cache, self.cfg, slot=slot, p=p,
+                lengths=n)
+        if self.paged:
+            pre = paging.gather_prefix(self.cache, slot, p)
+        else:
+            pre = tuple(t[:, slot:slot + 1, :p]
+                        for t in self.kv_tensors().values())
+        n_t = torch.tensor([n], dtype=torch.int32, device=self.device)
+        logits, rows_a, rows_b = self._decode.prefill_extend(
+            self.params, tok, self.cfg, p + s2, *pre, lengths=n_t)
+        if self.paged:
+            paging.scatter_suffix(self.cache, rows_a, rows_b, slot, p, s2,
+                                  p + n)
+        else:
+            self._write_rows(torch.tensor([slot], device=self.device), p,
+                             (rows_a, rows_b), n_t)
+        return logits
 
     def _finish_admit(self, req: Request, slot: int, first: int,
                       first_lp: float, tops: list, now: float) -> None:
@@ -1808,8 +1930,10 @@ class InferenceEngine:
         """Snapshot the slot's longest power-of-two prefix (at least
         PREFIX_MIN_TOKENS): p / page_size refs on the slot's own first
         pages, which nobody writes again (the row decodes at positions
-        >= len(tokens) >= p). The store keeps ``prefix_cache`` entries,
-        least recently used out first."""
+        >= len(tokens) >= p); on the contiguous slabs, copies of the
+        row's first p positions (a slice would be a view into the slab,
+        which the slot's next occupant overwrites). The store keeps
+        ``prefix_cache`` entries, least recently used out first."""
         if self.prefix_cache <= 0 or len(tokens) < PREFIX_MIN_TOKENS:
             return
         p = PREFIX_MIN_TOKENS
@@ -1820,17 +1944,25 @@ class InferenceEngine:
             self._prefix_store.move_to_end(key)
             self._prefix_last_used[key] = time.monotonic()
             return
-        pids = [int(x) for x in self._table_np[slot, :p // self.page_size]]
-        if not pids or 0 in pids:
-            return
-        for pid in pids:
-            self.alloc.ref(pid)
-        self._prefix_store[key] = pids
+        if self.paged:
+            pids = [int(x)
+                    for x in self._table_np[slot, :p // self.page_size]]
+            if not pids or 0 in pids:
+                return
+            for pid in pids:
+                self.alloc.ref(pid)
+            self._prefix_store[key] = pids
+        else:
+            self._prefix_store[key] = tuple(
+                t[:, slot, :p].clone() for t in self.kv_tensors().values())
         self._prefix_last_used[key] = time.monotonic()
         spills = []
         while len(self._prefix_store) > self.prefix_cache:
             # The LRU overflow spills (host tier on) or drops.
             old_key, old = self._prefix_store.popitem(last=False)
+            if not self.paged:
+                self._prefix_last_used.pop(old_key, None)
+                continue
             info = self._spill_entry(old_key, old)
             if info is not None:
                 spills.append(info)
@@ -1841,9 +1973,10 @@ class InferenceEngine:
         """Admit one request over a stored prefix: its table points at
         the snapshot's pages (one more ref each), its own pages follow
         (the suffix starts on a page edge, so no sharer writes a shared
-        page), then one ``paged_prefill_extend`` at (p, bucket(suffix))
-        and the first token sampled; the longer prompt is snapshotted
-        in turn, so a growing history extends its entry."""
+        page); on the contiguous slabs the snapshot is copied into the
+        row instead. Then one extend at (p, bucket(suffix)) and the
+        first token sampled; the longer prompt is snapshotted in turn,
+        so a growing history extends its entry."""
         slot = self._free_slot()
         suffix = req.tokens[p:]
         s2 = decode.bucket_size(len(suffix))
@@ -1854,22 +1987,25 @@ class InferenceEngine:
             # failure reaches _fail_all, which resurrects this request
             # (it has not sampled).
             self._wake_prefix_entry(key)
-        shared = list(self._prefix_store[key])
+        stored = self._prefix_store[key]
         self._prefix_store.move_to_end(key)
         self._prefix_last_used[key] = time.monotonic()
-        # Ref the shared pages before allocating: an eviction under page
-        # pressure may then drop the entry, never the pages.
-        for pid in shared:
-            self.alloc.ref(pid)
-        own = self._alloc_pages(max(0, self._pages_needed(req) - len(shared)))
-        self._reserve_slot_pages(slot, shared + own)
-        self._refresh_table()
+        if self.paged:
+            # Ref the shared pages before allocating: an eviction under
+            # page pressure may then drop the entry, never the pages.
+            shared = list(stored)
+            for pid in shared:
+                self.alloc.ref(pid)
+            own = self._alloc_pages(
+                max(0, self._pages_needed(req) - len(shared)))
+            self._reserve_slot_pages(slot, shared + own)
+            self._refresh_table()
         with torch.no_grad():
-            logits = self._decode.paged_prefill_extend(
-                self.params, torch.tensor([suffix + [0] * (s2 - len(suffix))],
-                                          dtype=torch.int32,
-                                          device=self.device),
-                self.cache, self.cfg, slot=slot, p=p, lengths=len(suffix))
+            if not self.paged:
+                for t, snap in zip(self.kv_tensors().values(), stored):
+                    t[:, slot, :p] = snap
+            logits = self._extend(slot, suffix + [0] * (s2 - len(suffix)),
+                                  p, len(suffix))
             first, first_lp, tis, tvs = self._sample_first(logits, [slot])
         self.prefix_hits += 1
         self.metrics.prefix_hits.inc()
@@ -1881,8 +2017,9 @@ class InferenceEngine:
     # -- chunked prefill ---------------------------------------------------------
     def _should_chunk(self, req: Request) -> bool:
         """A prompt longer than ``prefill_chunk`` prefills in chunks,
-        unless it rides the prefix cache."""
-        if len(req.tokens) <= self.prefill_chunk:
+        unless it rides the prefix cache; on the contiguous slabs
+        nothing chunks (one bucket prefill, as in JAX)."""
+        if not self.paged or len(req.tokens) <= self.prefill_chunk:
             return False
         return not (self.warm and self.prefix_cache > 0 and
                     self._prefix_match(req.tokens) is not None)
@@ -1925,24 +2062,18 @@ class InferenceEngine:
         remaining = len(req.tokens) - pos
         t0 = time.perf_counter()
         self._refresh_table()
-        dev = self.device
         with torch.no_grad():
             if remaining > c:
-                self._decode.paged_prefill_extend(
-                    self.params, torch.tensor([req.tokens[pos:pos + c]],
-                                              dtype=torch.int32, device=dev),
-                    self.cache, self.cfg, slot=slot, p=pos, lengths=c)
+                self._extend(slot, req.tokens[pos:pos + c], pos, c)
                 s['prefill']['pos'] = pos + c
                 self.prefill_chunks += 1
                 self.flight.record(flight_lib.CHUNK, slot, pos + c)
                 self.metrics.admit_seconds.observe(time.perf_counter() - t0)
                 return
             s2 = decode.bucket_size(remaining)
-            logits = self._decode.paged_prefill_extend(
-                self.params, torch.tensor(
-                    [req.tokens[pos:] + [0] * (s2 - remaining)],
-                    dtype=torch.int32, device=dev),
-                self.cache, self.cfg, slot=slot, p=pos, lengths=remaining)
+            logits = self._extend(
+                slot, req.tokens[pos:] + [0] * (s2 - remaining), pos,
+                remaining)
             first, first_lp, tis, tvs = self._sample_first(logits, [slot])
         self.prefill_chunks += 1
         # The admission anchor is the first chunk: chunk rounds count as
@@ -1955,25 +2086,57 @@ class InferenceEngine:
         self.metrics.admit_seconds.observe(time.perf_counter() - t0)
 
     # -- the fused k-step program ----------------------------------------------
+    def _open_view(self):
+        """The cache a step or verify call attends, and the lengths
+        before it: the pool itself (fused), the contiguous slabs, or the
+        pool's per-row view (gather: materialized here, inside the call,
+        sharing the pool's ``length``)."""
+        if self._fused() or not self.paged:
+            return self.cache, None
+        return (paging.gather_view(self.cache, self.max_len),
+                self.cache.length.clone())
+
+    def _close_view(self, view, start, k: int, active) -> None:
+        """The gather baseline writes the call's k positions back from
+        the view into the pages (inactive rows on the trash page)."""
+        if start is not None:
+            paging.scatter_steps(self.cache, view, start, k, active)
+
+    def _step_logits(self, view, last: torch.Tensor,
+                     active: torch.Tensor) -> torch.Tensor:
+        """One decode step of every row on :meth:`_open_view`'s cache:
+        the tokens ``last`` [B] in, their K/V written and the active
+        rows' lengths advanced in place, the logits [B, vocab] out."""
+        if self._fused():
+            return self._decode.paged_decode_step(
+                self.params, last, self.cache, self.cfg,
+                max_len=self.max_len, active=active)[0]
+        return self._decode.decode_step(self.params, last, view, self.cfg,
+                                        active=active)[0]
+
     def _step_body(self, k: int, use_pen: bool, want_tops: bool) -> None:
-        """k × (paged decode step → sample → count → optional top-5),
-        carrying ``last``, the pool, the counts and the generator — the
-        JAX ``step_k`` (fused_paged branch). Reads the control block
-        ``_ctrl`` and writes ``_out_*`` rows [0, k): every tensor it
-        touches outside its own temporaries lives at a fixed address,
-        and nothing syncs the host, so on the card it is captured once
-        per variant and replayed. Inactive rows write the trash page,
-        keep their ``last`` and count nothing."""
+        """k × (decode step → sample → count → optional top-5), carrying
+        ``last``, the cache, the counts and the generator — the JAX
+        ``step_k``: the fused paged step in place (kernel B on the
+        card), or the contiguous ``decode_step`` on the slabs or, for
+        the gather baseline, on the view gathered before the k steps and
+        scattered back after them (JAX ``run_gather``). Reads the
+        control block ``_ctrl`` and writes ``_out_*`` rows [0, k): every
+        tensor it touches outside its own temporaries lives at a fixed
+        address, and nothing syncs the host, so on the card it is
+        captured once per variant and replayed. Inactive rows write the
+        trash page (on the slabs, their frozen ``length`` slot, which
+        the next step overwrites), keep their ``last`` and count
+        nothing."""
         ctrl = self._ctrl
         active = ctrl[0] > 0
         temp, topk, topp = ctrl[1], ctrl[2].to(torch.int32), ctrl[3]
         pres, freq = ctrl[4], ctrl[5]
         last = self.last_dev
         with torch.no_grad():
+            view, start = self._open_view()
             for t in range(k):
-                logits, _ = self._decode.paged_decode_step(
-                    self.params, last, self.cache, self.cfg,
-                    max_len=self.max_len, active=active)
+                logits = self._step_logits(view, last, active)
                 nxt = decode.select_token_per_row(
                     logits, temp, topk, topp, self._step_gen,
                     counts=self.counts if use_pen else None,
@@ -1991,6 +2154,7 @@ class InferenceEngine:
                     self._out_tvs[t].copy_(tv)
                     self._out_tis[t].copy_(ti)
                 last = nxt
+            self._close_view(view, start, k, active)
             self.last_dev.copy_(last)
 
     def _verify_body(self, want_tops: bool) -> None:
@@ -1998,7 +2162,9 @@ class InferenceEngine:
         [B, K] = per-row [last, d1..d_{K-1}] from ``_spec_dev`` (row K:
         active) through ``paged_verify_step`` (kernel B at S = K on the
         card; K/V of the fed tokens written at each row's offset, the
-        inactive rows' on the trash page; ``length`` does not move),
+        inactive rows' on the trash page; ``length`` does not move) or
+        the contiguous ``verify_step`` (on the slabs, where it takes no
+        ``active``, as JAX's; or on the gather view, scattered back),
         then the greedy token and its logprob at every position (and the
         top-5 in the want_tops variant) into ``_ver_*``. Fixed
         addresses and no host sync, as :meth:`_step_body`."""
@@ -2006,9 +2172,15 @@ class InferenceEngine:
         fed = self._spec_dev[:k].t()
         active = self._spec_dev[k] > 0
         with torch.no_grad():
-            logits, _ = self._decode.paged_verify_step(
-                self.params, fed, self.cache, self.cfg,
-                max_len=self.max_len, active=active)
+            if self._fused():
+                logits, _ = self._decode.paged_verify_step(
+                    self.params, fed, self.cache, self.cfg,
+                    max_len=self.max_len, active=active)
+            else:
+                view, start = self._open_view()
+                logits, _ = self._decode.verify_step(self.params, fed, view,
+                                                     self.cfg)
+                self._close_view(view, start, k, active)
             greedy = torch.argmax(logits, dim=-1).to(torch.int32)
             self._ver_toks.copy_(greedy)
             self._ver_lps.copy_(decode.chosen_logprob(
@@ -2574,7 +2746,9 @@ class InferenceEngine:
         admit one prompt of each bucket in ``buckets`` that a grouped
         prefill serves (16 < b < max_len, b <= prefill_chunk: longer
         prompts chunk), so that its first request allocates nothing new;
-        then free the slots (no page leaks), empty the prefix store,
+        (contiguous slabs: every bucket 16 < b < max_len, nothing
+        chunks there), then free the slots (no page leaks), empty the
+        prefix store,
         reset the counters and flip ``warm`` (``/health`` answers 200).
         A capture that fails raises. A gang's leader first ships the op
         with its sampling seed and :meth:`mirrored_knobs`."""
@@ -2603,10 +2777,11 @@ class InferenceEngine:
                 self._variant(('verify', want_tops))()
         self._drop_all_slots()
         for b in buckets:
-            if 16 < b < self.max_len and b <= self.prefill_chunk:
+            if 16 < b < self.max_len and (not self.paged or
+                                          b <= self.prefill_chunk):
                 self._admit_group([Request(list(range(1, b + 1)), 1)])
                 self._drop_all_slots()
-        if knobs.get_bool('SKYTPU_ENGINE_WARM_DISAGG'):
+        if self.paged and knobs.get_bool('SKYTPU_ENGINE_WARM_DISAGG'):
             self._warm_disagg_grid()
         self._clear_prefix_store()
         self.cache.length.zero_()
@@ -2626,8 +2801,10 @@ class InferenceEngine:
         # metrics (its capture times would wreck the histograms) nor
         # the flight ring (a dump starts at real traffic).
         self.metrics.reset()
+        # A contiguous replica publishes no backend gauge (no paged
+        # attention serves there), as in JAX.
         backend = self.attn_backend_served()
-        for b in ATTN_BACKENDS:
+        for b in ATTN_BACKENDS if backend is not None else ():
             self.metrics.attn_backend.set(1.0 if b == backend else 0.0,
                                           backend=b)
         self.metrics.kv_pages_quantized.set(
@@ -3185,8 +3362,9 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
                 return self._json(503, {'status': 'warming'})
             # The saturation doc the fleet scraper reads.
             doc = {'status': 'ok', 'queue_depth': engine.queue_depth(),
-                   'in_flight': engine.in_flight(),
-                   'kv_pages_free': engine.alloc.free_count}
+                   'in_flight': engine.in_flight()}
+            if engine.alloc is not None:
+                doc['kv_pages_free'] = engine.alloc.free_count
             if engine.host_store is not None:
                 # The host tier's occupancy: the headroom the KV
                 # hierarchy adds.
@@ -3237,6 +3415,11 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
             if url.path == '/v1/chat/completions':
                 return self._chat()
             if url.path in ('/disagg/prefill', '/disagg/continue'):
+                if not engine.paged:
+                    return self._json(501, {'error': {
+                        'message': 'disagg requires paged mode '
+                                   '(SKYTPU_ENGINE_PAGED=1)',
+                        'type': 'handoff_unsupported'}})
                 if engine.mesh is not None:
                     return self._json(501, {'error': {
                         'message': 'disaggregated prefill/decode on a gang '
@@ -3801,10 +3984,10 @@ def build_app(engine: InferenceEngine, host: str = '127.0.0.1',
                 _cancel_all(engine, [ch.fut for ch in choices])
 
     server = _EngineServer((host, port), Handler)
-    if engine.handoff_port:
+    if engine.paged and engine.handoff_port:
         # The decode side's KV handoff listener (framed TCP) beside the
-        # HTTP port: any engine with a handoff port can adopt, and it
-        # still serves monolithic traffic.
+        # HTTP port: any paged engine with a handoff port can adopt, and
+        # it still serves monolithic traffic.
         engine.handoff_store = handoff_lib.HandoffStore()
         engine._handoff_receiver = handoff_lib.HandoffReceiver(
             host, engine.handoff_port, engine.handoff_store,

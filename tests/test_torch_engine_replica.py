@@ -248,16 +248,32 @@ def test_engine_reads_its_knobs_under_the_jax_names(monkeypatch):
         knobs.get_enum('SKYTPU_ENGINE_ATTN')
 
 
-@pytest.mark.parametrize('name,value,needle', [
-    ('SKYTPU_ENGINE_PAGED', '0', 'item 3'),
-    ('SKYTPU_ENGINE_ATTN', 'gather', 'item 3'),
+# The K/V layouts (ROADMAP Queue 1 item 3), refused by name before they
+# were ported: each now takes effect, read at construction, and serves
+# /generate with the greedy tokens of the default layout.
+@pytest.mark.parametrize('name,value,attrs', [
+    ('SKYTPU_ENGINE_PAGED', '0', (False, 'fused')),
+    ('SKYTPU_ENGINE_ATTN', 'gather', (True, 'gather')),
 ])
-def test_waiting_knobs_are_refused_by_name(bridge, monkeypatch, name, value,
-                                           needle):
-    monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError) as err:
-        _engine(bridge)
-    assert name in str(err.value) and needle in str(err.value)
+def test_layout_knobs_now_take_effect(bridge, monkeypatch, name, value,
+                                      attrs):
+    prompt = [3, 1, 4, 1, 5, 9, 2, 6]
+    outs = []
+    for env in ({}, {name: value}):
+        for key, val in env.items():
+            monkeypatch.setenv(key, val)
+        eng = _engine(bridge, spec_k=0)
+        assert (eng.paged, eng.attn_backend) == \
+            (attrs if env else (True, 'fused'))
+        server, th, base = _serve(eng)
+        try:
+            status, doc = _http(base + '/generate',
+                                {'tokens': prompt, 'max_new_tokens': 8})
+            assert status == 200
+            outs.append(doc['tokens'])
+        finally:
+            _close(eng, server, th)
+    assert outs[0] == outs[1]
 
 
 def _fresh_engine(env, expr):

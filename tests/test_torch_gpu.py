@@ -555,6 +555,28 @@ def test_paged_step_at_a_shape_b_refuses_takes_the_fused_path(cuda, hd,
     assert torch.equal(out, ref)
 
 
+def test_paged_step_in_fp32_takes_the_fused_path(cuda):
+    """An fp32 step at a shape kernel B takes (llama-1b's heads, hd 128,
+    pages of 64) never reaches the bf16 kernel: it runs the fused
+    formulation and launches nothing. Before, an fp32 engine at those
+    heads failed its warm-up with the kernel's TypeError."""
+    (q, kp, vp, table_t, length_t, k_new, v_new, pid, off,
+     max_len) = _paged_step(cuda, 1, 16, 8, 128, 64)
+    q, kp, vp, k_new, v_new = (t.float() for t in (q, kp, vp, k_new, v_new))
+    assert pa.kernel_takes(q.shape, kp.shape)
+    kp_ref, vp_ref = kp.clone(), vp.clone()
+    before = pa.KERNEL.launches
+    out, _, _ = pa.paged_attention_step(q, kp, vp, table_t, length_t,
+                                        k_new, v_new, pid, off,
+                                        max_len=max_len)
+    ref, _, _ = pa.paged_attention_step_ref(q, kp_ref, vp_ref, table_t,
+                                            length_t, k_new, v_new, pid,
+                                            off, max_len=max_len)
+    assert pa.KERNEL.launches == before
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
 def _gemma_layer_run(cuda, plain, **switches):
     """Prefill and one paged decode step of a one-layer model with
     gemma-7b's head shape (head_dim 256, 16/16 heads narrowed to 4/4,
@@ -1763,3 +1785,103 @@ def test_paged_kernel_matches_plain_at_a_ranks_heads(cuda, h, kh, d, s):
                                         table_t, length_t, softmax_scale=1.0)
     torch.cuda.synchronize()
     _assert_o_close(out, ref)
+
+
+# The engine's K/V layouts (SKYTPU_ENGINE_PAGED, SKYTPU_ENGINE_ATTN).
+LAYOUTS = {'fused': (True, 'fused'), 'contiguous': (False, 'fused'),
+           'gather': (True, 'gather')}
+
+
+def _layout_engine(cfg, params, layout, max_len, **attrs):
+    from skypilot_tpu_torch.serve import engine as engine_lib
+    eng = engine_lib.InferenceEngine('llama-debug', cfg=cfg, params=params,
+                                     device='cuda', max_len=max_len)
+    eng.paged, eng.attn_backend = LAYOUTS[layout]
+    for name, val in attrs.items():
+        setattr(eng, name, val)
+    return eng
+
+
+def _engine_state(eng):
+    """Every tensor a step or verify call reads and writes besides its
+    outputs: the cache, lengths, ``last`` and the counts."""
+    return (*eng.kv_tensors().values(), eng.cache.length, eng.last_dev,
+            eng.counts)
+
+
+@pytest.mark.parametrize('layout', ['contiguous', 'gather'])
+def test_layout_graphs_replay_equal_eager_bodies(cuda, layout):
+    """A contiguous and a gather engine capture the eight step and two
+    verify variants with no kernel B inside (the plain attention, as
+    JAX's contiguous step); from the same state of two admitted greedy
+    rows (penalties set), each graph's replay and its eager body give
+    the same outputs, cache, lengths, ``last`` and counts bit for bit
+    (the gather pool's trash page aside: inactive rows' duplicate
+    writes land there in no set order)."""
+    from skypilot_tpu_torch.serve import engine as engine_lib
+    cfg, params = _hd128_model(cuda)
+    eng = _layout_engine(cfg, params, layout, 256)
+    eng.warmup()
+    k, b = eng.spec_k, eng.max_batch
+    assert len(eng.graphs) == 10
+    assert not any(eng._graph_launches.values())
+    eng._admit_group([engine_lib.Request([3, 1, 4, 1, 5], 32),
+                      engine_lib.Request(list(range(9)), 32)])
+    act = torch.zeros(b, device=cuda)
+    act[:2] = 1
+    eng._ctrl.zero_()
+    eng._ctrl[0] = act
+    eng._ctrl[4, :2] = 0.5                    # presence, penalized variants
+    fed = torch.randint(0, cfg.vocab_size, (b, k), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(5),
+                        dtype=torch.int32)
+    fed[:, 0] = eng.last_dev
+    eng._spec_dev[:k].copy_(fed.t())
+    eng._spec_dev[k].copy_(act.int())
+    base = [t.clone() for t in _engine_state(eng)]
+    lo = 1 if eng.paged else 0
+    for key in sorted(eng.graphs, key=str):
+        outs = []
+        for run in (eng.graphs[key].replay, eng._body(key)):
+            for t, v in zip(_engine_state(eng), base):
+                t.copy_(v)
+            run()
+            torch.cuda.synchronize()
+            got = ([eng._ver_toks, eng._ver_lps, eng._ver_tis, eng._ver_tvs]
+                   if key[0] == 'verify' else
+                   [x[:key[0]] for x in (eng._out_toks, eng._out_lps,
+                                         eng._out_tis, eng._out_tvs)])
+            state = list(_engine_state(eng))
+            state[:len(eng.kv_tensors())] = [
+                t[:, lo:] for t in eng.kv_tensors().values()]
+            outs.append([x.clone() for x in got + state])
+        for i, (x, y) in enumerate(zip(*outs)):
+            assert torch.equal(x, y), (key, i)
+
+
+def test_three_layouts_give_the_same_fp32_greedy_tokens(cuda):
+    """llama-debug in fp32 on the card, served through grouped prefills,
+    16-token chunks (the paged layouts), a prefix hit and speculation in
+    each layout: the same greedy tokens."""
+    cfg = dataclasses.replace(config.PRESETS['llama-debug'],
+                              dtype=torch.float32)
+    params = llama.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    system = [(i * 7) % 250 + 1 for i in range(70)]
+    reqs = [([3, 1, 4, 1, 5], 16), (list(range(1, 41)), 16),
+            (system + [1, 2], 12), (system + [3], 12),
+            ([1, 2, 3, 4, 5] * 4, 24)]
+    outs = {}
+    for layout in LAYOUTS:
+        eng = _layout_engine(cfg, params, layout, 128, prefill_chunk=16,
+                             spec_cooldown=0)
+        eng.warmup()
+        eng.start()
+        try:
+            outs[layout] = [eng.submit(t, n).result(timeout=300)[0]
+                            for t, n in reqs]
+        finally:
+            eng.stop()
+        assert eng.prefix_hits == 1 and eng.spec_rounds > 0
+        assert (eng.prefill_chunks > 0) == eng.paged
+    assert outs['contiguous'] == outs['fused'] == outs['gather']

@@ -330,12 +330,13 @@ def test_paged_attention_step_without_scales_keeps_the_3_tuple():
     assert len(res) == 3
 
 
-@pytest.mark.parametrize('quant', ['none', 'int8'])
+@pytest.mark.parametrize('quant', ['none', 'int8', 'fp32'])
 def test_kernel_b_declines_int8_pools(monkeypatch, quant):
     """JAX's gate (``impl == 'pallas' and k_scale is None``): with the
-    tensors taken for the card's and a shape kernel B takes, an fp step
-    asks for the kernel and an int8 step never does; it computes the
-    fused formulation instead."""
+    tensors taken for the card's and a shape kernel B takes, a bf16 step
+    (the kernel's dtype) asks for the kernel and an int8 step never
+    does; it computes the fused formulation instead. So does an fp32
+    step: the kernel takes bf16 alone."""
     calls = []
 
     class Asked(Exception):
@@ -353,19 +354,28 @@ def test_kernel_b_declines_int8_pools(monkeypatch, quant):
                            'v_new', 'pid', 'off')]
     assert pa.kernel_takes(t['q'].shape, t['kp'].shape)
     if quant == 'none':
-        args[1], args[2] = args[1].float(), args[2].float()
+        for i in (0, 1, 2, 5, 6):        # q, the pools, the new K/V
+            args[i] = args[i].to(torch.bfloat16)
         with pytest.raises(Asked):
             pa.paged_attention_step(*args, max_len=max_len)
         assert len(calls) == 1
         return
-    got = pa.paged_attention_step(*args, max_len=max_len,
-                                  k_scale=t['k_scale'], v_scale=t['v_scale'])
+    scales = ({} if quant == 'fp32' else
+              {'k_scale': t['k_scale'], 'v_scale': t['v_scale']})
+    if quant == 'fp32':
+        args[1], args[2] = args[1].float(), args[2].float()
+    got = pa.paged_attention_step(*args, max_len=max_len, **scales)
     assert calls == []
     t2 = {n: torch.from_numpy(a.copy()) for n, a in inp.items()}
-    want = pa.paged_attention_step_ref(
-        *(t2[n] for n in ('q', 'kp', 'vp', 'table', 'length', 'k_new',
-                          'v_new', 'pid', 'off')),
-        max_len=max_len, k_scale=t2['k_scale'], v_scale=t2['v_scale'])
+    ref_args = [t2[n] for n in ('q', 'kp', 'vp', 'table', 'length', 'k_new',
+                                'v_new', 'pid', 'off')]
+    if quant == 'fp32':
+        ref_args[1], ref_args[2] = ref_args[1].float(), ref_args[2].float()
+        want = pa.paged_attention_step_ref(*ref_args, max_len=max_len)
+    else:
+        want = pa.paged_attention_step_ref(
+            *ref_args, max_len=max_len, k_scale=t2['k_scale'],
+            v_scale=t2['v_scale'])
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -791,8 +801,7 @@ def test_disagg_handoff_across_pool_representations(tmp_path, monkeypatch,
 
 def test_int8_refuses_the_jax_combinations(monkeypatch):
     """int8 with SKYTPU_ENGINE_PAGED=0 or SKYTPU_ENGINE_ATTN=gather is the
-    JAX engine's ValueError; either knob alone keeps its refusal by
-    name."""
+    JAX engine's ValueError; either knob alone serves its layout."""
     from skypilot_tpu_torch.serve import engine as engine_lib
     _, _, _, tcfg, _, _, _ = _model('llama-debug')
 
@@ -808,9 +817,12 @@ def test_int8_refuses_the_jax_combinations(monkeypatch):
         monkeypatch.setattr(engine_lib, 'KV_QUANT', 'int8')
         with pytest.raises(ValueError, match=match):
             build()
+        # Either knob alone takes effect: its layout on fp pools.
         monkeypatch.setattr(engine_lib, 'KV_QUANT', 'none')
-        with pytest.raises(NotImplementedError, match=env):
-            build()
+        eng = build()
+        assert (eng.paged, eng.attn_backend) == (
+            (False, 'fused') if env == 'SKYTPU_ENGINE_PAGED'
+            else (True, 'gather'))
         monkeypatch.delenv(env)
 
 
