@@ -166,8 +166,22 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  bits) and 16 free greedy steps in lockstep, against the
                  one-process path and fp32 (TOL_MODEL); TPOT, the
                  collectives' ms a step, boot, peak memory and launches
-                 a rank. --tp-model, --tp-ranks and --tp-backend nccl
-                 run it a card a rank on a host with that many cards;
+                 a rank. --tp-model, --tp-ranks (or --tp-mesh, e.g.
+                 expert=4), --tp-depth and --tp-backend nccl run it a
+                 card a rank on a host with that many cards;
+  7f. tp_serve_moe — the same phase on moe-1b whole at --mesh
+                 expert=2,tensor=2: four ranks sharing the card, each 4
+                 of the 8 experts at 2048 of 4096 hidden units and 4/2
+                 heads (B at g = 2); A and B at those heads against
+                 their plain versions; a 300- and a 20-token /generate
+                 at once and a streamed completion; A and B on every
+                 rank; the one-process and fp32 paths teacher-forced
+                 with the gang's tokens and routes (RouteLog);
+                 chiprun_out/tp_moe_rank<r>.json;
+  7g. tp_serve_mla — deepseek-v2-lite at full width cut to 4 of 27
+                 layers at --mesh tensor=2: 8 of 16 heads a rank, the
+                 latent pool whole; checks (c) and (d), A and B launched
+                 0 times; chiprun_out/tp_mla_rank<r>.json;
   8. model_gemma — gemma-7b at full width cut to 6 of its 28 layers
                  (dim 3072, 16/16 heads, hd 256, vocab 256000; random
                  bf16 weights from seed 0, ~9.7 GB): prefill + 8 paged decode steps
@@ -393,6 +407,7 @@ import concurrent.futures
 import contextlib
 import hashlib
 import json
+import math
 import os
 import signal
 import socket
@@ -1091,12 +1106,15 @@ def prefilled_pool(torch, decode, paging, params, cfg, tok_t, len_t,
                    impl: str, shape=MODEL_SHAPE):
     """Prefill the prompts (attention ``impl``) and scatter their K/V
     into a fresh page pool, each row's pages after the last's: (the
-    prefill logits, the pool)."""
+    prefill logits, the pool). ``decode`` is the config's cache
+    family (decode_module); an MLA config's latents take the pool of
+    models/mla.py, whose prefill has no attention choice."""
     b = tok_t.shape[0]
     max_len = shape['max_len']
     maxp = paging.pages_for(max_len, MODEL_PSZ)
+    impl_kw = {} if is_mla(cfg) else {'attention_impl': impl}
     logits, ks, vs = decode.prefill(params, tok_t, cfg, max_len,
-                                    lengths=len_t, attention_impl=impl)
+                                    lengths=len_t, **impl_kw)
     pc = decode.init_page_pool(cfg, b * maxp + 1, MODEL_PSZ, b, maxp,
                                device='cuda')
     pc.table.copy_(torch.arange(1, b * maxp + 1, dtype=torch.int32,
@@ -6119,41 +6137,85 @@ def phase_ring(torch, fa, build, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# The tp_serve phase: one replica over a gang of two ranks
+# The tp_serve phases: one replica over a gang of ranks
 # ---------------------------------------------------------------------------
 
-# By default llama-1b whole (bf16, random weights from seed 0) at --mesh
-# tensor=2, two ranks sharing the card over gloo: each holds 8 of 16 q
-# heads, 4 of 8 kv heads, 3584 of 7168 ffn units and 16384 of 32768
-# vocabulary rows. --tp-model, --tp-ranks and --tp-backend nccl run the
-# same phase with a rank a card (LOCAL_RANK r) on a host of that many.
+# tp_serve: by default llama-1b whole (bf16, random weights from seed 0)
+# at --mesh tensor=2, two ranks sharing the card over gloo: each holds 8
+# of 16 q heads, 4 of 8 kv heads, 3584 of 7168 ffn units and 16384 of
+# 32768 vocabulary rows. --tp-model, --tp-ranks and --tp-backend nccl
+# run the same phase with a rank a card (LOCAL_RANK r) on a host of that
+# many.
 TP_MODEL, TP_RANKS, TP_BACKEND = 'llama-1b', 2, 'gloo'
 TP_DIR = os.path.join(HERE, '.smoke_tp')
+# tp_serve_moe: moe-1b whole at --mesh expert=2,tensor=2, four ranks
+# sharing the card: each holds 4 of 8 experts at 2048 of 4096 hidden
+# units, 4 of 8 q heads and 2 of 4 kv heads (kernel B at g = 2). And
+# tp_serve_mla: deepseek-v2-lite at full width (dim 2048, 16 heads,
+# latent rank 512) cut to TP_MLA_DEPTH of 27 layers at --mesh tensor=2:
+# each rank 8 heads and the whole latent pool; no kernel runs there.
+TP_MOE = ('moe-1b', 'expert=2,tensor=2', None)
+TP_MLA_DEPTH = 4
+TP_MLA = ('deepseek-v2-lite', 'tensor=2', TP_MLA_DEPTH)
 # The traffic: a 700-token prompt (3 chunks of 256) beside a short one,
 # a 600-token prompt, then a request resending its first 512 tokens
-# (a prefix hit), then one streamed completion.
+# (a prefix hit), then one streamed completion. The MoE and MLA gangs
+# take a lighter load (TP_LIGHT_NEW tokens each): a 300-token prompt
+# beside a short one, then the streamed completion.
 TP_NEW = 16
+TP_LIGHT_NEW = 8
 TP_FREE_STEPS = 16
 
 
-def tp_worker(rank: int, port: int, http_port: int, model: str,
-              ranks: int) -> None:
+def mesh_sizes(mesh: str) -> dict:
+    """'expert=2,tensor=2' → {'expert': 2, 'tensor': 2}."""
+    return {ax: int(n) for ax, n in (part.split('=')
+                                     for part in mesh.split(','))}
+
+
+def step_kw(cfg, fn) -> dict:
+    """The attention choice of a paged decode step: none for an MLA
+    config (its absorbed latent attention has one formulation)."""
+    return {} if is_mla(cfg) else {'attention_fn': fn}
+
+
+def cut_preset(config, model: str, depth, install: bool = False):
+    """``model``'s preset, cut to ``depth`` layers when given; with
+    ``install`` the cut preset replaces the preset in this process, so
+    that the engine's ``--model`` serves it (a rank's process)."""
+    import dataclasses
+    cfg = config.get_config(model)
+    if depth is None:
+        return cfg
+    cfg = dataclasses.replace(cfg, n_layers=depth)
+    for presets in (config.PRESETS, config.MOE_PRESETS, config.MLA_PRESETS):
+        if install and model in presets:
+            presets[model] = cfg
+    return cfg
+
+
+def tp_worker(rank: int, port: int, http_port: int, model: str, mesh: str,
+              tag: str, depth) -> None:
     """One rank of the gang: ``engine.main`` with the gang flags, the
     launch counters zeroed when its warm-up ends (just before traffic).
-    After the leader's 'stop' both ranks hold, in lockstep on the
+    After the leader's 'stop' every rank holds, in lockstep on the
     engine's own sharded params and mesh, model_prompts' prefill + 8
     paged decode steps fed their own greedy tokens (then 8 more with
-    every collective timed), and TP_FREE_STEPS free greedy steps.
-    Writes chiprun_out/tp_rank<r>.json; rank 0 also the logits and
-    tokens under .smoke_tp/."""
+    every collective timed), and TP_FREE_STEPS free greedy steps; an
+    MoE config's rank 0 records the routes of the first 9 calls'
+    layers (RouteLog), which the one-process paths then take. Writes
+    chiprun_out/<tag>_rank<r>.json; rank 0 also the logits, tokens and
+    routes under .smoke_tp/."""
     t_start = time.perf_counter()
     import torch
     import torch.distributed as dist
+    from skypilot_tpu_torch import config
     from skypilot_tpu_torch.kernels import build
-    from skypilot_tpu_torch.models import decode, paging
+    from skypilot_tpu_torch.models import moe, paging
     from skypilot_tpu_torch.ops import paged_attention as pa
     from skypilot_tpu_torch.serve import engine as engine_lib
     torch.backends.cuda.matmul.allow_tf32 = False
+    cut_preset(config, model, depth, install=True)
     state = {}
     warmup = engine_lib.InferenceEngine.warmup
 
@@ -6164,7 +6226,8 @@ def tp_worker(rank: int, port: int, http_port: int, model: str,
         state['boot_s'] = time.perf_counter() - t_start
         build.reset_launches()
     engine_lib.InferenceEngine.warmup = counted_warmup
-    engine_lib.main(['--model', model, '--mesh', f'tensor={ranks}',
+    ranks = math.prod(mesh_sizes(mesh).values())
+    engine_lib.main(['--model', model, '--mesh', mesh,
                      '--num-processes', str(ranks), '--process-id',
                      str(rank), '--coordinator', f'127.0.0.1:{port}',
                      '--host', '127.0.0.1', '--port', str(http_port),
@@ -6172,6 +6235,8 @@ def tp_worker(rank: int, port: int, http_port: int, model: str,
     served = launch_counts(build)
     eng = state['engine']
     cfg = eng.cfg
+    dec = decode_module(cfg)
+    routed = hasattr(cfg, 'n_experts')
     tok_t, len_t = model_prompts(torch, cfg.vocab_size,
                                  np.random.default_rng(5))
     spent = [0.0]
@@ -6187,35 +6252,37 @@ def tp_worker(rank: int, port: int, http_port: int, model: str,
             return out
         return run
 
+    kw = step_kw(cfg, pa.paged_attention_step)
     with eng.on_mesh(), torch.no_grad():
         build.reset_launches()
-        logits, pc = prefilled_pool(torch, decode, paging, eng.params, cfg,
-                                    tok_t, len_t, 'auto')
-        out, toks, step_ms = [logits], [], []
-        for _ in range(8):
-            nxt = torch.argmax(out[-1], dim=-1).to(torch.int32)
-            toks.append(nxt)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, pc = decode.paged_decode_step(
-                eng.params, nxt, pc, cfg, max_len=MODEL_SHAPE['max_len'],
-                attention_fn=pa.paged_attention_step)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            out.append(logits)
+        routes = RouteLog(moe)
+        with routes if routed else contextlib.nullcontext():
+            logits, pc = prefilled_pool(torch, dec, paging, eng.params, cfg,
+                                        tok_t, len_t, 'auto')
+            out, toks, step_ms = [logits], [], []
+            for _ in range(8):
+                nxt = torch.argmax(out[-1], dim=-1).to(torch.int32)
+                toks.append(nxt)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, pc = dec.paged_decode_step(
+                    eng.params, nxt, pc, cfg,
+                    max_len=MODEL_SHAPE['max_len'], **kw)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                out.append(logits)
         forced = launch_counts(build)
         dist.all_reduce, dist.all_gather = (timed(f) for f in collectives)
         try:
             nxt = toks[-1]
             for _ in range(8):
-                logits, pc = decode.paged_decode_step(
+                logits, pc = dec.paged_decode_step(
                     eng.params, nxt, pc, cfg,
-                    max_len=MODEL_SHAPE['max_len'],
-                    attention_fn=pa.paged_attention_step)
+                    max_len=MODEL_SHAPE['max_len'], **kw)
         finally:
             dist.all_reduce, dist.all_gather = collectives
         logits = torch.stack(out).float()
-        free = free_greedy(torch, decode, paging, pa, eng.params, cfg, tok_t,
+        free = free_greedy(torch, dec, paging, pa, eng.params, cfg, tok_t,
                            len_t)
     result = {
         'rank': rank, 'boot_s': state['boot_s'], 'launches': served,
@@ -6232,32 +6299,37 @@ def tp_worker(rank: int, port: int, http_port: int, model: str,
         np.save(os.path.join(TP_DIR, 'toks.npy'),
                 torch.stack(toks).cpu().numpy())
         np.save(os.path.join(TP_DIR, 'free.npy'), free)
-    with open(os.path.join(OUT_DIR, f'tp_rank{rank}.json'), 'w') as f:
+        if routed:
+            np.savez(os.path.join(TP_DIR, 'routes.npz'),
+                     *[idx.cpu().numpy() for idx, _ in routes.calls])
+    with open(os.path.join(OUT_DIR, f'{tag}_rank{rank}.json'), 'w') as f:
         json.dump(result, f)
 
 
 def free_greedy(torch, decode, paging, pa, params, cfg, tok_t, len_t):
     """TP_FREE_STEPS greedy paged decode steps from model_prompts'
-    prefill through kernels A and B: the tokens, [steps + 1, B]."""
+    prefill through kernels A and B where the config takes them: the
+    tokens, [steps + 1, B]. ``decode`` is the config's cache family."""
     logits, pc = prefilled_pool(torch, decode, paging, params, cfg, tok_t,
                                 len_t, 'auto')
     toks = [torch.argmax(logits, dim=-1).to(torch.int32)]
     for _ in range(TP_FREE_STEPS):
         logits, pc = decode.paged_decode_step(
             params, toks[-1], pc, cfg, max_len=MODEL_SHAPE['max_len'],
-            attention_fn=pa.paged_attention_step)
+            **step_kw(cfg, pa.paged_attention_step))
         toks.append(torch.argmax(logits, dim=-1).to(torch.int32))
     return torch.stack(toks).cpu().numpy()
 
 
-def tp_kernels_at_local_shapes(torch, fa, pa, paging, cfg,
-                               ranks: int) -> dict:
+def tp_kernels_at_local_shapes(torch, fa, pa, paging, cfg, tp: int,
+                               tag: str) -> dict:
     """(b): kernel A at a rank's prompt shapes (B=2 at S 700 and 256,
     causal) and kernel B at its decode and verify widths (S 1 and 4),
-    at a rank's heads (llama-1b at tensor=2: 8 q heads over 4 kv heads
-    at hd 128), against their plain versions at the script's
-    tolerances. Returns each kernel's worst error."""
-    h, kh, d = cfg.n_heads // ranks, cfg.n_kv_heads // ranks, cfg.hd
+    at a rank's heads over a 'tensor' axis of ``tp`` (llama-1b at
+    tensor=2: 8 q heads over 4 kv heads at hd 128; moe-1b: 4 over 2),
+    against their plain versions at the script's tolerances. Returns
+    each kernel's worst error."""
+    h, kh, d = cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.hd
     worst = {'flash_fwd': 0.0, 'paged_decode': 0.0}
     for i, s in enumerate((700, 256)):
         q, k, v = flash_inputs(torch, 2, s, h, kh, d, seed=1300 + i)
@@ -6267,11 +6339,11 @@ def tp_kernels_at_local_shapes(torch, fa, pa, paging, cfg,
                                                 softmax_scale=1.0)
         torch.cuda.synchronize()
         ok = o_ok(o, o_ref) and max_err(lse, lse_ref) <= TOL_LSE
-        log(f'[tp_serve] A at a rank\'s shape B=2 S=T={s} H={h} KH={kh} '
+        log(f'[{tag}] A at a rank\'s shape B=2 S=T={s} H={h} KH={kh} '
             f'D={d}: o err {max_err(o, o_ref):.3e}, lse err '
             f'{max_err(lse, lse_ref):.3e} {"ok" if ok else "MISMATCH"}')
         if not ok:
-            fail(f'[tp_serve] kernel A disagrees at S={s}, H={h}, KH={kh}')
+            fail(f'[{tag}] kernel A disagrees at S={s}, H={h}, KH={kh}')
         worst['flash_fwd'] = max(worst['flash_fwd'], max_err(o, o_ref))
     for s in (1, 4):
         q, kp, vp, table, length, _ = paged_inputs(
@@ -6281,40 +6353,45 @@ def tp_kernels_at_local_shapes(torch, fa, pa, paging, cfg,
                                             table, length, softmax_scale=1.0)
         torch.cuda.synchronize()
         ok = o_ok(out, ref)
-        log(f'[tp_serve] B at a rank\'s shape S={s} H={h} KH={kh} hd={d}: '
+        log(f'[{tag}] B at a rank\'s shape S={s} H={h} KH={kh} hd={d}: '
             f'out err {max_err(out, ref):.3e} {"ok" if ok else "MISMATCH"}')
         if not ok:
-            fail(f'[tp_serve] kernel B disagrees at S={s}, H={h}, KH={kh}')
+            fail(f'[{tag}] kernel B disagrees at S={s}, H={h}, KH={kh}')
         worst['paged_decode'] = max(worst['paged_decode'], max_err(out, ref))
     return worst
 
 
-def tp_traffic(base: str, vocab: int) -> int:
+def tp_traffic(base: str, vocab: int, tag: str, light: bool) -> int:
     """4 /generate (700 and 20 tokens at once, then 600, then its first
     512 tokens resent with a new tail) and a streamed /v1/completions;
-    every answer checked. Returns the prefix hits /metrics counts."""
+    ``light``: 2 /generate (300 and 20 tokens at once) and the streamed
+    completion. Every answer checked. Returns the prefix hits /metrics
+    counts."""
     rng = np.random.default_rng(21)
+    new = TP_LIGHT_NEW if light else TP_NEW
 
     def prompt(n):
         return [int(t) for t in rng.integers(1, vocab, n)]
     system = prompt(600)
-    docs = [{'tokens': prompt(700), 'max_new_tokens': TP_NEW},
-            {'tokens': prompt(20), 'max_new_tokens': TP_NEW}]
+    docs = [{'tokens': prompt(300 if light else 700), 'max_new_tokens': new},
+            {'tokens': prompt(20), 'max_new_tokens': new}]
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         answers = list(pool.map(lambda d: http(base + '/generate', d),
                                 docs))
-    docs += [{'tokens': system, 'max_new_tokens': TP_NEW},
-             {'tokens': system[:512] + prompt(40), 'max_new_tokens': TP_NEW}]
-    answers += [http(base + '/generate', d) for d in docs[2:]]
+    if not light:
+        docs += [{'tokens': system, 'max_new_tokens': new},
+                 {'tokens': system[:512] + prompt(40),
+                  'max_new_tokens': new}]
+        answers += [http(base + '/generate', d) for d in docs[2:]]
     for d, (code, doc) in zip(docs, answers):
-        if code != 200 or len(doc.get('tokens', ())) != TP_NEW:
-            fail(f'[tp_serve] /generate of {len(d["tokens"])} tokens '
+        if code != 200 or len(doc.get('tokens', ())) != new:
+            fail(f'[{tag}] /generate of {len(d["tokens"])} tokens '
                  f'answered {code}: {str(doc)[:300]}')
     events = sse(base + '/v1/completions', {
-        'prompt': 'A gang of ranks serves one replica.', 'max_tokens': TP_NEW,
+        'prompt': 'A gang of ranks serves one replica.', 'max_tokens': new,
         'temperature': 0, 'stream': True})
     if not events or events[-1]['choices'][0].get('finish_reason') is None:
-        fail('[tp_serve] the streamed completion did not finish')
+        fail(f'[{tag}] the streamed completion did not finish')
     with urllib.request.urlopen(base + '/metrics', timeout=30) as r:
         text = r.read().decode()
     return int(float(next(line.split()[1] for line in text.splitlines()
@@ -6324,23 +6401,41 @@ def tp_traffic(base: str, vocab: int) -> int:
 
 def phase_tp_serve(torch, fa, pa, paging, decode, build, config,
                    card: str, model: str = TP_MODEL, ranks: int = TP_RANKS,
-                   backend: str = TP_BACKEND) -> dict:
-    """One replica over ``ranks`` ranks (by default two sharing the card
-    over gloo; with 'nccl' a card each): (a) A and B launch
-    on each rank while it serves the traffic, (b) both match their
-    plain versions at a rank's shapes, (c) the gang's teacher-forced
-    logits lie within TOL_MODEL of the one-process engine path's error
-    against fp32, (d) every rank exits 0 and writes a fresh result.
-    Returns (the kernels' errors at these shapes, the ranks' launches
-    on the traffic, summed)."""
+                   backend: str = TP_BACKEND, mesh=None, depth=None,
+                   tag: str = 'tp_serve') -> dict:
+    """One replica over a gang at ``mesh`` (default tensor=``ranks``;
+    by default two ranks sharing the card over gloo; with 'nccl' a card
+    each), ``model`` cut to ``depth`` layers when given: (a) A and B
+    launch on each rank while it serves the traffic (neither on an MLA
+    config, whose attention runs no kernel), (b) both match their plain
+    versions at a rank's shapes, (c) the gang's teacher-forced logits
+    lie within TOL_MODEL of the one-process engine path's error against
+    fp32 (an MoE config's one-process paths take the gang's routes:
+    RouteLog), (d) every rank exits 0 and writes a fresh result.
+    Returns (the kernels' errors at these shapes, the ranks' launches on
+    the traffic, summed)."""
     import dataclasses
     import secrets
     import shutil
-    cfg = config.get_config(model)
-    errs = tp_kernels_at_local_shapes(torch, fa, pa, paging, cfg, ranks)
+    from skypilot_tpu_torch.models import moe
+    mesh = mesh or f'tensor={ranks}'
+    sizes = mesh_sizes(mesh)
+    ranks = math.prod(sizes.values())
+    tp = sizes.get('tensor', 1)
+    light = tag != 'tp_serve'
+    files = 'tp' if tag == 'tp_serve' else tag.replace('_serve', '')
+    cfg = cut_preset(config, model, depth)
+    label = model if depth is None else \
+        f'{model} ({depth} of {config.get_config(model).n_layers} layers)'
+    kernels = takes_kernels(cfg)
+    dec = decode_module(cfg)
+    routed = hasattr(cfg, 'n_experts')
+    errs = (tp_kernels_at_local_shapes(torch, fa, pa, paging, cfg, tp, tag)
+            if kernels else {})
     free_card(torch)
-    logs = [os.path.join(OUT_DIR, f'tp_rank{r}.log') for r in range(ranks)]
-    paths = [os.path.join(OUT_DIR, f'tp_rank{r}.json')
+    logs = [os.path.join(OUT_DIR, f'{files}_rank{r}.log')
+            for r in range(ranks)]
+    paths = [os.path.join(OUT_DIR, f'{files}_rank{r}.json')
              for r in range(ranks)]
     fresh(logs + paths)
     shutil.rmtree(TP_DIR, ignore_errors=True)
@@ -6359,8 +6454,9 @@ def phase_tp_serve(torch, fa, pa, paging, decode, build, config,
                     [sys.executable, os.path.join(HERE, 'chip_smoke.py'),
                      '--tp-worker', str(r), '--ring-port', str(port),
                      '--tp-http', str(http_port), '--tp-model', model,
-                     '--tp-ranks', str(ranks)], cwd=HERE, env=env,
-                    stdout=f, stderr=subprocess.STDOUT))
+                     '--tp-mesh', mesh, '--tp-tag', files] +
+                    ([] if depth is None else ['--tp-depth', str(depth)]),
+                    cwd=HERE, env=env, stdout=f, stderr=subprocess.STDOUT))
         leader = procs[-1]
         base = f'http://127.0.0.1:{http_port}'
         t0 = time.perf_counter()
@@ -6377,11 +6473,11 @@ def phase_tp_serve(torch, fa, pa, paging, decode, build, config,
                 break
             time.sleep(1)
         if status != 200:
-            fail(f'[tp_serve] the gang never answered /health 200 (last '
+            fail(f'[{tag}] the gang never answered /health 200 (last '
                  f'{status}): ' + ''.join(open(logs[0]).readlines()[-15:]))
         boot_wall = time.perf_counter() - t0
         t1 = time.perf_counter()
-        hits = tp_traffic(base, cfg.vocab_size)
+        hits = tp_traffic(base, cfg.vocab_size, tag, light)
         traffic_s = time.perf_counter() - t1
         leader.send_signal(signal.SIGTERM)
         deadline = time.monotonic() + 300
@@ -6397,33 +6493,36 @@ def phase_tp_serve(torch, fa, pa, paging, decode, build, config,
         rc = procs[ranks - 1 - r].returncode
         if rc != 0 or not os.path.exists(paths[r]):
             tail = ''.join(open(logs[r]).readlines()[-20:])
-            fail(f'[tp_serve] rank {r} exited {rc} (result '
+            fail(f'[{tag}] rank {r} exited {rc} (result '
                  f'{"written" if os.path.exists(paths[r]) else "missing"}):'
                  f'\n{tail}')
         with open(paths[r]) as f:
             res.append(json.load(f))
-    if hits < 1:
-        fail(f'[tp_serve] the resent prefix made {hits} prefix hits')
+    if not light and hits < 1:
+        fail(f'[{tag}] the resent prefix made {hits} prefix hits')
     layers, steps = cfg.n_layers, 8
     for x in res:
         lc, fc = x['launches'], x['forced_launches']
-        log(f'[tp_serve] rank {x["rank"]}: launches on the traffic A '
+        log(f'[{tag}] rank {x["rank"]}: launches on the traffic A '
             f'{lc["flash_fwd"]}, B {lc["paged_decode"]}; on the forced path '
             f'A {fc["flash_fwd"]}, B {fc["paged_decode"]}; boot '
             f'{x["boot_s"] * 1e3:.0f} ms; peak memory {x["peak_gb"]:.2f} GB;'
             f' a forced decode step {x["step_ms"]:.2f} ms, of which the '
-            f'all-reduces and the all-gather {x["collective_ms_per_step"]:.2f}'
-            f' ms | {card}')
-        if lc['flash_fwd'] <= 0 or lc['paged_decode'] <= 0:
-            fail(f'[tp_serve] rank {x["rank"]} served without A or B: {lc}')
-        if fc != want_launches(build, flash_fwd=layers,
-                               paged_decode=layers * steps):
-            fail(f'[tp_serve] rank {x["rank"]} forced-path launches {fc}')
+            f'collectives {x["collective_ms_per_step"]:.2f} ms | {card}')
+        if kernels and (lc['flash_fwd'] <= 0 or lc['paged_decode'] <= 0):
+            fail(f'[{tag}] rank {x["rank"]} served without A or B: {lc}')
+        if not kernels and any(lc.values()):
+            fail(f'[{tag}] rank {x["rank"]} launched a kernel: {lc}')
+        want = (want_launches(build, flash_fwd=layers,
+                              paged_decode=layers * steps)
+                if kernels else want_launches(build))
+        if fc != want:
+            fail(f'[{tag}] rank {x["rank"]} forced-path launches {fc}')
     if len({x['logits_sha256'] for x in res}) != 1:
-        fail('[tp_serve] the ranks\' gathered logits differ')
+        fail(f'[{tag}] the ranks\' gathered logits differ')
     tpot = statistics.median(res[0]['tpot_ms'])
     where = ('one card' if backend == 'gloo' else f'{ranks} cards')
-    log(f'[tp_serve] {model} at tensor={ranks} on {where} ({backend}): '
+    log(f'[{tag}] {label} at {mesh} on {where} ({backend}): '
         f'{res[0]["requests"]} requests in {traffic_s:.1f} s, TPOT median '
         f'{tpot:.2f} ms over {len(res[0]["tpot_ms"])} requests, the gang '
         f'healthy {boot_wall:.1f} s after its start, prefix hits {hits} | '
@@ -6431,24 +6530,33 @@ def phase_tp_serve(torch, fa, pa, paging, decode, build, config,
     gang = torch.from_numpy(np.load(os.path.join(TP_DIR, 'logits.npy')))
     feed = torch.from_numpy(np.load(os.path.join(TP_DIR, 'toks.npy'))).cuda()
     gang_free = np.load(os.path.join(TP_DIR, 'free.npy'))
+    force = None
+    if routed:
+        with np.load(os.path.join(TP_DIR, 'routes.npz')) as z:
+            gang_routes = [torch.from_numpy(z[f'arr_{i}']).cuda()
+                           for i in range(len(z.files))]
+
+        def force(i, idx):
+            return gang_routes[i]
     shutil.rmtree(TP_DIR, ignore_errors=True)
     params = bf16_params(torch, cfg)
     tok_t, len_t = model_prompts(torch, cfg.vocab_size,
                                  np.random.default_rng(5))
 
     def run(cfg_run, params_run, impl, fn):
-        logits, pc = prefilled_pool(torch, decode, paging, params_run,
-                                    cfg_run, tok_t, len_t, impl)
-        out = [logits]
-        for nxt in feed:
-            logits, pc = decode.paged_decode_step(
-                params_run, nxt, pc, cfg_run, max_len=MODEL_SHAPE['max_len'],
-                attention_fn=fn)
-            out.append(logits)
+        with RouteLog(moe, force) if routed else contextlib.nullcontext():
+            logits, pc = prefilled_pool(torch, dec, paging, params_run,
+                                        cfg_run, tok_t, len_t, impl)
+            out = [logits]
+            for nxt in feed:
+                logits, pc = dec.paged_decode_step(
+                    params_run, nxt, pc, cfg_run,
+                    max_len=MODEL_SHAPE['max_len'], **step_kw(cfg_run, fn))
+                out.append(logits)
         return torch.stack(out).float().cpu()
     with torch.no_grad():
         one = run(cfg, params, 'auto', pa.paged_attention_step)
-        free = free_greedy(torch, decode, paging, pa, params, cfg, tok_t,
+        free = free_greedy(torch, dec, paging, pa, params, cfg, tok_t,
                            len_t)
         cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
         params32 = decode.cast_params_for_decode(params, cfg32)
@@ -6461,19 +6569,21 @@ def phase_tp_serve(torch, fa, pa, paging, decode, build, config,
         e_g = float((gang[i] - ref[i]).abs().max()) / std
         e_o = float((one[i] - ref[i]).abs().max()) / std
         worst = max(worst, e_g / e_o)
-        log(f'[tp_serve] step {i} ({"prefill" if i == 0 else "decode"}): '
+        log(f'[{tag}] step {i} ({"prefill" if i == 0 else "decode"}): '
             f'max|diff|/std(fp32 logits): gang-fp32 {e_g:.3e}, one '
             f'process-fp32 {e_o:.3e}, gang-one process '
             f'{float((gang[i] - one[i]).abs().max()) / std:.3e}')
     agree = [int(np.argmax(np.append(gang_free[:, r] != free[:, r], True)))
              for r in range(free.shape[1])]
-    log(f'[tp_serve] free greedy decoding, gang vs one process: tokens '
+    log(f'[{tag}] free greedy decoding, gang vs one process: tokens '
         f'that agree before the first divergence, per row: {agree} of '
-        f'{free.shape[0]}')
-    log(f'[tp_serve] gang/one-process error ratio against fp32, worst '
-        f'{worst:.3f} (tol {TOL_MODEL}) {"ok" if worst <= TOL_MODEL else "MISMATCH"}')
+        f'{free.shape[0]}' + (' (routes free on both)' if routed else ''))
+    log(f'[{tag}] gang/one-process error ratio against fp32, worst '
+        f'{worst:.3f} (tol {TOL_MODEL}) {"ok" if worst <= TOL_MODEL else "MISMATCH"}'
+        + (' (the one-process paths on the gang\'s routes)' if routed
+           else ''))
     if worst > TOL_MODEL:
-        fail(f'[tp_serve] the gang\'s logits err {worst:.2f}x the one-process '
+        fail(f'[{tag}] the gang\'s logits err {worst:.2f}x the one-process '
              f'path\'s > {TOL_MODEL}x')
     launches = {n: sum(x['launches'][n] for x in res) for n in res[0]['launches']}
     return errs, launches
@@ -6494,7 +6604,7 @@ def main() -> None:
     parser.add_argument('--phases', default='build,flash,paged,flash_bwd,'
                         'timing,model,serve,batch_infer,disagg,kv_int8,'
                         'layouts,'
-                        'tp_serve,'
+                        'tp_serve,tp_serve_moe,tp_serve_mla,'
                         'model_gemma,'
                         'serve_gemma,'
                         'gemma_switches,model_moe,serve_moe,serve_gptoss,'
@@ -6525,6 +6635,13 @@ def main() -> None:
                         help="the tp_serve phase's process group: 'gloo' "
                              "(the ranks share card 0) or 'nccl' (a card "
                              'a rank)')
+    parser.add_argument('--tp-mesh', default=None,
+                        help="the tp_serve phase's --mesh (default "
+                             'tensor=<--tp-ranks>), e.g. expert=4')
+    parser.add_argument('--tp-depth', type=int, default=None,
+                        help="the tp_serve phase's model cut to this many "
+                             'layers')
+    parser.add_argument('--tp-tag', default='tp', help=argparse.SUPPRESS)
     args = parser.parse_args()
     t_main = time.perf_counter()
     phases = set(args.phases.split(','))
@@ -6552,7 +6669,8 @@ def main() -> None:
         return
     if args.tp_worker is not None:
         tp_worker(args.tp_worker, args.ring_port, args.tp_http,
-                  args.tp_model, args.tp_ranks)
+                  args.tp_model, args.tp_mesh or f'tensor={args.tp_ranks}',
+                  args.tp_tag, args.tp_depth)
         return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6620,11 +6738,22 @@ def main() -> None:
     if 'tp_serve' in phases:
         tp_errs, by_path['tp_serve'] = phase_tp_serve(
             torch, fa, pa, paging, decode, build, config, card,
-            args.tp_model, args.tp_ranks, args.tp_backend)
+            args.tp_model, args.tp_ranks, args.tp_backend,
+            mesh=args.tp_mesh, depth=args.tp_depth)
         for name, e in tp_errs.items():
             errs[name] = max(errs.get(name, 0.0), e)
         free_card(torch)
     lap('tp_serve')
+    for tag, (model, mesh, depth) in (('tp_serve_moe', TP_MOE),
+                                      ('tp_serve_mla', TP_MLA)):
+        if tag in phases:
+            tp_errs, by_path[tag] = phase_tp_serve(
+                torch, fa, pa, paging, decode, build, config, card, model,
+                backend='gloo', mesh=mesh, depth=depth, tag=tag)
+            for name, e in tp_errs.items():
+                errs[name] = max(errs.get(name, 0.0), e)
+            free_card(torch)
+        lap(tag)
     if 'model_gemma' in phases or 'serve_gemma' in phases:
         import dataclasses
         cfg = dataclasses.replace(config.get_config('gemma-7b'),
@@ -6786,7 +6915,8 @@ def main() -> None:
              'serve_mla': SERVE_KERNELS, 'serve_deepseek_v2': SERVE_KERNELS,
              'batch_infer': ('flash_fwd',), 'disagg': SERVE_KERNELS,
              'kv_int8': ('flash_fwd',), 'layouts': ('flash_fwd',),
-             'tp_serve': SERVE_KERNELS,
+             'tp_serve': SERVE_KERNELS, 'tp_serve_moe': SERVE_KERNELS,
+             'tp_serve_mla': SERVE_KERNELS,
              'train': TRAIN_KERNELS, 'train_gemma': TRAIN_KERNELS,
              'train_moe': TRAIN_KERNELS, 'train_mla': TRAIN_KERNELS,
              'train_hf': TRAIN_KERNELS, 'serve_hf': SERVE_KERNELS,

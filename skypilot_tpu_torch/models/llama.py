@@ -295,17 +295,25 @@ def qkv(x: torch.Tensor, lp, cfg: LlamaConfig, sin, cos):
     return rotary.apply_rope(q, sin, cos), rotary.apply_rope(k, sin, cos), v
 
 
-def _row_parallel(x: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
+def row_partial(x: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
     """x @ w, for w whose input rows a tensor mesh may shard: unsharded
-    the product as it is; sharded each rank's fp32 partial product
-    (:func:`logits_matmul`, no rounding to the compute dtype) summed
-    over the group in one all-reduce, then cast once, so the sum rounds
-    where the unsharded product does."""
+    the product as it is; sharded this rank's fp32 partial product
+    (:func:`logits_matmul`, no rounding to the compute dtype), which the
+    caller sums over the group."""
     w = _d(w, cfg.dtype)
+    if tensor_parallel()[0] is None:
+        return x @ w
+    return logits_matmul(x, w)
+
+
+def _row_parallel(x: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
+    """:func:`row_partial`, whose fp32 partials a tensor mesh sums over
+    its group in one all-reduce, then casts once, so the sum rounds
+    where the unsharded product does."""
+    y = row_partial(x, w, cfg)
     group = tensor_parallel()[0]
     if group is None:
-        return x @ w
-    y = logits_matmul(x, w)
+        return y
     dist.all_reduce(y, group=group)
     return y.to(cfg.dtype)
 

@@ -41,12 +41,23 @@ past the view is dropped, as the JAX scatter drops it. The pools are
 updated in place; int8 pools (``init_page_pool(quant='int8')``) carry
 c_kv's and k_rope's scale sidecars through every paged function. Python
 loop over layers, each recomputed in the backward under
-``remat='full'``; no pipeline, ring or mesh.
+``remat='full'``; no pipeline or ring.
+
+A serving gang (serve/engine.py ``--mesh expert=E,tensor=T``) holds the
+shard that :func:`param_axes` names, the JAX ``param_specs``: the heads
+(``wq``, ``w_uk``, ``w_uv``, ``wo``'s rows) and the FFN's hidden units
+over 'tensor', DeepSeekMoE's routed experts over 'expert' too; the
+latent projections (``w_dkv``, ``w_kr``, ``kv_norm``) whole, so every
+rank holds the whole latent pool. The attention takes the rank's heads
+from the shapes, ``wo`` and the dense FFN's ``w_down`` are summed over
+'tensor' (models/llama.py ``_row_parallel``), and the routed and shared
+experts in one sum over ('expert', 'tensor') (moe.py ``moe_ffn``: the
+shared experts, whole on every 'expert' index, are counted once).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -118,6 +129,54 @@ def init_params(cfg: MLAConfig, generator: torch.Generator, device='cuda',
     return params
 
 
+def param_axes(cfg: MLAConfig) -> Params:
+    """The logical axis names of every dim of :func:`init_params`'
+    leaves (JAX ``param_specs``): the heads over 'tensor', the latent
+    replicated (it is shared by every head), the dense and shared FFNs
+    over 'mlp', DeepSeekMoE's routed experts as models/moe.py lays
+    them."""
+    layers = {
+        'attn_norm': ('layers', 'norm'),
+        'wq': ('layers', 'embed', 'heads'),
+        'w_dkv': ('layers', 'embed', 'norm'),
+        'w_kr': ('layers', 'embed', 'norm'),
+        'kv_norm': ('layers', 'norm'),
+        'w_uk': ('layers', 'norm', 'heads'),
+        'w_uv': ('layers', 'norm', 'heads'),
+        'wo': ('layers', 'heads', 'embed'),
+    }
+    if isinstance(cfg, DeepSeekMoEConfig):
+        layers.update(moe.EXPERT_AXES)
+        if cfg.n_shared_experts:
+            layers.update({'ws_gate': ('layers', 'embed', 'mlp'),
+                           'ws_up': ('layers', 'embed', 'mlp'),
+                           'ws_down': ('layers', 'mlp', 'embed')})
+    else:
+        layers.update({'mlp_norm': ('layers', 'norm'),
+                       'w_gate': ('layers', 'embed', 'mlp'),
+                       'w_up': ('layers', 'embed', 'mlp'),
+                       'w_down': ('layers', 'mlp', 'embed')})
+    axes: Params = {'embed': ('vocab', 'embed'), 'layers': layers,
+                    'final_norm': ('norm',)}
+    if not cfg.tie_embeddings:
+        axes['lm_head'] = ('embed', 'vocab')
+    return axes
+
+
+def validate_divisibility(cfg: MLAConfig, mesh_shape: Dict[str, int]):
+    """JAX's check: the heads over 'tensor', DeepSeekMoE's experts over
+    'expert'."""
+    tp = mesh_shape.get('tensor', 1)
+    if tp > 1 and cfg.n_heads % tp != 0:
+        raise ValueError(f'n_heads={cfg.n_heads} not divisible by tensor '
+                         f'axis {tp}')
+    ep = mesh_shape.get('expert', 1)
+    if isinstance(cfg, DeepSeekMoEConfig) and ep > 1 and \
+            cfg.n_experts % ep != 0:
+        raise ValueError(f'n_experts={cfg.n_experts} not divisible by '
+                         f'expert axis {ep}')
+
+
 def rope_tables(cfg: MLAConfig, positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sin, cos) over the rope part of q and k only (qk_rope_head_dim)."""
@@ -127,13 +186,15 @@ def rope_tables(cfg: MLAConfig, positions: torch.Tensor
 
 def _latents(x: torch.Tensor, lp, cfg: MLAConfig, sin, cos):
     """x [B, S, D] → (q_nope [B, S, H, dn], q_rope [B, S, H, dr], c_kv
-    [B, S, r], k_rope [B, S, dr]), norms and rope applied. The shared
-    rope key takes rope through a singleton heads axis."""
+    [B, S, r], k_rope [B, S, dr]), norms and rope applied; H is the
+    heads this rank holds (all of them unsharded). The shared rope key
+    takes rope through a singleton heads axis."""
     b, s, _ = x.shape
-    H, dn, dr = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     dt = cfg.dtype
     h = norms.rms_norm(x, lp['attn_norm'], cfg.rms_eps)
-    q = (h @ _d(lp['wq'], dt)).reshape(b, s, H, dn + dr)
+    q = h @ _d(lp['wq'], dt)
+    q = q.reshape(b, s, q.shape[-1] // (dn + dr), dn + dr)
     q_nope, q_rope = q[..., :dn], rotary.apply_rope(q[..., dn:], sin, cos)
     c_kv = norms.rms_norm(h @ _d(lp['w_dkv'], dt), lp['kv_norm'],
                           cfg.rms_eps)
@@ -146,7 +207,8 @@ def _attend_latent(q_nope: torch.Tensor, q_rope: torch.Tensor,
                    c_kv: torch.Tensor, k_rope: torch.Tensor, lp,
                    cfg: MLAConfig, q_offset) -> torch.Tensor:
     """Absorbed-matmul causal attention over the latents: q_* [B, S, H,
-    *], c_kv [B, T, r], k_rope [B, T, dr] → out [B, S, H·dv]. Query s
+    *] (this rank's H heads, whose columns of W_uk and W_uv it holds),
+    c_kv [B, T, r], k_rope [B, T, dr] → out [B, S, H·dv]. Query s
     of row b sits at position q_offset (+ row b's entry when it is a
     [B] tensor) + s and sees latents 0..that position. The products
     stay in the compute dtype; the scores go to fp32 and take the
@@ -175,35 +237,41 @@ def _attend_latent(q_nope: torch.Tensor, q_rope: torch.Tensor,
     return out.reshape(b, s, H * dv)
 
 
-def _swiglu(h: torch.Tensor, w_gate, w_up, w_down, cfg: MLAConfig):
+def _swiglu_hidden(h: torch.Tensor, w_gate, w_up, cfg: MLAConfig):
     dt = cfg.dtype
-    return (cfg.act(h @ _d(w_gate, dt)) * (h @ _d(w_up, dt))) @ \
-        _d(w_down, dt)
+    return cfg.act(h @ _d(w_gate, dt)) * (h @ _d(w_up, dt))
 
 
 def _mlp(x: torch.Tensor, lp, cfg: MLAConfig) -> torch.Tensor:
-    """The dense MLA layer's SwiGLU block (pre-norm)."""
+    """The dense MLA layer's SwiGLU block (pre-norm); ``w_down``'s rows
+    summed over 'tensor' on a gang."""
     h = norms.rms_norm(x, lp['mlp_norm'], cfg.rms_eps)
-    return _swiglu(h, lp['w_gate'], lp['w_up'], lp['w_down'], cfg)
+    return llama._row_parallel(
+        _swiglu_hidden(h, lp['w_gate'], lp['w_up'], cfg), lp['w_down'], cfg)
 
 
 def _ffn(x: torch.Tensor, lp, cfg: MLAConfig
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(residual branch, router aux fp32 scalar): the dense SwiGLU with a
     zero aux, or DeepSeekMoE's ``moe_norm`` → routed experts (moe.
-    moe_ffn) + the shared experts' dense SwiGLU."""
+    moe_ffn) + the shared experts' dense SwiGLU, which joins the routed
+    experts' sum on a gang (its 'tensor' partial, counted once)."""
     if not isinstance(cfg, DeepSeekMoEConfig):
         return _mlp(x, lp, cfg), torch.zeros((), dtype=torch.float32,
                                              device=x.device)
     h = norms.rms_norm(x, lp['moe_norm'], cfg.rms_eps)
-    y, aux = moe.moe_ffn(h, lp, cfg)
+    shared = None
     if cfg.n_shared_experts:
-        y = y + _swiglu(h, lp['ws_gate'], lp['ws_up'], lp['ws_down'], cfg)
-    return y, aux
+        shared = llama.row_partial(
+            _swiglu_hidden(h, lp['ws_gate'], lp['ws_up'], cfg),
+            lp['ws_down'], cfg)
+    return moe.moe_ffn(h, lp, cfg, shared=shared)
 
 
 def _wo(out: torch.Tensor, lp, cfg: MLAConfig) -> torch.Tensor:
-    return out @ _d(lp['wo'], cfg.dtype)
+    """The output projection, its rows (the heads) summed over 'tensor'
+    on a gang."""
+    return llama._row_parallel(out, lp['wo'], cfg)
 
 
 def _layer(x: torch.Tensor, lp, cfg: MLAConfig, sin, cos, q_offset

@@ -13,18 +13,28 @@ axis; their products are batched matmuls, as the JAX package leaves
 them to XLA. A layer is Llama's attention block (models/llama.py) then
 ``moe_norm`` → :func:`moe_ffn`. Python loop over layers, each
 recomputed in the backward under ``remat='full'``
-(llama.apply_layers); no pipeline, ring or expert mesh.
+(llama.apply_layers); no pipeline or ring.
+
+A serving gang (serve/engine.py ``--mesh expert=E,tensor=T``) holds the
+shard that :func:`param_axes` names, the JAX ``param_specs``: each rank
+its E/ep experts' stacks cut to F/tp columns, the attention over
+'tensor' as models/llama.py shards it, the router whole. Every rank
+routes every token, so the slots and the drops are the same on every
+rank; each dispatches to its own experts and the fp32 partials of the
+combine are summed over ('expert', 'tensor') in one all-reduce.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from skypilot_tpu_torch.config import MoEConfig, check_supported
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import norms
 from skypilot_tpu_torch.ops.attention import attention as _attention
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Params = llama.Params
 
@@ -79,6 +89,49 @@ def init_params(cfg: MoEConfig, generator: torch.Generator, device='cuda',
     return params
 
 
+# The routed experts' leaves and their logical axes (the JAX
+# ``param_specs``): each expert's stack over 'expert', its hidden units
+# over 'mlp', the router whole. models/mla.py's DeepSeekMoE layers take
+# the same.
+EXPERT_AXES: Dict[str, tuple] = {
+    'moe_norm': ('layers', 'norm'),
+    'router': ('layers', 'embed', 'norm'),
+    'w_gate': ('layers', 'expert', 'embed', 'mlp'),
+    'w_up': ('layers', 'expert', 'embed', 'mlp'),
+    'w_down': ('layers', 'expert', 'mlp', 'embed')}
+
+
+def param_axes(cfg: MoEConfig) -> Params:
+    """The logical axis names of every dim of :func:`init_params`'
+    leaves (JAX ``param_specs``): Llama's attention leaves and the sinks
+    over heads, then :data:`EXPERT_AXES`."""
+    axes = llama.param_axes(cfg)
+    layers = axes['layers']
+    for key in ('mlp_norm', 'w_gate', 'w_up', 'w_down'):
+        del layers[key]
+    layers.update(EXPERT_AXES)
+    return axes
+
+
+def validate_divisibility(cfg: MoEConfig, mesh_shape: Dict[str, int]):
+    """JAX's check: the dense dims over their axes, and the experts over
+    'expert'."""
+    llama.validate_divisibility(cfg, mesh_shape)
+    ep = mesh_shape.get('expert', 1)
+    if ep > 1 and cfg.n_experts % ep != 0:
+        raise ValueError(f'n_experts={cfg.n_experts} not divisible by '
+                         f'expert axis {ep}')
+
+
+def expert_parallel(cfg: MoEConfig) -> Tuple[Optional[object], int, int]:
+    """(the current mesh's ('expert', 'tensor') group, the first expert
+    this rank holds, how many it holds); the group is None where both
+    axes hold one rank, and then this rank holds every expert."""
+    mesh = mesh_lib.current_mesh()
+    n = cfg.n_experts // mesh.shape['expert']
+    return (mesh.group('expert', 'tensor'), mesh.coords['expert'] * n, n)
+
+
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     """fp32 one-hot of ``idx`` over n classes, by comparison with
     arange(n) (no host check of the indices: capture-safe)."""
@@ -124,14 +177,25 @@ def slots(gate_idx: torch.Tensor, e: int, c: int) -> torch.Tensor:
     return slot * keep[..., None]
 
 
-def moe_ffn(x: torch.Tensor, lp, cfg: MoEConfig
+def moe_ffn(x: torch.Tensor, lp, cfg: MoEConfig,
+            shared: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] → (y [B, S, D], the Switch load-balance aux, fp32
     scalar). Routes within groups of ``router_group_size`` tokens (one
     group of S where that does not divide S), so every dispatch tensor
     is linear in S. The dispatch and combine tensors go to cfg.dtype
     before their products, as do the expert weights; the gates stay
-    fp32 until the combine."""
+    fp32 until the combine. ``shared`` [B, S, D] (DeepSeekMoE's shared
+    experts) joins y: unsharded added after the combine.
+
+    On a gang (:func:`expert_parallel`) the routing is every rank's
+    whole routing, and the rank runs only its experts' slice of the
+    dispatch and combine, at the hidden units it holds; the fp32
+    partial of combine · out is summed over ('expert', 'tensor') in one
+    all-reduce, then cast once (models/llama.py ``_row_parallel``'s
+    rule). ``shared`` is then this rank's partial over 'tensor' of a
+    term every 'expert' index holds alike, so only the ranks at expert
+    index 0 add it before the sum: it is counted once."""
     b, s_len, d = x.shape
     e = cfg.n_experts
     gs = min(cfg.router_group_size, s_len)
@@ -148,6 +212,10 @@ def moe_ffn(x: torch.Tensor, lp, cfg: MoEConfig
 
     dispatch = slot.sum(3)                                   # [B,G,T,E,C]
     combine = torch.einsum('bgtk,bgtkec->bgtec', gate_w, slot)
+    group, first, e = expert_parallel(cfg)
+    if group is not None:
+        dispatch = dispatch[..., first:first + e, :]
+        combine = combine[..., first:first + e, :]
     dt = cfg.dtype
     xin = torch.einsum('bgtec,bgtd->ebgcd', dispatch.to(dt), xg)
     xin = xin.reshape(e, b * g * c, d)
@@ -155,8 +223,16 @@ def moe_ffn(x: torch.Tensor, lp, cfg: MoEConfig
     up = torch.bmm(xin, lp['w_up'].to(dt))
     out = torch.bmm(cfg.glu(gate, up), lp['w_down'].to(dt))  # [E,BGC,D]
     out = out.reshape(e, b, g, c, d)
-    y = torch.einsum('bgtec,ebgcd->bgtd', combine.to(dt), out)
-    return y.reshape(b, s_len, d), aux
+    if group is None:
+        y = torch.einsum('bgtec,ebgcd->bgtd', combine.to(dt), out)
+        y = y.reshape(b, s_len, d)
+        return (y if shared is None else y + shared), aux
+    y = torch.einsum('bgtec,ebgcd->bgtd', combine.to(dt).float(),
+                     out.float()).reshape(b, s_len, d)
+    if shared is not None and first == 0:
+        y = y + shared.float()
+    dist.all_reduce(y, group=group)
+    return y.to(dt), aux
 
 
 def ffn(x: torch.Tensor, lp, cfg: MoEConfig

@@ -147,6 +147,10 @@ class Mesh:
             return None
         if n == self.size:
             return dist.group.WORLD
+        # Axes of one rank add nothing: ('expert', 'tensor') at expert=1
+        # is the 'tensor' group, not a second group over the same ranks.
+        axes = tuple(ax for ax in MESH_AXES
+                     if ax in axes and self.shape[ax] > 1)
         key = frozenset(axes)
         if key not in self._groups:
             self._groups[key] = _subgroups(self, axes)

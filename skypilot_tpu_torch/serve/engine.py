@@ -6,9 +6,9 @@ prefill and the shared-page prefix cache, prompt-lookup speculative
 decoding (``_lookup_draft``, ``_spec_once``), ``_publish``, ``cancel``,
 ``batch_loop`` / ``_step_round``, ``warmup``; ``build_app``'s
 ``/health``, ``/generate``, ``/v1/completions`` with SSE and
-``/v1/models``; ``parse_mesh_arg``, ``_setup_mesh`` over 'tensor',
-``_bcast``, ``_page_fp`` / ``_check_page_fp``; ``main`` with its gang
-flags).
+``/v1/models``; ``parse_mesh_arg``, ``_setup_mesh`` over 'expert' and
+'tensor', ``_bcast``, ``_page_fp`` / ``_check_page_fp``; ``main`` with
+its gang flags).
 
 What it keeps: ``MAX_BATCH`` slots over a block-paged K/V pool (page
 size 64, ``(MAX_BATCH + min(PREFIX_CACHE_ENTRIES, MAX_BATCH)) *
@@ -124,12 +124,17 @@ in the captured step graphs (kernel B) like any other row, answering in
 the original endpoint's shape, SSE included.
 
 One replica over a gang of ranks (the JAX engine's multi-host serving,
-serve/multihost.py): ``--mesh tensor=N --num-processes N --process-id R
---coordinator HOST:PORT`` (the gang flags default from the gang env)
-runs one process a rank, each holding a 1/N shard of a dense model over
-'tensor' (``_setup_mesh``: parallel/sharding.py ``shard_params`` over
-models/llama.py ``param_axes``; the pools hold the rank's kv heads), so
-kernels A and B run at H/N q heads and KH/N kv heads on every rank. Rank
+serve/multihost.py): ``--mesh expert=E,tensor=T --num-processes E*T
+--process-id R --coordinator HOST:PORT`` (the gang flags default from
+the gang env) runs one process a rank, each holding its shard of the
+model as the family's ``param_axes`` (the JAX ``param_specs``) lays it
+out (``_setup_mesh``: parallel/sharding.py ``shard_params``): the dense
+and MoE families' heads, kv heads, hidden units and vocabulary over
+'tensor' and the MoE experts over 'expert' (a dense model is whole on
+every 'expert' index), the MLA family's heads over 'tensor' with the
+latent whole. A K/V pool holds the rank's KH/T kv heads, so kernels A
+and B run at H/T q heads and KH/T kv heads on every rank; a latent pool
+is whole on every rank (no kernel runs there). Rank
 0 answers HTTP and broadcasts every device-touching op before it runs it
 (``_bcast``: warmup, admit, chunkstart, chunk, spill, step, collect,
 reap, cancel, reset, stop); the followers replay each op through the
@@ -165,9 +170,10 @@ The knobs are the JAX engine's, read under its names and defaults
 ``SKYTPU_ENGINE_ATTN=gather`` beside ``SKYTPU_ENGINE_KV_QUANT=int8`` is
 the JAX engine's ValueError. What waits is refused by name: request
 spans (ROADMAP Queue 1 item 4) and, on a serving mesh (item 8), the
-'data', 'fsdp', 'stage', 'sequence' and 'expert' axes, the MoE and MLA
-families, a mesh in one process (one process holds one rank), a layout
-other than the fused paged pool and disaggregated serving on a gang.
+'data', 'fsdp', 'stage' and 'sequence' axes, a mesh in one process (one
+process holds one rank), a layout other than the fused paged pool and
+disaggregated serving on a gang; int8 weights of the MoE family are
+refused on any mesh, as in JAX.
 
 The HTTP server is the standard library's ThreadingHTTPServer; the
 batch loop runs in its own thread and owns all device state. Request
@@ -192,6 +198,10 @@ streaming, a per-request queue.
     # sharing one card also need SKYTPU_TORCH_DIST_BACKEND=gloo):
     python -m skypilot_tpu_torch.serve.engine --model llama-1b \
         --mesh tensor=2 --num-processes 2 --process-id R \
+        --coordinator 127.0.0.1:29500
+    # the MoE family over four ranks, two expert groups of two:
+    python -m skypilot_tpu_torch.serve.engine --model moe-1b \
+        --mesh expert=2,tensor=2 --num-processes 4 --process-id R \
         --coordinator 127.0.0.1:29500
 """
 from __future__ import annotations
@@ -310,8 +320,8 @@ MAX_EXPORTS = 256
 MIRRORED_KNOBS = ('max_batch', 'page_size', 'kv_pages', 'step_chunk',
                   'prefix_cache', 'spec_k', 'spec_cooldown', 'prefill_chunk',
                   'kv_host_mb')
-# A serving mesh shards over 'tensor' alone in this port.
-WAITING_MESH_AXES = ('data', 'stage', 'fsdp', 'sequence', 'expert')
+# A serving mesh shards over 'expert' and 'tensor' in this port.
+WAITING_MESH_AXES = ('data', 'stage', 'fsdp', 'sequence')
 
 
 def parse_mesh_arg(mesh: str) -> mesh_lib.MeshSpec:
@@ -333,21 +343,16 @@ def parse_mesh_arg(mesh: str) -> mesh_lib.MeshSpec:
 
 def check_serving_mesh(cfg: LlamaConfig, shape: Dict[str, int]) -> None:
     """Refuse by name what a serving mesh cannot do here yet (each
-    waits for ROADMAP Queue 1 item 8), then the JAX divisibility check:
+    waits for ROADMAP Queue 1 item 8), then the family's JAX
+    divisibility check (``validate_divisibility`` of ``module_for``):
     ``shape`` maps axes to sizes (-1: filled from the world later)."""
     for ax in WAITING_MESH_AXES:
         if shape.get(ax, 1) > 1:
             raise NotImplementedError(
                 f"--mesh {ax}={shape[ax]}: serving over the {ax!r} axis is "
-                f"not ported yet; the port's engine shards over 'tensor' "
-                f'only (it waits for ROADMAP Queue 1 item 8)')
-    if isinstance(cfg, (MoEConfig, MLAConfig)):
-        family = 'MLA' if isinstance(cfg, MLAConfig) else 'MoE'
-        raise NotImplementedError(
-            f'the {family} family on a serving mesh is not ported yet: '
-            f"the port's engine shards the dense family over 'tensor' "
-            f'(it waits for ROADMAP Queue 1 item 8)')
-    llama.validate_divisibility(cfg, shape)
+                f"not ported yet; the port's engine shards over 'expert' "
+                f"and 'tensor' only (it waits for ROADMAP Queue 1 item 8)")
+    module_for(cfg).validate_divisibility(cfg, shape)
 
 
 class EngineOverloaded(Exception):
@@ -657,9 +662,10 @@ class InferenceEngine:
     ``prefix_cache``, ``prefill_chunk``, ``spec_k`` or
     ``spec_cooldown``.
 
-    ``mesh`` ('tensor=N', a MeshSpec or a built mesh over the
-    initialised process group) shards the params over 'tensor' as this
-    rank's slice (``_setup_mesh``); the engine then does its device work
+    ``mesh`` ('expert=E,tensor=T', a MeshSpec or a built mesh over the
+    initialised process group) shards the params over 'expert' and
+    'tensor' as this rank's slice (``_setup_mesh``); the engine then
+    does its device work
     under that mesh (:meth:`on_mesh`) and runs its step bodies eagerly.
     ``seed`` draws the random weights and seeds the samplers; a gang's
     leader may set ``seed`` anew before warm-up (the weights are drawn
@@ -844,14 +850,17 @@ class InferenceEngine:
         self.warm_buckets: List[int] = []
 
     def _setup_mesh(self, mesh, quantize: Optional[str]) -> None:
-        """Shard the params over ``mesh`` (JAX ``_setup_mesh``, 'tensor'
-        only): this rank keeps its slice of every leaf
-        (parallel/sharding.py ``shard_params`` over models/llama.py
+        """Shard the params over ``mesh`` (JAX ``_setup_mesh``, 'expert'
+        and 'tensor'): this rank keeps its slice of every leaf
+        (parallel/sharding.py ``shard_params`` over the family's
         ``param_axes``; int8 leaves after quantizing the whole tree, as
-        JAX shards them); the pools hold its kv heads once built under
-        :meth:`on_mesh`. A mesh spec is checked before any group is
-        made, then built over the process group's ranks; a layout other
-        than the fused paged pool is refused before either."""
+        JAX shards them); a K/V pool holds its kv heads once built under
+        :meth:`on_mesh`, a latent pool the whole latent. A mesh spec is
+        checked before any group is made, then built over the process
+        group's ranks, with the ('expert', 'tensor') group of the
+        routed experts' sum made here, on every rank in the same order;
+        a layout other than the fused paged pool is refused before
+        either."""
         self._check_layout(mesh)
         if isinstance(mesh, str):
             mesh = parse_mesh_arg(mesh)
@@ -866,8 +875,9 @@ class InferenceEngine:
                 'disaggregated serving on a gang is not ported yet (it '
                 'waits for ROADMAP Queue 1 item 8)')
         self.mesh = mesh
+        mesh.group('expert', 'tensor')
         self.params = sharding.shard_params(
-            self.params, llama.param_axes(self.cfg), mesh)
+            self.params, module_for(self.cfg).param_axes(self.cfg), mesh)
         logger.info('Serving on mesh %s: rank %d of %d%s.', dict(mesh.shape),
                     mesh.rank, mesh.size,
                     ' [int8 weights sharded]' if quantize else '')
@@ -875,7 +885,8 @@ class InferenceEngine:
     def on_mesh(self):
         """The context the engine's device work runs in: its mesh made
         the current one (models/llama.py reads the 'tensor' group from
-        it), or nothing without one."""
+        it, models/moe.py the ('expert', 'tensor') one), or nothing
+        without one."""
         if self.mesh is None:
             return contextlib.nullcontext()
         return mesh_lib.use_mesh(self.mesh)
@@ -4040,8 +4051,8 @@ def build_parser() -> argparse.ArgumentParser:
                              'families; composes with --mesh).')
     parser.add_argument('--mesh', default=None,
                         help="Shard the replica over a gang of ranks, "
-                             "'tensor=N' (with --num-processes N: one "
-                             'process a rank).')
+                             "'tensor=T' or 'expert=E,tensor=T' (with "
+                             '--num-processes E*T: one process a rank).')
     parser.add_argument('--warm-buckets', default='all',
                         help="Comma-separated prompt buckets to admit once "
                              "in warm-up, or 'all' (the default).")
@@ -4097,6 +4108,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         if not args.mesh:
             raise ValueError('multi-host serving needs --mesh spanning the '
                              'ranks (e.g. tensor=2 over 2 processes).')
+        # The mesh must span the gang: checked before joining the world.
+        parse_mesh_arg(args.mesh).sizes(args.num_processes)
         device = mesh_lib.rank_device(device)
         mesh_lib.init_distributed(args.coordinator, args.num_processes,
                                   args.process_id, device)

@@ -5,9 +5,12 @@ The JAX engine joins every host of a slice into one jax.distributed job
 and lets XLA's collectives shard its params and cache over the global
 mesh. The port runs one process a rank (``torch.distributed``, joined
 by ``parallel/mesh.py init_distributed`` at the coordinator address):
-each rank holds a 1/N shard of the dense model over 'tensor', and the
-forward's all-reduces and all-gather (models/llama.py) run inside the
-same engine methods single-process serving uses.
+each rank holds its shard of the model over 'expert' and 'tensor' (the
+family's ``param_axes``), and the forward's all-reduces and all-gather
+(models/llama.py, models/moe.py, models/mla.py) run inside the same
+engine methods single-process serving uses. The leader sends one op
+stream to every follower, however many ranks the mesh holds; the page
+allocator's fingerprint covers the K/V and the latent pools alike.
 
 Design — leader-follower SPMD mirroring, as in JAX:
   - Rank 0 (leader) runs the HTTP frontend and the continuous batcher.

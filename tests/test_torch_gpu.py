@@ -1752,10 +1752,11 @@ def test_rollout_two_step_replay_is_bit_equal_on_the_card(cuda, tmp_path,
 
 # A rank's heads in a serving gang at --mesh tensor=N (serve/engine.py):
 # llama-1b's 16/8 at head dim 128 and gemma-7b's 16/16 at 256, at N = 2
-# and 4 (the group g = H/KH stays).
+# and 4 (the group g = H/KH stays), and moe-1b's 8/4 at 128 at N = 2
+# (its --mesh expert=2,tensor=2 gang: g = 2).
 TP_HEADS = [pytest.param(16 // n, kh // n, d, id=f'{name}-tensor{n}')
             for name, kh, d in (('llama-1b', 8, 128), ('gemma-7b', 16, 256))
-            for n in (2, 4)]
+            for n in (2, 4)] + [pytest.param(4, 2, 128, id='moe-1b-tensor2')]
 
 
 @pytest.mark.parametrize('h,kh,d', TP_HEADS)
@@ -1785,6 +1786,60 @@ def test_paged_kernel_matches_plain_at_a_ranks_heads(cuda, h, kh, d, s):
                                         table_t, length_t, softmax_scale=1.0)
     torch.cuda.synchronize()
     _assert_o_close(out, ref)
+
+
+def test_moe_gang_steps_on_the_card_match_one_process(cuda, tmp_path):
+    """moe-debug in fp32 over four gloo ranks sharing the card at
+    expert=2,tensor=2 (tests/torch_dist_worker.py's 'tp' job): a ragged
+    prefill into pages and three paged steps, every rank's gathered
+    logits the same bits and within 1e-5 of their std of the same steps
+    in this process, unsharded on the card (fp32: the plain attention,
+    as on the CPU)."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    import torch_dist_worker
+    from skypilot_tpu_torch.models import moe
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = dataclasses.replace(config.get_config('moe-debug'),
+                              dtype=torch.float32)
+    tree = moe.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+    tree['layers']['router'] = 5 * tree['layers']['router']
+    tree = {k: ({n: a.numpy() for n, a in v.items()} if isinstance(v, dict)
+                else v.numpy()) for k, v in tree.items()}
+    rng = np.random.default_rng(0)
+    job = dict(kind='tp', world=4, mesh={'expert': 2, 'tensor': 2},
+               model='moe-debug', dtype='float32', overrides={},
+               device='cuda', params=tree,
+               tokens=rng.integers(0, 256, (3, 16)).astype(np.int32),
+               lengths=np.array([16, 9, 3], np.int32), max_len=64,
+               table=rng.permutation(np.arange(1, 25)).reshape(3, 8).astype(
+                   np.int32),
+               feed=rng.integers(0, 256, (3, 3)).astype(np.int32),
+               active=np.array([True, False, True]))
+    with open(tmp_path / 'jobs.pkl', 'wb') as f:
+        pickle.dump({'moe': job}, f)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, 'tests', 'torch_dist_worker.py'),
+         str(tmp_path / 'jobs.pkl'), str(r), '4', str(tmp_path / 'init'),
+         str(tmp_path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(4)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs
+    params = weights.params_from_jax(tree, cfg, device='cuda')
+    with torch.no_grad():
+        want = torch_dist_worker.paged_logits(params, cfg, job)
+    ranks = []
+    for r in range(4):
+        with open(tmp_path / f'rank{r}.pkl', 'rb') as f:
+            ranks.append(pickle.load(f)['moe'])
+    for step, w in enumerate(want):
+        rows = slice(None) if step == 0 else job['active']
+        for r in range(1, 4):
+            np.testing.assert_array_equal(ranks[r][step], ranks[0][step])
+        err = float(np.abs(ranks[0][step][rows] - w[rows]).max())
+        assert err <= 1e-5 * float(w[rows].std()), (step, err)
 
 
 # The engine's K/V layouts (SKYTPU_ENGINE_PAGED, SKYTPU_ENGINE_ATTN).

@@ -433,13 +433,37 @@ def test_waiting_mesh_axes_are_refused_by_name(axis):
                                    mesh=f'{axis}=2,tensor=2')
 
 
-@pytest.mark.parametrize('model,family', [('moe-debug', 'MoE'),
-                                          ('mla-debug', 'MLA')])
-def test_moe_and_mla_on_a_mesh_are_refused_by_name(model, family):
+def test_moe_int8_on_a_mesh_is_refused_by_name():
+    """int8 weights of the MoE family stay refused on a mesh, as in
+    JAX (its expert dispatch does not read through the dequant)."""
     with pytest.raises(NotImplementedError,
-                       match=f'the {family} family on a serving mesh.*item 8'):
+                       match='int8 decode is implemented for the dense'):
+        engine_lib.InferenceEngine('moe-debug', device='cpu', max_len=64,
+                                   quantize='int8',
+                                   mesh='expert=2,tensor=2')
+
+
+@pytest.mark.parametrize('model,mesh,what', [
+    ('moe-debug', 'expert=3', 'n_experts=4'),
+    ('gptoss-debug', 'expert=2,tensor=4', 'n_kv_heads=2'),
+    ('mla-debug', 'tensor=3', 'n_heads=4'),
+    ('deepseek-moe-debug', 'expert=3,tensor=2', 'n_experts=4')])
+def test_moe_and_mla_at_a_non_dividing_mesh_are_refused(model, mesh, what):
+    """The family's JAX divisibility check, at construction and before
+    any group is made."""
+    with pytest.raises(ValueError, match=f'{what} not divisible'):
         engine_lib.InferenceEngine(model, device='cpu', max_len=64,
-                                   mesh='tensor=2')
+                                   mesh=mesh)
+
+
+def test_a_gang_must_span_the_mesh(monkeypatch):
+    """--num-processes must be the mesh's size: refused before the
+    process joins any world."""
+    monkeypatch.setenv('SKYTPU_MH_TOKEN', 'tok')
+    with pytest.raises(ValueError, match='2 devices not divisible by fixed axes 4'):
+        engine_lib.main(['--model', 'moe-debug', '--device', 'cpu',
+                         '--mesh', 'expert=2,tensor=2', '--num-processes',
+                         '2', '--coordinator', '127.0.0.1:1'])
 
 
 def test_mesh_needs_a_gang_and_a_gang_needs_a_mesh(monkeypatch):

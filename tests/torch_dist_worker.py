@@ -1,6 +1,8 @@
 """One rank of a gloo process group on the CPU, for the port's
-context-parallel tests (tests/test_torch_ring.py) and its
-tensor-parallel forward (tests/test_torch_multihost_forward.py).
+context-parallel tests (tests/test_torch_ring.py) and its sharded
+serving forward (tests/test_torch_multihost_forward.py: the dense
+family over 'tensor'; tests/test_torch_gang_forward.py: the MoE and MLA
+families over 'expert' and 'tensor').
 
     python tests/torch_dist_worker.py JOBS.pkl RANK WORLD INIT_FILE OUT_DIR
 
@@ -21,8 +23,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from skypilot_tpu_torch import config  # noqa: E402
-from skypilot_tpu_torch.models import decode, llama, paging  # noqa: E402
-from skypilot_tpu_torch.models import weights  # noqa: E402
+from skypilot_tpu_torch.models import decode, mla, paging  # noqa: E402
+from skypilot_tpu_torch.models import module_for, weights  # noqa: E402
 from skypilot_tpu_torch.ops import ring_attention as ring  # noqa: E402
 from skypilot_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from skypilot_tpu_torch.parallel import sharding  # noqa: E402
@@ -93,40 +95,44 @@ def tp_config(job):
 
 
 def paged_logits(params, cfg, job):
-    """Prefill the job's ragged prompts, scatter their K/V into its page
-    table (pools of ``job['kv_quant']``, default 'none'), then one paged
+    """Prefill the job's ragged prompts, scatter their K/V (an MLA
+    config: their latents) into its page table (pools of
+    ``job['kv_quant']``, default 'none'), then one paged
     decode step per row of ``job['feed']`` with ``job['active']`` and,
     with ``job['verify']`` [K, B], one paged verify step fed its
     transpose (a [B, K] view with transposed strides, as the engine
-    feeds its verify): every step's logits as fp32 numpy."""
-    tokens = torch.from_numpy(job['tokens'])
-    lengths = torch.from_numpy(job['lengths'])
-    table = torch.from_numpy(job['table'])
-    active = torch.from_numpy(job['active'])
+    feeds its verify): every step's logits as fp32 numpy. On
+    ``job['device']``, default the CPU."""
+    dev = job.get('device', 'cpu')
+    tokens, lengths, table, active = (
+        torch.from_numpy(job[x]).to(dev)
+        for x in ('tokens', 'lengths', 'table', 'active'))
     b, s = tokens.shape
     maxp, max_len = table.shape[1], job['max_len']
     psz = max_len // maxp
-    logits, ks, vs = decode.prefill(params, tokens, cfg, max_len,
-                                    lengths=lengths)
-    pool = decode.init_page_pool(cfg, b * maxp + 1, psz, b, maxp,
-                                 device='cpu',
-                                 quant=job.get('kv_quant', 'none'))
+    dec = mla if isinstance(cfg, config.MLAConfig) else decode
+    logits, ks, vs = dec.prefill(params, tokens, cfg, max_len,
+                                 lengths=lengths)
+    pool = dec.init_page_pool(cfg, b * maxp + 1, psz, b, maxp,
+                              device=dev,
+                              quant=job.get('kv_quant', 'none'))
     pool.table.copy_(table)
-    paging.scatter_prefill(pool, ks, vs, torch.arange(b), s, lengths)
+    paging.scatter_prefill(pool, ks, vs, torch.arange(b, device=dev), s,
+                           lengths)
     out = [logits]
     for tok in job['feed']:
-        logits, pool = decode.paged_decode_step(
-            params, torch.from_numpy(tok), pool, cfg, max_len=max_len,
-            active=active)
+        logits, pool = dec.paged_decode_step(
+            params, torch.from_numpy(tok).to(dev), pool, cfg,
+            max_len=max_len, active=active)
         out.append(logits)
     if job.get('verify') is not None:
-        fed = torch.from_numpy(job['verify']).t()
+        fed = torch.from_numpy(job['verify']).to(dev).t()
         assert not fed.is_contiguous()
-        logits, pool = decode.paged_verify_step(params, fed, pool, cfg,
-                                                max_len=max_len,
-                                                active=active)
+        logits, pool = dec.paged_verify_step(params, fed, pool, cfg,
+                                             max_len=max_len,
+                                             active=active)
         out.append(logits)
-    return [x.float().numpy() for x in out]
+    return [x.float().cpu().numpy() for x in out]
 
 
 @contextlib.contextmanager
@@ -157,16 +163,27 @@ def contiguity_spy():
 def tp_job(job, rank, world):
     """:func:`paged_logits` of the bridged params (int8 with
     ``job['quantize']``, quantized whole, then sharded) on a mesh of
-    'tensor' = the world: each rank holds its shard (and its kv heads'
-    pages); the logits are every rank's gathered ones. With
+    ``job['mesh']`` (default 'tensor' = the world): each rank holds its
+    shard of the family's ``param_axes`` (and its kv heads' pages, or
+    the whole latent pool); the logits are every rank's gathered ones.
+    With
     ``job['spy']`` the result is {'logits', 'collectives'}, the latter
     :func:`contiguity_spy`'s record of the run."""
     cfg = tp_config(job)
     params = decode.cast_params_for_decode(
-        weights.params_from_jax(job['params'], cfg, device='cpu'), cfg,
+        weights.params_from_jax(job['params'], cfg,
+                                device=job.get('device', 'cpu')), cfg,
         quantize=job.get('quantize'))
-    mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(tensor=world))
-    params = sharding.shard_params(params, llama.param_axes(cfg), mesh)
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(
+        **job.get('mesh', {'tensor': world})))
+    mesh.group('expert', 'tensor')
+    params = sharding.shard_params(params, module_for(cfg).param_axes(cfg),
+                                   mesh)
+    if job.get('expert_index_zero'):
+        # The fault the shared-experts test must catch: every rank
+        # taking itself for expert index 0 adds DeepSeekMoE's shared
+        # experts on each 'expert' index.
+        mesh.coords['expert'] = 0
     with torch.no_grad(), mesh_lib.use_mesh(mesh), contiguity_spy() as calls:
         out = paged_logits(params, cfg, job)
     return {'logits': out, 'collectives': calls} if job.get('spy') else out

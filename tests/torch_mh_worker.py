@@ -1,10 +1,12 @@
 """One rank of the port's engine gang on the CPU, for
-tests/test_torch_multihost.py.
+tests/test_torch_multihost.py and
+tests/test_torch_gang_serving.py.
 
     python tests/torch_mh_worker.py ENGINE-FLAGS...
 
 Runs ``python -m skypilot_tpu_torch.serve.engine ENGINE-FLAGS`` in this
-process, with llama-debug computing in fp32 (the JAX engine tests'
+process, with every debug preset (llama-debug, moe-debug, gptoss-debug,
+mla-debug, deepseek-moe-debug) computing in fp32 (the JAX engine tests'
 ``eng.cfg = replace(eng.cfg, dtype=float32)``: greedy tokens compared
 across packages and shardings need fp32 arithmetic). Imports torch and
 the port only, never JAX.
@@ -23,6 +25,8 @@ from skypilot_tpu_torch.serve import engine  # noqa: E402
 
 if __name__ == '__main__':
     torch.set_num_threads(1)
-    config.PRESETS['llama-debug'] = dataclasses.replace(
-        config.PRESETS['llama-debug'], dtype=torch.float32)
+    for presets in (config.PRESETS, config.MOE_PRESETS, config.MLA_PRESETS):
+        for name, cfg in presets.items():
+            if name.endswith('-debug'):
+                presets[name] = dataclasses.replace(cfg, dtype=torch.float32)
     engine.main(sys.argv[1:])
