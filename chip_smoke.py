@@ -244,8 +244,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  torch.profiler; then one step each of gemma2-9b (2
                  layers) and gemma3-12b (6 layers) with no kernel
                  launched, their grads against fp32;
- 18. train     — the port's trainer on llama-1b at full width (8 of its
-                 16 layers since PR 21), 6 steps
+ 18. train     — the port's trainer on llama-1b at full width (4 of its
+                 16 layers, to make room for the fsdp phase), 6 steps
                  of 4 x 2048 tokens: A twice and C, D once per layer per
                  step; grads against the plain and fp32 paths, the loss
                  against the plain-attention trainer, a resume at step
@@ -265,12 +265,28 @@ Phases (any failure exits non-zero; nothing is swallowed):
                  bucket and a ring message cost; (c) `python -m
                  skypilot_tpu_torch.train.trainer --mesh sequence=2`
                  with zigzag ring as two processes with the gang env,
-                 llama-1b at full width cut to 8 of its 16 layers
-                 (since PR 21), 2 steps of 2 x 4096: launches per rank
+                 llama-1b at full width cut to 4 of its 16 layers
+                 (room for the fsdp phase), 2 steps of 2 x 4096: launches per rank
                  (A twice, C and D fp32 once per block per layer per
                  step), both replicas' params sha256 equal, ms/step and
                  peak memory per rank, the losses against the
                  single-process trainer on the same batches (TOL_LOSS);
+ 18c. fsdp     — fully-sharded training, the JAX trainer's default mesh:
+                 `python -m skypilot_tpu_torch.train.trainer` as two
+                 processes with the gang env and no --mesh (fsdp=2,
+                 gloo, one card), llama-1b whole (16 layers, 0.97 B
+                 params, 7.8 GB of fp32 state a rank), 3 steps of
+                 4 x 2048: each rank's launches (A 96, C 48, D 48), its
+                 peak memory below the one-process trainer's, the
+                 losses against the one-process trainer on the same
+                 batches (TOL_LOSS); the step-3 checkpoint (each rank's
+                 chunks) restored on one process, whose cut of the
+                 params equals each rank's shard digest, and on the
+                 gang, one more step in each (TOL_LOSS); then moe-1b at
+                 4 of 12 layers at --mesh data=2, 2 steps: loss
+                 (TOL_LOSS) and router aux (TOL_AUX) against one
+                 process. Scratch in the git-ignored .smoke_fsdp/
+                 (removed); logs chiprun_out/fsdp_<tag><rank>.log;
  19. train_moe — the trainer on moe-1b at full width cut to 4 of its 12
                  layers (8 experts top-2, hd 128),
                  checked as in train: A 48, C 24 and D 24 launches in 6
@@ -454,7 +470,8 @@ FLASH64_CASES = [(2, 100, True), (2, 2048, True), (1, 300, False)]
 # relative each), as the TPU kernels do.
 TOL_BWD = 2e-2
 # (B, S=T, H, KH, D, causal, nonzero lse cotangent): GQA groups 1, 2, 4;
-# ragged S; both causal settings; D=64; llama-1b heads at S=2048; then
+# ragged S; both causal settings; D=64; llama-1b heads at S=2048 (B=2:
+# a rank's rows on the fsdp path); then
 # D=256 (the Gemma family): groups 1 and 2, ragged S (odd-S lse and
 # delta rows), both causal settings, an lse cotangent, gemma-7b's heads
 # at S=2048.
@@ -464,6 +481,7 @@ BWD_CASES = [(1, 100, 4, 4, 128, True, False),
              (1, 200, 4, 1, 64, True, False),
              (1, 300, 4, 2, 64, False, True),
              (1, 2048, 16, 8, 128, True, False),
+             (2, 2048, 16, 8, 128, True, False),
              (1, 2048, 32, 8, 64, True, False),
              (1, 100, 4, 4, 256, True, False),
              (2, 130, 4, 2, 256, False, True),
@@ -479,10 +497,11 @@ FLASH256_CASES = [(2, 16, 16, 16, True), (2, 100, 16, 16, True),
                   (1, 300, 16, 8, False), (1, 2048, 16, 16, True)]
 TRAIN_KERNELS = ('flash_fwd', 'flash_dq', 'flash_dkv')
 # Train phase: llama-1b at full width cut to TRAIN_DEPTH of its 16
-# layers (since the kv_int8 phase took its room: the resume's two
-# checkpoints were most of the phase), batch 4 x 2048, 6 steps.
+# layers (8 since the kv_int8 phase took its room: the resume's two
+# checkpoints were most of the phase; 4 since the fsdp phase, which
+# trains, saves and restores llama-1b whole), batch 4 x 2048, 6 steps.
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP = 4, 2048, 6, 2
-TRAIN_DEPTH = 8
+TRAIN_DEPTH = 4
 # Grads: per leaf, the kernel bf16 path's relative error (Frobenius)
 # against an fp32 plain-attention run of the same weights and batch,
 # over the plain bf16 path's: bf16 rounding through 16 layers dominates
@@ -5728,11 +5747,11 @@ RING_F32_CASES = [(2, 2048, 16, 8, 128, True, False),
 RING_B, RING_S, RING_RANKS = 1, 8192, 2
 TOL_RING_OUT, TOL_RING_GRAD = 3e-2, 2e-2
 # (c) The trainer CLI, two gang processes on the card: llama-1b at full
-# width cut to RING_TRAIN_DEPTH of its 16 layers (since the kv_int8
-# phase), remat 'full', 2 x 4096 tokens (2048 a rank), zigzag ring, 2
-# steps.
+# width cut to RING_TRAIN_DEPTH of its 16 layers (8 since the kv_int8
+# phase, 4 since the fsdp phase), remat 'full', 2 x 4096 tokens (2048 a
+# rank), zigzag ring, 2 steps.
 RING_TRAIN_B, RING_TRAIN_S, RING_TRAIN_STEPS = 2, 4096, 2
-RING_TRAIN_DEPTH = 8
+RING_TRAIN_DEPTH = 4
 RING_KERNELS = ('flash_fwd', 'flash_dq_f32', 'flash_dkv_f32')
 
 
@@ -5946,12 +5965,12 @@ def spawn_ranks(cmds, envs, logs, timeout: float):
     return [p.returncode for p, _ in procs]
 
 
-def rank_env(rank: int, port: int) -> dict:
-    """The gang's environment for ``rank`` on this host, the ranks
-    sharing the card over gloo."""
+def rank_env(rank: int, port: int, ranks: int = RING_RANKS) -> dict:
+    """The gang's environment for ``rank`` of ``ranks`` on this host,
+    the ranks sharing the card over gloo."""
     return dict(os.environ, PYTHONPATH=HERE,
                 SKYTPU_COORDINATOR_ADDRESS=f'127.0.0.1:{port}',
-                SKYTPU_NUM_PROCESSES=str(RING_RANKS),
+                SKYTPU_NUM_PROCESSES=str(ranks),
                 SKYTPU_NODE_RANK=str(rank),
                 SKYTPU_TORCH_DIST_BACKEND='gloo')
 
@@ -6134,6 +6153,249 @@ def phase_ring(torch, fa, build, card: str) -> dict:
     log(f'[ring] parts: (a) {t1 - t0:.1f}s, (b) {t2 - t1:.1f}s, (c) '
         f'{time.perf_counter() - t2:.1f}s')
     return errs, launches
+
+
+# ---------------------------------------------------------------------------
+# The fsdp phase: the JAX trainer's default mesh, params fully sharded
+# ---------------------------------------------------------------------------
+
+# fsdp: `python -m skypilot_tpu_torch.train.trainer` as FSDP_RANKS gang
+# processes sharing the card over gloo with no --mesh (JAX's MeshSpec():
+# fsdp=2): llama-1b whole (16 layers, 0.97 B params, 15.6 GB of fp32
+# params, moments and grads; 7.8 GB a rank), FSDP_STEPS steps of FSDP_B
+# x FSDP_S saving the last; that step restored on one process and on
+# the gang, one more step each; then moe-1b at train_moe's depth at
+# --mesh data=2, FSDP_MOE_STEPS steps (its router aux's means over both
+# ranks' rows).
+FSDP_RANKS = 2
+FSDP_B, FSDP_S, FSDP_STEPS, FSDP_MOE_STEPS = 4, 2048, 3, 2
+FSDP_DIR = os.path.join(HERE, '.smoke_fsdp')
+# The aux of the gang against one process, relative: each rank's bf16
+# products run at 2 of the batch's 4 rows, so a router input may differ
+# in its last bit and a near-tied route flip (one token of 8192 moves
+# f_e by 1.2e-4 of its mass).
+TOL_AUX = 1e-3
+
+
+def fsdp_gang(flags, tag: str, card: str, port: int) -> tuple:
+    """The trainer CLI with ``flags`` as FSDP_RANKS gang processes on the
+    card, rank 0 listening on ``port``: (rank 0's step records, each
+    rank's replica record, the wall seconds). Any rank's failure fails
+    the phase."""
+    logs = [os.path.join(OUT_DIR, f'fsdp_{tag}{r}.log')
+            for r in range(FSDP_RANKS)]
+    fresh(logs)
+    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.train.trainer', *flags]
+    t0 = time.perf_counter()
+    rcs = spawn_ranks([cmd] * FSDP_RANKS,
+                      [rank_env(r, port, FSDP_RANKS)
+                       for r in range(FSDP_RANKS)], logs, 600)
+    wall = time.perf_counter() - t0
+    recs = []
+    for r in range(FSDP_RANKS):
+        if rcs[r] != 0:
+            tail = ''.join(open(logs[r]).readlines()[-15:])
+            fail(f'[fsdp] {tag} rank {r} exited {rcs[r]}:\n{tail}')
+        with open(logs[r]) as f:
+            recs.append([json.loads(line) for line in f
+                         if line.startswith('{')])
+    if any('loss' in x for x in recs[1]):
+        fail(f'[fsdp] {tag}: rank 1 wrote step records')
+    reps = [next(x for x in rs if 'replica' in x) for rs in recs]
+    hist = [x for x in recs[0] if 'loss' in x]
+    sec = statistics.median(x['sec_per_step'] for x in hist[1:]) \
+        if len(hist) > 1 else hist[0]['sec_per_step']
+    log(f'[fsdp] {tag}: {FSDP_RANKS} gang processes, {" ".join(flags)}: '
+        f'losses {[x["loss"] for x in hist]}'
+        + (f', aux {[x["aux"] for x in hist]}' if 'aux' in hist[0] else '')
+        + f', {sec * 1e3:.1f} ms/step, {wall:.1f}s from start to exit; '
+        f'peak memory a rank {[x.get("peak_memory_gb") for x in reps]} GB '
+        f'| {card}')
+    return hist, reps, wall
+
+
+def fsdp_launches_ok(reps, layers: int, steps: int, tag: str,
+                     card: str) -> None:
+    """Each rank launched A twice and C, D once a layer a step (remat
+    'full', bf16 mode), nothing else."""
+    k = layers * steps
+    for x in reps:
+        want = {n: 0 for n in x['kernel_launches']}
+        want.update(flash_fwd=2 * k, flash_dq=k, flash_dkv=k)
+        log(f'[fsdp] {tag} rank {x["replica"]} (fsdp index '
+            f'{x["fsdp_index"]}): launches {x["kernel_launches"]} (want '
+            f'{want}); shard sha256 {x["params_sha256"][:16]} | {card}')
+        if x['kernel_launches'] != want:
+            fail(f'[fsdp] {tag} rank {x["replica"]}: launches '
+                 f'{x["kernel_launches"]}, want {want}')
+
+
+def shard_digests(params, cfg, ranks: int) -> list:
+    """sha256 of each rank's cut of ``params`` (whole, one process) at
+    fsdp=``ranks``, as the trainer's replica records digest a shard."""
+    from skypilot_tpu_torch.models import module_for
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import sharding
+    from skypilot_tpu_torch.train import train_lib
+    axes = train_lib.leaves(module_for(cfg).param_axes(cfg))
+    out = []
+    for r in range(ranks):
+        mesh = mesh_lib.Mesh(mesh_lib.MeshSpec().sizes(ranks), r)
+        h = hashlib.sha256()
+        for leaf, ax in zip(train_lib.leaves(params), axes):
+            lo, size = sharding.leaf_box(leaf.shape, ax, mesh)
+            cut = leaf.detach()[tuple(slice(a, a + n)
+                                      for a, n in zip(lo, size))]
+            h.update(cut.contiguous().cpu().numpy().data)
+        out.append(h.hexdigest())
+    return out
+
+
+def fsdp_one_process_step(torch, tcfg, cfg, ck: str, step: int) -> tuple:
+    """Step ``step`` + 1 on one process from the gang's checkpoint of
+    ``step`` (restored whole, on the card), the trainer's batch and
+    optimizer: (its loss, the restored params' shard digests)."""
+    from skypilot_tpu_torch.data import loader
+    from skypilot_tpu_torch.data_service import spec as spec_lib
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.train import checkpoints, train_lib, trainer
+    tx = train_lib.default_optimizer(learning_rate=tcfg.learning_rate,
+                                     warmup_steps=tcfg.warmup_steps,
+                                     total_steps=step + 1)
+    t0 = time.perf_counter()
+    state = checkpoints.Checkpointer(ck, cfg=cfg).restore_tree(
+        checkpoints.abstract_train_state(cfg, tx), step, 'cuda')
+    secs = time.perf_counter() - t0
+    digests = shard_digests(state.params, cfg, FSDP_RANKS)
+    source = spec_lib.load_source(trainer._dataset_spec(tcfg,
+                                                        cfg.vocab_size))
+    batch = loader.shard_batch(source.batch_at_step(step),
+                               mesh_lib.single_device_mesh(), 'cuda')
+    _, metrics = train_lib.make_train_step(cfg, tx)(state, batch)
+    loss = float(metrics['loss'])
+    log(f'[fsdp] one process: the gang\'s step {step} restored whole in '
+        f'{secs:.1f}s (while the resumed gang ran), step {step + 1} loss '
+        f'{loss:.4f}')
+    del state
+    return loss, digests
+
+
+def phase_fsdp(torch, build, card: str) -> dict:
+    """Fully-sharded training, the JAX trainer's default mesh: the
+    trainer CLI as two gang processes with no --mesh (fsdp=2) on
+    llama-1b whole: losses against the one-process trainer on the same
+    batches (TOL_LOSS), each rank's launches (A twice, C and D once a
+    layer a step) and peak memory (below the one process's); its last
+    step's checkpoint restored on one process (each rank's shard digest
+    equal to the cut of the restored params) and on the gang, one more
+    step in each (TOL_LOSS). Then moe-1b at MOE_TRAIN_DEPTH layers at
+    --mesh data=2: loss and aux against one process. The one-process
+    runs go on in this process while the gangs run (whose steps wait
+    mostly on their collectives through the host), and the resumed
+    gang beside the moe-1b gang. Returns the ranks' launches, summed."""
+    import shutil
+    from skypilot_tpu_torch import config
+    from skypilot_tpu_torch.train import trainer
+    t_phase = time.perf_counter()
+    ck = os.path.join(FSDP_DIR, 'ck')
+    shutil.rmtree(FSDP_DIR, ignore_errors=True)
+    common = ['--batch-size', str(FSDP_B), '--seq-len', str(FSDP_S),
+              '--log-every', '1']
+    launches = {}
+
+    def add(reps):
+        for x in reps:
+            for n, c in x['kernel_launches'].items():
+                launches[n] = launches.get(n, 0) + c
+    cfg = config.get_config('llama-1b')
+    tcfg = trainer.TrainerConfig(model='llama-1b', batch_size=FSDP_B,
+                                 seq_len=FSDP_S, total_steps=FSDP_STEPS,
+                                 log_every=1, device='cuda')
+    moe_flags = ['--model', 'moe-1b', '--model-override',
+                 f'n_layers={MOE_TRAIN_DEPTH}', '--mesh',
+                 f'data={FSDP_RANKS}', *common, '--steps',
+                 str(FSDP_MOE_STEPS)]
+    ports = set()
+    while len(ports) < 3:          # three gangs, two of them at once
+        ports.add(free_port())
+    ports = sorted(ports)
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    try:
+        gang = pool.submit(fsdp_gang, [
+            '--model', 'llama-1b', *common, '--steps', str(FSDP_STEPS),
+            '--ckpt-dir', ck, '--ckpt-every', str(FSDP_STEPS)], 'llama', card,
+            ports[0])
+        torch.cuda.reset_peak_memory_stats()
+        one = trainer.train(tcfg)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        free_card(torch)
+        moe_one = trainer.train(trainer.TrainerConfig(
+            model='moe-1b', model_overrides={'n_layers': MOE_TRAIN_DEPTH},
+            batch_size=FSDP_B, seq_len=FSDP_S, total_steps=FSDP_MOE_STEPS,
+            log_every=1, device='cuda'))
+        free_card(torch)
+        hist, reps, _ = gang.result()
+        add(reps)
+        fsdp_launches_ok(reps, cfg.n_layers, FSDP_STEPS, 'llama-1b', card)
+        if sorted(x['fsdp_index'] for x in reps) != list(range(FSDP_RANKS)):
+            fail(f'[fsdp] the default mesh did not shard over fsdp: {reps}')
+        diff = max(abs(a['loss'] - b['loss']) for a, b in zip(hist, one))
+        sec = statistics.median(x['sec_per_step'] for x in one[1:])
+        log(f'[fsdp] one process, llama-1b whole (while the gang ran): '
+            f'losses {[x["loss"] for x in one]}, {sec * 1e3:.1f} ms/step, '
+            f'peak {peak:.2f} GB; the gang\'s max |loss diff| {diff:.4f} '
+            f'(tol {TOL_LOSS}) | {card}')
+        if len(one) != len(hist) or diff > TOL_LOSS:
+            fail(f'[fsdp] the gang\'s losses depart from one process\'s '
+                 f'by {diff}')
+        if any(x['peak_memory_gb'] >= peak for x in reps):
+            fail(f'[fsdp] a rank\'s peak {[x["peak_memory_gb"] for x in reps]}'
+                 f' GB is not below one process\'s {peak:.2f} GB')
+
+        resume = pool.submit(fsdp_gang, [
+            '--model', 'llama-1b', *common, '--steps', str(FSDP_STEPS + 1),
+            '--ckpt-dir', ck, '--ckpt-every', str(FSDP_STEPS)],
+            'llama_resume', card, ports[1])
+        moe = pool.submit(fsdp_gang, moe_flags, 'moe', card, ports[2])
+        loss_one, digests = fsdp_one_process_step(torch, tcfg, cfg, ck,
+                                                  FSDP_STEPS)
+        free_card(torch)
+        ok = digests == [x['params_sha256'] for x in reps]
+        log(f'[fsdp] each rank\'s shard digest against its cut of the '
+            f'restored params: {"equal" if ok else "DIFFERENT"}')
+        if not ok:
+            fail('[fsdp] the checkpoint does not restore the shards\' bits')
+        resumed, reps, _ = resume.result()
+        add(reps)
+        fsdp_launches_ok(reps, cfg.n_layers, 1, 'llama-1b resumed', card)
+        if [x['step'] for x in resumed] != [FSDP_STEPS + 1]:
+            fail(f'[fsdp] the gang resumed at {resumed}')
+        diff = abs(resumed[0]['loss'] - loss_one)
+        log(f'[fsdp] step {FSDP_STEPS + 1} after the restore: gang '
+            f'{resumed[0]["loss"]}, one process {loss_one:.4f}, |diff| '
+            f'{diff:.4f} (tol {TOL_LOSS})')
+        if diff > TOL_LOSS:
+            fail(f'[fsdp] the restored gang departs from the restored one '
+                 f'process by {diff}')
+        hist, reps, _ = moe.result()
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(FSDP_DIR, ignore_errors=True)
+    add(reps)
+    fsdp_launches_ok(reps, MOE_TRAIN_DEPTH, FSDP_MOE_STEPS, 'moe-1b', card)
+    d_loss = max(abs(a['loss'] - b['loss']) for a, b in zip(hist, moe_one))
+    d_aux = max(abs(a['aux'] - b['aux']) / b['aux']
+                for a, b in zip(hist, moe_one))
+    log(f'[fsdp] one process, moe-1b ({MOE_TRAIN_DEPTH} of 12 layers): '
+        f'losses {[x["loss"] for x in moe_one]}, aux '
+        f'{[x["aux"] for x in moe_one]}; the data=2 gang\'s max |loss diff| '
+        f'{d_loss:.4f} (tol {TOL_LOSS}), aux relative {d_aux:.2e} (tol '
+        f'{TOL_AUX}) | {card}')
+    if len(moe_one) != len(hist) or d_loss > TOL_LOSS or d_aux > TOL_AUX:
+        fail('[fsdp] the moe-1b gang\'s loss or aux departs from one '
+             'process\'s')
+    log(f'[fsdp] phase {time.perf_counter() - t_phase:.1f}s')
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -6609,7 +6871,8 @@ def main() -> None:
                         'serve_gemma,'
                         'gemma_switches,model_moe,serve_moe,serve_gptoss,'
                         'model_mla,serve_mla,serve_deepseek_v2,'
-                        'train_gemma,train,ring,train_moe,train_mla,hf,sft,'
+                        'train_gemma,train,ring,fsdp,train_moe,train_mla,'
+                        'hf,sft,'
                         'lora,grpo,harvest',
                         help='comma-separated '
                         'subset (for '
@@ -6868,6 +7131,10 @@ def main() -> None:
         errs.update(ring_errs)
         free_card(torch)
     lap('ring')
+    if 'fsdp' in phases:
+        by_path['fsdp'] = phase_fsdp(torch, build, card)
+        free_card(torch)
+    lap('fsdp')
     if 'train_moe' in phases:
         by_path['train_moe'] = phase_train_moe(torch, build)
         free_card(torch)
@@ -6923,6 +7190,7 @@ def main() -> None:
              'train_lora': TRAIN_KERNELS, 'serve_lora': SERVE_KERNELS,
              'train_sft': TRAIN_KERNELS, 'serve_sft': SERVE_KERNELS,
              'grpo': TRAIN_KERNELS, 'ring': RING_KERNELS,
+             'fsdp': TRAIN_KERNELS,
              'harvest': TRAIN_KERNELS}
     rows = []
     for name, kern in build.kernels().items():

@@ -115,23 +115,17 @@ def cast_params_for_decode(params, cfg: LlamaConfig,
     return out
 
 
-# Leaves every family reads in fp32 whatever the compute dtype: RMSNorm
-# scales (ops/norms.rms_norm), attention sinks (models/llama.py) and
-# MoE routers (models/moe.py).
-FP32_AT_USE = ('norm', 'sink', 'router')
-
-
 def cast_params_for_compute(params, cfg: LlamaConfig, device=None):
     """The fp32 params tree with every leaf the model casts to
     ``cfg.dtype`` at use cast once now, and the leaves it reads in fp32
-    (:data:`FP32_AT_USE`) left as they are, each then moved to
+    (``llama.FP32_AT_USE``) left as they are, each then moved to
     ``device`` (default: where it is). The forward and generate give
     the same bits on either tree, as JAX's generate from fp32 params
     does, and the cast tree holds about half the bytes."""
     def cast(key, v):
         if isinstance(v, dict):
             return {k: cast(k, x) for k, x in v.items()}
-        if not any(tag in key for tag in FP32_AT_USE):
+        if not any(tag in key for tag in llama.FP32_AT_USE):
             v = v.to(cfg.dtype)
         return v if device is None else v.to(device)
     return {k: cast(k, v) for k, v in params.items()}

@@ -62,60 +62,127 @@ from skypilot_tpu_torch.parallel import mesh as mesh_lib
 Params = Dict[str, object]
 
 
+# Leaves every family reads in fp32 whatever the compute dtype: RMSNorm
+# scales (ops/norms.rms_norm), attention sinks (:func:`attention_switches`)
+# and MoE routers (models/moe.py). models/decode.py re-exports it.
+FP32_AT_USE = ('norm', 'sink', 'router')
+
+
+class _Pending:
+    """A leaf :class:`LeafInit` will make: its place in the draw order,
+    shape, fill (None: zeros, 'ones', else a function filling an fp32
+    tensor from the generator) and whether it is drawn a layer slice at
+    a time."""
+    __slots__ = ('order', 'shape', 'fill', 'stacked')
+
+    def __init__(self, order, shape, fill, stacked):
+        self.order, self.shape = order, tuple(int(d) for d in shape)
+        self.fill, self.stacked = fill, stacked
+
+
 class LeafInit:
     """Makes ``init_params``' leaves from ``generator`` on ``device``, in
     ``dtype``: normal(0.02) and truncated-normal (std fan_in**-0.5,
-    fan_in = shape[-2], cut at two std) draws, ones and zeros. A
-    stacked [L, ...] leaf is drawn one layer slice at a time in fp32 and
-    stored into its slice, so in a narrower dtype no leaf ever exists
-    whole in fp32 (gpt-oss-20b's 41.8 GB of bf16 weights are 84 GB in
-    fp32, more than the card holds); the draws are the same in every
-    dtype."""
+    fan_in = shape[-2], cut at two std) draws, ones and zeros. The
+    family's ``init_params`` builds its tree of pending leaves, then
+    :meth:`finish` makes them, in the order they were asked for (the
+    generator's order), each into this rank's slice of it.
 
-    def __init__(self, generator: torch.Generator, device, dtype):
+    A stacked [L, ...] leaf is drawn one layer slice at a time in fp32
+    and stored into its slice, so in a narrower dtype no leaf ever
+    exists whole in fp32 (gpt-oss-20b's 41.8 GB of bf16 weights are 84
+    GB in fp32, more than the card holds); the draws are the same in
+    every dtype. With a ``mesh`` whose 'fsdp' axis holds several ranks
+    (fully-sharded training) each leaf is allocated at this rank's
+    slice of the family's ``param_axes`` (parallel/sharding.py
+    ``leaf_box``), and every layer slice (or an unstacked leaf whole)
+    is drawn into one fp32 temporary and its cut copied in: a rank
+    holds its shards and one such temporary at most, and the union of
+    the ranks' shards is the one-process draw, bit for bit."""
+
+    def __init__(self, generator: torch.Generator, device, dtype,
+                 mesh: Optional[mesh_lib.Mesh] = None):
         self.generator, self.device, self.dtype = generator, device, dtype
+        self.mesh = mesh
+        self._asked = 0
 
-    def _draw(self, shape, fill, stacked: bool) -> torch.Tensor:
-        out = torch.empty(shape, dtype=self.dtype, device=self.device)
-        for part in (out.unbind(0) if stacked else (out,)):
-            if part.dtype == torch.float32:
-                fill(part)
-            else:
-                tmp = torch.empty(part.shape, dtype=torch.float32,
-                                  device=self.device)
-                fill(tmp)
-                part.copy_(tmp)
-        return out
+    def _pending(self, shape, fill, stacked: bool) -> _Pending:
+        self._asked += 1
+        return _Pending(self._asked, shape, fill, stacked)
 
     def normal(self, shape, std: float = 0.02,
-               stacked: bool = False) -> torch.Tensor:
-        return self._draw(shape, lambda t: t.normal_(
+               stacked: bool = False) -> _Pending:
+        return self._pending(shape, lambda t: t.normal_(
             0.0, std, generator=self.generator), stacked)
 
-    def trunc(self, shape) -> torch.Tensor:
+    def trunc(self, shape) -> _Pending:
         std = 1.0 / math.sqrt(shape[-2])
-        return self._draw(shape, lambda t: torch.nn.init.trunc_normal_(
+        return self._pending(shape, lambda t: torch.nn.init.trunc_normal_(
             t, 0.0, std, -2 * std, 2 * std, generator=self.generator), True)
 
-    def zeros(self, shape) -> torch.Tensor:
-        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+    def zeros(self, shape) -> _Pending:
+        return self._pending(shape, None, False)
 
-    def ones(self, shape) -> torch.Tensor:
-        return torch.ones(shape, dtype=self.dtype, device=self.device)
+    def ones(self, shape) -> _Pending:
+        return self._pending(shape, 'ones', False)
+
+    def finish(self, params: Params, axes: Params) -> Params:
+        """``params`` with every pending leaf made, ``axes`` the
+        family's ``param_axes`` (where each leaf is cut on a mesh)."""
+        todo = []
+
+        def walk(tree, ax):
+            out = {}
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    out[k] = walk(v, ax[k])
+                else:
+                    out[k] = None
+                    todo.append((v, ax[k], out, k))
+            return out
+        made = walk(params, axes)
+        for leaf, ax, parent, key in sorted(todo, key=lambda t: t[0].order):
+            parent[key] = self._make(leaf, ax)
+        return made
+
+    def _make(self, leaf: _Pending, axes) -> torch.Tensor:
+        from skypilot_tpu_torch.parallel import sharding
+        start, size = [0] * len(leaf.shape), list(leaf.shape)
+        if self.mesh is not None:
+            start, size = sharding.leaf_box(leaf.shape, axes, self.mesh)
+        out = torch.empty(size, dtype=self.dtype, device=self.device)
+        if leaf.fill is None or leaf.fill == 'ones':
+            return out.fill_(0.0 if leaf.fill is None else 1.0)
+        whole = list(leaf.shape) == size
+        first = 1 if leaf.stacked else 0
+        cut = tuple(slice(a, a + n) for a, n in
+                    zip(start[first:], size[first:]))
+        for part in (out.unbind(0) if leaf.stacked else (out,)):
+            if whole and part.dtype == torch.float32:
+                leaf.fill(part)
+                continue
+            tmp = torch.empty(leaf.shape[first:], dtype=torch.float32,
+                              device=self.device)
+            leaf.fill(tmp)
+            part.copy_(tmp[cut])
+            del tmp
+        return out
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device='cuda', dtype=None) -> Params:
+                device='cuda', dtype=None,
+                mesh: Optional[mesh_lib.Mesh] = None) -> Params:
     """Random params from ``generator`` (on ``device``), in ``dtype``
     (default cfg.param_dtype; a server asks for cfg.dtype, and gets the
     fp32 draws rounded, leaf by leaf: :class:`LeafInit`): normal(0.02)
     embeddings and truncated-normal projections with std fan_in**-0.5.
+    With a ``mesh``, this rank's shards of them (:class:`LeafInit`).
     Torch's RNG stream differs from jax.random's, so these are not the
     JAX package's weights: parity tests bridge JAX weights with
     models/weights.py instead."""
     check_supported(cfg)
     hd, L, D, Fd = cfg.hd, cfg.n_layers, cfg.dim, cfg.ffn_dim
-    init = LeafInit(generator, device, dtype or cfg.param_dtype)
+    init = LeafInit(generator, device, dtype or cfg.param_dtype, mesh)
 
     def norm(shape):
         # (1 + w) norms carry their identity in the "+ 1": w starts at 0.
@@ -149,7 +216,7 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
                       'layers': layers, 'final_norm': norm((D,))}
     if not cfg.tie_embeddings:
         params['lm_head'] = init.normal((D, cfg.vocab_size))
-    return params
+    return init.finish(params, param_axes(cfg))
 
 
 def param_axes(cfg: LlamaConfig) -> Params:
@@ -468,13 +535,86 @@ def layer(x: torch.Tensor, lp, cfg: LlamaConfig, sin, cos,
     return x + ffn(x, lp, cfg)
 
 
+def fsdp_mesh() -> Optional[mesh_lib.Mesh]:
+    """The current mesh when its 'fsdp' axis holds several ranks (the
+    params are then this rank's shards: parallel/sharding.py), else
+    None."""
+    mesh = mesh_lib.current_mesh()
+    return mesh if mesh.shape['fsdp'] > 1 else None
+
+
+def _use_dtype(key: str, cfg: LlamaConfig) -> torch.dtype:
+    """The dtype the forward reads leaf ``key`` in: fp32 for
+    :data:`FP32_AT_USE`, else the compute dtype."""
+    return (torch.float32 if any(tag in key for tag in FP32_AT_USE)
+            else cfg.dtype)
+
+
+def gather_leaves(tree, axes, cfg: LlamaConfig, mesh: mesh_lib.Mesh):
+    """``tree``'s leaves whole from this rank's shards: each leaf cut
+    over 'fsdp' gathered in the dtype the forward reads it in (cast
+    before the gather, half the bytes of the fp32 master's), the rest
+    as they are. ``axes`` holds each leaf's logical axes."""
+    from skypilot_tpu_torch.parallel import sharding
+    out = {}
+    for k, v in tree.items():
+        dim = sharding.fsdp_dim(axes[k])
+        out[k] = v if dim is None else sharding.gather(
+            v, dim, mesh, _use_dtype(k, cfg))
+    return out
+
+
+def fsdp_io(params: Params, cfg: LlamaConfig) -> Tuple[Params, Params]:
+    """(the params :func:`embed` reads, the params :func:`unembed` and
+    :func:`final_norm` read): ``params`` twice, or under an 'fsdp' mesh
+    the leaves outside the layers gathered once a forward (the layers
+    are gathered a layer at a time by :func:`apply_layers`). A tied
+    embedding is gathered once for both readers, as two aliases whose
+    cotangents are added in fp32."""
+    mesh = fsdp_mesh()
+    if mesh is None:
+        return params, params
+    from skypilot_tpu_torch.models import module_for
+    from skypilot_tpu_torch.parallel import sharding
+    n = mesh.shape['fsdp']
+    if params['embed'].shape[1] * n != cfg.dim:
+        raise ValueError(
+            f"the embedding is {list(params['embed'].shape)}: not a shard "
+            f'over fsdp={n} of dim {cfg.dim}; an fsdp mesh runs on the '
+            f'shards of train_lib.init_train_state')
+    axes = module_for(cfg).param_axes(cfg)
+    top = {k: v for k, v in params.items() if k != 'layers'}
+    if cfg.tie_embeddings:
+        e_in, e_out = sharding.gather(
+            params['embed'], sharding.fsdp_dim(axes['embed']), mesh,
+            cfg.dtype, uses=2)
+        rest = gather_leaves({k: v for k, v in top.items() if k != 'embed'},
+                             axes, cfg, mesh)
+        return (dict(params, embed=e_in),
+                dict(params, **rest, embed=e_out))
+    whole = gather_leaves(top, axes, cfg, mesh)
+    return dict(params, **whole), dict(params, **whole)
+
+
 def apply_layers(params: Params, cfg: LlamaConfig, step, carry):
     """The layer loop of every family's forward: ``carry = step(carry,
     lp, i)`` for each layer i, lp its slice of the stacked leaves. Under
     autograd with ``cfg.remat == 'full'`` each step is recomputed in the
     backward (a layer's forward runs twice a step, the recomputes last
-    layer first)."""
+    layer first). Under an 'fsdp' mesh lp is gathered from this rank's
+    shards inside the step, so the recompute gathers again rather than
+    keeping every layer's whole weights, and the gather's backward
+    reduce-scatters each layer's grads."""
     remat = cfg.remat == 'full' and torch.is_grad_enabled()
+    mesh = fsdp_mesh()
+    if mesh is not None:
+        from skypilot_tpu_torch.models import module_for
+        axes = {k: a[1:] for k, a in
+                module_for(cfg).param_axes(cfg)['layers'].items()}
+        sharded_step = step
+
+        def step(carry, lp, i):
+            return sharded_step(carry, gather_leaves(lp, axes, cfg, mesh), i)
     # One unbind per stacked leaf, not an index per layer: the backward
     # of unbind stacks the L layer grads once, where indexing would
     # zero-fill and add a full [L, ...] grad for every layer.
@@ -514,12 +654,13 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
                 'ring attention over a sequence sharded on the mesh needs '
                 'the shard\'s global `positions`; train_lib\'s train/eval '
                 'steps pass them.')
-    x = embed(params, tokens, cfg)
+    p_in, p_out = fsdp_io(params, cfg)
+    x = embed(p_in, tokens, cfg)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     sin, cos = rope_tables(cfg, positions)
     x = apply_layers(params, cfg,
                      lambda h, lp, i: layer(h, lp, cfg, sin, cos, i), x)
     if return_hidden:
-        return final_norm(x, params, cfg).float()
-    return unembed(x, params, cfg)
+        return final_norm(x, p_out, cfg).float()
+    return unembed(x, p_out, cfg)

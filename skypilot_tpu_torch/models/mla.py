@@ -68,6 +68,7 @@ from skypilot_tpu_torch.models.quant import _d
 from skypilot_tpu_torch.ops import norms, rotary
 from skypilot_tpu_torch.ops.paged_attention import (
     dequantize_values, gather_pages, quantize_values, write_pages)
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Params = llama.Params
 
@@ -79,7 +80,7 @@ HAS_AUX = True
 
 
 def init_params(cfg: MLAConfig, generator: torch.Generator, device='cuda',
-                dtype=None) -> Params:
+                dtype=None, mesh: Optional[mesh_lib.Mesh] = None) -> Params:
     """Random params from ``generator`` in ``dtype`` (default
     cfg.param_dtype), the JAX tree: ``wq`` [L, D, H·(dn+dr)], ``w_dkv``
     [L, D, r], ``w_kr`` [L, D, dr], ``kv_norm`` [L, r], ``w_uk`` [L, r,
@@ -88,12 +89,14 @@ def init_params(cfg: MLAConfig, generator: torch.Generator, device='cuda',
     the stacked experts [L, E, D, F] / [L, E, F, D] and the shared
     ``ws_*`` of width n_shared_experts·F. Drawn leaf by leaf
     (llama.LeafInit), so deepseek-v2 in bf16 never holds more than a
-    layer slice in fp32."""
+    layer slice in fp32; with a ``mesh``, this rank's shards of
+    :func:`param_axes`."""
     check_supported(cfg)
     L, D, F, H = cfg.n_layers, cfg.dim, cfg.ffn_dim, cfg.n_heads
     r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
                      cfg.qk_rope_head_dim, cfg.v_head_dim)
-    init = llama.LeafInit(generator, device, dtype or cfg.param_dtype)
+    init = llama.LeafInit(generator, device, dtype or cfg.param_dtype,
+                          mesh)
     layers = {
         'attn_norm': init.ones((L, D)),
         'wq': init.trunc((L, D, H * (dn + dr))),
@@ -126,7 +129,7 @@ def init_params(cfg: MLAConfig, generator: torch.Generator, device='cuda',
                       'layers': layers, 'final_norm': init.ones((D,))}
     if not cfg.tie_embeddings:
         params['lm_head'] = init.normal((D, cfg.vocab_size))
-    return params
+    return init.finish(params, param_axes(cfg))
 
 
 def param_axes(cfg: MLAConfig) -> Params:
@@ -291,7 +294,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: MLAConfig,
     dense MLA). Under autograd with ``cfg.remat == 'full'`` each layer
     is recomputed in the backward (llama.apply_layers)."""
     check_supported(cfg)
-    x = llama.embed(params, tokens, cfg)
+    p_in, p_out = llama.fsdp_io(params, cfg)
+    x = llama.embed(p_in, tokens, cfg)
     sin, cos = rope_tables(cfg, torch.arange(tokens.shape[1],
                                              device=tokens.device))
 
@@ -303,7 +307,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: MLAConfig,
     x, aux = llama.apply_layers(
         params, cfg, step,
         (x, torch.zeros((), dtype=torch.float32, device=tokens.device)))
-    logits = llama.unembed(x, params, cfg)
+    logits = llama.unembed(x, p_out, cfg)
     if return_aux:
         return logits, getattr(cfg, 'router_aux_weight', 0.0) * aux / \
             cfg.n_layers

@@ -52,18 +52,19 @@ def capacity(cfg: MoEConfig, seq_len: int) -> int:
 
 
 def init_params(cfg: MoEConfig, generator: torch.Generator, device='cuda',
-                dtype=None) -> Params:
+                dtype=None, mesh: Optional[mesh_lib.Mesh] = None) -> Params:
     """Random params from ``generator`` in ``dtype`` (default
     cfg.param_dtype), the JAX tree: Llama's attention leaves, then
     ``moe_norm``, ``router`` [L, D, E], ``w_gate`` / ``w_up`` [L, E, D,
     F] and ``w_down`` [L, E, F, D]; ``bq/bk/bv``, ``sink`` and
     ``lm_head`` by the config. Drawn leaf by leaf (llama.LeafInit), so
     a server asking for bf16 never holds more than a layer slice in
-    fp32."""
+    fp32; with a ``mesh``, this rank's shards of :func:`param_axes`."""
     check_supported(cfg)
     hd, L, D, Fd, E = (cfg.hd, cfg.n_layers, cfg.dim, cfg.ffn_dim,
                        cfg.n_experts)
-    init = llama.LeafInit(generator, device, dtype or cfg.param_dtype)
+    init = llama.LeafInit(generator, device, dtype or cfg.param_dtype,
+                          mesh)
     layers = {
         'attn_norm': init.ones((L, D)),
         'wq': init.trunc((L, D, cfg.n_heads * hd)),
@@ -86,7 +87,7 @@ def init_params(cfg: MoEConfig, generator: torch.Generator, device='cuda',
                       'layers': layers, 'final_norm': init.ones((D,))}
     if not cfg.tie_embeddings:
         params['lm_head'] = init.normal((D, cfg.vocab_size))
-    return params
+    return init.finish(params, param_axes(cfg))
 
 
 # The routed experts' leaves and their logical axes (the JAX
@@ -206,9 +207,17 @@ def moe_ffn(x: torch.Tensor, lp, cfg: MoEConfig,
     xg = x.reshape(b, g, gs, d)
     probs, gate_w, gate_idx, slot = route(xg, lp['router'], cfg, c)
 
-    # Load-balance aux (Switch): E · Σ_e f_e · p̄_e over the top-1 choice.
+    # Load-balance aux (Switch): E · Σ_e f_e · p̄_e over the top-1 choice,
+    # the means over the whole batch (a training mesh's rows too).
     top1 = _one_hot(gate_idx[..., 0], e)
-    aux = e * torch.sum(top1.mean((0, 1, 2)) * probs.mean((0, 1, 2)))
+    f_e, p_e = top1.mean((0, 1, 2)), probs.mean((0, 1, 2))
+    batch = mesh_lib.current_mesh()
+    group = batch.group('data', 'fsdp')
+    if group is not None:
+        n = batch.count('data', 'fsdp')
+        f_e = _mean_over(f_e.detach(), group, n)
+        p_e = _MeanOver.apply(p_e, group, n)
+    aux = e * torch.sum(f_e * p_e)
 
     dispatch = slot.sum(3)                                   # [B,G,T,E,C]
     combine = torch.einsum('bgtk,bgtkec->bgtec', gate_w, slot)
@@ -233,6 +242,30 @@ def moe_ffn(x: torch.Tensor, lp, cfg: MoEConfig,
         y = y + shared.float()
     dist.all_reduce(y, group=group)
     return y.to(dt), aux
+
+
+def _mean_over(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The mean of ``x`` over ``group``'s ``n`` ranks (no autograd)."""
+    x = x.clone()
+    dist.all_reduce(x, group=group)
+    return x / n
+
+
+class _MeanOver(torch.autograd.Function):
+    """The mean over the batch group of a per-rank mean, as JAX's global
+    mean over a batch sharded on ('data', 'fsdp') is. Every rank then
+    holds the same aux and adds it to its loss; its backward hands this
+    rank's mean 1/n of the cotangent, this rank's share, since the
+    step sums the ranks' grads: the aux enters the summed grads once."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.n = n
+        return _mean_over(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
 
 
 def ffn(x: torch.Tensor, lp, cfg: MoEConfig
@@ -263,7 +296,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
     is recomputed in the backward (llama.apply_layers: ``route`` runs
     twice a layer a step, in the forward, then in the recompute)."""
     check_supported(cfg)
-    x = llama.embed(params, tokens, cfg)
+    p_in, p_out = llama.fsdp_io(params, cfg)
+    x = llama.embed(p_in, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     sin, cos = llama.rope_tables(cfg, positions)
 
@@ -275,7 +309,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
     x, aux = llama.apply_layers(
         params, cfg, step,
         (x, torch.zeros((), dtype=torch.float32, device=tokens.device)))
-    logits = llama.unembed(x, params, cfg)
+    logits = llama.unembed(x, p_out, cfg)
     if return_aux:
         return logits, cfg.router_aux_weight * aux / cfg.n_layers
     return logits

@@ -1,6 +1,7 @@
 """Training step for the port (port of skypilot_tpu/train/train_lib.py):
 one card or the CPU, or one rank of a mesh (parallel/mesh.py) whose
-'data' and 'sequence' axes split the batch's rows and sequence slots.
+'data', 'fsdp' and 'sequence' axes split the batch's rows, the params
+and the sequence slots.
 
 fp32 master params and bf16 compute, next-token cross entropy (plus
 the router load-balance aux of a model whose module sets ``HAS_AUX``:
@@ -11,17 +12,26 @@ warmup + 1)), b1=.9, b2=.95, eps=1e-8, weight_decay=wd))``. The step
 updates the state in place (params, moments), where the JAX step
 returns a new donated state; the numbers are the same.
 
-On a mesh, what GSPMD does for the JAX step is written out: every rank
-holds the whole params and the same global batch's rows of its
-('data', 'fsdp') coordinate; the step shifts them, lays the sequence
-out zigzag where the config asks for it (``_zigzag_shift``, as JAX
-does), and keeps this rank's sequence slots (and their global
-positions). The CE is the global masked mean: the token count is
-summed over the ranks before the division and the nll sums after. The
-parameter grads are summed over the ranks in flattened buckets, then
-the global-norm clip and AdamW run on every rank on the same numbers,
-so the replicas stay bit-equal. Parameter sharding ('fsdp', 'tensor'
-and 'expert' above 1) is not ported.
+On a mesh, what GSPMD does for the JAX step is written out. Every rank
+reads the same global batch and keeps the rows of its ('data', 'fsdp')
+coordinate; the step shifts them, lays the sequence out zigzag where
+the config asks for it (``_zigzag_shift``, as JAX does), and keeps this
+rank's sequence slots (and their global positions). The CE is the
+global masked mean: the token count is summed over the ranks before the
+division and the nll sums after; a router aux takes its means over the
+whole batch (models/moe.py). With 'fsdp' above 1 the params are
+fully sharded, ZeRO-style, as the JAX default ``MeshSpec()`` shards
+them: each leaf whose logical axes hold 'embed' is this rank's cut of
+it over 'fsdp' (drawn so, ``init_train_state``), its moments too, and
+the forward gathers each layer's leaves inside the layer's step
+(models/llama.py ``apply_layers``), the gather's backward handing each
+rank its cut of the grads summed over 'fsdp'. The grads are then summed
+in flattened buckets over the rest of the batch: the shards' over
+'data' and 'sequence', the whole leaves' over 'data', 'fsdp' and
+'sequence'. The global norm adds every shard's squares once and every
+whole leaf's once; the clip and AdamW run on every rank on its shards,
+so the replicas of each shard stay bit-equal. The 'tensor', 'expert'
+and 'stage' axes are not ported.
 """
 from __future__ import annotations
 
@@ -87,9 +97,23 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     return nll / denom, denom
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every element (optax.global_norm)."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def global_norm(tensors: List[torch.Tensor],
+                sharded: Optional[List[bool]] = None,
+                group=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every element (optax.global_norm).
+    Where ``sharded`` flags a tensor as this rank's shard of a leaf cut
+    over ``group``, its squares are summed over the group's ranks (every
+    shard counted once); the other tensors are whole on every rank and
+    counted once."""
+    if sharded is None or group is None:
+        return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    zero = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+    cut = sum((t.float().square().sum() for t, s in zip(tensors, sharded)
+               if s), zero)
+    dist.all_reduce(cut, group=group)
+    whole = sum((t.float().square().sum() for t, s in zip(tensors, sharded)
+                 if not s), zero)
+    return torch.sqrt(cut + whole)
 
 
 class AdamW:
@@ -133,12 +157,16 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: OptState,
-               params: Params) -> torch.Tensor:
+               params: Params, g_norm: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
         """One update, in place: ``grads`` (the raw grads, consumed:
         clipped in place) align with ``leaves(params)``; params, mu, nu
-        and the count move on. Returns the grads' global norm before the
-        clip."""
-        g_norm = global_norm(grads)
+        and the count move on (on a sharded mesh, each rank's shards).
+        ``g_norm`` is the grads' global norm where the caller has it
+        (:func:`global_norm` of a sharded tree), else it is computed
+        here. Returns the global norm before the clip."""
+        if g_norm is None:
+            g_norm = global_norm(grads)
         # optax: select(g_norm < max_norm, g, (g / g_norm) * max_norm).
         keep = g_norm < self.max_grad_norm
         one = torch.ones_like(g_norm)
@@ -172,15 +200,23 @@ def default_optimizer(learning_rate: float = 3e-4,
 
 def init_train_state(cfg: LlamaConfig, tx: AdamW, device='cuda',
                      generator: Optional[torch.Generator] = None,
-                     params: Optional[Params] = None) -> TrainState:
+                     params: Optional[Params] = None,
+                     mesh: Optional[mesh_lib.Mesh] = None) -> TrainState:
     """Step 0: ``params`` as given (e.g. bridged from JAX with
     models/weights.params_from_jax), else random from ``generator``
     (default: seed 0 on ``device``) by the config's model module, in
-    cfg.param_dtype; fresh moments."""
+    cfg.param_dtype; fresh moments. On a ``mesh`` whose 'fsdp' axis
+    holds several ranks, this rank's shards: drawn so (no rank holds a
+    whole tree; the union of the shards is the one-process draw), or
+    cut from the given params; the moments at the shards' size."""
     if params is None:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        params = module_for(cfg).init_params(cfg, generator, device)
+        params = module_for(cfg).init_params(cfg, generator, device,
+                                             mesh=fsdp_mesh(mesh))
+    elif fsdp_mesh(mesh) is not None:
+        params = sharding.shard_params(params,
+                                       module_for(cfg).param_axes(cfg), mesh)
     for leaf in leaves(params):
         leaf.requires_grad_(True)
     return TrainState(step=0, params=params, opt_state=tx.init(params))
@@ -224,33 +260,60 @@ def _zigzag_shift(tokens: torch.Tensor, mask: Optional[torch.Tensor],
 
 
 # Unported mesh axes, each refused by name.
-UNPORTED_AXES = ('stage', 'fsdp', 'expert', 'tensor')
+UNPORTED_AXES = ('stage', 'expert', 'tensor')
 
 
 def check_mesh(cfg: LlamaConfig, mesh: mesh_lib.Mesh) -> None:
-    """Refuse what the port's step does not do on ``mesh``: parameter
-    sharding and the other unported axes, a sharded sequence without
-    ring attention, and a router aux (MoE, MLA-MoE) across ranks."""
+    """Refuse what the port's step does not do on ``mesh``: the
+    unported axes (tensor, expert, stage), a model dim that does not
+    divide over 'fsdp', and a sharded sequence without ring attention
+    (which the MoE and MLA families do not take:
+    config.check_supported)."""
     big = [f'{ax}={mesh.shape[ax]}' for ax in UNPORTED_AXES
            if mesh.shape[ax] > 1]
     if big:
         raise NotImplementedError(
             f'mesh axes {", ".join(big)} over {mesh.size} ranks are not '
-            f'ported: parameter sharding (fsdp, which the default fsdp=-1 '
-            f'fills with the ranks left over) and the tensor, expert and '
-            f'stage axes wait for ROADMAP Queue 1 item 8 (parallelism). '
-            f'Pass data={mesh.size} or sequence={mesh.size} (or '
-            f'data=N,sequence=M with N*M={mesh.size}).')
+            f'ported to training: the tensor, expert and stage axes wait '
+            f'for ROADMAP Queue 1 item 8 (parallelism). Lay the '
+            f'{mesh.size} ranks out over data, fsdp and sequence (the '
+            f'default, no --mesh, is fsdp={mesh.size}; or data=N,fsdp=M '
+            f'or fsdp=M,sequence=K with a product of {mesh.size}).')
+    fsdp = mesh.shape['fsdp']
+    if fsdp > 1 and cfg.dim % fsdp:
+        raise ValueError(f'dim={cfg.dim} not divisible by mesh axis fsdp '
+                         f'size {fsdp}')
     if mesh.shape['sequence'] > 1 and cfg.attention_impl != 'ring':
         raise ValueError(
             f"a mesh with sequence={mesh.shape['sequence']} needs "
             f"attention_impl='ring' (got {cfg.attention_impl!r}): other "
             f'attention would see only its own shard')
-    if mesh.size > 1 and getattr(module_for(cfg), 'HAS_AUX', False):
-        raise NotImplementedError(
-            'a model with a router aux loss (MoE, MLA-MoE) is not ported '
-            'to a mesh: the aux would need a mean across ranks, which '
-            'waits for ROADMAP Queue 1 item 8 (parallelism: ring in MoE)')
+
+
+def fsdp_mesh(mesh: Optional[mesh_lib.Mesh]) -> Optional[mesh_lib.Mesh]:
+    """``mesh`` when its 'fsdp' axis holds several ranks (the params are
+    then sharded), else None."""
+    return mesh if mesh is not None and mesh.shape['fsdp'] > 1 else None
+
+
+def sharded_leaves(cfg: LlamaConfig, mesh: mesh_lib.Mesh) -> List[bool]:
+    """Per leaf of the params (:func:`leaves` order): whether this rank
+    holds a shard of it over 'fsdp' rather than the whole leaf."""
+    if fsdp_mesh(mesh) is None:
+        return [False] * len(leaves(module_for(cfg).param_axes(cfg)))
+    return [sharding.fsdp_dim(ax) is not None
+            for ax in leaves(module_for(cfg).param_axes(cfg))]
+
+
+def mesh_groups(mesh: mesh_lib.Mesh) -> Dict[str, object]:
+    """The process groups the step uses, made on every rank in one
+    order (torch's rule for new groups): the whole batch
+    ('data', 'fsdp', 'sequence'), the grads of the shards ('data',
+    'sequence'), the router aux's batch ('data', 'fsdp') and 'fsdp'."""
+    return {'batch': mesh.group('data', 'fsdp', 'sequence'),
+            'replicas': mesh.group('data', 'sequence'),
+            'rows': mesh.group('data', 'fsdp'),
+            'fsdp': mesh.group('fsdp')}
 
 
 def _local_batch(cfg: LlamaConfig, mesh: mesh_lib.Mesh, tokens, mask):
@@ -325,27 +388,23 @@ def forward_with_aux(cfg: LlamaConfig, params: Params, inputs: torch.Tensor,
     return mod.forward(params, inputs, cfg), 0.0
 
 
-def make_train_step(cfg: LlamaConfig, tx: AdamW, grad_accum_steps: int = 1,
-                    mesh: Optional[mesh_lib.Mesh] = None
-                    ) -> Callable[[TrainState, Batch],
-                                  Tuple[TrainState, Dict[str, object]]]:
-    """(state, batch) → (state, metrics); the state moves on in place.
-
-    batch: {'tokens': int [B, S+1]}, shifted here; an optional
-    'loss_mask' [B, S] masks the target positions. On a ``mesh`` the
-    batch is this rank's rows (data/loader.py ``shard_batch``) at the
-    full length; the step keeps its sequence slots. grad_accum_steps > 1
-    splits the batch into that many microbatches run one after another
-    before one update, weighting each microbatch's mean grad by its
-    target-token count, so the update equals the dense step. The grads
-    are those of the CE plus the router aux (each microbatch's own aux
-    inside its grads, as in the JAX scan). Metrics: loss (the CE alone,
-    over the global batch), grad_norm (of the unclipped grads), tokens
-    (0-d tensors, not synchronised) and step.
-    """
+def make_grad_fn(cfg: LlamaConfig, grad_accum_steps: int = 1,
+                 mesh: Optional[mesh_lib.Mesh] = None
+                 ) -> Callable[[Params, Batch],
+                               Tuple[List[torch.Tensor], torch.Tensor,
+                                     torch.Tensor, torch.Tensor]]:
+    """(params, batch) → (grads, loss, tokens, aux): the grads of the CE
+    plus the router aux over the global batch, aligned with
+    ``leaves(params)`` (on an fsdp mesh this rank's shards of them),
+    summed over every rank; the CE alone (0-d), the target-token count
+    and the aux (0 without a router; the same on every rank, its means
+    taken over the whole batch). The batch and ``grad_accum_steps`` as
+    :func:`make_train_step` takes them."""
     mesh = mesh or mesh_lib.single_device_mesh()
     check_mesh(cfg, mesh)
-    group = mesh.group('data', 'fsdp', 'sequence')
+    groups = mesh_groups(mesh)
+    group = groups['batch']
+    sharded = sharded_leaves(cfg, mesh)
 
     def grads_of(params, tokens, mask):
         inputs, targets, mask, positions = _local_batch(cfg, mesh, tokens,
@@ -356,39 +415,80 @@ def make_train_step(cfg: LlamaConfig, tx: AdamW, grad_accum_steps: int = 1,
             denom = _all_reduce(count.detach(), group).clamp(min=1.0)
             loss = nll / denom
             grads = torch.autograd.grad(loss + aux, leaves(params))
-        return list(grads), _all_reduce(loss.detach(), group), denom
+        aux = aux.detach() if torch.is_tensor(aux) else torch.zeros(())
+        return list(grads), _all_reduce(loss.detach(), group), denom, aux
 
-    def step_fn(state: TrainState, batch: Batch):
+    def grad_fn(params: Params, batch: Batch):
         tokens = batch['tokens']
         mask = batch.get('loss_mask')
         a = grad_accum_steps
         if a == 1:
-            grads, loss, denom = grads_of(state.params, tokens, mask)
+            grads, loss, denom, aux = grads_of(params, tokens, mask)
         else:
             b = tokens.shape[0]
             if b % a != 0:
                 raise ValueError(f'batch {b} not divisible by '
                                  f'grad_accum_steps {a}')
             grads = None
-            l_sum = d_sum = 0.0
+            l_sum = d_sum = x_sum = 0.0
             for tok_m, mask_m in zip(
                     tokens.chunk(a), mask.chunk(a) if mask is not None
                     else [None] * a):
-                g, loss_m, denom_m = grads_of(state.params, tok_m, mask_m)
+                g, loss_m, denom_m, aux_m = grads_of(params, tok_m, mask_m)
                 if grads is None:
                     grads = [gi * denom_m for gi in g]
                 else:
                     for s, gi in zip(grads, g):
                         s.add_(gi * denom_m)
                 l_sum = l_sum + loss_m * denom_m
+                x_sum = x_sum + aux_m.to(denom_m.device) * denom_m
                 d_sum = d_sum + denom_m
             d_safe = d_sum.clamp(min=1.0)
             grads = [g / d_safe for g in grads]
-            loss, denom = l_sum / d_safe, d_sum
-        all_reduce_grads(grads, group)
-        gnorm = tx.update(grads, state.opt_state, state.params)
+            loss, denom, aux = l_sum / d_safe, d_sum, x_sum / d_safe
+        # The shards' grads are summed over 'fsdp' already (the
+        # gather's backward); the whole leaves' are not.
+        all_reduce_grads([g for g, s in zip(grads, sharded) if s],
+                         groups['replicas'])
+        all_reduce_grads([g for g, s in zip(grads, sharded) if not s],
+                         group)
+        return grads, loss, denom, aux
+
+    return grad_fn
+
+
+def make_train_step(cfg: LlamaConfig, tx: AdamW, grad_accum_steps: int = 1,
+                    mesh: Optional[mesh_lib.Mesh] = None
+                    ) -> Callable[[TrainState, Batch],
+                                  Tuple[TrainState, Dict[str, object]]]:
+    """(state, batch) → (state, metrics); the state moves on in place.
+
+    batch: {'tokens': int [B, S+1]}, shifted here; an optional
+    'loss_mask' [B, S] masks the target positions. On a ``mesh`` the
+    batch is this rank's rows (data/loader.py ``shard_batch``) at the
+    full length; the step keeps its sequence slots, and on an fsdp mesh
+    the state is this rank's shards (:func:`init_train_state`).
+    grad_accum_steps > 1 splits the batch into that many microbatches
+    run one after another before one update, weighting each
+    microbatch's mean grad by its target-token count, so the update
+    equals the dense step. The grads are those of the CE plus the
+    router aux (each microbatch's own aux inside its grads, as in the
+    JAX scan): :func:`make_grad_fn`. Metrics: loss (the CE alone, over
+    the global batch), grad_norm (of the unclipped grads, every shard
+    counted once), tokens, aux (the router aux; 0-d tensors, not
+    synchronised) and step.
+    """
+    mesh = mesh or mesh_lib.single_device_mesh()
+    grad_fn = make_grad_fn(cfg, grad_accum_steps, mesh)
+    sharded = sharded_leaves(cfg, mesh)
+    fsdp = mesh_groups(mesh)['fsdp']
+
+    def step_fn(state: TrainState, batch: Batch):
+        grads, loss, denom, aux = grad_fn(state.params, batch)
+        gnorm = tx.update(grads, state.opt_state, state.params,
+                          global_norm(grads, sharded, fsdp))
         metrics = {'loss': loss, 'grad_norm': gnorm, 'tokens': denom,
-                   'step': state.step}
+                   'aux': aux, 'step': state.step}
         state.step += 1
         return state, metrics
 
@@ -402,7 +502,7 @@ def make_eval_step(cfg: LlamaConfig, mesh: Optional[mesh_lib.Mesh] = None
     On a ``mesh``, as :func:`make_train_step` takes its batch."""
     mesh = mesh or mesh_lib.single_device_mesh()
     check_mesh(cfg, mesh)
-    group = mesh.group('data', 'fsdp', 'sequence')
+    group = mesh_groups(mesh)['batch']
 
     @torch.no_grad()
     def eval_fn(params, batch: Batch) -> torch.Tensor:

@@ -13,7 +13,12 @@ checkpoints (port of skypilot_tpu/train/trainer.py on one card).
     python -m skypilot_tpu_torch.train.trainer --hf-dir ./Llama-3.2-1B \\
         --sft-data chats.jsonl --lora-rank 16 --lora-dir ./adapters
 
-    # One process per node of a gang (SkyPilot sets the three variables):
+    # One process per node of a gang (SkyPilot sets the three variables);
+    # with no --mesh the params are fully sharded over every rank (fsdp):
+    SKYTPU_COORDINATOR_ADDRESS=host0:8476 SKYTPU_NUM_PROCESSES=4 \\
+    SKYTPU_NODE_RANK=$RANK python -m skypilot_tpu_torch.train.trainer \\
+        --model llama3-8b --batch-size 8 --seq-len 2048
+
     SKYTPU_COORDINATOR_ADDRESS=host0:8476 SKYTPU_NUM_PROCESSES=2 \\
     SKYTPU_NODE_RANK=$RANK python -m skypilot_tpu_torch.train.trainer \\
         --model llama-1b --mesh sequence=2 --seq-len 65536 \\
@@ -45,14 +50,20 @@ Several processes: :func:`maybe_init_distributed` joins the gang that
 SkyPilot's launch describes in ``SKYTPU_COORDINATOR_ADDRESS``,
 ``SKYTPU_NUM_PROCESSES`` and ``SKYTPU_NODE_RANK`` (the JAX trainer's
 names; the backend from ``SKYTPU_TORCH_DIST_BACKEND``, parallel/mesh.py),
-and ``--mesh`` lays the ranks out as in JAX (``data=2,sequence=2``).
-The port splits the batch over 'data' and the sequence over 'sequence'
-(ring attention, ``--model-override attention_impl=ring``); a mesh
-whose 'fsdp', 'tensor', 'expert' or 'stage' comes to more than 1 (the
-JAX default ``fsdp=-1`` fills it with every rank) is refused by name.
-Every rank holds the whole state and restores it; rank 0 alone writes
-checkpoints and the log records, and at the end every rank checks that
-the replicas' params are bit-equal (one ``replica`` record a rank).
+and ``--mesh`` lays the ranks out as in JAX: with none, JAX's
+``MeshSpec()``, every rank on 'fsdp'. The port splits the batch over
+('data', 'fsdp'), shards the params and their moments over 'fsdp'
+(each rank draws, restores and updates only its shards:
+train/train_lib.py), and splits the sequence over 'sequence' (ring
+attention, ``--model-override attention_impl=ring``), so
+``data=2,fsdp=2`` and ``fsdp=2,sequence=2`` train too; a mesh whose
+'tensor', 'expert' or 'stage' comes to more than 1 is refused by name.
+The batch must divide over data*fsdp, as in JAX. Every rank saves and
+restores its own slices of each checkpoint (train/checkpoints.py);
+rank 0 alone writes the log records, and at the end every rank checks
+that the ranks holding the same shards ('data' and 'sequence'
+replicas) hold the same bits (one ``replica`` record a rank: its
+shard's digest and its peak memory).
 
 Not ported yet, and refused by name: ``--data-service``, and
 ``--lora-rank`` on a mesh. The train.batch_wait span and the
@@ -194,8 +205,9 @@ def maybe_init_distributed(device: torch.device) -> torch.device:
 def _build_mesh(tcfg: TrainerConfig,
                 cfg: config.LlamaConfig) -> mesh_lib.Mesh:
     """``--mesh`` over the world (JAX's ``MeshSpec(**mesh)``; default
-    ``MeshSpec()``), refused (``train_lib.check_mesh``) before any
-    process group is made where the port's step cannot run on it."""
+    ``MeshSpec()``: 'fsdp' over every rank), refused
+    (``train_lib.check_mesh``) before any process group is made where
+    the port's step cannot run on it."""
     spec = mesh_lib.MeshSpec(**tcfg.mesh) if tcfg.mesh else \
         mesh_lib.MeshSpec()
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -205,30 +217,37 @@ def _build_mesh(tcfg: TrainerConfig,
 
 def params_sha256(params: train_lib.Params) -> str:
     """sha256 of the params' bytes, leaf by leaf in the JAX tree order:
-    equal on every rank exactly when the replicas are bit-equal."""
+    equal on two ranks exactly when they hold the same bits (on an fsdp
+    mesh each rank digests its own shards)."""
     h = hashlib.sha256()
     for leaf in train_lib.leaves(params):
         h.update(leaf.detach().contiguous().cpu().numpy().data)
     return h.hexdigest()
 
 
-def check_replicas(params: train_lib.Params, device) -> Dict[str, Any]:
+def check_replicas(params: train_lib.Params, device,
+                   mesh: mesh_lib.Mesh) -> Dict[str, Any]:
     """Every rank's params digest, peak memory and kernel launches, as
-    this rank's ``replica`` record; raises on every rank when the
-    replicas' params differ."""
+    this rank's ``replica`` record; raises on every rank when two ranks
+    that hold the same shards (one 'fsdp' index, the 'data' and
+    'sequence' replicas) hold different bits."""
     digest = params_sha256(params)
     seen: List[Any] = [None] * dist.get_world_size()
-    dist.all_gather_object(seen, digest)
-    rec = {'replica': dist.get_rank(), 'params_sha256': digest,
+    dist.all_gather_object(seen, (mesh.coords['fsdp'], digest))
+    rec = {'replica': dist.get_rank(), 'fsdp_index': mesh.coords['fsdp'],
+           'params_sha256': digest,
            'kernel_launches': {n: k.launches
                                for n, k in build.kernels().items()}}
     if torch.device(device).type == 'cuda':
         rec['peak_memory_gb'] = round(
             torch.cuda.max_memory_allocated(device) / 1e9, 3)
     logger.info(json.dumps(rec))
-    if len(set(seen)) > 1:
+    by_shard: Dict[int, set] = {}
+    for index, d in seen:
+        by_shard.setdefault(index, set()).add(d)
+    if any(len(d) > 1 for d in by_shard.values()):
         raise RuntimeError(f'replicated params differ across ranks: '
-                           f'sha256 by rank {seen}')
+                           f'(fsdp index, sha256) by rank {seen}')
     return rec
 
 
@@ -381,15 +400,20 @@ def _train(tcfg: TrainerConfig, params: Optional[train_lib.Params],
             params = load_base()
         if tcfg.ckpt_dir:
             state, start_step, ckpt = checkpoints.restore_or_init(
-                tcfg.ckpt_dir, cfg, tx, device, params)
+                tcfg.ckpt_dir, cfg, tx, device, params, mesh=mesh)
         else:
-            state = train_lib.init_train_state(cfg, tx, device, params=params)
+            state = train_lib.init_train_state(cfg, tx, device, params=params,
+                                               mesh=mesh)
         step_fn = train_lib.make_train_step(cfg, tx, tcfg.grad_accum_steps,
                                             mesh)
 
         def eval_params():
             return state.params
     batches = _batch_iter(tcfg, cfg.vocab_size, start_step, device, mesh)
+    # The router aux joins the record of a model that has one (its
+    # means over the global batch: the same on every rank).
+    has_aux = (not lora_mode and
+               getattr(module_for(cfg), 'HAS_AUX', False))
 
     eval_fn = None
     if tcfg.eval_data_path:
@@ -438,6 +462,8 @@ def _train(tcfg: TrainerConfig, params: Optional[train_lib.Params],
                                        float(metrics['grad_norm']), 4),
                                    sec_per_step=round(
                                        (now - t_last) / steps_since_log, 4))
+                        if has_aux:
+                            rec['aux'] = round(float(metrics['aux']), 6)
                     if do_eval:
                         rec['eval_loss'] = round(eval_fn(), 4)
                     t_last = time.perf_counter()    # exclude eval time
@@ -478,7 +504,7 @@ def _train(tcfg: TrainerConfig, params: Optional[train_lib.Params],
                 # The in-loop cadence already saved on aligned totals.
                 save_adapters()
         if multi:
-            check_replicas(state.params, device)
+            check_replicas(state.params, device, mesh)
     finally:
         if ckpt is not None:
             ckpt.close()     # async saves are durable before we return
@@ -544,8 +570,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Chat template (default: from the "
                              "tokenizer's special tokens).")
     parser.add_argument('--mesh', default='',
-                        help='Mesh axis sizes, e.g. data=2,sequence=4 '
-                             '(parallel/mesh.py MeshSpec).')
+                        help='Mesh axis sizes, e.g. data=2,fsdp=4 or '
+                             'fsdp=2,sequence=4 (parallel/mesh.py '
+                             'MeshSpec; default: fsdp over every rank).')
     # A flag of the JAX trainer that the port refuses by name.
     parser.add_argument('--data-service', default=None)
     return parser

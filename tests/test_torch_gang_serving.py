@@ -18,9 +18,9 @@ must be IDENTICAL to both JAX engines'. The gangs and the JAX engines
 run at once and are computed once, cached under a file lock in pytest's
 shared temp root, so xdist workers share them.
 
-Ports: coordinators in 36000 + 100 x (xdist worker) + 10..40, beside
-tests/test_torch_multihost.py's offsets 0 and 90, their control channels
-1000 above.
+Ports: fixed, below the kernel's ephemeral range (tests/torch_ports.py,
+offsets 10..40 for the coordinators and the HTTP ports), beside
+tests/test_torch_multihost.py's 0 and 90.
 """
 import concurrent.futures
 import dataclasses
@@ -48,7 +48,7 @@ from skypilot_tpu.serve import engine as jengine_lib
 from skypilot_tpu_torch import config
 from skypilot_tpu_torch.models import weights
 from skypilot_tpu_torch.train import checkpoints, train_lib
-from test_torch_multihost import (_coord_port, _free_port, _get, _post,
+from test_torch_multihost import (_coord_port, _get, _http_port, _post,
                                   _sse_text, _wait_healthy)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -197,7 +197,7 @@ def _compute(tmp):
     gangs = {}
     try:
         for i, name in enumerate(GANGS):
-            http_port = _free_port()
+            http_port = _http_port(10 * (i + 1))
             gangs[name] = (f'http://127.0.0.1:{http_port}',
                            *_spawn_gang(name, tmp, _coord_port(10 * (i + 1)),
                                         http_port))
@@ -260,7 +260,8 @@ def test_every_rank_serves_its_shard_and_exits_clean(results, name):
     with exit code 0."""
     gang = results['gang'][name]
     mesh, ranks = GANGS[name][1], GANGS[name][2]
-    assert gang['rcs'] == [0] * ranks, gang['logs'][-1][-3000:]
+    assert gang['rcs'] == [0] * ranks, (gang['rcs'], [
+        log[-2000:] for log in gang['logs']])
     assert gang['health']['status'] == 'ok'
     for log in gang['logs']:
         assert 'Serving on mesh' in log and 'diverged' not in log

@@ -1653,6 +1653,57 @@ def test_ring_two_ranks_on_one_card_match_one_process(cuda, tmp_path, h,
                     np.abs(w).max())
 
 
+def test_fsdp_step_two_ranks_on_one_card_match_one_process(cuda, tmp_path):
+    """One step of llama-1b at full width cut to 2 layers (bf16, remat
+    'full', 2 x 512 tokens) at fsdp=2 as two gloo ranks sharing the card
+    (tests/torch_dist_worker.py's 'fsdp' job: each rank holds half of
+    every 'embed' dim and gathers a layer at a time): the loss within
+    1e-2 and the gathered params within 1e-3 (about three learning
+    rates: AdamW's first update is a sign, which flips where a grad is
+    within bf16 noise of 0) of one process's step here; each rank
+    launched A twice and C and D once a layer (bf16 mode)."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = dataclasses.replace(config.get_config('llama-1b'), n_layers=2)
+    params = llama.init_params(dataclasses.replace(cfg, dtype=torch.float32),
+                               torch.Generator().manual_seed(0), 'cpu')
+    tree = {k: ({n: t.numpy() for n, t in v.items()} if isinstance(v, dict)
+                else v.numpy()) for k, v in params.items()}
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 2, 513)).astype(np.int32)
+    jobs = {'fsdp': dict(kind='fsdp', world=2, model='llama-1b',
+                         dtype='bfloat16', device='cuda', mesh=dict(fsdp=2),
+                         overrides=dict(n_layers=2), params=tree,
+                         tokens=tokens)}
+    with open(tmp_path / 'jobs.pkl', 'wb') as f:
+        pickle.dump(jobs, f)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, 'tests', 'torch_dist_worker.py'),
+         str(tmp_path / 'jobs.pkl'), str(r), '2', str(tmp_path / 'init'),
+         str(tmp_path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs
+    tx = train_lib.default_optimizer(warmup_steps=0)
+    state = train_lib.init_train_state(cfg, tx, cuda, params=weights
+                                       .params_from_jax(tree, cfg, cuda))
+    _, metrics = train_lib.make_train_step(cfg, tx)(
+        state, {'tokens': torch.from_numpy(tokens[0]).to(cuda)})
+    want = [t.detach().cpu().numpy() for t in train_lib.leaves(state.params)]
+    for r in range(2):
+        with open(tmp_path / f'rank{r}.pkl', 'rb') as f:
+            got = pickle.load(f)['fsdp']
+        assert abs(got['losses'][0] - float(metrics['loss'])) < 1e-2, got
+        assert got['launches'] == {n: {'flash_fwd': 4, 'flash_dq': 2,
+                                       'flash_dkv': 2}.get(n, 0)
+                                   for n in got['launches']}, got['launches']
+        for a, b in zip(got['params'], want):
+            assert float(np.abs(a - b).max()) < 1e-3
+
+
 # --- The harvested-RL plane (train/rollout/) on the card --------------------
 
 def _harvest_spec(monkeypatch, tmp_path, **overrides):

@@ -875,8 +875,8 @@ def test_int8_tensor_gang_equals_one_int8_process(tmp_path):
     import signal
     import subprocess
     import sys
-    from test_torch_multihost import (WORKER, _coord_port, _free_port,
-                                      _get, _post, _wait_healthy)
+    from test_torch_multihost import (WORKER, _coord_port, _get,
+                                      _http_port, _post, _wait_healthy)
     from skypilot_tpu_torch.serve import engine as engine_lib
     from skypilot_tpu_torch.train import checkpoints, train_lib
     _, _, _, tcfg, _, _, tree = _model('llama-debug')
@@ -893,7 +893,7 @@ def test_int8_tensor_gang_equals_one_int8_process(tmp_path):
                SKYTPU_ENGINE_SPEC_COOLDOWN='0',
                SKYTPU_ENGINE_KV_QUANT='int8',
                SKYTPU_OBSERVE_DB=str(tmp_path / 'journal.db'))
-    http_port = _free_port()
+    http_port = _http_port(60)
     flags = ['--model', 'llama-debug', '--device', 'cpu', '--max-len',
              str(ENGINE_MAX_LEN), '--ckpt-dir', ckdir, '--mesh', 'tensor=2',
              '--warm-buckets', '16,32', '--num-processes', '2',

@@ -15,9 +15,9 @@ Greedy tokens must be IDENTICAL: /generate, a resent prompt (a prefix
 hit), a prompt long enough to chunk, a self-repeating prompt
 (speculation), a streamed /v1/completions and a chat completion.
 
-Ports: coordinators in 36000 + 100 x (xdist worker) + offset, their
-control channels 1000 above, apart from the JAX multihost test's
-34000-35399 block.
+Ports: fixed, below the kernel's ephemeral range (tests/torch_ports.py,
+offsets 0 and 90), apart from the JAX multihost test's 34000-35399
+block.
 
 The unit tests port tests/unit_tests/test_engine_multihost.py's control
 channel and flag tests and test_engine_sharded.py's mesh guards, and
@@ -31,7 +31,6 @@ import os
 import pickle
 import secrets
 import signal
-import socket
 import subprocess
 import sys
 import threading
@@ -43,6 +42,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_ports
 from aiohttp.test_utils import TestClient
 from aiohttp.test_utils import TestServer as AioTestServer
 
@@ -77,17 +77,11 @@ CHAT = {'messages': [{'role': 'user', 'content': 'hi'}], 'max_tokens': 8,
 
 
 def _coord_port(offset: int) -> int:
-    worker = os.environ.get('PYTEST_XDIST_WORKER', 'gw0')
-    idx = int(worker[2:]) if worker[2:].isdigit() else 0
-    return 36000 + 100 * idx + offset
+    return torch_ports.coord_port(offset)
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(('127.0.0.1', 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+def _http_port(offset: int) -> int:
+    return torch_ports.http_port(offset)
 
 
 def _post(base, path, body, timeout=60):
@@ -252,7 +246,7 @@ def _compute(tmp):
     ckdir = os.path.join(tmp, 'ck')
     single = _jax_engine()
     _save_ckpt(single, ckdir)
-    http_port = _free_port()
+    http_port = _http_port(0)
     procs, logs = _spawn_gang(tmp, ckdir, _coord_port(0), http_port)
     try:
         # The two JAX engines compile at once (XLA compiles outside the

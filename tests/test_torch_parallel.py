@@ -10,7 +10,6 @@ restored by both ranks.
 import dataclasses
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -18,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_ports
 from skypilot_tpu.parallel import mesh as jmesh
 from skypilot_tpu.parallel import sharding as jsharding
 from skypilot_tpu_torch import config
@@ -115,11 +115,9 @@ def test_backend_knob(monkeypatch):
     assert mesh_lib.dist_backend('cuda') == 'gloo'
 
 
-# (--mesh, world): 'fsdp' above 1 (given, or filled by the default -1),
-# 'tensor', 'expert', 'stage'.
-UNPORTED = [(dict(data=2, fsdp=2), 4), (dict(tensor=2), 2),
-            (dict(expert=2), 2), (dict(stage=2), 2),
-            (dict(sequence=2), 4), ({}, 2)]
+# (--mesh, world): the axes training does not take, 'tensor', 'expert'
+# and 'stage'.
+UNPORTED = [(dict(tensor=2), 2), (dict(expert=2), 2), (dict(stage=2), 2)]
 
 
 @pytest.mark.parametrize('axes,world', UNPORTED,
@@ -135,21 +133,54 @@ def test_unported_axes_refused_by_name(axes, world, monkeypatch):
     monkeypatch.setattr(trainer.dist, 'is_initialized', lambda: True)
     monkeypatch.setattr(trainer.dist, 'get_world_size', lambda: world)
     with pytest.raises(NotImplementedError,
-                       match=f'Queue 1 item 8.*data={world} or '
-                             f'sequence={world}'):
+                       match=f'Queue 1 item 8.*the default, no --mesh, is '
+                             f'fsdp={world}'):
         trainer._build_mesh(trainer.TrainerConfig(mesh=axes, device='cpu'),
                             cfg)
 
 
+# (--mesh, world, the 'fsdp' it gives): JAX's default MeshSpec() fills
+# 'fsdp' with every rank left over, beside 'data' and 'sequence'.
+ADMITTED = [(dict(data=2, fsdp=2), 4, 2), ({}, 2, 2), (dict(sequence=2), 4, 2),
+            ({}, 8, 8), (dict(data=2), 4, 2), (dict(fsdp=2, sequence=2), 4, 2)]
+
+
+@pytest.mark.parametrize('axes,world,fsdp', ADMITTED,
+                         ids=[f'{a}-{w}' for a, w, _ in ADMITTED])
+def test_fsdp_meshes_admitted(axes, world, fsdp, monkeypatch):
+    """The step and the trainer's --mesh check admit the fully-sharded
+    meshes, the default among them, for the dense family and the router
+    aux families (MoE, MLA-MoE) alike where no ring is asked for."""
+    mesh = mesh_lib.Mesh(mesh_lib.MeshSpec(**axes).sizes(world), 0)
+    assert mesh.shape['fsdp'] == fsdp
+    ring = mesh.shape['sequence'] > 1
+    cfgs = [dataclasses.replace(config.PRESETS['llama-debug'],
+                                attention_impl='ring')]
+    if not ring:
+        cfgs += [config.get_config('moe-debug'),
+                 config.get_config('deepseek-moe-debug')]
+    monkeypatch.setattr(trainer.dist, 'is_initialized', lambda: True)
+    monkeypatch.setattr(trainer.dist, 'get_world_size', lambda: world)
+    monkeypatch.setattr(trainer.mesh_lib, 'build_mesh',
+                        lambda spec: mesh_lib.Mesh(spec.sizes(world), 0))
+    for cfg in cfgs:
+        train_lib.check_mesh(cfg, mesh)
+        got = trainer._build_mesh(trainer.TrainerConfig(mesh=axes,
+                                                        device='cpu'), cfg)
+        assert got.shape == mesh.shape
+
+
 def test_mesh_refusals_of_the_step_and_trainer(monkeypatch):
     """A sharded sequence without ring attention; a router aux across
-    ranks; LoRA on a mesh; the JAX batch-divisibility error."""
+    ranks admitted on ('data', 'fsdp'); LoRA on a mesh; the JAX
+    batch-divisibility error."""
     mesh = mesh_lib.Mesh(mesh_lib.MeshSpec(fsdp=1, sequence=2).sizes(2), 0)
     with pytest.raises(ValueError, match="attention_impl='ring'"):
         train_lib.check_mesh(config.PRESETS['llama-debug'], mesh)
     dmesh = mesh_lib.Mesh(mesh_lib.MeshSpec(fsdp=1, data=2).sizes(2), 0)
-    with pytest.raises(NotImplementedError, match='router aux'):
-        train_lib.check_mesh(config.get_config('moe-debug'), dmesh)
+    train_lib.check_mesh(config.get_config('moe-debug'), dmesh)
+    train_lib.check_mesh(config.get_config('moe-debug'),
+                         mesh_lib.Mesh(mesh_lib.MeshSpec().sizes(2), 0))
     monkeypatch.setattr(trainer, '_build_mesh', lambda tcfg, cfg: dmesh)
     with pytest.raises(NotImplementedError, match='--lora-rank on a mesh'):
         trainer.train(trainer.TrainerConfig(lora_rank=4, device='cpu'))
@@ -159,22 +190,16 @@ def test_mesh_refusals_of_the_step_and_trainer(monkeypatch):
 
 # ------------------------------------------------- the trainer as a gang
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
-
-
 FLAGS = ['--model', 'llama-debug', '--device', 'cpu', '--batch-size', '2',
          '--seq-len', '32', '--log-every', '1']
 RING = ['--mesh', 'sequence=2', '--model-override', 'attention_impl=ring',
         '--model-override', 'ring_layout=zigzag']
 
 
-def _gang(tmp, steps, tag):
-    """Two trainer processes with the gang env a launch gives them;
-    (rank 0's step records, each rank's whole log)."""
-    port = _free_port()
+def _gang(tmp, steps, tag, port):
+    """Two trainer processes with the gang env a launch gives them,
+    rank 0 listening on ``port``; (rank 0's step records, each rank's
+    whole log)."""
     procs, paths = [], []
     for r in range(2):
         env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS='1',
@@ -205,7 +230,7 @@ def test_trainer_gang_matches_single_process(tmp_path):
     one = trainer.train(trainer.TrainerConfig(
         model='llama-debug', batch_size=2, seq_len=32, total_steps=3,
         log_every=1, device='cpu'))
-    recs, logs = _gang(tmp_path, 2, 'a')
+    recs, logs = _gang(tmp_path, 2, 'a', torch_ports.coord_port(70))
     assert [r['step'] for r in recs] == [1, 2]
     for a, b in zip(recs, one):
         assert abs(a['loss'] - b['loss']) < 2e-3, (recs, one)
@@ -216,7 +241,7 @@ def test_trainer_gang_matches_single_process(tmp_path):
     assert reps[0]['params_sha256'] == reps[1]['params_sha256']
     assert sorted(os.listdir(tmp_path / 'ck')) == ['step_00000002']
 
-    recs, logs = _gang(tmp_path, 3, 'b')
+    recs, logs = _gang(tmp_path, 3, 'b', torch_ports.coord_port(71))
     for log in logs:
         assert 'Resumed from checkpoint step 2' in log
     assert [r['step'] for r in recs] == [3]

@@ -1,8 +1,9 @@
 """One rank of a gloo process group on the CPU, for the port's
-context-parallel tests (tests/test_torch_ring.py) and its sharded
+context-parallel tests (tests/test_torch_ring.py), its sharded
 serving forward (tests/test_torch_multihost_forward.py: the dense
 family over 'tensor'; tests/test_torch_gang_forward.py: the MoE and MLA
-families over 'expert' and 'tensor').
+families over 'expert' and 'tensor') and its fully-sharded training and
+checkpoints (tests/test_torch_fsdp.py: 'fsdp', 'data', 'sequence').
 
     python tests/torch_dist_worker.py JOBS.pkl RANK WORLD INIT_FILE OUT_DIR
 
@@ -15,6 +16,7 @@ import contextlib
 import os
 import pickle
 import sys
+import time
 
 import torch
 import torch.distributed as dist
@@ -28,7 +30,7 @@ from skypilot_tpu_torch.models import module_for, weights  # noqa: E402
 from skypilot_tpu_torch.ops import ring_attention as ring  # noqa: E402
 from skypilot_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from skypilot_tpu_torch.parallel import sharding  # noqa: E402
-from skypilot_tpu_torch.train import train_lib  # noqa: E402
+from skypilot_tpu_torch.train import checkpoints, train_lib  # noqa: E402
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -189,7 +191,114 @@ def tp_job(job, rank, world):
     return {'logits': out, 'collectives': calls} if job.get('spy') else out
 
 
-JOBS = {'ring': ring_job, 'train': train_job, 'tp': tp_job}
+def whole(tensors, cfg, mesh):
+    """Tensors aligned with the params' leaves (params, grads, moments;
+    on an fsdp mesh this rank's shards) gathered whole, as fp32 numpy."""
+    axes = train_lib.leaves(module_for(cfg).param_axes(cfg))
+    return [sharding.gather_whole(t.detach(), sharding.fsdp_dim(ax)
+                                  if s else None, mesh).float().cpu().numpy()
+            for t, ax, s in zip(tensors, axes,
+                                train_lib.sharded_leaves(cfg, mesh))]
+
+
+def state_arrays(state, cfg, mesh):
+    """Every array of a TrainState whole, by checkpoint path."""
+    opt = state.opt_state
+    trees = {'.params': state.params, f'{weights.ADAM_PATH}.mu': opt.mu,
+             f'{weights.ADAM_PATH}.nu': opt.nu}
+    out = {'.step': state.step, f'{weights.ADAM_PATH}.count': opt.count,
+           weights.SCHEDULE_COUNT_PATH: opt.count}
+    for prefix, tree in trees.items():
+        paths = [p for p, _ in weights.tree_paths(tree)]
+        for p, a in zip(paths, whole(train_lib.leaves(tree), cfg, mesh)):
+            out[prefix + p] = a
+    return out
+
+
+def fsdp_job(job, rank, world):
+    """Fully-sharded training of ``job['model']`` (``job['dtype']``,
+    default fp32, with ``job['overrides']``) on a mesh of
+    ``job['mesh']`` on ``job['device']`` (default the CPU; the ranks
+    share card 0), every array returned whole: with ``job['params']``
+    (a JAX tree) the state drawn from them, with ``job['grads']`` the
+    (CE, aux, grads) of the first batch, then a step a batch of
+    ``job['tokens']`` at the peak learning rate (losses, grad norms,
+    params), and with ``job['save']`` the state saved there. With
+    ``job['restore']`` (a directory, a step) the step restored instead,
+    once its manifest exists: its arrays and the chunk files this rank
+    read. ``launches``: each kernel's launches in the steps."""
+    import dataclasses
+    from skypilot_tpu_torch.data import loader
+    from skypilot_tpu_torch.kernels import build
+    dev = job.get('device', 'cpu')
+    if dev == 'cuda':
+        torch.cuda.set_device(0)
+    cfg = dataclasses.replace(config.get_config(job['model']),
+                              dtype=DTYPES[job.get('dtype', 'float32')],
+                              **job.get('overrides', {}))
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(**job['mesh']))
+    tx = train_lib.default_optimizer(warmup_steps=0)
+    out = {}
+    if 'restore' in job:
+        directory, step = job['restore']
+        manifest = os.path.join(directory, f'step_{step:08d}',
+                                'MANIFEST.json')
+        deadline = time.monotonic() + 300
+        while not os.path.exists(manifest):
+            assert time.monotonic() < deadline, manifest
+            time.sleep(0.2)
+        read = []
+        saved = checkpoints._read_chunk
+
+        def spy(step_dir, step, chunk):
+            read.append(chunk['file'])
+            return saved(step_dir, step, chunk)
+        checkpoints._read_chunk = spy
+        try:
+            ck = checkpoints.Checkpointer(directory, cfg=cfg, mesh=mesh)
+            state = ck.restore_tree(checkpoints.abstract_train_state(cfg, tx),
+                                    step, 'cpu')
+        finally:
+            checkpoints._read_chunk = saved
+        out['restored'] = state_arrays(state, cfg, mesh)
+        out['read'] = sorted(read)
+        out['shard_shapes'] = [tuple(t.shape) for t in
+                               train_lib.leaves(state.params)]
+        return out
+    params = weights.params_from_jax(job['params'], cfg, device=dev)
+    state = train_lib.init_train_state(cfg, tx, dev, params=params,
+                                       mesh=mesh)
+    batches = [loader.shard_batch({'tokens': t}, mesh, dev)
+               for t in job['tokens']]
+    if job.get('grads'):
+        grads, loss, _, aux = train_lib.make_grad_fn(cfg, mesh=mesh)(
+            state.params, batches[0])
+        out.update(loss=float(loss), aux=float(aux),
+                   grads=whole(grads, cfg, mesh))
+    step = train_lib.make_train_step(cfg, tx, mesh=mesh)
+    build.reset_launches()
+    losses, gnorms, auxes = [], [], []
+    for batch in batches:
+        state, metrics = step(state, batch)
+        losses.append(float(metrics['loss']))
+        gnorms.append(float(metrics['grad_norm']))
+        auxes.append(float(metrics['aux']))
+    out['launches'] = {n: k.launches for n, k in build.kernels().items()}
+    out.update(losses=losses, gnorms=gnorms, auxes=auxes,
+               params=whole(train_lib.leaves(state.params), cfg, mesh),
+               shard_shapes=[tuple(t.shape) for t in
+                             train_lib.leaves(state.params)],
+               moment_shapes=[tuple(t.shape) for t in
+                              train_lib.leaves(state.opt_state.mu)])
+    if job.get('save'):
+        with checkpoints.Checkpointer(job['save'], cfg=cfg, mesh=mesh) as ck:
+            ck.save(state, wait=True)
+        out['state'] = state_arrays(state, cfg, mesh)
+    return out
+
+
+JOBS = {'ring': ring_job, 'train': train_job, 'tp': tp_job,
+        'fsdp': fsdp_job}
 
 
 def main():
